@@ -1,0 +1,221 @@
+"""Neural-net layer primitives: norms, RoPE, GQA attention, MLPs.
+
+Pure functions on tensors with parameter dicts, as in the reference.
+Attention here is the reference's ``impl="chunked"`` (online softmax over KV
+chunks) for prefill and ``decode_attention`` for one-token decode with a
+scalar cache position.  Not ported yet: ``impl="kernel"`` (the flash
+kernels), ``attn_mask``, ``kv_quant``, per-row decode positions and
+ring-buffer (local-window) caches.
+
+Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
+bf16 result accumulated in f32 (reduced-precision reductions are off, see
+``repro_torch.set_numerics``).  Where the reference asks for an f32 result
+of narrow operands (``preferred_element_type``), the operands are widened to
+f32 first: the products are exact and the sum is f32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import NEG_INF, decode_attention
+from repro_torch.models.config import ArchConfig
+
+
+# ------------------------------------------------------------------ init ----
+
+def normal(g: torch.Generator, shape, scale: float, *, n: int, dtype,
+           device) -> torch.Tensor:
+    """(n,) + shape stacked N(0, 1) * scale weights, drawn per repeat slice
+    in f32 then stored in ``dtype`` (no full-stack f32 temporary)."""
+    out = torch.empty((n,) + tuple(shape), dtype=dtype, device=device)
+    for i in range(n):
+        out[i] = torch.randn(shape, generator=g, device=device) * scale
+    return out
+
+
+def init_rmsnorm(d: int, *, n: int, device):
+    return {"scale": torch.ones((n, d), dtype=torch.float32, device=device)}
+
+
+def init_attention(g, cfg: ArchConfig, *, n: int, dtype, device):
+    d, hd, Hq, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    s = d ** -0.5
+    kw = dict(n=n, dtype=dtype, device=device)
+    p = {"wq": normal(g, (d, Hq * hd), s, **kw),
+         "wk": normal(g, (d, Hkv * hd), s, **kw),
+         "wv": normal(g, (d, Hkv * hd), s, **kw),
+         "wo": normal(g, (Hq * hd, d), s, **kw)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", Hq), ("bk", Hkv), ("bv", Hkv)):
+            p[name] = torch.zeros((n, width * hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, n=n, device=device)
+        p["k_norm"] = init_rmsnorm(hd, n=n, device=device)
+    return p
+
+
+def init_mlp(g, cfg: ArchConfig, *, n: int, dtype, device):
+    d, ff = cfg.d_model, cfg.d_ff
+    kw = dict(n=n, dtype=dtype, device=device)
+    if cfg.mlp_type == "swiglu":
+        return {"w_gate": normal(g, (d, ff), d ** -0.5, **kw),
+                "w_up": normal(g, (d, ff), d ** -0.5, **kw),
+                "w_down": normal(g, (ff, d), ff ** -0.5, **kw)}
+    return {"w_up": normal(g, (d, ff), d ** -0.5, **kw),
+            "w_down": normal(g, (ff, d), ff ** -0.5, **kw)}
+
+
+# ----------------------------------------------------------------- norms ----
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+# ------------------------------------------------------------------ rope ----
+
+def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, hd); positions: (S,) or broadcastable."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., :, None].float() * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- attention ----
+
+def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    B, S, _ = x.shape
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    cd = x.dtype
+    q = x @ p["wq"].to(cd)
+    k = x @ p["wk"].to(cd)
+    v = x @ p["wv"].to(cd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    q = q.reshape(B, S, Hq, hd).transpose(1, 2)
+    k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
+    v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None, chunk: int = 1024):
+    """Online softmax over KV chunks.  q: (B, Hq, Sq, hd); k/v: (B, Hkv,
+    Skv, hd).  Operands stay in their narrow dtype, products and sums are
+    f32, and the GQA group rides along q's head dim (no K/V repeat)."""
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Skv, _ = k.shape
+    g = Hq // Hkv
+    scale = hd ** -0.5
+    chunk = min(chunk, Skv)
+    pad = (-Skv) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    n_chunks = (Skv + pad) // chunk
+    qg = (q * scale).to(k.dtype).reshape(B, Hkv, g, Sq, hd).float()
+    dev = q.device
+    q_pos = torch.arange(Sq, device=dev)[:, None]
+    m = torch.full((B, Hkv, g, Sq, 1), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, g, Sq, 1), device=dev)
+    acc = torch.zeros((B, Hkv, g, Sq, hd), device=dev)
+    for ci in range(n_chunks):
+        kb = k[:, :, None, ci * chunk:(ci + 1) * chunk].float()
+        vb = v[:, :, None, ci * chunk:(ci + 1) * chunk].float()
+        s = torch.matmul(qg, kb.transpose(-1, -2))   # (B, Hkv, g, Sq, chunk)
+        k_pos = ci * chunk + torch.arange(chunk, device=dev)[None, :]
+        mask = k_pos < Skv
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        if window is not None:
+            mask = mask & ((q_pos - k_pos) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb)
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)
+    return out.reshape(B, Hq, Sq, hd).to(q.dtype)
+
+
+def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
+                    window: Optional[int] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    impl: str = "chunked", cache=None,
+                    cache_len: Optional[int] = None, collect_kv: int = 0):
+    """Self-attention (prefill) or one-step decode when ``cache`` is given.
+
+    cache: dict(k=(B, Hkv, L, hd), v=...) -- **updated in place**: decode
+    writes the new key/value at ``cache_len`` (a Python int, the fill of
+    every row) and returns the same dict.  ``collect_kv`` > 0 (prefill) also
+    returns a fresh cache of that capacity holding this call's keys/values.
+    Returns (out, new_cache)."""
+    if impl != "chunked":
+        raise NotImplementedError(
+            f"apply_attention impl={impl!r}: only 'chunked' is ported")
+    B, S, _ = x.shape
+    if cache is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q, k, v = _qkv(p, x, cfg, positions)
+        out = chunked_attention(q, k, v, causal=True, window=window)
+        new_cache = None
+        if collect_kv:
+            if window and S >= window:
+                raise NotImplementedError(
+                    "apply_attention: ring-buffer (local-window) caches are "
+                    "not ported")
+            cap = min(collect_kv, window) if window else collect_kv
+            new_cache = {"k": F.pad(k, (0, 0, 0, cap - S)),
+                         "v": F.pad(v, (0, 0, 0, cap - S))}
+    else:
+        if S != 1:
+            raise ValueError(f"apply_attention decode takes one token, got {S}")
+        if not isinstance(cache_len, int):
+            raise NotImplementedError(
+                "apply_attention: per-row decode positions are not ported; "
+                "pass the scalar fill as a Python int")
+        pos = cache_len
+        q, k1, v1 = _qkv(p, x, cfg,
+                         torch.full((1,), pos, device=x.device))
+        cache["k"][:, :, pos] = k1[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, :, pos] = v1[:, :, 0].to(cache["v"].dtype)
+        out = decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
+                               window=window)
+        new_cache = cache
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(out.dtype), new_cache
+
+
+# ------------------------------------------------------------------- mlp ----
+
+def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    cd = x.dtype
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
+    else:  # squared_relu (Nemotron-4)
+        h = torch.square(F.relu(x @ p["w_up"].to(cd)))
+    return h @ p["w_down"].to(cd)

@@ -1,0 +1,140 @@
+"""Port vs reference: norms, RoPE, attention (prefill + decode) and MLPs.
+
+Same numpy-seeded inputs through the reference (``repro.models.layers``,
+``repro.kernels.flash_attention.ops``) and the port, f32, atol 1e-5: the
+two frameworks sum in other orders, nothing else differs.  The decode KV
+cache is bf16 as in serving, so decode also checks the reference's cast
+order (q cast to the cache dtype, unnormalized weights cast before PV).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as r_fops
+from repro.models import layers as RL
+from repro.models.config import ArchConfig as RArchConfig
+
+from repro_torch.interop import params_from_jax, to_tensor
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+torch.set_num_threads(2)
+TOL = dict(atol=1e-5, rtol=0)
+# one compiled program per call shape instead of op-by-op eager dispatch
+r_attention = jax.jit(RL.apply_attention, static_argnames=("cfg", "collect_kv"))
+
+CFG_KW = dict(name="tiny-attn", family="dense", d_model=32, n_heads=4,
+              n_kv_heads=2, d_ff=48, vocab_size=64, block_unit=("attn",),
+              n_repeats=1, head_dim=16, policy="f32")
+VARIANTS = {"plain": {}, "bias+qknorm": dict(qkv_bias=True, qk_norm=True)}
+
+
+def _cfgs(**kw):
+    return RArchConfig(**CFG_KW, **kw), ArchConfig(**CFG_KW, **kw)
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _np(a):
+    return np.asarray(a, np.float32)
+
+
+def _bf(a):
+    return np.asarray(a)            # ml_dtypes bf16 array
+
+
+def test_rmsnorm_and_rope():
+    x = _x((2, 3, 5, 16))
+    scale = 1.0 + 0.1 * _x((16,), 1)
+    np.testing.assert_allclose(
+        L.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x)).numpy(),
+        _np(RL.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x))), **TOL)
+    pos = np.arange(5) + 11
+    np.testing.assert_allclose(
+        L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6).numpy(),
+        _np(RL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)), **TOL)
+
+
+@pytest.mark.parametrize("window,chunk", [(None, 1024), (None, 8), (6, 8)])
+def test_chunked_attention(window, chunk):
+    q, k, v = _x((2, 4, 20, 16), 1), _x((2, 2, 20, 16), 2), _x((2, 2, 20, 16), 3)
+    got = L.chunked_attention(*map(torch.from_numpy, (q, k, v)),
+                              window=window, chunk=chunk)
+    want = RL.chunked_attention(*map(jnp.asarray, (q, k, v)), window=window,
+                                chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("kv_len,window", [(None, None), (7, None), (9, 4)])
+def test_decode_attention_bf16_cache(kv_len, window):
+    q = _x((2, 4, 1, 16), 4)
+    k, v = _x((2, 2, 12, 16), 5), _x((2, 2, 12, 16), 6)
+    kb, vb = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+    want = r_fops.decode_attention(jnp.asarray(q), kb, vb, kv_len=kv_len,
+                                   window=window)
+    got = fops.decode_attention(torch.from_numpy(q), to_tensor(_bf(kb)),
+                                to_tensor(_bf(vb)), kv_len=kv_len,
+                                window=window)
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_apply_attention_prefill_then_decode(variant):
+    rcfg, cfg = _cfgs(**VARIANTS[variant])
+    rp = RL.init_attention(jax.random.PRNGKey(0), rcfg)
+    if rcfg.qkv_bias:               # nonzero biases so they are exercised
+        rp = {**rp, **{b: rp[b] + 0.1 for b in ("bq", "bk", "bv")}}
+    p = params_from_jax(jax.device_get(rp), cfg, device="cpu")
+    B, S, MAX = 2, 7, 10
+    x = _x((B, S, 32), 7)
+    want, rcache = r_attention(rp, jnp.asarray(x), rcfg, collect_kv=MAX)
+    got, cache = L.apply_attention(p, torch.from_numpy(x), cfg, collect_kv=MAX)
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    for f in ("k", "v"):
+        np.testing.assert_allclose(cache[f].numpy(), _np(rcache[f]), **TOL)
+
+    # one decode step on the prefill cache held in bf16 (serving's dtype)
+    rc = {f: rcache[f].astype(jnp.bfloat16) for f in ("k", "v")}
+    c = {f: to_tensor(_bf(rc[f])) for f in ("k", "v")}
+    x1 = _x((B, 1, 32), 8)
+    want1, rnew = r_attention(rp, jnp.asarray(x1), rcfg, cache=rc,
+                              cache_len=jnp.asarray(S, jnp.int32))
+    got1, new = L.apply_attention(p, torch.from_numpy(x1), cfg, cache=c,
+                                  cache_len=S)
+    assert new is c                 # updated in place
+    np.testing.assert_allclose(got1.numpy(), _np(want1), **TOL)
+    for f in ("k", "v"):
+        np.testing.assert_array_equal(new[f].float().numpy(), _np(rnew[f]))
+
+
+def test_apply_attention_refuses_unported_paths():
+    _, cfg = _cfgs()
+    rcfg, _ = _cfgs()
+    p = params_from_jax(jax.device_get(
+        RL.init_attention(jax.random.PRNGKey(0), rcfg)), cfg, device="cpu")
+    x = torch.from_numpy(_x((1, 4, 32)))
+    with pytest.raises(NotImplementedError):
+        L.apply_attention(p, x, cfg, impl="kernel")
+    c = {f: torch.zeros(1, 2, 8, 16) for f in ("k", "v")}
+    with pytest.raises(NotImplementedError):
+        L.apply_attention(p, x[:, :1], cfg, cache=c,
+                          cache_len=torch.tensor([3]))
+
+
+@pytest.mark.parametrize("mlp_type", ["swiglu", "squared_relu"])
+def test_apply_mlp(mlp_type):
+    rcfg, cfg = _cfgs(mlp_type=mlp_type)
+    rp = RL.init_mlp(jax.random.PRNGKey(1), rcfg)
+    p = params_from_jax(jax.device_get(rp), cfg, device="cpu")
+    x = _x((2, 5, 32), 9)
+    np.testing.assert_allclose(
+        L.apply_mlp(p, torch.from_numpy(x), cfg).numpy(),
+        _np(RL.apply_mlp(rp, jnp.asarray(x), rcfg)), **TOL)
+    assert dataclasses.asdict(rcfg) == dataclasses.asdict(cfg)
