@@ -8,20 +8,39 @@ Run from the repository root, with no arguments:
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the TF32 flags;
-2. build every CUDA kernel of the port from the sources in this checkout;
-3. kernel vs plain version on the card: random BCSR streams (f32 and bf16,
-   blocks (8, 8), (8, 16), (16, 8), empty block-rows, bucket-pad entries,
-   N not a multiple of the tile);
-4. the serving slice at full llama4-scout width (depth cut to 8 layers,
+2. build every CUDA kernel of the port from the sources in this checkout,
+   one ``nvcc`` each, all started together;
+3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
+   bf16, blocks (8, 8), (8, 16), (16, 8), empty block-rows, bucket-pad
+   entries, N not a multiple of the tile); K3, K4m and K4s on random q, k, v
+   (f32 and bf16, GQA 4/2 at D 64 and 40/8 at D 128, the reference's mask
+   pattern zoo, bucketed and unbucketed streams, a window, a nonzero
+   q_offset, ragged S through ``ops.attention``, causal or not), with the
+   laws K4s == K4m, bucketed == unbucketed and K4s on a plain causal /
+   window mask == K3 as ``torch.equal``;
+4. a small f32 config (llama4-scout SMOKE) must give the same prefill
+   logits on the card and on the CPU: chunked attention, masked attention
+   (K4s) and kernel attention (K3);
+5. the serving slice at full llama4-scout width (depth cut to 8 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
-   4 prompts of 256 tokens and generates 16 tokens greedily, with the
-   kernel's launch count read around that run; the captured 0/1 dispatch
-   stream of the first MoE layer must give kernel == plain exactly; the
-   same weights with ``dispatch="gather"`` must give the same tokens; a
-   small f32 config must agree between the card and the CPU;
-5. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
+   4 prompts of 256 tokens and generates 16 tokens greedily; the captured
+   0/1 dispatch stream of the first MoE layer must give kernel == plain
+   exactly; the same weights with ``dispatch="gather"`` must give the same
+   tokens;
+6. masked serving on the same weights: 4 prompts of 2048 tokens through
+   ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
+   exercises the masked kernels), 16 greedy tokens, once with the
+   stream walk (K4s) and once with the masked grid (K4m), which must give
+   identical tokens and no oracle fallback;
+7. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
+   K3), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q, k, v;
+8. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound) and one with the serving summary;
-6. last line: {"ok": true, "device": {...}}.
+9. last line: {"ok": true, "device": {...}}.
+
+Every launch count is set to 0 just before a run of the main path and read
+just after it; launches made to compare a kernel with its plain version or
+to time it are not counted.
 
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -42,11 +61,60 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
 BATCH, PROMPT, GEN, DEPTH = 4, 256, 16, 8
+# masked and kernel prefill: prompt length and the local window of the
+# opt-in long-context pattern (local_global: window + the first KV tile),
+# a synthetic kernel exercise rather than llama4-scout's own attention
+ATTN_PROMPT, MASK_WINDOW = 2048, 512
+FLASH_SRC = "src/repro/kernels/flash_attention/kernel.py"
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def tolerance(big: float, dtype) -> float:
+    """Kernel vs plain: f32 within 1e-5 of the largest |value| (the kernel
+    sums its products in another order); narrower types within one ulp of
+    the largest |value| in that type (both round one f32 result, which may
+    fall on either side of a tie)."""
+    import numpy as np
+    import torch
+    if dtype == torch.float32:
+        return 1e-5 * big
+    if big == 0:
+        return 0.0
+    return 2.0 ** np.floor(np.log2(big)) * torch.finfo(dtype).eps
+
+
+def max_err(got, want, what: str) -> float:
+    """Largest |got - want|, checked against :func:`tolerance`."""
+    import torch
+    torch.cuda.synchronize()
+    big = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = tolerance(big, got.dtype)
+    check(err <= tol, f"{what}: kernel disagrees with plain: {err} > {tol}")
+    return err
+
+
+def _counted():
+    """Every kernel wrapper of the port, by name; each counts its launches
+    in ``.launches``."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.spmm import kernel as sk
+    return {"spmm_bcsr": sk.spmm_bcsr, "flash_attention": fk.flash_attention,
+            "flash_attention_masked": fk.flash_attention_masked,
+            "flash_attention_sparse": fk.flash_attention_sparse}
+
+
+def reset_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -143,16 +211,110 @@ def phase_kernel_vs_plain():
                         out_dtype=odt, bn=256)
         want = spmm_bcsr_ref(a.indptr, a.block_cols, a.blocks, dense,
                              out_dtype=odt)
-        torch.cuda.synchronize()
-        big = want.float().abs().max().item()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 1e-5 * big if odt == f32 else 2.0 ** (np.floor(np.log2(big)) - 7)
+        err = max_err(got, want, f"K2 block {block}")
         rows = got.view(B, gm, block[0], N)
         check(all(rows[:, r].abs().max().item() == 0 for r in empty),
               "an empty block-row is not zero")
         print(f"  K2 {str(dt)[6:]}->{str(odt)[6:]} block {block} B={B} "
-              f"nnzb={a.nnzb} N={N}: max_abs_err {err:.3g} (tol {tol:.3g})")
-        check(err <= tol, f"kernel disagrees with plain: {err} > {tol}")
+              f"nnzb={a.nnzb} N={N}: max_abs_err {err:.3g}")
+
+
+def _mask_zoo(S: int, t: int) -> dict:
+    """The reference's pattern zoo (``tests/test_attention_sparse.py``) on
+    an S x S score grid of t x t tiles."""
+    from repro_torch.core.masks import BlockMask as BM
+    kw = dict(bq=t, bk=t)
+    local = BM.sliding_window(S, S, 3 * t, **kw)
+    return {"causal": BM.causal(S, S, **kw),
+            "window": BM.sliding_window(S, S, 2 * t, **kw),
+            "strided": BM.strided(S, S, 2, **kw),
+            "global": BM.global_cols(S, S, 1, **kw),
+            "local|global": local | BM.global_cols(S, S, 1, **kw),
+            "strided&causal": BM.strided(S, S, 2, **kw) & BM.causal(S, S, **kw)}
+
+
+def phase_attention_vs_plain():
+    """K3, K4m and K4s against their plain versions (``ref.py``, the same
+    tile loop in PyTorch) on random q, k, v on the card, with the
+    tolerances of :func:`tolerance`, and the kernels' laws as
+    ``torch.equal``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.masks import BlockMask
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+    rng = np.random.default_rng(2)
+    ops.reset_fallbacks()
+    for dt in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, S, D, t in ((2, 4, 2, 256, 64, 32),
+                                    (1, 40, 8, 512, 128, 64)):
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to("cuda", dt) for shape in
+                ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+            errs = {"K3": 0.0, "K4m": 0.0, "K4s": 0.0}
+
+            def note(name, got, want, what):
+                errs[name] = max(errs[name], max_err(got, want, what))
+
+            for pattern, m in _mask_zoo(S, t).items():
+                kw = dict(skv=S, window=m.window)
+                walks = [fk.flash_attention_sparse(
+                    q, k, v, s.rows, s.cols, s.kinds, bq=t, bk=t, **kw)
+                    for s in (m.lower(bucket=True), m.lower(bucket=False))]
+                s = m.lower(bucket=True)
+                note("K4s", walks[0], ref.flash_attention_sparse_ref(
+                    q, k, v, s.rows, s.cols, s.kinds, bq=t, bk=t, **kw),
+                    f"K4s {pattern}")
+                grid = fk.flash_attention_masked(q, k, v, m.tile_kinds, **kw)
+                note("K4m", grid, ref.flash_attention_masked_ref(
+                    q, k, v, m.tile_kinds, **kw), f"K4m {pattern}")
+                check(torch.equal(walks[0], walks[1]),
+                      f"{pattern}: bucketed stream != unbucketed")
+                check(torch.equal(walks[0], grid), f"{pattern}: K4s != K4m")
+            for window, q_off in ((None, 0), (3 * t, 0), (None, S // 2),
+                                  (2 * t, S // 2)):
+                qs = q[:, :, q_off:].contiguous()   # rows from q_off, all keys
+                kw = dict(causal=True, window=window, bq=t, bk=t,
+                          q_offset=q_off)
+                got = fk.flash_attention(qs, k, v, **kw)
+                note("K3", got, ref.flash_attention_ref(qs, k, v, **kw),
+                     f"K3 window={window} q_offset={q_off}")
+                s = BlockMask.full(S - q_off, S, bq=t, bk=t, causal=True,
+                                   window=window, q_offset=q_off).lower()
+                law = fk.flash_attention_sparse(
+                    qs, k, v, s.rows, s.cols, s.kinds, skv=S, window=window,
+                    bq=t, bk=t, q_offset=q_off)
+                check(torch.equal(law, got),
+                      f"K4s on the causal mask != K3 (window={window}, "
+                      f"q_offset={q_off})")
+            # ragged S through ops.attention: padding, re-clamp, KV tail
+            # (masked inside the kernel, causal or not)
+            Sr = S - 56
+            qr, kr, vr = (x[:, :, :Sr] for x in (q, k, v))
+            m = (BlockMask.sliding_window(Sr, Sr, 2 * t, bq=t, bk=t)
+                 | BlockMask.global_cols(Sr, Sr, 1, bq=t, bk=t))
+            for name, kw in (("K3", dict(causal=True, bq=t, bk=t)),
+                             ("K3", dict(causal=False, bq=t, bk=t)),
+                             ("K4s", dict(mask=m, mask_impl="sparse")),
+                             ("K4m", dict(mask=m, mask_impl="dense"))):
+                want = ops.attention(qr.cpu(), kr.cpu(), vr.cpu(), **kw)
+                note(name, ops.attention(qr, kr, vr, **kw), want.cuda(),
+                     f"{name} via ops, S={Sr} {kw.get('causal', 'mask')}")
+            # a ragged non-causal KV against the materialized oracle, which
+            # sums in another order (so twice the tolerance): the padded
+            # keys stay invisible
+            got = ops.attention(qr, kr, vr, causal=False, bq=t, bk=t)
+            want = ref.attention_ref(qr.cpu(), kr.cpu(), vr.cpu(),
+                                     causal=False).cuda()
+            check((got.float() - want.float()).abs().max().item()
+                  <= 2 * tolerance(want.float().abs().max().item(), dt),
+                  f"K3 non-causal ragged KV (S={Sr}) != the oracle")
+            print(f"  flash {str(dt)[6:]} B={B} heads {Hq}/{Hkv} S={S} D={D} "
+                  f"tiles {t}: max_abs_err " + " ".join(
+                      f"{n} {e:.3g}" for n, e in errs.items())
+                  + "; K4s == K4m, bucketed == unbucketed, K4s(causal) == K3")
+    check(ops.fallback_count() == 0,
+          f"attention fell back to the oracle: {ops.fallback_reasons()}")
 
 
 def _bcsr_moe():
@@ -165,24 +327,38 @@ def _bcsr_moe():
 
 def phase_small_config_card_vs_cpu():
     """The llama4-scout SMOKE config in f32: prefill logits on the card
-    (kernel path) agree with the CPU (plain path) within 1e-4."""
+    (kernel paths) agree with the CPU (plain paths) within 1e-4, with the
+    chunked attention, with the masked stream walk (K4s; local_global, tiles
+    and window 8) and with K3 (``impl="kernel"``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke
+    from repro_torch.core.masks import AttnMaskSpec
     from repro_torch.models import model as M
     cfg = dataclasses.replace(get_smoke("llama4-scout-17b-a16e"), policy="f32")
     cpu = M.init_params(cfg, seed=0, device="cpu")
     gpu = _tree_to(cpu, "cuda")
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 24)))
-    want, _, _ = M.prefill_layered(cpu, prompts, cfg, max_seq=32,
-                                   moe_fn=_bcsr_moe())
-    got, _, _ = M.prefill_layered(gpu, prompts.cuda(), cfg, max_seq=32,
-                                  moe_fn=_bcsr_moe())
-    err = (got.cpu() - want).abs().max().item()
-    print(f"  smoke f32 prefill logits card vs cpu: max_abs_err {err:.3g}")
-    check(bool(torch.isfinite(got).all()) and err <= 1e-4,
-          f"card and cpu disagree on the smoke config: {err}")
+    mask = AttnMaskSpec(local=True, pattern="local_global", window=8, bq=8,
+                        bk=8, impl="sparse")
+    for label, kw, kernel in (
+            ("chunked", {}, None),
+            ("attn_mask sparse", {"attn_mask": mask}, "flash_attention_sparse"),
+            ("impl=kernel", {"impl": "kernel"}, "flash_attention")):
+        want, _, _ = M.prefill_layered(cpu, prompts, cfg, max_seq=32,
+                                       moe_fn=_bcsr_moe(), **kw)
+        reset_launches()
+        got, _, _ = M.prefill_layered(gpu, prompts.cuda(), cfg, max_seq=32,
+                                      moe_fn=_bcsr_moe(), **kw)
+        launches = read_launches()
+        err = (got.cpu() - want).abs().max().item()
+        print(f"  smoke f32 prefill logits card vs cpu, {label}: max_abs_err "
+              f"{err:.3g}; launches {launches}")
+        check(bool(torch.isfinite(got).all()) and err <= 1e-4,
+              f"card and cpu disagree on the smoke config ({label}): {err}")
+        check(kernel is None or launches[kernel] == cfg.n_repeats,
+              f"{label}: {kernel} ran {launches} times, not once a layer")
 
 
 def _tree_to(tree, device):
@@ -199,7 +375,6 @@ def phase_slice():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import engine
-    from repro_torch.kernels.spmm import kernel
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import model as M
 
@@ -229,12 +404,13 @@ def phase_slice():
         return stream_entry(a, dense, **kw)
 
     engine.spmm_batched_stream = capture
-    kernel.spmm_bcsr.launches = 0
+    reset_launches()
     try:
         tokens = loop.run(prompts, GEN)       # the main path
     finally:
         engine.spmm_batched_stream = stream_entry
-    launches = kernel.spmm_bcsr.launches
+    counts = read_launches()
+    launches = counts["spmm_bcsr"]
     summary = loop.summary()
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
     print(f"  bcsr run: {launches} K2 launches, "
@@ -244,6 +420,8 @@ def phase_slice():
           and (tokens < cfg.vocab_size).all(), "bad token ids")
     check(launches == n_moe * GEN == summary["execute"]["calls"],
           f"K2 launches {launches} != {n_moe} layers x {GEN} passes")
+    check(sum(counts.values()) == launches,
+          f"unmasked chunked serving launched a flash kernel: {counts}")
 
     # the same prompts' prefill logits are finite and pick the first token
     logits, _, _ = M.prefill_layered(params, prompts, cfg, max_seq=max_seq,
@@ -253,13 +431,256 @@ def phase_slice():
     first = logits[:, -1, :cfg.vocab_size].argmax(-1).cpu().numpy()
     check(np.array_equal(first, tokens[:, 0]), "prefill argmax != token 0")
 
-    before = kernel.spmm_bcsr.launches
+    before = read_launches()
     gather = ServeLoop(params, cfg, max_seq=max_seq, dispatch="gather")
     g_tokens = gather.run(prompts, GEN)
-    check(kernel.spmm_bcsr.launches == before, "gather launched K2")
+    check(read_launches() == before, "gather launched a kernel")
     check(np.array_equal(g_tokens, tokens), "bcsr tokens != gather tokens")
     print("  gather run: tokens equal to bcsr")
-    return cfg, summary, launches, captured
+    return cfg, params, summary, launches, captured
+
+
+def _attn_prompts(cfg):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(2)
+    return torch.randint(0, cfg.vocab_size, (BATCH, ATTN_PROMPT), generator=g,
+                         device="cuda")
+
+
+def serving_mask(cfg):
+    """The masked serving spec (without ``impl``) and its mask at the
+    prompt length: the opt-in long-context pattern, a causal local window of
+    MASK_WINDOW plus the first KV tile, at the tiles of the ``flash`` cuda
+    row.  A synthetic pattern that exercises the masked kernels, not
+    llama4-scout's own chunked attention."""
+    import torch
+    from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.kernels import tuning
+    bq, bk = tuning.flash_tiles(ATTN_PROMPT, ATTN_PROMPT, cfg.hd,
+                                torch.bfloat16, "cuda")
+    spec = dict(local=True, pattern="local_global", window=MASK_WINDOW,
+                n_global=1, bq=bq, bk=bk)
+    mask = AttnMaskSpec(**spec).build(ATTN_PROMPT, ATTN_PROMPT,
+                                      layer_window=None, bq=bq, bk=bk)
+    return spec, mask
+
+
+def phase_masked_serving(cfg, params):
+    """Masked serving at full width: the same weights serve 4 prompts of
+    ATTN_PROMPT tokens through ``ServeLoop(attn_mask=...)``, walking the
+    mask's stream (K4s) and over the masked full grid (K4m), in the order
+    sparse, dense, dense, sparse; one launch per layer's prefill (decode
+    attention is not masked), K2 at every MoE layer of every pass, identical
+    tokens, no oracle fallback.  Each run records its prefill and the host
+    route / execute time inside it."""
+    import numpy as np
+    import torch
+    from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import ServeLoop
+    # what a prefill pays once for its mask (the layers share it): build,
+    # lowering and the upload of its index arrays
+    t0 = time.monotonic()
+    spec, mask = serving_mask(cfg)
+    stream = mask.lower(bucket=True)
+    for a in (stream.rows, stream.cols, stream.kinds, mask.tile_kinds):
+        torch.as_tensor(a).to("cuda", torch.int32)
+    torch.cuda.synchronize()
+    mask_ms = (time.monotonic() - t0) * 1e3
+    print(f"masked serving: {mask}; density {mask.density()}; stream "
+          f"capacity {stream.capacity}; build + lower + upload "
+          f"{mask_ms:.3f} ms")
+    prompts = _attn_prompts(cfg)
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    kernels = {"sparse": "flash_attention_sparse",
+               "dense": "flash_attention_masked"}
+    loops = {impl: ServeLoop(params, cfg, max_seq=ATTN_PROMPT + GEN,
+                             dispatch="bcsr",
+                             attn_mask=AttnMaskSpec(**spec, impl=impl))
+             for impl in kernels}
+    for loop in loops.values():
+        loop.run(prompts, 2)                  # warm-up
+    runs = {impl: [] for impl in kernels}
+    for impl in ("sparse", "dense", "dense", "sparse"):
+        loop, kernel = loops[impl], kernels[impl]
+        ops.reset_fallbacks()
+        reset_launches()
+        tokens = loop.run(prompts, GEN)       # the main path
+        counts = read_launches()
+        summary = loop.summary()
+        prefill = {ph: 1e3 * sum(st.seconds for st in loop.stats
+                                 if st.phase == ph and st.step == -1)
+                   for ph in ("prefill", "route", "execute")}
+        print(f"  {impl}: launches {counts}; prefill "
+              f"{prefill['prefill']:.1f} ms (route {prefill['route']:.1f}, "
+              f"execute {prefill['execute']:.1f}), decode "
+              f"{summary['decode']['tok_per_s']:.1f} tok/s; tokens "
+              f"{tokens[0, :8].tolist()} ...")
+        want = {"spmm_bcsr": n_moe * GEN, "flash_attention": 0,
+                "flash_attention_masked": 0, "flash_attention_sparse": 0}
+        want[kernel] = cfg.n_repeats
+        check(counts == want, f"{impl}: launches {counts} != {want}")
+        check(ops.fallback_count() == 0
+              and summary["timing"]["attention_ref_fallbacks"] == 0,
+              f"{impl}: oracle fallbacks {ops.fallback_reasons()}")
+        check(tokens.shape == (BATCH, GEN) and (tokens >= 0).all()
+              and (tokens < cfg.vocab_size).all(), "bad token ids")
+        runs[impl].append({
+            "tokens": tokens, "launches": counts[kernel],
+            "prefill_ms": prefill["prefill"],
+            "prefill_route_ms": prefill["route"],
+            "prefill_execute_ms": prefill["execute"],
+            "decode_tok_per_s": summary["decode"]["tok_per_s"],
+            "nnzb_stream_mean": summary["stream"]["nnzb_stream_mean"]})
+    first = runs["sparse"][0]["tokens"]
+    check(all(np.array_equal(r["tokens"], first)
+              for rs in runs.values() for r in rs),
+          "sparse-masked tokens != dense-masked tokens")
+    print("  sparse tokens == dense tokens (4 runs)")
+    return mask, runs, mask_ms
+
+
+def phase_kernel_prefill(cfg, params):
+    """Kernel prefill at full width: ``prefill_layered(impl="kernel")`` on
+    the 2048-token prompts runs K3 once a layer; the logits are finite.
+    Then layer 0's q, k, v (bf16) give K3 == K4s on ``BlockMask.causal``
+    exactly, and are returned for the kernel rows.  The first token's
+    agreement with ``impl="chunked"`` is printed as information only: the
+    kernels keep p in f32 in the PV product, chunked rounds it to bf16."""
+    import torch
+    from repro_torch.core.masks import BlockMask
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    prompts = _attn_prompts(cfg)
+    kw = dict(max_seq=ATTN_PROMPT, moe_fn=_bcsr_moe())
+    M.prefill_layered(params, prompts, cfg, impl="kernel", **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    logits, _, _ = M.prefill_layered(params, prompts, cfg, impl="kernel",
+                                     **kw)                # the main path
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    counts = read_launches()
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    want = {"spmm_bcsr": n_moe, "flash_attention": cfg.n_repeats,
+            "flash_attention_masked": 0, "flash_attention_sparse": 0}
+    check(counts == want, f"kernel prefill: launches {counts} != {want}")
+    check(tuple(logits.shape) == (BATCH, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          "kernel prefill logits not finite")
+    chunked, _, _ = M.prefill_layered(params, prompts, cfg, **kw)
+    first = logits[:, -1, :cfg.vocab_size].argmax(-1)
+    agree = (first == chunked[:, -1, :cfg.vocab_size].argmax(-1)).float()
+    diff = (logits - chunked).abs().max().item()
+    print(f"kernel prefill: launches {counts}; {prefill_ms:.1f} ms; first "
+          f"token agrees with chunked on {agree.mean().item():.2f} of the "
+          f"rows, logits differ by up to {diff:.3g} (information only)")
+
+    x = M._embed(params, prompts, cfg)
+    p0 = M._take(params["blocks"][0], 0)
+    h = L.rmsnorm(p0["ln1"], x, cfg.norm_eps)
+    q, k, v = (t.contiguous() for t in L._qkv(
+        p0["attn"], h, cfg, torch.arange(ATTN_PROMPT, device="cuda")))
+    bq, bk = tuning.flash_tiles(ATTN_PROMPT, ATTN_PROMPT, cfg.hd, q.dtype,
+                                "cuda")
+    s = BlockMask.causal(ATTN_PROMPT, ATTN_PROMPT, bq=bq, bk=bk).lower()
+    k3 = fk.flash_attention(q, k, v, causal=True, bq=bq, bk=bk)
+    k4 = fk.flash_attention_sparse(q, k, v, s.rows, s.cols, s.kinds,
+                                   skv=ATTN_PROMPT, bq=bq, bk=bk)
+    check(torch.equal(k3, k4), "layer 0: K3 != K4s on BlockMask.causal")
+    print(f"  layer 0 q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype}: "
+          f"K3 == K4s(causal), tiles {bq}x{bk}")
+    return {"launches": counts, "prefill_ms": prefill_ms,
+            "first_token_agreement": agree.mean().item(),
+            "logits_max_diff": diff}, (q, k, v)
+
+
+def phase_measure_attention(qkv, mask, launches, card):
+    """The K3, K4m and K4s rows at the slice's attention shape: layer 0's
+    q, k, v of the 2048-token prompts (bf16), K3 causal, K4 on the serving
+    mask.  ``ms``: CUDA events over back-to-back launches; ``plain_ms``:
+    the plain tile loop; ``library_ms``: one
+    ``scaled_dot_product_attention`` call (``is_causal`` for K3, the mask's
+    dense boolean for K4; GQA heads expanded beforehand), a yardstick the
+    port never calls.  The bound is the larger of the FLOPs of the visible
+    score entries (4 D each: q k^T and p v) at the bf16 peak and the bytes
+    of q, k, v, the index arrays and the output moved once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.masks import BlockMask
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    q, k, v = qkv
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    bq, bk = mask.bq, mask.bk
+    causal = BlockMask.causal(S, S, bq=bq, bk=bk)
+    st = mask.lower(bucket=True)
+    dev = lambda a: torch.as_tensor(a).to("cuda", torch.int32)  # noqa: E731
+    kinds = dev(mask.tile_kinds)
+    rows, cols, skinds = dev(st.rows), dev(st.cols), dev(st.kinds)
+    k_rep, v_rep = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    dense = torch.from_numpy(mask.dense_mask()).cuda()
+    qkvo_bytes = 2 * q.numel() * q.element_size() \
+        + (k.numel() + v.numel()) * k.element_size()
+    calls = {
+        "flash_attention": (
+            ":84", causal, 0,
+            lambda: fk.flash_attention(q, k, v, causal=True, bq=bq, bk=bk),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True, bq=bq,
+                                            bk=bk),
+            lambda: F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                   is_causal=True)),
+        "flash_attention_masked": (
+            ":212", mask, kinds.numel() * 4,
+            lambda: fk.flash_attention_masked(q, k, v, kinds, skv=S,
+                                              window=mask.window),
+            lambda: ref.flash_attention_masked_ref(q, k, v, mask.tile_kinds,
+                                                   skv=S, window=mask.window),
+            lambda: F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                   attn_mask=dense)),
+        "flash_attention_sparse": (
+            ":297", mask, 3 * st.capacity * 4,
+            lambda: fk.flash_attention_sparse(q, k, v, rows, cols, skinds,
+                                              skv=S, window=mask.window,
+                                              bq=bq, bk=bk),
+            lambda: ref.flash_attention_sparse_ref(
+                q, k, v, st.rows, st.cols, st.kinds, skv=S,
+                window=mask.window, bq=bq, bk=bk),
+            lambda: F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                   attn_mask=dense)),
+    }
+    out = []
+    for name, (line, m, idx_bytes, kern, plain, lib) in calls.items():
+        err = max_err(kern(), plain(), f"{name} at the slice's shape")
+        ms = time_ms(kern, 10, 2)
+        plain_ms = time_ms(plain, 2, 1)
+        library_ms = time_ms(lib, 10, 2)
+        entries = int(m.dense_mask().sum())
+        ops_ms = 4 * B * Hq * D * entries / BF16_FLOP_PER_S * 1e3
+        bytes_ms = (qkvo_bytes + idx_bytes) / HBM_BYTES_PER_S * 1e3
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": FLASH_SRC + line, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms,
+            "tiles": {"bq": bq, "bk": bk, "visible": m.nnzb,
+                      "dense": m.n_q_tiles * m.n_kv_tiles,
+                      "visible_entries_per_head": entries},
+            "shape": {"B": B, "Hq": Hq, "Hkv": k.shape[1], "S": S, "D": D,
+                      "dtype": str(q.dtype)[6:]},
+            "card": card})
+        print(f"  {name}: {ms:.3f} ms (bound {max(ops_ms, bytes_ms):.4f}, "
+              f"plain {plain_ms:.1f}, sdpa {library_ms:.3f}), max_abs_err "
+              f"{err:.3g}, tiles {m.nnzb}/{m.n_q_tiles * m.n_kv_tiles}")
+    return out
 
 
 def _stream_times(captured):
@@ -328,9 +749,18 @@ def main() -> int:
     phase_build()
     print("kernel vs plain on the card:")
     phase_kernel_vs_plain()
+    phase_attention_vs_plain()
     phase_small_config_card_vs_cpu()
-    cfg, summary, launches, captured = phase_slice()
-    row = phase_measure(captured, launches, card)
+    cfg, params, summary, launches, captured = phase_slice()
+    mask, masked, mask_ms = phase_masked_serving(cfg, params)
+    kprefill, qkv = phase_kernel_prefill(cfg, params)
+    del params
+    print("kernel times at the slice's shapes:")
+    rows = [phase_measure(captured, launches, card)]
+    rows += phase_measure_attention(qkv, mask, {
+        "flash_attention": kprefill["launches"]["flash_attention"],
+        "flash_attention_masked": masked["dense"][0]["launches"],
+        "flash_attention_sparse": masked["sparse"][0]["launches"]}, card)
     serve = {
         "serve": {"arch": cfg.name, "depth": cfg.n_repeats, "batch": BATCH,
                   "prompt": PROMPT, "gen": GEN, "dispatch": "bcsr",
@@ -343,10 +773,25 @@ def main() -> int:
                   "nnzb_stream_mean": summary["stream"]["nnzb_stream_mean"],
                   "nnzb_routed_mean": summary["stream"]["nnzb_routed_mean"],
                   "grid_nnzb_last": summary["stream"]["grid_nnzb"],
+                  "masked": {
+                      "prompt": ATTN_PROMPT, "pattern": "local_global",
+                      "window": MASK_WINDOW, "tiles": [mask.bq, mask.bk],
+                      "nnzb": mask.nnzb,
+                      "dense_tiles": mask.n_q_tiles * mask.n_kv_tiles,
+                      "mask_build_lower_upload_ms": mask_ms,
+                      **{f"{impl}_{key}": [r[key] for r in rs]
+                         for impl, rs in masked.items()
+                         for key in ("prefill_ms", "prefill_route_ms",
+                                     "prefill_execute_ms",
+                                     "decode_tok_per_s", "nnzb_stream_mean")},
+                      "order": "sparse, dense, dense, sparse",
+                      "tokens_equal": True},
+                  "kernel_prefill": {"prompt": ATTN_PROMPT, **{
+                      k: v for k, v in kprefill.items() if k != "launches"}},
                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "card": card,
                   "wall_s": time.monotonic() - t_start}}
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 
 SOURCES: Dict[str, Path] = {
     "spmm_bcsr": _KERNELS / "spmm" / "csrc" / "spmm_bcsr.cu",
+    "flash_attention": (_KERNELS / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -12,13 +12,16 @@ attn+moe layer is one ``moe.apply_moe`` call.  Both give the same tokens.
 Every phase is serial (``pipeline_depth=0`` of the reference): each phase
 waits for the device (``torch.cuda.synchronize``) before reading the clock,
 and the route clock starts only after the attention half has drained, so
-queued device work is never charged to routing.  Not ported yet: the
-pipelined depth 1, the continuous-batching ``ServeScheduler``, resilience
-hooks, quantized experts / KV cache and attention masks.
+queued device work is never charged to routing.  ``attn_mask`` (an
+``AttnMaskSpec``) sends every prefill attention layer it applies to through
+the masked flash kernels (K4s stream walk or K4m masked grid); decode is
+untouched.  Not ported yet: the pipelined depth 1, the continuous-batching
+``ServeScheduler``, resilience hooks and quantized experts / KV cache.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --gen 8
+      --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --gen 8 \
+      --attn-mask local_global --attn-mask-impl sparse
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.core.masks import AttnMaskSpec
 from repro_torch.kernels import engine
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import model as M
 from repro_torch.models import moe
 
@@ -61,12 +66,15 @@ class ServeLoop:
     temperature : 0 = greedy argmax, > 0 = sampling from
         ``softmax(logits / temperature)`` with a ``torch.Generator``
         reseeded from ``sample_seed`` at every :meth:`run`.
+    attn_mask : an ``AttnMaskSpec`` for prefill attention (``impl``
+        "sparse" | "dense" | "ref"), or None.
     device : where the loop runs; "cuda" (default) raises without a GPU.
     """
 
     def __init__(self, params, cfg, *, max_seq: int,
                  dispatch: Optional[str] = None, temperature: float = 0.0,
-                 sample_seed: int = 3, device="cuda"):
+                 sample_seed: int = 3,
+                 attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"ServeLoop: params on {params['embed'].device}, "
@@ -80,6 +88,9 @@ class ServeLoop:
         self.two_phase = (self.backend == "bcsr"
                           and "attn+moe" in cfg.block_unit)
         self.temperature = temperature
+        self.attn_mask = attn_mask
+        # oracle fallbacks are counted from this loop's own baseline
+        self._fallback_base = flash_ops.fallback_count()
         self._sample_seed = sample_seed
         self._gen = torch.Generator(device=self.device)
         self._pipe = engine.StreamPipeline(0)
@@ -132,7 +143,7 @@ class ServeLoop:
         t0 = time.monotonic()
         logits, cache, pos = M.prefill_layered(
             self.params, prompts, self.cfg, max_seq=self.max_seq,
-            moe_fn=self._moe_fn())
+            moe_fn=self._moe_fn(), attn_mask=self.attn_mask)
         self._sync()
         self._pipe.drain()
         self.stats.append(StepStat("prefill", -1, time.monotonic() - t0,
@@ -185,6 +196,7 @@ class ServeLoop:
         Every run starts from a fresh sampling generator, so seeded runs
         with ``temperature > 0`` are reproducible."""
         self.stats.clear()
+        self._fallback_base = flash_ops.fallback_count()
         self._gen.manual_seed(self._sample_seed)
         self.prefill(prompts)
         self.decode(gen - 1)
@@ -195,7 +207,9 @@ class ServeLoop:
         are not disjoint: "prefill" and each "decode" step time the whole
         layered pass, inclusive of the "route" / "execute" layer calls made
         inside it.  ``decode.tok_per_s`` is batch x steps / decode seconds;
-        ``stream`` is the routed-stream accounting of two-phase mode."""
+        ``stream`` is the routed-stream accounting of two-phase mode;
+        ``timing["attention_ref_fallbacks"]`` counts the attention oracle
+        fallbacks of the run (``attn_mask`` with ``impl="ref"``)."""
         out: Dict[str, Any] = {}
         for phase in ("prefill", "route", "execute", "decode"):
             ss = [s for s in self.stats if s.phase == phase]
@@ -216,6 +230,8 @@ class ServeLoop:
                     [s.extra["nnzb_routed"] for s in streams])),
                 "grid_nnzb": streams[-1].extra["grid_nnzb"],
             }
+        out["timing"] = {"attention_ref_fallbacks":
+                         flash_ops.fallback_count() - self._fallback_base}
         return out
 
 
@@ -230,9 +246,25 @@ def main(argv=None):
     ap.add_argument("--dispatch", choices=["config", "gather", "bcsr"],
                     default="config",
                     help="MoE dispatch backend (config = the arch's field)")
+    ap.add_argument("--attn-mask", default="none",
+                    choices=["none", "sliding", "local_global", "strided"],
+                    help="route prefill attention through the masked flash "
+                         "kernels: 'sliding' = local layers only (each "
+                         "layer's own window), others additionally impose "
+                         "the named long-context pattern on full-attention "
+                         "layers")
+    ap.add_argument("--attn-mask-impl", default="sparse",
+                    choices=["sparse", "dense", "ref"],
+                    help="masked-attention implementation (dense/ref are "
+                         "the parity baselines)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    attn_mask = None
+    if args.attn_mask != "none":
+        pattern = None if args.attn_mask == "sliding" else args.attn_mask
+        attn_mask = AttnMaskSpec(local=True, pattern=pattern,
+                                 impl=args.attn_mask_impl)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
@@ -244,7 +276,8 @@ def main(argv=None):
     loop = ServeLoop(params, cfg, max_seq=max_seq,
                      dispatch=None if args.dispatch == "config"
                      else args.dispatch,
-                     temperature=args.temperature, device=device)
+                     temperature=args.temperature, attn_mask=attn_mask,
+                     device=device)
     gen = loop.run(prompts, args.gen)
     s = loop.summary()
 
@@ -262,6 +295,9 @@ def main(argv=None):
         st = s["stream"]
         print(f"stream:  nnzb {st['nnzb_stream_mean']:.1f} (bucketed) vs "
               f"{st['grid_nnzb']} full-grid blocks")
+    if attn_mask is not None:
+        print(f"attn mask: {args.attn_mask} ({args.attn_mask_impl}), "
+              f"{s['timing']['attention_ref_fallbacks']} oracle fallbacks")
     print("sample generations (token ids):")
     for b in range(min(args.batch, 2)):
         print(f"  [{b}] {gen[b, :16].tolist()}")

@@ -1,11 +1,12 @@
 """Neural-net layer primitives: norms, RoPE, GQA attention, MLPs.
 
 Pure functions on tensors with parameter dicts, as in the reference.
-Attention here is the reference's ``impl="chunked"`` (online softmax over KV
-chunks) for prefill and ``decode_attention`` for one-token decode with a
-scalar cache position.  Not ported yet: ``impl="kernel"`` (the flash
-kernels), ``attn_mask``, ``kv_quant``, per-row decode positions and
-ring-buffer (local-window) caches.
+Prefill attention is ``impl="chunked"`` (online softmax over KV chunks, the
+default), ``"kernel"`` (the flash kernel K3) or ``"ref"`` (the materialized
+oracle); an ``attn_mask`` (``AttnMaskSpec``) sends prefill through the masked
+flash kernels (K4s / K4m).  Decode is ``decode_attention`` with a scalar
+cache position.  Not ported yet: ``impl="kernel_sharded"``, ``kv_quant``,
+per-row decode positions and ring-buffer (local-window) caches.
 
 Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
 bf16 result accumulated in f32 (reduced-precision reductions are off, see
@@ -15,12 +16,16 @@ f32 first: the products are exact and the sum is f32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import NEG_INF, decode_attention
+from repro_torch.core.masks import NEG_INF, AttnMaskSpec
+from repro_torch.kernels import tuning
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.config import ArchConfig
 
 
@@ -161,27 +166,68 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     return out.reshape(B, Hq, Sq, hd).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _layer_mask(spec: AttnMaskSpec, S: int, window: Optional[int], bq: int,
+                bk: int):
+    """The spec's mask for a prefill of S tokens, built once and shared by
+    every layer of that geometry."""
+    return spec.build(S, S, layer_window=window, bq=bq, bk=bk)
+
+
+def _masked_prefill_attention(q, k, v, spec: AttnMaskSpec,
+                              window: Optional[int]):
+    """Prefill through the masked flash kernels when the spec applies to
+    this layer (sliding-window layers via ``spec.local``, full-attention
+    layers via ``spec.pattern``); None -> the caller takes its ``impl``.
+    Tiles not given by the spec come from the ``flash`` row of the device's
+    tuning table."""
+    S, D = q.shape[2], q.shape[3]
+    bq, bk = spec.bq, spec.bk
+    if bq is None or bk is None:
+        tbq, tbk = tuning.flash_tiles(S, S, D, q.dtype, q.device)
+        bq, bk = bq or tbq, bk or tbk
+    mask = _layer_mask(spec, S, window, bq, bk)
+    if mask is None:
+        return None
+    return fops.attention(q, k, v, mask=mask, mask_impl=spec.impl)
+
+
 def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                     window: Optional[int] = None,
                     positions: Optional[torch.Tensor] = None,
                     impl: str = "chunked", cache=None,
-                    cache_len: Optional[int] = None, collect_kv: int = 0):
+                    cache_len: Optional[int] = None, collect_kv: int = 0,
+                    attn_mask: Optional[AttnMaskSpec] = None):
     """Self-attention (prefill) or one-step decode when ``cache`` is given.
 
+    Prefill: ``impl`` is "chunked" | "kernel" | "ref"; ``attn_mask`` (an
+    ``AttnMaskSpec``) takes precedence where it applies.  ``collect_kv`` > 0
+    also returns a fresh cache of that capacity holding this call's
+    keys/values.  Decode ignores ``impl`` and ``attn_mask``, as in the
+    reference.
     cache: dict(k=(B, Hkv, L, hd), v=...) -- **updated in place**: decode
     writes the new key/value at ``cache_len`` (a Python int, the fill of
-    every row) and returns the same dict.  ``collect_kv`` > 0 (prefill) also
-    returns a fresh cache of that capacity holding this call's keys/values.
+    every row) and returns the same dict.
     Returns (out, new_cache)."""
-    if impl != "chunked":
+    if impl not in ("chunked", "kernel", "ref"):
         raise NotImplementedError(
-            f"apply_attention impl={impl!r}: only 'chunked' is ported")
+            f"apply_attention impl={impl!r}: 'chunked', 'kernel' and 'ref' "
+            "are ported")
     B, S, _ = x.shape
     if cache is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q, k, v = _qkv(p, x, cfg, positions)
-        out = chunked_attention(q, k, v, causal=True, window=window)
+        out = None
+        if attn_mask is not None:
+            out = _masked_prefill_attention(q, k, v, attn_mask, window)
+        if out is None:
+            if impl == "kernel":
+                out = fops.attention(q, k, v, causal=True, window=window)
+            elif impl == "chunked":
+                out = chunked_attention(q, k, v, causal=True, window=window)
+            else:
+                out = attention_ref(q, k, v, causal=True, window=window)
         new_cache = None
         if collect_kv:
             if window and S >= window:
@@ -203,8 +249,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                          torch.full((1,), pos, device=x.device))
         cache["k"][:, :, pos] = k1[:, :, 0].to(cache["k"].dtype)
         cache["v"][:, :, pos] = v1[:, :, 0].to(cache["v"].dtype)
-        out = decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
-                               window=window)
+        out = fops.decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
+                                    window=window)
         new_cache = cache
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(out.dtype), new_cache

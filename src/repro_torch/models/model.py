@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.masks import AttnMaskSpec
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -107,12 +108,15 @@ def _take(tree, i: int):
 
 def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
            moe_fn: Callable, cache=None, pos: Optional[int] = None,
-           collect_kv: int = 0):
-    """One attn / attn+moe sub-layer.  Returns (x, new_cache)."""
+           collect_kv: int = 0, impl: str = "chunked",
+           attn_mask: Optional[AttnMaskSpec] = None):
+    """One attn / attn+moe sub-layer; ``impl`` and ``attn_mask`` reach its
+    prefill attention.  Returns (x, new_cache)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, new_attn = L.apply_attention(
-        p["attn"], h, cfg, cache=None if cache is None else cache["attn"],
-        cache_len=pos, collect_kv=collect_kv)
+        p["attn"], h, cfg, impl=impl,
+        cache=None if cache is None else cache["attn"], cache_len=pos,
+        collect_kv=collect_kv, attn_mask=attn_mask)
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     new_cache = {"attn": new_attn}
@@ -148,14 +152,16 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
 
 def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                     max_seq: int, cache_dtype=torch.bfloat16,
-                    moe_fn: Optional[Callable] = None
+                    moe_fn: Optional[Callable] = None, impl: str = "chunked",
+                    attn_mask: Optional[AttnMaskSpec] = None
                     ) -> Tuple[torch.Tensor, Params, int]:
     """Serving prefill, layer by layer.  ``moe_fn`` (signature of
     ``moe.apply_moe``) runs every attn+moe block's FFN with ``counts=None,
     pos=None`` -- a fresh sequence at position 0; the serving loop injects
-    its route-then-execute stage here.  Returns (last-position logits
-    (B, 1, V) f32, decode cache filled to the prompt length with K/V in
-    ``cache_dtype``, next position)."""
+    its route-then-execute stage here.  ``impl`` ("chunked" | "kernel" |
+    "ref") and ``attn_mask`` (an ``AttnMaskSpec``) reach every attention
+    layer.  Returns (last-position logits (B, 1, V) f32, decode cache filled
+    to the prompt length with K/V in ``cache_dtype``, next position)."""
     _check_kinds(cfg)
     moe_fn = moe_fn or moe.apply_moe
     x = _embed(params, tokens, cfg)
@@ -163,7 +169,8 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     for i in range(cfg.n_repeats):
         for slot, kind in enumerate(cfg.block_unit):
             x, c = _block(kind, _take(params["blocks"][slot], i), x, cfg,
-                          moe_fn=moe_fn, collect_kv=max_seq)
+                          moe_fn=moe_fn, collect_kv=max_seq, impl=impl,
+                          attn_mask=attn_mask)
             per_slot[slot].append(c)
     logits = final_logits(params, x, cfg, last_only=True)
     slots = []

@@ -1,0 +1,256 @@
+"""Port vs reference: the flash-attention kernels K3, K4m, K4s and ``ops``.
+
+On the CPU the port's wrappers take their plain versions (``ref.py``, the
+kernels' tile loop in PyTorch); the reference runs its Pallas kernels in
+interpret mode.  Same numpy-seeded f32 inputs through both, ``atol = rtol =
+1e-5``: the frameworks sum the tile products in other orders, nothing else
+differs.  Inside the port the kernels' laws hold exactly (``torch.equal``):
+sparse walk == masked grid, sparse walk on a plain causal / window mask ==
+K3, and bucket padding changes nothing.
+"""
+import collections
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import masks as R
+from repro.kernels import tuning as r_tuning
+from repro.kernels.flash_attention import kernel as rk
+from repro.kernels.flash_attention import ops as r_ops
+
+from repro_torch.core import masks as P
+from repro_torch.kernels import tuning
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import ref
+
+torch.set_num_threads(2)
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _qkv(B=2, Hq=4, Hkv=2, Sq=64, Skv=96, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32) for s in
+                 ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _j(*arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+def _zoo(m, sq, skv, bq, bk):
+    local = m.BlockMask.sliding_window(sq, skv, 3 * bk, bq=bq, bk=bk)
+    return {
+        "causal": m.BlockMask.causal(sq, skv, bq=bq, bk=bk),
+        "window": m.BlockMask.sliding_window(sq, skv, 2 * bk, bq=bq, bk=bk),
+        "strided": m.BlockMask.strided(sq, skv, 2, bq=bq, bk=bk),
+        "global": m.BlockMask.global_cols(sq, skv, 1, bq=bq, bk=bk),
+        "local|global": local | m.BlockMask.global_cols(sq, skv, 1,
+                                                        bq=bq, bk=bk),
+        "strided&causal": (m.BlockMask.strided(sq, skv, 2, bq=bq, bk=bk)
+                           & m.BlockMask.causal(sq, skv, bq=bq, bk=bk)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_zoo(R, 64, 64, 16, 16)))
+def test_sparse_and_masked_match_reference(name):
+    """K4s and K4m (plain) vs the reference's K4s in interpret mode, which
+    the reference holds bit-equal to its K4m; inside the port sparse ==
+    masked exactly."""
+    bq = bk = 16
+    q, k, v = _qkv()
+    rm, pm = _zoo(R, 64, 96, bq, bk)[name], _zoo(P, 64, 96, bq, bk)[name]
+    rs, ps = rm.lower(bucket=True), pm.lower(bucket=True)
+    want = np.asarray(rk.flash_attention_sparse(
+        *_j(q, k, v), rs.rows, rs.cols, rs.kinds, skv=96, window=rm.window,
+        bq=bq, bk=bk, interpret=True))
+    sparse = fk.flash_attention_sparse(
+        *_t(q, k, v), ps.rows, ps.cols, ps.kinds, skv=96, window=pm.window,
+        bq=bq, bk=bk)
+    masked = fk.flash_attention_masked(*_t(q, k, v), pm.tile_kinds, skv=96,
+                                       window=pm.window)
+    np.testing.assert_allclose(sparse.numpy(), want, **TOL)
+    assert torch.equal(sparse, masked)
+    # and both agree with the materialized oracle
+    np.testing.assert_allclose(
+        sparse.numpy(), ref.attention_ref(*_t(q, k, v), mask=pm).numpy(),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("window,q_offset,gqa", [
+    (None, 0, (4, 2)), (24, 0, (4, 2)), (None, 32, (2, 2)), (40, 16, (4, 1))])
+def test_flash_matches_reference_and_sparse_law(window, q_offset, gqa):
+    """K3 (plain) vs the reference K3 in interpret mode; and the sparse
+    walk on ``BlockMask.full(causal[, window])`` equals K3 exactly."""
+    bq = bk = 16
+    q, k, v = _qkv(Hq=gqa[0], Hkv=gqa[1], Sq=64, Skv=96)
+    want = np.asarray(rk.flash_attention(
+        *_j(q, k, v), causal=True, window=window, bq=bq, bk=bk,
+        q_offset=q_offset, interpret=True))
+    got = fk.flash_attention(*_t(q, k, v), causal=True, window=window,
+                             bq=bq, bk=bk, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    m = P.BlockMask.full(64, 96, bq=bq, bk=bk, causal=True, window=window,
+                         q_offset=q_offset)
+    s = m.lower(bucket=True)
+    sparse = fk.flash_attention_sparse(
+        *_t(q, k, v), s.rows, s.cols, s.kinds, skv=96, window=window,
+        bq=bq, bk=bk, q_offset=q_offset)
+    assert torch.equal(sparse, got)
+
+
+def test_bucketed_stream_is_noop_and_empty_rows_zero():
+    bq = bk = 16
+    q, k, v = _t(*_qkv(Sq=64, Skv=64))
+    m = P.BlockMask.sliding_window(64, 64, 32, bq=bq, bk=bk)
+    outs = []
+    for kw in ({"bucket": False}, {"bucket": True},
+               {"bucket": True, "min_bucket": 64}):
+        s = m.lower(**kw)
+        outs.append(fk.flash_attention_sparse(
+            q, k, v, s.rows, s.cols, s.kinds, skv=64, window=m.window,
+            bq=bq, bk=bk))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    # a q-tile row with no visible tile is an empty-row marker: zeros
+    kinds = m.tile_kinds.copy()
+    kinds[2] = P.KIND_DEAD
+    dead = P.BlockMask(64, 64, bq, bk, kinds, window=m.window)
+    s = dead.lower()
+    out = fk.flash_attention_sparse(q, k, v, s.rows, s.cols, s.kinds,
+                                    skv=64, window=m.window, bq=bq, bk=bk)
+    assert out[:, :, 2 * bq:3 * bq].abs().max() == 0
+    assert torch.equal(out, fk.flash_attention_masked(
+        q, k, v, kinds, skv=64, window=m.window))
+
+
+@pytest.mark.parametrize("impl", ["sparse", "dense"])
+def test_ragged_gqa_via_ops_matches_reference(impl):
+    """ops.attention pads ragged S to tiles; GQA heads share KV."""
+    q, k, v = _qkv(B=2, Hq=4, Hkv=2, Sq=52, Skv=52)
+    rm = R.BlockMask.sliding_window(52, 52, 24, bq=16, bk=16)
+    pm = P.BlockMask.sliding_window(52, 52, 24, bq=16, bk=16)
+    want = np.asarray(r_ops.attention(*_j(q, k, v), mask=rm, mask_impl=impl,
+                                      interpret=True))
+    got = ops.attention(*_t(q, k, v), mask=pm, mask_impl=impl)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    other = ops.attention(*_t(q, k, v), mask=pm,
+                          mask_impl="dense" if impl == "sparse" else "sparse")
+    assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("S,Skv,bq,bk,window,causal", [
+    (52, 52, 16, 16, None, True), (40, 40, None, None, None, True),
+    (72, 72, 16, 8, 20, True), (16, 13, 8, 8, None, False),
+    (52, 44, 16, 16, None, False)])
+def test_flash_via_ops_matches_reference(S, Skv, bq, bk, window, causal):
+    """K3 through ops.attention: the reference's tile re-clamp and padding,
+    CPU tuning rows when no tiles are given.  A ragged non-causal KV runs on
+    K3 too, its padded keys masked by the true KV length (the reference
+    takes its oracle there)."""
+    q, k, v = _qkv(B=1, Hq=4, Hkv=2, Sq=S, Skv=Skv)
+    want = np.asarray(r_ops.attention(*_j(q, k, v), causal=causal,
+                                      window=window, bq=bq, bk=bk,
+                                      interpret=True))
+    ops.reset_fallbacks()
+    got = ops.attention(*_t(q, k, v), causal=causal, window=window, bq=bq,
+                        bk=bk, fallback="error")
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert ops.fallback_count() == 0
+
+
+def test_fallback_counter_and_error_knob():
+    q, k, v = _t(*_qkv(B=1, Hq=2, Hkv=2, Sq=16, Skv=16))
+    ops.reset_fallbacks()
+    ops.attention(q, k, v, use_kernel=False)
+    assert ops.fallback_count() == 1
+    assert ops.fallback_reasons() == {"use_kernel=False": 1}
+    # no shape forces the oracle: a non-causal ragged KV runs on K3, its
+    # padded keys masked
+    q2, k2, v2 = _t(*_qkv(B=1, Hq=2, Hkv=2, Sq=16, Skv=13))
+    got = ops.attention(q2, k2, v2, causal=False, bq=8, bk=8,
+                        fallback="error")
+    assert ops.fallback_count() == 1
+    np.testing.assert_allclose(
+        got.numpy(), ref.attention_ref(q2, k2, v2, causal=False).numpy(),
+        **TOL)
+    m = P.BlockMask.causal(16, 16, bq=8, bk=8)
+    ops.attention(q, k, v, mask=m, mask_impl="ref")
+    assert ops.fallback_count() == 2
+    with pytest.raises(RuntimeError, match="fallback='error'"):
+        ops.attention(q, k, v, use_kernel=False, fallback="error")
+    with pytest.raises(RuntimeError, match="fallback='error'"):
+        ops.attention(q, k, v, mask=m, mask_impl="ref", fallback="error")
+    with pytest.raises(ValueError):
+        ops.attention(q, k, v, mask=m, mask_impl="bogus")
+    # the kernel paths never touch the oracle
+    for impl in ("sparse", "dense"):
+        ops.attention(q, k, v, mask=m, mask_impl=impl, fallback="error")
+    ops.attention(q, k, v, fallback="error")
+    assert ops.fallback_count() == 2
+    ops.reset_fallbacks()
+    assert ops.fallback_count() == 0
+
+
+def test_cpu_tensors_take_the_plain_path():
+    """A CPU tensor never launches (and never builds) a kernel."""
+    before = (fk.flash_attention.launches, fk.flash_attention_masked.launches,
+              fk.flash_attention_sparse.launches)
+    q, k, v = _t(*_qkv(B=1, Hq=2, Hkv=2, Sq=16, Skv=16))
+    m = P.BlockMask.causal(16, 16, bq=8, bk=8)
+    s = m.lower()
+    a = fk.flash_attention(q, k, v, bq=8, bk=8)
+    b = fk.flash_attention_masked(q, k, v, m.tile_kinds, skv=16)
+    c = fk.flash_attention_sparse(q, k, v, s.rows, s.cols, s.kinds, skv=16,
+                                  bq=8, bk=8)
+    assert torch.equal(a, b) and torch.equal(b, c)
+    assert (fk.flash_attention.launches, fk.flash_attention_masked.launches,
+            fk.flash_attention_sparse.launches) == before
+
+
+def test_masked_paths_lower_each_mask_once(monkeypatch):
+    """The layers of a prefill share one mask: ops lowers and uploads it
+    once, keyed by its signature, and a different mask is lowered anew."""
+    lowered = []
+    lower = P.BlockMask.lower
+
+    def counted(self, **kw):
+        lowered.append(self.signature())
+        return lower(self, **kw)
+
+    monkeypatch.setattr(P.BlockMask, "lower", counted)
+    monkeypatch.setattr(ops, "_INDICES", collections.OrderedDict())
+    q, k, v = _t(*_qkv(B=1, Hq=2, Hkv=2, Sq=48, Skv=48, seed=3))
+    m = P.BlockMask.sliding_window(48, 48, 16, bq=8, bk=8)
+    outs = [ops.attention(q, k, v, mask=mask, mask_impl="sparse")
+            for mask in (m, m, P.BlockMask.sliding_window(48, 48, 16, bq=8,
+                                                          bk=8))]
+    assert len(lowered) == 1
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    ops.attention(q, k, v, mask=P.BlockMask.causal(48, 48, bq=8, bk=8),
+                  mask_impl="sparse")
+    assert len(lowered) == 2 and lowered[0] != lowered[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tuning_rows(dtype):
+    """CPU tiles equal the reference's CPU tiles, dense and masked (so CPU
+    masks do); the card's tiles fit the kernels (at most 64, within shared
+    memory)."""
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    for sq, skv, d in ((2048, 2048, 128), (52, 52, 16), (6, 6, 16),
+                       (300, 4096, 64)):
+        got = tuning.flash_tiles(sq, skv, d, dtype)
+        assert got == r_tuning.flash_tiles(sq, skv, d, jdt)
+        assert got == r_tuning.flash_sparse_tiles(sq, skv, d, jdt,
+                                                  pattern="local_global")
+        bq, bk = tuning.flash_tiles(sq, skv, d, dtype, "cuda")
+        assert 1 <= bq <= tuning.FLASH_MAX_TILE
+        assert 1 <= bk <= tuning.FLASH_MAX_TILE
+        assert tuning.flash_smem_bytes(bq, bk, d) <= tuning.SMEM_BUDGET
+    assert tuning.flash_tiles(2048, 2048, 128, dtype, "cuda") == (64, 64)

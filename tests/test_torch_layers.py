@@ -1,4 +1,5 @@
-"""Port vs reference: norms, RoPE, attention (prefill + decode) and MLPs.
+"""Port vs reference: norms, RoPE, attention (prefill + decode, chunked,
+kernel, masked and oracle prefill) and MLPs.
 
 Same numpy-seeded inputs through the reference (``repro.models.layers``,
 ``repro.kernels.flash_attention.ops``) and the port, f32, atol 1e-5: the
@@ -14,10 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.masks import AttnMaskSpec as RAttnMaskSpec
 from repro.kernels.flash_attention import ops as r_fops
 from repro.models import layers as RL
 from repro.models.config import ArchConfig as RArchConfig
 
+from repro_torch.core.masks import AttnMaskSpec
 from repro_torch.interop import params_from_jax, to_tensor
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.models import layers as L
@@ -114,14 +117,63 @@ def test_apply_attention_prefill_then_decode(variant):
         np.testing.assert_array_equal(new[f].float().numpy(), _np(rnew[f]))
 
 
+def _attn_params(variant="plain"):
+    rcfg, cfg = _cfgs(**VARIANTS[variant])
+    rp = RL.init_attention(jax.random.PRNGKey(0), rcfg)
+    return rcfg, cfg, rp, params_from_jax(jax.device_get(rp), cfg,
+                                          device="cpu")
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_apply_attention_kernel_matches_reference(variant):
+    """impl="kernel" (K3 through ops.attention, plain on the CPU) vs the
+    reference's flash path in interpret mode on the same q/k/v.  The
+    reference's own ``apply_attention(impl="kernel")`` cannot run on a CPU
+    (it calls the Pallas kernel without ``interpret=``)."""
+    rcfg, cfg, rp, p = _attn_params(variant)
+    B, S = 2, 20
+    x = _x((B, S, 32), 10)
+    q, k, v = RL._qkv(rp, jnp.asarray(x), rcfg, jnp.arange(S))
+    o = r_fops.attention(q, k, v, causal=True, bq=8, bk=8, interpret=True)
+    want = o.transpose(0, 2, 1, 3).reshape(B, S, -1) @ rp["wo"]
+    got, _ = L.apply_attention(p, torch.from_numpy(x), cfg, impl="kernel")
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("impl", ["sparse", "dense", "ref"])
+def test_apply_attention_masked_prefill_matches_reference(impl):
+    """attn_mask= sends prefill through the masked kernels (plain on the
+    CPU); the reference runs its own in interpret mode.  Explicit tiles and
+    window: the mask's meaning depends on them."""
+    rcfg, cfg, rp, p = _attn_params()
+    x = _x((2, 24, 32), 11)
+    kw = dict(local=True, pattern="local_global", window=8, bq=8, bk=8,
+              impl=impl)
+    want, _ = RL.apply_attention(rp, jnp.asarray(x), rcfg,
+                                 attn_mask=RAttnMaskSpec(**kw))
+    got, _ = L.apply_attention(p, torch.from_numpy(x), cfg,
+                               attn_mask=AttnMaskSpec(**kw))
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    # a spec that does not apply to a full-attention layer leaves impl
+    got_none, _ = L.apply_attention(p, torch.from_numpy(x), cfg,
+                                    attn_mask=AttnMaskSpec(pattern=None))
+    plain, _ = L.apply_attention(p, torch.from_numpy(x), cfg)
+    assert torch.equal(got_none, plain)
+
+
+def test_apply_attention_ref_matches_reference():
+    rcfg, cfg, rp, p = _attn_params()
+    x = _x((2, 9, 32), 12)
+    want, _ = RL.apply_attention(rp, jnp.asarray(x), rcfg, impl="ref")
+    got, _ = L.apply_attention(p, torch.from_numpy(x), cfg, impl="ref")
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
 def test_apply_attention_refuses_unported_paths():
-    _, cfg = _cfgs()
-    rcfg, _ = _cfgs()
-    p = params_from_jax(jax.device_get(
-        RL.init_attention(jax.random.PRNGKey(0), rcfg)), cfg, device="cpu")
+    _, cfg, _, p = _attn_params()
     x = torch.from_numpy(_x((1, 4, 32)))
     with pytest.raises(NotImplementedError):
-        L.apply_attention(p, x, cfg, impl="kernel")
+        L.apply_attention(p, x, cfg, impl="kernel_sharded")
     c = {f: torch.zeros(1, 2, 8, 16) for f in ("k", "v")}
     with pytest.raises(NotImplementedError):
         L.apply_attention(p, x[:, :1], cfg, cache=c,

@@ -20,13 +20,16 @@ import pytest
 import torch
 
 from repro.configs import get_smoke as r_get_smoke
+from repro.core.masks import AttnMaskSpec as RAttnMaskSpec
 from repro.launch.serve import ServeLoop as RServeLoop
 from repro.models import model as RM
 from repro.models.config import ArchConfig as RArchConfig
 
 import repro_torch
 from repro_torch import configs
+from repro_torch.core.masks import AttnMaskSpec
 from repro_torch.interop import params_from_jax, to_tensor
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.launch import serve
 from repro_torch.launch.serve import ServeLoop
 from repro_torch.models import model as M
@@ -117,6 +120,74 @@ def test_prefill_logits_and_decode_match_reference(model):
     np.testing.assert_allclose(got.numpy(), np.asarray(rl), atol=1e-4, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def scout_masked():
+    """scout-SMOKE (f32) weights and B=4 prompts of 32 tokens: the masked
+    serving comparison (the reference's bcsr path needs a batch that is a
+    multiple of its 4 virtual devices; its gather path is the oracle)."""
+    rcfg, cfg = _cfgs("scout-smoke")
+    rparams = jax.jit(RM.init_params, static_argnums=1)(jax.random.PRNGKey(0),
+                                                        rcfg)
+    params = params_from_jax(jax.device_get(rparams), cfg, device="cpu")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                                (4, 32)).astype(np.int32)
+    return rcfg, cfg, rparams, params, prompts
+
+
+MASK_KW = dict(local=True, pattern="local_global", window=8, bq=8, bk=8)
+MASK_GEN = 6
+
+
+@pytest.mark.parametrize("impl", ["sparse", "dense"])
+def test_masked_serve_loop_matches_reference(scout_masked, impl):
+    """Masked prefill serving: the port's bcsr ServeLoop gives the
+    reference gather ServeLoop's greedy tokens, and within the port the
+    sparse walk gives the dense-masked tokens."""
+    rcfg, cfg, rparams, params, prompts = scout_masked
+    max_seq = prompts.shape[1] + MASK_GEN
+    want = RServeLoop(rparams, rcfg, max_seq=max_seq, dispatch="gather",
+                      attn_mask=RAttnMaskSpec(**MASK_KW, impl=impl)).run(
+        jnp.asarray(prompts), MASK_GEN)
+    toks = {}
+    for i in ("sparse", "dense"):
+        loop = ServeLoop(params, cfg, max_seq=max_seq, dispatch="bcsr",
+                         attn_mask=AttnMaskSpec(**MASK_KW, impl=i),
+                         device="cpu")
+        toks[i] = loop.run(prompts, MASK_GEN)
+        assert loop.summary()["timing"]["attention_ref_fallbacks"] == 0
+    np.testing.assert_array_equal(toks[impl], want)
+    np.testing.assert_array_equal(toks["sparse"], toks["dense"])
+    # the mask is a real test: unmasked serving gives other tokens
+    plain = ServeLoop(params, cfg, max_seq=max_seq, dispatch="bcsr",
+                      device="cpu").run(prompts, MASK_GEN)
+    assert not np.array_equal(plain, toks[impl])
+
+
+def test_masked_prefill_kernel_impl_and_fallbacks(scout_masked):
+    """prefill_layered(impl="kernel") runs K3 (plain on the CPU) at every
+    layer and agrees with the chunked prefill to the formulations'
+    difference; attn_mask impl="ref" is counted in summary()["timing"]."""
+    rcfg, cfg, rparams, params, prompts = scout_masked
+    toks = torch.from_numpy(prompts).long()
+    kern, kcache, _ = M.prefill_layered(params, toks, cfg, max_seq=40,
+                                        moe_fn=_two_phase, impl="kernel")
+    chunk, ccache, _ = M.prefill_layered(params, toks, cfg, max_seq=40,
+                                         moe_fn=_two_phase)
+    np.testing.assert_allclose(kern.numpy(), chunk.numpy(), atol=1e-4,
+                               rtol=0)
+    for a, b in zip(kcache["slots"], ccache["slots"]):
+        assert torch.equal(a["attn"]["k"], b["attn"]["k"])
+    loop = ServeLoop(params, cfg, max_seq=prompts.shape[1] + 3,
+                     dispatch="bcsr", device="cpu",
+                     attn_mask=AttnMaskSpec(**MASK_KW, impl="ref"))
+    before = fops.fallback_count()
+    loop.run(prompts, 3)
+    n = loop.summary()["timing"]["attention_ref_fallbacks"]
+    assert n == cfg.n_repeats == fops.fallback_count() - before
+    loop.run(prompts, 3)           # counted from the run's own baseline
+    assert loop.summary()["timing"]["attention_ref_fallbacks"] == n
+
+
 def test_init_params_layout_matches_reference():
     """The port's param tree has the reference's structure and shapes, with
     matmul weights in the compute dtype and norms/routers in f32."""
@@ -201,6 +272,13 @@ def test_cli_main_on_cpu(capsys):
     assert "[two-phase]" in out and "stream:" in out
     np.testing.assert_array_equal(serve.main(args + ["--dispatch", "gather"]),
                                   bcsr)
+    masked = serve.main(args + ["--attn-mask", "local_global",
+                                "--attn-mask-impl", "sparse"])
+    assert "attn mask: local_global (sparse), 0 oracle fallbacks" in \
+        capsys.readouterr().out
+    np.testing.assert_array_equal(
+        serve.main(args + ["--attn-mask", "local_global",
+                           "--attn-mask-impl", "dense"]), masked)
 
 
 def test_port_imports_no_jax():
@@ -208,7 +286,11 @@ def test_port_imports_no_jax():
     reference package."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for mod in ("core/masks.py", "kernels/flash_attention/kernel.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py"):
+        assert "src/repro_torch/" + mod in names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
