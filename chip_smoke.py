@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the TF32 flags;
-2. build every CUDA kernel of the port from the sources in this checkout,
-   one ``nvcc`` each, all started together;
+2. build every CUDA kernel of the port from the sources in this checkout
+   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b: four sources), one ``nvcc`` each, all
+   started together, with build seconds and register counts;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), empty block-rows, bucket-pad
    entries, N not a multiple of the tile); K3, K4m and K4s on random q, k, v
@@ -17,7 +18,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    pattern zoo, bucketed and unbucketed streams, a window, a nonzero
    q_offset, ragged S through ``ops.attention``, causal or not), with the
    laws K4s == K4m, bucketed == unbucketed and K4s on a plain causal /
-   window mask == K3 as ``torch.equal``;
+   window mask == K3 as ``torch.equal``; then, as ``torch.equal``, K6a and
+   K6b (five stencils, f32 and bf16, ragged, two tiles), K5 (wide, and with
+   ``a_scales`` == on host-dequantized rows, three formats), K2q (== K2 on
+   host-dequantized blocks, three formats, f32 and bf16 dense), and the
+   port's quantizer on the card == on the CPU, as bytes;
 4. a small f32 config (llama4-scout SMOKE) must give the same prefill
    logits on the card and on the CPU: chunked attention, masked attention
    (K4s) and kernel attention (K3);
@@ -34,9 +39,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    identical tokens and no oracle fallback;
 7. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
    K3), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q, k, v;
-8. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound) and one with the serving summary;
-9. last line: {"ok": true, "device": {...}}.
+8. the sparse library slice at the paper's workload sizes, data made on
+   the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
+   j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
+   8192^2 A (5 %) x B (1 %), wide and with fp8 e4m3 ``a_scales``, and
+   ``spmm.ops.spmm`` on a banded 8192^2 fp8 e4m3 BCSR (bandwidth 512,
+   8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
+   plain versions and the oracles;
+9. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
+   bound; K2, K3, K4m, K4s, K6a, K6b, K5, K2q) and one with the serving
+   and library summary;
+10. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
 just after it; launches made to compare a kernel with its plain version or
@@ -59,6 +72,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 BATCH, PROMPT, GEN, DEPTH = 4, 256, 16, 8
 # masked and kernel prefill: prompt length and the local window of the
@@ -99,22 +113,36 @@ def max_err(got, want, what: str) -> float:
 
 
 def _counted():
-    """Every kernel wrapper of the port, by name; each counts its launches
-    in ``.launches``."""
+    """Every kernel of the port, by name: its wrapper and the attribute in
+    which the wrapper counts its launches (K2 and K2q share a wrapper)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.spmm import kernel as sk
-    return {"spmm_bcsr": sk.spmm_bcsr, "flash_attention": fk.flash_attention,
-            "flash_attention_masked": fk.flash_attention_masked,
-            "flash_attention_sparse": fk.flash_attention_sparse}
+    from repro_torch.kernels.spmspm import kernel as pk
+    from repro_torch.kernels.stencil import kernel as tk
+    return {"spmm_bcsr": (sk.spmm_bcsr, "launches"),
+            "spmm_bcsr_quant": (sk.spmm_bcsr, "quant_launches"),
+            "flash_attention": (fk.flash_attention, "launches"),
+            "flash_attention_masked": (fk.flash_attention_masked, "launches"),
+            "flash_attention_sparse": (fk.flash_attention_sparse, "launches"),
+            "spmspm_ell": (pk.spmspm_ell, "launches"),
+            "stencil_2d": (tk.stencil_2d, "launches"),
+            "stencil_3d": (tk.stencil_3d, "launches")}
 
 
 def reset_launches() -> None:
-    for fn in _counted().values():
-        fn.launches = 0
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counted().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in
+            _counted().items()}
+
+
+def only(**launches) -> dict:
+    """The launch counts of a run that launched these kernels and no
+    other."""
+    return {name: launches.get(name, 0) for name in _counted()}
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -140,6 +168,18 @@ def phase_card():
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    # the host CPU runs the plain versions that some checks compare with
+    info = {}
+    for line in open("/proc/cpuinfo"):
+        key, _, val = line.partition(":")
+        info.setdefault(key.strip(), val.strip())
+    cpu = (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} "
+           f"family {info.get('cpu family', '?')} model "
+           f"{info.get('model', '?')}; amx "
+           f"{'amx_tile' in info.get('flags', '').split()})")
+    print(f"host cpu: {cpu}, {os.cpu_count()} cores, torch cpu capability "
+          f"{torch.backends.cpu.get_cpu_capability()}, "
+          f"{torch.get_num_threads()} threads")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -233,6 +273,21 @@ def _mask_zoo(S: int, t: int) -> dict:
             "strided&causal": BM.strided(S, S, 2, **kw) & BM.causal(S, S, **kw)}
 
 
+def _attention_f64(q, k, v, causal: bool):
+    """Softmax attention in f64 on the host, GQA by repeated KV heads: the
+    oracle against which both sides of a kernel-vs-plain check are read."""
+    import torch
+    q, k, v = (x.cpu().double() for x in (q, k, v))
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    return torch.softmax(s, dim=-1) @ v
+
+
 def phase_attention_vs_plain():
     """K3, K4m and K4s against their plain versions (``ref.py``, the same
     tile loop in PyTorch) on random q, k, v on the card, with the
@@ -298,7 +353,20 @@ def phase_attention_vs_plain():
                              ("K4s", dict(mask=m, mask_impl="sparse")),
                              ("K4m", dict(mask=m, mask_impl="dense"))):
                 want = ops.attention(qr.cpu(), kr.cpu(), vr.cpu(), **kw)
-                note(name, ops.attention(qr, kr, vr, **kw), want.cuda(),
+                got = ops.attention(qr, kr, vr, **kw)
+                if "causal" in kw:
+                    # each side against an f64 oracle, printed before the
+                    # check, so a disagreement shows which side moved; and
+                    # the card's result repeats bit for bit
+                    exact = _attention_f64(qr, kr, vr, kw["causal"])
+                    card_err, cpu_err = ((x.cpu().double() - exact).abs()
+                                         .max().item() for x in (got, want))
+                    print(f"    K3 via ops, S={Sr} causal={kw['causal']}: vs "
+                          f"f64, card {card_err:.3g}, host cpu {cpu_err:.3g}")
+                    check(all(torch.equal(ops.attention(qr, kr, vr, **kw),
+                                          got) for _ in range(8)),
+                          f"K3 via ops, S={Sr}: the card's result varies")
+                note(name, got, want.cuda(),
                      f"{name} via ops, S={Sr} {kw.get('causal', 'mask')}")
             # a ragged non-causal KV against the materialized oracle, which
             # sums in another order (so twice the tolerance): the padded
@@ -516,9 +584,7 @@ def phase_masked_serving(cfg, params):
               f"execute {prefill['execute']:.1f}), decode "
               f"{summary['decode']['tok_per_s']:.1f} tok/s; tokens "
               f"{tokens[0, :8].tolist()} ...")
-        want = {"spmm_bcsr": n_moe * GEN, "flash_attention": 0,
-                "flash_attention_masked": 0, "flash_attention_sparse": 0}
-        want[kernel] = cfg.n_repeats
+        want = only(spmm_bcsr=n_moe * GEN, **{kernel: cfg.n_repeats})
         check(counts == want, f"{impl}: launches {counts} != {want}")
         check(ops.fallback_count() == 0
               and summary["timing"]["attention_ref_fallbacks"] == 0,
@@ -565,8 +631,7 @@ def phase_kernel_prefill(cfg, params):
     prefill_ms = (time.monotonic() - t0) * 1e3
     counts = read_launches()
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
-    want = {"spmm_bcsr": n_moe, "flash_attention": cfg.n_repeats,
-            "flash_attention_masked": 0, "flash_attention_sparse": 0}
+    want = only(spmm_bcsr=n_moe, flash_attention=cfg.n_repeats)
     check(counts == want, f"kernel prefill: launches {counts} != {want}")
     check(tuple(logits.shape) == (BATCH, 1, cfg.padded_vocab)
           and bool(torch.isfinite(logits).all()),
@@ -735,6 +800,395 @@ def phase_measure(captured, launches, card):
             "card": card}
 
 
+# ---------------------------------------------------------------------------
+# The sparse library slice: stencils (K6a, K6b), SpMSpM (K5), quantized SpMM
+# (K2q), driven through the public ops at the paper's workload sizes.
+# ---------------------------------------------------------------------------
+
+QUANT = ("fp8_e4m3", "fp8_e5m2", "int8")
+STENCIL_3D, STENCIL_2D = 512, 16384        # interior edge of the grids
+SPMSPM_N, SPMSPM_DA, SPMSPM_DB = 8192, 0.05, 0.01
+SPMSPM_BAND = 64                           # rows the plain version runs on
+SPMM_N, SPMM_BAND, SPMM_COLS = 8192, 512, 4096
+SPMM_BLOCK = (8, 8)
+LIB_SRC = "src/repro/kernels/"
+
+
+def _sparse(g, shape, density):
+    """A dense f32 matrix on the card: N(0, 1) values where a uniform draw
+    falls below ``density``, else 0."""
+    import torch
+    mask = torch.rand(shape, generator=g, device="cuda") < density
+    return torch.randn(shape, generator=g, device="cuda") * mask
+
+
+def _eq(got, want, what: str) -> None:
+    import torch
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{what}: kernel != plain "
+          f"(max diff {(got.float() - want.float()).abs().max().item()})")
+
+
+def phase_library_vs_plain():
+    """K6a, K6b, K5 and K2q against their plain versions on random inputs
+    on the card, each as ``torch.equal`` (the kernels round every product
+    and sum as the plain versions do): all five stencils in f32 and bf16 on
+    ragged shapes at the tuning row's tile and at a small tile; K5 wide at
+    two densities and three launch shapes (the same bits), and K5 with
+    ``a_scales`` == K5 on host-dequantized rows for the three formats; K2q
+    == K2 on host-dequantized f32 blocks for the three formats, f32 and
+    bf16 dense, blocks (8, 8) and (16, 8); the port's quantizer on the card
+    == the same quantizer on the CPU, as bytes."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core import precision as P
+    from repro_torch.core.stencils import STENCILS
+    from repro_torch.kernels.spmm import ops as mo
+    from repro_torch.kernels.spmspm import kernel as pk
+    from repro_torch.kernels.spmspm import ops as po
+    from repro_torch.kernels.spmspm import ref as pr
+    from repro_torch.kernels.stencil import kernel as sk
+    from repro_torch.kernels.stencil import ref as sr
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for name, spec in STENCILS.items():
+        r = spec.radius
+        shape = (100, 333) if spec.ndim == 2 else (19, 37, 70)
+        fn = sk.stencil_2d if spec.ndim == 2 else sk.stencil_3d
+        for dt in (torch.float32, torch.bfloat16):
+            grid = torch.randn(tuple(n + 2 * r for n in shape), generator=g,
+                               device="cuda").to(dt)
+            want = sr.stencil_ref(grid, spec)
+            for tile in (None, (8, 32) if spec.ndim == 2 else (2, 4, 32)):
+                _eq(fn(grid, spec, tile=tile), want,
+                    f"{name} {dt} tile {tile}")
+    print("  K6a / K6b: 5 stencils x f32, bf16 x 2 tiles, ragged: "
+          "kernel == plain")
+    for density in (0.05, 0.3):
+        a = _sparse(g, (300, 5000), density)
+        b = _sparse(g, (5000, 200), 0.02)
+        ak, av = po.dense_to_ell_rows(a)
+        bk, bv = po.dense_to_ell_cols(b)
+        want = pr.spmspm_ell_ref(ak, av, bk, bv)
+        for kw in ({}, dict(rt=3, nt=1, kt=1024), dict(rt=8, ct=64, kt=2048)):
+            _eq(pk.spmspm_ell(ak, av, bk, bv, **kw), want,
+                f"K5 density {density} {kw}")
+        oracle = a @ b
+        err = (want - oracle).abs().max().item()
+        check(err <= 1e-5 * oracle.abs().max().item(),
+              f"K5 plain vs dense oracle {err}")
+        for name in QUANT:
+            qv, qs = P.quantize_rows(av, name)
+            got = pk.spmspm_ell(ak, qv, bk, bv, a_scales=qs)
+            _eq(got, pk.spmspm_ell(ak, P.dequantize_rows(qv, qs), bk, bv),
+                f"K5 {name}: in-kernel != host dequantization")
+            _eq(got, pr.spmspm_ell_ref(ak, qv, bk, bv, a_scales=qs),
+                f"K5 {name}")
+    print("  K5: 2 densities x 3 launch shapes, kernel == plain; a_scales "
+          "(3 formats) == host-dequantized")
+    for name in QUANT:
+        for block in ((8, 8), (16, 8)):
+            d = _sparse(g, (96, 160), 0.4)
+            aq = F.bcsr_from_dense(d, block).quantize(name)
+            for ddt in (torch.float32, torch.bfloat16):
+                x = torch.randn(160, 300, generator=g, device="cuda").to(ddt)
+                _eq(mo.spmm(aq, x), mo.spmm(aq.dequantize(), x),
+                    f"K2q {name} block {block} dense {ddt}")
+    print("  K2q: 3 formats x blocks (8, 8), (16, 8) x f32, bf16 dense == K2 "
+          "on host-dequantized blocks")
+    x = torch.randn(40, 8, 8, generator=g, device="cuda") * torch.exp(
+        6 * torch.randn(40, 1, 1, generator=g, device="cuda"))
+    x[0] = 0
+    noise = {"int8": torch.rand(x.shape, generator=g, device="cuda"),
+             "fp8": torch.randint(0, 2**31, x.shape, generator=g,
+                                  device="cuda")}
+    for name in QUANT:
+        nz = noise["int8" if name == "int8" else "fp8"]
+        for fn, kw in ((P.quantize_blocks, {}), (P.quantize_rows, {}),
+                       (P.quantize_blocks, {"rounding": "stochastic"})):
+            on_card = fn(x, name, **kw, **(
+                {"noise": nz} if kw else {}))
+            on_cpu = fn(x.cpu(), name, **kw, **(
+                {"noise": nz.cpu()} if kw else {}))
+            check(torch.equal(on_card[0].cpu().view(torch.uint8),
+                              on_cpu[0].view(torch.uint8))
+                  and torch.equal(on_card[1].cpu(), on_cpu[1]),
+                  f"quantizer {fn.__name__} {name} {kw}: card != cpu")
+    print("  quantizer (blocks, rows, stochastic with given noise; 3 "
+          "formats): card bytes == cpu bytes")
+
+
+def _library_data():
+    """The slice's data, made on the card from one generator: the stencil
+    grids, the SpMSpM streams (A 8192^2 at 5 %, B at 1 %, as ELL rows /
+    columns, and A's rows quantized to fp8 e4m3) and the quantized banded
+    SpMM operand (8192^2, bandwidth 512, 8 x 8 blocks, fp8 e4m3) with its
+    dense (8192, 4096) f32 right-hand side."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core import precision as P
+    from repro_torch.kernels.spmspm import ops as po
+    g = torch.Generator(device="cuda").manual_seed(4)
+    d = {}
+    n3, n2 = STENCIL_3D + 2, STENCIL_2D + 2
+    d["grid3"] = torch.randn((n3,) * 3, generator=g, device="cuda")
+    d["grid2"] = torch.randn((n2, n2), generator=g, device="cuda")
+    d["grid2r2"] = torch.randn((n2 + 2, n2 + 2), generator=g, device="cuda")
+    n = SPMSPM_N
+    a = _sparse(g, (n, n), SPMSPM_DA)
+    b = _sparse(g, (n, n), SPMSPM_DB)
+    d["ell_a"] = po.dense_to_ell_rows(a)
+    d["ell_b"] = po.dense_to_ell_cols(b)
+    d["ell_aq"] = P.quantize_rows(d["ell_a"][1], "fp8_e4m3")
+    d["oracle_ab"] = (a, b)
+    i = torch.arange(SPMM_N, device="cuda")
+    band = (i[:, None] - i[None, :]).abs() <= SPMM_BAND
+    am = torch.randn((SPMM_N, SPMM_N), generator=g, device="cuda") * band
+    d["bcsr_q"] = F.bcsr_from_dense(am, SPMM_BLOCK).quantize("fp8_e4m3")
+    del am, band
+    d["spmm_x"] = torch.randn((SPMM_N, SPMM_COLS), generator=g,
+                              device="cuda")
+    torch.cuda.synchronize()
+    return d
+
+
+def phase_library():
+    """The library slice's main path, through the public ops: the five
+    stencils (``stencil.ops.apply``: j3d27pt and j3d7pt on a 512^3 f32
+    interior, j2d5pt, j2d9pt and j2d9pt-gol on 16384^2), SpMSpM wide and
+    with fp8 e4m3 ``a_scales`` (``spmspm.ops.spmspm``) and the quantized
+    SpMM (``spmm.ops.spmm``), counts set to 0 just before and read just
+    after.  Then the outputs are checked: stencils == plain
+    (``torch.equal``); SpMSpM within 1e-5 of the largest |value| of the
+    densify-and-matmul oracle (another summation order), == plain on a band
+    of rows, and the quantized run == the wide kernel on host-dequantized
+    rows; SpMM == K2 on host-dequantized blocks, and within 1e-5 of the
+    largest |value| of the plain version and of ``torch.matmul`` on the
+    dequantized densified A (both sum a block's products in another
+    order)."""
+    import torch
+    from repro_torch.core import precision as P
+    from repro_torch.core.formats import INVALID_KEY
+    from repro_torch.core.stencils import STENCILS
+    from repro_torch.kernels.spmm import ops as mo
+    from repro_torch.kernels.spmm import ref as mr
+    from repro_torch.kernels.spmspm import ops as po
+    from repro_torch.kernels.spmspm import ref as pr
+    from repro_torch.kernels.stencil import ops as so
+    from repro_torch.kernels.stencil import ref as sr
+    t0 = time.monotonic()
+    d = _library_data()
+    setup_s = time.monotonic() - t0
+    grids = {"j3d27pt": "grid3", "j3d7pt": "grid3", "j2d5pt": "grid2",
+             "j2d9pt": "grid2", "j2d9pt-gol": "grid2r2"}
+    ak, av = d["ell_a"]
+    bk, bv = d["ell_b"]
+    qv, qs = d["ell_aq"]
+    reset_launches()
+    t0 = time.monotonic()
+    outs = {name: so.apply(d[key], STENCILS[name])
+            for name, key in grids.items()}              # the main path
+    c_wide = po.spmspm(ak, av, bk, bv)
+    c_q = po.spmspm(ak, qv, bk, bv, a_scales=qs)
+    y = mo.spmm(d["bcsr_q"], d["spmm_x"])
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    counts = read_launches()
+    want = only(stencil_2d=3, stencil_3d=2, spmspm_ell=2, spmm_bcsr_quant=1)
+    check(counts == want, f"library: launches {counts} != {want}")
+    print(f"library slice: data {setup_s:.2f} s on the card, main path "
+          f"{run_s * 1e3:.1f} ms; launches {counts}")
+
+    for name, key in grids.items():
+        out = outs[name]
+        check(bool(torch.isfinite(out).all()), f"{name}: not finite")
+        _eq(out, sr.stencil_ref(d[key], STENCILS[name]), f"{name} full size")
+    del outs
+    a, b = d.pop("oracle_ab")
+    oracle = a @ b
+    del a, b
+    big = oracle.abs().max().item()
+    err = (c_wide - oracle).abs().max().item()
+    check(err <= 1e-5 * big, f"SpMSpM vs oracle: {err} > {1e-5 * big}")
+    del oracle
+    band = slice(0, SPMSPM_BAND)
+    plain = pr.spmspm_ell_ref(ak[band], av[band], bk, bv)
+    _eq(c_wide[band], plain, "SpMSpM, a band of rows")
+    band_err = (c_wide[band] - plain).abs().max().item()
+    _eq(c_q, po.spmspm(ak, P.dequantize_rows(qv, qs), bk, bv),
+        "SpMSpM fp8 e4m3: in-kernel != host dequantization")
+    del c_wide, c_q
+    aq = d["bcsr_q"]
+    _eq(y, mo.spmm(aq.dequantize(), d["spmm_x"]),
+        "SpMM fp8 e4m3: K2q != K2 on host-dequantized blocks")
+    plain = mr.spmm_bcsr_ref(aq.indptr, aq.block_cols, aq.blocks[None],
+                             d["spmm_x"][None], out_dtype=torch.float32,
+                             scales=aq.scales[None])[0]
+    q_err = (y - plain).abs().max().item()
+    check(q_err <= 1e-5 * plain.abs().max().item(),
+          f"SpMM fp8 e4m3: K2q vs plain {q_err}")
+    del plain
+    ref = torch.matmul(aq.todense(), d["spmm_x"])
+    err_q = (y - ref).abs().max().item()
+    check(bool(torch.isfinite(y).all())
+          and err_q <= 1e-5 * ref.abs().max().item(),
+          f"SpMM vs matmul of the dequantized A: {err_q}")
+    del ref, y
+    stats = po.comparison_stats(ak, bk)
+    # multiply-adds: over keys k, (A rows holding k) x (B columns holding k)
+    na = torch.bincount(ak[ak != INVALID_KEY].long(), minlength=SPMSPM_N)
+    nb = torch.bincount(bk[bk != INVALID_KEY].long(), minlength=SPMSPM_N)
+    matches = int((na * nb).sum())
+    print(f"  stencils == plain at full size; SpMSpM La={ak.shape[1]} "
+          f"Lb={bk.shape[1]}: {stats}, matches {matches} "
+          f"({matches / stats['issued']:.3g} of issued), max err vs oracle "
+          f"{err:.3g}; SpMM nnzb={aq.nnzb}, max err vs matmul {err_q:.3g}")
+    return d, counts, {"spmspm_err": band_err, "spmspm_oracle_err": err,
+                       "spmm_err": q_err, "spmm_matmul_err": err_q,
+                       "matches": matches, **stats,
+                       "main_path_ms": run_s * 1e3, "setup_s": setup_s}
+
+
+def _lib_row(name, source, line, launches, err, ms, plain_ms, ops, nbytes,
+             library_ms, card, **extra):
+    """A kernel row of the library slice; the bound at the f32 peak (no
+    tensor core applies) and the memory rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": LIB_SRC + line, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "card": card, **extra}
+
+
+def _stencil_times(d):
+    """Per stencil at full size: kernel, plain and ``F.conv3d`` /
+    ``F.conv2d`` (the taps as weights; cuDNN TF32 is off) times, with the
+    bytes and operations of its bound."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.core.stencils import STENCILS
+    from repro_torch.kernels.stencil import kernel as sk
+    from repro_torch.kernels.stencil import ref as sr
+    per = {}
+    for name, key in (("j3d27pt", "grid3"), ("j3d7pt", "grid3"),
+                      ("j2d5pt", "grid2"), ("j2d9pt", "grid2"),
+                      ("j2d9pt-gol", "grid2r2")):
+        spec, grid = STENCILS[name], d[key]
+        fn = sk.stencil_3d if spec.ndim == 3 else sk.stencil_2d
+        conv = Fn.conv3d if spec.ndim == 3 else Fn.conv2d
+        r = spec.radius
+        w = torch.zeros((2 * r + 1,) * spec.ndim, device="cuda")
+        for off, c in zip(spec.offsets, spec.coeffs_f32()):
+            w[tuple(o + r for o in off)] = c
+        w, x = w[None, None], grid[None, None]
+        out = fn(grid, spec)
+        err = (out - sr.stencil_ref(grid, spec)).abs().max().item()
+        lib_diff = (conv(x, w)[0, 0] - out).abs().max().item()
+        check(lib_diff <= 1e-5 * out.abs().max().item(),
+              f"{name}: the conv yardstick disagrees ({lib_diff})")
+        per[name] = {
+            "ms": time_ms(lambda: fn(grid, spec), 10, 2),
+            "plain_ms": time_ms(lambda: sr.stencil_ref(grid, spec), 2, 1),
+            "library_ms": time_ms(lambda: conv(x, w), 10, 2),
+            "ops": 2 * spec.points * out.numel(),
+            "bytes": 4 * (grid.numel() + out.numel()),
+            "shape": list(out.shape), "max_abs_err": err,
+            "conv_max_abs_diff": lib_diff}
+        print(f"  {name} {tuple(out.shape)} f32: {per[name]['ms']:.3f} ms "
+              f"({per[name]['bytes'] / 1e9:.3f} GB), plain "
+              f"{per[name]['plain_ms']:.1f}, conv "
+              f"{per[name]['library_ms']:.3f}")
+        del out
+    return per
+
+
+def phase_measure_library(d, counts, info, card):
+    """The K6a, K6b, K5 and K2q rows at the slice's sizes.  ``ms``: CUDA
+    events over back-to-back launches; ``plain_ms``: the plain version
+    (K5's on the first 64 rows only: its step-by-step search over all 8192
+    rows would take minutes); ``library_ms``: one PyTorch call computing the
+    same function (``F.conv3d`` / ``F.conv2d``, ``torch.sparse.mm`` on CSR
+    tensors then ``to_dense``, ``torch.matmul`` of the dequantized densified
+    A), a yardstick the port never calls.  Bounds (3.35 TB/s, f32 67
+    TFLOP/s): each input byte read once and each output byte written once;
+    2 operations per tap per point, per key match, per nonzero-block element
+    and output column.  The K6a row is j2d9pt and the K6b row j3d27pt; the
+    other stencils are listed under ``stencils``."""
+    import torch
+    from repro_torch.kernels.spmm import kernel as mk
+    from repro_torch.kernels.spmm import ref as mr
+    from repro_torch.kernels.spmspm import ops as po
+    from repro_torch.kernels.spmspm import ref as pr
+    per = _stencil_times(d)
+    rows = []
+    for kname, head, names, line in (
+            ("stencil_2d", "j2d9pt", ("j2d5pt", "j2d9pt", "j2d9pt-gol"),
+             "stencil/kernel.py:58"),
+            ("stencil_3d", "j3d27pt", ("j3d27pt", "j3d7pt"),
+             "stencil/kernel.py:84")):
+        h = per[head]
+        rows.append(_lib_row(
+            kname, "src/repro_torch/kernels/stencil/csrc/stencil.cu", line,
+            counts[kname], h["max_abs_err"], h["ms"], h["plain_ms"], h["ops"],
+            h["bytes"],
+            h["library_ms"], card, row_of=head,
+            stencils={n: per[n] for n in names}))
+
+    ak, av = d["ell_a"]
+    bk, bv = d["ell_b"]
+    qv, qs = d["ell_aq"]
+    R, C = ak.shape[0], bk.shape[0]
+    band = slice(0, SPMSPM_BAND)
+    ms = time_ms(lambda: po.spmspm(ak, av, bk, bv), 5, 1)
+    q_ms = time_ms(lambda: po.spmspm(ak, qv, bk, bv, a_scales=qs), 5, 1)
+    plain_ms = time_ms(lambda: pr.spmspm_ell_ref(ak[band], av[band], bk, bv),
+                       1, 1)
+    a_csr = pr.ell_to_dense(ak, av, SPMSPM_N).to_sparse_csr()
+    b_csr = pr.ell_to_dense(bk, bv, SPMSPM_N).T.contiguous().to_sparse_csr()
+    lib_ms = time_ms(lambda: torch.sparse.mm(a_csr, b_csr).to_dense(), 2, 1)
+    del a_csr, b_csr
+    rows.append(_lib_row(
+        "spmspm_ell", "src/repro_torch/kernels/spmspm/csrc/spmspm_ell.cu",
+        "spmspm/kernel.py:58", counts["spmspm_ell"], info["spmspm_err"], ms,
+        plain_ms, 2 * info["matches"],
+        8 * (ak.numel() + bk.numel()) + 4 * R * C, lib_ms, card,
+        plain_rows=SPMSPM_BAND, oracle_max_abs_err=info["spmspm_oracle_err"],
+        shape={"R": R, "C": C, "K": SPMSPM_N, "La": ak.shape[1],
+               "Lb": bk.shape[1], "density_a": SPMSPM_DA,
+               "density_b": SPMSPM_DB},
+        comparisons={k: info[k] for k in ("issued", "useful_upper",
+                                          "valid_a", "valid_b", "matches")},
+        a_scales_fp8_e4m3_ms=q_ms))
+    print(f"  spmspm_ell {R}x{C}: {ms:.3f} ms, fp8 a_scales {q_ms:.3f} ms, "
+          f"plain ({SPMSPM_BAND} rows) {plain_ms:.1f}, sparse.mm {lib_ms:.1f}")
+
+    aq, x = d["bcsr_q"], d["spmm_x"]
+    args = (aq.indptr, aq.block_cols, aq.blocks[None], x[None])
+    sc = aq.scales[None]
+    ms = time_ms(lambda: mk.spmm_bcsr(*args, scales=sc), 5, 1)
+    plain_ms = time_ms(lambda: mr.spmm_bcsr_ref(
+        *args, out_dtype=torch.float32, scales=sc), 1, 1)
+    a_deq = aq.todense()
+    lib_ms = time_ms(lambda: torch.matmul(a_deq, x), 3, 1)
+    del a_deq
+    nnzb, bm, bk_ = aq.blocks.shape
+    nbytes = (aq.blocks.numel() + 4 * nnzb + 4 * (aq.indptr.numel() + nnzb)
+              + 4 * x.numel() + 4 * SPMM_N * SPMM_COLS)
+    rows.append(_lib_row(
+        "spmm_bcsr_quant", "src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
+        "spmm/kernel.py:68", counts["spmm_bcsr_quant"], info["spmm_err"], ms,
+        plain_ms, 2 * nnzb * bm * bk_ * SPMM_COLS, nbytes, lib_ms, card,
+        shape={"M": SPMM_N, "K": SPMM_N, "N": SPMM_COLS,
+               "bandwidth": SPMM_BAND, "block": list(SPMM_BLOCK),
+               "nnzb": nnzb, "blocks": "fp8_e4m3", "dense": "float32"},
+        matmul_max_abs_err=info["spmm_matmul_err"]))
+    print(f"  spmm_bcsr_quant nnzb={nnzb} N={SPMM_COLS}: {ms:.3f} ms, plain "
+          f"{plain_ms:.1f}, matmul {lib_ms:.3f}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -750,6 +1204,7 @@ def main() -> int:
     print("kernel vs plain on the card:")
     phase_kernel_vs_plain()
     phase_attention_vs_plain()
+    phase_library_vs_plain()
     phase_small_config_card_vs_cpu()
     cfg, params, summary, launches, captured = phase_slice()
     mask, masked, mask_ms = phase_masked_serving(cfg, params)
@@ -761,6 +1216,10 @@ def main() -> int:
         "flash_attention": kprefill["launches"]["flash_attention"],
         "flash_attention_masked": masked["dense"][0]["launches"],
         "flash_attention_sparse": masked["sparse"][0]["launches"]}, card)
+    lib_data, lib_counts, lib_info = phase_library()
+    print("library kernel times at the slice's sizes:")
+    rows += phase_measure_library(lib_data, lib_counts, lib_info, card)
+    del lib_data
     serve = {
         "serve": {"arch": cfg.name, "depth": cfg.n_repeats, "batch": BATCH,
                   "prompt": PROMPT, "gen": GEN, "dispatch": "bcsr",
@@ -790,7 +1249,8 @@ def main() -> int:
                       k: v for k, v in kprefill.items() if k != "launches"}},
                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "card": card,
-                  "wall_s": time.monotonic() - t_start}}
+                  "wall_s": time.monotonic() - t_start},
+             "library": lib_info}
     print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,16 @@ Numerics are set once, here: the reference multiplies bf16 operands with f32
 accumulation (``preferred_element_type``) and f32 operands in full f32, so
 TF32 and bf16 split-K reductions, either of which would change logits and
 break the exact dispatch copy, are switched off for the whole process.
+
+The entry points' helpers live here too: :func:`resolve_device` (the card
+unless the caller asks for the CPU) and :func:`as_tensor` (numpy input goes
+to that device; a tensor stays where it lies).
 """
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 
 
@@ -38,3 +45,29 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev
+
+
+# ml_dtypes names -> (the view that crosses, the torch dtype it becomes)
+_BYTE_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+               "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+               "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
+def to_tensor(a: Any) -> torch.Tensor:
+    """A numpy (or array-like) array as a CPU tensor; bf16 and fp8 (the
+    ``ml_dtypes`` types, which ``torch.from_numpy`` refuses) through their
+    bytes."""
+    a = np.array(a)                     # a writable copy
+    if a.dtype.name in _BYTE_VIEWS:
+        view, dtype = _BYTE_VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(view)).view(dtype)
+    return torch.from_numpy(a)
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """An entry point's array argument: a tensor stays where it lies (or
+    moves to ``device`` if one is given); a numpy array goes to ``device``,
+    the card by default."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(resolve_device(device))
+    return to_tensor(x).to(resolve_device(device or "cuda"))

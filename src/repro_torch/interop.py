@@ -1,34 +1,48 @@
-"""Param interop with the reference: a JAX param tree (fetched to numpy)
-becomes the port's param tree on a device.
+"""Interop with the reference: a JAX param tree (fetched to numpy) becomes
+the port's param tree on a device, and the reference's sparse and quantized
+containers become the port's.
 
 The layout is the same on both sides -- nested dicts, slot params stacked on
 a leading ``n_repeats`` dim -- so the conversion is leaf by leaf.  A bf16
 array (an ``ml_dtypes`` dtype, which ``torch.from_numpy`` refuses) crosses as
-a ``uint16`` view of its bytes.  Matmul weights are stored in the policy's
-compute dtype: the reference casts f32 weights to it at every use, which is
-the same round-to-nearest-even.  Norm scales and routers stay f32: routing
-multiplies in f32.
+a ``uint16`` view of its bytes, an fp8 array (``float8_e4m3fn`` /
+``float8_e5m2``) as a ``uint8`` view.  Matmul weights are stored in the
+policy's compute dtype: the reference casts f32 weights to it at every use,
+which is the same round-to-nearest-even.  Norm scales and routers stay f32:
+routing multiplies in f32.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Union
 
-import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import as_tensor, resolve_device, to_tensor  # noqa: F401
+from repro_torch.core.formats import BCSR, BatchedBCSR
+from repro_torch.core.precision import QuantTensor
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models.config import ArchConfig
 
 _F32_LEAVES = ("scale", "router")
 
 
-def to_tensor(a: Any) -> torch.Tensor:
-    """A numpy (or array-like) leaf as a CPU tensor, bf16 through its bytes."""
-    a = np.array(a)                     # a writable copy
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
+def bcsr_from_jax(a, *, device="cuda") -> Union[BCSR, BatchedBCSR]:
+    """A reference ``BCSR`` / ``BatchedBCSR`` (scales included) as the
+    port's container on ``device``."""
+    dev = resolve_device(device)
+    kw = {f: to_tensor(getattr(a, f)).to(dev)
+          for f in ("indptr", "block_rows", "block_cols", "blocks")}
+    scales = None if a.scales is None else to_tensor(a.scales).to(dev)
+    cls = BatchedBCSR if len(a.shape) == 3 else BCSR
+    return cls(shape=tuple(a.shape), block=tuple(a.block), scales=scales,
+               **kw)
+
+
+def quant_tensor_from_jax(t, *, device="cuda") -> QuantTensor:
+    """A reference ``QuantTensor`` as the port's on ``device``."""
+    dev = resolve_device(device)
+    return QuantTensor(values=to_tensor(t.values).to(dev),
+                       scales=to_tensor(t.scales).to(dev), axis=t.axis)
 
 
 def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):

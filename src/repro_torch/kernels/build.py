@@ -25,6 +25,8 @@ SOURCES: Dict[str, Path] = {
     "spmm_bcsr": _KERNELS / "spmm" / "csrc" / "spmm_bcsr.cu",
     "flash_attention": (_KERNELS / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
+    "stencil": _KERNELS / "stencil" / "csrc" / "stencil.cu",
+    "spmspm_ell": _KERNELS / "spmspm" / "csrc" / "spmspm_ell.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

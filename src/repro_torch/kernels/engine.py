@@ -69,12 +69,13 @@ class StreamPipeline:
 
 def spmm_batched_stream(a: BatchedBCSR, dense: torch.Tensor, *,
                         bn: Optional[int] = None,
-                        out_dtype: Optional[torch.dtype] = None
+                        out_dtype: torch.dtype = torch.float32
                         ) -> torch.Tensor:
     """Batched SpMM on a *pre-normalized* stream (every block-row already
     appears, as the routed-stream builder guarantees): the execute-phase
     entry of two-phase serving.  Never reads the index stream on the host.
-    ``dense``: (B, K, N) or (K, N) broadcast; returns (B, M, N)."""
+    ``dense``: (B, K, N) or (K, N) broadcast; returns (B, M, N) in
+    ``out_dtype`` (f32 by default, as the reference)."""
     B = a.batch
     if dense.dim() == 2:
         dense = dense.expand((B,) + tuple(dense.shape))

@@ -19,6 +19,22 @@ choice for the Hopper kernels, not carried over from the TPU rows:
   also resolves a local window finer than a 128-wide one (275 of 528 causal
   tiles visible under a local window of 512 plus one global tile, against
   81 of 136).
+* ``stencil2d`` / ``stencil3d`` ``tile``: the output tile of one stencil
+  thread block (32 x 8 threads, 16 outputs each), whose (tile + 2r) halo is
+  staged in f32 shared memory: 19 KB at (32, 128), 26 KB at (8, 8, 64).
+  The kernel bounds-checks the ragged edge, so a tile needs no alignment.
+* ``spmspm``: ``rt`` A rows per thread block, ``ct`` threads (one output
+  column each at a time), ``nt`` column tiles per block (the A rows are
+  staged once per ``nt * ct`` columns), ``kt`` the key chunk: the block
+  scatters its rows' entries with keys in one chunk of ``kt`` into a dense
+  f32 row of shared memory plus a presence bitmask, and keeps each column's
+  walk position: 74 KB at rt 4, kt 4096, nt * ct 2048.
+
+The ``cpu`` rows of these ops are the reference's CPU rows, and the
+helpers give the reference's CPU tiles for them (``tests/test_torch_stencil``
+and ``tests/test_torch_spmspm`` hold them equal); the plain versions that run
+on the CPU take no tile.  1-byte dtypes key the ``fp8`` rows, as quantized
+``spmm`` keys its tile on the narrow block dtype.
 
 The ``cpu`` flash rows keep the reference's 128 x 128 (its ``flash`` and
 ``flash_sparse`` CPU rows are equal) and its sublane / VMEM clamp, so that
@@ -44,8 +60,10 @@ FLASH_MAX_TILE = 64
 _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
     ("spmm", "f32", "cpu"): {"bn": 128},
     ("spmm", "bf16", "cpu"): {"bn": 128},
+    ("spmm", "fp8", "cpu"): {"bn": 128},
     ("spmm", "f32", "cuda"): {"bn": 256},
     ("spmm", "bf16", "cuda"): {"bn": 256},
+    ("spmm", "fp8", "cuda"): {"bn": 256},
     ("moe_dispatch", "f32", "cpu"): {"block": (8, 8), "bn": 128,
                                      "min_bucket": 8},
     ("moe_dispatch", "bf16", "cpu"): {"block": (8, 8), "bn": 128,
@@ -58,11 +76,26 @@ _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
     ("flash", "bf16", "cpu"): {"bq": 128, "bk": 128},
     ("flash", "f32", "cuda"): {"bq": 64, "bk": 64},
     ("flash", "bf16", "cuda"): {"bq": 64, "bk": 64},
+    ("stencil2d", "f32", "cpu"): {"tile": (64, 128)},
+    ("stencil2d", "bf16", "cpu"): {"tile": (64, 128)},
+    ("stencil2d", "f32", "cuda"): {"tile": (32, 128)},
+    ("stencil2d", "bf16", "cuda"): {"tile": (32, 128)},
+    ("stencil3d", "f32", "cpu"): {"tile": (8, 16, 128)},
+    ("stencil3d", "bf16", "cpu"): {"tile": (8, 16, 128)},
+    ("stencil3d", "f32", "cuda"): {"tile": (8, 8, 64)},
+    ("stencil3d", "bf16", "cuda"): {"tile": (8, 8, 64)},
+    ("spmspm", "f32", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
+    ("spmspm", "bf16", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
+    ("spmspm", "fp8", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
+    ("spmspm", "f32", "cuda"): {"rt": 4, "ct": 256, "nt": 8, "kt": 4096},
+    ("spmspm", "bf16", "cuda"): {"rt": 4, "ct": 256, "nt": 8, "kt": 4096},
+    ("spmspm", "fp8", "cuda"): {"rt": 4, "ct": 256, "nt": 8, "kt": 4096},
 }
 
 
 def _bucket(dtype: torch.dtype) -> str:
-    return "f32" if dtype.itemsize >= 4 else "bf16"
+    b = dtype.itemsize
+    return "f32" if b >= 4 else ("bf16" if b == 2 else "fp8")
 
 
 def _row(op: str, dtype: torch.dtype, device) -> Dict[str, Any]:
@@ -121,3 +154,46 @@ def flash_tiles(sq: int, skv: int, d: int, dtype=torch.float32,
     return _flash_clamp(int(row["bq"]), int(row["bk"]), sq, skv, d, dtype,
                         device)
 
+
+def stencil_tile(interior: Tuple[int, ...], dtype=torch.float32,
+                 device="cpu") -> Tuple[int, ...]:
+    """Output tile of the 2-D / 3-D stencil kernels.  On the CPU, the
+    reference's clamp (each dim to the interior rounded up to 8, the minor
+    one to 128); on the card, each dim to the interior itself."""
+    ndim = len(interior)
+    tile = _row(f"stencil{ndim}d", dtype, device)["tile"]
+    if torch.device(device).type == "cpu":
+        return tuple(min(t, -(-max(n, 1) // q) * q) for t, n, q in zip(
+            tile, interior, (SUBLANE,) * (ndim - 1) + (LANE,)))
+    return tuple(min(t, max(n, 1)) for t, n in zip(tile, interior))
+
+
+def spmspm_tiles(r: int, c: int, la: int, lb: int, dtype=torch.float32,
+                 device="cpu") -> Tuple[int, int]:
+    """(rt, ct) of the SpMSpM kernel: on the CPU the reference's CPU row
+    (its clamps, to the sublane-padded problem and to the VMEM budget, leave
+    8 x 8 as it is); on the card ``rt`` rows per block (no more than ``r``)
+    and ``ct`` threads."""
+    row = _row("spmspm", dtype, device)
+    rt, ct = int(row["rt"]), int(row["ct"])
+    if torch.device(device).type == "cpu":
+        return rt, ct
+    return min(rt, max(r, 1)), ct
+
+
+def spmspm_nt(c: int, ct: int, lb: int, dtype=torch.float32,
+              device="cpu") -> int:
+    """Output-column residency: how many ``ct``-column tiles one step (one
+    thread block on the card) covers, so the A rows are walked once per
+    ``nt`` tiles; never wider than the problem (the reference's VMEM clamp
+    leaves its CPU row's 1 as it is).  Any value gives the same result."""
+    nt = max(1, int(_row("spmspm", dtype, device)["nt"]))
+    c_aligned = -(-max(c, 1) // SUBLANE) * SUBLANE
+    while nt > 1 and (nt - 1) * ct >= c_aligned:
+        nt //= 2
+    return nt
+
+
+def spmspm_key_chunk(dtype=torch.float32, device="cuda") -> int:
+    """Key chunk of the SpMSpM kernel's dense shared-memory rows."""
+    return int(_row("spmspm", dtype, device)["kt"])

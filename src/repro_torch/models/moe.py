@@ -321,12 +321,14 @@ def route_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
 def plan_from_phase1(phase1: Phase1, cfg: ArchConfig, *,
                      dispatch: Optional[str] = None,
                      dtype: torch.dtype = torch.float32,
-                     device="cpu") -> Tuple[MoEPlan, dict]:
+                     device=None) -> Tuple[MoEPlan, dict]:
     """The host half of phase 1: fetch the (B, S) slot stream -- the only
     device-to-host transfer, the hidden state never crosses -- compact it to
-    the routed :class:`BatchedBCSR` stream, pad it to its bucket, upload."""
+    the routed :class:`BatchedBCSR` stream, pad it to its bucket, upload
+    it to ``device`` (default: the device of the phase-1 tensors)."""
     backend = _backend(cfg, dispatch)
     gate, keep, new_counts, flat_slot, C = phase1
+    device = flat_slot.device if device is None else device
     S = flat_slot.shape[1]
     E = cfg.n_experts
     stream = None

@@ -131,3 +131,20 @@ def test_two_phase_stepwise_decode_matches_reference(layer):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=0)
         np.testing.assert_array_equal(counts.numpy(), np.asarray(rcounts))
+
+
+def test_plan_from_phase1_defaults_to_the_phase1_device(layer):
+    """Without ``device``, the routed stream lands where the phase-1
+    tensors are (here the CPU) and equals the stream of an explicit
+    ``device="cpu"``."""
+    _, p, x = layer
+    xt = torch.from_numpy(x)
+    plan, _ = moe.route_moe(p, xt, TINY, dispatch="bcsr")
+    phase1 = moe.Phase1(plan.gate, plan.keep, plan.new_counts,
+                        plan.flat_slot, plan.capacity)
+    got, _ = moe.plan_from_phase1(phase1, TINY, dispatch="bcsr")
+    want, _ = moe.plan_from_phase1(phase1, TINY, dispatch="bcsr",
+                                   device="cpu")
+    assert got.stream.blocks.device.type == "cpu"
+    for f in ("indptr", "block_rows", "block_cols", "blocks"):
+        assert torch.equal(getattr(got.stream, f), getattr(want.stream, f))

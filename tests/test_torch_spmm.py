@@ -19,7 +19,7 @@ from repro.kernels import tuning as r_tuning
 from repro.kernels.spmm import ops as r_ops
 
 from repro_torch.core.formats import BatchedBCSR
-from repro_torch.interop import to_tensor
+from repro_torch.interop import bcsr_from_jax, to_tensor
 from repro_torch.kernels import engine, tuning
 from repro_torch.kernels.spmm import kernel, ops
 
@@ -27,18 +27,9 @@ torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-def _port(a) -> BatchedBCSR:
-    """A reference BCSR / BatchedBCSR as the port's container (batch 1 for
-    a single matrix)."""
-    blocks = np.asarray(a.blocks)
-    if isinstance(a, rf.BCSR):
-        blocks = blocks[None]
-        shape = (1,) + tuple(a.shape)
-    else:
-        shape = tuple(a.shape)
-    return BatchedBCSR(indptr=to_tensor(a.indptr), block_rows=to_tensor(
-        a.block_rows), block_cols=to_tensor(a.block_cols),
-        blocks=to_tensor(blocks), shape=shape, block=a.block)
+def _port(a):
+    """A reference BCSR / BatchedBCSR as the port's container, on the CPU."""
+    return bcsr_from_jax(a, device="cpu")
 
 
 @pytest.mark.parametrize("density,block,mkn", [
@@ -161,19 +152,52 @@ def test_engine_buckets_and_stream_entry():
 
 
 def test_wrapper_plain_path_and_guards():
-    """CPU tensors take the plain version and launch nothing; scales (K2q)
-    are refused rather than ignored."""
+    """CPU tensors take the plain version and launch nothing, wide or with
+    scales (K2q), and the scales are applied, not ignored; narrow blocks
+    without scales are refused by the container."""
     rng = np.random.default_rng(6)
     a = _port(rf.batched_bcsr_from_dense(
         np.stack([rf.random_dense_sparse(rng, (16, 16), 0.5)]), (8, 8)))
     b = torch.from_numpy(rng.standard_normal((1, 16, 40)).astype(np.float32))
-    before = kernel.spmm_bcsr.launches
+    before = (kernel.spmm_bcsr.launches, kernel.spmm_bcsr.quant_launches)
     out = kernel.spmm_bcsr(a.indptr, a.block_cols, a.blocks, b)
-    assert kernel.spmm_bcsr.launches == before
     torch.testing.assert_close(out, torch.matmul(a.todense(), b), **TOL)
-    with pytest.raises(NotImplementedError):
-        kernel.spmm_bcsr(a.indptr, a.block_cols, a.blocks, b,
-                         scales=torch.ones(1, a.nnzb))
+    aq = a.quantize("int8")
+    outq = kernel.spmm_bcsr(a.indptr, a.block_cols, aq.blocks, b,
+                            scales=aq.scales)
+    torch.testing.assert_close(outq, torch.matmul(aq.todense(), b), **TOL)
+    assert (kernel.spmm_bcsr.launches,
+            kernel.spmm_bcsr.quant_launches) == before
+    with pytest.raises(ValueError, match="scales"):
+        BatchedBCSR(indptr=a.indptr, block_rows=a.block_rows,
+                    block_cols=a.block_cols, blocks=aq.blocks,
+                    shape=a.shape, block=a.block)
+
+
+@pytest.mark.parametrize("entry", ["spmm", "spmm_batched", "stream"])
+def test_out_dtype_defaults_to_f32_as_the_reference(entry):
+    """A bf16 dense operand gives an f32 result by default, as in the
+    reference (``out_dtype=jnp.float32``).  Both sides widen bf16 exactly
+    and sum f32 block products, so the values agree within 1e-5.  B = 4:
+    the reference's stream engine shards the batch over 4 virtual
+    devices."""
+    rng = np.random.default_rng(12)
+    a = rf.batched_bcsr_from_dense(
+        np.stack([rf.random_dense_sparse(rng, (32, 48), 0.3)] * 4), (8, 8))
+    b = jnp.asarray(rng.standard_normal((4, 48, 72)), jnp.bfloat16)
+    pb = to_tensor(np.asarray(b))
+    if entry == "spmm":
+        want = r_ops.spmm(a[0], b[0], interpret=True)
+        got = ops.spmm(_port(a[0]), pb[0])
+    elif entry == "spmm_batched":
+        want = r_ops.spmm_batched(a, b, interpret=True)
+        got = ops.spmm_batched(_port(a), pb)
+    else:
+        pa = r_ops.pad_empty_rows(a)
+        want = r_engine.shard_spmm_batched_stream(pa, b, interpret=True)
+        got = engine.spmm_batched_stream(_port(pa), pb)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_cpu_tuning_rows_match_reference():
