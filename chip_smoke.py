@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout
-   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b: four sources), one ``nvcc`` each, all
-   started together, with build seconds and register counts;
+   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7: five sources), one ``nvcc`` each,
+   all started together, with build seconds and register counts;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), empty block-rows, bucket-pad
    entries, N not a multiple of the tile); K3, K4m and K4s on random q, k, v
@@ -22,10 +22,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    K6b (five stencils, f32 and bf16, ragged, two tiles), K5 (wide, and with
    ``a_scales`` == on host-dequantized rows, three formats), K2q (== K2 on
    host-dequantized blocks, three formats, f32 and bf16 dense), and the
-   port's quantizer on the card == on the CPU, as bytes;
-4. a small f32 config (llama4-scout SMOKE) must give the same prefill
-   logits on the card and on the CPU: chunked attention, masked attention
-   (K4s) and kernel attention (K3);
+   port's quantizer on the card == on the CPU, as bytes; then K7 (the WKV
+   recurrence, ``y`` and the final state) against its plain chunked version
+   on r, k, v, w of three dtype pairings, T 100, 256 and 2048 at the
+   kernel's one chunk (128) and decays that do or do not saturate the
+   clamp, two launches ``torch.equal``, and on a small case both sides
+   against an f64 sequential scan;
+4. small f32 configs must give the same logits on the card and on the
+   CPU: llama4-scout SMOKE prefill with chunked attention, masked attention
+   (K4s) and kernel attention (K3); rwkv6-7b SMOKE prefill (K7 once a
+   layer) and one decode step;
 5. the serving slice at full llama4-scout width (depth cut to 8 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
@@ -39,17 +45,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    identical tokens and no oracle fallback;
 7. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
    K3), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q, k, v;
-8. the sparse library slice at the paper's workload sizes, data made on
+   then the llama4 weights are released;
+8. RWKV-6 serving at full width and depth (rwkv6-7b: d_model 4096, 64
+   heads of 64, d_ff 14336, vocab 65536, 32 layers, random bf16 weights
+   from a seed, ~15 GB): ``ServeLoop`` serves 4 prompts of 2048 tokens and
+   generates 16 greedy tokens, with K7 launched once a layer in prefill
+   (32) and never in decode, and its plain version never called; the first
+   layer's r, k, v, w, u are captured and K7 is held against plain on
+   them; prefill ms, decode tok/s and the phase's peak device memory;
+9. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
    8192^2 A (5 %) x B (1 %), wide and with fp8 e4m3 ``a_scales``, and
    ``spmm.ops.spmm`` on a banded 8192^2 fp8 e4m3 BCSR (bandwidth 512,
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
-9. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound; K2, K3, K4m, K4s, K6a, K6b, K5, K2q) and one with the serving
+10. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
+   bound; K2, K3, K4m, K4s, K7, K6a, K6b, K5, K2q) and one with the serving
    and library summary;
-10. last line: {"ok": true, "device": {...}}.
+11. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
 just after it; launches made to compare a kernel with its plain version or
@@ -80,6 +94,13 @@ BATCH, PROMPT, GEN, DEPTH = 4, 256, 16, 8
 # a synthetic kernel exercise rather than llama4-scout's own attention
 ATTN_PROMPT, MASK_WINDOW = 2048, 512
 FLASH_SRC = "src/repro/kernels/flash_attention/kernel.py"
+# RWKV-6 serving: the full config, prompts of this length
+RWKV_ARCH, RWKV_PROMPT = "rwkv6-7b", 2048
+# K7 vs plain: within this share of the largest |value| (y and the state
+# alike).  The mid-chunk rescale puts exponents up to half a chunk of decay
+# (64 at the clamp), where one f32 ulp of the argument is ~4e-6 of the
+# exponential, and the kernel sums its dots in another order than plain.
+WKV_REL_TOL = 2e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -119,6 +140,7 @@ def _counted():
     from repro_torch.kernels.spmm import kernel as sk
     from repro_torch.kernels.spmspm import kernel as pk
     from repro_torch.kernels.stencil import kernel as tk
+    from repro_torch.kernels.wkv import kernel as wk
     return {"spmm_bcsr": (sk.spmm_bcsr, "launches"),
             "spmm_bcsr_quant": (sk.spmm_bcsr, "quant_launches"),
             "flash_attention": (fk.flash_attention, "launches"),
@@ -126,7 +148,8 @@ def _counted():
             "flash_attention_sparse": (fk.flash_attention_sparse, "launches"),
             "spmspm_ell": (pk.spmspm_ell, "launches"),
             "stencil_2d": (tk.stencil_2d, "launches"),
-            "stencil_3d": (tk.stencil_3d, "launches")}
+            "stencil_3d": (tk.stencil_3d, "launches"),
+            "wkv_kernel": (wk.wkv_kernel, "launches")}
 
 
 def reset_launches() -> None:
@@ -1189,6 +1212,270 @@ def phase_measure_library(d, counts, info, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The RWKV-6 slice: the WKV recurrence (K7) under rwkv6-7b serving.
+# ---------------------------------------------------------------------------
+
+WKV_SRC = "src/repro/kernels/wkv/kernel.py:62"
+
+
+def wkv_err(got, want, what: str) -> float:
+    """Largest |got - want|, within WKV_REL_TOL of the largest |want|."""
+    import torch
+    torch.cuda.synchronize()
+    big = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= WKV_REL_TOL * big,
+          f"{what}: kernel disagrees with plain: {err} > {WKV_REL_TOL} x "
+          f"{big}")
+    return err
+
+
+def wkv_needed_flops(B, T, nh, hd, chunk) -> int:
+    """The dots the chunked WKV needs, with the final state: per (b, h) and
+    chunk of L real positions, the strictly lower (L, L) scores and att v
+    (2 L (L - 1) hd together), r S on every chunk but the first (S is zero
+    there; 2 L hd^2) and the state update (2 L hd^2).  ``ops.flops``, the
+    reference's count, takes the whole (Q, Q) tile and r S on every
+    chunk."""
+    total = 0
+    for c0 in range(0, T, chunk):
+        L = min(chunk, T - c0)
+        total += 2 * L * (L - 1) * hd + (2 if c0 else 1) * 2 * L * hd * hd
+    return B * nh * total
+
+
+def _wkv_inputs(g, B, T, nh, wmag, dt, wdt):
+    """r, k, v ~ N(0, 1) in ``dt``; w = max(-|N(0, 1)| * wmag, -1) in
+    ``wdt``; u ~ 0.1 N(0, 1) f32 (the reference's test inputs); hd 64."""
+    import torch
+    shape = (B, T, nh, 64)
+    r, k, v = (torch.randn(shape, generator=g, device="cuda").to(dt)
+               for _ in range(3))
+    w = torch.clamp(-torch.randn(shape, generator=g, device="cuda").abs()
+                    * wmag, min=-1.0).to(wdt)
+    u = 0.1 * torch.randn((nh, 64), generator=g, device="cuda")
+    return r, k, v, w, u
+
+
+def phase_wkv_vs_plain():
+    """K7 (``ops.wkv_state``, which pads T to whole chunks) against the
+    plain chunked version on the same inputs on the card, ``y`` and the
+    final state, with WKV_REL_TOL: r, k, v and w in (f32, f32), (bf16,
+    bf16) and (bf16, f32); T 100, 256, 2048 (padded to whole chunks);
+    wmag 0.05 and 1.0 (decays that saturate the clamp); the kernel's one
+    chunk, the cuda row's 128.  Each case launches twice and the two
+    results must be ``torch.equal``.  ``ops.wkv`` is checked too, and on a
+    small f32 case of three chunks both sides are printed against an f64
+    sequential scan, so a disagreement shows which side moved."""
+    import torch
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.wkv import ops, ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(5)
+    chunk = tuning.wkv_chunk(10 ** 9, f32, "cuda")
+    worst = 0.0
+    for dt, wdt in ((f32, f32), (bf16, bf16), (bf16, f32)):
+        for T in (100, 256, 2048):
+            for wmag in (0.05, 1.0):
+                a = _wkv_inputs(g, 2, T, 3, wmag, dt, wdt)
+                y, s = ops.wkv_state(*a, chunk=chunk)
+                py, ps = ref.wkv_chunked_plain(*a, chunk)
+                what = (f"K7 {str(dt)[6:]}/{str(wdt)[6:]} T={T} "
+                        f"wmag={wmag} chunk={chunk}")
+                worst = max(worst, wkv_err(y, py, what + " y"),
+                            wkv_err(s, ps, what + " state"))
+                y2, s2 = ops.wkv_state(*a, chunk=chunk)
+                check(torch.equal(y, y2) and torch.equal(s, s2),
+                      f"{what}: two launches differ")
+                worst = max(worst, wkv_err(ops.wkv(*a), py,
+                                           f"ops.wkv {what}"))
+        print(f"  K7 r/k/v {str(dt)[6:]}, w {str(wdt)[6:]}: T 100, 256, "
+              f"2048 x wmag 0.05, 1.0 at chunk {chunk}: kernel == plain "
+              f"within {WKV_REL_TOL} of max, launches repeat bit for bit")
+    a = _wkv_inputs(g, 1, 300, 2, 1.0, f32, f32)
+    exact_y, exact_s = ref.wkv_scan(*(x.cpu().double() for x in a))
+    for name, (y, s) in (("card K7", ops.wkv_state(*a, chunk=chunk)),
+                         ("card plain", ref.wkv_chunked_plain(*a, chunk))):
+        print(f"    {name} vs f64 scan (T 300, chunk {chunk}, wmag 1.0): y "
+              f"{(y.cpu().double() - exact_y).abs().max().item():.3g}, "
+              f"state {(s.cpu().double() - exact_s).abs().max().item():.3g}"
+              f" (largest |y| {exact_y.abs().max().item():.3g})")
+    print(f"  K7 worst max_abs_err {worst:.3g}")
+
+
+def phase_rwkv_smoke_card_vs_cpu():
+    """rwkv6-7b SMOKE in f32: prefill logits (K7 once a layer on the card)
+    and one decode step's logits agree with the CPU within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_smoke(RWKV_ARCH), policy="f32")
+    cpu = M.init_params(cfg, seed=0, device="cpu")
+    gpu = _tree_to(cpu, "cuda")
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 24)))
+    want, c_cpu, pos = M.prefill_layered(cpu, prompts, cfg, max_seq=32)
+    reset_launches()
+    got, c_gpu, _ = M.prefill_layered(gpu, prompts.cuda(), cfg, max_seq=32)
+    launches = read_launches()
+    err = (got.cpu() - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err <= 1e-4,
+          f"rwkv smoke prefill: card and cpu disagree: {err}")
+    check(launches == only(wkv_kernel=cfg.n_repeats),
+          f"rwkv smoke prefill launches {launches}")
+    tok = want[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    want1, _ = M.decode_step_layered(cpu, cfg, c_cpu, pos, tok)
+    reset_launches()
+    got1, _ = M.decode_step_layered(gpu, cfg, c_gpu, pos, tok.cuda())
+    check(read_launches() == only(), "rwkv decode launched a kernel")
+    err1 = (got1.cpu() - want1).abs().max().item()
+    check(bool(torch.isfinite(got1).all()) and err1 <= 1e-4,
+          f"rwkv smoke decode: card and cpu disagree: {err1}")
+    print(f"  rwkv6 smoke f32 card vs cpu: prefill logits max_abs_err "
+          f"{err:.3g} (K7 x {launches['wkv_kernel']}), decode step "
+          f"{err1:.3g}")
+
+
+def phase_rwkv_serving(card):
+    """RWKV-6 serving at full width and depth: ``ServeLoop`` on rwkv6-7b
+    (random bf16 weights from a seed) serves BATCH prompts of RWKV_PROMPT
+    tokens and generates GEN greedy tokens.  Counts set to 0 just before
+    the run: K7 once a layer in prefill, none in decode, and its plain
+    version never called.  The first layer's r, k, v, w, u are captured
+    for the K7 row.  Returns (summary, K7 launches, captured inputs)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import model as M
+    cfg = get_config(RWKV_ARCH)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = torch.cuda.memory_allocated() / 1e9
+    print(f"rwkv serving: {cfg.name} d={cfg.d_model} heads={cfg.n_heads} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth={cfg.n_repeats} "
+          f"policy={cfg.policy}; params {gb:.1f} GB, init "
+          f"{time.monotonic() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, RWKV_PROMPT),
+                            generator=g, device="cuda")
+    max_seq = RWKV_PROMPT + GEN
+    loop = ServeLoop(params, cfg, max_seq=max_seq)
+    loop.run(prompts, 2)                      # warm-up: allocator, cuBLAS
+
+    captured, seen = [], {}
+    entry, plain = wkv_ops.wkv_state, wk.wkv_chunked_plain
+    plain_calls = []
+
+    def capture(r, k, v, w_log, u, *, chunk):
+        if not captured:
+            captured.append((r, k, v, w_log, u, chunk))
+        return entry(r, k, v, w_log, u, chunk=chunk)
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(1)
+        return plain(*a, **kw)
+
+    prefill = loop.prefill
+
+    def counted_prefill(p):
+        out = prefill(p)
+        seen.update(read_launches())
+        return out
+
+    loop.prefill = counted_prefill
+    wkv_ops.wkv_state, wk.wkv_chunked_plain = capture, counted_plain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        tokens = loop.run(prompts, GEN)       # the main path
+    finally:
+        wkv_ops.wkv_state, wk.wkv_chunked_plain = entry, plain
+        loop.prefill = prefill
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = loop.summary()
+    n = cfg.n_repeats
+    print(f"  launches: prefill {seen}, whole run {counts}; plain calls "
+          f"{len(plain_calls)}; tokens {tokens[0, :8].tolist()} ...")
+    check(seen == only(wkv_kernel=n), f"prefill launches {seen} != {n} K7")
+    check(counts == only(wkv_kernel=n),
+          f"decode launched a kernel: {counts}")
+    check(not plain_calls, "the plain WKV ran on the card's main path")
+    check(captured and captured[0][5] == 128
+          and tuple(captured[0][0].shape) == (BATCH, RWKV_PROMPT,
+                                              cfg.n_heads, 64),
+          "captured WKV inputs have the wrong shape or chunk")
+    check(tokens.shape == (BATCH, GEN) and (tokens >= 0).all()
+          and (tokens < cfg.vocab_size).all(), "bad token ids")
+    logits, _, _ = M.prefill_layered(params, prompts, cfg, max_seq=max_seq)
+    check(tuple(logits.shape) == (BATCH, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    first = logits[:, -1, :cfg.vocab_size].argmax(-1).cpu().numpy()
+    check(np.array_equal(first, tokens[:, 0]), "prefill argmax != token 0")
+    info = {"arch": cfg.name, "depth": n, "batch": BATCH,
+            "prompt": RWKV_PROMPT, "gen": GEN, "params_gb": gb,
+            "prefill_ms": summary["prefill"]["seconds"] * 1e3,
+            "decode_ms": summary["decode"]["seconds"] * 1e3,
+            "decode_tok_per_s": summary["decode"]["tok_per_s"],
+            "peak_gb": peak_gb, "card": card}
+    print(f"  prefill {info['prefill_ms']:.1f} ms for {BATCH}x{RWKV_PROMPT},"
+          f" decode {info['decode_tok_per_s']:.1f} tok/s over {GEN - 1} "
+          f"steps, peak {peak_gb:.1f} GB; prefill argmax == token 0")
+    del loop, params, logits
+    return info, counts["wkv_kernel"], captured[0]
+
+
+def phase_measure_wkv(captured, launches, card):
+    """The K7 row at the slice's shape: layer 0's r, k, v, w (f32), u and
+    chunk from the served prefill.  Kernel vs plain (``y`` and the state,
+    WKV_REL_TOL), two launches equal; ``ms`` by CUDA events, ``plain_ms``
+    the plain chunked version; no single PyTorch call computes WKV, so
+    ``library_ms`` is null.  Bound: :func:`wkv_needed_flops` at the f32
+    peak (no tensor-core f32 path) against reading r, k, v, w, u and
+    writing y and the state once at 3.35 TB/s.  The kernel is called
+    through ``ops.wkv_state`` as the model calls it (T = 2048 needs no
+    padding)."""
+    import torch
+    from repro_torch.kernels.wkv import ops, ref
+    r, k, v, w, u, chunk = captured
+    run = lambda: ops.wkv_state(r, k, v, w, u, chunk=chunk)  # noqa: E731
+    y, s = run()
+    py, ps = ref.wkv_chunked_plain(r, k, v, w, u, chunk)
+    err = max(wkv_err(y, py, "K7 at the slice's shape, y"),
+              wkv_err(s, ps, "K7 at the slice's shape, state"))
+    y2, s2 = run()
+    check(torch.equal(y, y2) and torch.equal(s, s2),
+          "K7 at the slice's shape: two launches differ")
+    ms = time_ms(run, 10, 2)
+    plain_ms = time_ms(lambda: ref.wkv_chunked_plain(r, k, v, w, u, chunk),
+                       3, 1)
+    B, T, nh, hd = r.shape
+    nbytes = (sum(x.numel() * x.element_size() for x in (r, k, v, w, u))
+              + 4 * y.numel() + 4 * s.numel())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = wkv_needed_flops(B, T, nh, hd, chunk) / F32_FLOP_PER_S * 1e3
+    print(f"  wkv_kernel: {ms:.3f} ms (bound {max(ops_ms, bytes_ms):.4f}, "
+          f"plain {plain_ms:.1f}), max_abs_err {err:.3g}")
+    return {"name": "wkv_kernel", "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
+            "replaces": WKV_SRC, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "shape": {"B": B, "T": T, "nh": nh, "hd": hd, "chunk": chunk,
+                      "dtype": str(r.dtype)[6:],
+                      "w_dtype": str(w.dtype)[6:]},
+            "card": card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1205,7 +1492,9 @@ def main() -> int:
     phase_kernel_vs_plain()
     phase_attention_vs_plain()
     phase_library_vs_plain()
+    phase_wkv_vs_plain()
     phase_small_config_card_vs_cpu()
+    phase_rwkv_smoke_card_vs_cpu()
     cfg, params, summary, launches, captured = phase_slice()
     mask, masked, mask_ms = phase_masked_serving(cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
@@ -1216,6 +1505,11 @@ def main() -> int:
         "flash_attention": kprefill["launches"]["flash_attention"],
         "flash_attention_masked": masked["dense"][0]["launches"],
         "flash_attention_sparse": masked["sparse"][0]["launches"]}, card)
+    del qkv, captured
+    scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rwkv, wkv_launches, wkv_inputs = phase_rwkv_serving(card)
+    rows.append(phase_measure_wkv(wkv_inputs, wkv_launches, card))
+    del wkv_inputs
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
     rows += phase_measure_library(lib_data, lib_counts, lib_info, card)
@@ -1247,10 +1541,10 @@ def main() -> int:
                       "tokens_equal": True},
                   "kernel_prefill": {"prompt": ATTN_PROMPT, **{
                       k: v for k, v in kprefill.items() if k != "launches"}},
-                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                  "card": card,
-                  "wall_s": time.monotonic() - t_start},
-             "library": lib_info}
+                  "peak_gb": scout_peak_gb,
+                  "card": card},
+             "rwkv": rwkv, "library": lib_info,
+             "wall_s": time.monotonic() - t_start}
     print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ import importlib
 
 ARCH_NAMES = [
     "llama4-scout-17b-a16e",
+    "rwkv6-7b",
 ]
 
 _MODULES = {n: "repro_torch.configs." + n.replace("-", "_").replace(".", "_")

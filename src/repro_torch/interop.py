@@ -9,7 +9,9 @@ a ``uint16`` view of its bytes, an fp8 array (``float8_e4m3fn`` /
 ``float8_e5m2``) as a ``uint8`` view.  Matmul weights are stored in the
 policy's compute dtype: the reference casts f32 weights to it at every use,
 which is the same round-to-nearest-even.  Norm scales and routers stay f32:
-routing multiplies in f32.
+routing multiplies in f32.  So do the RWKV decay LoRA, ``decay_base`` and
+``bonus_u``, which the reference uses in f32; the RWKV lerp factors
+``mu`` / ``mu_c`` are cast at use like the weights.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from repro_torch.core.precision import QuantTensor
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models.config import ArchConfig
 
-_F32_LEAVES = ("scale", "router")
+_F32_LEAVES = ("scale", "router", "decay_base", "decay_lora_a",
+               "decay_lora_b", "bonus_u")
 
 
 def bcsr_from_jax(a, *, device="cuda") -> Union[BCSR, BatchedBCSR]:

@@ -27,6 +27,7 @@ SOURCES: Dict[str, Path] = {
                         / "flash_attention.cu"),
     "stencil": _KERNELS / "stencil" / "csrc" / "stencil.cu",
     "spmspm_ell": _KERNELS / "spmspm" / "csrc" / "spmspm_ell.cu",
+    "wkv": _KERNELS / "wkv" / "csrc" / "wkv.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -29,6 +29,13 @@ choice for the Hopper kernels, not carried over from the TPU rows:
   scatters its rows' entries with keys in one chunk of ``kt`` into a dense
   f32 row of shared memory plus a presence bitmask, and keeps each column's
   walk position: 74 KB at rt 4, kt 4096, nt * ct 2048.
+* ``wkv`` ``chunk`` 128: the WKV kernel (``wkv/csrc/wkv.cu``) keeps a
+  chunk's r, k, v and log-decay cumsum, its (chunk, chunk) score tile and
+  the (64, 64) state in f32 shared memory (``wkv_smem_bytes``): 217,088
+  bytes at 128, the largest multiple of its 16-row interleave within a
+  block's 227 KB (144 would need 251,264).  It is the kernel's one chunk:
+  the chunk changes no result beyond rounding, so on the card T is padded
+  to it and never clamped (the reference's clamp holds on the CPU).
 
 The ``cpu`` rows of these ops are the reference's CPU rows, and the
 helpers give the reference's CPU tiles for them (``tests/test_torch_stencil``
@@ -56,6 +63,8 @@ VMEM_BUDGET = 8 * 2**20
 SMEM_BUDGET = 232448
 # Largest (bq, bk) tile the flash kernels take.
 FLASH_MAX_TILE = 64
+# The one chunk the WKV kernel takes.
+WKV_CHUNK = 128
 
 _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
     ("spmm", "f32", "cpu"): {"bn": 128},
@@ -72,6 +81,11 @@ _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
                                       "min_bucket": 8},
     ("moe_dispatch", "bf16", "cuda"): {"block": (8, 8), "bn": 256,
                                        "min_bucket": 8},
+    ("wkv", "f32", "cpu"): {"chunk": 128},
+    ("wkv", "bf16", "cpu"): {"chunk": 128},
+    ("wkv", "fp8", "cpu"): {"chunk": 128},
+    ("wkv", "f32", "cuda"): {"chunk": WKV_CHUNK},
+    ("wkv", "bf16", "cuda"): {"chunk": WKV_CHUNK},
     ("flash", "f32", "cpu"): {"bq": 128, "bk": 128},
     ("flash", "bf16", "cpu"): {"bq": 128, "bk": 128},
     ("flash", "f32", "cuda"): {"bq": 64, "bk": 64},
@@ -119,6 +133,31 @@ def moe_dispatch_tiles(d_model: int, dtype=torch.float32,
     bn = min(int(row["bn"]), max(32, -(-d_model // 32) * 32))
     return {"block": (int(bm), int(bk)), "bn": bn,
             "min_bucket": int(row["min_bucket"])}
+
+
+def wkv_smem_bytes(chunk: int, hd: int = 64) -> int:
+    """Shared memory of one WKV thread block: f32 r, k, v and cumsum tiles
+    (chunk, hd) with rows padded by one word, the padded (chunk, chunk)
+    score tile, the padded (hd, hd) state, the chunk's diagonal bonus and
+    the mid / last cumsum rows and ``u``."""
+    return 4 * (4 * chunk * (hd + 1) + chunk * (chunk + 1) + hd * (hd + 1)
+                + chunk + 3 * hd)
+
+
+def clamp_wkv_chunk(chunk: int, t: int, device="cpu") -> int:
+    """The reference's clamp of a WKV chunk to the sequence,
+    ``min(chunk, max(8, T))``, on the CPU; on the card the chunk as it is
+    (the kernel pads T to its one chunk instead)."""
+    if torch.device(device).type == "cuda":
+        return int(chunk)
+    return min(int(chunk), max(SUBLANE, int(t)))
+
+
+def wkv_chunk(t: int, dtype=torch.float32, device="cpu") -> int:
+    """Chunk length of the WKV recurrence for a sequence of ``t``: the
+    ``wkv`` row, clamped by :func:`clamp_wkv_chunk`."""
+    return clamp_wkv_chunk(int(_row("wkv", dtype, device)["chunk"]), t,
+                           device)
 
 
 def flash_smem_bytes(bq: int, bk: int, d: int) -> int:

@@ -1,0 +1,93 @@
+"""Wrapper of the WKV CUDA kernel (``csrc/wkv.cu``): K7, the port of the
+Pallas kernel ``wkv_pallas`` (repro/kernels/wkv/kernel.py), with its
+signature minus ``interpret`` and plus ``return_state``.
+
+r, k, v, w_log: (B, T, nh, hd) with T a multiple of ``chunk`` (``ops``
+pads); u: (nh, hd).  Returns y (B, T, nh, hd) f32 and, with
+``return_state``, the final (B, nh, hd, hd) f32 state as well.  A CPU
+tensor takes the plain version (``ref.wkv_chunked_plain``); a CUDA tensor
+launches the kernel on the current stream or raises.  On the card r, k, v
+share one dtype (f32 or bf16), w_log is f32 or that dtype, u is f32, hd is
+64 and ``chunk`` is ``tuning.WKV_CHUNK`` (128).  Launches are counted in
+``wkv_kernel.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, tuning
+from repro_torch.kernels.wkv.ref import wkv_chunked_plain
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIM = 64
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("wkv")
+    lib.wkv_launch.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+    lib.wkv_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(r, k, v, w_log, u, chunk: int) -> None:
+    B, T, nh, hd = r.shape
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"wkv_kernel: tensors on {dev}; the kernel runs on "
+                         "a CUDA device, the plain version on the CPU")
+    if any(x.device != dev for x in (k, v, w_log, u)):
+        raise ValueError("wkv_kernel: inputs on different devices")
+    if r.dtype not in _DTYPE_CODE or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"wkv_kernel: r, k, v must share f32 or bf16, got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if w_log.dtype not in (torch.float32, r.dtype) \
+            or u.dtype != torch.float32:
+        raise TypeError(f"wkv_kernel: w_log f32 or r's dtype, and u f32, "
+                        f"got {w_log.dtype}, {u.dtype}")
+    if hd != HEAD_DIM:
+        raise ValueError(f"wkv_kernel: head dim {hd}; the kernel takes "
+                         f"{HEAD_DIM}")
+    if chunk != tuning.WKV_CHUNK:
+        raise ValueError(f"wkv_kernel: chunk {chunk}; the kernel takes "
+                         f"{tuning.WKV_CHUNK}")
+    if not all(x.is_contiguous() for x in (r, k, v, w_log, u)):
+        raise ValueError("wkv_kernel: inputs must be contiguous")
+
+
+def wkv_kernel(r, k, v, w_log, u, *, chunk: int = 128,
+               return_state: bool = False):
+    """y (and the final state with ``return_state``) of the chunked WKV
+    recurrence; see the module docstring."""
+    B, T, nh, hd = r.shape
+    if any(tuple(x.shape) != (B, T, nh, hd) for x in (k, v, w_log)) \
+            or tuple(u.shape) != (nh, hd):
+        raise ValueError(f"wkv_kernel: shapes r {tuple(r.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w_log "
+                         f"{tuple(w_log.shape)}, u {tuple(u.shape)}")
+    if T < 1 or T % chunk:
+        raise ValueError(f"wkv_kernel: T={T} is not a multiple of chunk "
+                         f"{chunk} (ops pads)")
+    if r.device.type == "cpu":
+        y, s = wkv_chunked_plain(r, k, v, w_log, u, chunk)
+        return (y, s) if return_state else y
+    _check_cuda(r, k, v, w_log, u, chunk)
+    y = torch.empty((B, T, nh, hd), dtype=torch.float32, device=r.device)
+    s = (torch.empty((B, nh, hd, hd), dtype=torch.float32, device=r.device)
+         if return_state else None)
+    lib = _lib()
+    err = lib.wkv_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+        u.data_ptr(), y.data_ptr(), None if s is None else s.data_ptr(),
+        B, T, nh, hd, chunk, _DTYPE_CODE[r.dtype], _DTYPE_CODE[w_log.dtype],
+        torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(lib, err, "wkv launch")
+    wkv_kernel.launches += 1
+    return (y, s) if return_state else y
+
+
+wkv_kernel.launches = 0

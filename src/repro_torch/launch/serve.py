@@ -8,6 +8,8 @@ host (``moe.route_moe``: router, slot cumsums, routed-stream compaction to a
 bucketed :class:`BatchedBCSR`) and then executes (``moe.execute_moe``: the
 SpMM kernel's dispatch, expert FFN, combine).  With ``"gather"`` every
 attn+moe layer is one ``moe.apply_moe`` call.  Both give the same tokens.
+A stack without attn+moe layers (rwkv6-7b: ``rwkv`` blocks, whose prefill
+runs the WKV kernel K7) takes the single-phase path whatever the backend.
 
 Every phase is serial (``pipeline_depth=0`` of the reference): each phase
 waits for the device (``torch.cuda.synchronize``) before reading the clock,
@@ -22,6 +24,8 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --gen 8 \
       --attn-mask local_global --attn-mask-impl sparse
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -1,14 +1,16 @@
 """Model assembly for serving: params, decode caches, layered prefill/decode.
 
 The port of the serving half of ``repro/models/model.py`` for the block
-kinds ``attn`` and ``attn+moe``.  The stack is ``block_unit * n_repeats``;
-per-slot params and caches are stacked along a leading repeat dim, as in the
-reference, so ``params["blocks"][slot][...][i]`` is layer ``i`` of that slot
-(a view: no copy).  The repeat loop runs in Python layer by layer, which is
-what lets the serving loop interleave host routing between layers.
+kinds ``attn``, ``attn+moe`` and ``rwkv``.  The stack is ``block_unit *
+n_repeats``; per-slot params and caches are stacked along a leading repeat
+dim, as in the reference, so ``params["blocks"][slot][...][i]`` is layer
+``i`` of that slot (a view: no copy).  The repeat loop runs in Python layer
+by layer, which is what lets the serving loop interleave host routing
+between layers.
 
-Caches are updated **in place**: decode writes each layer's new key/value
-and MoE occupancy into the stacked cache tensors and returns the same dict.
+Caches are updated **in place**: decode writes each layer's new key/value,
+MoE occupancy, RWKV state and token shifts into the stacked cache tensors
+and returns the same dict.
 """
 from __future__ import annotations
 
@@ -20,12 +22,12 @@ from repro_torch import resolve_device
 from repro_torch.core.masks import AttnMaskSpec
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, rwkv6
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 
-KINDS = ("attn", "attn+moe")
+KINDS = ("attn", "attn+moe", "rwkv")
 
 
 def _check_kinds(cfg: ArchConfig) -> None:
@@ -59,6 +61,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
     slots = []
     for kind in cfg.block_unit:
         kw = dict(n=n, dtype=cd, device=dev)
+        if kind == "rwkv":
+            slots.append({"ln1": L.init_rmsnorm(d, n=n, device=dev),
+                          "ln2": L.init_rmsnorm(d, n=n, device=dev),
+                          "mixer": rwkv6.init_rwkv(g, cfg, **kw)})
+            continue
         slot = {"ln1": L.init_rmsnorm(d, n=n, device=dev),
                 "attn": L.init_attention(g, cfg, **kw),
                 "ln2": L.init_rmsnorm(d, n=n, device=dev)}
@@ -73,12 +80,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                dtype=torch.bfloat16, device="cuda") -> Params:
     """Zeroed stacked decode caches, one entry per slot: attention K/V
     ``(n_repeats, B, Hkv, max_seq, hd)`` and, for attn+moe slots, the
-    routing occupancy ``(n_repeats, B, E)`` int32."""
+    routing occupancy ``(n_repeats, B, E)`` int32; for rwkv slots the f32
+    state ``wkv`` ``(n_repeats, B, nh, 64, 64)`` and the token shifts
+    ``shift_t`` / ``shift_c`` ``(n_repeats, B, 1, d)`` in ``dtype``."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     shp = (cfg.n_repeats, batch, cfg.n_kv_heads, max_seq, cfg.hd)
     slots = []
     for kind in cfg.block_unit:
+        if kind == "rwkv":
+            nh, hd = cfg.d_model // rwkv6.HEAD_DIM, rwkv6.HEAD_DIM
+            shift = (cfg.n_repeats, batch, 1, cfg.d_model)
+            slots.append({
+                "wkv": torch.zeros((cfg.n_repeats, batch, nh, hd, hd),
+                                   dtype=torch.float32, device=dev),
+                "shift_t": torch.zeros(shift, dtype=dtype, device=dev),
+                "shift_c": torch.zeros(shift, dtype=dtype, device=dev)})
+            continue
         c = {"attn": {"k": torch.zeros(shp, dtype=dtype, device=dev),
                       "v": torch.zeros(shp, dtype=dtype, device=dev)}}
         if kind == "attn+moe":
@@ -88,10 +106,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     return {"slots": tuple(slots)}
 
 
+def cache_capacity(cache) -> Optional[int]:
+    """Sequence capacity of a decode cache: the shortest attention K/V
+    cache, or None for a stack without attention (recurrent state only),
+    which never overflows."""
+    caps = [c["attn"]["k"].shape[3] for c in cache["slots"] if "attn" in c]
+    return min(caps) if caps else None
+
+
 def check_cache_fits(cache, pos: int, *, who: str = "decode_step") -> None:
     """Raise when a decode write at ``pos`` would fall past the cache."""
-    cap = min(c["attn"]["k"].shape[3] for c in cache["slots"])
-    if pos >= cap:
+    cap = cache_capacity(cache)
+    if cap is not None and pos >= cap:
         raise ValueError(
             f"{who}: KV-cache overflow -- write position {pos} >= cache "
             f"capacity {cap} (max_seq); grow max_seq or stop the sequence.")
@@ -110,8 +136,11 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
            moe_fn: Callable, cache=None, pos: Optional[int] = None,
            collect_kv: int = 0, impl: str = "chunked",
            attn_mask: Optional[AttnMaskSpec] = None):
-    """One attn / attn+moe sub-layer; ``impl`` and ``attn_mask`` reach its
-    prefill attention.  Returns (x, new_cache)."""
+    """One attn / attn+moe / rwkv sub-layer; ``impl`` and ``attn_mask``
+    reach its prefill attention.  Returns (x, new_cache); decode (``cache``
+    given) writes the new cache entries into ``cache`` in place."""
+    if kind == "rwkv":
+        return _rwkv_block(p, x, cfg, cache=cache, collect=bool(collect_kv))
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, new_attn = L.apply_attention(
         p["attn"], h, cfg, impl=impl,
@@ -132,6 +161,28 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         f = L.apply_mlp(p["ffn"], h, cfg)
     return x + f, new_cache
+
+
+def _rwkv_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, cache,
+                collect: bool):
+    """Time mix then channel mix, each on its rmsnorm and residual."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    t_cache = (None if cache is None else
+               {"shift_t": cache["shift_t"], "wkv": cache["wkv"]})
+    t, new_t = rwkv6.apply_rwkv_time(p["mixer"], h, cfg, cache=t_cache,
+                                     collect=collect)
+    x = x + t
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    c_cache = None if cache is None else {"shift_c": cache["shift_c"]}
+    c, new_c = rwkv6.apply_rwkv_channel(p["mixer"], h, cfg, cache=c_cache,
+                                        collect=collect)
+    x = x + c
+    new = None if new_t is None else {**new_t, **new_c}
+    if cache is not None:
+        for key, val in new.items():
+            cache[key].copy_(val)
+        new = cache
+    return x, new
 
 
 def final_logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -173,14 +224,45 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                           attn_mask=attn_mask)
             per_slot[slot].append(c)
     logits = final_logits(params, x, cfg, last_only=True)
-    slots = []
-    for caches in per_slot:
-        c = {"attn": {k: torch.stack([ci["attn"][k] for ci in caches]
-                                     ).to(cache_dtype) for k in ("k", "v")}}
-        if "moe" in caches[0]:
-            c["moe"] = torch.stack([ci["moe"] for ci in caches])
-        slots.append(c)
-    return logits, {"slots": tuple(slots)}, tokens.shape[1]
+    cd = precision_policy(cfg.policy).compute_dtype
+    slots = tuple(_cache_to_dtype(_stack(caches), cd, cache_dtype)
+                  for caches in per_slot)
+    return logits, {"slots": slots}, tokens.shape[1]
+
+
+def _stack(trees):
+    """Per-layer cache trees -> one tree of tensors stacked on a leading
+    layer dim."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _cache_to_dtype(tree, cd, cache_dtype):
+    """The reference's rule (``model._cache_to_dtype``): every cache leaf
+    in the compute dtype becomes ``cache_dtype``; others (MoE counts, and
+    the f32 RWKV state when the compute dtype is bf16) stay as they are.
+    Under the f32 policy this rounds the RWKV state to a bf16 cache too."""
+    if isinstance(tree, dict):
+        return {k: _cache_to_dtype(v, cd, cache_dtype)
+                for k, v in tree.items()}
+    return tree.to(cache_dtype) if tree.dtype == cd else tree
+
+
+def _decode_dtypes(cfg: ArchConfig, cache) -> None:
+    """Bring the rwkv leaves to the dtypes a decode step writes (the f32
+    state, the shifts in the compute dtype), once, in place in ``cache``.
+    The reference's decode step returns them so (a prefill cache under the
+    f32 policy holds them in bf16) and reads the narrower values widened,
+    which this widening reproduces exactly."""
+    cd = precision_policy(cfg.policy).compute_dtype
+    for slot, kind in zip(cache["slots"], cfg.block_unit):
+        if kind != "rwkv":
+            continue
+        for key, dtype in (("wkv", torch.float32), ("shift_t", cd),
+                           ("shift_c", cd)):
+            if slot[key].dtype != dtype:
+                slot[key] = slot[key].to(dtype)
 
 
 def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos: int,
@@ -193,6 +275,7 @@ def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos: int,
     capacity first.  Updates ``cache`` in place; returns (logits (B, 1, V)
     f32, cache)."""
     check_cache_fits(cache, pos, who="decode_step_layered")
+    _decode_dtypes(cfg, cache)
     moe_fn = moe_fn or moe.apply_moe
     x = _embed(params, tokens_1, cfg)
     for i in range(cfg.n_repeats):

@@ -289,7 +289,9 @@ def test_port_imports_no_jax():
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("core/masks.py", "kernels/flash_attention/kernel.py",
                 "kernels/flash_attention/ops.py",
-                "kernels/flash_attention/ref.py"):
+                "kernels/flash_attention/ref.py", "kernels/wkv/kernel.py",
+                "kernels/wkv/ops.py", "kernels/wkv/ref.py",
+                "models/rwkv6.py", "configs/rwkv6_7b.py"):
         assert "src/repro_torch/" + mod in names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
