@@ -10,16 +10,20 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. the card (``nvidia-smi`` name and power limit), torch, the TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout
    (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7: five sources), one ``nvcc`` each,
-   all started together, with build seconds and register counts;
+   all started together, with build seconds and register counts (the flash
+   kernels' by name, with their shared memory), and the count of
+   tensor-core instructions in the flash library's SASS;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), empty block-rows, bucket-pad
    entries, N not a multiple of the tile); K3, K4m and K4s on random q, k, v
-   (f32 and bf16, GQA 4/2 at D 64 and 40/8 at D 128, the reference's mask
-   pattern zoo, bucketed and unbucketed streams, a window, a nonzero
-   q_offset, ragged S through ``ops.attention``, causal or not), with the
-   laws K4s == K4m, bucketed == unbucketed and K4s on a plain causal /
-   window mask == K3 as ``torch.equal``; then, as ``torch.equal``, K6a and
-   K6b (five stencils, f32 and bf16, ragged, two tiles), K5 (wide, and with
+   (f32 and bf16 -- bf16 runs on the tensor cores, f32 on the CUDA cores --
+   GQA 4/2 at D 64 and 16 and 40/8 at D 128, tiles 32, 16 and 64, the
+   reference's mask pattern zoo, bucketed and unbucketed streams, a window,
+   a nonzero q_offset, ragged S through ``ops.attention``, causal or not),
+   with the laws K4s == K4m, bucketed == unbucketed and K4s on a plain
+   causal / window mask == K3 as ``torch.equal``; then, as
+   ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
+   tiles), K5 (wide, and with
    ``a_scales`` == on host-dequantized rows, three formats), K2q (== K2 on
    host-dequantized blocks, three formats, f32 and bf16 dense), and the
    port's quantizer on the card == on the CPU, as bytes; then K7 (the WKV
@@ -44,7 +48,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    stream walk (K4s) and once with the masked grid (K4m), which must give
    identical tokens and no oracle fallback;
 7. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
-   K3), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q, k, v;
+   K3), its first tokens against ``impl="chunked"`` and ``impl="ref"``
+   (information), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q,
+   k, v;
    then the llama4 weights are released;
 8. RWKV-6 serving at full width and depth (rwkv6-7b: d_model 4096, 64
    heads of 64, d_ff 14336, vocab 65536, 32 layers, random bf16 weights
@@ -215,15 +221,67 @@ def phase_card():
     return card
 
 
+def _flash_resources(log: str) -> None:
+    """The flash kernels' registers, spills and shared memory (``-Xptxas
+    -v``; the dynamic shared memory from ``tuning.flash_smem_bytes`` at 64
+    x 64 tiles), kernel by kernel."""
+    import re
+    import torch
+    from repro_torch.kernels import tuning
+    if "ptxas" not in log:
+        print(f"  flash_attention: {log}")
+        return
+    name, spills = None, ""
+    for line in log.splitlines():
+        m = re.search(r"\d((?:tc_)?flash_(?:masked_|sparse_)?kernel)ILi(\d+)E",
+                      line)
+        if "Compiling entry function" in line and m:
+            name = (m.group(1), int(m.group(2)))
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            kern, d = name
+            dt = torch.bfloat16 if kern.startswith("tc_") else torch.float32
+            print(f"  flash_attention {kern}<D={d}>: "
+                  f"{line.split(':', 1)[-1].strip()}; {spills}; "
+                  f"{tuning.flash_smem_bytes(64, 64, d, dt)} bytes dynamic "
+                  "smem at 64 x 64 tiles")
+            name = None
+
+
+def _flash_sass() -> None:
+    """The count of tensor-core instructions (HGMMA: wgmma, HMMA:
+    mma.sync) in the flash library's SASS, where the toolkit has
+    ``cuobjdump``."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print("  flash_attention SASS: no cuobjdump")
+        return
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "flash_attention"))], capture_output=True, text=True).stdout
+    ops = [ln.split("*/", 1)[-1].split()[0] for ln in sass.splitlines()
+           if "MMA" in ln and "*/" in ln]
+    print(f"  flash_attention SASS: {sum(o.startswith('HGMMA') for o in ops)}"
+          f" HGMMA, {sum(o.startswith('HMMA') for o in ops)} HMMA "
+          "instructions")
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.monotonic()
     res = build.build_all()
     print(f"build: {time.monotonic() - t0:.2f} s for {sorted(res)}")
     for name, r in res.items():
+        if name == "flash_attention":
+            _flash_resources(r["log"] or "(built before this run: no report)")
+            continue
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    _flash_sass()
 
 
 def _random_stream(rng, B, gm, gn, block, empty_rows, pad, dtype, device):
@@ -325,7 +383,8 @@ def phase_attention_vs_plain():
     ops.reset_fallbacks()
     for dt in (torch.float32, torch.bfloat16):
         for B, Hq, Hkv, S, D, t in ((2, 4, 2, 256, 64, 32),
-                                    (1, 40, 8, 512, 128, 64)):
+                                    (1, 40, 8, 512, 128, 64),
+                                    (1, 4, 2, 128, 16, 16)):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to("cuda", dt) for shape in
                 ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
@@ -634,8 +693,10 @@ def phase_kernel_prefill(cfg, params):
     the 2048-token prompts runs K3 once a layer; the logits are finite.
     Then layer 0's q, k, v (bf16) give K3 == K4s on ``BlockMask.causal``
     exactly, and are returned for the kernel rows.  The first token's
-    agreement with ``impl="chunked"`` is printed as information only: the
-    kernels keep p in f32 in the PV product, chunked rounds it to bf16."""
+    agreement with ``impl="chunked"`` and with ``impl="ref"`` (the
+    materialized f32 oracle) is printed as information only: the kernels
+    keep p at f32 precision in the PV product (bf16 q, k, v: as a bf16 hi +
+    lo pair), as the oracle does; chunked rounds it to bf16."""
     import torch
     from repro_torch.core.masks import BlockMask
     from repro_torch.kernels import tuning
@@ -659,13 +720,19 @@ def phase_kernel_prefill(cfg, params):
     check(tuple(logits.shape) == (BATCH, 1, cfg.padded_vocab)
           and bool(torch.isfinite(logits).all()),
           "kernel prefill logits not finite")
-    chunked, _, _ = M.prefill_layered(params, prompts, cfg, **kw)
     first = logits[:, -1, :cfg.vocab_size].argmax(-1)
-    agree = (first == chunked[:, -1, :cfg.vocab_size].argmax(-1)).float()
-    diff = (logits - chunked).abs().max().item()
+    against = {}
+    for impl in ("chunked", "ref"):
+        other, _, _ = M.prefill_layered(params, prompts, cfg, impl=impl, **kw)
+        against[impl] = (
+            (first == other[:, -1, :cfg.vocab_size].argmax(-1)).float()
+            .mean().item(), (logits - other).abs().max().item())
+        del other
     print(f"kernel prefill: launches {counts}; {prefill_ms:.1f} ms; first "
-          f"token agrees with chunked on {agree.mean().item():.2f} of the "
-          f"rows, logits differ by up to {diff:.3g} (information only)")
+          "token agrees with " + ", ".join(
+              f"{impl} on {a:.2f} of the rows (logits differ by up to "
+              f"{d:.3g})" for impl, (a, d) in against.items())
+          + " (information only)")
 
     x = M._embed(params, prompts, cfg)
     p0 = M._take(params["blocks"][0], 0)
@@ -682,8 +749,10 @@ def phase_kernel_prefill(cfg, params):
     print(f"  layer 0 q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype}: "
           f"K3 == K4s(causal), tiles {bq}x{bk}")
     return {"launches": counts, "prefill_ms": prefill_ms,
-            "first_token_agreement": agree.mean().item(),
-            "logits_max_diff": diff}, (q, k, v)
+            "first_token_agreement": against["chunked"][0],
+            "logits_max_diff": against["chunked"][1],
+            "first_token_agreement_ref": against["ref"][0],
+            "logits_max_diff_ref": against["ref"][1]}, (q, k, v)
 
 
 def phase_measure_attention(qkv, mask, launches, card):

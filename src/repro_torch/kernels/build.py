@@ -2,7 +2,8 @@
 
 Each ``.cu`` under ``kernels/*/csrc/`` is a plain-C-interface shared library
 (no PyTorch headers, so a build takes seconds).  The library is named after
-the source and a hash of its bytes and the flags, and lands in
+the source and a hash of the flags and of its ``csrc/`` directory (the
+source and the headers beside it), and lands in
 ``<repo>/build/kernels/`` (listed in ``.gitignore``): an unchanged source is
 built once per checkout, an edited one is rebuilt.  :func:`build_all` starts
 one ``nvcc`` per missing library, all at once, and waits for them together.
@@ -51,8 +52,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of source ``name``, named after a hash of the flags and
+    of every file in the source's ``csrc/`` directory (the headers it
+    includes live there), so that an edit to any of them rebuilds it."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(SOURCES[name].parent.iterdir()):
+        if f.is_file():
+            digest.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

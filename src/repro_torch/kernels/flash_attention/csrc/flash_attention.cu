@@ -17,26 +17,46 @@
 // entry with a dead kind and fall in the last row's slice as no-ops).
 // Nothing carries between blocks: no atomics, deterministic results.
 //
-// All three kernels call the one `tile_update` below, with its one reduction
-// order, so sparse == masked and sparse(causal / window) == K3 hold bit for
-// bit.  As in the Pallas bodies, q, k and v are widened to f32, q is scaled in
-// f32, and p stays f32 in the PV product; only the final acc / l is rounded,
-// to q's type.  With p = (visible ? exp(s - m_new) : 0) a fully masked tile is
-// an exact no-op, and a row that sees no key finalizes to 0.
+// Each input type has one tile update, which all three kernels call with its
+// one reduction order, so sparse == masked and sparse(causal / window) == K3
+// hold bit for bit within a type.  As in the Pallas bodies, p keeps f32
+// precision in the PV product; only the final acc / l is rounded, to q's
+// type.  With p = (visible ? exp(s - m_new) : 0) a fully masked tile is an
+// exact no-op, and a row that sees no key finalizes to 0.
 //
 // Bound: operations.  At llama4-scout's prefill (B = 4, Hq = 40, S = 2048,
 // D = 128) one causal layer is 4 * B * Hq * D * S * (S + 1) / 2 ~ 172 GFLOP
 // against ~0.2 GB of q, k, v and output moved once: ~860 flops per byte, above
 // the ~295 at which the H100's bf16 tensor cores, not its memory, are the
-// limit.  This first kernel runs on the CUDA cores in f32: 256 threads, each
-// owning 4 rows x 4 columns of the 64 x 64 score tile and 4 rows x D / 16
-// columns of the accumulator; the Q, K, V and P tiles sit in shared memory,
-// with the rows of Q, K and P padded by one word so that column reads do not
-// share banks.  Tensor cores (wgmma, with p kept at f32 precision) are later
-// work.
+// limit.
+//
+// bf16 q, k, v (the serving path) run on the tensor cores (`tc_*` below, the
+// building blocks in hopper.cuh): one warpgroup (128 threads) per 64-row q
+// tile, the unscaled Q tile loaded once into swizzled shared memory, K / V
+// tiles through a three-stage cp.async ring (two tiles in flight while one
+// computes; the walk reads its entries ahead).  S = Q K^T is D / 16 wgmma
+// m64n64k16 into f32 registers, then s * scale in f32; the softmax runs in
+// the accumulator layout, a row's max and sum reduced over the four threads
+// that share it, with the mask test skipped on wholly visible tiles and exp
+// as __expf (ex2.approx; ~1e-6 relative at the arguments that matter).  P V
+// keeps p at f32 precision: p = hi + lo with hi = bf16(p), lo = bf16(p - hi)
+// (together within 2^-18 of p), and two register-A wgmma m64nDk16 per 16
+// keys, hi then lo, accumulate into the one f32 accumulator (v is bf16, so
+// each product is exact).  Tile j's softmax runs while tile j - 1's P V is
+// on the tensor cores.  Tiles smaller than 64 x 64 are computed 64 wide: Q
+// rows past bq and K / V rows past bk are loaded as zeros and masked.  113
+// KB of shared memory at D = 128: two blocks per SM.
+//
+// f32 q, k, v run on the CUDA cores in f32 (`tile_update` below): 256
+// threads, each owning 4 rows x 4 columns of the 64 x 64 score tile and 4
+// rows x D / 16 columns of the accumulator; the Q, K, V and P tiles sit in
+// shared memory, with the rows of Q, K and P padded by one word so that
+// column reads do not share banks.  q is scaled first, in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,13 +71,7 @@ constexpr int kRows = kMaxTile / 16;  // query rows per thread
 constexpr int kCols = kMaxTile / 16;  // score columns per thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 struct Shape {
   int B, Hq, Hkv, Sq, Skv;  // padded lengths: Sq % bq == 0, Skv % bk == 0
@@ -333,6 +347,347 @@ __global__ void __launch_bounds__(kThreads)
   finalize<D>(out + blk.q * D, s, st);
 }
 
+// ------------------------------------------------ bf16: tensor cores ------
+
+using bf16 = __nv_bfloat16;
+
+// The online-softmax state of a thread's two rows r0 = 16 warp + lane / 4 and
+// r0 + 8, o in the wgmma accumulator layout (hopper.cuh).  m and l are the
+// same in the four threads of a row.
+template <int D>
+struct TcState {
+  float m[2], l[2], o[D / 2];
+};
+
+// p of one tile as bf16 A fragments, hi and lo: k-step j of P V takes
+// entries 8 j .. 8 j + 7 of the score accumulator, in pairs.
+struct PFrags {
+  uint32_t hi[4][4], lo[4][4];
+};
+
+// s = q k^T over D / 16 k-steps, issued (the caller commits and waits).
+template <int D>
+__device__ __forceinline__ void tc_scores(float (&sc)[32], uint32_t q_tile,
+                                          uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::mma_ss(sc, hopper::k_major<D>(q_tile, kk),
+                   hopper::k_major<D>(k_tile, kk), kk > 0);
+}
+
+// o += hi v + lo v, 16 keys at a time, issued (the caller commits and waits).
+template <int D>
+__device__ __forceinline__ void tc_pv(float (&o)[D / 2], const PFrags& p,
+                                      uint32_t v_tile) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t vd = hopper::mn_major<D>(v_tile, j);
+    hopper::mma_rs(o, p.hi[j], vd);
+    hopper::mma_rs(o, p.lo[j], vd);
+  }
+}
+
+// The online softmax of one tile: s (q k^T, unscaled) becomes p = visible ?
+// exp(s * scale - m_new) : 0, split into p's bf16 fragments; m and l are
+// updated and alpha = exp(m_old - m_new) returned for the caller's rescale of
+// o.  Entry e of s is (r0 + 8 h, c0 + 8 i + b), e = 4 i + 2 h + b.  The kind
+// bits, skv, causal and window edges and columns past bk mask a tile that is
+// not wholly visible; a wholly visible one (most tiles) skips the test, with
+// the same result.
+template <int D>
+__device__ __forceinline__ void tc_softmax(float (&sc)[32], int kind, int q0,
+                                           int k0, const Shape& s,
+                                           TcState<D>& st, PFrags& p,
+                                           float (&alpha)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+  const bool causal = kind & kCausal;
+  const bool windowed = s.window >= 0 && (kind & kWindow);
+  const int last = hopper::kTileRows - 1;
+  const bool whole = s.bk == hopper::kTileRows && k0 + last < s.skv &&
+                     (!causal || q0 >= k0 + last) &&
+                     (!windowed || q0 + last - k0 < s.window);
+  uint32_t vis = 0;
+  float mx[2] = {kNegInf, kNegInf};
+  if (whole) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] = __fmul_rn(sc[e], s.scale);
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int h = (e >> 1) & 1;
+      const int c = 8 * (e >> 2) + c0 + (e & 1);
+      const int q_pos = q0 + r0 + 8 * h, k_pos = k0 + c;
+      bool o = c < s.bk && k_pos < s.skv;
+      if (causal) o = o && q_pos >= k_pos;
+      if (windowed) o = o && q_pos - k_pos < s.window;
+      sc[e] = o ? __fmul_rn(sc[e], s.scale) : kNegInf;
+      vis |= (uint32_t)o << e;
+      mx[h] = fmaxf(mx[h], sc[e]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    mx[h] = fmaxf(st.m[h], mx[h]);  // m_new
+  }
+  float sum[2] = {0.f, 0.f};
+  if (whole) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] = __expf(sc[e] - mx[(e >> 1) & 1]);
+      sum[(e >> 1) & 1] += sc[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] = (vis >> e) & 1 ? __expf(sc[e] - mx[(e >> 1) & 1]) : 0.f;
+      sum[(e >> 1) & 1] += sc[e];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    alpha[h] = __expf(st.m[h] - mx[h]);
+    st.l[h] = fmaf(st.l[h], alpha[h], sum[h]);
+    st.m[h] = mx[h];
+  }
+  // p = hi + lo: hi = bf16(p), lo = bf16(p - hi)
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float p0 = sc[8 * j + 2 * t], p1 = sc[8 * j + 2 * t + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 back = __bfloat1622float2(hi);
+      p.hi[j][t] = hopper::bits(hi);
+      p.lo[j][t] = hopper::bits(__floats2bfloat162_rn(
+          __fsub_rn(p0, back.x), __fsub_rn(p1, back.y)));
+    }
+}
+
+// out = o / l (l == 0: a row that saw no key gives 0), rounded once to bf16.
+template <int D>
+__device__ void tc_finalize(bf16* __restrict__ out, const Shape& s,
+                            const TcState<D>& st) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= s.bq) continue;
+    const float l = st.l[h] == 0.f ? 1.f : st.l[h];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const __nv_bfloat162 x = __floats2bfloat162_rn(
+          st.o[4 * i + 2 * h] / l, st.o[4 * i + 2 * h + 1] / l);
+      *reinterpret_cast<__nv_bfloat162*>(out + r * D + 8 * i + c0) = x;
+    }
+  }
+}
+
+// The walks: each yields the live KV tiles of the block's q-tile row in its
+// kernel's order, as (first key, kind), and reads its next entry ahead of
+// the tile being computed.
+struct DenseWalk {  // K3: column order, tiles no (q, k) pair of which is
+  int k_lo, Skv, bk, q_lo, q_hi, window, causal, kind;  // visible skipped
+  __device__ bool next(int& k0, int& kd) {
+    while (k_lo < Skv) {
+      const int k = k_lo;
+      k_lo += bk;
+      if (causal && k > q_hi) continue;
+      if (window >= 0 && k + bk - 1 < q_lo - window + 1) continue;
+      k0 = k;
+      kd = kind;
+      return true;
+    }
+    return false;
+  }
+};
+
+struct MaskedWalk {  // K4m: column order, kind < 0 skipped unloaded
+  const int32_t* row;
+  int ki, n_kv, bk;
+  __device__ bool next(int& k0, int& kd) {
+    while (ki < n_kv) {
+      const int k = ki++;
+      if (row[k] < 0) continue;
+      k0 = k * bk;
+      kd = row[k];
+      return true;
+    }
+    return false;
+  }
+};
+
+struct SparseWalk {  // K4s: the row's slice of the stream, in order
+  const int32_t *cols, *kinds;
+  int i, end, bk;
+  __device__ bool next(int& k0, int& kd) {
+    while (i < end) {
+      const int j = i++;
+      if (kinds[j] < 0) continue;  // bucket pad or empty-row marker
+      k0 = cols[j] * bk;
+      kd = kinds[j];
+      return true;
+    }
+    return false;
+  }
+};
+
+constexpr int kStages = 3;  // the K / V ring
+
+template <int D>
+constexpr size_t tc_smem_bytes() {  // Q, the K / V ring, 1 KB alignment
+  return 1024 + (1 + 2 * kStages) * (size_t)hopper::Tile<D>::kBytes;
+}
+
+struct TileRef {  // a live KV tile of the walk
+  int k0, kind;
+  bool live;
+};
+
+// The body of the three bf16 kernels, and their one reduction order: Q once,
+// then the walk's tiles, tile i in ring stage i % 3.  Tile j's scores are
+// issued with tile j - 1's P V, and its softmax runs while that P V is on the
+// tensor cores; o is rescaled by tile j's alpha after tile j - 1's P V has
+// landed, so o = o * alpha_j + p_j v_j as in a tile-at-a-time loop.  Two
+// tiles are in flight ahead of the one being computed.
+template <int D, typename Walk>
+__device__ void tc_run(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       const Shape& s, Walk walk) {
+  constexpr uint32_t kTile = hopper::Tile<D>::kBytes, kStage = 2 * kTile;
+  extern __shared__ uint8_t tc_smem[];
+  const uint32_t q_tile = (hopper::smem_addr(tc_smem) + 1023u) & ~1023u;
+  const uint32_t ring = q_tile + kTile;  // stage t: K at t, V at t + kTile
+  const int tid = threadIdx.x;
+  const Block blk(s);
+  const bf16* kb = k + blk.kv * D;
+  const bf16* vb = v + blk.kv * D;
+  auto load = [&](int stage, const TileRef& t) {
+    if (t.live) {
+      const uint32_t at = ring + stage * kStage;
+      hopper::load_tile<D>(at, kb + (size_t)t.k0 * D, s.bk, tid);
+      hopper::load_tile<D>(at + kTile, vb + (size_t)t.k0 * D, s.bk, tid);
+    }
+    hopper::cp_async_commit();
+  };
+  hopper::load_tile<D>(q_tile, q + blk.q * D, s.bq, tid);
+  hopper::cp_async_commit();
+  TileRef a{0, 0, false}, b{0, 0, false}, c{0, 0, false};  // j - 1, j, j + 1
+  a.live = walk.next(a.k0, a.kind);
+  load(0, a);
+  b.live = a.live && walk.next(b.k0, b.kind);
+  load(1, b);
+  c.live = b.live && walk.next(c.k0, c.kind);
+  load(2, c);
+
+  TcState<D> st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    st.m[h] = kNegInf;
+    st.l[h] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
+  const int q_lo = s.q_offset + (int)blockIdx.x * s.bq;
+  if (a.live) {
+    float sc[32], alpha[2];
+    PFrags p;
+    hopper::cp_async_wait<2>();  // Q and tile 0
+    hopper::fence_async_shared();
+    __syncthreads();
+    hopper::mma_fence();
+    tc_scores<D>(sc, q_tile, ring);
+    hopper::mma_commit();
+    hopper::mma_wait<0>();
+    hopper::fence_operands(sc);
+    tc_softmax<D>(sc, a.kind, q_lo, a.k0, s, st, p, alpha);  // o is 0
+    int stage = 0;  // of tile j - 1
+    while (b.live) {
+      const int next = stage == kStages - 1 ? 0 : stage + 1;  // of tile j
+      hopper::cp_async_wait<1>();  // tile j (tile j + 1 may be in flight)
+      hopper::fence_async_shared();
+      __syncthreads();
+      hopper::mma_fence();
+      tc_scores<D>(sc, q_tile, ring + next * kStage);
+      hopper::mma_commit();
+      tc_pv<D>(st.o, p, ring + stage * kStage + kTile);
+      hopper::mma_commit();
+      hopper::mma_wait<1>();  // the scores (groups complete in order)
+      hopper::fence_operands(sc);
+      PFrags p_next;
+      tc_softmax<D>(sc, b.kind, q_lo, b.k0, s, st, p_next, alpha);
+      hopper::mma_wait<0>();  // tile j - 1's P V
+      hopper::fence_operands(st.o);
+      hopper::keep(p.hi);
+      hopper::keep(p.lo);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        st.o[i] = __fmul_rn(st.o[i], alpha[(i >> 1) & 1]);
+      p = p_next;
+      __syncthreads();  // every warp's wgmma has read tile j - 1's stage
+      a = b;
+      b = c;
+      c.live = c.live && walk.next(c.k0, c.kind);
+      load(stage, c);  // tile j + 2 into the stage just freed
+      stage = next;
+    }
+    hopper::mma_fence();
+    tc_pv<D>(st.o, p, ring + stage * kStage + kTile);
+    hopper::mma_commit();
+    hopper::mma_wait<0>();
+    hopper::fence_operands(st.o);
+  }
+  hopper::cp_async_wait<0>();
+  tc_finalize<D>(out + blk.q * D, s, st);
+}
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kThreads)
+    tc_flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    Shape s, int causal) {
+  const int q_lo = s.q_offset + (int)blockIdx.x * s.bq;
+  const int kind = (causal ? kCausal : 0) | (s.window >= 0 ? kWindow : 0);
+  tc_run<D>(q, k, v, out, s,
+            DenseWalk{0, s.Skv, s.bk, q_lo, q_lo + s.bq - 1, s.window, causal,
+                      kind});
+}
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kThreads)
+    tc_flash_masked_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const int32_t* __restrict__ kinds,
+                           bf16* __restrict__ out, Shape s) {
+  const int n_kv = s.Skv / s.bk;
+  tc_run<D>(q, k, v, out, s,
+            MaskedWalk{kinds + (size_t)blockIdx.x * n_kv, 0, n_kv, s.bk});
+}
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kThreads)
+    tc_flash_sparse_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const int32_t* __restrict__ rows,
+                           const int32_t* __restrict__ cols,
+                           const int32_t* __restrict__ kinds, int capacity,
+                           bf16* __restrict__ out, Shape s) {
+  const int r = (int)blockIdx.x;
+  tc_run<D>(q, k, v, out, s,
+            SparseWalk{cols, kinds, lower_bound(rows, capacity, r),
+                       lower_bound(rows, capacity, r + 1), s.bk});
+}
+
 enum Mode { kDense = 0, kMasked = 1, kSparse = 2 };
 
 struct Args {
@@ -379,12 +734,66 @@ cudaError_t launch(Mode mode, const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_dim(Mode mode, int D, const Args& a) {
-  switch (D) {
-    case 16: return launch<16, T>(mode, a);
-    case 64: return launch<64, T>(mode, a);
-    case 128: return launch<128, T>(mode, a);
+// Dynamic shared memory of `kernel`, and the largest carveout, so that two
+// blocks share an SM.
+template <typename Kernel>
+cudaError_t tc_attributes(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+cudaError_t launch_tc(Mode mode, const Args& a) {
+  const Shape& s = a.s;
+  const size_t smem = tc_smem_bytes<D>();
+  const dim3 grid(s.Sq / s.bq, s.Hq, s.B);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  bf16* out = static_cast<bf16*>(a.out);
+  // cp.async copies 16-byte chunks
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.out)) %
+      16)
+    return cudaErrorMisalignedAddress;
+  cudaError_t err;
+  if (mode == kDense) {
+    err = tc_attributes(tc_flash_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    tc_flash_kernel<D><<<grid, hopper::kThreads, smem, a.stream>>>(
+        q, k, v, out, s, a.causal);
+  } else if (mode == kMasked) {
+    err = tc_attributes(tc_flash_masked_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    tc_flash_masked_kernel<D><<<grid, hopper::kThreads, smem, a.stream>>>(
+        q, k, v, a.kinds, out, s);
+  } else {
+    err = tc_attributes(tc_flash_sparse_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    tc_flash_sparse_kernel<D><<<grid, hopper::kThreads, smem, a.stream>>>(
+        q, k, v, a.rows, a.cols, a.kinds, a.capacity, out, s);
+  }
+  return cudaGetLastError();
+}
+
+// f32 on the CUDA cores, bf16 on the tensor cores: each type has its path.
+cudaError_t by_type(Mode mode, int D, int dtype, const Args& a) {
+  if (dtype == kF32) {
+    switch (D) {
+      case 16: return launch<16, float>(mode, a);
+      case 64: return launch<64, float>(mode, a);
+      case 128: return launch<128, float>(mode, a);
+    }
+  } else if (dtype == kBF16) {
+    switch (D) {
+      case 16: return launch_tc<16>(mode, a);
+      case 64: return launch_tc<64>(mode, a);
+      case 128: return launch_tc<128>(mode, a);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -396,9 +805,7 @@ cudaError_t dispatch(Mode mode, int D, int dtype, const Args& a) {
       s.Hq % s.Hkv != 0 || s.Sq < 1 || s.Skv < 1 || s.Sq % s.bq != 0 ||
       s.Skv % s.bk != 0)
     return cudaErrorInvalidValue;
-  if (dtype == kF32) return by_dim<float>(mode, D, a);
-  if (dtype == kBF16) return by_dim<__nv_bfloat16>(mode, D, a);
-  return cudaErrorInvalidValue;
+  return by_type(mode, D, dtype, a);
 }
 
 Shape make_shape(int B, int Hq, int Hkv, int Sq, int Skv, int bq, int bk,

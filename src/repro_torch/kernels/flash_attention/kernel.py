@@ -8,7 +8,9 @@ A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel on the current stream or raises -- there is no fallback.  Each
 wrapper counts its launches in ``.launches``.  The kernels take f32 or bf16
 q, k, v of one type, head dims 16, 64 or 128, and tiles of at most 64 x 64
-(``kernels.tuning`` row ``flash``).
+(``kernels.tuning`` row ``flash``); the source picks the path by type, bf16
+on the tensor cores (p kept at f32 precision as a bf16 hi + lo pair), f32 on
+the CUDA cores.
 """
 from __future__ import annotations
 

@@ -13,12 +13,16 @@ choice for the Hopper kernels, not carried over from the TPU rows:
 * ``min_bucket`` 8: the port compiles nothing per stream shape, so the nnzb
   bucket floor only bounds zero-block work on one-token decode streams.
 * ``flash`` (bq, bk) 64 x 64, for K3 and the masked kernels K4m / K4s
-  alike: the flash kernels (``flash_attention/csrc/flash_attention.cu``)
-  stage a Q, K and V tile and the score tile in f32 shared memory, 115 KB at
-  D = 128, and take tiles of at most 64 x 64.  At S = 2048 a 64-wide tile
-  also resolves a local window finer than a 128-wide one (275 of 528 causal
-  tiles visible under a local window of 512 plus one global tile, against
-  81 of 136).
+  alike, f32 and bf16: the flash kernels
+  (``flash_attention/csrc/flash_attention.cu``) take tiles of at most 64 x
+  64 (``flash_smem_bytes``).  bf16 runs on the tensor cores: one 64-row
+  wgmma per q tile, the bf16 Q tile and a three-stage K / V ring in swizzled
+  shared memory, 113 KB at D = 128 whatever the tile (a smaller tile is
+  computed 64 wide and masked), so that two blocks share an SM.  f32 runs
+  on the CUDA cores, with f32 Q, K, V and score tiles, 115 KB at D = 128.
+  At S = 2048 a 64-wide tile also resolves a local window finer than a
+  128-wide one (275 of 528 causal tiles visible under a local window of
+  512 plus one global tile, against 81 of 136).
 * ``stencil2d`` / ``stencil3d`` ``tile``: the output tile of one stencil
   thread block (32 x 8 threads, 16 outputs each), whose (tile + 2r) halo is
   staged in f32 shared memory: 19 KB at (32, 128), 26 KB at (8, 8, 64).
@@ -160,9 +164,14 @@ def wkv_chunk(t: int, dtype=torch.float32, device="cpu") -> int:
                            device)
 
 
-def flash_smem_bytes(bq: int, bk: int, d: int) -> int:
-    """Shared memory of one flash thread block: f32 Q and K tiles with rows
+def flash_smem_bytes(bq: int, bk: int, d: int,
+                     dtype=torch.float32) -> int:
+    """Shared memory of one flash thread block.  bf16: the (64, d) Q tile
+    and three stages of (64, d) K and V tiles, with 1 KB to align them to
+    the swizzle pattern, whatever the tile.  f32: f32 Q and K tiles with rows
     padded by one word, the V tile, and the padded (bq, bk) score tile."""
+    if dtype == torch.bfloat16:
+        return 1024 + 7 * 64 * d * 2
     return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
 
 
@@ -179,7 +188,8 @@ def _flash_clamp(bq: int, bk: int, sq: int, skv: int, d: int,
                              + 2 * bq * d * eb) > VMEM_BUDGET:
             bk //= 2
     else:
-        while bk > SUBLANE and flash_smem_bytes(bq, bk, d) > SMEM_BUDGET:
+        while bk > SUBLANE and flash_smem_bytes(bq, bk, d,
+                                                dtype) > SMEM_BUDGET:
             bk //= 2
     return bq, bk
 

@@ -7,6 +7,10 @@ interpret mode.  Same numpy-seeded f32 inputs through both, ``atol = rtol =
 differs.  Inside the port the kernels' laws hold exactly (``torch.equal``):
 sparse walk == masked grid, sparse walk on a plain causal / window mask ==
 K3, and bucket padding changes nothing.
+
+On the card bf16 q, k, v take a tensor-core tile update that keeps p at f32
+precision as a bf16 hi + lo pair; ``test_bf16_split_*`` emulates its
+arithmetic here and holds it against the plain versions' f32 p.
 """
 import collections
 
@@ -16,12 +20,13 @@ import pytest
 import torch
 
 from repro.core import masks as R
+from repro_torch.core.masks import KIND_CAUSAL, KIND_WINDOW, NEG_INF
 from repro.kernels import tuning as r_tuning
 from repro.kernels.flash_attention import kernel as rk
 from repro.kernels.flash_attention import ops as r_ops
 
 from repro_torch.core import masks as P
-from repro_torch.kernels import tuning
+from repro_torch.kernels import build, tuning
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention import ref
@@ -252,5 +257,104 @@ def test_tuning_rows(dtype):
         bq, bk = tuning.flash_tiles(sq, skv, d, dtype, "cuda")
         assert 1 <= bq <= tuning.FLASH_MAX_TILE
         assert 1 <= bk <= tuning.FLASH_MAX_TILE
-        assert tuning.flash_smem_bytes(bq, bk, d) <= tuning.SMEM_BUDGET
+        assert tuning.flash_smem_bytes(bq, bk, d, dtype) \
+            <= tuning.SMEM_BUDGET
+    # the slice's shape: 64 x 64 tiles (so the serving mask keeps 275 of
+    # 1024 visible tiles); bf16 stages a (64, 128) Q tile and three K / V
+    # stages (+ 1 KB alignment), f32 the padded f32 Q, K, V and score tiles
     assert tuning.flash_tiles(2048, 2048, 128, dtype, "cuda") == (64, 64)
+    assert tuning.flash_smem_bytes(64, 64, 128, dtype) == {
+        torch.bfloat16: 1024 + 7 * 64 * 128 * 2,
+        torch.float32: 4 * (2 * 64 * 129 + 64 * 128 + 64 * 65)}[dtype]
+
+
+def test_library_path_follows_headers(tmp_path, monkeypatch):
+    """A library is named after its whole ``csrc/`` directory: an edited
+    header beside a source rebuilds it, as an edited source does."""
+    src = tmp_path / "kern.cu"
+    header = tmp_path / "helpers.cuh"
+    src.write_text('#include "helpers.cuh"\n')
+    header.write_text("// v1\n")
+    monkeypatch.setitem(build.SOURCES, "probe", src)
+    first = build.library_path("probe")
+    assert build.library_path("probe") == first
+    header.write_text("// v2\n")
+    second = build.library_path("probe")
+    assert second != first
+    src.write_text('#include "helpers.cuh"\n// edited\n')
+    assert build.library_path("probe") not in (first, second)
+
+
+# ----------------------------------------- the bf16 tensor-core arithmetic --
+
+def _tc_update(split: bool):
+    """The bf16 kernels' tile update in plain PyTorch: s = (q k^T in f32
+    from bf16 inputs) * scale, the online softmax in f32, and P V with p as
+    a bf16 hi + lo pair summed in f32 (``split``), or p rounded to bf16
+    alone.  Takes the unscaled Q tile with the scale (see ``_tc_q_tile``)."""
+    def update(st, q_and_scale, k, v, *, kind, q0, k0, window, skv):
+        qf, scale = q_and_scale
+        B, Hq, bq, D = qf.shape
+        Hkv, bk = k.shape[1], k.shape[2]
+        g = Hq // Hkv
+        m, l, acc = st
+        s = torch.matmul(qf.reshape(B, Hkv, g, bq, D),
+                         k.float()[:, :, None].transpose(-1, -2))
+        s = s.reshape(B, Hq, bq, bk) * scale
+        q_pos = q0 + torch.arange(bq)[:, None]
+        k_pos = k0 + torch.arange(bk)[None, :]
+        mask = k_pos < skv
+        if kind & KIND_CAUSAL:
+            mask = mask & (q_pos >= k_pos)
+        if window is not None and kind & KIND_WINDOW:
+            mask = mask & ((q_pos - k_pos) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        hi = p.bfloat16().float()
+        parts = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+        pv = sum(torch.matmul(x.reshape(B, Hkv, g, bq, bk),
+                              v.float()[:, :, None]) for x in parts)
+        st[0] = m_new
+        st[1] = l * alpha + p.sum(dim=-1, keepdim=True)
+        st[2] = acc * alpha + pv.reshape(B, Hq, bq, D)
+    return update
+
+
+def _tc_q_tile(q, qi, bq, scale):
+    """The unscaled Q tile (exact in bf16) and the scale, applied to s."""
+    return q[:, :, qi * bq:(qi + 1) * bq].float(), scale
+
+
+@pytest.mark.parametrize("name", list(_zoo(R, 64, 64, 16, 16)))
+def test_bf16_split_keeps_p_at_f32_precision(name, monkeypatch):
+    """On bf16 inputs (held as f32, so nothing is rounded at the end), the
+    tensor-core arithmetic with p = hi + lo lies within 1e-5 of the largest
+    |value| of the plain versions (f32 p, q scaled first), through the same
+    tile loops of K4s, K4m and K3; p rounded to bf16 alone lies beyond
+    1e-4.  So the split, not luck, keeps the bf16 kernels within one bf16
+    ulp of their plain versions on the card."""
+    bq = bk = 16
+    q, k, v = (t.bfloat16().float() for t in _t(*_qkv(D=64, seed=4)))
+    m = _zoo(P, 64, 96, bq, bk)[name]
+    s = m.lower(bucket=True)
+    runs = {
+        "K4s": lambda: ref.flash_attention_sparse_ref(
+            q, k, v, s.rows, s.cols, s.kinds, skv=96, window=m.window,
+            bq=bq, bk=bk),
+        "K4m": lambda: ref.flash_attention_masked_ref(
+            q, k, v, m.tile_kinds, skv=96, window=m.window)}
+    if name in ("causal", "window"):
+        runs["K3"] = lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=m.window, bq=bq, bk=bk)
+    want = {kname: run() for kname, run in runs.items()}
+    monkeypatch.setattr(ref, "_q_tile", _tc_q_tile)
+    for kname, run in runs.items():
+        big = want[kname].abs().max().item()
+        monkeypatch.setattr(ref, "_tile_update", _tc_update(split=True))
+        split = (run() - want[kname]).abs().max().item()
+        monkeypatch.setattr(ref, "_tile_update", _tc_update(split=False))
+        rounded = (run() - want[kname]).abs().max().item()
+        assert split <= 1e-5 * big, (kname, split, big)
+        assert rounded > 1e-4 * big, (kname, rounded, big)
