@@ -14,8 +14,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernels' by name, with their shared memory), and the count of
    tensor-core instructions in the flash library's SASS;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
-   bf16, blocks (8, 8), (8, 16), (16, 8), empty block-rows, bucket-pad
-   entries, N not a multiple of the tile); K3, K4m and K4s on random q, k, v
+   bf16, blocks (8, 8), (8, 16), (16, 8), (8, 1), (16, 32), empty
+   block-rows, bucket-pad entries, N not a multiple of the tile or of the
+   16-byte vector), and a ``bn`` off the column unit refused; K3, K4m and
+   K4s on random q, k, v
    (f32 and bf16 -- bf16 runs on the tensor cores, f32 on the CUDA cores --
    GQA 4/2 at D 64 and 16 and 40/8 at D 128, tiles 32, 16 and 64, the
    reference's mask pattern zoo, bucketed and unbucketed streams, a window,
@@ -39,14 +41,16 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. the serving slice at full llama4-scout width (depth cut to 8 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
-   0/1 dispatch stream of the first MoE layer must give kernel == plain
-   exactly; the same weights with ``dispatch="gather"`` must give the same
-   tokens;
+   0/1 dispatch streams (the first MoE layer's prefill, the last decode
+   step) must give kernel == plain exactly, the prefill stream at two
+   ``bn`` too; the same weights with ``dispatch="gather"`` must give the
+   same tokens;
 6. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
    stream walk (K4s) and once with the masked grid (K4m), which must give
-   identical tokens and no oracle fallback;
+   identical tokens and no oracle fallback; the first run's first dispatch
+   stream is captured for K2;
 7. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
    K3), its first tokens against ``impl="chunked"`` and ``impl="ref"``
    (information), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q,
@@ -67,8 +71,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
 10. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound; K2, K3, K4m, K4s, K7, K6a, K6b, K5, K2q) and one with the serving
-   and library summary;
+   bound; K2, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; K2 on each captured
+   stream with its row statistics, == plain) and one with the serving and
+   library summary; the SM clock and its limit are printed before and after
+   the kernel timings;
 11. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
@@ -190,12 +196,48 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Mean device time of ``fn`` replayed from one CUDA graph of ``iters``
+    calls (CUDA events around ``replays`` replays): the kernels' time without
+    the host's per-call launch overhead, which :func:`time_ms` includes when
+    a call is shorter than its launch."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):             # warm-up off the capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+CLOCKS = "clocks.sm,clocks.max.sm"
+
+
+def smi(query: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu=<query>`` as one CSV
+    line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
+
+
 def phase_card():
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = smi("name,power.limit")
     print(card)
     # the host CPU runs the plain versions that some checks compare with
     info = {}
@@ -249,6 +291,32 @@ def _flash_resources(log: str) -> None:
             name = None
 
 
+def kernel_resources(log: str) -> list:
+    """(kernel, registers line, spill line) of each entry function in a
+    ``-Xptxas -v`` report, its name demangled where ``c++filt`` exists and
+    cut before the argument list."""
+    import re
+    import shutil
+    rows, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            rows.append([name, line.split(":", 1)[-1].strip(), spills])
+            name = None
+    tool = shutil.which("c++filt")
+    if rows and tool:
+        names = subprocess.run([tool], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.split("\n")
+        for r, n in zip(rows, names):
+            r[0] = n.replace("(anonymous namespace)::", "").split("(")[0] \
+                .removeprefix("void ")
+    return [tuple(r) for r in rows]
+
+
 def _flash_sass() -> None:
     """The count of tensor-core instructions (HGMMA: wgmma, HMMA:
     mma.sync) in the flash library's SASS, where the toolkit has
@@ -278,9 +346,8 @@ def phase_build():
         if name == "flash_attention":
             _flash_resources(r["log"] or "(built before this run: no report)")
             continue
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kern, used, spills in kernel_resources(r["log"]):
+            print(f"  {name} {kern}: {used}; {spills}")
     _flash_sass()
 
 
@@ -323,6 +390,8 @@ def phase_kernel_vs_plain():
         (2, 9, 6, (8, 16), (8,), 7, bf16, bf16, 1000),
         (2, 10, 8, (8, 8), (4,), 4, bf16, f32, 5120 + 40),
         (2, 6, 12, (16, 8), (1,), 2, bf16, bf16, 520),
+        (2, 5, 3, (16, 32), (1,), 2, f32, f32, 1001),
+        (2, 7, 40, (8, 1), (3,), 6, bf16, f32, 1001),   # last: bf16 dense
     ]
     for B, gm, gn, block, empty, pad, dt, odt, N in cases:
         a = _random_stream(rng, B, gm, gn, block, empty, pad, dt, "cuda")
@@ -338,6 +407,13 @@ def phase_kernel_vs_plain():
               "an empty block-row is not zero")
         print(f"  K2 {str(dt)[6:]}->{str(odt)[6:]} block {block} B={B} "
               f"nnzb={a.nnzb} N={N}: max_abs_err {err:.3g}")
+    for bad in (128, 384, 256 * 9):    # bn off the bf16 column unit (256)
+        try:
+            spmm_bcsr(a.indptr, a.block_cols, a.blocks, dense, bn=bad)
+        except ValueError:
+            continue
+        check(False, f"K2 took bn {bad} for bf16 dense")
+    print("  K2 refuses bn 128, 384 and 2304 for bf16 dense")
 
 
 def _mask_zoo(S: int, t: int) -> dict:
@@ -622,10 +698,12 @@ def phase_masked_serving(cfg, params):
     sparse, dense, dense, sparse; one launch per layer's prefill (decode
     attention is not masked), K2 at every MoE layer of every pass, identical
     tokens, no oracle fallback.  Each run records its prefill and the host
-    route / execute time inside it."""
+    route / execute time inside it.  The first run's first dispatch stream
+    (layer 0's prefill) is captured for the K2 row."""
     import numpy as np
     import torch
     from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.kernels import engine
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.serve import ServeLoop
     # what a prefill pays once for its mask (the layers share it): build,
@@ -651,11 +729,23 @@ def phase_masked_serving(cfg, params):
     for loop in loops.values():
         loop.run(prompts, 2)                  # warm-up
     runs = {impl: [] for impl in kernels}
-    for impl in ("sparse", "dense", "dense", "sparse"):
+    captured = []
+    stream_entry = engine.spmm_batched_stream
+
+    def capture(a, dense, **kw):        # keep the first call
+        if not captured:
+            captured.append((a, dense, kw))
+        return stream_entry(a, dense, **kw)
+
+    for n, impl in enumerate(("sparse", "dense", "dense", "sparse")):
         loop, kernel = loops[impl], kernels[impl]
         ops.reset_fallbacks()
+        engine.spmm_batched_stream = capture if n == 0 else stream_entry
         reset_launches()
-        tokens = loop.run(prompts, GEN)       # the main path
+        try:
+            tokens = loop.run(prompts, GEN)   # the main path
+        finally:
+            engine.spmm_batched_stream = stream_entry
         counts = read_launches()
         summary = loop.summary()
         prefill = {ph: 1e3 * sum(st.seconds for st in loop.stats
@@ -685,7 +775,7 @@ def phase_masked_serving(cfg, params):
               for rs in runs.values() for r in rs),
           "sparse-masked tokens != dense-masked tokens")
     print("  sparse tokens == dense tokens (4 runs)")
-    return mask, runs, mask_ms
+    return mask, runs, mask_ms, captured[0]
 
 
 def phase_kernel_prefill(cfg, params):
@@ -840,56 +930,87 @@ def phase_measure_attention(qkv, mask, launches, card):
     return out
 
 
-def _stream_times(captured):
-    """K2 on one captured dispatch stream: exactness vs plain, then times
-    of the kernel, the plain version and one ``torch.bmm`` of the densified
-    0/1 matrix, and the bound.  The bound counts each input byte read once
+def _stream_times(captured, what: str, *, second_bn: bool = False,
+                  plain_iters: int = 5):
+    """K2 on one captured dispatch stream: its row statistics, exactness vs
+    plain (and with ``second_bn`` at a second ``bn`` too), then times of the
+    kernel, the plain version (``plain_iters`` calls) and one ``torch.bmm``
+    of the densified 0/1 matrix, back to back and (kernel and bmm) from a
+    CUDA graph, and the bound.  The bound counts each input byte read once
     and each output byte written once (the kernel re-reads dense K-slices
-    per stream entry, mostly from L2), and every stream entry's block
+    per stream entry, mostly from L2), and the nonzero blocks'
     multiply-adds."""
     import torch
+    from repro_torch.kernels import tuning
     from repro_torch.kernels.spmm.kernel import spmm_bcsr
+    from repro_torch.kernels.spmm.ops import stream_row_stats
     from repro_torch.kernels.spmm.ref import spmm_bcsr_ref
     a, dense, kw = captured
     bn = kw.get("bn")
     odt = kw.get("out_dtype") or dense.dtype
     dense = dense.contiguous()
     args = (a.indptr, a.block_cols, a.blocks, dense)
+    B, nnzb, bm, bk = a.blocks.shape
+    stats = stream_row_stats(a)
+    print(f"  {what} stream: gm {stats['gm']}, nnzb routed / covered / "
+          f"stream {stats['nnzb_routed']} / {stats['nnzb_covered']} / "
+          f"{stats['nnzb_stream']}; entries of the largest row "
+          f"{stats['row_max']}, of the last {stats['row_last']}, median of "
+          f"the others {stats['row_median_others']}; "
+          f"{stats['zero_blocks']} of {B * nnzb} blocks zero")
     got = spmm_bcsr(*args, out_dtype=odt, bn=bn)
     want = spmm_bcsr_ref(*args, out_dtype=odt)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "kernel != plain on the dispatch stream")
+    check(torch.equal(got, want), f"kernel != plain on the {what} stream")
+    extra = {}
+    if second_bn:
+        unit = tuning.spmm_col_unit(dense.dtype)
+        bn2 = unit if bn != unit else 2 * unit
+        check(torch.equal(spmm_bcsr(*args, out_dtype=odt, bn=bn2), got),
+              f"K2 at bn {bn2} != at bn {bn} on the {what} stream")
+        extra["equal_at_bn"] = [bn, bn2]
+        print(f"  {what} stream: K2 at bn {bn2} == at bn {bn}")
     err = (got.float() - want.float()).abs().max().item()
     ms = time_ms(lambda: spmm_bcsr(*args, out_dtype=odt, bn=bn), 50)
-    plain_ms = time_ms(lambda: spmm_bcsr_ref(*args, out_dtype=odt), 5, 1)
+    plain_ms = time_ms(lambda: spmm_bcsr_ref(*args, out_dtype=odt),
+                       plain_iters, min(1, plain_iters - 1))
     a_dense = a.todense()
     library_ms = time_ms(lambda: torch.bmm(a_dense, dense), 50)
-    B, nnzb, bm, bk = a.blocks.shape
+    graph = {"ms": graph_ms(lambda: spmm_bcsr(*args, out_dtype=odt, bn=bn)),
+             "library_ms": graph_ms(lambda: torch.bmm(a_dense, dense))}
     N = dense.shape[-1]
     nbytes = (a.blocks.numel() * a.blocks.element_size()
               + dense.numel() * dense.element_size()
               + got.numel() * got.element_size()
               + 4 * (a.indptr.numel() + a.block_cols.numel()))
-    ops = 2 * B * nnzb * bm * bk * N
+    ops = 2 * (B * nnzb - stats["zero_blocks"]) * bm * bk * N
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / BF16_FLOP_PER_S * 1e3
+    print(f"  {what} stream: K2 {ms:.4f} ms (bound {max(bytes_ms, ops_ms):.4f}"
+          f", plain {plain_ms:.1f}, bmm {library_ms:.4f}; from a CUDA graph "
+          f"K2 {graph['ms']:.4f}, bmm {graph['library_ms']:.4f}), == plain")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, "graph": graph, "bn": bn, **extra,
             "shape": {"B": B, "nnzb": nnzb, "block": [bm, bk],
-                      "K": dense.shape[1], "N": N, "dtype": str(odt)[6:]}}
+                      "K": dense.shape[1], "N": N, "dtype": str(odt)[6:]},
+            "rows": stats}
 
 
-def phase_measure(captured, launches, card):
+def phase_measure(captured, masked_stream, launches, card):
     """The K2 row: measured at the prefill stream (the first dispatch of the
-    main run), with the last decode step's stream measured beside it."""
-    prefill, decode = (_stream_times(c) for c in captured)
+    main run), with the last decode step's stream and the 4 x 2048 masked
+    prefill's first stream (plain timed once) beside it."""
+    prefill = _stream_times(captured[0], "4 x 256 prefill", second_bn=True)
+    decode = _stream_times(captured[1], "last decode")
+    masked = _stream_times(masked_stream, "4 x 2048 masked prefill",
+                           plain_iters=1)
     return {"name": "spmm_bcsr", "route": "cuda",
             "source": "src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
             "replaces": "src/repro/kernels/spmm/kernel.py:74",
             "launches": launches, **prefill, "decode_stream": decode,
-            "card": card}
+            "masked_prefill_stream": masked, "card": card}
 
 
 # ---------------------------------------------------------------------------
@@ -1565,23 +1686,31 @@ def main() -> int:
     phase_small_config_card_vs_cpu()
     phase_rwkv_smoke_card_vs_cpu()
     cfg, params, summary, launches, captured = phase_slice()
-    mask, masked, mask_ms = phase_masked_serving(cfg, params)
+    mask, masked, mask_ms, masked_stream = phase_masked_serving(cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
     del params
     print("kernel times at the slice's shapes:")
-    rows = [phase_measure(captured, launches, card)]
+    clocks = {"before_slice_kernels": smi(CLOCKS)}
+    print(f"  sm clock, max: {clocks['before_slice_kernels']}")
+    rows = [phase_measure(captured, masked_stream, launches, card)]
     rows += phase_measure_attention(qkv, mask, {
         "flash_attention": kprefill["launches"]["flash_attention"],
         "flash_attention_masked": masked["dense"][0]["launches"],
         "flash_attention_sparse": masked["sparse"][0]["launches"]}, card)
-    del qkv, captured
+    clocks["after_slice_kernels"] = smi(CLOCKS)
+    print(f"  sm clock, max: {clocks['after_slice_kernels']}")
+    del qkv, captured, masked_stream
     scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rwkv, wkv_launches, wkv_inputs = phase_rwkv_serving(card)
     rows.append(phase_measure_wkv(wkv_inputs, wkv_launches, card))
     del wkv_inputs
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
+    clocks["before_library_kernels"] = smi(CLOCKS)
     rows += phase_measure_library(lib_data, lib_counts, lib_info, card)
+    clocks["after_library_kernels"] = smi(CLOCKS)
+    print(f"  sm clock, max: {clocks['before_library_kernels']} before, "
+          f"{clocks['after_library_kernels']} after")
     del lib_data
     serve = {
         "serve": {"arch": cfg.name, "depth": cfg.n_repeats, "batch": BATCH,
@@ -1612,7 +1741,7 @@ def main() -> int:
                       k: v for k, v in kprefill.items() if k != "launches"}},
                   "peak_gb": scout_peak_gb,
                   "card": card},
-             "rwkv": rwkv, "library": lib_info,
+             "rwkv": rwkv, "library": lib_info, "sm_clocks": clocks,
              "wall_s": time.monotonic() - t_start}
     print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))

@@ -11,27 +11,64 @@
 // atomics, so the result is deterministic, and an empty row writes zeros.
 //
 // Accumulation follows the Pallas body `o += dot(a, b, f32).astype(o)`: each
-// stream entry's block product is computed in f32, rounded to the output
-// type, and added to the accumulator, which is rounded to the output type
-// again.  The accumulator lives in an f32 register; for an f32 output both
-// roundings are the identity, for bf16 they reproduce the reference's
-// per-entry rounding, so a 0/1 dispatch stream copies bf16 rows exactly.
+// stream entry's block product is computed in f32 (an fmaf chain over k in
+// order), rounded to the output type, and added to the accumulator, which is
+// rounded to the output type again.  For an f32 output both roundings are the
+// identity, for bf16 they reproduce the reference's per-entry rounding, so a
+// 0/1 dispatch stream copies bf16 rows exactly.  That rounding, entry by
+// entry in stream order, is why no row is split across thread blocks: a
+// split row would round partial sums that the reference never rounds.
 //
 // Bound: bytes.  Each stream entry reads its (bm, bk) block and the (bk,
 // tile) slice of dense it selects, and the tile is written once; at bm = 8
 // that is 8 multiply-adds per dense element read, far below the ~300 flops
-// per byte at which the tensor cores would become the limit.  The design
-// therefore spends nothing on tensor cores: one thread per output column,
-// BM f32 accumulators per thread, the block staged in shared memory and
-// read as a broadcast, dense rows read coalesced along N.
+// per byte at which the tensor cores would become the limit, so the design
+// spends nothing on tensor cores.  What it fights is latency: a row is a
+// chain of entries, and the MoE dispatch stream's rows are short (a median
+// of 8-20 entries) except the last, which holds every bucket pad entry (a
+// zero block) -- up to ~2,900 at a 4 x 2048 prefill.
+//
+// The walk, per chunk of up to 64 entries (fewer where their blocks pass
+// 8 KB or their f32 values 12 KB):
+//
+// 1. Staging.  The blocks of a row's consecutive entries in one batch are
+//    one contiguous span, so the chunk is copied with cp.async (16 bytes a
+//    thread), with its block_cols and scales, into a two-stage ring: chunk
+//    c + 1 is in flight while chunk c is walked.
+// 2. Zero blocks.  All threads OR the staged words, conflict-free, into a
+//    64-bit mask of the entries with a nonzero bit (-0.0 counts as
+//    nonzero); a chunk with none costs this scan and three barriers, and
+//    the pad tail is walked at that rate.  One warp per live entry then
+//    writes its values in f32, transposed to (k, m), and the masks of its
+//    block rows and columns with a nonzero bit.
+// 3. Dense.  Each thread owns VEC = 16 / sizeof(dense) consecutive output
+//    columns (8 bf16 or 4 f32) of the BM block rows; `bn` is the columns of
+//    one thread block (bn / VEC threads).  It walks the items (live entry,
+//    nonzero block column k) in stream order, k ascending, and keeps its
+//    own 16 bytes of dense row k of the next kRing - 1 items in flight, in
+//    its own slots of a shared-memory ring (cp.async; no barrier, since no
+//    thread reads another's slots).  A 0/1 dispatch block has one nonzero
+//    per occupied slot row, so most items are the block's only live column.
+//    Where N is not a multiple of VEC (or a pointer is not 16-byte aligned)
+//    the edge is loaded and stored by scalars with a bound check.
+// 4. Rows are launched in reverse, so the padded last row starts first and
+//    its tail runs beside the others instead of after them.
+//
+// Skipping is exact on finite data.  A zero block, a zero block row or a
+// zero block column adds +-0 to a sum, which leaves every value as it was
+// (at most the sign of a zero result differs), so the kernel stays equal
+// (`torch.equal`) to the plain version, which walks every entry in full.
+// Non-finite input: a skipped zero against an inf / NaN dense value
+// contributes nothing here, where the plain version (and the Pallas body)
+// gives NaN.  No contract covers non-finite input.
 //
 // K2q, the quantized variant (`_spmm_quant_kernel`, the same Pallas call
 // with `scales`): blocks of fp8 e4m3 / e5m2 or int8 with one f32 scale per
-// (batch, stream entry).  Each value is dequantized as it is staged in
-// shared memory, `__fmul_rn(float(q), scale)` -- the host's
-// `values.float() * scale` -- and the f32-block path runs unchanged, so K2q
-// equals K2 on host-dequantized blocks bit for bit.  Only what the library
-// reaches is instantiated: narrow blocks x f32 / bf16 dense -> f32 out.
+// (batch, stream entry).  Each value is dequantized as the chunk's f32
+// values are written, `__fmul_rn(float(q), scale)` -- the host's
+// `values.float() * scale` -- so K2q equals K2 on host-dequantized blocks
+// bit for bit.  Only what the library reaches is instantiated: narrow
+// blocks x f32 / bf16 dense -> f32 out.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -45,6 +82,12 @@ constexpr int kE4M3 = 2;
 constexpr int kE5M2 = 3;
 constexpr int kI8 = 4;
 constexpr int kMaxBK = 32;
+constexpr int kMaxChunk = 64;     // stream entries per staged chunk
+constexpr int kStages = 2;        // chunks in the cp.async ring
+constexpr int kRawBytes = 8192;   // block bytes of one ring stage
+constexpr int kAFloats = 3072;    // f32 values of a chunk's live blocks
+constexpr int kRing = 12;         // dense rows in flight per thread
+constexpr int kMaxThreads = 256;  // threads of a block (bn / VEC)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -60,24 +103,123 @@ __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
 
-template <typename T>
-struct Out;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-template <>
-struct Out<float> {
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
+// The first `valid` of the 16 bytes of dense at p, zero-filled: the ragged
+// edge, or a row that is not 16-byte aligned.
+template <typename TB>
+__device__ __forceinline__ uint4 load_partial(const TB* p, int valid) {
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  TB* t = reinterpret_cast<TB*>(&w);
+#pragma unroll
+  for (int v = 0; v < 16 / (int)sizeof(TB); ++v)
+    if (v < valid) t[v] = p[v];
+  return w;
+}
+
+// Value v of a 16-byte row as f32.
+__device__ __forceinline__ float elem(const uint4& w, int v, float) {
+  return __uint_as_float((&w.x)[v]);
+}
+__device__ __forceinline__ float elem(const uint4& w, int v, __nv_bfloat16) {
+  const uint32_t h = (&w.x)[v >> 1];
+  return __uint_as_float((v & 1) ? (h & 0xffff0000u) : (h << 16));
+}
+
+// One thread's BM x VEC output values, in f32 or as packed bf16 pairs (a
+// bf16 accumulator is rounded to bf16 after every entry, so bf16 holds it
+// exactly, in half the registers).
+template <int BM, int VEC, typename TO>
+struct Acc;
+
+template <int BM, int VEC>
+struct Acc<BM, VEC, float> {
+  float v[BM][VEC];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[m][i] = 0.f;
+  }
+  // acc = round(acc + round(p)), both roundings the identity
+  __device__ __forceinline__ void add(int m, const float* p) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[m][i] = v[m][i] + p[i];
+  }
+  __device__ __forceinline__ void store(float* o, int m, bool full,
+                                        int valid) const {
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4)
+        *reinterpret_cast<float4*>(o + j) =
+            make_float4(v[m][j], v[m][j + 1], v[m][j + 2], v[m][j + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        if (i < valid) o[i] = v[m][i];
+    }
+  }
 };
 
-template <>
-struct Out<__nv_bfloat16> {
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
+template <int BM, int VEC>
+struct Acc<BM, VEC, __nv_bfloat16> {
+  __nv_bfloat162 v[BM][VEC / 2];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+#pragma unroll
+      for (int i = 0; i < VEC / 2; ++i)
+        v[m][i] = __floats2bfloat162_rn(0.f, 0.f);
   }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
+  // acc = round(acc + round(p)) in bf16, each sum taken in f32
+  __device__ __forceinline__ void add(int m, const float* p) {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const float2 a = __bfloat1622float2(v[m][i]);
+      const float2 r = __bfloat1622float2(__floats2bfloat162_rn(p[2 * i],
+                                                                p[2 * i + 1]));
+      v[m][i] = __floats2bfloat162_rn(a.x + r.x, a.y + r.y);
+    }
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* o, int m, bool full,
+                                        int valid) const {
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < VEC / 2; j += 4)
+        *reinterpret_cast<uint4*>(o + 2 * j) =
+            *reinterpret_cast<const uint4*>(&v[m][j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        if (i < valid) o[i] = (i & 1) ? v[m][i / 2].y : v[m][i / 2].x;
+    }
   }
 };
+
+// The raw bits of one block value (-0.0 counts as nonzero).
+__device__ __forceinline__ uint32_t raw_bits(const unsigned char* p, int n) {
+  if (n == 4) return *reinterpret_cast<const uint32_t*>(p);
+  if (n == 2) return *reinterpret_cast<const uint16_t*>(p);
+  return *p;
+}
 
 struct Args {
   const int32_t* indptr;      // (gm + 1,)
@@ -90,71 +232,263 @@ struct Args {
   cudaStream_t stream;
 };
 
-// grid (ceil(N / bn), gm, B), block (bn): thread x owns output column
-// n = blockIdx.x * bn + x of the BM rows of block-row blockIdx.y.
+// Dynamic shared memory: the per-thread ring of dense rows.
+__host__ __device__ constexpr int ring_bytes(int threads) {
+  return kRing * threads * 16;
+}
+
+// grid (ceil(N / bn), B, gm), block (bn / VEC): thread x owns output
+// columns n0 .. n0 + VEC of the BM rows of block-row gm - 1 - blockIdx.z
+// (rows in reverse, so that the bucket-padded last row starts first), n0 =
+// blockIdx.x * bn + x * VEC.  `vec_ok`: N % VEC == 0 and dense / out are
+// 16-byte aligned, so whole-vector loads and stores are legal.
+// Registers: at BM 8 at most 128 a thread, so that two blocks of 256
+// threads, or four of 128, share an SM.  At BM 16 a thread's accumulator and
+// entry product alone take 192 (bf16 out) or 256 (f32 out) floats of 8 bf16
+// columns, which would spill at 128, so BM 16 may use up to 255, one block
+// of 256 threads (two of 128) an SM.
 template <int BM, typename TA, typename TB, typename TO>
-__global__ void spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
-                                 const int32_t* __restrict__ block_cols,
-                                 const TA* __restrict__ blocks,
-                                 const float* __restrict__ scales,
-                                 const TB* __restrict__ dense,
-                                 TO* __restrict__ out, int nnzb, int bk,
-                                 int K, int N) {
-  __shared__ float a_s[BM * kMaxBK];
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool active = n < N;
+__global__ void __launch_bounds__(kMaxThreads, BM == 8 ? 2 : 1)
+spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
+                 const int32_t* __restrict__ block_cols,
+                 const TA* __restrict__ blocks,
+                 const float* __restrict__ scales,
+                 const TB* __restrict__ dense, TO* __restrict__ out,
+                 int nnzb, int bk, int K, int N, int bn, bool vec_ok) {
+  constexpr int VEC = 16 / sizeof(TB);
+  constexpr int TSZ = static_cast<int>(sizeof(TA));
+  __shared__ __align__(16) unsigned char raw_s[kStages][kRawBytes];
+  __shared__ __align__(16) float a_s[kAFloats];  // the chunk's blocks, (k, m)
+  __shared__ int32_t cols_s[kStages][kMaxChunk];
+  __shared__ float scale_s[kStages][kMaxChunk];
+  __shared__ uint32_t rows_s[kMaxChunk];   // nonzero block rows of an entry
+  __shared__ uint32_t kcols_s[kMaxChunk];  // and its nonzero block columns
+  __shared__ unsigned long long live_s[2];  // entries with a nonzero bit
+  extern __shared__ uint4 ring_s[];         // [kRing][blockDim.x]
+
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int n0 = blockIdx.x * bn + tid * VEC;
+  const int b = blockIdx.y;
+  const int r = gridDim.z - 1 - blockIdx.z;  // the long last row first
+  const bool active = n0 < N;
+  const bool full = vec_ok && n0 + VEC <= N;
+  const int valid = N - n0;
   const int start = indptr[r];
   const int end = indptr[r + 1];
-  const TA* blocks_b = blocks + (size_t)b * nnzb * BM * bk;
-  const TB* dense_b = dense + (size_t)b * K * N;
+  const int bsz = BM * bk;  // values of a block
+  const int eb = bsz * TSZ;  // bytes of a block
+  const int chunk = min(kMaxChunk, min(kRawBytes / eb, kAFloats / bsz));
+  const unsigned char* blocks_b = reinterpret_cast<const unsigned char*>(
+      blocks + (size_t)b * nnzb * bsz);
+  const float* scales_b = scales ? scales + (size_t)b * nnzb : nullptr;
+  const TB* dense_b = dense + (size_t)b * K * N + n0;
 
-  float acc[BM];
+  // Stage chunk c (entries start + c * chunk ..) into ring slot c % kStages:
+  // cp.async for the 16-byte body when the span is aligned, plain copies
+  // for the rest, in one commit group (empty past the last chunk, so that
+  // "all but the newest kStages - 2 groups" always covers chunk c).
+  const int n_chunks = (end - start + chunk - 1) / chunk;
+  auto stage = [&](int c) {
+    if (c >= n_chunks) {
+      cp_async_commit();
+      return;
+    }
+    const int s = c % kStages;
+    const int i0 = start + c * chunk;
+    const int n = min(chunk, end - i0);
+    const unsigned char* src = blocks_b + (size_t)i0 * eb;
+    const int bytes = n * eb;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      done = bytes & ~15;
+      for (int j = tid * 16; j < done; j += nthreads * 16)
+        cp_async16(&raw_s[s][j], src + j);
+    }
+    for (int j = done + tid; j < bytes; j += nthreads) raw_s[s][j] = src[j];
+    for (int j = tid; j < n; j += nthreads) {
+      cp_async4(&cols_s[s][j], block_cols + i0 + j);
+      if (scales_b) cp_async4(&scale_s[s][j], scales_b + i0 + j);
+    }
+    cp_async_commit();
+  };
+
+  Acc<BM, VEC, TO> acc;
+  acc.zero();
+  if (tid == 0) live_s[0] = 0ull;  // before the first barrier
 #pragma unroll
-  for (int m = 0; m < BM; ++m) acc[m] = 0.f;
-
-  for (int i = start; i < end; ++i) {
-    __syncthreads();  // the previous entry's block is no longer read
-    const TA* a = blocks_b + (size_t)i * BM * bk;
-    if (scales == nullptr) {
-      for (int j = threadIdx.x; j < BM * bk; j += blockDim.x)
-        a_s[j] = to_f32(a[j]);
-    } else {  // K2q: dequantize as staged
-      const float s = scales[(size_t)b * nnzb + i];
-      for (int j = threadIdx.x; j < BM * bk; j += blockDim.x)
-        a_s[j] = __fmul_rn(to_f32(a[j]), s);
+  for (int c = 0; c < kStages - 1; ++c) stage(c);
+  for (int c = 0; c < n_chunks; ++c) {
+    // Chunk c landed.  The groups newer than its own are the next chunks'
+    // and the walk's; a walk waits for all but its newest kRing - 1 items,
+    // which finishes every chunk staged before it, and its last kRing - 1
+    // groups are empty.
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // ... for every thread; chunk c - 1 is no longer read
+    stage(c + kStages - 1);
+    const int s = c % kStages;
+    const int n = min(chunk, end - start - c * chunk);
+    // The chunk's live entries (a nonzero bit; -0.0 counts): every thread
+    // ORs its share of the staged words, conflict-free, into a 64-bit mask
+    // of entries, one warp-reduced atomic a warp.
+    {
+      const int w = (eb & 15) == 0 ? 16 : (eb & 3) == 0 ? 4 : 1;
+      const float inv_eb = 1.f / eb;
+      uint64_t mine = 0;
+      for (int j = tid * w; j < n * eb; j += nthreads * w) {
+        const unsigned char* p = raw_s[s] + j;
+        uint32_t any;
+        if (w == 16) {
+          const uint4 q = *reinterpret_cast<const uint4*>(p);
+          any = q.x | q.y | q.z | q.w;
+        } else {
+          any = raw_bits(p, w);
+        }
+        if (any) mine |= 1ull << static_cast<int>((j + 0.5f) * inv_eb);
+      }
+      const uint32_t lo = __reduce_or_sync(0xffffffffu, (uint32_t)mine);
+      const uint32_t hi = __reduce_or_sync(0xffffffffu, (uint32_t)(mine >> 32));
+      if ((lo | hi) && (tid & 31) == 0)
+        atomicOr(&live_s[c & 1], ((unsigned long long)hi << 32) | lo);
     }
     __syncthreads();
-    if (active) {
-      const TB* d = dense_b + (size_t)block_cols[i] * bk * N + n;
-      float p[BM];
-#pragma unroll
-      for (int m = 0; m < BM; ++m) p[m] = 0.f;
-      for (int k = 0; k < bk; ++k) {
-        const float x = to_f32(d[(size_t)k * N]);
-#pragma unroll
-        for (int m = 0; m < BM; ++m) p[m] = fmaf(a_s[m * bk + k], x, p[m]);
+    const uint64_t live = live_s[c & 1];
+    if (tid == 0) live_s[(c + 1) & 1] = 0ull;  // read again at c + 2 only
+    if (live == 0ull) continue;
+    // One warp per live entry: its f32 values, transposed to (k, m) so
+    // that a block column is one vector read (narrow values dequantized as
+    // the host does, K2q), and the masks of its block rows and columns that
+    // hold a nonzero bit.
+    {
+      const int lane = tid & 31;
+      const float inv_bk = 1.f / bk;
+      uint64_t todo = live;
+      for (int i = 0; todo; ++i) {
+        const int e = __ffsll(todo) - 1;
+        todo &= todo - 1;
+        if (i % (nthreads >> 5) != (tid >> 5)) continue;
+        const TA* blk = reinterpret_cast<const TA*>(raw_s[s] + e * eb);
+        const float sc = scales_b ? scale_s[s][e] : 1.f;
+        uint32_t rows = 0, cols = 0;
+        for (int q = lane; q < bsz; q += 32) {
+          const int m = static_cast<int>((q + 0.5f) * inv_bk);
+          const int k = q - m * bk;
+          if (raw_bits(reinterpret_cast<const unsigned char*>(blk + q),
+                       TSZ)) {
+            rows |= 1u << m;
+            cols |= 1u << k;
+          }
+          const float v = to_f32(blk[q]);
+          a_s[e * bsz + k * BM + m] = scales_b ? __fmul_rn(v, sc) : v;
+        }
+        rows = __reduce_or_sync(0xffffffffu, rows);
+        cols = __reduce_or_sync(0xffffffffu, cols);
+        if (lane == 0) {
+          rows_s[e] = rows;
+          kcols_s[e] = cols;
+        }
       }
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    // The walk: one item per (live entry, nonzero block column k) in
+    // stream order, k ascending; each item is the thread's 16 bytes of
+    // dense row k of the entry's K-tile, kept kRing - 1 items ahead in the
+    // thread's own ring (cp.async, so no barrier is needed).
+    uint64_t pending = live;       // entries the next issues load from
+    int pe = __ffsll(pending) - 1;
+    uint32_t pk = kcols_s[pe];
+    auto issue = [&](int slot) {
+      if (pe >= 0) {
+        const int k = __ffs(pk) - 1;
+        const TB* src = dense_b + ((size_t)cols_s[s][pe] * bk + k) * N;
+        uint4* dst = &ring_s[slot * nthreads + tid];
+        if (full)
+          cp_async16(dst, src);
+        else
+          *dst = load_partial(src, valid);
+        pk &= pk - 1;
+        if (pk == 0u) {
+          pending &= pending - 1;
+          pe = __ffsll(pending) - 1;
+          if (pe >= 0) pk = kcols_s[pe];
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < kRing - 1; ++j) issue(j);
+    int it = 0;
+    for (uint64_t todo = live; todo; todo &= todo - 1) {
+      const int e = __ffsll(todo) - 1;  // zero blocks add +-0: skipped
+      const uint32_t rows = rows_s[e];
+      uint32_t ks = kcols_s[e];
+      const float* a = a_s + e * bsz;
+      float p[BM][VEC];
 #pragma unroll
       for (int m = 0; m < BM; ++m)
-        acc[m] = Out<TO>::round(acc[m] + Out<TO>::round(p[m]));
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) p[m][v] = 0.f;
+      do {  // a zero column adds +-0 to each row
+        const int k = __ffs(ks) - 1;
+        ks &= ks - 1;
+        issue((it + kRing - 1) % kRing);
+        cp_async_wait<kRing - 1>();
+        const uint4 x = ring_s[(it % kRing) * nthreads + tid];
+        ++it;
+        float ak[BM];
+#pragma unroll
+        for (int m = 0; m < BM; m += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(a + k * BM + m);
+          ak[m] = q.x; ak[m + 1] = q.y; ak[m + 2] = q.z; ak[m + 3] = q.w;
+        }
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          if (!((rows >> m) & 1u)) continue;  // a zero row adds +-0
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            p[m][v] = fmaf(ak[m], elem(x, v, TB()), p[m][v]);
+        }
+      } while (ks);
+#pragma unroll
+      for (int m = 0; m < BM; ++m)
+        if ((rows >> m) & 1u) acc.add(m, p[m]);
     }
   }
+  cp_async_wait<0>();
   if (active) {
-    TO* o = out + ((size_t)b * gridDim.y + r) * BM * N + n;
 #pragma unroll
-    for (int m = 0; m < BM; ++m) o[(size_t)m * N] = Out<TO>::store(acc[m]);
+    for (int m = 0; m < BM; ++m)
+      acc.store(out + ((size_t)b * gridDim.z + r) * BM * N + (size_t)m * N +
+                    n0,
+                m, full, valid);
   }
 }
 
 template <int BM, typename TA, typename TB, typename TO>
 cudaError_t launch(const Args& a) {
-  dim3 grid((a.N + a.bn - 1) / a.bn, a.gm, a.batch);
-  spmm_bcsr_kernel<BM, TA, TB, TO><<<grid, a.bn, 0, a.stream>>>(
+  constexpr int VEC = 16 / sizeof(TB);
+  if (a.bn % (32 * VEC) != 0 || a.bn / VEC > kMaxThreads)
+    return cudaErrorInvalidValue;
+  const bool vec_ok = a.N % VEC == 0 &&
+                      (reinterpret_cast<uintptr_t>(a.dense) & 15) == 0 &&
+                      (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
+  const int threads = a.bn / VEC;
+  auto kernel = spmm_bcsr_kernel<BM, TA, TB, TO>;
+  static bool opted_in = false;  // the ring may take the block past 48 KB
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ring_bytes(kMaxThreads));
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  dim3 grid((a.N + a.bn - 1) / a.bn, a.batch, a.gm);
+  kernel<<<grid, threads, ring_bytes(threads), a.stream>>>(
       a.indptr, a.block_cols, static_cast<const TA*>(a.blocks), a.scales,
       static_cast<const TB*>(a.dense), static_cast<TO*>(a.out), a.nnzb, a.bk,
-      a.K, a.N);
+      a.K, a.N, a.bn, vec_ok);
   return cudaGetLastError();
 }
 
@@ -204,15 +538,16 @@ extern "C" {
 // launched).  dtype codes: 0 = float32, 1 = bfloat16; blocks also 2 = fp8
 // e4m3, 3 = fp8 e5m2, 4 = int8, which take `scales` (B, nnzb) f32 and an
 // f32 output (K2q); wide blocks take scales = null.  bm must be 8 or 16,
-// 1 <= bk <= 32, 32 <= bn <= 1024 with bn % 32 == 0.
+// 1 <= bk <= 32; bn (output columns per thread block) a multiple of 32 x
+// VEC with bn / VEC <= 256 threads, VEC = 16 / sizeof(dense) (4 for f32,
+// 8 for bf16).
 int spmm_bcsr_launch(const int32_t* indptr, const int32_t* block_cols,
                      const void* blocks, const float* scales,
                      const void* dense, void* out,
                      int batch, int gm, int nnzb, int bm, int bk, int K,
                      int N, int bn, int a_dtype, int b_dtype, int o_dtype,
                      void* stream) {
-  if (bk < 1 || bk > kMaxBK || bn < 32 || bn > 1024 || bn % 32 != 0 ||
-      batch < 1 || gm < 1 || N < 1)
+  if (bk < 1 || bk > kMaxBK || bn < 1 || batch < 1 || gm < 1 || N < 1)
     return cudaErrorInvalidValue;
   Args a{indptr, block_cols, blocks, scales, dense, out, batch, gm, nnzb, bk,
          K, N, bn, static_cast<cudaStream_t>(stream)};

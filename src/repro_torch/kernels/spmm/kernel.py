@@ -48,9 +48,11 @@ def spmm_bcsr(indptr: torch.Tensor, block_cols: torch.Tensor,
       dense: (B, K, N) f32 or bf16 with K a multiple of bk; any N.
       out_dtype: f32 (default, as the reference) or dense's dtype; f32
         only for narrow blocks.
-      bn: output columns per thread block (a multiple of 32, <= 1024);
-        default: the ``spmm`` row of ``kernels.tuning``, keyed on the
-        narrow block dtype when quantized.
+      bn: output columns per thread block, a multiple of
+        ``tuning.spmm_col_unit(dense.dtype)`` (one warp of 16-byte vectors:
+        128 f32, 256 bf16) and at most 8 of them (256 threads); default:
+        the ``spmm`` row of ``kernels.tuning``, keyed on the narrow block
+        dtype when quantized.
       scales: (B, nnzb) f32 per-block dequant scales of narrow blocks;
         each value is used as ``value.float() * scale``.
     Returns:
@@ -98,10 +100,13 @@ def spmm_bcsr(indptr: torch.Tensor, block_cols: torch.Tensor,
             or out_dtype not in (dense.dtype, torch.float32):
         raise TypeError(f"spmm_bcsr: unsupported dtypes blocks={blocks.dtype}"
                         f" dense={dense.dtype} out={out_dtype}")
-    if bm not in (8, 16) or not 1 <= bk <= 32 or bn % 32 \
-            or not 32 <= bn <= 1024:
+    unit = tuning.spmm_col_unit(dense.dtype)
+    if bm not in (8, 16) or not 1 <= bk <= 32 or bn % unit \
+            or not unit <= bn <= 8 * unit:
         raise ValueError(
-            f"spmm_bcsr: unsupported tile bm={bm} bk={bk} bn={bn}")
+            f"spmm_bcsr: unsupported tile bm={bm} bk={bk} bn={bn} (bn must "
+            f"be a multiple of {unit}, at most {8 * unit}, for "
+            f"{dense.dtype} dense)")
     if not (1 <= gm <= 65535 and 1 <= B <= 65535 and N >= 1):
         raise ValueError(f"spmm_bcsr: grid out of range gm={gm} B={B} N={N}")
     out = torch.empty((B, gm * bm, N), dtype=out_dtype, device=dense.device)

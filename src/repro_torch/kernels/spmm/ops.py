@@ -106,3 +106,24 @@ def flops(a: Union[BCSR, BatchedBCSR], n: int) -> int:
         nz_blocks = int((a.blocks != 0).any(dim=-1).any(dim=-1).sum())
         return 2 * nz_blocks * bm * bk * n
     return 2 * int(a.nnzb) * bm * bk * n
+
+
+def stream_row_stats(a: BatchedBCSR) -> dict:
+    """Row statistics of a batched stream, as the kernel walks it: the
+    block-row count ``gm``; ``nnzb_stream`` entries, of which
+    ``nnzb_covered`` distinct coordinates (bucket pad entries repeat the
+    last one) and ``nnzb_routed`` with a nonzero block in some batch; the
+    entries of the longest row, of the last row, and the median of the
+    other rows; ``zero_blocks``, the (batch, entry) blocks that are all
+    zero, which the kernel stages and skips."""
+    counts = a.indptr.cpu().long().diff()
+    gn = a.grid_shape[1]
+    coords = a.block_rows.cpu().long() * gn + a.block_cols.cpu().long()
+    nonzero = (a.blocks.float() != 0).flatten(2).any(-1)     # (B, nnzb)
+    return {"gm": int(counts.numel()), "nnzb_stream": a.nnzb,
+            "nnzb_covered": int(coords.unique().numel()),
+            "nnzb_routed": int(nonzero.any(0).sum()),
+            "row_max": int(counts.max()), "row_last": int(counts[-1]),
+            "row_median_others": (float(counts[:-1].median())
+                                  if counts.numel() > 1 else 0.0),
+            "zero_blocks": int((~nonzero).sum())}

@@ -8,8 +8,15 @@ choice for the Hopper kernels, not carried over from the TPU rows:
 
 * ``block`` (8, 8): the 0/1 (slot, token) dispatch matrix has one nonzero per
   token column, so small square blocks keep the routed stream sparse.
-* ``bn`` 256: the N-tile of one SpMM thread block, one output column per
-  thread (256 threads).
+* ``bn``: the output columns of one SpMM thread block
+  (``spmm/csrc/spmm_bcsr.cu``).  Each thread owns one 16-byte vector of
+  dense along N (8 bf16 or 4 f32 columns) of the block's 8 or 16 rows, so
+  ``bn`` is a multiple of :func:`spmm_col_unit` (a warp of vectors: 256
+  bf16, 128 f32 columns) and at most 8 of them.  1024 for the MoE dispatch
+  and wide blocks: 128 threads on bf16 (5 tiles at d_model 5120), four
+  blocks an SM; on the dispatch streams 256 and 512 were 1.3-2x slower and
+  2048 5-11 % slower (``tools/compare_spmm.py``).  512 for narrow blocks (K2q on
+  f32 dense: 128 threads), level with 1024 there.
 * ``min_bucket`` 8: the port compiles nothing per stream shape, so the nnzb
   bucket floor only bounds zero-block work on one-token decode streams.
 * ``flash`` (bq, bk) 64 x 64, for K3 and the masked kernels K4m / K4s
@@ -74,16 +81,16 @@ _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
     ("spmm", "f32", "cpu"): {"bn": 128},
     ("spmm", "bf16", "cpu"): {"bn": 128},
     ("spmm", "fp8", "cpu"): {"bn": 128},
-    ("spmm", "f32", "cuda"): {"bn": 256},
-    ("spmm", "bf16", "cuda"): {"bn": 256},
-    ("spmm", "fp8", "cuda"): {"bn": 256},
+    ("spmm", "f32", "cuda"): {"bn": 1024},
+    ("spmm", "bf16", "cuda"): {"bn": 1024},
+    ("spmm", "fp8", "cuda"): {"bn": 512},
     ("moe_dispatch", "f32", "cpu"): {"block": (8, 8), "bn": 128,
                                      "min_bucket": 8},
     ("moe_dispatch", "bf16", "cpu"): {"block": (8, 8), "bn": 128,
                                       "min_bucket": 8},
-    ("moe_dispatch", "f32", "cuda"): {"block": (8, 8), "bn": 256,
+    ("moe_dispatch", "f32", "cuda"): {"block": (8, 8), "bn": 1024,
                                       "min_bucket": 8},
-    ("moe_dispatch", "bf16", "cuda"): {"block": (8, 8), "bn": 256,
+    ("moe_dispatch", "bf16", "cuda"): {"block": (8, 8), "bn": 1024,
                                        "min_bucket": 8},
     ("wkv", "f32", "cpu"): {"chunk": 128},
     ("wkv", "bf16", "cpu"): {"chunk": 128},
@@ -122,8 +129,14 @@ def _row(op: str, dtype: torch.dtype, device) -> Dict[str, Any]:
 
 
 def spmm_bn(dtype=torch.float32, device="cpu") -> int:
-    """N-tile (threads per block) of the BCSR SpMM kernel."""
+    """N-tile (output columns per thread block) of the BCSR SpMM kernel."""
     return int(_row("spmm", dtype, device)["bn"])
+
+
+def spmm_col_unit(dense_dtype=torch.float32) -> int:
+    """The granule of the SpMM kernel's ``bn``: one warp of 16-byte vectors
+    of ``dense_dtype`` (128 f32 or 256 bf16 columns)."""
+    return 32 * (16 // dense_dtype.itemsize)
 
 
 def moe_dispatch_tiles(d_model: int, dtype=torch.float32,
@@ -131,10 +144,14 @@ def moe_dispatch_tiles(d_model: int, dtype=torch.float32,
     """{"block": (bm, bk), "bn": int, "min_bucket": int} for the MoE
     dispatch-as-SpMM path; ``min_bucket`` is the floor of the power-of-two
     nnzb bucket the routed stream is padded to (``engine.stream_bucket``).
-    ``bn`` is never wider than ``d_model`` rounded up to a warp."""
+    ``bn`` is never wider than ``d_model`` rounded up to a warp (on the
+    card, to the kernel's :func:`spmm_col_unit`)."""
     row = _row("moe_dispatch", dtype, device)
     bm, bk = row["block"]
-    bn = min(int(row["bn"]), max(32, -(-d_model // 32) * 32))
+    unit = 32
+    if torch.device(device).type == "cuda":
+        unit = spmm_col_unit(dtype)
+    bn = min(int(row["bn"]), max(unit, -(-d_model // unit) * unit))
     return {"block": (int(bm), int(bk)), "bn": bn,
             "min_bucket": int(row["min_bucket"])}
 

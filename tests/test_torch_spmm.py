@@ -208,3 +208,167 @@ def test_cpu_tuning_rows_match_reference():
         got = tuning.moe_dispatch_tiles(64, dt, "cpu")
         assert got["block"] == want["block"]
         assert got["min_bucket"] == want["min_bucket"]
+
+
+# ---------------------------------------------------------------------------
+# The laws the Hopper kernel's skips rely on, and the dispatch streams that
+# ``tools/compare_spmm.py`` times.
+# ---------------------------------------------------------------------------
+
+def _compare_spmm():
+    """``tools/compare_spmm.py`` as a module (its stream maker)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "compare_spmm.py"
+    spec = importlib.util.spec_from_file_location("compare_spmm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _scout():
+    from repro_torch.configs import get_config
+    return get_config("llama4-scout-17b-a16e")
+
+
+def _routed(rng, B, S, zipf, dtype):
+    """A bucket-padded routed dispatch stream at llama4-scout's dispatch
+    geometry (E 16, capacity factor 1.25, CPU tiles), its slots and C."""
+    from repro_torch.models import moe
+    cfg, cs = _scout(), _compare_spmm()
+    C = moe.dispatch_capacity(S, cfg)
+    expert = cs.expert_choice(rng, B, S, cfg.n_experts, zipf)
+    fs = cs.routed_slots(expert, cfg)
+    a, C2 = cs.dispatch_stream(fs, cfg, dtype, "cpu")
+    assert C2 == C
+    return a, fs, C, expert
+
+
+def _drop_zero_blocks(a: BatchedBCSR) -> BatchedBCSR:
+    """The stream without its entries whose block is zero in every batch,
+    the others kept in stream order, ``indptr`` recomputed."""
+    keep = (a.blocks != 0).flatten(2).any(-1).any(0)
+    rows = a.block_rows[keep]
+    gm = a.grid_shape[0]
+    indptr = torch.zeros(gm + 1, dtype=torch.int32)
+    indptr[1:] = torch.cumsum(torch.bincount(rows.long(), minlength=gm), 0)
+    return BatchedBCSR(indptr=indptr, block_rows=rows,
+                       block_cols=a.block_cols[keep],
+                       blocks=a.blocks[:, keep].contiguous(), shape=a.shape,
+                       block=a.block)
+
+
+@pytest.mark.parametrize("stream", ["random", "routed"])
+@pytest.mark.parametrize("dense_kind", ["random", "neg_zero"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_zero_blocks_add_nothing(stream, dense_kind, out_dtype):
+    """The kernel skips zero blocks; the plain version, which walks every
+    entry, gives equal results without them: on random and on bucket-padded
+    routed streams, with random dense values and with dense holding -0.0
+    (a zero block against -0.0 gives a -0.0 product), f32 and bf16 out."""
+    from repro_torch.kernels.spmm.ref import spmm_bcsr_ref
+    rng = np.random.default_rng(21)
+    dt = out_dtype
+    if stream == "random":
+        B, gm, gn, bm, bk = 3, 6, 5, 8, 8
+        blocks = rng.standard_normal((B, gm * gn, bm, bk)).astype(np.float32)
+        blocks[:, rng.random(gm * gn) < 0.4] = 0.0    # zero in every batch
+        blocks[1, rng.random(gm * gn) < 0.3] = 0.0    # zero in one batch
+        coords = np.arange(gm * gn)
+        a = BatchedBCSR(
+            indptr=torch.arange(0, gm * gn + 1, gn, dtype=torch.int32),
+            block_rows=torch.from_numpy((coords // gn).astype(np.int32)),
+            block_cols=torch.from_numpy((coords % gn).astype(np.int32)),
+            blocks=torch.from_numpy(blocks).to(dt), shape=(B, gm * bm,
+                                                           gn * bk),
+            block=(bm, bk)).with_capacity(gm * gn + 13)
+    else:
+        a = _routed(rng, 4, 40, False, dt)[0]
+    B, K = a.batch, a.shape[2]
+    dense = rng.standard_normal((B, K, 24)).astype(np.float32)
+    if dense_kind == "neg_zero":
+        dense[:, ::3] = -0.0
+        dense[:, :, ::2] = -np.abs(dense[:, :, ::2])
+    dense = torch.from_numpy(dense).to(dt)
+    stripped = _drop_zero_blocks(a)
+    assert stripped.nnzb < a.nnzb
+    want = spmm_bcsr_ref(a.indptr, a.block_cols, a.blocks, dense,
+                         out_dtype=dt)
+    got = spmm_bcsr_ref(stripped.indptr, stripped.block_cols,
+                        stripped.blocks, dense, out_dtype=dt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S,zipf", [(40, False), (40, True), (256, False),
+                                    (256, True)])
+def test_routed_stream_pads_the_last_row(S, zipf):
+    """Every bucket pad entry lies in the last block-row (a zero block at
+    the last coordinate), so the last row is the stream's longest walk;
+    ``ops.stream_row_stats`` counts it as the kernel walks it."""
+    rng = np.random.default_rng(S + zipf)
+    a = _routed(rng, 4, S, zipf, torch.float32)[0]
+    gm = a.grid_shape[0]
+    nz = (a.blocks != 0).flatten(2).any(-1).any(0)
+    coords = a.block_rows.long() * a.grid_shape[1] + a.block_cols.long()
+    covered = int(coords.unique().numel())
+    assert covered < a.nnzb == engine.stream_bucket(covered, minimum=8)
+    assert (a.block_rows[covered:] == gm - 1).all()
+    assert (coords[covered:] == coords[covered - 1]).all()
+    assert not nz[covered:].any()
+    counts = a.indptr.long().diff()
+    assert int(counts[-1]) == int(counts.max()) \
+        >= a.nnzb - covered + 1
+    st = ops.stream_row_stats(a)
+    assert st == {
+        "gm": gm, "nnzb_stream": a.nnzb, "nnzb_covered": covered,
+        "nnzb_routed": int(nz.sum()), "row_max": int(counts.max()),
+        "row_last": int(counts[-1]),
+        "row_median_others": float(counts[:-1].median()),
+        "zero_blocks": int((~(a.blocks != 0).flatten(2).any(-1)).sum())}
+
+
+@pytest.mark.parametrize("S,zipf", [(40, False), (40, True), (200, False),
+                                    (200, True)])
+def test_compare_spmm_streams_dispatch_like_gather(S, zipf):
+    """``compare_spmm.py``'s streams (the port's routing of seeded expert
+    choices at llama4-scout's geometry) through the plain version give the
+    gather dispatch's buffer, bit for bit (bcsr == gather), in bf16 at a
+    small width; each kept token sits in its chosen expert's queue, at a
+    position no other token of its row takes: its queue position, which
+    counts the earlier tokens of its (row, expert), kept or dropped."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(3 * S + zipf)
+    a, fs, C, expert = _routed(rng, 4, S, zipf, torch.bfloat16)
+    E = _scout().n_experts
+    kept = fs < E * C
+    assert kept.any() and (fs[kept] // C == expert[kept]).all()
+    for b in range(fs.shape[0]):
+        assert len(np.unique(fs[b][kept[b]])) == int(kept[b].sum())
+        for e in range(E):
+            mine = expert[b] == e
+            queue = np.arange(int(mine.sum()))[kept[b][mine]]
+            assert (fs[b][mine & kept[b]] % C == queue).all()
+    xt = torch.from_numpy(rng.standard_normal((4, S, 40)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = moe._dispatch_stream(xt, a, E, C)
+    want = moe._dispatch_gather(xt, torch.from_numpy(fs), E, C)
+    assert torch.equal(got, want)
+
+
+def test_cuda_tile_rows():
+    """The card's SpMM tiles: ``bn`` is a multiple of the kernel's column
+    unit (a warp of 16-byte vectors) and at most 8 units, for the dispatch
+    at every width and for the library rows."""
+    assert tuning.spmm_col_unit(torch.float32) == 128
+    assert tuning.spmm_col_unit(torch.bfloat16) == 256
+    for dt in (torch.float32, torch.bfloat16):
+        unit = tuning.spmm_col_unit(dt)
+        for d in (16, 64, 300, 4096, 5120):
+            bn = tuning.moe_dispatch_tiles(d, dt, "cuda")["bn"]
+            assert bn % unit == 0 and unit <= bn <= 8 * unit
+            assert bn <= max(unit, -(-d // unit) * unit)
+        assert tuning.spmm_bn(dt, "cuda") % unit == 0
+    assert tuning.moe_dispatch_tiles(5120, torch.bfloat16, "cuda")["bn"] \
+        == 1024
+    assert tuning.spmm_bn(torch.float8_e4m3fn, "cuda") % 256 == 0
