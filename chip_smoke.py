@@ -25,8 +25,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    with the laws K4s == K4m, bucketed == unbucketed and K4s on a plain
    causal / window mask == K3 as ``torch.equal``; then, as
    ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
-   tiles), K5 (wide, and with
-   ``a_scales`` == on host-dequantized rows, three formats), K2q (== K2 on
+   tiles), K5 (f32 and bf16 at four launch shapes, a slab width that does
+   not divide C among them; Inf / NaN in B only at keys A lacks, empty rows
+   and columns, A keys outside B's key range; ``a_scales`` == on
+   host-dequantized rows, three formats), K2q (== K2 on
    host-dequantized blocks, three formats, f32 and bf16 dense), and the
    port's quantizer on the card == on the CPU, as bytes; then K7 (the WKV
    recurrence, ``y`` and the final state) against its plain chunked version
@@ -72,7 +74,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain versions and the oracles;
 10. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound; K2, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; K2 on each captured
-   stream with its row statistics, == plain) and one with the serving and
+   stream with its row statistics, == plain; K5 with its bucketing and
+   product passes timed apart) and one with the serving and
    library summary; the SM clock and its limit are printed before and after
    the kernel timings;
 11. last line: {"ok": true, "device": {...}}.
@@ -348,6 +351,13 @@ def phase_build():
             continue
         for kern, used, spills in kernel_resources(r["log"]):
             print(f"  {name} {kern}: {used}; {spills}")
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.spmspm import kernel as pk
+    rt, ct = tuning.spmspm_tiles(SPMSPM_N, SPMSPM_N, 1, 1, device="cuda")
+    nt = tuning.spmspm_nt(SPMSPM_N, ct, 1, device="cuda")
+    smem = pk.product_smem_bytes(rt, nt * ct)
+    print(f"  spmspm_ell spmspm_row_kernel: {smem} bytes dynamic smem at "
+          f"rt {rt}, W {nt * ct}")
     _flash_sass()
 
 
@@ -1027,6 +1037,39 @@ SPMM_BLOCK = (8, 8)
 LIB_SRC = "src/repro/kernels/"
 
 
+# K5 launch shapes: the tuning row (one warp a block; W clamped to 256 >
+# C 200: one ragged slab), 4 warps with W 36 (6 slabs, the last 20 wide),
+# 7 warps with W 128 (the last slab 72 wide), 32 warps with W 4
+K5_SHAPES = ({}, dict(rt=4, ct=36, nt=1), dict(rt=7, ct=64, nt=2),
+             dict(rt=32, ct=4, nt=1))
+
+
+def _k5_edge_cases(g) -> dict:
+    """Streams (A 300 x 5000 rows, B 5000 x 200 columns) on the card that
+    pin K5's edges: Inf and NaN in B only at keys A lacks (A holds even
+    keys, B's odd keys are non-finite), empty A rows and B columns, and A
+    keys outside B's key range (B's keys in [1000, 3000))."""
+    import torch
+    from repro_torch.kernels.spmspm import ops as po
+    a = _sparse(g, (300, 5000), 0.05)
+    b = _sparse(g, (5000, 200), 0.02)
+    odd = torch.arange(5000, device="cuda") % 2 == 1
+    a_even = a * ~odd
+    b_odd = torch.where(odd[:, None] & (b != 0), float("inf"), b)
+    b_odd[1::4] = torch.where(b[1::4] != 0, float("nan"), 0.0)
+    a_empty, b_empty = a.clone(), b.clone()
+    a_empty[::7] = 0
+    b_empty[:, ::5] = 0
+    b_band = b.clone()
+    b_band[:1000] = 0
+    b_band[3000:] = 0
+    cases = {"Inf / NaN at unmatched keys": (a_even, b_odd),
+             "empty rows and columns": (a_empty, b_empty),
+             "A keys outside B's range": (a, b_band)}
+    return {name: (*po.dense_to_ell_rows(x), *po.dense_to_ell_cols(y))
+            for name, (x, y) in cases.items()}
+
+
 def _sparse(g, shape, density):
     """A dense f32 matrix on the card: N(0, 1) values where a uniform draw
     falls below ``density``, else 0."""
@@ -1082,9 +1125,13 @@ def phase_library_vs_plain():
         ak, av = po.dense_to_ell_rows(a)
         bk, bv = po.dense_to_ell_cols(b)
         want = pr.spmspm_ell_ref(ak, av, bk, bv)
-        for kw in ({}, dict(rt=3, nt=1, kt=1024), dict(rt=8, ct=64, kt=2048)):
+        for kw in K5_SHAPES:
             _eq(pk.spmspm_ell(ak, av, bk, bv, **kw), want,
                 f"K5 density {density} {kw}")
+        av16, bv16 = av.bfloat16(), bv.bfloat16()
+        _eq(pk.spmspm_ell(ak, av16, bk, bv16),
+            pr.spmspm_ell_ref(ak, av16, bk, bv16),
+            f"K5 density {density} bf16")
         oracle = a @ b
         err = (want - oracle).abs().max().item()
         check(err <= 1e-5 * oracle.abs().max().item(),
@@ -1096,8 +1143,15 @@ def phase_library_vs_plain():
                 f"K5 {name}: in-kernel != host dequantization")
             _eq(got, pr.spmspm_ell_ref(ak, qv, bk, bv, a_scales=qs),
                 f"K5 {name}")
-    print("  K5: 2 densities x 3 launch shapes, kernel == plain; a_scales "
-          "(3 formats) == host-dequantized")
+    edges = _k5_edge_cases(g)
+    for name, streams in edges.items():
+        want = pr.spmspm_ell_ref(*streams)
+        check(bool(torch.isfinite(want).all()), f"K5 {name}: plain not finite")
+        for kw in K5_SHAPES:
+            _eq(pk.spmspm_ell(*streams, **kw), want, f"K5 {name} {kw}")
+    print(f"  K5: 2 densities and {len(edges)} edge cases x "
+          f"{len(K5_SHAPES)} launch shapes {K5_SHAPES}, kernel == plain; "
+          "bf16 A and B == plain; a_scales (3 formats) == host-dequantized")
     for name in QUANT:
         for block in ((8, 8), (16, 8)):
             d = _sparse(g, (96, 160), 0.4)
@@ -1317,6 +1371,34 @@ def _stencil_times(d):
     return per
 
 
+def _spmspm_parts(ak, av, bk, bv, qv, qs) -> dict:
+    """K5's two passes timed apart at the slice's streams, on the default
+    tiles: B's bucketing (the key range read to the host, then count, scan
+    and scatter) and the row-wise product, wide and with fp8 e4m3
+    ``a_scales``."""
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.spmspm import kernel as pk
+    R, C = ak.shape[0], bk.shape[0]
+    rt, ct = tuning.spmspm_tiles(R, C, ak.shape[1], bk.shape[1],
+                                 device="cuda")
+    width = tuning.spmspm_nt(C, ct, bk.shape[1], device="cuda") * ct
+    buckets = pk.bucket_columns(bk, bv, width)
+    parts = {
+        "bucket_ms": time_ms(lambda: pk.bucket_columns(bk, bv, width), 10, 2),
+        "product_ms": time_ms(lambda: pk.row_product(
+            ak, av, None, buckets, C, rt), 5, 1),
+        "product_fp8_e4m3_ms": time_ms(lambda: pk.row_product(
+            ak, qv, qs, buckets, C, rt), 5, 1),
+        "tiles": {"rt": rt, "W": width},
+        "buckets": buckets.span * -(-C // width),
+        "bucket_entries": int(buckets.offsets[-1])}
+    print(f"  spmspm_ell passes: bucketing {parts['bucket_ms']:.4f} ms "
+          f"({parts['buckets']} buckets, {parts['bucket_entries']} entries), "
+          f"product {parts['product_ms']:.4f} ms, fp8 a_scales "
+          f"{parts['product_fp8_e4m3_ms']:.4f} ms at rt {rt}, W {width}")
+    return parts
+
+
 def phase_measure_library(d, counts, info, card):
     """The K6a, K6b, K5 and K2q rows at the slice's sizes.  ``ms``: CUDA
     events over back-to-back launches; ``plain_ms``: the plain version
@@ -1356,6 +1438,7 @@ def phase_measure_library(d, counts, info, card):
     band = slice(0, SPMSPM_BAND)
     ms = time_ms(lambda: po.spmspm(ak, av, bk, bv), 5, 1)
     q_ms = time_ms(lambda: po.spmspm(ak, qv, bk, bv, a_scales=qs), 5, 1)
+    parts = _spmspm_parts(ak, av, bk, bv, qv, qs)
     plain_ms = time_ms(lambda: pr.spmspm_ell_ref(ak[band], av[band], bk, bv),
                        1, 1)
     a_csr = pr.ell_to_dense(ak, av, SPMSPM_N).to_sparse_csr()
@@ -1373,7 +1456,7 @@ def phase_measure_library(d, counts, info, card):
                "density_b": SPMSPM_DB},
         comparisons={k: info[k] for k in ("issued", "useful_upper",
                                           "valid_a", "valid_b", "matches")},
-        a_scales_fp8_e4m3_ms=q_ms))
+        a_scales_fp8_e4m3_ms=q_ms, **parts))
     print(f"  spmspm_ell {R}x{C}: {ms:.3f} ms, fp8 a_scales {q_ms:.3f} ms, "
           f"plain ({SPMSPM_BAND} rows) {plain_ms:.1f}, sparse.mm {lib_ms:.1f}")
 

@@ -3,16 +3,22 @@ padded-ELL index streams, the port of the Pallas ``spmspm_ell``
 (repro/kernels/spmspm/kernel.py), wide and with per-row ``a_scales``, with
 its signature minus ``interpret``.
 
+On the card a call buckets B's entries by (key, slab of output columns)
+(:func:`bucket_columns`: a key-range pass read to the host -- the call's
+one device sync -- then count, scan and scatter kernels), then runs the
+row-wise product: one warp per (A row, slab) adds ``a * b`` for each of its
+row's keys, in stream order, into the slab's columns.
+
 A CPU tensor takes the plain version (``ref.spmspm_ell_ref``); a CUDA
-tensor launches the kernel on the current stream or raises.
-``spmspm_ell.launches`` counts launches.  R and C need not be multiples of
-the tiles: the kernel bounds-checks them.
+tensor launches the kernels on the current stream or raises.
+``spmspm_ell.launches`` counts launches of the product.  R and C need not
+be multiples of the tiles: the kernel bounds-checks them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,21 +30,120 @@ _A_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
 _B_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MAX_ROWS = 32
-_SMEM_BUDGET = 232448
+# Shared memory of one product warp beyond its W floats: its staged keys.
+_STAGE_BYTES = 512
+# Largest bucket table (B's key span x slabs): 256 MB of counts and as much
+# of offsets.
+MAX_BUCKETS = 1 << 26
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``spmspm_ell.cu``, with its C interface typed."""
+    lib.spmspm_ell_key_range.argtypes = [_P, ctypes.c_longlong, _P, _P]
+    lib.spmspm_ell_bucket.argtypes = [_P, _P] + [_I] * 6 + [_P] * 4
+    lib.spmspm_ell_product.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    for fn in (lib.spmspm_ell_key_range, lib.spmspm_ell_bucket,
+               lib.spmspm_ell_product):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load("spmspm_ell")
-    lib.spmspm_ell_launch.argtypes = [_P] * 6 + [_I] * 10 + [_P]
-    lib.spmspm_ell_launch.restype = ctypes.c_int
-    return lib
+    return bind(build.load("spmspm_ell"))
+
+
+def product_smem_bytes(rows: int, width: int) -> int:
+    """Shared memory of one product thread block: ``rows`` warps, each a
+    ``width``-float accumulator and its staged keys."""
+    return rows * (4 * width + _STAGE_BYTES)
+
+
+def bucket_geometry(kmin: int, kmax: int, c: int,
+                    width: int) -> Tuple[int, int]:
+    """(key span, slabs) of B's bucket table: B's valid keys lie in
+    [kmin, kmax] (kmax < kmin: B has none, span 0), and its ``c`` columns
+    fall into ceil(c / width) slabs of ``width`` output columns.
+
+    Raises ValueError on a negative key, or when span x slabs exceeds
+    :data:`MAX_BUCKETS` (2^26: at the 4 slabs of an 8192-column B, keys
+    spanning 16.7 M values).  The reference takes any int32 key; keys are
+    column indices of A, so a larger span needs an inner dimension of
+    over 16 M."""
+    slabs = -(-c // width)
+    if kmax < kmin:
+        return 0, slabs
+    if kmin < 0:
+        raise ValueError(f"spmspm_ell: B holds a negative key ({kmin})")
+    span = kmax - kmin + 1
+    if span * slabs > MAX_BUCKETS:
+        raise ValueError(f"spmspm_ell: B's keys span {span} values over "
+                         f"{slabs} slabs, more than {MAX_BUCKETS} buckets")
+    return span, slabs
+
+
+class Buckets(NamedTuple):
+    """B bucketed by (key - kmin, slab): bucket ``(k - kmin) * slabs + s``
+    holds ``entries[offsets[b]:offsets[b + 1]]``, (column, f32 value bits)
+    pairs."""
+    kmin: int
+    span: int
+    width: int
+    offsets: torch.Tensor
+    entries: torch.Tensor
+
+
+def bucket_columns(b_keys: torch.Tensor, b_vals: torch.Tensor,
+                   width: int, lib: Optional[ctypes.CDLL] = None) -> Buckets:
+    """B's (C, Lb) column streams bucketed on the card, for slabs of
+    ``width`` output columns: the key range read to the host (one device
+    sync), then the count, scan and scatter kernels (of ``lib``, a
+    :func:`bind` build, default the in-tree one)."""
+    lib = lib or _lib()
+    dev = b_keys.device
+    C, Lb = b_keys.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = torch.empty(2, dtype=torch.int32, device=dev)
+    build.check(lib, lib.spmspm_ell_key_range(
+        b_keys.data_ptr(), C * Lb, rng.data_ptr(), stream),
+        "spmspm_ell key range")
+    kmin, kmax = rng.tolist()
+    span, slabs = bucket_geometry(kmin, kmax, C, width)
+    kmin = kmin if span else 0
+    counts = torch.empty(span * slabs, dtype=torch.int32, device=dev)
+    offsets = torch.empty(span * slabs + 1, dtype=torch.int32, device=dev)
+    entries = torch.empty((C * Lb, 2), dtype=torch.int32, device=dev)
+    build.check(lib, lib.spmspm_ell_bucket(
+        b_keys.data_ptr(), b_vals.data_ptr(), C, Lb, kmin, span, width,
+        _B_CODE[b_vals.dtype], counts.data_ptr(), offsets.data_ptr(),
+        entries.data_ptr(), stream), "spmspm_ell bucketing")
+    return Buckets(kmin, span, width, offsets, entries)
+
+
+def row_product(a_keys: torch.Tensor, a_vals: torch.Tensor,
+                a_scales: Optional[torch.Tensor], buckets: Buckets, c: int,
+                rows: int, lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """The row-wise product kernel (of ``lib``, default the in-tree build)
+    over bucketed B: (R, c) f32, ``rows`` A rows (warps) a thread block.
+    Counts no launch."""
+    lib = lib or _lib()
+    R, La = a_keys.shape
+    out = torch.empty((R, c), dtype=torch.float32, device=a_keys.device)
+    err = lib.spmspm_ell_product(
+        a_keys.data_ptr(), a_vals.data_ptr(),
+        None if a_scales is None else a_scales.data_ptr(),
+        buckets.offsets.data_ptr(), buckets.entries.data_ptr(),
+        out.data_ptr(), R, La, c, buckets.kmin, buckets.span, buckets.width,
+        rows, _A_CODE[a_vals.dtype],
+        torch.cuda.current_stream(a_keys.device).cuda_stream)
+    build.check(lib, err, "spmspm_ell product")
+    return out
 
 
 def spmspm_ell(a_keys: torch.Tensor, a_vals: torch.Tensor,
                b_keys: torch.Tensor, b_vals: torch.Tensor, *,
                rt: Optional[int] = None, ct: Optional[int] = None,
-               nt: Optional[int] = None, kt: Optional[int] = None,
+               nt: Optional[int] = None,
                out_dtype: torch.dtype = torch.float32,
                a_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[r, c] = sum over key matches of A's row r and B's column c.
@@ -46,12 +151,13 @@ def spmspm_ell(a_keys: torch.Tensor, a_vals: torch.Tensor,
     Args:
       a_keys / a_vals: (R, La) padded-ELL rows of A (int32 keys ascending,
         ``INVALID_KEY`` pads; values f32, bf16, or fp8 / int8 with scales).
-      b_keys / b_vals: (C, Lb) padded-ELL *columns* of B (f32 or bf16).
-      rt: A rows per thread block; ct: threads per block (a multiple of
-        32; each warp takes one output column at a time); nt: column tiles
-        of ``ct`` per block; kt: key chunk of the shared-memory rows.
-        Defaults: the cuda ``spmspm`` row of ``kernels.tuning``.  No value
-        changes the result.
+      b_keys / b_vals: (C, Lb) padded-ELL *columns* of B (f32 or bf16),
+        valid keys in [0, 2^31 - 1) spanning at most :data:`MAX_BUCKETS`
+        / slabs values (:func:`bucket_geometry`).
+      rt: A rows (one warp each) per thread block, 1..32; ``nt * ct``: the
+        slab width W, the output columns one warp accumulates in shared
+        memory (a multiple of 4).  Defaults: the cuda ``spmspm`` row of
+        ``kernels.tuning``.  No value changes the result.
       a_scales: (R,) or (R, 1) f32 per-row dequant scales of narrow A.
     Returns:
       (R, C) f32.
@@ -70,7 +176,7 @@ def spmspm_ell(a_keys: torch.Tensor, a_vals: torch.Tensor,
     trt, tct = tuning.spmspm_tiles(R, C, La, Lb, a_vals.dtype, a_keys.device)
     rt, ct = rt or trt, ct or tct
     nt = nt or tuning.spmspm_nt(C, ct, Lb, a_vals.dtype, a_keys.device)
-    kt = kt or tuning.spmspm_key_chunk(a_vals.dtype, a_keys.device)
+    width = nt * ct
     dev = a_keys.device
     tensors = {"a_keys": a_keys, "a_vals": a_vals, "b_keys": b_keys,
                "b_vals": b_vals}
@@ -88,25 +194,16 @@ def spmspm_ell(a_keys: torch.Tensor, a_vals: torch.Tensor,
     if a_scales is None and a_vals.dtype not in _B_CODE:
         raise TypeError(f"spmspm_ell: {a_vals.dtype} A values need "
                         "a_scales")
-    smem = 4 * rt * kt + 4 * rt * (kt // 32) + 4 * nt * ct
-    if not (1 <= rt <= _MAX_ROWS and ct % 32 == 0 and 32 <= ct <= 1024
-            and nt >= 1 and kt >= 32 and kt % 32 == 0
-            and smem <= _SMEM_BUDGET and -(-C // (nt * ct)) <= 65535):
+    if not (1 <= rt <= _MAX_ROWS and nt >= 1 and ct >= 1 and width % 4 == 0
+            and product_smem_bytes(rt, width) <= tuning.SMEM_BUDGET):
         raise ValueError(f"spmspm_ell: unsupported tiles rt={rt} ct={ct} "
-                         f"nt={nt} kt={kt}")
-    out = torch.empty((R, C), dtype=torch.float32, device=dev)
+                         f"nt={nt}")
     if R == 0 or C == 0:
-        return out
+        return torch.empty((R, C), dtype=torch.float32, device=dev)
     if La == 0 or Lb == 0:
-        return out.zero_()
-    lib = _lib()
-    err = lib.spmspm_ell_launch(
-        a_keys.data_ptr(), a_vals.data_ptr(),
-        None if a_scales is None else a_scales.data_ptr(),
-        b_keys.data_ptr(), b_vals.data_ptr(), out.data_ptr(),
-        R, La, C, Lb, rt, ct, nt * ct, kt, _A_CODE[a_vals.dtype],
-        _B_CODE[b_vals.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, "spmspm_ell launch")
+        return torch.zeros((R, C), dtype=torch.float32, device=dev)
+    out = row_product(a_keys, a_vals, a_scales,
+                      bucket_columns(b_keys, b_vals, width), C, rt)
     spmspm_ell.launches += 1
     return out
 

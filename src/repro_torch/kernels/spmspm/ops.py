@@ -3,8 +3,9 @@ in, dense or compacted-sparse result out.
 
 The reference pads R and C to whole tiles; the port's kernel bounds-checks
 them, and ``rt`` / ``ct`` / ``nt`` only shape its launch (no value changes
-the result).  The converters run as tensor code on the dense matrix's
-device, so the streams of a large matrix are built where it lies.
+the result): ``rt`` A rows (warps) a thread block, ``nt * ct`` output
+columns a warp's slab.  The converters run as tensor code on the dense
+matrix's device, so the streams of a large matrix are built where it lies.
 """
 from __future__ import annotations
 
@@ -62,8 +63,8 @@ def spmspm(a_keys, a_vals, b_keys, b_vals, *, rt: Optional[int] = None,
 
     ``rt`` / ``ct`` / ``nt`` default to the ``spmspm`` row of
     ``kernels.tuning``, keyed on A's value dtype; ``nt`` is the
-    output-column residency (the A rows are staged once per ``nt`` column
-    tiles).  ``a_scales`` carries per-row BlockQuant scales of narrow
+    output-column residency (an A row is walked once per slab of ``nt *
+    ct`` columns).  ``a_scales`` carries per-row BlockQuant scales of narrow
     ``a_vals``.  Inputs that are tensors run where they lie; numpy inputs
     go to ``device`` (default ``"cuda"``)."""
     if nt is not None and int(nt) < 1:

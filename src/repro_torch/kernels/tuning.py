@@ -34,12 +34,18 @@ choice for the Hopper kernels, not carried over from the TPU rows:
   thread block (32 x 8 threads, 16 outputs each), whose (tile + 2r) halo is
   staged in f32 shared memory: 19 KB at (32, 128), 26 KB at (8, 8, 64).
   The kernel bounds-checks the ragged edge, so a tile needs no alignment.
-* ``spmspm``: ``rt`` A rows per thread block, ``ct`` threads (one output
-  column each at a time), ``nt`` column tiles per block (the A rows are
-  staged once per ``nt * ct`` columns), ``kt`` the key chunk: the block
-  scatters its rows' entries with keys in one chunk of ``kt`` into a dense
-  f32 row of shared memory plus a presence bitmask, and keeps each column's
-  walk position: 74 KB at rt 4, kt 4096, nt * ct 2048.
+* ``spmspm``: ``rt`` A rows per thread block, one warp each, and ``nt *
+  ct`` the slab width W: the output columns one warp accumulates in f32
+  shared memory while it walks its row's keys (``spmspm/csrc/
+  spmspm_ell.cu``, a row-wise product over B bucketed by key and slab).
+  W = 2048 (8 KB a warp) cuts an 8192-column B into 4 slabs, so that a
+  bucket holds ~20 entries at 1 % density (most of a warp's 32 lanes) and
+  24 warps fit an SM: at 8192^2, A 5 % x B 1 %, the product took 1.34 /
+  0.89 / 1.49 ms at W 1024 / 2048 / 4096 (more keys of fewer entries each
+  at 1024, too few warps in flight at 4096; ``tools/compare_spmspm.py``,
+  H100).  ``rt`` 1 (a block of one warp) was 1.5-3 % faster than 2, 4 or
+  8 there: each warp reads its own row, so ``rt`` changes no traffic, only
+  how finely the blocks fill the SMs.  No value of either changes a bit.
 * ``wkv`` ``chunk`` 128: the WKV kernel (``wkv/csrc/wkv.cu``) keeps a
   chunk's r, k, v and log-decay cumsum, its (chunk, chunk) score tile and
   the (64, 64) state in f32 shared memory (``wkv_smem_bytes``): 217,088
@@ -112,9 +118,9 @@ _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
     ("spmspm", "f32", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
     ("spmspm", "bf16", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
     ("spmspm", "fp8", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
-    ("spmspm", "f32", "cuda"): {"rt": 4, "ct": 256, "nt": 8, "kt": 4096},
-    ("spmspm", "bf16", "cuda"): {"rt": 4, "ct": 256, "nt": 8, "kt": 4096},
-    ("spmspm", "fp8", "cuda"): {"rt": 4, "ct": 256, "nt": 8, "kt": 4096},
+    ("spmspm", "f32", "cuda"): {"rt": 1, "ct": 256, "nt": 8},
+    ("spmspm", "bf16", "cuda"): {"rt": 1, "ct": 256, "nt": 8},
+    ("spmspm", "fp8", "cuda"): {"rt": 1, "ct": 256, "nt": 8},
 }
 
 
@@ -238,8 +244,8 @@ def spmspm_tiles(r: int, c: int, la: int, lb: int, dtype=torch.float32,
                  device="cpu") -> Tuple[int, int]:
     """(rt, ct) of the SpMSpM kernel: on the CPU the reference's CPU row
     (its clamps, to the sublane-padded problem and to the VMEM budget, leave
-    8 x 8 as it is); on the card ``rt`` rows per block (no more than ``r``)
-    and ``ct`` threads."""
+    8 x 8 as it is); on the card ``rt`` rows (warps) per block, no more than
+    ``r``, and ``ct`` columns, ``nt`` of which make the slab width."""
     row = _row("spmspm", dtype, device)
     rt, ct = int(row["rt"]), int(row["ct"])
     if torch.device(device).type == "cpu":
@@ -249,17 +255,12 @@ def spmspm_tiles(r: int, c: int, la: int, lb: int, dtype=torch.float32,
 
 def spmspm_nt(c: int, ct: int, lb: int, dtype=torch.float32,
               device="cpu") -> int:
-    """Output-column residency: how many ``ct``-column tiles one step (one
-    thread block on the card) covers, so the A rows are walked once per
-    ``nt`` tiles; never wider than the problem (the reference's VMEM clamp
+    """Output-column residency: how many ``ct``-column tiles one step (on
+    the card, one warp's slab) covers, so an A row is walked once per ``nt``
+    tiles; never wider than the problem (the reference's VMEM clamp
     leaves its CPU row's 1 as it is).  Any value gives the same result."""
     nt = max(1, int(_row("spmspm", dtype, device)["nt"]))
     c_aligned = -(-max(c, 1) // SUBLANE) * SUBLANE
     while nt > 1 and (nt - 1) * ct >= c_aligned:
         nt //= 2
     return nt
-
-
-def spmspm_key_chunk(dtype=torch.float32, device="cuda") -> int:
-    """Key chunk of the SpMSpM kernel's dense shared-memory rows."""
-    return int(_row("spmspm", dtype, device)["kt"])
