@@ -102,6 +102,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 BATCH, PROMPT, GEN, DEPTH = 4, 256, 16, 8
 # masked and kernel prefill: prompt length and the local window of the
@@ -1708,13 +1709,15 @@ def phase_rwkv_serving(card):
 def phase_measure_wkv(captured, launches, card):
     """The K7 row at the slice's shape: layer 0's r, k, v, w (f32), u and
     chunk from the served prefill.  Kernel vs plain (``y`` and the state,
-    WKV_REL_TOL), two launches equal; ``ms`` by CUDA events, ``plain_ms``
-    the plain chunked version; no single PyTorch call computes WKV, so
-    ``library_ms`` is null.  Bound: :func:`wkv_needed_flops` at the f32
-    peak (no tensor-core f32 path) against reading r, k, v, w, u and
-    writing y and the state once at 3.35 TB/s.  The kernel is called
-    through ``ops.wkv_state`` as the model calls it (T = 2048 needs no
-    padding)."""
+    WKV_REL_TOL), two launches equal; ``ms`` by CUDA events, with the SM
+    clock and its limit read before and after; ``plain_ms`` the plain
+    chunked version; no single PyTorch call computes WKV, so
+    ``library_ms`` is null.  Bound: the larger of reading r, k, v, w, u and
+    writing y and the state once at 3.35 TB/s and :func:`wkv_needed_flops`
+    three times (an f32-accurate product on the tensor cores is three TF32
+    ones) at the 495 TFLOP/s TF32 peak; the same flops once at the f32
+    CUDA-core peak are printed beside it.  The kernel is called through
+    ``ops.wkv_state`` as the model calls it (T = 2048 needs no padding)."""
     import torch
     from repro_torch.kernels.wkv import ops, ref
     r, k, v, w, u, chunk = captured
@@ -1726,23 +1729,30 @@ def phase_measure_wkv(captured, launches, card):
     y2, s2 = run()
     check(torch.equal(y, y2) and torch.equal(s, s2),
           "K7 at the slice's shape: two launches differ")
+    clocks = [smi(CLOCKS)]
     ms = time_ms(run, 10, 2)
+    clocks.append(smi(CLOCKS))
     plain_ms = time_ms(lambda: ref.wkv_chunked_plain(r, k, v, w, u, chunk),
                        3, 1)
     B, T, nh, hd = r.shape
     nbytes = (sum(x.numel() * x.element_size() for x in (r, k, v, w, u))
               + 4 * y.numel() + 4 * s.numel())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = wkv_needed_flops(B, T, nh, hd, chunk) / F32_FLOP_PER_S * 1e3
-    print(f"  wkv_kernel: {ms:.3f} ms (bound {max(ops_ms, bytes_ms):.4f}, "
-          f"plain {plain_ms:.1f}), max_abs_err {err:.3g}")
+    flops = wkv_needed_flops(B, T, nh, hd, chunk)
+    ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    f32_ms = flops / F32_FLOP_PER_S * 1e3
+    print(f"  wkv_kernel: {ms:.3f} ms (bound {max(ops_ms, bytes_ms):.4f}: "
+          f"bytes {bytes_ms:.4f}, 3xTF32 {ops_ms:.4f}; f32 CUDA cores "
+          f"{f32_ms:.4f}; plain {plain_ms:.1f}), max_abs_err {err:.3g}; "
+          f"sm clock, max: {clocks[0]} before, {clocks[1]} after")
     return {"name": "wkv_kernel", "route": "cuda",
             "source": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
             "replaces": WKV_SRC, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
+            "library_ms": None, "bytes_ms": bytes_ms, "tf32x3_ms": ops_ms,
+            "f32_cuda_core_ms": f32_ms, "sm_clocks": clocks,
             "shape": {"B": B, "T": T, "nh": nh, "hd": hd, "chunk": chunk,
                       "dtype": str(r.dtype)[6:],
                       "w_dtype": str(w.dtype)[6:]},

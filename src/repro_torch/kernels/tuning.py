@@ -46,13 +46,14 @@ choice for the Hopper kernels, not carried over from the TPU rows:
   H100).  ``rt`` 1 (a block of one warp) was 1.5-3 % faster than 2, 4 or
   8 there: each warp reads its own row, so ``rt`` changes no traffic, only
   how finely the blocks fill the SMs.  No value of either changes a bit.
-* ``wkv`` ``chunk`` 128: the WKV kernel (``wkv/csrc/wkv.cu``) keeps a
-  chunk's r, k, v and log-decay cumsum, its (chunk, chunk) score tile and
-  the (64, 64) state in f32 shared memory (``wkv_smem_bytes``): 217,088
-  bytes at 128, the largest multiple of its 16-row interleave within a
-  block's 227 KB (144 would need 251,264).  It is the kernel's one chunk:
-  the chunk changes no result beyond rounding, so on the card T is padded
-  to it and never clamped (the reference's clamp holds on the CPU).
+* ``wkv`` ``chunk`` 128: the WKV kernel (``wkv/csrc/wkv.cu``) gives each
+  of its 8 warps a 16-row strip of the chunk and keeps the scores in
+  registers; shared memory (``wkv_smem_bytes``) holds the chunk's r and w,
+  its k and v and the next chunk's (fetched behind the products), the
+  (64, 64) state, all f32, and a few rows: 215,040 bytes at 128, one block
+  an SM.  It is the kernel's one chunk: the chunk changes no result beyond
+  rounding, so on the card T is padded to it and never clamped (the
+  reference's clamp holds on the CPU).
 
 The ``cpu`` rows of these ops are the reference's CPU rows, and the
 helpers give the reference's CPU tiles for them (``tests/test_torch_stencil``
@@ -163,12 +164,13 @@ def moe_dispatch_tiles(d_model: int, dtype=torch.float32,
 
 
 def wkv_smem_bytes(chunk: int, hd: int = 64) -> int:
-    """Shared memory of one WKV thread block: f32 r, k, v and cumsum tiles
-    (chunk, hd) with rows padded by one word, the padded (chunk, chunk)
-    score tile, the padded (hd, hd) state, the chunk's diagonal bonus and
-    the mid / last cumsum rows and ``u``."""
-    return 4 * (4 * chunk * (hd + 1) + chunk * (chunk + 1) + hd * (hd + 1)
-                + chunk + 3 * hd)
+    """Shared memory of one WKV thread block, all f32 and unpadded (an XOR
+    swizzle keeps the fragment loads free of bank conflicts): six (chunk,
+    hd) tiles (r, w, and k and v of this chunk and the next), the (hd, hd)
+    state, the scan's four partial rows, the decay rows of two chunks, the
+    next chunk's exp(mid) and ``u``.  No (chunk, chunk) tile: the scores
+    stay in registers."""
+    return 4 * (6 * chunk * hd + hd * hd + 4 * hd + 4 * hd)
 
 
 def clamp_wkv_chunk(chunk: int, t: int, device="cpu") -> int:

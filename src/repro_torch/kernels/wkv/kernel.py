@@ -8,8 +8,8 @@ pads); u: (nh, hd).  Returns y (B, T, nh, hd) f32 and, with
 tensor takes the plain version (``ref.wkv_chunked_plain``); a CUDA tensor
 launches the kernel on the current stream or raises.  On the card r, k, v
 share one dtype (f32 or bf16), w_log is f32 or that dtype, u is f32, hd is
-64 and ``chunk`` is ``tuning.WKV_CHUNK`` (128).  Launches are counted in
-``wkv_kernel.launches``.
+64, ``chunk`` is ``tuning.WKV_CHUNK`` (128), and r, k, v, w_log start on 16
+bytes.  Launches are counted in ``wkv_kernel.launches``.
 """
 from __future__ import annotations
 
@@ -57,6 +57,9 @@ def _check_cuda(r, k, v, w_log, u, chunk: int) -> None:
                          f"{tuning.WKV_CHUNK}")
     if not all(x.is_contiguous() for x in (r, k, v, w_log, u)):
         raise ValueError("wkv_kernel: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in (r, k, v, w_log)):
+        raise ValueError("wkv_kernel: r, k, v and w_log must be 16-byte "
+                         "aligned (the kernel loads 16-byte groups)")
 
 
 def wkv_kernel(r, k, v, w_log, u, *, chunk: int = 128,
