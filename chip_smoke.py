@@ -29,7 +29,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    not divide C among them; Inf / NaN in B only at keys A lacks, empty rows
    and columns, A keys outside B's key range; ``a_scales`` == on
    host-dequantized rows, three formats), K2q (== K2 on
-   host-dequantized blocks, three formats, f32 and bf16 dense), and the
+   host-dequantized blocks, three formats, f32 and bf16 dense; and the
+   streams its merge of a group's rows must survive: empty block-rows,
+   unsorted and repeated columns, B 2 with distinct scales, N not a
+   multiple of the vector, unaligned dense / blocks / out, bm 16, bk 32,
+   5 and 1, each at two ``bn``, within 1e-5 of plain), and the
    port's quantizer on the card == on the CPU, as bytes; then K7 (the WKV
    recurrence, ``y`` and the final state) against its plain chunked version
    on r, k, v, w of three dtype pairings, T 100, 256 and 2048 at the
@@ -75,7 +79,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 10. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound; K2, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; K2 on each captured
    stream with its row statistics, == plain; K5 with its bucketing and
-   product passes timed apart) and one with the serving and
+   product passes timed apart; K2q with its share of the f32 peak) and
+   one with the serving and
    library summary; the SM clock and its limit are printed before and after
    the kernel timings;
 11. last line: {"ok": true, "device": {...}}.
@@ -1086,6 +1091,134 @@ def _eq(got, want, what: str) -> None:
           f"(max diff {(got.float() - want.float()).abs().max().item()})")
 
 
+# K2q streams that its merge of a group's rows must survive: (kind, B,
+# block, dense dtype, N, unaligned dense / out / blocks).  Kinds: rows with
+# ascending columns ("random"), with some block-rows empty, with shuffled
+# columns, with a column repeated beside or later in its row.
+K2Q_CASES = (("empty_rows", 1, (8, 8), "float32", 300, False),
+             ("unsorted", 1, (8, 8), "float32", 300, False),
+             ("repeated", 1, (8, 8), "bfloat16", 300, False),
+             ("random", 2, (8, 8), "float32", 256, False),
+             ("random", 1, (8, 8), "float32", 301, False),
+             ("random", 1, (8, 8), "bfloat16", 301, False),
+             ("random", 2, (8, 8), "float32", 300, True),
+             ("unsorted", 2, (16, 8), "float32", 300, False),
+             ("repeated", 1, (16, 8), "bfloat16", 520, True),
+             ("random", 1, (8, 32), "float32", 200, False),
+             ("repeated", 2, (8, 5), "float32", 130, False),
+             ("empty_rows", 1, (16, 1), "bfloat16", 600, False))
+
+
+def _k2q_stream(rng, kind, B, gm, gn, block):
+    """A K2q stream on the card (fp8 e4m3 blocks quantized per (batch,
+    entry), batch b's values scaled by 10^(3b) so that the batches' scales
+    differ): indptr, block_cols, blocks, scales."""
+    import numpy as np
+    import torch
+    from repro_torch.core import precision as P
+    mask = rng.random((gm, gn)) < 0.4
+    if kind == "empty_rows":
+        mask[[0, 5, gm - 1]] = False
+    rows = []
+    for r in range(gm):
+        c = list(np.nonzero(mask[r])[0])
+        if kind == "unsorted":
+            rng.shuffle(c)
+        if kind == "repeated" and c:
+            for _ in range(3):
+                i = int(rng.integers(len(c)))
+                c.insert(int(rng.integers(i, len(c) + 1)), c[i])
+        rows.append(c)
+    indptr = np.zeros(gm + 1, np.int32)
+    np.cumsum([len(c) for c in rows], out=indptr[1:])
+    cols = np.array([x for c in rows for x in c], np.int32)
+    vals = rng.standard_normal((B, len(cols)) + tuple(block)) \
+        * 1e3 ** np.arange(B)[:, None, None, None]
+    q, sc = P.quantize_blocks(torch.from_numpy(vals.astype(np.float32)),
+                              torch.float8_e4m3fn)
+    return (torch.from_numpy(indptr).cuda(), torch.from_numpy(cols).cuda(),
+            q.cuda(), sc.cuda())
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past an
+    allocation's start (not 16-byte aligned; not 4-byte for 1-byte
+    values)."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _k2q_into(out, indptr, cols, q, dense, sc, bn):
+    """K2q through the C interface into a given ``out`` (the wrapper
+    allocates its own, always aligned); a comparison launch, not counted."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.spmm import kernel as mk
+    B, nnzb, bm, bk = q.shape
+    lib = mk._lib()
+    err = lib.spmm_bcsr_launch(
+        indptr.data_ptr(), cols.data_ptr(), q.data_ptr(), sc.data_ptr(),
+        dense.data_ptr(), out.data_ptr(), B, indptr.numel() - 1, nnzb, bm,
+        bk, dense.shape[1], dense.shape[2], bn, mk._QUANT_CODE[q.dtype],
+        mk._DTYPE_CODE[dense.dtype], mk._DTYPE_CODE[torch.float32],
+        torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "spmm_bcsr launch (K2q, given out)")
+    return out
+
+
+def _k2q_merge_cases():
+    """K2q on the streams of ``K2Q_CASES`` (19 block-rows, 24 block
+    columns), at the tuning row's bn and at bn 256 (a group half as
+    large): each == K2 on host-dequantized blocks (``torch.equal``), within
+    1e-5 of the largest |value| of the plain version (another summation
+    order inside a block), and with its empty block-rows zero; the
+    unaligned case also through the C interface into an output that is not
+    16-byte aligned, == the aligned one."""
+    import numpy as np
+    import torch
+    from repro_torch.core import precision as P
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.spmm import kernel as mk
+    from repro_torch.kernels.spmm import ref as mr
+    rng = np.random.default_rng(17)
+    gm, gn = 19, 24
+    for kind, B, block, ddt, N, unaligned in K2Q_CASES:
+        dt = getattr(torch, ddt)
+        indptr, cols, q, sc = _k2q_stream(rng, kind, B, gm, gn, block)
+        dense = torch.from_numpy(rng.standard_normal(
+            (B, gn * block[1], N)).astype(np.float32)).to("cuda", dt)
+        if unaligned:
+            dense, q = _unaligned(dense), _unaligned(q)
+        what = f"K2q {kind} B={B} block {block} {ddt} N={N}" + (
+            " unaligned" if unaligned else "")
+        got = mk.spmm_bcsr(indptr, cols, q, dense, scales=sc)
+        _eq(got, mk.spmm_bcsr(indptr, cols, P.dequantize_blocks(q, sc),
+                              dense), f"{what}: != K2 on host-dequantized")
+        _eq(mk.spmm_bcsr(indptr, cols, q, dense, scales=sc, bn=256), got,
+            f"{what}: bn 256")
+        plain = mr.spmm_bcsr_ref(indptr, cols, q, dense,
+                                 out_dtype=torch.float32, scales=sc)
+        err = (got - plain).abs().max().item()
+        check(err <= 1e-5 * plain.abs().max().item(),
+              f"{what}: vs plain {err}")
+        empty = (indptr[1:] == indptr[:-1]).nonzero().flatten().tolist()
+        rows = got.view(B, gm, block[0], N)
+        check(all(rows[:, r].abs().max().item() == 0 for r in empty),
+              f"{what}: an empty block-row is not zero")
+        if unaligned:
+            out = _unaligned(torch.empty_like(got))
+            _eq(_k2q_into(out, indptr, cols, q, dense, sc,
+                          tuning.spmm_bn(q.dtype, "cuda")), got,
+                f"{what}: unaligned out")
+    print(f"  K2q merge: {len(K2Q_CASES)} streams (empty rows, unsorted, "
+          "repeated columns, B 2 with distinct scales, N % VEC, unaligned "
+          "dense / blocks / out, bm 16, bk 32 / 5 / 1) x bn 128, 256 == K2 "
+          "on host-dequantized blocks; within 1e-5 of plain")
+
+
 def phase_library_vs_plain():
     """K6a, K6b, K5 and K2q against their plain versions on random inputs
     on the card, each as ``torch.equal`` (the kernels round every product
@@ -1163,6 +1296,7 @@ def phase_library_vs_plain():
                     f"K2q {name} block {block} dense {ddt}")
     print("  K2q: 3 formats x blocks (8, 8), (16, 8) x f32, bf16 dense == K2 "
           "on host-dequantized blocks")
+    _k2q_merge_cases()
     x = torch.randn(40, 8, 8, generator=g, device="cuda") * torch.exp(
         6 * torch.randn(40, 1, 1, generator=g, device="cuda"))
     x[0] = 0
@@ -1473,16 +1607,19 @@ def phase_measure_library(d, counts, info, card):
     nnzb, bm, bk_ = aq.blocks.shape
     nbytes = (aq.blocks.numel() + 4 * nnzb + 4 * (aq.indptr.numel() + nnzb)
               + 4 * x.numel() + 4 * SPMM_N * SPMM_COLS)
+    flops = 2 * nnzb * bm * bk_ * SPMM_COLS
+    share = flops / (ms * 1e-3) / F32_FLOP_PER_S
     rows.append(_lib_row(
         "spmm_bcsr_quant", "src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
         "spmm/kernel.py:68", counts["spmm_bcsr_quant"], info["spmm_err"], ms,
-        plain_ms, 2 * nnzb * bm * bk_ * SPMM_COLS, nbytes, lib_ms, card,
+        plain_ms, flops, nbytes, lib_ms, card,
         shape={"M": SPMM_N, "K": SPMM_N, "N": SPMM_COLS,
                "bandwidth": SPMM_BAND, "block": list(SPMM_BLOCK),
                "nnzb": nnzb, "blocks": "fp8_e4m3", "dense": "float32"},
-        matmul_max_abs_err=info["spmm_matmul_err"]))
-    print(f"  spmm_bcsr_quant nnzb={nnzb} N={SPMM_COLS}: {ms:.3f} ms, plain "
-          f"{plain_ms:.1f}, matmul {lib_ms:.3f}")
+        matmul_max_abs_err=info["spmm_matmul_err"], f32_peak_share=share))
+    print(f"  spmm_bcsr_quant nnzb={nnzb} N={SPMM_COLS}: {ms:.3f} ms "
+          f"({100 * share:.1f} % of the f32 peak), plain {plain_ms:.1f}, "
+          f"matmul {lib_ms:.3f}")
     return rows
 
 

@@ -33,7 +33,7 @@
 //
 // 1. Staging.  The blocks of a row's consecutive entries in one batch are
 //    one contiguous span, so the chunk is copied with cp.async (16 bytes a
-//    thread), with its block_cols and scales, into a two-stage ring: chunk
+//    thread), with its block_cols, into a two-stage ring: chunk
 //    c + 1 is in flight while chunk c is walked.
 // 2. Zero blocks.  All threads OR the staged words, conflict-free, into a
 //    64-bit mask of the entries with a nonzero bit (-0.0 counts as
@@ -63,12 +63,62 @@
 // gives NaN.  No contract covers non-finite input.
 //
 // K2q, the quantized variant (`_spmm_quant_kernel`, the same Pallas call
-// with `scales`): blocks of fp8 e4m3 / e5m2 or int8 with one f32 scale per
-// (batch, stream entry).  Each value is dequantized as the chunk's f32
-// values are written, `__fmul_rn(float(q), scale)` -- the host's
-// `values.float() * scale` -- so K2q equals K2 on host-dequantized blocks
-// bit for bit.  Only what the library reaches is instantiated: narrow
-// blocks x f32 / bf16 dense -> f32 out.
+// with `scales`: blocks of fp8 e4m3 / e5m2 or int8 with one f32 scale per
+// (batch, stream entry), f32 or bf16 dense, f32 out) has a kernel of its
+// own, `spmm_quant_kernel` below.  Its operand is the library's banded
+// matrix (8192^2 fp8 e4m3, bandwidth 512, 8 x 8 blocks: ~125 entries a
+// block-row, every one live), so it is bound by operations: 2 flops per
+// block element and output column at the f32 CUDA-core peak.  A block-row
+// walked alone fetches every dense K-tile it touches from L2, and each
+// fetched value then serves only BM multiply-adds, so the kernel above runs
+// it from L2 at a fifth of the f32 peak (NVIDIA H100 80GB HBM3, 700 W).
+// K2q instead:
+//
+// 1. Groups rows.  A thread block of eight warps owns a group of
+//    consecutive block-rows x an N-tile of `bn` columns.  Each warp owns 8
+//    output rows (one block-row, or half of a 16-row one) x 128 columns,
+//    4 a lane, so a group is 8 block-rows of 8 x 8 blocks at bn 128
+//    (8 / (bm / 8) / (bn / 128) in general).
+// 2. Walks the group's K-tiles once, by merging the rows' cursors.  A
+//    window of up to 1024 K-tiles starts at the least head column of the
+//    rows still in their sweep; every row marks, in a shared bitmap, the
+//    columns of its entries from its cursor that stay inside the window and
+//    do not descend; the marked columns, ascending, are the window's
+//    steps.  A row whose next column descends waits for a new sweep, which
+//    starts when no row can go on.  So each row meets its entries in its
+//    own stream order whether or not its columns ascend or repeat; on
+//    ascending rows (the library's) a group's window is one sweep and each
+//    K-tile is staged once for all the rows that use it.
+// 3. Stages each step's dense tile (bk rows x bn columns) once, with
+//    cp.async, into a ring of four commit groups of up to four tiles
+//    (as many as 64 KB holds): three groups are in flight behind the
+//    products, and the block meets at one barrier a group.  Where N is not
+//    a multiple of VEC or a pointer is not 16-byte aligned, a tile is
+//    loaded by scalars with a bound check.
+// 4. Computes from shared memory.  At a step every warp whose row's head
+//    entry has the step's column takes its entries there (several in a row
+//    for a repeated column): it dequantizes the entry's 8 x bk values,
+//    `__fmul_rn(float(q), scale)` as the host does (at bk 8 two values a
+//    lane, converted as a pair), transposed to (k, m) in its own double
+//    buffer, and runs the fmaf chain over k from the buffer (two broadcast
+//    vector reads of a, one of x, a k) into an 8 x 4 register tile, then
+//    adds it to the row's accumulator.  Each warp keeps its next entry's
+//    block bytes, scale and column in flight.
+//
+// What bounds it (tools/compare_spmm.py ablations on NVIDIA H100 80GB
+// HBM3, 700 W): the shared-memory reads.  A 16-byte read costs the
+// shared-memory pipe four cycles whether it broadcasts or not, so an
+// entry's 24 of them per warp take ~96 cycles of the SM's one pipe against
+// 256 FMAs on each of its four schedulers; an 8 x 8 lane tile cuts that by
+// a third but needs ~220 registers.
+//
+// Every output element still takes p = the fmaf chain over k from 0, then
+// acc + p per entry in the row's stream order, as the kernel above does
+// with host-dequantized f32 blocks; it only skips nothing (an fmaf with a
+// zero factor leaves a finite sum as it was, up to the sign of a zero), so
+// K2q equals K2 on host-dequantized blocks bit for bit on finite data.  No
+// row is split across warps or thread blocks and nothing is atomic but the
+// bitmap's marks.  An empty row writes zeros.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -252,7 +302,6 @@ __global__ void __launch_bounds__(kMaxThreads, BM == 8 ? 2 : 1)
 spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
                  const int32_t* __restrict__ block_cols,
                  const TA* __restrict__ blocks,
-                 const float* __restrict__ scales,
                  const TB* __restrict__ dense, TO* __restrict__ out,
                  int nnzb, int bk, int K, int N, int bn, bool vec_ok) {
   constexpr int VEC = 16 / sizeof(TB);
@@ -260,7 +309,6 @@ spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
   __shared__ __align__(16) unsigned char raw_s[kStages][kRawBytes];
   __shared__ __align__(16) float a_s[kAFloats];  // the chunk's blocks, (k, m)
   __shared__ int32_t cols_s[kStages][kMaxChunk];
-  __shared__ float scale_s[kStages][kMaxChunk];
   __shared__ uint32_t rows_s[kMaxChunk];   // nonzero block rows of an entry
   __shared__ uint32_t kcols_s[kMaxChunk];  // and its nonzero block columns
   __shared__ unsigned long long live_s[2];  // entries with a nonzero bit
@@ -281,7 +329,6 @@ spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
   const int chunk = min(kMaxChunk, min(kRawBytes / eb, kAFloats / bsz));
   const unsigned char* blocks_b = reinterpret_cast<const unsigned char*>(
       blocks + (size_t)b * nnzb * bsz);
-  const float* scales_b = scales ? scales + (size_t)b * nnzb : nullptr;
   const TB* dense_b = dense + (size_t)b * K * N + n0;
 
   // Stage chunk c (entries start + c * chunk ..) into ring slot c % kStages:
@@ -306,10 +353,8 @@ spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
         cp_async16(&raw_s[s][j], src + j);
     }
     for (int j = done + tid; j < bytes; j += nthreads) raw_s[s][j] = src[j];
-    for (int j = tid; j < n; j += nthreads) {
+    for (int j = tid; j < n; j += nthreads)
       cp_async4(&cols_s[s][j], block_cols + i0 + j);
-      if (scales_b) cp_async4(&scale_s[s][j], scales_b + i0 + j);
-    }
     cp_async_commit();
   };
 
@@ -356,9 +401,8 @@ spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
     if (tid == 0) live_s[(c + 1) & 1] = 0ull;  // read again at c + 2 only
     if (live == 0ull) continue;
     // One warp per live entry: its f32 values, transposed to (k, m) so
-    // that a block column is one vector read (narrow values dequantized as
-    // the host does, K2q), and the masks of its block rows and columns that
-    // hold a nonzero bit.
+    // that a block column is one vector read, and the masks of its block
+    // rows and columns that hold a nonzero bit.
     {
       const int lane = tid & 31;
       const float inv_bk = 1.f / bk;
@@ -368,7 +412,6 @@ spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
         todo &= todo - 1;
         if (i % (nthreads >> 5) != (tid >> 5)) continue;
         const TA* blk = reinterpret_cast<const TA*>(raw_s[s] + e * eb);
-        const float sc = scales_b ? scale_s[s][e] : 1.f;
         uint32_t rows = 0, cols = 0;
         for (int q = lane; q < bsz; q += 32) {
           const int m = static_cast<int>((q + 0.5f) * inv_bk);
@@ -378,8 +421,7 @@ spmm_bcsr_kernel(const int32_t* __restrict__ indptr,
             rows |= 1u << m;
             cols |= 1u << k;
           }
-          const float v = to_f32(blk[q]);
-          a_s[e * bsz + k * BM + m] = scales_b ? __fmul_rn(v, sc) : v;
+          a_s[e * bsz + k * BM + m] = to_f32(blk[q]);
         }
         rows = __reduce_or_sync(0xffffffffu, rows);
         cols = __reduce_or_sync(0xffffffffu, cols);
@@ -486,9 +528,371 @@ cudaError_t launch(const Args& a) {
   }
   dim3 grid((a.N + a.bn - 1) / a.bn, a.batch, a.gm);
   kernel<<<grid, threads, ring_bytes(threads), a.stream>>>(
-      a.indptr, a.block_cols, static_cast<const TA*>(a.blocks), a.scales,
+      a.indptr, a.block_cols, static_cast<const TA*>(a.blocks),
       static_cast<const TB*>(a.dense), static_cast<TO*>(a.out), a.nnzb, a.bk,
       a.K, a.N, a.bn, vec_ok);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K2q: narrow blocks, a thread block per (group of block-rows, N-tile).
+// ---------------------------------------------------------------------------
+
+constexpr int kQWarps = 8;                // warps of a K2q thread block
+constexpr int kQThreads = 32 * kQWarps;
+constexpr int kQWarpCols = 128;           // output columns of a warp, 4 a lane
+constexpr int kQStages = 4;               // commit groups in the ring
+constexpr int kQMaxSync = 4;              // steps (dense tiles) of a group
+constexpr int kQSyncRing = 65536;         // ring bytes that sets the steps
+constexpr int kQWindow = 1024;            // K-tiles of one window of steps
+constexpr int kQMaxTileBytes = 32768;     // one dense tile (bk x bn)
+constexpr int kNoCol = 0x7fffffff;        // the head of a walked row
+
+// A narrow value from its byte.
+template <typename TA>
+__device__ __forceinline__ float narrow_f32(uint32_t byte) {
+  TA x;
+  *reinterpret_cast<unsigned char*>(&x) = static_cast<unsigned char>(byte);
+  return to_f32(x);
+}
+
+// Two narrow values from the low and high bytes of `two`; fp8 pairs by one
+// conversion to f16 (exact: every fp8 value is an f16 value).
+template <typename TA>
+__device__ __forceinline__ float2 narrow2_f32(uint32_t two) {
+  return make_float2(narrow_f32<TA>(two & 0xffu),
+                     narrow_f32<TA>((two >> 8) & 0xffu));
+}
+template <>
+__device__ __forceinline__ float2 narrow2_f32<__nv_fp8_e4m3>(uint32_t two) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two), __NV_E4M3)));
+}
+template <>
+__device__ __forceinline__ float2 narrow2_f32<__nv_fp8_e5m2>(uint32_t two) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two), __NV_E5M2)));
+}
+
+// Four consecutive dense values of a staged tile row, as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+// Steps a commit group of the K2q ring stages, and so a barrier serves: the
+// largest power of two up to kQMaxSync whose kQStages groups fit
+// kQSyncRing (4 at the library's 4 KB tiles), else 1.  A power of two, so
+// that the ring's slot is a mask.
+__host__ __device__ constexpr int quant_sync(int tile_bytes) {
+  int sync = kQMaxSync;
+  while (sync > 1 && kQStages * sync * tile_bytes > kQSyncRing) sync /= 2;
+  return sync;
+}
+
+// Dynamic shared memory of a K2q block: the ring of dense tiles, then each
+// warp's two f32 (bk, 8) buffers of a dequantized half-block.
+__host__ __device__ constexpr int quant_smem_bytes(int tile_bytes, int bk) {
+  return kQStages * quant_sync(tile_bytes) * tile_bytes +
+         kQWarps * 2 * 8 * bk * 4;
+}
+
+// Word j of a warp's half-block at p (8 * bk bytes, a multiple of 8): one
+// load where the blocks are 4-byte aligned, else four byte loads.
+__device__ __forceinline__ uint32_t half_word(const unsigned char* p, int j,
+                                              bool a_words) {
+  if (a_words) return __ldg(reinterpret_cast<const uint32_t*>(p) + j);
+  const unsigned char* q = p + 4 * j;
+  return (uint32_t)__ldg(q) | ((uint32_t)__ldg(q + 1) << 8) |
+         ((uint32_t)__ldg(q + 2) << 16) | ((uint32_t)__ldg(q + 3) << 24);
+}
+
+// grid (ceil(N / bn), B, ceil(gm / group)), block kQThreads.  Warp w owns
+// the 8 output rows rs = w % rows_w of the group (block-row rs / (BM / 8),
+// half rs % (BM / 8)) and the 128 columns (w / rows_w) * 128 .. of the
+// N-tile, rows_w = kQWarps / (bn / 128) = group * BM / 8.  Groups run in
+// reverse, as block-rows do above.  `vec_ok` as above; `a_words`: the
+// blocks are 4-byte aligned.  KB: bk when it is known at compile time (8,
+// the library's), else 0 and bk is `bk_arg`.
+template <int BM, typename TA, typename TB, int KB>
+__global__ void __launch_bounds__(kQThreads, 2)
+spmm_quant_kernel(const int32_t* __restrict__ indptr,
+                  const int32_t* __restrict__ block_cols,
+                  const unsigned char* __restrict__ blocks,
+                  const float* __restrict__ scales,
+                  const TB* __restrict__ dense, float* __restrict__ out,
+                  int gm, int nnzb, int bk_arg, int K, int N, int bn,
+                  int group, int sync, bool vec_ok, bool a_words) {
+  constexpr int VEC = 16 / sizeof(TB);
+  const int bk = KB ? KB : bk_arg;
+  constexpr int kHalves = BM / 8;
+  extern __shared__ __align__(16) unsigned char qsmem[];
+  __shared__ uint32_t bits_s[kQWindow / 32];  // the window's K-tiles
+  __shared__ uint16_t steps_s[kQWindow];      // ... in ascending order
+  __shared__ int least_s[2];  // least head going on in its sweep; of any row
+  __shared__ int nsteps_s;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rows_w = kQWarps / (bn / kQWarpCols);
+  const int rs = warp % rows_w;
+  const int wc = warp / rows_w;
+  const int half = rs % kHalves;
+  const int r = (gridDim.z - 1 - blockIdx.z) * group + rs / kHalves;
+  const bool row_ok = r < gm;
+  const bool marker = row_ok && wc == 0 && half == 0;  // marks for its row
+  const int b = blockIdx.y;
+  const int n_tile = blockIdx.x * bn;
+  const int c0 = n_tile + wc * kQWarpCols + lane * 4;  // the lane's columns
+  const int tile_elems = bk * bn;
+  TB* ring = reinterpret_cast<TB*>(qsmem);
+  float* a_w = reinterpret_cast<float*>(
+                   qsmem + kQStages * sync * tile_elems * (int)sizeof(TB)) +
+               warp * 2 * 8 * bk;
+  const unsigned char* blocks_h =
+      blocks + (size_t)b * nnzb * BM * bk + half * 8 * bk;
+  const float* scales_b = scales + (size_t)b * nnzb;
+  const TB* dense_b = dense + (size_t)b * K * N + n_tile;
+
+  // The row's walk: `cur` its next entry, `head` / `next` the columns of
+  // entries cur and cur + 1 (kNoCol past the end), `floor_col` the column
+  // of its last entry in this sweep.  Entry cur's scale and the lane's
+  // share of its half-block are in flight: at bk 8 the two values (m, k),
+  // (m, k + 1), m = lane / 4, k = 2 (lane % 4), in w0; else words lane and
+  // lane + 32 in w0, w1.
+  int cur = 0, end = 0;
+  if (row_ok) {
+    cur = indptr[r];
+    end = indptr[r + 1];
+  }
+  int head = cur < end ? block_cols[cur] : kNoCol;
+  int next = cur + 1 < end ? block_cols[cur + 1] : kNoCol;
+  int floor_col = -1;
+  const int nw = 2 * bk;  // words of a half-block
+  uint32_t w0 = 0, w1 = 0;
+  float sc = 0.f;
+  const int pair = (lane >> 2) * 8 + 2 * (lane & 3);  // bk 8: (m, k) byte
+  auto fetch = [&](int i) {
+    const unsigned char* p = blocks_h + (size_t)i * BM * bk;
+    if (KB == 8) {
+      w0 = a_words ? __ldg(reinterpret_cast<const uint16_t*>(p + pair))
+                   : (uint32_t)__ldg(p + pair) |
+                         ((uint32_t)__ldg(p + pair + 1) << 8);
+    } else {
+      if (lane < nw) w0 = half_word(p, lane, a_words);
+      if (lane + 32 < nw) w1 = half_word(p, lane + 32, a_words);
+    }
+    sc = __ldg(scales_b + i);
+  };
+  if (cur < end) fetch(cur);
+  // Where the lane's words go in the (k, m) buffer: value 4 j + t of the
+  // half-block is (m, k) = divmod(4 j + t, bk).
+  const int m0 = (4 * lane) / bk, k0 = (4 * lane) % bk;
+  const int m1 = (4 * lane + 128) / bk, k1 = (4 * lane + 128) % bk;
+  auto dequant = [&](uint32_t w, int m, int k, float* a) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      a[k * 8 + m] = __fmul_rn(narrow_f32<TA>((w >> (8 * t)) & 0xffu), sc);
+      if (++k == bk) {
+        k = 0;
+        ++m;
+      }
+    }
+  };
+
+  // Copy the dense tiles (K-tiles wstart + steps_s[s]) of steps s = j *
+  // sync .. into ring slots s % slots: 16 bytes a thread with cp.async, the
+  // ragged or unaligned rest by scalars, zero past N; one commit group for
+  // them, empty past the window's last step.  A tile row is cpr = bn / VEC
+  // chunks, a power of two that divides kQThreads: the thread copies column
+  // v of rows k_first, k_first + k_step, ...
+  const int slots = kQStages * sync;  // a power of two
+  const int cpr = bn / VEC;
+  const int k_first = tid / cpr, k_step = kQThreads / cpr;
+  const int v = (tid % cpr) * VEC;
+  const int valid = N - (n_tile + v);
+  auto issue = [&](int j, int S, int wstart) {
+    for (int s = j * sync; s < (j + 1) * sync && s < S; ++s) {
+      const int t = wstart + steps_s[s];
+      TB* dst = ring + (s & (slots - 1)) * tile_elems;
+      const TB* src = dense_b + (size_t)t * bk * N;
+      for (int k = k_first; k < bk; k += k_step) {
+        uint4* d = reinterpret_cast<uint4*>(dst + k * bn + v);
+        const TB* g = src + (size_t)k * N + v;
+        if (vec_ok && valid >= VEC)
+          cp_async16(d, g);
+        else
+          *d = valid > 0 ? load_partial(g, valid) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+  int buf = 0;
+
+  for (;;) {
+    // The window's start: the least head column of the rows that go on in
+    // their sweep, or, where none can, of all rows (a new sweep).
+    if (tid < kQWindow / 32) bits_s[tid] = 0u;
+    if (tid == 0) least_s[0] = least_s[1] = kNoCol;
+    __syncthreads();
+    if (marker && lane == 0 && head != kNoCol) {
+      atomicMin(&least_s[1], head);
+      if (head >= floor_col) atomicMin(&least_s[0], head);
+    }
+    __syncthreads();
+    if (least_s[1] == kNoCol) break;  // every row walked
+    const bool sweep = least_s[0] == kNoCol;
+    const int wstart = sweep ? least_s[1] : least_s[0];
+    if (sweep) floor_col = -1;
+    // Each row marks the columns of its entries from the cursor while they
+    // stay in the window and do not descend: exactly the entries it takes
+    // in this window, at those columns' steps.
+    if (marker) {
+      int prev = floor_col;
+      for (int j = cur; j < end; j += 32) {
+        const int i = j + lane;
+        const int c = i < end ? block_cols[i] : kNoCol;
+        int pc = __shfl_up_sync(0xffffffffu, c, 1);
+        if (lane == 0) pc = prev;
+        const bool ok = i < end && c >= wstart && c - wstart < kQWindow &&
+                        c >= pc;
+        const uint32_t stop = __ballot_sync(0xffffffffu, !ok);
+        if (lane < (stop ? __ffs(stop) - 1 : 32))
+          atomicOr(&bits_s[(c - wstart) >> 5], 1u << ((c - wstart) & 31));
+        if (stop) break;
+        prev = __shfl_sync(0xffffffffu, c, 31);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // the steps: marked K-tiles in ascending order
+      const uint32_t w = bits_s[lane];
+      const int n = __popc(w);
+      int off = n;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, off, d);
+        if (lane >= d) off += t;
+      }
+      if (lane == 31) nsteps_s = off;
+      off -= n;
+      for (uint32_t x = w; x; x &= x - 1)
+        steps_s[off++] = static_cast<uint16_t>(lane * 32 + __ffs(x) - 1);
+    }
+    __syncthreads();
+    const int S = nsteps_s;
+
+#pragma unroll
+    for (int j = 0; j < kQStages - 1; ++j) issue(j, S, wstart);
+    for (int j = 0; j * sync < S; ++j) {
+      cp_async_wait<kQStages - 2>();
+      __syncthreads();  // group j landed for all; group j - 1 is read no more
+      issue(j + kQStages - 1, S, wstart);
+      for (int s = j * sync; s < (j + 1) * sync && s < S; ++s) {
+        const int t = wstart + steps_s[s];
+        const TB* x = ring + (s & (slots - 1)) * tile_elems +
+                      wc * kQWarpCols + lane * 4;
+        while (head == t) {  // the row's entries at this K-tile, in order
+          float* a = a_w + buf * 8 * bk;
+          if (KB == 8) {
+            const float2 v = narrow2_f32<TA>(w0);
+            a[2 * (lane & 3) * 8 + (lane >> 2)] = __fmul_rn(v.x, sc);
+            a[(2 * (lane & 3) + 1) * 8 + (lane >> 2)] = __fmul_rn(v.y, sc);
+          } else {
+            if (lane < nw) dequant(w0, m0, k0, a);
+            if (lane + 32 < nw) dequant(w1, m1, k1, a);
+          }
+          ++cur;
+          head = next;
+          next = cur + 1 < end ? block_cols[cur + 1] : kNoCol;
+          if (cur < end) fetch(cur);
+          __syncwarp();
+          float p[8][4];
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) p[m][c] = 0.f;
+#pragma unroll(KB ? KB : 4)
+          for (int k = 0; k < bk; ++k) {
+            const float4 lo = *reinterpret_cast<const float4*>(a + k * 8);
+            const float4 hi = *reinterpret_cast<const float4*>(a + k * 8 + 4);
+            const float4 xv = load4(x + k * bn);
+            const float am[8] = {lo.x, lo.y, lo.z, lo.w,
+                                 hi.x, hi.y, hi.z, hi.w};
+            const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int m = 0; m < 8; ++m)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                p[m][c] = fmaf(am[m], xc[c], p[m][c]);
+          }
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[m][c] = acc[m][c] + p[m][c];
+          buf ^= 1;  // the other buffer is free: every lane is past its reads
+          floor_col = t;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!row_ok) return;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    float* o = out + ((size_t)b * gm * BM + (size_t)r * BM + half * 8 + m) *
+                         N + c0;
+    if (vec_ok && c0 + 4 <= N) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c0 + c < N) o[c] = acc[m][c];
+    }
+  }
+}
+
+template <int BM, typename TA, typename TB, int KB>
+cudaError_t launch_quant(const Args& a) {
+  constexpr int VEC = 16 / sizeof(TB);
+  const int ncw = a.bn / kQWarpCols;
+  const int tile_bytes = a.bk * a.bn * static_cast<int>(sizeof(TB));
+  if (a.bn % kQWarpCols != 0 || ncw < 1 || kQWarps % (ncw * (BM / 8)) != 0 ||
+      a.bn / VEC > kQThreads || tile_bytes > kQMaxTileBytes)
+    return cudaErrorInvalidValue;
+  const int group = kQWarps / ncw / (BM / 8);
+  const bool vec_ok = a.N % VEC == 0 &&
+                      (reinterpret_cast<uintptr_t>(a.dense) & 15) == 0 &&
+                      (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
+  const bool a_words = (reinterpret_cast<uintptr_t>(a.blocks) & 3) == 0;
+  auto kernel = spmm_quant_kernel<BM, TA, TB, KB>;
+  static bool opted_in = false;  // the ring may take the block past 48 KB
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        quant_smem_bytes(kQMaxTileBytes, kMaxBK));
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  dim3 grid((a.N + a.bn - 1) / a.bn, a.batch, (a.gm + group - 1) / group);
+  kernel<<<grid, kQThreads, quant_smem_bytes(tile_bytes, a.bk), a.stream>>>(
+      a.indptr, a.block_cols, static_cast<const unsigned char*>(a.blocks),
+      a.scales, static_cast<const TB*>(a.dense), static_cast<float*>(a.out),
+      a.gm, a.nnzb, a.bk, a.K, a.N, a.bn, group, quant_sync(tile_bytes),
+      vec_ok, a_words);
   return cudaGetLastError();
 }
 
@@ -506,12 +910,18 @@ cudaError_t dispatch_dense(const Args& a, int b_dtype, int o_dtype) {
   return cudaErrorInvalidValue;
 }
 
-// K2q: narrow blocks, f32 output only
+// K2q: narrow blocks, f32 output only; bk 8 compiled apart
+template <int BM, typename TA, typename TB>
+cudaError_t dispatch_quant_bk(const Args& a) {
+  if (a.bk == 8) return launch_quant<BM, TA, TB, 8>(a);
+  return launch_quant<BM, TA, TB, 0>(a);
+}
+
 template <int BM, typename TA>
 cudaError_t dispatch_quant(const Args& a, int b_dtype, int o_dtype) {
   if (a.scales == nullptr || o_dtype != kF32) return cudaErrorInvalidValue;
-  if (b_dtype == kF32) return launch<BM, TA, float, float>(a);
-  if (b_dtype == kBF16) return launch<BM, TA, __nv_bfloat16, float>(a);
+  if (b_dtype == kF32) return dispatch_quant_bk<BM, TA, float>(a);
+  if (b_dtype == kBF16) return dispatch_quant_bk<BM, TA, __nv_bfloat16>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -538,9 +948,10 @@ extern "C" {
 // launched).  dtype codes: 0 = float32, 1 = bfloat16; blocks also 2 = fp8
 // e4m3, 3 = fp8 e5m2, 4 = int8, which take `scales` (B, nnzb) f32 and an
 // f32 output (K2q); wide blocks take scales = null.  bm must be 8 or 16,
-// 1 <= bk <= 32; bn (output columns per thread block) a multiple of 32 x
-// VEC with bn / VEC <= 256 threads, VEC = 16 / sizeof(dense) (4 for f32,
-// 8 for bf16).
+// 1 <= bk <= 32; bn (output columns per thread block): for wide blocks a
+// multiple of 32 x VEC with bn / VEC <= 256 threads, VEC = 16 /
+// sizeof(dense) (4 for f32, 8 for bf16); for K2q 128 x a power of two with
+// (bm / 8) x (bn / 128) <= 8 warps and bk x bn dense values in 32 KB.
 int spmm_bcsr_launch(const int32_t* indptr, const int32_t* block_cols,
                      const void* blocks, const float* scales,
                      const void* dense, void* out,

@@ -50,9 +50,10 @@ def spmm_bcsr(indptr: torch.Tensor, block_cols: torch.Tensor,
         only for narrow blocks.
       bn: output columns per thread block, a multiple of
         ``tuning.spmm_col_unit(dense.dtype)`` (one warp of 16-byte vectors:
-        128 f32, 256 bf16) and at most 8 of them (256 threads); default:
-        the ``spmm`` row of ``kernels.tuning``, keyed on the narrow block
-        dtype when quantized.
+        128 f32, 256 bf16) and at most 8 of them (256 threads); for narrow
+        blocks (K2q) 128 x a power of two as ``tuning.spmm_quant_group``
+        says; default: the ``spmm`` row of ``kernels.tuning``, keyed on the
+        narrow block dtype when quantized.
       scales: (B, nnzb) f32 per-block dequant scales of narrow blocks;
         each value is used as ``value.float() * scale``.
     Returns:
@@ -100,13 +101,16 @@ def spmm_bcsr(indptr: torch.Tensor, block_cols: torch.Tensor,
             or out_dtype not in (dense.dtype, torch.float32):
         raise TypeError(f"spmm_bcsr: unsupported dtypes blocks={blocks.dtype}"
                         f" dense={dense.dtype} out={out_dtype}")
-    unit = tuning.spmm_col_unit(dense.dtype)
-    if bm not in (8, 16) or not 1 <= bk <= 32 or bn % unit \
-            or not unit <= bn <= 8 * unit:
-        raise ValueError(
-            f"spmm_bcsr: unsupported tile bm={bm} bk={bk} bn={bn} (bn must "
-            f"be a multiple of {unit}, at most {8 * unit}, for "
-            f"{dense.dtype} dense)")
+    if quant:
+        tuning.spmm_quant_group(bm, bk, bn, dense.dtype)
+    else:
+        unit = tuning.spmm_col_unit(dense.dtype)
+        if bm not in (8, 16) or not 1 <= bk <= 32 or bn % unit \
+                or not unit <= bn <= 8 * unit:
+            raise ValueError(
+                f"spmm_bcsr: unsupported tile bm={bm} bk={bk} bn={bn} (bn "
+                f"must be a multiple of {unit}, at most {8 * unit}, for "
+                f"{dense.dtype} dense)")
     if not (1 <= gm <= 65535 and 1 <= B <= 65535 and N >= 1):
         raise ValueError(f"spmm_bcsr: grid out of range gm={gm} B={B} N={N}")
     out = torch.empty((B, gm * bm, N), dtype=out_dtype, device=dense.device)

@@ -15,8 +15,14 @@ choice for the Hopper kernels, not carried over from the TPU rows:
   bf16, 128 f32 columns) and at most 8 of them.  1024 for the MoE dispatch
   and wide blocks: 128 threads on bf16 (5 tiles at d_model 5120), four
   blocks an SM; on the dispatch streams 256 and 512 were 1.3-2x slower and
-  2048 5-11 % slower (``tools/compare_spmm.py``).  512 for narrow blocks (K2q on
-  f32 dense: 128 threads), level with 1024 there.
+  2048 5-11 % slower (``tools/compare_spmm.py``, NVIDIA H100 80GB HBM3,
+  700 W).
+* K2q (narrow blocks) has a tile of its own, the ``fp8`` row: ``bn`` 128
+  and ``group`` 8.  Its thread block of eight warps owns a group of
+  consecutive block-rows x ``bn`` columns, each warp 8 output rows x 128
+  columns, so ``group`` = 8 / (bm / 8) / (bn / 128) (:func:`spmm_quant_group`:
+  8 block-rows of 8 x 8 blocks at bn 128, 4 of 16 x 8); every dense K-tile
+  is staged once for the whole group.
 * ``min_bucket`` 8: the port compiles nothing per stream shape, so the nnzb
   bucket floor only bounds zero-block work on one-token decode streams.
 * ``flash`` (bq, bk) 64 x 64, for K3 and the masked kernels K4m / K4s
@@ -90,7 +96,7 @@ _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
     ("spmm", "fp8", "cpu"): {"bn": 128},
     ("spmm", "f32", "cuda"): {"bn": 1024},
     ("spmm", "bf16", "cuda"): {"bn": 1024},
-    ("spmm", "fp8", "cuda"): {"bn": 512},
+    ("spmm", "fp8", "cuda"): {"bn": 128, "group": 8},
     ("moe_dispatch", "f32", "cpu"): {"block": (8, 8), "bn": 128,
                                      "min_bucket": 8},
     ("moe_dispatch", "bf16", "cpu"): {"block": (8, 8), "bn": 128,
@@ -138,6 +144,31 @@ def _row(op: str, dtype: torch.dtype, device) -> Dict[str, Any]:
 def spmm_bn(dtype=torch.float32, device="cpu") -> int:
     """N-tile (output columns per thread block) of the BCSR SpMM kernel."""
     return int(_row("spmm", dtype, device)["bn"])
+
+
+# K2q's thread block: eight warps of 8 output rows x 128 columns each, and
+# its dense tile (bk x bn values) at most 32 KB, one stage of its ring.
+SPMM_QUANT_WARPS, SPMM_QUANT_WARP_COLS = 8, 128
+SPMM_QUANT_TILE_BYTES = 32768
+
+
+def spmm_quant_group(bm: int, bk: int, bn: int,
+                     dense_dtype=torch.float32) -> int:
+    """The block-rows of one K2q thread block at tile (bm, bk) and ``bn``
+    columns; raises ValueError where the kernel does not take the tile:
+    ``bn`` must be 128 x a power of two with (bm / 8) x (bn / 128) <= 8
+    warps, and the (bk, bn) dense tile at most 32 KB."""
+    cols = bn // SPMM_QUANT_WARP_COLS
+    if bm not in (8, 16) or not 1 <= bk <= 32 or bn < 1 \
+            or bn % SPMM_QUANT_WARP_COLS or cols & (cols - 1) \
+            or cols * bm // 8 > SPMM_QUANT_WARPS \
+            or bk * bn * dense_dtype.itemsize > SPMM_QUANT_TILE_BYTES:
+        raise ValueError(
+            f"spmm_bcsr: unsupported K2q tile bm={bm} bk={bk} bn={bn} for "
+            f"{dense_dtype} dense (bn must be 128 x a power of two, at most "
+            f"{SPMM_QUANT_WARPS * 128 * 8 // bm} at bm {bm}, with bk x bn "
+            f"dense values in {SPMM_QUANT_TILE_BYTES} bytes)")
+    return SPMM_QUANT_WARPS // cols // (bm // 8)
 
 
 def spmm_col_unit(dense_dtype=torch.float32) -> int:

@@ -172,6 +172,21 @@ def test_wrapper_plain_path_and_guards():
         BatchedBCSR(indptr=a.indptr, block_rows=a.block_rows,
                     block_cols=a.block_cols, blocks=aq.blocks,
                     shape=a.shape, block=a.block)
+    # The K2q tile guard (the wrapper's for narrow blocks on the card): bn
+    # 128 x a power of two, at most eight warps of 8 rows x 128 columns, a
+    # (bk, bn) dense tile in 32 KB; any dense dtype, so bn 128 on bf16 too
+    f32, bf16 = torch.float32, torch.bfloat16
+    for bm, bk, bn, dt, group in ((8, 8, 128, f32, 8), (8, 8, 128, bf16, 8),
+                                  (8, 8, 256, f32, 4), (8, 8, 1024, f32, 1),
+                                  (16, 8, 128, f32, 4), (16, 8, 512, bf16, 1),
+                                  (8, 32, 256, f32, 4), (8, 1, 128, f32, 8)):
+        assert tuning.spmm_quant_group(bm, bk, bn, dt) == group
+    for bm, bk, bn, dt in ((8, 8, 64, f32), (8, 8, 384, f32),
+                           (8, 8, 2048, f32), (16, 8, 1024, f32),
+                           (8, 32, 512, f32), (8, 32, 1024, bf16),
+                           (12, 8, 128, f32), (8, 33, 128, f32)):
+        with pytest.raises(ValueError, match="K2q tile"):
+            tuning.spmm_quant_group(bm, bk, bn, dt)
 
 
 @pytest.mark.parametrize("entry", ["spmm", "spmm_batched", "stream"])
@@ -371,4 +386,161 @@ def test_cuda_tile_rows():
         assert tuning.spmm_bn(dt, "cuda") % unit == 0
     assert tuning.moe_dispatch_tiles(5120, torch.bfloat16, "cuda")["bn"] \
         == 1024
-    assert tuning.spmm_bn(torch.float8_e4m3fn, "cuda") % 256 == 0
+    # K2q: the fp8 row's bn and group, which the kernel's eight warps give
+    # (8 block-rows of 8 x 8 blocks at bn 128, 4 of 16 x 8), on either dense
+    row = tuning._row("spmm", torch.float8_e4m3fn, "cuda")
+    bn = tuning.spmm_bn(torch.float8_e4m3fn, "cuda")
+    assert row == {"bn": 128, "group": 8} and bn == 128
+    for dt in (torch.float32, torch.bfloat16):
+        assert tuning.spmm_quant_group(8, 8, bn, dt) == row["group"]
+        assert tuning.spmm_quant_group(16, 8, bn, dt) == row["group"] // 2
+        assert tuning.spmm_quant_group(8, 32, bn, dt) == row["group"]
+    assert tuning._row("spmm", torch.float8_e4m3fn, "cpu") == {"bn": 128}
+
+
+# ---------------------------------------------------------------------------
+# K2q's traversal (``spmm_quant_kernel`` in ``csrc/spmm_bcsr.cu``), emulated.
+# ---------------------------------------------------------------------------
+
+_NO_COL = 2**31 - 1
+
+
+def _entry_products(indptr, cols, blocks, dense):
+    """Each stream entry's block product (B, nnzb, bm, N), taken by the same
+    calls, on the same entries, as ``spmm_bcsr_ref`` takes them (one depth
+    of the rows at a time), so that the products are its bits."""
+    B, nnzb, bm, bk = blocks.shape
+    indptr = indptr.long()
+    counts = indptr.diff()
+    rows = torch.repeat_interleave(torch.arange(counts.numel()), counts)
+    depth = torch.arange(nnzb) - indptr[rows]
+    tiles = dense.reshape(B, -1, bk, dense.shape[-1])
+    part = torch.empty((B, nnzb, bm, dense.shape[-1]))
+    for j in range(int(counts.max()) if nnzb else 0):
+        sel = torch.nonzero(depth == j).squeeze(1)
+        part[:, sel] = torch.matmul(blocks[:, sel].float(),
+                                    tiles[:, cols.long()[sel]].float())
+    return part
+
+
+def _emulate_k2q(indptr, cols, blocks, scales, dense, group, window):
+    """``spmm_quant_kernel`` step for step in plain torch, for one thread
+    block per group of ``group`` block-rows: a window starts at the least
+    head column of the rows going on in their sweep (of all rows when none
+    can: a new sweep); each row marks its entries from the cursor while
+    they stay in the window and do not descend; the marked K-tiles, in
+    ascending order, are the steps, each staged once; at a step each row
+    whose head entry has the step's column takes it (again while the next
+    one does) and adds its product.  Returns the output, each row's visited
+    entries in the order taken, and the K-tiles staged."""
+    from repro_torch.core.precision import dequantize_blocks
+    part = _entry_products(indptr, cols, dequantize_blocks(blocks, scales),
+                           dense)
+    ip, cl = indptr.tolist(), cols.tolist()
+    gm = len(ip) - 1
+    B, _, bm, _ = blocks.shape
+    acc = torch.zeros((B, gm, bm, dense.shape[-1]))
+    visits = [[] for _ in range(gm)]
+    staged = 0
+    for g0 in range(0, gm, group):
+        rows = range(g0, min(g0 + group, gm))
+        cur = {r: ip[r] for r in rows}
+        floor = {r: -1 for r in rows}
+
+        def head(r):
+            return cl[cur[r]] if cur[r] < ip[r + 1] else _NO_COL
+        while True:
+            least = min(head(r) for r in rows)
+            if least == _NO_COL:
+                break
+            going = [head(r) for r in rows if head(r) >= floor[r]]
+            if min(going, default=_NO_COL) == _NO_COL:
+                floor = {r: -1 for r in rows}           # a new sweep
+            else:
+                least = min(going)
+            marked = set()
+            for r in rows:
+                prev, i = floor[r], cur[r]
+                while i < ip[r + 1] and least <= cl[i] < least + window \
+                        and cl[i] >= prev:
+                    marked.add(cl[i])
+                    prev, i = cl[i], i + 1
+            for t in sorted(marked):
+                staged += 1
+                for r in rows:
+                    while head(r) == t:
+                        visits[r].append(cur[r])
+                        acc[:, r] = acc[:, r] + part[:, cur[r]]
+                        cur[r] += 1
+                        floor[r] = t
+    return acc.reshape(B, gm * bm, -1), visits, staged
+
+
+def _k2q_stream(kind, rng, B, gm, gn, block):
+    """A quantized (fp8 e4m3) stream of ``kind`` with per-batch blocks and
+    scales: indptr, block_cols, blocks, scales."""
+    from repro_torch.core.precision import quantize_blocks
+    bm, bk = block
+    if kind == "banded":
+        half = 3
+        mask = np.abs(np.arange(gm)[:, None] * gn // gm
+                      - np.arange(gn)[None, :]) <= half
+    else:
+        mask = rng.random((gm, gn)) < 0.4
+    if kind == "empty_rows":
+        mask[[0, 5, gm - 1]] = False
+    rows = []
+    for r in range(gm):
+        c = list(np.nonzero(mask[r])[0])
+        if kind == "unsorted":
+            rng.shuffle(c)
+        if kind == "repeated" and c:
+            for _ in range(3):          # a column again, beside or later
+                i = int(rng.integers(len(c)))
+                c.insert(int(rng.integers(i, len(c) + 1)), c[i])
+        rows.append(c)
+    indptr = np.zeros(gm + 1, np.int32)
+    np.cumsum([len(c) for c in rows], out=indptr[1:])
+    cols = np.array([x for c in rows for x in c], np.int32)
+    vals = rng.standard_normal((B, len(cols), bm, bk)).astype(np.float32)
+    q, sc = quantize_blocks(torch.from_numpy(vals), torch.float8_e4m3fn)
+    return torch.from_numpy(indptr), torch.from_numpy(cols), q, sc
+
+
+_K2Q_KINDS = ["banded", "random", "unsorted", "repeated", "empty_rows"]
+
+
+@pytest.mark.parametrize("kind", _K2Q_KINDS)
+@pytest.mark.parametrize("block,bn,window", [((8, 8), 128, 1024),
+                                             ((8, 8), 128, 4),
+                                             ((16, 8), 128, 16),
+                                             ((8, 4), 256, 1024)])
+def test_k2q_traversal_keeps_each_row_in_stream_order(kind, block, bn,
+                                                      window):
+    """The K2q kernel's traversal, emulated: every row takes exactly its
+    stream slice, in stream order, on banded, 40 %-random, unsorted,
+    repeated-column and empty-row streams, at the tuning row's group and
+    another, and at windows narrower than a group's columns (more windows
+    and sweeps); so its output EQUALS the plain version (B 2, per-batch
+    scales).  On ascending rows of distinct columns each K-tile of a group
+    is staged once."""
+    from repro_torch.kernels.spmm.ref import spmm_bcsr_ref
+    rng = np.random.default_rng(_K2Q_KINDS.index(kind) + window)
+    B, gm, gn = 2, 19, 24
+    indptr, cols, q, sc = _k2q_stream(kind, rng, B, gm, gn, block)
+    dense = torch.from_numpy(rng.standard_normal(
+        (B, gn * block[1], 40)).astype(np.float32))
+    group = tuning.spmm_quant_group(*block, bn)
+    got, visits, staged = _emulate_k2q(indptr, cols, q, sc, dense, group,
+                                       window)
+    ip = indptr.tolist()
+    assert visits == [list(range(ip[r], ip[r + 1])) for r in range(gm)]
+    assert torch.equal(got, spmm_bcsr_ref(indptr, cols, q, dense,
+                                          out_dtype=torch.float32,
+                                          scales=sc))
+    union = sum(len(set(cols[ip[g]:ip[min(g + group, gm)]].tolist()))
+                for g in range(0, gm, group))
+    if kind in ("banded", "random", "empty_rows"):
+        assert staged == union
+    else:
+        assert staged >= union

@@ -17,11 +17,18 @@ seeded expert choices (:func:`expert_choice`, uniform or Zipf, then
 tokens of width 5120 on the card; the last stream's slots again at 16 x 8
 blocks (bf16 and f32 out: the largest register tile); beside them the
 library's K2q shape (a banded 8192^2 fp8 e4m3 BCSR, 8 x 8 blocks, by an
-(8192, 4096) f32 dense, as ``chip_smoke.py`` makes it).  The builds run in
+(8192, 4096) f32 dense, as ``chip_smoke.py`` makes it), the same with bf16
+dense, and the same matrix at 16 x 8 blocks; each K2q case prints every
+build's share of the f32 peak (67 TFLOP/s, 2 flops per block element and
+output column).  The other builds run K2q at ``--other-quant-bn`` (512, the
+earlier kernel's fp8 row).  The builds run in
 the order others, in-tree, in-tree, others reversed, each timed by CUDA
 events; every build's output is compared with the in-tree kernel's and
 with the plain version (``torch.equal``), then timed once more from a CUDA
-graph (device time without the per-call launch).  The in-tree kernel is
+graph (device time without the per-call launch); ``--ablations`` are
+builds timed the same way whose outputs need not agree (a copy with a pass
+removed, to see its cost), and ``--cases quant`` runs the K2q cases alone.
+The in-tree kernel is
 also timed at other ``bn`` (``--bn``), and beside each 8 x 8 dispatch
 stream on that stream without its bucket pad entries, with ``torch.bmm``
 of the densified 0/1 matrix.  Each case prints one JSON line; the whole
@@ -42,6 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH, BATCH, PROMPTS = "llama4-scout-17b-a16e", 4, (256, 2048)
 ZIPF_S = 1.1
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def expert_choice(rng: np.random.Generator, B: int, S: int, E: int,
@@ -101,18 +109,27 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _build(src: str, out: str):
-    """``src`` built with the in-tree flags: (library, resource report)."""
+def _build(srcs: dict) -> dict:
+    """Each ``{label: (src, out)}`` built with the in-tree flags, one
+    ``nvcc`` each, all started together: ``{label: (library, resource
+    report)}``."""
     import chip_smoke as cs
     from repro_torch.kernels import build
     from repro_torch.kernels.spmm import kernel
-    log = subprocess.run(
-        [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src], check=True,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True).stdout
-    lib = ctypes.CDLL(out)
-    lib.spmm_bcsr_launch.argtypes = kernel._ARGTYPES
-    lib.spmm_bcsr_launch.restype = ctypes.c_int
-    return lib, cs.kernel_resources(log)
+    procs = {label: subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for label, (src, out) in srcs.items()}
+    built = {}
+    for label, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {srcs[label][0]} failed:\n{log}")
+        lib = ctypes.CDLL(srcs[label][1])
+        lib.spmm_bcsr_launch.argtypes = kernel._ARGTYPES
+        lib.spmm_bcsr_launch.restype = ctypes.c_int
+        built[label] = (lib, cs.kernel_resources(log))
+    return built
 
 
 def _runner(lib, args, bn, out_dtype, scales=None):
@@ -139,13 +156,21 @@ def _runner(lib, args, bn, out_dtype, scales=None):
     return run
 
 
-def _other_bns(bns, default, dense_dtype):
+def _other_bns(bns, default, dense_dtype, quant_block=None):
     """The ``bns`` other than ``default`` that the kernel takes for
-    ``dense_dtype``."""
+    ``dense_dtype`` (K2q's rule at ``quant_block`` (bm, bk) when given)."""
     from repro_torch.kernels import tuning
     unit = tuning.spmm_col_unit(dense_dtype)
-    return [bn for bn in bns
-            if bn != default and bn % unit == 0 and bn <= 8 * unit]
+
+    def takes(bn):
+        if quant_block is None:
+            return bn % unit == 0 and bn <= 8 * unit
+        try:
+            tuning.spmm_quant_group(*quant_block, bn, dense_dtype)
+        except ValueError:
+            return False
+        return True
+    return [bn for bn in bns if bn != default and takes(bn)]
 
 
 def _case(name, runs, plain, iters, extra_ms):
@@ -180,12 +205,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("others", nargs="*",
                     help="other spmm_bcsr.cu sources, each as PATH or "
-                    "PATH@BN (bn given to that build; default --other-bn)")
+                    "PATH@BN (bn given to that build, K2 and K2q; default "
+                    "--other-bn and --other-quant-bn)")
+    ap.add_argument("--ablations", nargs="*", default=[],
+                    help="further sources, as PATH or PATH@BN, timed but "
+                    "not held equal")
+    ap.add_argument("--cases", choices=("all", "quant"), default="all",
+                    help="all cases, or the K2q cases alone")
     ap.add_argument("--other-bn", type=int, default=256,
                     help="bn given to the other builds (the parent's 256)")
-    ap.add_argument("--bn", type=int, nargs="*", default=[256, 512, 1024, 2048],
+    ap.add_argument("--other-quant-bn", type=int, default=512,
+                    help="bn given to the other builds' K2q (the earlier "
+                    "kernel's 512)")
+    ap.add_argument("--bn", type=int, nargs="*",
+                    default=[128, 256, 512, 1024, 2048],
                     help="further bn at which the in-tree kernel is timed "
-                    "(those the dense type allows)")
+                    "(those the dense type and block allow)")
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
     import torch
@@ -207,12 +242,15 @@ def main() -> int:
     log = build.build_all(["spmm_bcsr"])["spmm_bcsr"]["log"]
     if log:
         result["resources"]["in-tree"] = cs.kernel_resources(log)
-    others, other_bn = {}, {}
-    for i, arg in enumerate(args.others):
+    others, other_bn, other_qbn = {}, {}, {}
+    srcs = {}
+    for i, arg in enumerate(args.others + args.ablations):
         src, _, bn = arg.partition("@")
-        others[arg], result["resources"][arg] = _build(
-            src, os.path.join(out_dir, f"lib{i}.so"))
+        srcs[arg] = (src, os.path.join(out_dir, f"lib{i}.so"))
         other_bn[arg] = int(bn) if bn else args.other_bn
+        other_qbn[arg] = int(bn) if bn else args.other_quant_bn
+    for arg, (lib, res) in _build(srcs).items():
+        others[arg], result["resources"][arg] = lib, res
     for label, rows in result["resources"].items():
         for kern, used, spills in rows:
             print(f"{label} {kern}: {used}; {spills}")
@@ -260,7 +298,7 @@ def main() -> int:
         result["cases"].append(case)
         print(json.dumps(case))
 
-    for S in PROMPTS:
+    for S in PROMPTS if args.cases == "all" else ():
         for dist in ("uniform", "zipf"):
             fs = routed_slots(
                 expert_choice(rng, BATCH, S, cfg.n_experts, dist == "zipf"),
@@ -268,38 +306,60 @@ def main() -> int:
             dispatch_case(f"dispatch {BATCH}x{S} {dist}", fs)
     # bm 16 (the largest register tile; not on the serving path): the last
     # stream's slots at 16 x 8 blocks, bf16 and f32 out
-    for odt in (bf16, torch.float32):
+    for odt in (bf16, torch.float32) if args.cases == "all" else ():
         dispatch_case(f"dispatch {BATCH}x{PROMPTS[-1]} zipf, 16 x 8 blocks, "
                       f"{str(odt).split('.')[-1]} out", fs, block=(16, 8),
                       out_dtype=odt, extras=False)
 
+    def quant_case(name, aq, x):
+        qargs = (aq.indptr, aq.block_cols, aq.blocks[None], x[None])
+        sc = aq.scales[None]
+        bm, bk = aq.block
+        bn_q = tuning.spmm_bn(aq.blocks.dtype, "cuda")
+        runs = {"in-tree": lambda: kernel.spmm_bcsr(*qargs, scales=sc)}
+        runs.update({f"in-tree bn={bn}": (
+            lambda bn=bn: kernel.spmm_bcsr(*qargs, scales=sc, bn=bn))
+            for bn in _other_bns(args.bn, bn_q, x.dtype, (bm, bk))})
+        runs.update({src: _runner(lib, qargs, other_qbn[src],
+                                  torch.float32, scales=sc)
+                     for src, lib in others.items()})
+        case = _case(name, runs, lambda: ref.spmm_bcsr_ref(
+            *qargs, out_dtype=torch.float32, scales=sc),
+            max(3, args.iters // 10), {})
+        flops = 2 * aq.nnzb * bm * bk * x.shape[1]
+        for label, b in case["builds"].items():
+            b["f32_peak_share"] = flops / (min(b["ms"]) * 1e-3) \
+                / F32_FLOP_PER_S
+        case.update(bn=bn_q, group=tuning.spmm_quant_group(
+                        bm, bk, bn_q, x.dtype),
+                    other_bn=args.other_quant_bn, block=[bm, bk],
+                    dense=str(x.dtype), nnzb=aq.nnzb, N=cs.SPMM_COLS,
+                    flops=flops, bound_ms=flops / F32_FLOP_PER_S * 1e3)
+        result["cases"].append(case)
+        print(json.dumps(case))
+        print("  " + ", ".join(
+            f"{label}: {min(b['ms']):.3f} ms, "
+            f"{100 * b['f32_peak_share']:.1f} % of the f32 peak"
+            for label, b in case["builds"].items()))
+
     i = torch.arange(cs.SPMM_N, device="cuda")
     band = (i[:, None] - i[None, :]).abs() <= cs.SPMM_BAND
     am = torch.randn((cs.SPMM_N, cs.SPMM_N), generator=g, device="cuda") * band
-    aq = F.bcsr_from_dense(am, cs.SPMM_BLOCK).quantize("fp8_e4m3")
-    del am, band
+    del band
     x = torch.randn((cs.SPMM_N, cs.SPMM_COLS), generator=g, device="cuda")
-    qargs = (aq.indptr, aq.block_cols, aq.blocks[None], x[None])
-    sc = aq.scales[None]
-    f32 = torch.float32
-    runs = {"in-tree": lambda: kernel.spmm_bcsr(*qargs, scales=sc)}
-    runs.update({f"in-tree bn={bn}": (
-        lambda bn=bn: kernel.spmm_bcsr(*qargs, scales=sc, bn=bn))
-        for bn in _other_bns(args.bn, tuning.spmm_bn(aq.blocks.dtype, "cuda"),
-                             x.dtype)})
-    runs.update({src: _runner(lib, qargs, other_bn[src], f32, scales=sc)
-                 for src, lib in others.items()})
-    case = _case("K2q banded fp8 e4m3", runs,
-                 lambda: ref.spmm_bcsr_ref(*qargs, out_dtype=f32, scales=sc),
-                 max(3, args.iters // 10), {})
-    case.update(bn=tuning.spmm_bn(aq.blocks.dtype, "cuda"),
-                nnzb=aq.nnzb, N=cs.SPMM_COLS)
-    result["cases"].append(case)
-    print(json.dumps(case))
+    aq = F.bcsr_from_dense(am, cs.SPMM_BLOCK).quantize("fp8_e4m3")
+    quant_case("K2q banded fp8 e4m3", aq, x)
+    quant_case("K2q banded fp8 e4m3, bf16 dense", aq, x.to(bf16))
+    del aq
+    aq = F.bcsr_from_dense(am, (16, 8)).quantize("fp8_e4m3")
+    del am
+    quant_case("K2q banded fp8 e4m3, 16 x 8 blocks", aq, x)
+    del aq, x
     result["clocks_after"] = cs.smi(cs.CLOCKS)
     result["all_equal"] = all(
         b["equal_in_tree"] and b["equal_plain"]
-        for c in result["cases"] for b in c["builds"].values())
+        for c in result["cases"] for label, b in c["builds"].items()
+        if label not in args.ablations)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "compare_spmm.json"),
               "w") as f:
