@@ -25,7 +25,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    with the laws K4s == K4m, bucketed == unbucketed and K4s on a plain
    causal / window mask == K3 as ``torch.equal``; then, as
    ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
-   tiles), K5 (f32 and bf16 at four launch shapes, a slab width that does
+   tiles; K6b's march on interiors no multiple of its tile or run, rows
+   at every 4-byte offset, tz below its ring, and two 3-D specs of no
+   compiled pattern through the general kernel), K5 (f32 and bf16 at four launch shapes, a slab width that does
    not divide C among them; Inf / NaN in B only at keys A lacks, empty rows
    and columns, A keys outside B's key range; ``a_scales`` == on
    host-dequantized rows, three formats), K2q (== K2 on
@@ -1253,6 +1255,44 @@ def phase_library_vs_plain():
                     f"{name} {dt} tile {tile}")
     print("  K6a / K6b: 5 stencils x f32, bf16 x 2 tiles, ragged: "
           "kernel == plain")
+    # K6b's march at its edges: interiors no multiple of tz or of a
+    # thread's 4-wide run, X + 2 odd and even (rows 4, 8 or 0 bytes off
+    # 16; element pairs or single elements staged, an odd window width in
+    # pairs), tz below the ring of 4 planes, one-thread rows, the default
+    # tile clamped to a small interior; then 3-D specs of no compiled pattern
+    # (a reordered box, a star of radius 2), which take the general kernel
+    n = 0
+    for shape, tile in (((70, 23, 45), (32, 8, 64)), ((37, 11, 64), None),
+                        ((19, 37, 70), (3, 5, 13)), ((9, 6, 35), (1, 1, 4)),
+                        ((12, 40, 130), (2, 8, 128)), ((11, 9, 30), (3, 4, 5)),
+                        ((5, 7, 9), None)):
+        for name in ("j3d27pt", "j3d7pt"):
+            spec = STENCILS[name]
+            for dt in (torch.float32, torch.bfloat16):
+                grid = torch.randn(tuple(s + 2 for s in shape), generator=g,
+                                   device="cuda").to(dt)
+                _eq(sk.stencil_3d(grid, spec, tile=tile),
+                    sr.stencil_ref(grid, spec),
+                    f"{name} {dt} {shape} tile {tile}")
+                n += 1
+    box = STENCILS["j3d27pt"]
+    customs = (dataclasses.replace(box, name="box reversed",
+                                   offsets=box.offsets[::-1],
+                                   coeffs=box.coeffs[::-1]),
+               dataclasses.replace(
+                   STENCILS["j3d7pt"], name="star radius 2",
+                   offsets=tuple(tuple(2 * v for v in o)
+                                 for o in STENCILS["j3d7pt"].offsets)))
+    for spec in customs:
+        check(sk.pattern_of(spec) is None, f"{spec.name}: a march pattern")
+        for dt in (torch.float32, torch.bfloat16):
+            grid = torch.randn(tuple(s + 2 * spec.radius for s in (13, 21, 70)),
+                               generator=g, device="cuda").to(dt)
+            _eq(sk.stencil_3d(grid, spec), sr.stencil_ref(grid, spec),
+                f"{spec.name} {dt}")
+    print(f"  K6b march edges: {n} grids (ragged, rows 0 / 4 / 8 / 12 bytes "
+          "off 16, tz 1-3 below the ring, bf16), and 2 specs through the "
+          "general kernel: kernel == plain")
     for density in (0.05, 0.3):
         a = _sparse(g, (300, 5000), density)
         b = _sparse(g, (5000, 200), 0.02)

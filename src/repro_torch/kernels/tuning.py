@@ -36,10 +36,22 @@ choice for the Hopper kernels, not carried over from the TPU rows:
   At S = 2048 a 64-wide tile also resolves a local window finer than a
   128-wide one (275 of 528 causal tiles visible under a local window of
   512 plus one global tile, against 81 of 136).
-* ``stencil2d`` / ``stencil3d`` ``tile``: the output tile of one stencil
-  thread block (32 x 8 threads, 16 outputs each), whose (tile + 2r) halo is
-  staged in f32 shared memory: 19 KB at (32, 128), 26 KB at (8, 8, 64).
-  The kernel bounds-checks the ragged edge, so a tile needs no alignment.
+* ``stencil2d`` ``tile`` (and the 3-D ``general_tile``, for a 3-D spec
+  that is neither j3d27pt's nor j3d7pt's pattern): the output tile of one
+  block of the general stencil kernel (32 x 8 threads, 16 outputs each),
+  whose (tile + 2r) halo is staged in f32 shared memory: 19 KB at (32,
+  128), 26 KB at (8, 8, 64).  The kernels bound-check the ragged edge, so
+  a tile needs no alignment.
+* ``stencil3d`` ``tile`` (tz, ty, tx): K6b's march, a block of (tx / 4) x
+  ty threads, 4 x outputs a thread, walking tz output planes over a (ty,
+  tx) footprint with a ring of 4 staged planes of (ty + 2) x (tx + 4)
+  values.  (64, 16, 64): 256 threads, the most a march block takes, so
+  that 4 blocks of j3d27pt (at most 64 registers) share an SM; a 19.6 KB
+  f32 ring; the z halo 2 / 64 of the planes.  At 512^3 f32 every tile
+  from (32, 16, 64) to (256, 16, 64), (64, 4, 256) or (64, 32, 32) took
+  within 4 % of it on j3d27pt and 8 % on j3d7pt, and marching all 512
+  planes in one block was slower (``tools/compare_stencil.py --tiles``,
+  NVIDIA H100 80GB HBM3, 700 W).  No tile changes a bit.
 * ``spmspm``: ``rt`` A rows per thread block, one warp each, and ``nt *
   ct`` the slab width W: the output columns one warp accumulates in f32
   shared memory while it walks its row's keys (``spmspm/csrc/
@@ -120,8 +132,10 @@ _TABLE: Dict[Tuple[str, str, str], Dict[str, Any]] = {
     ("stencil2d", "bf16", "cuda"): {"tile": (32, 128)},
     ("stencil3d", "f32", "cpu"): {"tile": (8, 16, 128)},
     ("stencil3d", "bf16", "cpu"): {"tile": (8, 16, 128)},
-    ("stencil3d", "f32", "cuda"): {"tile": (8, 8, 64)},
-    ("stencil3d", "bf16", "cuda"): {"tile": (8, 8, 64)},
+    ("stencil3d", "f32", "cuda"): {"tile": (64, 16, 64),
+                                   "general_tile": (8, 8, 64)},
+    ("stencil3d", "bf16", "cuda"): {"tile": (64, 16, 64),
+                                    "general_tile": (8, 8, 64)},
     ("spmspm", "f32", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
     ("spmspm", "bf16", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
     ("spmspm", "fp8", "cpu"): {"rt": 8, "ct": 8, "nt": 1},
@@ -261,12 +275,16 @@ def flash_tiles(sq: int, skv: int, d: int, dtype=torch.float32,
 
 
 def stencil_tile(interior: Tuple[int, ...], dtype=torch.float32,
-                 device="cpu") -> Tuple[int, ...]:
+                 device="cpu", general: bool = False) -> Tuple[int, ...]:
     """Output tile of the 2-D / 3-D stencil kernels.  On the CPU, the
     reference's clamp (each dim to the interior rounded up to 8, the minor
-    one to 128); on the card, each dim to the interior itself."""
+    one to 128); on the card, each dim to the interior itself.
+    ``general``: a 3-D spec that takes the general kernel rather than K6b's
+    march (the card's ``general_tile``)."""
     ndim = len(interior)
-    tile = _row(f"stencil{ndim}d", dtype, device)["tile"]
+    row = _row(f"stencil{ndim}d", dtype, device)
+    tile = row["general_tile"] if general and "general_tile" in row \
+        else row["tile"]
     if torch.device(device).type == "cpu":
         return tuple(min(t, -(-max(n, 1) // q) * q) for t, n, q in zip(
             tile, interior, (SUBLANE,) * (ndim - 1) + (LANE,)))
