@@ -52,13 +52,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    0/1 dispatch streams (the first MoE layer's prefill, the last decode
    step) must give kernel == plain exactly, the prefill stream at two
    ``bn`` too; the same weights with ``dispatch="gather"`` must give the
-   same tokens;
+   same tokens; then ``ServeLoop(pipeline_depth=1)`` (route phase 1 with
+   the attention half, executes in flight behind the next host route, no
+   per-step sync) serves the same prompts in the order depth 0 (the run
+   above), 1, 1, 0 -- the greedy runs of each depth, tokens equal, K2
+   ``n_moe x GEN`` times and no flash kernel each -- then one temperature
+   0.7 run at each depth (tokens equal), the loop's sampler against
+   ``torch.multinomial`` (tokens equal, the host syncs of each counted),
+   and the host syncs of one extra depth-1 decode step, at most one per
+   attn+moe layer (the slot fetch);
 6. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
    stream walk (K4s) and once with the masked grid (K4m), which must give
    identical tokens and no oracle fallback; the first run's first dispatch
-   stream is captured for K2;
+   stream is captured for K2; then one depth-1 run through K4s with the
+   same tokens, launches and no fallback, and its prefill's route, fetch
+   wait and hidden route ms;
 7. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
    K3), its first tokens against ``impl="chunked"`` and ``impl="ref"``
    (information), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q,
@@ -71,6 +81,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    (32) and never in decode, and its plain version never called; the first
    layer's r, k, v, w, u are captured and K7 is held against plain on
    them; prefill ms, decode tok/s and the phase's peak device memory;
+   then one depth-1 run: the same tokens, the same 32 K7 launches;
 9. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -83,8 +94,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    stream with its row statistics, == plain; K5 with its bucketing and
    product passes timed apart; K2q with its share of the f32 peak) and
    one with the serving and
-   library summary; the SM clock and its limit are printed before and after
-   the kernel timings;
+   library summary (its ``serve.pipelined`` object: each depth's prefill
+   ms, decode tok/s and ``timing`` split at 4 x 256, the masked depth-1
+   run, the RWKV-6 depth-1 run, the host syncs); the SM clock and its
+   limit are printed before and after the kernel timings;
 11. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
@@ -232,6 +245,57 @@ def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def count_syncs(fn):
+    """``fn()`` and the host syncs it makes: the synchronizing CUDA calls
+    that torch's sync debug mode reports (stream and device syncs, blocking
+    copies such as ``.cpu()``), and the CUDA event waits, which that mode
+    does not report, counted apart.  Returns (result, syncs, event
+    waits)."""
+    import warnings
+    import torch
+    waits = []
+    wait = torch.cuda.Event.synchronize
+
+    def counted(event):
+        waits.append(1)
+        return wait(event)
+
+    torch.cuda.synchronize()
+    torch.cuda.Event.synchronize = counted
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.Event.synchronize = wait
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    return out, syncs, len(waits)
+
+
+def serve_numbers(depth: int, summary: dict) -> dict:
+    """One serving run's numbers from ``ServeLoop.summary()``: prefill ms,
+    decode tok/s (over decode + drain), and the whole ``timing`` split."""
+    ms = lambda ph: summary.get(ph, {}).get("seconds", 0.0) * 1e3  # noqa: E731
+    return {"depth": depth, "prefill_ms": ms("prefill"),
+            "decode_tok_per_s": summary["decode"]["tok_per_s"],
+            "decode_ms": ms("decode"), "drain_ms": ms("drain"),
+            "route_ms": ms("route"), "execute_ms": ms("execute"),
+            "timing": summary["timing"]}
+
+
+def print_serve(label: str, row: dict) -> None:
+    tm = row["timing"]
+    print(f"  {label}: prefill {row['prefill_ms']:.1f} ms, decode "
+          f"{row['decode_tok_per_s']:.1f} tok/s (decode {row['decode_ms']:.1f}"
+          f" + drain {row['drain_ms']:.1f} ms); route {row['route_ms']:.1f}, "
+          f"execute {row['execute_ms']:.1f} ms; timing " + ", ".join(
+              f"{k} {v:.4g}" for k, v in tm.items()))
 
 
 CLOCKS = "clocks.sm,clocks.max.sm"
@@ -666,6 +730,7 @@ def phase_slice():
           f"K2 launches {launches} != {n_moe} layers x {GEN} passes")
     check(sum(counts.values()) == launches,
           f"unmasked chunked serving launched a flash kernel: {counts}")
+    pipelined = phase_pipelined(cfg, params, prompts, loop, tokens, summary)
 
     # the same prompts' prefill logits are finite and pick the first token
     logits, _, _ = M.prefill_layered(params, prompts, cfg, max_seq=max_seq,
@@ -681,7 +746,70 @@ def phase_slice():
     check(read_launches() == before, "gather launched a kernel")
     check(np.array_equal(g_tokens, tokens), "bcsr tokens != gather tokens")
     print("  gather run: tokens equal to bcsr")
-    return cfg, params, summary, launches, captured
+    return cfg, params, summary, launches, captured, pipelined
+
+
+def phase_pipelined(cfg, params, prompts, loop, tokens, summary):
+    """Phase 5 at ``pipeline_depth=1``: the same weights and prompts served
+    by a second loop at depth 1 (after a warm-up), in the order depth 0 (the
+    run just made), 1, 1, 0, so the host's noise falls on both depths
+    alike.  Every run: the first depth-0 run's tokens, K2 ``n_moe x GEN``
+    times and no flash kernel.  Then a temperature-0.7 run at each depth
+    (equal tokens), the sampler against ``torch.multinomial`` on the card
+    (equal tokens, each one's host syncs counted), and the host syncs of one
+    extra, untimed depth-1 decode step: at most one per attn+moe layer
+    (the slot fetch)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeLoop, sample_tokens
+    max_seq = PROMPT + GEN
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    print("pipelined serving (pipeline_depth=1), 4 x 256:")
+    loop1 = ServeLoop(params, cfg, max_seq=max_seq, dispatch="bcsr",
+                      pipeline_depth=1)
+    loop1.run(prompts, 2)                     # warm-up
+    runs = [serve_numbers(0, summary)]
+    print_serve("depth 0", runs[0])
+    for depth in (1, 1, 0):
+        lp = loop1 if depth else loop
+        reset_launches()
+        got = lp.run(prompts, GEN)            # the main path at this depth
+        counts = read_launches()
+        check(np.array_equal(got, tokens),
+              f"depth {depth}: tokens != the first depth-0 run's")
+        check(counts == only(spmm_bcsr=n_moe * GEN),
+              f"depth {depth}: launches {counts}")
+        runs.append(serve_numbers(depth, lp.summary()))
+        print_serve(f"depth {depth}", runs[-1])
+    temp = {d: ServeLoop(params, cfg, max_seq=max_seq, dispatch="bcsr",
+                         temperature=0.7, pipeline_depth=d).run(prompts, GEN)
+            for d in (0, 1)}
+    check(np.array_equal(temp[0], temp[1]),
+          "temperature 0.7: depth-1 tokens != depth-0 tokens")
+    print(f"  temperature 0.7: depth 1 == depth 0 tokens "
+          f"{temp[1][0, :8].tolist()} ...")
+
+    lg = torch.randn(BATCH, cfg.vocab_size, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(9))
+    g = [torch.Generator("cuda").manual_seed(10) for _ in range(2)]
+    want, multi_syncs, _ = count_syncs(lambda: torch.multinomial(
+        torch.softmax(lg / 0.7, dim=-1), 1, generator=g[0]))
+    got, ours, _ = count_syncs(lambda: sample_tokens(lg, cfg.vocab_size, 0.7,
+                                                     g[1]))
+    check(torch.equal(got.long(), want) and ours == 0,
+          f"sampler: {got.view(-1).tolist()} vs multinomial "
+          f"{want.view(-1).tolist()}, {ours} syncs")
+    _, syncs, waits = count_syncs(loop1.decode_step)
+    torch.cuda.synchronize()
+    print(f"  host syncs: torch.multinomial {multi_syncs}, the loop's "
+          f"sampler {ours} (same tokens); one depth-1 decode step {syncs} "
+          f"({n_moe} attn+moe layers), event waits {waits}")
+    check(syncs <= n_moe, f"a depth-1 decode step synced {syncs} times")
+    return {"runs": runs, "order": "0 (captured), 1, 1, 0",
+            "temperature_tokens_equal": True,
+            "decode_step_syncs": syncs, "decode_step_event_waits": waits,
+            "attn_moe_layers": n_moe, "multinomial_syncs": multi_syncs,
+            "sampler_syncs": ours}
 
 
 def _attn_prompts(cfg):
@@ -717,7 +845,10 @@ def phase_masked_serving(cfg, params):
     attention is not masked), K2 at every MoE layer of every pass, identical
     tokens, no oracle fallback.  Each run records its prefill and the host
     route / execute time inside it.  The first run's first dispatch stream
-    (layer 0's prefill) is captured for the K2 row."""
+    (layer 0's prefill) is captured for the K2 row.  Then one run of a
+    ``pipeline_depth=1`` loop through K4s (after a warm-up): the same
+    tokens and launches, no fallback, and its prefill's route ms, fetch
+    wait and hidden route ms."""
     import numpy as np
     import torch
     from repro_torch.core.masks import AttnMaskSpec
@@ -793,7 +924,36 @@ def phase_masked_serving(cfg, params):
               for rs in runs.values() for r in rs),
           "sparse-masked tokens != dense-masked tokens")
     print("  sparse tokens == dense tokens (4 runs)")
-    return mask, runs, mask_ms, captured[0]
+
+    loop1 = ServeLoop(params, cfg, max_seq=ATTN_PROMPT + GEN,
+                      dispatch="bcsr", pipeline_depth=1,
+                      attn_mask=AttnMaskSpec(**spec, impl="sparse"))
+    loop1.run(prompts, 2)                     # warm-up
+    ops.reset_fallbacks()
+    reset_launches()
+    tokens = loop1.run(prompts, GEN)          # the main path at depth 1
+    counts = read_launches()
+    want = only(spmm_bcsr=n_moe * GEN, flash_attention_sparse=cfg.n_repeats)
+    check(counts == want, f"sparse, depth 1: launches {counts} != {want}")
+    check(ops.fallback_count() == 0
+          and loop1.summary()["timing"]["attention_ref_fallbacks"] == 0,
+          f"sparse, depth 1: oracle fallbacks {ops.fallback_reasons()}")
+    check(np.array_equal(tokens, first),
+          "sparse, depth 1: tokens != the depth-0 runs' tokens")
+    routes = [st for st in loop1.stats if st.phase == "route"
+              and st.step == -1]
+    depth1 = {**serve_numbers(1, loop1.summary()),
+              "prefill_route_ms": 1e3 * sum(st.seconds for st in routes),
+              "prefill_route_wait_ms": 1e3 * sum(st.extra["wait_s"]
+                                                 for st in routes),
+              "prefill_route_hidden_ms": 1e3 * sum(st.extra["hidden_s"]
+                                                   for st in routes)}
+    print_serve("sparse, depth 1", depth1)
+    print(f"    prefill route {depth1['prefill_route_ms']:.1f} ms (wait "
+          f"{depth1['prefill_route_wait_ms']:.1f}, hidden "
+          f"{depth1['prefill_route_hidden_ms']:.1f}); launches {counts}; "
+          f"tokens == depth 0")
+    return mask, runs, mask_ms, captured[0], depth1
 
 
 def phase_kernel_prefill(cfg, params):
@@ -1795,7 +1955,10 @@ def phase_rwkv_serving(card):
     tokens and generates GEN greedy tokens.  Counts set to 0 just before
     the run: K7 once a layer in prefill, none in decode, and its plain
     version never called.  The first layer's r, k, v, w, u are captured
-    for the K7 row.  Returns (summary, K7 launches, captured inputs)."""
+    for the K7 row.  Then one run of a ``pipeline_depth=1`` loop (after a
+    warm-up): the same tokens, the same K7 launches.  Returns (summary,
+    with the depth-1 numbers under "depth1"; K7 launches; captured
+    inputs)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1879,7 +2042,21 @@ def phase_rwkv_serving(card):
     print(f"  prefill {info['prefill_ms']:.1f} ms for {BATCH}x{RWKV_PROMPT},"
           f" decode {info['decode_tok_per_s']:.1f} tok/s over {GEN - 1} "
           f"steps, peak {peak_gb:.1f} GB; prefill argmax == token 0")
-    del loop, params, logits
+    del loop, logits
+
+    loop1 = ServeLoop(params, cfg, max_seq=max_seq, pipeline_depth=1)
+    loop1.run(prompts, 2)                     # warm-up
+    reset_launches()
+    got = loop1.run(prompts, GEN)             # the main path at depth 1
+    counts1 = read_launches()
+    check(counts1 == only(wkv_kernel=n), f"depth 1: launches {counts1}")
+    check(np.array_equal(got, tokens), "depth 1: tokens != depth 0 tokens")
+    info["depth1"] = serve_numbers(1, loop1.summary())
+    print(f"  depth 1: prefill {info['depth1']['prefill_ms']:.1f} ms, decode "
+          f"{info['depth1']['decode_tok_per_s']:.1f} tok/s (drain "
+          f"{info['depth1']['drain_ms']:.1f} ms); {counts1['wkv_kernel']} "
+          f"K7 launches; tokens == depth 0")
+    del loop1, params
     return info, counts["wkv_kernel"], captured[0]
 
 
@@ -1955,8 +2132,9 @@ def main() -> int:
     phase_wkv_vs_plain()
     phase_small_config_card_vs_cpu()
     phase_rwkv_smoke_card_vs_cpu()
-    cfg, params, summary, launches, captured = phase_slice()
-    mask, masked, mask_ms, masked_stream = phase_masked_serving(cfg, params)
+    cfg, params, summary, launches, captured, pipelined = phase_slice()
+    mask, masked, mask_ms, masked_stream, masked1 = phase_masked_serving(
+        cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
     del params
     print("kernel times at the slice's shapes:")
@@ -1982,6 +2160,7 @@ def main() -> int:
     print(f"  sm clock, max: {clocks['before_library_kernels']} before, "
           f"{clocks['after_library_kernels']} after")
     del lib_data
+    rwkv1 = rwkv.pop("depth1")
     serve = {
         "serve": {"arch": cfg.name, "depth": cfg.n_repeats, "batch": BATCH,
                   "prompt": PROMPT, "gen": GEN, "dispatch": "bcsr",
@@ -2010,6 +2189,9 @@ def main() -> int:
                   "kernel_prefill": {"prompt": ATTN_PROMPT, **{
                       k: v for k, v in kprefill.items() if k != "launches"}},
                   "peak_gb": scout_peak_gb,
+                  "pipelined": {"4x256": pipelined,
+                                "masked_sparse": masked1,
+                                "rwkv": rwkv1},
                   "card": card},
              "rwkv": rwkv, "library": lib_info, "sm_clocks": clocks,
              "wall_s": time.monotonic() - t_start}

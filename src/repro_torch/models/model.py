@@ -135,10 +135,14 @@ def _take(tree, i: int):
 def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
            moe_fn: Callable, cache=None, pos: Optional[int] = None,
            collect_kv: int = 0, impl: str = "chunked",
-           attn_mask: Optional[AttnMaskSpec] = None):
+           attn_mask: Optional[AttnMaskSpec] = None,
+           route_ahead: bool = False):
     """One attn / attn+moe / rwkv sub-layer; ``impl`` and ``attn_mask``
-    reach its prefill attention.  Returns (x, new_cache); decode (``cache``
-    given) writes the new cache entries into ``cache`` in place."""
+    reach its prefill attention.  ``route_ahead``: an attn+moe block runs
+    MoE route phase 1 (``moe.route_phase1``) right after ``ln2``, with its
+    attention half, and hands ``moe_fn`` the ``moe.Phase1`` as ``phase1``.
+    Returns (x, new_cache); decode (``cache`` given) writes the new cache
+    entries into ``cache`` in place."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache=cache, collect=bool(collect_kv))
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -150,9 +154,14 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     new_cache = {"attn": new_attn}
     if kind == "attn+moe":
-        f, counts = moe_fn(p["ffn"], h, cfg,
-                           counts=None if cache is None else cache["moe"],
-                           pos=pos)
+        counts = None if cache is None else cache["moe"]
+        kw = {}
+        if route_ahead:
+            pos0 = 0 if pos is None else pos
+            cap = moe.dispatch_capacity(h.shape[1], cfg, pos0=pos0)
+            kw["phase1"] = moe.Phase1(*moe.route_phase1(
+                p["ffn"]["router"], h, cfg, counts, pos0, cap), cap)
+        f, counts = moe_fn(p["ffn"], h, cfg, counts=counts, pos=pos, **kw)
         if cache is None:
             new_cache["moe"] = counts
         else:
@@ -204,15 +213,20 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
 def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                     max_seq: int, cache_dtype=torch.bfloat16,
                     moe_fn: Optional[Callable] = None, impl: str = "chunked",
-                    attn_mask: Optional[AttnMaskSpec] = None
+                    attn_mask: Optional[AttnMaskSpec] = None,
+                    route_ahead: bool = False
                     ) -> Tuple[torch.Tensor, Params, int]:
     """Serving prefill, layer by layer.  ``moe_fn`` (signature of
     ``moe.apply_moe``) runs every attn+moe block's FFN with ``counts=None,
     pos=None`` -- a fresh sequence at position 0; the serving loop injects
     its route-then-execute stage here.  ``impl`` ("chunked" | "kernel" |
     "ref") and ``attn_mask`` (an ``AttnMaskSpec``) reach every attention
-    layer.  Returns (last-position logits (B, 1, V) f32, decode cache filled
-    to the prompt length with K/V in ``cache_dtype``, next position)."""
+    layer.  ``route_ahead=True`` (the pipelined serving path) runs MoE
+    route phase 1 with each attn+moe block's attention half and passes the
+    ``moe.Phase1`` to ``moe_fn`` as ``phase1``, at the prompt's dispatch
+    capacity; the values are those of ``route_ahead=False``.  Returns
+    (last-position logits (B, 1, V) f32, decode cache filled to the prompt
+    length with K/V in ``cache_dtype``, next position)."""
     _check_kinds(cfg)
     moe_fn = moe_fn or moe.apply_moe
     x = _embed(params, tokens, cfg)
@@ -221,7 +235,7 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
         for slot, kind in enumerate(cfg.block_unit):
             x, c = _block(kind, _take(params["blocks"][slot], i), x, cfg,
                           moe_fn=moe_fn, collect_kv=max_seq, impl=impl,
-                          attn_mask=attn_mask)
+                          attn_mask=attn_mask, route_ahead=route_ahead)
             per_slot[slot].append(c)
     logits = final_logits(params, x, cfg, last_only=True)
     cd = precision_policy(cfg.policy).compute_dtype
@@ -267,13 +281,15 @@ def _decode_dtypes(cfg: ArchConfig, cache) -> None:
 
 def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos: int,
                         tokens_1: torch.Tensor, *,
-                        moe_fn: Optional[Callable] = None
+                        moe_fn: Optional[Callable] = None,
+                        route_ahead: bool = False
                         ) -> Tuple[torch.Tensor, Params]:
     """One-token decode at position ``pos`` (a Python int, the fill of every
     row), layer by layer, with ``moe_fn`` threaded to every attn+moe block
-    as in :func:`prefill_layered`.  ``pos`` is checked against the cache
-    capacity first.  Updates ``cache`` in place; returns (logits (B, 1, V)
-    f32, cache)."""
+    as in :func:`prefill_layered` (``route_ahead`` too: phase 1 at the
+    decode capacity, 1).  ``pos`` is checked against the cache capacity
+    first.  Updates ``cache`` in place; returns (logits (B, 1, V) f32,
+    cache)."""
     check_cache_fits(cache, pos, who="decode_step_layered")
     _decode_dtypes(cfg, cache)
     moe_fn = moe_fn or moe.apply_moe
@@ -282,5 +298,5 @@ def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos: int,
         for slot, kind in enumerate(cfg.block_unit):
             x, _ = _block(kind, _take(params["blocks"][slot], i), x, cfg,
                           moe_fn=moe_fn, cache=_take(cache["slots"][slot], i),
-                          pos=pos)
+                          pos=pos, route_ahead=route_ahead)
     return final_logits(params, x, cfg, last_only=False), cache

@@ -18,10 +18,11 @@ the kernel rounds per entry as the reference does, so both backends give
 bit-identical dispatch buffers.
 
 **Two-phase serving** -- :func:`route_moe` routes on concrete activations
-and compacts the stream to its union nonzero-block pattern (host numpy),
-padded to a power-of-two nnzb bucket; :func:`execute_moe` runs dispatch +
-expert FFN + combine from that plan.  ``launch.serve.ServeLoop`` drives it
-at every attn+moe layer.
+(:func:`route_phase1` on the device, then :func:`plan_from_phase1` on the
+host) and compacts the stream to its union nonzero-block pattern (host
+numpy), padded to a power-of-two nnzb bucket; :func:`execute_moe` runs
+dispatch + expert FFN + combine from that plan.  ``launch.serve.ServeLoop``
+drives it at every attn+moe layer.
 """
 from __future__ import annotations
 
@@ -203,12 +204,21 @@ def _build_routed_stream(flat_slot, S: int, E: int, C: int, bm: int, bk: int,
     indptr = np.zeros(gm + 1, np.int32)
     np.cumsum(np.bincount(brows, minlength=gm), out=indptr[1:])
     stream = BatchedBCSR(
-        indptr=torch.from_numpy(indptr).to(device),
-        block_rows=torch.from_numpy(brows).to(device),
-        block_cols=torch.from_numpy(bcols).to(device),
-        blocks=torch.from_numpy(blocks).to(device=device, dtype=dtype),
+        indptr=_upload(indptr, device), block_rows=_upload(brows, device),
+        block_cols=_upload(bcols, device),
+        blocks=_upload(blocks, device).to(dtype),
         shape=(B, Mp, Sp), block=(bm, bk))
     return stream, nnzb_routed, nnzb_covered
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device`` without blocking the host: to a CUDA
+    device through pinned memory with a ``non_blocking`` copy (the caching
+    host allocator keeps the pinned buffer until the copy has run)."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _dispatch_stream(xt: torch.Tensor, stream: BatchedBCSR, E: int,
@@ -276,6 +286,21 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
 
 # ------------------------------------------------- two-phase serving API --
 
+def route_phase1(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig,
+                 counts: Optional[torch.Tensor], pos0: int, capacity: int):
+    """The device half of phase 1: router matmul, top-1 and the
+    prefix-stable slot cumsums, returning only the small per-token routing
+    tensors ``(gate, keep, new_counts, flat_slot)`` -- never the hidden
+    state.  ``flat_slot`` encodes a kept token's dispatch row
+    ``expert * capacity + within`` and a dropped one as ``E * capacity``.
+    The pipelined serving path dispatches it with the attention half of
+    its layer (``model``'s ``route_ahead``), ahead of the host route."""
+    r = route_tokens(router, x, cfg, counts=counts, pos0=pos0)
+    flat_slot = torch.where(r.keep, r.expert_id * capacity + r.within,
+                            cfg.n_experts * capacity)
+    return r.gate, r.keep, r.new_counts, flat_slot
+
+
 class Phase1(NamedTuple):
     """Phase-1 routing outputs plus the dispatch capacity their slots
     encode; consumed by :func:`plan_from_phase1`."""
@@ -307,15 +332,11 @@ def route_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
     ``nnzb_covered``, ``nnzb_stream``, ``grid_nnzb``, ``bucket``) and the
     host timing split (``wait_s`` fetching the slots, ``host_s`` building)."""
     backend = _backend(cfg, dispatch)
-    S = x.shape[1]
     pos0 = 0 if pos is None else int(pos)
-    C = dispatch_capacity(S, cfg, pos0=pos0)
-    r = route_tokens(p["router"], x, cfg, counts=counts, pos0=pos0)
-    flat_slot = torch.where(r.keep, r.expert_id * C + r.within,
-                            cfg.n_experts * C)
-    return plan_from_phase1(Phase1(r.gate, r.keep, r.new_counts, flat_slot, C),
-                            cfg, dispatch=backend, dtype=x.dtype,
-                            device=x.device)
+    C = dispatch_capacity(x.shape[1], cfg, pos0=pos0)
+    ph1 = route_phase1(p["router"], x, cfg, counts, pos0, C)
+    return plan_from_phase1(Phase1(*ph1, C), cfg, dispatch=backend,
+                            dtype=x.dtype, device=x.device)
 
 
 def plan_from_phase1(phase1: Phase1, cfg: ArchConfig, *,

@@ -147,8 +147,8 @@ def test_engine_buckets_and_stream_entry():
     pipe = engine.StreamPipeline(0)
     pipe.push("plan", got)
     assert len(pipe) == 0 and pipe.pushes == 1
-    with pytest.raises(NotImplementedError):
-        engine.StreamPipeline(1)
+    with pytest.raises(ValueError):
+        engine.StreamPipeline(2)
 
 
 def test_wrapper_plain_path_and_guards():
