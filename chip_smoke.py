@@ -61,7 +61,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``torch.multinomial`` (tokens equal, the host syncs of each counted),
    and the host syncs of one extra depth-1 decode step, at most one per
    attn+moe layer (the slot fetch);
-6. masked serving on the same weights: 4 prompts of 2048 tokens through
+6. continuous batching on the same weights: ``ServeScheduler(dispatch=
+   "bcsr", max_slots=8, max_seq=544)`` serves 16 requests (prompts 64-512
+   tokens, budgets 8-32, from numpy seed 24; two submitted at step 0,
+   then one every 2 scheduler steps; one carries as its EOS the token its
+   probe run emits 5th) at depth 0, depth 1, with ``dispatch="gather"``,
+   and at temperature 0.7 at each depth: depth 1 == depth 0, bcsr ==
+   gather and the temperature pair equal, as tokens per request; K2
+   ``n_moe x (admissions + decode steps)`` times in each bcsr run and never
+   in the gather run; no flash launch and no oracle fallback; every decode
+   step's bucket ``batch_bucket(highest occupied slot + 1)`` and in {1, 2,
+   4, 8}; the EOS request ends at its EOS and every other request gets its
+   budget; one extra depth-1 scheduler step makes at most ``n_moe + 1``
+   host syncs; then, as information, each request served alone through
+   ``ServeLoop`` (B = 1): how many give the scheduler's tokens, and where
+   and by what logit gap the others part;
+7. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
    stream walk (K4s) and once with the masked grid (K4m), which must give
@@ -69,12 +84,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    stream is captured for K2; then one depth-1 run through K4s with the
    same tokens, launches and no fallback, and its prefill's route, fetch
    wait and hidden route ms;
-7. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
+8. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
    K3), its first tokens against ``impl="chunked"`` and ``impl="ref"``
    (information), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q,
    k, v;
    then the llama4 weights are released;
-8. RWKV-6 serving at full width and depth (rwkv6-7b: d_model 4096, 64
+9. RWKV-6 serving at full width and depth (rwkv6-7b: d_model 4096, 64
    heads of 64, d_ff 14336, vocab 65536, 32 layers, random bf16 weights
    from a seed, ~15 GB): ``ServeLoop`` serves 4 prompts of 2048 tokens and
    generates 16 greedy tokens, with K7 launched once a layer in prefill
@@ -82,23 +97,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    layer's r, k, v, w, u are captured and K7 is held against plain on
    them; prefill ms, decode tok/s and the phase's peak device memory;
    then one depth-1 run: the same tokens, the same 32 K7 launches;
-9. the sparse library slice at the paper's workload sizes, data made on
+10. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
    8192^2 A (5 %) x B (1 %), wide and with fp8 e4m3 ``a_scales``, and
    ``spmm.ops.spmm`` on a banded 8192^2 fp8 e4m3 BCSR (bandwidth 512,
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
-10. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
+11. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound; K2, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; K2 on each captured
    stream with its row statistics, == plain; K5 with its bucketing and
    product passes timed apart; K2q with its share of the f32 peak) and
    one with the serving and
    library summary (its ``serve.pipelined`` object: each depth's prefill
    ms, decode tok/s and ``timing`` split at 4 x 256, the masked depth-1
-   run, the RWKV-6 depth-1 run, the host syncs); the SM clock and its
+   run, the RWKV-6 depth-1 run, the host syncs; its ``serve.scheduler``
+   object: each scheduler run's decode tok/s, token and first-token
+   latency p50 / p99, steps, wall, buckets and ``timing`` split, the syncs
+   of a depth-1 step and the alone comparison); the SM clock and its
    limit are printed before and after the kernel timings;
-11. last line: {"ok": true, "device": {...}}.
+12. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
 just after it; launches made to compare a kernel with its plain version or
@@ -812,6 +830,227 @@ def phase_pipelined(cfg, params, prompts, loop, tokens, summary):
             "sampler_syncs": ours}
 
 
+# continuous batching: the slot pool, the cache capacity (the longest prompt
+# plus the largest budget), the trace's size and the numpy seed it comes
+# from, and the sampling temperature of the temperature pair
+SCHED_SLOTS, SCHED_MAX_SEQ, SCHED_REQUESTS, SCHED_SEED = 8, 544, 16, 24
+SCHED_TEMPERATURE = 0.7
+
+
+def scheduler_trace(vocab: int):
+    """The scheduler phase's requests: prompts uniform in 64-512 tokens,
+    budgets uniform in 8-32 tokens, from ``default_rng(SCHED_SEED)``."""
+    import numpy as np
+    rng = np.random.default_rng(SCHED_SEED)
+    return [(rng.integers(0, vocab, int(rng.integers(64, 513))
+                          ).astype(np.int32), int(rng.integers(8, 33)))
+            for _ in range(SCHED_REQUESTS)]
+
+
+def drive_scheduler(sched, trace, eos: dict) -> float:
+    """Two requests submitted at step 0, then one more every 2 scheduler
+    steps (request i at step 2 (i - 1)), request i with ``eos.get(i)`` as
+    its EOS, until every request has finished; returns the wall seconds
+    (the token fetch of each step waits for the card)."""
+    arrivals = [0, 0] + [2 * (i - 1) for i in range(2, len(trace))]
+    t0 = time.monotonic()
+    nxt = 0
+    while nxt < len(trace) or sched.has_work():
+        while nxt < len(trace) and arrivals[nxt] <= sched.step_idx:
+            sched.submit(*trace[nxt], eos_id=eos.get(nxt))
+            nxt += 1
+        sched.step()
+    sched.run()
+    return time.monotonic() - t0
+
+
+def scheduler_numbers(sched, wall_s: float) -> dict:
+    """One scheduler run's numbers from ``ServeScheduler.summary()``."""
+    s = sched.summary()
+    return {"depth": sched.pipeline_depth, "dispatch": sched.backend,
+            "temperature": sched.temperature, "steps": sched.step_idx,
+            "decode_steps": s["decode"]["calls"], "wall_s": wall_s,
+            "decode_tokens": s["decode"]["tokens"],
+            "decode_tok_per_s": s["decode"]["tok_per_s"],
+            "prefill_ms": s["prefill"]["seconds"] * 1e3,
+            "token_latency_ms": s["token_latency_ms"],
+            "first_token_ms": s["first_token_ms"],
+            "batch_buckets": s["batch_buckets"],
+            "nnzb_buckets": s.get("nnzb_buckets"), "timing": s["timing"]}
+
+
+def print_scheduler(label: str, row: dict) -> None:
+    lat, first = row["token_latency_ms"], row["first_token_ms"]
+    print(f"  {label}: {row['steps']} steps, wall {row['wall_s']:.2f} s, "
+          f"decode {row['decode_tok_per_s']:.1f} tok/s over "
+          f"{row['decode_tokens']} tokens; token latency p50 "
+          f"{lat['p50']:.2f} / p99 {lat['p99']:.2f} ms; first token p50 "
+          f"{first['p50']:.1f} / p99 {first['p99']:.1f} ms; buckets "
+          f"{row['batch_buckets']}, nnzb {row['nnzb_buckets']}; timing "
+          + ", ".join(f"{k} {v:.4g}" for k, v in row["timing"].items()))
+
+
+def phase_scheduler(cfg, params):
+    """Continuous batching on phase 5's weights: ``ServeScheduler`` with
+    SCHED_SLOTS slots and ``max_seq`` SCHED_MAX_SEQ serves the 16 requests
+    of :func:`scheduler_trace` as :func:`drive_scheduler` submits them.  A
+    probe run (bcsr, depth 0, also the warm-up) gives the EOS: the first
+    request whose 5th token does not occur among its first four carries
+    that token as its ``eos_id``.  Then bcsr at depth 0, bcsr at depth 1,
+    gather at depth 0, and a temperature-0.7 run at each depth.  Checks:
+    depth 1 == depth 0, bcsr == gather, and the two temperature runs equal,
+    as tokens per request; K2 ``n_moe x (admissions + decode steps)`` in
+    each bcsr run and never in the gather run; no flash launch and no
+    oracle fallback; each decode step's bucket is
+    ``batch_bucket(highest occupied slot + 1)`` and in {1, 2, 4, 8}; the
+    EOS request ends at its EOS, every other greedy request gets exactly
+    its budget; one extra depth-1 scheduler step makes at most
+    ``n_moe + 1`` host syncs.  Information, not checked: each request
+    served alone through ``ServeLoop`` (B = 1, the same ``max_seq``,
+    greedy), how many of the 16 give the scheduler's tokens, and for each
+    that does not, the first step that differs and the alone run's logit
+    gap there between its token and the scheduler's.  The bcsr depth-0
+    run's first dispatch stream (an admission) and its first stream at the
+    largest decode bucket are kept for the K2 row."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import ServeLoop, ServeScheduler
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    trace = scheduler_trace(cfg.vocab_size)
+    print(f"continuous batching: {len(trace)} requests, prompts "
+          f"{min(len(p) for p, _ in trace)}-{max(len(p) for p, _ in trace)}"
+          f", budgets {min(g for _, g in trace)}-{max(g for _, g in trace)}"
+          f", {SCHED_SLOTS} slots, max_seq {SCHED_MAX_SEQ}")
+
+    captured = []
+    stream_entry = engine.spmm_batched_stream
+
+    def capture(a, dense, **kw):    # the first call, the first at the top B
+        if len(captured) < 2 or a.blocks.shape[0] > captured[1][0].blocks \
+                .shape[0]:
+            del captured[1:]
+            captured.append((a, dense, kw))
+        return stream_entry(a, dense, **kw)
+
+    def serve(eos, stream_hook=None, **kw):
+        sched = ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
+                               max_slots=SCHED_SLOTS, **kw)
+        ops.reset_fallbacks()
+        engine.spmm_batched_stream = stream_hook or stream_entry
+        reset_launches()
+        try:
+            wall = drive_scheduler(sched, trace, eos)    # the main path
+        finally:
+            engine.spmm_batched_stream = stream_entry
+        counts = read_launches()
+        tokens = {r.uid: list(r.tokens) for r in sched.finished}
+        check(sorted(tokens) == list(range(len(trace))),
+              f"{kw}: finished {sorted(tokens)}")
+        decode = [st for st in sched.stats if st.phase == "decode"]
+        k2 = n_moe * (len(trace) + len(decode)) if sched.two_phase else 0
+        check(counts == only(spmm_bcsr=k2),
+              f"{kw}: launches {counts}, K2 should be {k2}")
+        check(ops.fallback_count() == 0 and sched.summary()["timing"][
+            "attention_ref_fallbacks"] == 0, f"{kw}: oracle fallbacks")
+        for st in decode:
+            b, hi = st.extra["batch_bucket"], st.extra["occupied"]
+            check(b == engine.batch_bucket(hi, cap=sched.n_slots)
+                  and b in (1, 2, 4, 8) and st.extra["active"] <= hi <= b,
+                  f"{kw}: step {st.step} bucket {b} for {hi} rows")
+        return sched, tokens, {**scheduler_numbers(sched, wall),
+                               "k2_launches": counts["spmm_bcsr"]}
+
+    probe_sched, probe, _ = serve({}, dispatch="bcsr")
+    kv_mb = sum(t.numel() * t.element_size()
+                for c in probe_sched.cache["slots"]
+                for t in c["attn"].values()) / 1e6
+    print(f"  KV cache {kv_mb:.1f} MB")
+    del probe_sched
+    eos_req = next(i for i, (_, g) in enumerate(trace)
+                   if g > 5 and probe[i][4] not in probe[i][:4])
+    eos = {eos_req: probe[eos_req][4]}
+    runs, toks = [], {}
+    for key, kw in (("bcsr0", dict(dispatch="bcsr", stream_hook=capture)),
+                    ("bcsr1", dict(dispatch="bcsr", pipeline_depth=1)),
+                    ("gather0", dict(dispatch="gather")),
+                    ("temp0", dict(dispatch="bcsr",
+                                   temperature=SCHED_TEMPERATURE)),
+                    ("temp1", dict(dispatch="bcsr", pipeline_depth=1,
+                                   temperature=SCHED_TEMPERATURE))):
+        sched, toks[key], row = serve(eos, **kw)
+        runs.append(row)
+        print_scheduler(key, row)
+        if key == "bcsr1":
+            depth1 = sched
+        else:
+            del sched
+    check(toks["bcsr1"] == toks["bcsr0"], "depth-1 tokens != depth-0 tokens")
+    check(toks["gather0"] == toks["bcsr0"], "bcsr tokens != gather tokens")
+    check(toks["temp1"] == toks["temp0"],
+          "temperature 0.7: depth-1 tokens != depth-0 tokens")
+    for i, (_, budget) in enumerate(trace):
+        got = toks["bcsr0"][i]
+        if i == eos_req:
+            check(got[-1] == eos[i] and eos[i] not in got[:-1]
+                  and len(got) < budget,
+                  f"request {i} did not stop at its EOS {eos[i]}: {got}")
+        else:
+            check(len(got) == budget,
+                  f"request {i}: {len(got)} tokens, budget {budget}")
+    print(f"  tokens: depth 1 == depth 0, bcsr == gather, temperature pair "
+          f"equal; request {eos_req} stopped at its EOS {eos[eos_req]} "
+          f"after {len(toks['bcsr0'][eos_req])} tokens")
+
+    depth1.submit(trace[0][0], 3)             # one more resident request
+    depth1.step()
+    _, syncs, waits = count_syncs(depth1.step)
+    torch.cuda.synchronize()
+    print(f"  one depth-1 scheduler step: {syncs} host syncs ({n_moe} "
+          f"attn+moe layers + the token fetch), event waits {waits}")
+    check(syncs <= n_moe + 1, f"a depth-1 scheduler step synced {syncs} "
+          f"times")
+    del depth1
+
+    alone = []
+    for i, (prompt, budget) in enumerate(trace):
+        loop = ServeLoop(params, cfg, max_seq=SCHED_MAX_SEQ, dispatch="bcsr")
+        logits = []
+
+        def keep(lg, sample=loop._sample):    # each token's logits
+            logits.append(lg[0].float())
+            return sample(lg)
+
+        loop._sample = keep
+        ref = loop.run(prompt[None], budget)[0].tolist()
+        got = toks["bcsr0"][i]
+        diff = next((t for t, (a, b) in enumerate(zip(got, ref)) if a != b),
+                    None)
+        row = {"request": i, "match": diff is None}
+        if diff is not None:
+            lg = logits[diff]
+            row.update(step=diff, alone=ref[diff], scheduler=got[diff],
+                       logit_gap=float(lg[ref[diff]] - lg[got[diff]]))
+        alone.append(row)
+        del loop, logits
+    n_match = sum(r["match"] for r in alone)
+    print(f"  information: {n_match} of {len(trace)} requests give the "
+          f"tokens of the request served alone through ServeLoop (B = 1)"
+          + "".join(f"; request {r['request']} differs first at step "
+                    f"{r['step']} ({r['alone']} alone, {r['scheduler']} "
+                    f"scheduled, logit gap {r['logit_gap']:.4g})"
+                    for r in alone if not r["match"]))
+    return {"requests": len(trace), "slots": SCHED_SLOTS,
+            "max_seq": SCHED_MAX_SEQ, "kv_cache_mb": kv_mb,
+            "eos_request": eos_req, "runs": runs,
+            "tokens_equal": {"depth1_depth0": True, "bcsr_gather": True,
+                             "temperature_pair": True},
+            "step_syncs": syncs, "step_event_waits": waits,
+            "attn_moe_layers": n_moe, "alone_matches": n_match,
+            "alone": alone}, captured
+
+
 def _attn_prompts(cfg):
     import torch
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -1176,19 +1415,30 @@ def _stream_times(captured, what: str, *, second_bn: bool = False,
             "rows": stats}
 
 
-def phase_measure(captured, masked_stream, launches, card):
+def phase_measure(captured, masked_stream, launches, card, sched_streams,
+                  sched_runs):
     """The K2 row: measured at the prefill stream (the first dispatch of the
-    main run), with the last decode step's stream and the 4 x 2048 masked
-    prefill's first stream (plain timed once) beside it."""
+    main run), with the last decode step's stream, the 4 x 2048 masked
+    prefill's first stream (plain timed once), and the scheduler's first
+    admission stream and first stream at its largest decode bucket beside
+    it; the scheduler runs' K2 launches too."""
     prefill = _stream_times(captured[0], "4 x 256 prefill", second_bn=True)
     decode = _stream_times(captured[1], "last decode")
     masked = _stream_times(masked_stream, "4 x 2048 masked prefill",
                            plain_iters=1)
+    admission = _stream_times(sched_streams[0], "scheduler admission")
+    bucket = _stream_times(sched_streams[1], "scheduler decode, top bucket")
     return {"name": "spmm_bcsr", "route": "cuda",
             "source": "src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
             "replaces": "src/repro/kernels/spmm/kernel.py:74",
             "launches": launches, **prefill, "decode_stream": decode,
-            "masked_prefill_stream": masked, "card": card}
+            "masked_prefill_stream": masked,
+            "scheduler_admission_stream": admission,
+            "scheduler_decode_stream": bucket,
+            "scheduler_launches": {
+                f"{r['dispatch']} depth {r['depth']} T {r['temperature']}":
+                r["k2_launches"] for r in sched_runs},
+            "card": card}
 
 
 # ---------------------------------------------------------------------------
@@ -2133,6 +2383,7 @@ def main() -> int:
     phase_small_config_card_vs_cpu()
     phase_rwkv_smoke_card_vs_cpu()
     cfg, params, summary, launches, captured, pipelined = phase_slice()
+    scheduler, sched_streams = phase_scheduler(cfg, params)
     mask, masked, mask_ms, masked_stream, masked1 = phase_masked_serving(
         cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
@@ -2140,14 +2391,15 @@ def main() -> int:
     print("kernel times at the slice's shapes:")
     clocks = {"before_slice_kernels": smi(CLOCKS)}
     print(f"  sm clock, max: {clocks['before_slice_kernels']}")
-    rows = [phase_measure(captured, masked_stream, launches, card)]
+    rows = [phase_measure(captured, masked_stream, launches, card,
+                          sched_streams, scheduler["runs"])]
     rows += phase_measure_attention(qkv, mask, {
         "flash_attention": kprefill["launches"]["flash_attention"],
         "flash_attention_masked": masked["dense"][0]["launches"],
         "flash_attention_sparse": masked["sparse"][0]["launches"]}, card)
     clocks["after_slice_kernels"] = smi(CLOCKS)
     print(f"  sm clock, max: {clocks['after_slice_kernels']}")
-    del qkv, captured, masked_stream
+    del qkv, captured, masked_stream, sched_streams
     scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rwkv, wkv_launches, wkv_inputs = phase_rwkv_serving(card)
     rows.append(phase_measure_wkv(wkv_inputs, wkv_launches, card))
@@ -2192,6 +2444,7 @@ def main() -> int:
                   "pipelined": {"4x256": pipelined,
                                 "masked_sparse": masked1,
                                 "rwkv": rwkv1},
+                  "scheduler": scheduler,
                   "card": card},
              "rwkv": rwkv, "library": lib_info, "sm_clocks": clocks,
              "wall_s": time.monotonic() - t_start}

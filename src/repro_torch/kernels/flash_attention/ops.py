@@ -149,7 +149,7 @@ def _attention_masked(q, k, v, mask: BlockMask, *, impl: str,
 
 
 def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, *, kv_len: Optional[int] = None,
+                     v_cache: torch.Tensor, *, kv_len=None,
                      window: Optional[int] = None) -> torch.Tensor:
     """One-token decode: q1 (B, Hq, 1, D) against a (B, Hkv, S, D) cache.
 
@@ -159,7 +159,10 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
     the f32 PV product is divided by the f32 row sum afterwards.  Casting
     after normalizing would quantize another quantity than prefill does and
     can flip near-tie MoE router argmaxes between decode and prefill.
-    ``kv_len`` masks the cache tail beyond the current length."""
+    ``kv_len`` masks the cache tail beyond the current length: an int for
+    the whole batch, or a ``(B,)`` int tensor of per-row lengths
+    (continuous batching), which moves the window's lower edge per row
+    too."""
     B, Hq, _, D = q1.shape
     _, Hkv, S, _ = k_cache.shape
     g = Hq // Hkv
@@ -168,9 +171,11 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
     s = torch.matmul(qg.float(), k_cache.float()[:, :, None].transpose(-1, -2))
     pos = torch.arange(S, device=q1.device)
     if kv_len is not None:
+        if isinstance(kv_len, torch.Tensor):
+            kv_len = kv_len.reshape(-1, 1, 1, 1, 1)
         keep = pos < kv_len
         if window is not None:
-            keep &= pos >= kv_len - window
+            keep = keep & (pos >= kv_len - window)
         s = s.masked_fill(~keep, NEG_INF)
     elif window is not None:
         s = s.masked_fill(pos < S - window, NEG_INF)

@@ -1,7 +1,9 @@
-"""Serving launcher of the port: the static-batch ``ServeLoop``.
+"""Serving launcher of the port: the static-batch ``ServeLoop`` and the
+continuous-batching ``ServeScheduler``, over one phase machinery
+(``_ServeBase``).
 
-One prefill over a fixed (B, S) prompt batch, then lockstep one-token
-decode steps, layer by layer (``model.prefill_layered`` /
+``ServeLoop``: one prefill over a fixed (B, S) prompt batch, then lockstep
+one-token decode steps, layer by layer (``model.prefill_layered`` /
 ``model.decode_step_layered``).  With the ``"bcsr"`` dispatch backend on an
 MoE arch the loop is **two-phase**: at every attn+moe layer it routes on the
 host (``moe.route_moe``: router, slot cumsums, routed-stream compaction to a
@@ -11,7 +13,19 @@ attn+moe layer is one ``moe.apply_moe`` call.  Both give the same tokens.
 A stack without attn+moe layers (rwkv6-7b: ``rwkv`` blocks, whose prefill
 runs the WKV kernel K7) takes the single-phase path whatever the backend.
 
-``pipeline_depth`` (default 0):
+``ServeScheduler``: a queue of requests served from a fixed pool of cache
+slots (batch rows of one decode cache).  Between decode steps it evicts a
+request at its token budget or its EOS and admits a queued prompt into the
+lowest free slot with a single-request prefill; every decode step advances
+each resident request one token, over the occupied slots rounded up to a
+power-of-two batch bucket, each row at its own position.  On the CPU a
+request's greedy tokens equal the request served alone through
+``ServeLoop`` with the same ``max_seq`` (``tests/test_torch_scheduler.py``).
+On CUDA they need not: ``decode_attention``'s batched f32 products and the
+f32 router product give a row that depends on the batch count at buckets 4
+and 8 (ROADMAP Queue 3).
+
+``pipeline_depth`` (default 0), both drivers:
 
 * ``0`` -- fully serial: each phase waits for the device
   (``torch.cuda.synchronize``) before reading the clock, and the route
@@ -20,32 +34,37 @@ runs the WKV kernel K7) takes the single-phase path whatever the backend.
 * ``1`` -- pipelined: each attn+moe layer's route phase 1 is dispatched with
   its attention half (``route_ahead``), so the host fetches only the small
   slot stream; the dispatched execute stays in flight
-  (``engine.StreamPipeline``) behind the next layer's host route; the
-  sampled token feeds the next step's embedding on the device.  Decode makes
-  no per-step host sync beyond the slot fetches, and one drain ends it.
-  Tokens equal depth 0's at any temperature, on both backends;
-  ``summary()["timing"]`` says how much route time the overlap hid
-  (``route_hidden_frac``).
+  (``engine.StreamPipeline``) behind the next layer's host route.  In
+  ``ServeLoop`` the sampled token feeds the next step's embedding on the
+  device: decode makes no per-step host sync beyond the slot fetches, and
+  one drain ends it.  ``ServeScheduler`` fetches the step's (bucket,) token
+  ids once, for its EOS and evict decisions.  Tokens equal depth 0's at any
+  temperature, on both backends; ``summary()["timing"]`` says how much
+  route time the overlap hid (``route_hidden_frac``).
 
 ``attn_mask`` (an ``AttnMaskSpec``) sends every prefill attention layer it
 applies to through the masked flash kernels (K4s stream walk or K4m masked
-grid); decode is untouched.  Not ported yet: the continuous-batching
-``ServeScheduler``, resilience hooks and quantized experts / KV cache.
+grid); decode is untouched.  Not ported yet: resilience hooks and quantized
+experts / KV cache.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --gen 8 \
       --attn-mask local_global --attn-mask-impl sparse --pipeline-depth 1
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --continuous \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,50 +108,46 @@ def sample_tokens(last_logits: torch.Tensor, vocab_size: int,
     return nxt[:, None].to(torch.int32)
 
 
-def _check_on(tree, device: torch.device) -> None:
+def _percentiles_ms(seconds: List[float]) -> Dict[str, float]:
+    """p50 / p99 / mean of a latency sample in milliseconds, and its size;
+    an empty sample gives zeros, and None or non-finite entries are
+    dropped."""
+    seconds = [s for s in (seconds or [])
+               if s is not None and np.isfinite(s)]
+    if not seconds:
+        return {"p50": 0.0, "p99": 0.0, "mean": 0.0, "n": 0}
+    a = np.asarray(seconds, np.float64) * 1e3
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)),
+            "mean": float(a.mean()), "n": int(a.size)}
+
+
+def _check_on(tree, device: torch.device, who: str) -> None:
     """Every tensor of a param tree lies on ``device`` (its type)."""
     if isinstance(tree, dict):
         tree = tree.values()
     elif isinstance(tree, torch.Tensor):
         if tree.device.type != device.type:
-            raise ValueError(f"ServeLoop: a param on {tree.device}, loop on "
+            raise ValueError(f"{who}: a param on {tree.device}, driver on "
                              f"{device}")
         return
     for leaf in tree:
-        _check_on(leaf, device)
+        _check_on(leaf, device, who)
 
 
-class ServeLoop:
-    """Batched greedy/temperature serving loop with KV caches.
+class _ServeBase:
+    """Phase machinery shared by :class:`ServeLoop` and
+    :class:`ServeScheduler`: the dispatch backend, the two-phase route ->
+    execute MoE stage with its per-phase stats, the ``StreamPipeline`` of
+    in-flight executes, and the timing summary."""
 
-    Parameters
-    ----------
-    params, cfg : the model (every param on ``device``).
-    max_seq : decode-cache capacity (prompt + generation).
-    dispatch : MoE dispatch backend ("gather" | "bcsr"); default is the
-        config's ``moe_dispatch``.  "bcsr" on an MoE arch runs two-phase.
-    temperature : 0 = greedy argmax, > 0 = sampling from
-        ``softmax(logits / temperature)`` (:func:`sample_tokens`) with a
-        ``torch.Generator`` reseeded from ``sample_seed`` at every
-        :meth:`run`.
-    pipeline_depth : 0 = fully serial; 1 = pipelined (route phase 1 ahead
-        with the attention half, executes in flight behind the next host
-        route, no per-step host sync; the same tokens).  Anything else
-        raises ``ValueError``.
-    attn_mask : an ``AttnMaskSpec`` for prefill attention (``impl``
-        "sparse" | "dense" | "ref"), or None.
-    device : where the loop runs; "cuda" (default) raises without a GPU.
-    """
-
-    def __init__(self, params, cfg, *, max_seq: int,
-                 dispatch: Optional[str] = None, temperature: float = 0.0,
-                 sample_seed: int = 3, pipeline_depth: int = 0,
-                 attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
+    def __init__(self, params, cfg, *, dispatch: Optional[str],
+                 temperature: float, sample_seed: int, pipeline_depth: int,
+                 attn_mask: Optional[AttnMaskSpec], device):
         self.device = resolve_device(device)
-        _check_on(params, self.device)
+        _check_on(params, self.device, type(self).__name__)
         M._check_kinds(cfg)
         self.params, self.cfg = params, cfg
-        self.max_seq = max_seq
         self.backend = dispatch or cfg.moe_dispatch
         if self.backend not in ("gather", "bcsr"):
             raise ValueError(f"unknown moe_dispatch backend {self.backend!r}")
@@ -142,16 +157,16 @@ class ServeLoop:
         self.attn_mask = attn_mask
         self._pipe = engine.StreamPipeline(pipeline_depth)
         self.pipeline_depth = pipeline_depth
-        # oracle fallbacks are counted from this loop's own baseline
+        # oracle fallbacks are counted from this driver's own baseline
         self._fallback_base = flash_ops.fallback_count()
         self._sample_seed = sample_seed
-        self._gen = torch.Generator(device=self.device)
         self.stats: List[StepStat] = []
-        self.cache = None
-        self.pos: Optional[int] = None
-        self.generated: List[torch.Tensor] = []
 
     # ------------------------------------------------------------- phases --
+
+    def _step_label(self) -> int:
+        """The decode step index the phase stats carry (-1 = prefill)."""
+        raise NotImplementedError
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -179,7 +194,7 @@ class ServeLoop:
         the pipeline, not waited for.  The route stat's ``hidden_s`` is its
         fetch wait when an execute was still running on the device at route
         entry, else 0 (always 0 at depth 0)."""
-        step = len(self.generated) - 1
+        step = self._step_label()
         pipelined = self.pipeline_depth > 0
         drain_s = 0.0
         if not pipelined:
@@ -211,6 +226,85 @@ class ServeLoop:
                    "dispatch_only": pipelined}))
         return out, new_counts
 
+    def _phase_summary(self) -> Dict[str, Any]:
+        """Per-phase seconds and calls, the routed-stream accounting and the
+        ``timing`` split (see :meth:`ServeLoop.summary`)."""
+        out: Dict[str, Any] = {}
+        for phase in ("prefill", "route", "execute", "decode", "drain"):
+            ss = [s for s in self.stats if s.phase == phase]
+            if ss:
+                out[phase] = {"seconds": sum(s.seconds for s in ss),
+                              "calls": len(ss)}
+        routes = [s for s in self.stats if s.phase == "route"]
+        execs = [s for s in self.stats if s.phase == "execute"]
+        if routes:
+            out["stream"] = {
+                "nnzb_stream_mean": float(np.mean(
+                    [s.extra["nnzb_stream"] for s in routes])),
+                "nnzb_routed_mean": float(np.mean(
+                    [s.extra["nnzb_routed"] for s in routes])),
+                "grid_nnzb": routes[-1].extra["grid_nnzb"],
+            }
+        route_s = sum(s.seconds for s in routes)
+        wait_s = sum(s.extra["wait_s"] for s in routes)
+        hidden_s = sum(s.extra["hidden_s"] for s in routes)
+        out["timing"] = {
+            "host_route_ms": (route_s - wait_s) * 1e3,
+            "route_wait_ms": wait_s * 1e3,
+            "attn_drain_ms": sum(s.extra["drain_s"] for s in routes) * 1e3,
+            "device_execute_ms": sum(s.seconds for s in execs
+                                     if not s.extra["dispatch_only"]) * 1e3,
+            "execute_dispatch_ms": sum(s.seconds for s in execs
+                                       if s.extra["dispatch_only"]) * 1e3,
+            "route_hidden_ms": hidden_s * 1e3,
+            "route_hidden_frac": hidden_s / route_s if route_s > 0 else 0.0,
+            "attention_ref_fallbacks":
+                flash_ops.fallback_count() - self._fallback_base}
+        out["pipeline"] = {"depth": self.pipeline_depth}
+        return out
+
+
+class ServeLoop(_ServeBase):
+    """Batched greedy/temperature serving loop with KV caches.
+
+    Parameters
+    ----------
+    params, cfg : the model (every param on ``device``).
+    max_seq : decode-cache capacity (prompt + generation).
+    dispatch : MoE dispatch backend ("gather" | "bcsr"); default is the
+        config's ``moe_dispatch``.  "bcsr" on an MoE arch runs two-phase.
+    temperature : 0 = greedy argmax, > 0 = sampling from
+        ``softmax(logits / temperature)`` (:func:`sample_tokens`) with a
+        ``torch.Generator`` reseeded from ``sample_seed`` at every
+        :meth:`run`.
+    pipeline_depth : 0 = fully serial; 1 = pipelined (route phase 1 ahead
+        with the attention half, executes in flight behind the next host
+        route, no per-step host sync; the same tokens).  Anything else
+        raises ``ValueError``.
+    attn_mask : an ``AttnMaskSpec`` for prefill attention (``impl``
+        "sparse" | "dense" | "ref"), or None.
+    device : where the loop runs; "cuda" (default) raises without a GPU.
+    """
+
+    def __init__(self, params, cfg, *, max_seq: int,
+                 dispatch: Optional[str] = None, temperature: float = 0.0,
+                 sample_seed: int = 3, pipeline_depth: int = 0,
+                 attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
+        super().__init__(params, cfg, dispatch=dispatch,
+                         temperature=temperature, sample_seed=sample_seed,
+                         pipeline_depth=pipeline_depth, attn_mask=attn_mask,
+                         device=device)
+        self.max_seq = max_seq
+        self._gen = torch.Generator(device=self.device)
+        self.cache = None
+        self.pos: Optional[int] = None
+        self.generated: List[torch.Tensor] = []
+
+    def _step_label(self) -> int:
+        return len(self.generated) - 1
+
+    # ------------------------------------------------------------- phases --
+
     def prefill(self, prompts) -> torch.Tensor:
         """Run the prompts (B, S) through the model, fill the decode cache,
         and emit the first generated token (B, 1).  Ends with the device
@@ -241,7 +335,7 @@ class ServeLoop:
         sampled token stays on the device and feeds the next step."""
         if self.cache is None:
             raise RuntimeError("decode_step before prefill")
-        step = len(self.generated) - 1
+        step = self._step_label()
         pos = self.pos + step
         if pos >= self.max_seq:
             raise RuntimeError(
@@ -315,44 +409,380 @@ class ServeLoop:
         phase ``route_hidden_frac``, 0 at depth 0), and the run's attention
         oracle fallbacks (``attention_ref_fallbacks``, ``attn_mask`` with
         ``impl="ref"``)."""
-        out: Dict[str, Any] = {}
-        for phase in ("prefill", "route", "execute", "decode", "drain"):
-            ss = [s for s in self.stats if s.phase == phase]
-            if ss:
-                out[phase] = {"seconds": sum(s.seconds for s in ss),
-                              "calls": len(ss)}
+        out = self._phase_summary()
         dec = out.get("decode")
         if dec:
             wall = dec["seconds"] + out.get("drain", {}).get("seconds", 0.0)
             if wall > 0:
                 batch = self.generated[0].shape[0]
                 dec["tok_per_s"] = batch * dec["calls"] / wall
-        routes = [s for s in self.stats if s.phase == "route"]
-        execs = [s for s in self.stats if s.phase == "execute"]
-        if routes:
-            out["stream"] = {
-                "nnzb_stream_mean": float(np.mean(
-                    [s.extra["nnzb_stream"] for s in routes])),
-                "nnzb_routed_mean": float(np.mean(
-                    [s.extra["nnzb_routed"] for s in routes])),
-                "grid_nnzb": routes[-1].extra["grid_nnzb"],
-            }
-        route_s = sum(s.seconds for s in routes)
-        wait_s = sum(s.extra["wait_s"] for s in routes)
-        hidden_s = sum(s.extra["hidden_s"] for s in routes)
-        out["timing"] = {
-            "host_route_ms": (route_s - wait_s) * 1e3,
-            "route_wait_ms": wait_s * 1e3,
-            "attn_drain_ms": sum(s.extra["drain_s"] for s in routes) * 1e3,
-            "device_execute_ms": sum(s.seconds for s in execs
-                                     if not s.extra["dispatch_only"]) * 1e3,
-            "execute_dispatch_ms": sum(s.seconds for s in execs
-                                       if s.extra["dispatch_only"]) * 1e3,
-            "route_hidden_ms": hidden_s * 1e3,
-            "route_hidden_frac": hidden_s / route_s if route_s > 0 else 0.0,
-            "attention_ref_fallbacks":
-                flash_ops.fallback_count() - self._fallback_base}
-        out["pipeline"] = {"depth": self.pipeline_depth}
+        return out
+
+
+# ---------------------------------------------------- continuous batching --
+
+def request_seed(sample_seed: int, uid: int) -> int:
+    """The seed of request ``uid``'s sampling generator: numpy's
+    ``SeedSequence`` hash of the pair ``(sample_seed, uid)`` (both >= 0),
+    64 bits.  A function of the pair alone, so a request's draws depend on
+    no neighbour, slot or step; the port's counterpart of the reference's
+    ``fold_in(PRNGKey(sample_seed), uid)``, which it cannot reproduce bit
+    for bit."""
+    state = np.random.SeedSequence([sample_seed, uid]).generate_state(
+        1, np.uint64)
+    return int(state[0])
+
+
+@dataclasses.dataclass
+class Request:
+    """One user request of the continuous-batching scheduler.
+
+    The scheduler fills in the lifecycle fields: ``tokens`` (generated ids),
+    ``latencies_s`` (wall seconds of the step that emitted each token: the
+    prefill for token 0, the shared decode step after), ``slot`` (the cache
+    batch row while resident), ``pos`` (next cache write position), the
+    first-token latency from ``submit_time``, and ``generator``, the
+    request's own sampling stream (seeded with :func:`request_seed`).
+    ``state`` walks ``queued -> active -> finished``."""
+    prompt: np.ndarray
+    max_new_tokens: int
+    eos_id: Optional[int] = None
+    uid: int = -1
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    latencies_s: List[float] = dataclasses.field(default_factory=list)
+    slot: Optional[int] = None
+    pos: int = 0
+    done: bool = False
+    submit_time: float = 0.0
+    first_token_s: Optional[float] = None
+    generator: Optional[torch.Generator] = None
+    state: str = "queued"              # queued | active | finished
+
+    @property
+    def prompt_len(self) -> int:
+        return int(np.asarray(self.prompt).size)
+
+
+def _row_views(tree, rows: int):
+    """Rows ``[0, rows)`` of every leaf of a stacked cache (batch at dim 1),
+    as views: a decode step writes through them into the cache."""
+    if isinstance(tree, dict):
+        return {k: _row_views(v, rows) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_row_views(v, rows) for v in tree)
+    return tree[:, :rows]
+
+
+def _copy_row(big, small, row: int) -> None:
+    """Row 0 of every leaf of ``small`` into row ``row`` of the same leaf of
+    ``big``, in place; a narrower ``big`` leaf rounds the value as a cast
+    to its dtype does."""
+    if isinstance(big, dict):
+        for k in big:
+            _copy_row(big[k], small[k], row)
+    elif isinstance(big, tuple):
+        for b, s in zip(big, small):
+            _copy_row(b, s, row)
+    else:
+        big[:, row].copy_(small[:, 0])
+
+
+class ServeScheduler(_ServeBase):
+    """Continuous-batching serving over a fixed pool of cache slots.
+
+    A queue of :class:`Request`\\ s is served by ``n_slots`` batch rows of
+    one decode cache.  Between decode steps the scheduler **evicts** a
+    finished request (its token budget reached, or its EOS sampled) and
+    **admits** queued prompts into free rows, the lowest first: each
+    admission is a single-request (B = 1) prefill, two-phase or not as in
+    :class:`ServeLoop`, and one in-place copy per cache leaf into the slot's
+    row (attention K/V, MoE occupancy and RWKV state are all indexed by
+    batch row, so the neighbours are untouched).  Each decode step then
+    advances every resident request one token in one batched pass, each
+    row at its own position.
+
+    **Batch-bucket law.**  A decode step runs on cache rows
+    ``[0, engine.batch_bucket(highest occupied slot + 1))``, a power of
+    two, so the step shapes (and the routed-stream buckets) are bounded by
+    the bucket count, never one per occupancy pattern.  Vacant rows inside
+    the bucket compute at position 0 and are masked: they sample nothing
+    and their cache rows are overwritten at the next admission.
+
+    **Per-request sampling.**  Each request owns a ``torch.Generator`` on
+    the scheduler's device, seeded with :func:`request_seed` of
+    ``(sample_seed, uid)``.  At temperature > 0 a resident row's ``Exp(1)``
+    draw (the ``argmax(p / q)`` rule of :func:`sample_tokens`) comes from
+    its own request's generator, the first token's too; vacant rows draw
+    nothing.  Both depths sample on the device and fetch the step's
+    (bucket,) token ids once, the one sync the EOS and evict decisions
+    need, so a depth-1 decode step syncs at most once per attn+moe layer
+    (the slot fetch) plus once.  On the CPU, greedy, a request's tokens
+    equal the request served alone through :class:`ServeLoop` with the
+    same ``max_seq`` (``tests/test_torch_scheduler.py``); on CUDA
+    ``decode_attention``'s batched f32 products and the f32 router product
+    make a row depend on the batch count at buckets 4 and 8, so a token may
+    part from the alone run at a near-tie (ROADMAP Queue 3).  On the CPU,
+    at any temperature, a rerun of the same requests gives the same tokens
+    per uid, whatever the slot pool or the arrival pattern.
+
+    The cache is allocated with every leaf in the dtype a decode step
+    writes (``model._decode_dtypes`` once, on the whole cache), so a step
+    writes through views of its rows and nothing is copied back.
+
+    Not ported yet: quantized experts and KV cache (``quantize_experts``,
+    ``kv_quant``; ROADMAP Queue 1 item 5) and resilience (fault plans,
+    retry, failure thresholds, bounded queues and shedding, deadlines, an
+    injected clock, the health bits on the token fetch and
+    ``model.blank_cache_row``; item 6).
+
+    Parameters
+    ----------
+    params, cfg, dispatch, temperature, sample_seed, pipeline_depth,
+    attn_mask, device : as :class:`ServeLoop`.
+    max_seq : cache capacity of every slot; :meth:`submit` refuses a request
+        that needs more.
+    max_slots : the slot pool, rounded up to its own batch bucket.
+    batch_min_bucket : the least decode batch bucket.
+    cache_dtype : the K/V cache dtype (default bf16, as prefill's).
+    """
+
+    def __init__(self, params, cfg, *, max_seq: int, max_slots: int = 8,
+                 dispatch: Optional[str] = None, temperature: float = 0.0,
+                 sample_seed: int = 3, batch_min_bucket: int = 1,
+                 cache_dtype=torch.bfloat16, pipeline_depth: int = 0,
+                 attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
+        super().__init__(params, cfg, dispatch=dispatch,
+                         temperature=temperature, sample_seed=sample_seed,
+                         pipeline_depth=pipeline_depth, attn_mask=attn_mask,
+                         device=device)
+        self.max_seq = max_seq
+        self.batch_min_bucket = batch_min_bucket
+        # the pool at its own bucket: every clamped step bucket is a power
+        # of two
+        self.n_slots = engine.batch_bucket(max_slots,
+                                           minimum=batch_min_bucket)
+        self.cache_dtype = cache_dtype
+        self.cache = M.init_cache(cfg, self.n_slots, max_seq,
+                                  dtype=cache_dtype, device=self.device)
+        M._decode_dtypes(cfg, self.cache)
+        self.slots: List[Optional[Request]] = [None] * self.n_slots
+        self.queue: Deque[Request] = collections.deque()
+        self.finished: List[Request] = []
+        self.step_idx = 0
+        self._stat_step = -1
+        self._next_uid = 0
+        self.batch_buckets: set = set()
+
+    def _step_label(self) -> int:
+        return self._stat_step
+
+    # -------------------------------------------------------------- admit --
+
+    def submit(self, prompt, max_new_tokens: int,
+               eos_id: Optional[int] = None) -> Request:
+        """Queue a request; uids number requests in submission order.  One
+        whose prompt and token budget cannot fit the cache is refused here
+        (``ValueError``; its last token is sampled but never written, hence
+        the ``- 1``)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if max_new_tokens < 1:
+            raise ValueError("submit: max_new_tokens must be >= 1")
+        need = prompt.size + max_new_tokens - 1
+        if need > self.max_seq:
+            raise ValueError(
+                f"submit: request needs {need} cache positions "
+                f"({prompt.size} prompt + {max_new_tokens} generated - 1) "
+                f"but max_seq is {self.max_seq}; it could never be served "
+                "without a KV-cache overflow.")
+        uid = self._next_uid
+        self._next_uid += 1
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(request_seed(self._sample_seed, uid))
+        req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
+                      eos_id=eos_id, uid=uid, submit_time=time.monotonic(),
+                      generator=gen)
+        self.queue.append(req)
+        return req
+
+    def _sample_rows(self, last_logits: torch.Tensor,
+                     rows: List[Optional[Request]]) -> torch.Tensor:
+        """The next token of each row, (rows,) on the device: the argmax at
+        temperature 0, else ``argmax(p / q)`` with row ``i``'s ``q ~
+        Exp(1)`` drawn from ``rows[i]``'s own generator; a vacant row
+        (None) draws nothing.  Nothing here syncs with the host."""
+        lg = last_logits[:, :self.cfg.vocab_size]
+        if self.temperature <= 0:
+            return torch.argmax(lg, dim=-1)
+        probs = torch.softmax(lg / self.temperature, dim=-1)
+        q = torch.ones_like(probs)
+        for i, r in enumerate(rows):
+            if r is not None:
+                q[i].exponential_(1, generator=r.generator)
+        return torch.argmax(probs / q, dim=-1)
+
+    def _finish_or_keep(self, req: Request, tok: int) -> None:
+        if len(req.tokens) >= req.max_new_tokens or (
+                req.eos_id is not None and tok == req.eos_id):
+            self.slots[req.slot] = None
+            req.slot = None
+            req.done = True
+            req.state = "finished"
+            self.finished.append(req)
+
+    def _prefill_into(self, req: Request, slot: int) -> None:
+        """Single-request prefill, its cache copied into row ``slot`` (one
+        in-place copy per leaf), and the request's first token.  At depth 1
+        the prefill runs its routes ahead and ends with the pipeline
+        drained."""
+        self._stat_step = -1
+        prompts = torch.from_numpy(req.prompt[None, :]).to(self.device)
+        t0 = time.monotonic()
+        logits, cache1, pos = M.prefill_layered(
+            self.params, prompts, self.cfg, max_seq=self.max_seq,
+            cache_dtype=self.cache_dtype, moe_fn=self._moe_fn(),
+            attn_mask=self.attn_mask, route_ahead=self._route_ahead())
+        self._sync()
+        self._pipe.drain()
+        dt = time.monotonic() - t0
+        self.stats.append(StepStat("prefill", self.step_idx, dt,
+                                   tokens=req.prompt_len,
+                                   extra={"uid": req.uid, "slot": slot}))
+        _copy_row(self.cache["slots"], cache1["slots"], slot)
+        req.slot, req.pos = slot, pos
+        req.state = "active"
+        self.slots[slot] = req
+        tok = int(self._sample_rows(logits[:, -1], [req])[0])
+        req.tokens.append(tok)
+        req.latencies_s.append(dt)
+        req.first_token_s = time.monotonic() - req.submit_time
+        self._finish_or_keep(req, tok)
+
+    def admit(self) -> List[Request]:
+        """Prefill queued requests into free slots, the lowest index first
+        (it keeps the occupied prefix, and with it the step's batch bucket,
+        small)."""
+        joined = []
+        while self.queue and None in self.slots:
+            req = self.queue.popleft()
+            self._prefill_into(req, self.slots.index(None))
+            joined.append(req)
+        return joined
+
+    # ------------------------------------------------------------- decode --
+
+    @property
+    def active(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
+
+    def decode_step(self) -> List[Tuple[Request, int]]:
+        """One batched decode step over the occupied slot prefix, rounded
+        up to its batch bucket; returns the (request, token) pairs emitted.
+        Raises before the cache write when a resident would write past
+        ``max_seq`` (``submit`` makes that unreachable for requests it
+        took)."""
+        active = self.active
+        if not active:
+            return []
+        for r in active:
+            if r.pos >= self.max_seq:
+                raise RuntimeError(
+                    f"ServeScheduler.decode_step: KV-cache overflow -- "
+                    f"request {r.uid} at write position {r.pos} >= max_seq "
+                    f"{self.max_seq}.")
+        hi = max(i for i, r in enumerate(self.slots) if r is not None) + 1
+        bucket = engine.batch_bucket(hi, minimum=self.batch_min_bucket,
+                                     cap=self.n_slots)
+        self.batch_buckets.add(bucket)
+        rows = self.slots[:bucket]
+        pos = np.zeros(bucket, np.int64)
+        tok = np.zeros((bucket, 1), np.int64)
+        for i, r in enumerate(rows):
+            if r is not None:
+                pos[i], tok[i, 0] = r.pos, r.tokens[-1]
+        self._stat_step = self.step_idx
+        t0 = time.monotonic()
+        logits, _ = M.decode_step_layered(
+            self.params, self.cfg, _row_views(self.cache, bucket), pos,
+            moe._upload(tok, self.device), moe_fn=self._moe_fn(),
+            route_ahead=self._route_ahead())
+        if self.pipeline_depth == 0:
+            self._sync()
+        # the step's one fetch: EOS and eviction need the values
+        toks = self._sample_rows(logits[:, -1], rows).cpu().numpy()
+        dt = time.monotonic() - t0
+        self.stats.append(StepStat(
+            "decode", self.step_idx, dt, tokens=len(active),
+            extra={"batch_bucket": bucket, "occupied": hi,
+                   "active": len(active),
+                   "pipelined": self.pipeline_depth > 0}))
+        emitted = []
+        for i, r in enumerate(rows):
+            if r is None:
+                continue          # a vacant row: computed, masked here
+            r.tokens.append(int(toks[i]))
+            r.latencies_s.append(dt)
+            r.pos += 1
+            emitted.append((r, int(toks[i])))
+            self._finish_or_keep(r, int(toks[i]))
+        return emitted
+
+    # -------------------------------------------------------------- drive --
+
+    def step(self) -> List[Tuple[Request, int]]:
+        """One scheduler tick: admit into free slots, then decode one token
+        for every resident request.  An exception releases every in-flight
+        execute before it propagates."""
+        try:
+            self.admit()
+            out = self.decode_step()
+        except BaseException:
+            self._pipe.abort()
+            raise
+        self.step_idx += 1
+        return out
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.slots)
+
+    def run(self, max_steps: int = 1_000_000) -> Dict[int, np.ndarray]:
+        """Step until the queue and the slots are empty (or ``max_steps``
+        ticks), then drain the pipeline; returns {uid: generated token
+        ids} of every finished request."""
+        steps = 0
+        while self.has_work() and steps < max_steps:
+            self.step()
+            steps += 1
+        self._pipe.drain()
+        return {r.uid: np.asarray(r.tokens, np.int32)
+                for r in self.finished}
+
+    def summary(self) -> Dict[str, Any]:
+        """Per-phase seconds and calls (a decode step includes its route /
+        execute layer calls, as in :meth:`ServeLoop.summary`), decode tok/s
+        over the *emitted* tokens (``decode.tokens``), per-token and
+        first-token latency percentiles (``token_latency_ms``,
+        ``first_token_ms``), request counts, the decode batch buckets and,
+        two-phase, the routed-stream buckets (``nnzb_buckets``), the
+        ``timing`` split and ``pipeline``."""
+        out = self._phase_summary()
+        dec = out.get("decode")
+        if dec and dec["seconds"] > 0:
+            dec["tokens"] = sum(s.tokens for s in self.stats
+                                if s.phase == "decode")
+            dec["tok_per_s"] = dec["tokens"] / dec["seconds"]
+        reqs = self.finished + self.active
+        out["token_latency_ms"] = _percentiles_ms(
+            [s for r in reqs for s in r.latencies_s])
+        out["first_token_ms"] = _percentiles_ms(
+            [r.first_token_s for r in reqs])
+        out["requests"] = {"finished": len(self.finished),
+                           "queued": len(self.queue),
+                           "active": len(self.active)}
+        out["batch_buckets"] = sorted(self.batch_buckets)
+        if self.two_phase:
+            out["nnzb_buckets"] = sorted(
+                {s.extra["nnzb_stream"] for s in self.stats
+                 if s.phase == "route"})
         return out
 
 
@@ -382,6 +812,14 @@ def main(argv=None):
                     help="0 = serial; 1 = route phase 1 with the attention "
                          "half, executes in flight behind the next host "
                          "route, no per-step host sync (the same tokens)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="drive the continuous-batching scheduler on a "
+                         "synthetic many-user trace instead of one static "
+                         "batch")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="--continuous: number of synthetic requests")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="--continuous: resident slot pool size")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -395,12 +833,14 @@ def main(argv=None):
     device = resolve_device(args.device)
     params = M.init_params(cfg, seed=0, device=device)
     max_seq = args.prompt_len + args.gen
+    dispatch = None if args.dispatch == "config" else args.dispatch
+    if args.continuous:
+        return _main_continuous(args, cfg, params, max_seq, dispatch,
+                                attn_mask, device)
     g = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=device)
-    loop = ServeLoop(params, cfg, max_seq=max_seq,
-                     dispatch=None if args.dispatch == "config"
-                     else args.dispatch,
+    loop = ServeLoop(params, cfg, max_seq=max_seq, dispatch=dispatch,
                      temperature=args.temperature,
                      pipeline_depth=args.pipeline_depth, attn_mask=attn_mask,
                      device=device)
@@ -432,6 +872,46 @@ def main(argv=None):
     print("sample generations (token ids):")
     for b in range(min(args.batch, 2)):
         print(f"  [{b}] {gen[b, :16].tolist()}")
+    return gen
+
+
+def _main_continuous(args, cfg, params, max_seq, dispatch, attn_mask,
+                     device) -> Dict[int, np.ndarray]:
+    """``--continuous``: ``--requests`` synthetic requests (prompt lengths
+    uniform in [prompt_len / 2, prompt_len], budgets in [gen / 2, gen], from
+    numpy seed 0), all queued at once, through a ``ServeScheduler`` of
+    ``--slots`` slots; prints the summary and returns {uid: tokens}."""
+    rng = np.random.default_rng(0)
+    sched = ServeScheduler(params, cfg, max_seq=max_seq,
+                           max_slots=args.slots, dispatch=dispatch,
+                           temperature=args.temperature,
+                           pipeline_depth=args.pipeline_depth,
+                           attn_mask=attn_mask, device=device)
+    for _ in range(args.requests):
+        plen = int(rng.integers(max(2, args.prompt_len // 2),
+                                args.prompt_len + 1))
+        sched.submit(rng.integers(0, cfg.vocab_size, plen),
+                     int(rng.integers(max(2, args.gen // 2), args.gen + 1)))
+    gen = sched.run()
+    s = sched.summary()
+    dec = s.get("decode", {})
+    print(f"served {len(gen)} requests in {sched.step_idx} steps "
+          f"({dec.get('tok_per_s', 0.0):.1f} decode tok/s)"
+          + (" [two-phase]" if sched.two_phase else ""))
+    lat, first = s["token_latency_ms"], s["first_token_ms"]
+    print(f"per-token latency: p50 {lat['p50']:.1f} ms, p99 "
+          f"{lat['p99']:.1f} ms over {lat['n']} tokens; first token p50 "
+          f"{first['p50']:.1f} ms, p99 {first['p99']:.1f} ms")
+    print(f"batch buckets: {s['batch_buckets']}"
+          + (f"; nnzb buckets: {s['nnzb_buckets']}" if sched.two_phase
+             else ""))
+    if args.pipeline_depth:
+        tm = s["timing"]
+        print(f"overlap: {tm['route_hidden_ms']:.1f} ms of route hidden "
+              f"behind an execute in flight "
+              f"({100 * tm['route_hidden_frac']:.0f}% of route)")
+    for uid in sorted(gen)[:2]:
+        print(f"  [{uid}] {gen[uid][:16].tolist()}")
     return gen
 
 

@@ -4,9 +4,10 @@ Pure functions on tensors with parameter dicts, as in the reference.
 Prefill attention is ``impl="chunked"`` (online softmax over KV chunks, the
 default), ``"kernel"`` (the flash kernel K3) or ``"ref"`` (the materialized
 oracle); an ``attn_mask`` (``AttnMaskSpec``) sends prefill through the masked
-flash kernels (K4s / K4m).  Decode is ``decode_attention`` with a scalar
-cache position.  Not ported yet: ``impl="kernel_sharded"``, ``kv_quant``,
-per-row decode positions and ring-buffer (local-window) caches.
+flash kernels (K4s / K4m).  Decode is ``decode_attention`` at a scalar
+cache position or at per-row positions (continuous batching).  Not ported
+yet: ``impl="kernel_sharded"``, ``kv_quant`` and ring-buffer (local-window)
+caches.
 
 Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
 bf16 result accumulated in f32 (reduced-precision reductions are off, see
@@ -196,7 +197,7 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                     window: Optional[int] = None,
                     positions: Optional[torch.Tensor] = None,
                     impl: str = "chunked", cache=None,
-                    cache_len: Optional[int] = None, collect_kv: int = 0,
+                    cache_len=None, collect_kv: int = 0,
                     attn_mask: Optional[AttnMaskSpec] = None):
     """Self-attention (prefill) or one-step decode when ``cache`` is given.
 
@@ -206,8 +207,11 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     keys/values.  Decode ignores ``impl`` and ``attn_mask``, as in the
     reference.
     cache: dict(k=(B, Hkv, L, hd), v=...) -- **updated in place**: decode
-    writes the new key/value at ``cache_len`` (a Python int, the fill of
-    every row) and returns the same dict.
+    writes the new key/value at ``cache_len`` and returns the same dict.
+    ``cache_len`` is a Python int, the fill of every row, or a ``(B,)`` int
+    tensor of per-row fills (continuous batching: RoPE, the write and the
+    attention's length run at each row's own position; at equal positions
+    the values are those of the int).
     Returns (out, new_cache)."""
     if impl not in ("chunked", "kernel", "ref"):
         raise NotImplementedError(
@@ -240,15 +244,19 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         if S != 1:
             raise ValueError(f"apply_attention decode takes one token, got {S}")
-        if not isinstance(cache_len, int):
-            raise NotImplementedError(
-                "apply_attention: per-row decode positions are not ported; "
-                "pass the scalar fill as a Python int")
-        pos = cache_len
-        q, k1, v1 = _qkv(p, x, cfg,
-                         torch.full((1,), pos, device=x.device))
-        cache["k"][:, :, pos] = k1[:, :, 0].to(cache["k"].dtype)
-        cache["v"][:, :, pos] = v1[:, :, 0].to(cache["v"].dtype)
+        if isinstance(cache_len, torch.Tensor):
+            pos = cache_len.reshape(B).long()
+            q, k1, v1 = _qkv(p, x, cfg, pos[:, None, None])
+            # (row b, every head, position pos[b]) <- (B, Hkv, hd)
+            b_idx = torch.arange(B, device=x.device)
+            cache["k"][b_idx, :, pos] = k1[:, :, 0].to(cache["k"].dtype)
+            cache["v"][b_idx, :, pos] = v1[:, :, 0].to(cache["v"].dtype)
+        else:
+            pos = cache_len
+            q, k1, v1 = _qkv(p, x, cfg,
+                             torch.full((1,), pos, device=x.device))
+            cache["k"][:, :, pos] = k1[:, :, 0].to(cache["k"].dtype)
+            cache["v"][:, :, pos] = v1[:, :, 0].to(cache["v"].dtype)
         out = fops.decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
                                     window=window)
         new_cache = cache

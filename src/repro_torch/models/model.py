@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -133,7 +134,7 @@ def _take(tree, i: int):
 
 
 def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-           moe_fn: Callable, cache=None, pos: Optional[int] = None,
+           moe_fn: Callable, cache=None, pos=None,
            collect_kv: int = 0, impl: str = "chunked",
            attn_mask: Optional[AttnMaskSpec] = None,
            route_ahead: bool = False):
@@ -141,8 +142,9 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     reach its prefill attention.  ``route_ahead``: an attn+moe block runs
     MoE route phase 1 (``moe.route_phase1``) right after ``ln2``, with its
     attention half, and hands ``moe_fn`` the ``moe.Phase1`` as ``phase1``.
-    Returns (x, new_cache); decode (``cache`` given) writes the new cache
-    entries into ``cache`` in place."""
+    Decode's ``pos`` is an int or a ``(B,)`` int tensor of per-row
+    positions on ``x``'s device.  Returns (x, new_cache); decode (``cache``
+    given) writes the new cache entries into ``cache`` in place."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache=cache, collect=bool(collect_kv))
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -279,18 +281,32 @@ def _decode_dtypes(cfg: ArchConfig, cache) -> None:
                 slot[key] = slot[key].to(dtype)
 
 
-def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos: int,
+def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos,
                         tokens_1: torch.Tensor, *,
                         moe_fn: Optional[Callable] = None,
                         route_ahead: bool = False
                         ) -> Tuple[torch.Tensor, Params]:
-    """One-token decode at position ``pos`` (a Python int, the fill of every
-    row), layer by layer, with ``moe_fn`` threaded to every attn+moe block
-    as in :func:`prefill_layered` (``route_ahead`` too: phase 1 at the
-    decode capacity, 1).  ``pos`` is checked against the cache capacity
-    first.  Updates ``cache`` in place; returns (logits (B, 1, V) f32,
-    cache)."""
-    check_cache_fits(cache, pos, who="decode_step_layered")
+    """One-token decode at position ``pos``, layer by layer, with ``moe_fn``
+    threaded to every attn+moe block as in :func:`prefill_layered`
+    (``route_ahead`` too: phase 1 at the decode capacity, 1).  ``pos`` is a
+    Python int, the fill of every row, or an int ``(B,)`` numpy vector of
+    per-row fills (continuous batching: each row's RoPE, cache write,
+    attention length and MoE keep test at its own position; at equal
+    positions the values are those of the int).  The host keeps the vector
+    (its largest entry is checked against the cache capacity first); the
+    device gets one copy of it a step, uploaded without blocking the host
+    (``moe._upload``) and shared by every layer.  Updates ``cache`` in
+    place; returns (logits (B, 1, V) f32, cache)."""
+    if isinstance(pos, (int, np.integer)):
+        pos = last = int(pos)
+    else:
+        host = np.asarray(pos).reshape(-1)
+        if host.shape != (tokens_1.shape[0],):
+            raise ValueError(f"decode_step_layered: pos has shape "
+                             f"{host.shape}, the batch is {tokens_1.shape[0]}")
+        last = int(host.max())
+        pos = moe._upload(host.astype(np.int64), tokens_1.device)
+    check_cache_fits(cache, last, who="decode_step_layered")
     _decode_dtypes(cfg, cache)
     moe_fn = moe_fn or moe.apply_moe
     x = _embed(params, tokens_1, cfg)

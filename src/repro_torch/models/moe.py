@@ -93,11 +93,16 @@ def prefix_capacity(t: torch.Tensor, n_experts: int,
                       ).to(torch.int32)
 
 
-def dispatch_capacity(S: int, cfg: ArchConfig, pos0: int = 0) -> int:
+def dispatch_capacity(S: int, cfg: ArchConfig, pos0=0) -> int:
     """Static capacity of the dispatch buffer for an S-token call starting at
     absolute position ``pos0``: kept tokens satisfy ``within < S`` and
     ``slot < C(pos0 + S - 1)``; same f32 arithmetic as
-    :func:`prefix_capacity`, so the bound is never under the keep test."""
+    :func:`prefix_capacity`, so the bound is never under the keep test.  A
+    per-row ``(B,)`` vector ``pos0`` (continuous batching) takes the
+    position-independent S bound, one int for the batch, as the reference
+    does; for a decode step both give 1."""
+    if not isinstance(pos0, (int, np.integer)):
+        return max(1, S)
     cap = int(np.ceil(np.float32(pos0 + S)
                       * np.float32(cfg.capacity_factor / cfg.n_experts)))
     return max(1, min(S, cap))
@@ -105,13 +110,15 @@ def dispatch_capacity(S: int, cfg: ArchConfig, pos0: int = 0) -> int:
 
 def route_tokens(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig, *,
                  counts: Optional[torch.Tensor] = None,
-                 pos0: int = 0) -> Routing:
+                 pos0=0) -> Routing:
     """Top-1 routing with prefix-stable slot assignment.
 
     x: (B, S, d); ``counts``: (B, E) int32 occupancy from previous calls on
     the same rows (None = fresh sequence); ``pos0``: absolute position of
-    x[:, 0], shared by the batch.  Ties go to the lowest expert index, as
-    ``jax.lax.top_k`` does (``argmax`` returns the first maximum)."""
+    x[:, 0], an int shared by the batch or a ``(B,)`` int tensor of per-row
+    positions (continuous batching), when the keep test runs per row.  Ties
+    go to the lowest expert index, as ``jax.lax.top_k`` does (``argmax``
+    returns the first maximum)."""
     B, S, _ = x.shape
     E = cfg.n_experts
     logits = x.float() @ router.float()                           # (B, S, E)
@@ -127,9 +134,13 @@ def route_tokens(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig, *,
               * onehot).sum(-1, dtype=torch.int32)
     base = (counts[:, None, :] * onehot).sum(-1, dtype=torch.int32)
     slot = base + within
-    t_abs = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
+    t_abs = torch.arange(S, dtype=torch.int32, device=x.device)
+    if isinstance(pos0, torch.Tensor):
+        t_abs = pos0.to(torch.int32).reshape(B, 1) + t_abs       # (B, S)
+    else:
+        t_abs = pos0 + t_abs                                      # (S,)
     cap = prefix_capacity(t_abs, E, cfg.capacity_factor)
-    keep = slot < cap[None, :]
+    keep = slot < (cap if cap.dim() == 2 else cap[None, :])
     new_counts = counts + onehot.sum(dim=1, dtype=torch.int32)
     return Routing(gate, expert_id, slot, within, keep, new_counts, logits)
 
@@ -272,11 +283,12 @@ def _backend(cfg: ArchConfig, dispatch: Optional[str]) -> str:
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
-              counts: Optional[torch.Tensor] = None, pos: Optional[int] = None,
+              counts: Optional[torch.Tensor] = None, pos=None,
               dispatch: Optional[str] = None):
     """x: (B, S, d) -> ((B, S, d), new_counts (B, E) int32), the one-call
     layer: :func:`route_moe` then :func:`execute_moe`.  ``counts``/``pos``
-    thread the routing state for stepwise decode (``pos`` a Python int).
+    thread the routing state for stepwise decode (``pos`` a Python int, or
+    per-row positions, see :func:`route_moe`).
     ``dispatch``: "gather" | "bcsr" (default: the config's
     ``moe_dispatch``).  The bcsr stream is bucketed; its pad entries are
     zero blocks, so the result is the unbucketed stream's."""
@@ -287,9 +299,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
 # ------------------------------------------------- two-phase serving API --
 
 def route_phase1(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig,
-                 counts: Optional[torch.Tensor], pos0: int, capacity: int):
+                 counts: Optional[torch.Tensor], pos0, capacity: int):
     """The device half of phase 1: router matmul, top-1 and the
-    prefix-stable slot cumsums, returning only the small per-token routing
+    prefix-stable slot cumsums (``pos0`` an int or a ``(B,)`` int tensor of
+    per-row positions), returning only the small per-token routing
     tensors ``(gate, keep, new_counts, flat_slot)`` -- never the hidden
     state.  ``flat_slot`` encodes a kept token's dispatch row
     ``expert * capacity + within`` and a dropped one as ``E * capacity``.
@@ -324,15 +337,20 @@ class MoEPlan:
 
 
 def route_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
-              counts: Optional[torch.Tensor] = None, pos: Optional[int] = None,
+              counts: Optional[torch.Tensor] = None, pos=None,
               dispatch: Optional[str] = None) -> Tuple[MoEPlan, dict]:
     """Phase 1: route a concrete ``x`` and, for "bcsr", build the routed
-    dispatch stream (union nonzero-block pattern, bucketed).  Returns
+    dispatch stream (union nonzero-block pattern, bucketed).  ``pos`` is
+    the absolute position of x[:, 0]: None (0), an int, or a ``(B,)`` int
+    tensor of per-row positions on ``x``'s device (the dispatch capacity
+    then takes the position-independent S bound).  Returns
     ``(plan, info)``; ``info`` holds the stream accounting (``nnzb_routed``,
     ``nnzb_covered``, ``nnzb_stream``, ``grid_nnzb``, ``bucket``) and the
     host timing split (``wait_s`` fetching the slots, ``host_s`` building)."""
     backend = _backend(cfg, dispatch)
-    pos0 = 0 if pos is None else int(pos)
+    pos0 = 0 if pos is None else pos
+    if not isinstance(pos0, torch.Tensor):
+        pos0 = int(pos0)
     C = dispatch_capacity(x.shape[1], cfg, pos0=pos0)
     ph1 = route_phase1(p["router"], x, cfg, counts, pos0, C)
     return plan_from_phase1(Phase1(*ph1, C), cfg, dispatch=backend,

@@ -174,10 +174,8 @@ def test_apply_attention_refuses_unported_paths():
     x = torch.from_numpy(_x((1, 4, 32)))
     with pytest.raises(NotImplementedError):
         L.apply_attention(p, x, cfg, impl="kernel_sharded")
-    c = {f: torch.zeros(1, 2, 8, 16) for f in ("k", "v")}
-    with pytest.raises(NotImplementedError):
-        L.apply_attention(p, x[:, :1], cfg, cache=c,
-                          cache_len=torch.tensor([3]))
+    with pytest.raises(NotImplementedError):    # ring-buffer caches
+        L.apply_attention(p, x, cfg, window=2, collect_kv=8)
 
 
 @pytest.mark.parametrize("mlp_type", ["swiglu", "squared_relu"])

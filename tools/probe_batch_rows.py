@@ -1,0 +1,187 @@
+"""Which op makes a request's row depend on the batch it is decoded in?
+
+``ServeScheduler`` decodes a request inside a batch bucket of 1-8 rows;
+the same request served alone through ``ServeLoop`` is decoded at B = 1.
+Per-row independence makes the two the same function, but a library
+product may pick another kernel, and so another summation order, for
+another number of rows.  This script looks for that on the card (or on
+the CPU with ``--device cpu``):
+
+* ops: row 0 of each decode-step product of llama4-scout at full width
+  (bf16: the q / k / v / o projections, the shared expert, the expert
+  ``bmm`` at capacity 1, the router and the unembedding) and of
+  ``decode_attention`` over a ``max_seq`` 544 cache, computed with the
+  batch at M rows against M = 1 -- ``torch.equal`` or the largest
+  difference;
+* layers: one decode step of a request prefilled alone, at B = 1 and as
+  row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
+  scheduler leaves them), comparing row 0's hidden state after every
+  layer and its logits, with the top-2 gap of the logits at B = 1.
+
+Run from the repository root:
+
+    python3 tools/probe_batch_rows.py [--depth 2] [--device cuda]
+
+It prints one JSON object as its last line and writes the same to
+``chiprun_out/batch_rows.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROWS = (1, 2, 4, 8)
+MAX_SEQ, PROMPT = 544, 300
+
+
+def _diff(got, want) -> float:
+    """0.0 when bitwise equal, else the largest |difference| (at least
+    the smallest positive float, so equal and different never mix)."""
+    import torch
+    if torch.equal(got, want):
+        return 0.0
+    return max((got.float() - want.float()).abs().max().item(), 1e-45)
+
+
+def probe_ops(cfg, params, device) -> dict:
+    """Row 0 of each product at M rows against at 1 row."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    g = torch.Generator(device=device).manual_seed(7)
+    d, hd = cfg.d_model, cfg.hd
+    layer = {k: v[0] if isinstance(v, torch.Tensor) else v
+             for k, v in params["blocks"][0]["attn"].items()}
+    ffn = params["blocks"][0]["ffn"]
+    mats = {"wq": layer["wq"], "wk": layer["wk"], "wv": layer["wv"],
+            "wo": layer["wo"], "shared.w_gate": ffn["shared"]["w_gate"][0],
+            "shared.w_down": ffn["shared"]["w_down"][0],
+            "unembed": params["unembed"]}
+    out = {}
+    for name, w in mats.items():
+        x = torch.randn((max(ROWS), 1, w.shape[0]), generator=g,
+                        device=device).to(w.dtype)
+        one = (x[:1] @ w)[0]
+        out[name] = {m: _diff((x[:m] @ w)[0], one) for m in ROWS[1:]}
+    x = torch.randn((max(ROWS), 1, d), generator=g, device=device)
+    one = (x[:1].float() @ ffn["router"][0].float())[0]
+    out["router (f32)"] = {m: _diff((x[:m].float()
+                                     @ ffn["router"][0].float())[0], one)
+                           for m in ROWS[1:]}
+    experts = ffn["experts"]["w_gate"][0]                      # (E, d, ff)
+    xe = torch.randn((experts.shape[0], max(ROWS), d), generator=g,
+                     device=device).to(experts.dtype)
+    one = torch.bmm(xe[:, :1], experts)[:, 0]
+    out["experts bmm"] = {m: _diff(torch.bmm(xe[:, :m], experts)[:, 0], one)
+                          for m in ROWS[1:]}
+    q = torch.randn((max(ROWS), cfg.n_heads, 1, hd), generator=g,
+                    device=device).to(torch.bfloat16)
+    kv = [torch.randn((max(ROWS), cfg.n_kv_heads, MAX_SEQ, hd), generator=g,
+                      device=device).to(torch.bfloat16) for _ in range(2)]
+    lens = torch.full((max(ROWS),), PROMPT, device=device)
+    one = fops.decode_attention(q[:1], kv[0][:1], kv[1][:1],
+                                kv_len=lens[:1])[0]
+    out["decode_attention"] = {
+        m: _diff(fops.decode_attention(q[:m], kv[0][:m], kv[1][:m],
+                                       kv_len=lens[:m])[0], one)
+        for m in ROWS[1:]}
+    return out
+
+
+def probe_layers(cfg, params, device) -> dict:
+    """One decode step of a request alone and as row 0 of a bucket."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import _copy_row
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    moe_fn = lambda p, h, c, counts=None, pos=None: moe.apply_moe(  # noqa
+        p, h, c, counts=counts, pos=pos, dispatch="bcsr")
+    g = torch.Generator(device=device).manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=g,
+                           device=device)
+    logits, cache1, pos = M.prefill_layered(params, prompt, cfg,
+                                            max_seq=MAX_SEQ, moe_fn=moe_fn)
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    block = M._block
+    out = {}
+    for rows in ROWS:
+        seen = []
+
+        def record(*a, **kw):
+            x, c = block(*a, **kw)
+            seen.append(x[0].clone())
+            return x, c
+
+        cache = M.init_cache(cfg, rows, MAX_SEQ, device=device)
+        _copy_row(cache["slots"], cache1["slots"], 0)
+        toks = torch.zeros((rows, 1), dtype=torch.long, device=device)
+        toks[0] = tok[0]
+        p = np.zeros(rows, np.int64)
+        p[0] = pos
+        M._block = record
+        try:
+            lg, _ = M.decode_step_layered(params, cfg, cache, p, toks,
+                                          moe_fn=moe_fn)
+        finally:
+            M._block = block
+        out[rows] = (seen, lg[0, -1, :cfg.vocab_size].float())
+    one_seen, one_lg = out[1]
+    top = one_lg.topk(2).values
+    res = {"top2_gap_alone": (top[0] - top[1]).item(), "buckets": {}}
+    for rows in ROWS[1:]:
+        seen, lg = out[rows]
+        layers = [_diff(a, b) for a, b in zip(seen, one_seen)]
+        res["buckets"][rows] = {
+            "first_layer_differing": next(
+                (i for i, e in enumerate(layers) if e), None),
+            "layer_max_abs_diff": layers, "logits": _diff(lg, one_lg),
+            "argmax_equal": bool(lg.argmax() == one_lg.argmax())}
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--depth", type=int, default=2)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import repro_torch  # noqa: F401  (sets the numerics flags)
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    device = resolve_device(args.device)
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              n_repeats=args.depth)
+    params = M.init_params(cfg, seed=0, device=device)
+    card = (torch.cuda.get_device_name(0) if device.type == "cuda"
+            else "cpu")
+    result = {"device": card, "torch": torch.__version__,
+              "depth": args.depth, "ops": probe_ops(cfg, params, device),
+              "layers": probe_layers(cfg, params, device)}
+    for name, row in result["ops"].items():
+        print(f"{name}: row 0 at M rows vs 1 row: " + ", ".join(
+            f"M={m} {'equal' if e == 0 else f'{e:.3g}'}"
+            for m, e in row.items()))
+    lay = result["layers"]
+    print(f"decode step, top-2 logit gap alone {lay['top2_gap_alone']:.4g}")
+    for rows, r in lay["buckets"].items():
+        print(f"  bucket {rows}: first layer differing "
+              f"{r['first_layer_differing']}, logits "
+              f"{'equal' if r['logits'] == 0 else r['logits']}, argmax "
+              f"{'equal' if r['argmax_equal'] else 'differs'}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    line = json.dumps(result)
+    with open(os.path.join(ROOT, "chiprun_out", "batch_rows.json"),
+              "w") as f:
+        f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
