@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout
-   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7: five sources), one ``nvcc`` each,
+   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7, and the decode kernels D1 and
+   R1: seven sources), one ``nvcc`` each,
    all started together, with build seconds and register counts (the flash
    kernels' by name, with their shared memory), and the count of
    tensor-core instructions in the flash library's SASS;
@@ -23,7 +24,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    reference's mask pattern zoo, bucketed and unbucketed streams, a window,
    a nonzero q_offset, ragged S through ``ops.attention``, causal or not),
    with the laws K4s == K4m, bucketed == unbucketed and K4s on a plain
-   causal / window mask == K3 as ``torch.equal``; then, as
+   causal / window mask == K3 as ``torch.equal``; D1 (one-token decode
+   attention; q and cache bf16 or f32, D 16 / 64 / 128, GQA 40/8 and 4/2,
+   per-row ``kv_len`` from 1 to the cache's 544, windows, vacant rows) and
+   R1 (the router logits, d 5120 x 16 experts, x and W bf16 or f32)
+   against their plain versions, and as ``torch.equal`` their laws: row i
+   of B in {1, 2, 3, 4, 8, 16} rows (and R1 at 1,024) == the row alone,
+   D1 in a 2,064-position cache == in the 544 one, a scalar ``kv_len`` ==
+   a vector of equal values, each kernel == its order emulated in PyTorch;
+   float16 and other head dims refused; then, as
    ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
    tiles; K6b's march on interiors no multiple of its tile or run, rows
    at every 4-byte offset, tz below its ring, and two 3-D specs of no
@@ -52,7 +61,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    0/1 dispatch streams (the first MoE layer's prefill, the last decode
    step) must give kernel == plain exactly, the prefill stream at two
    ``bn`` too; the same weights with ``dispatch="gather"`` must give the
-   same tokens; then ``ServeLoop(pipeline_depth=1)`` (route phase 1 with
+   same tokens; D1 once an attention layer a decode step and R1 once a
+   MoE layer a pass in every run, their plain versions never called on the
+   card; then ``ServeLoop(pipeline_depth=1)`` (route phase 1 with
    the attention half, executes in flight behind the next host route, no
    per-step sync) serves the same prompts in the order depth 0 (the run
    above), 1, 1, 0 -- the greedy runs of each depth, tokens equal, K2
@@ -73,9 +84,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    step's bucket ``batch_bucket(highest occupied slot + 1)`` and in {1, 2,
    4, 8}; the EOS request ends at its EOS and every other request gets its
    budget; one extra depth-1 scheduler step makes at most ``n_moe + 1``
-   host syncs; then, as information, each request served alone through
-   ``ServeLoop`` (B = 1): how many give the scheduler's tokens, and where
-   and by what logit gap the others part;
+   host syncs; D1 and R1 counted as in phase 5; then each request served
+   alone through ``ServeLoop`` (B = 1) must give the tokens the bcsr runs
+   gave it at depth 0 and at depth 1, all 16 (where one parts, the step
+   and the logit gap are printed before the check fails);
 7. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
@@ -85,7 +97,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    same tokens, launches and no fallback, and its prefill's route, fetch
    wait and hidden route ms;
 8. kernel prefill on the same prompts (``prefill_layered(impl="kernel")``,
-   K3), its first tokens against ``impl="chunked"`` and ``impl="ref"``
+   K3) and the default chunked prefill (bf16 operands), each timed, their
+   first tokens against each other and against ``impl="ref"``
    (information), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q,
    k, v;
    then the llama4 weights are released;
@@ -105,7 +118,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
 11. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound; K2, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; K2 on each captured
+   bound; K2, D1, R1, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; D1 and R1 on
+   the calls the serving runs made (decode steps at 4 x 256, the
+   scheduler's top bucket, 4 x 2048; R1's prefills), SDPA and
+   ``torch.matmul`` beside them; K2 on each captured
    stream with its row statistics, == plain; K5 with its bucketing and
    product passes timed apart; K2q with its share of the f32 peak) and
    one with the serving and
@@ -114,7 +130,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    run, the RWKV-6 depth-1 run, the host syncs; its ``serve.scheduler``
    object: each scheduler run's decode tok/s, token and first-token
    latency p50 / p99, steps, wall, buckets and ``timing`` split, the syncs
-   of a depth-1 step and the alone comparison); the SM clock and its
+   of a depth-1 step and the alone comparison; the chunked 4 x 2048
+   prefill ms); the SM clock and its
    limit are printed before and after the kernel timings;
 12. last line: {"ok": true, "device": {...}}.
 
@@ -128,6 +145,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -191,6 +209,7 @@ def _counted():
     """Every kernel of the port, by name: its wrapper and the attribute in
     which the wrapper counts its launches (K2 and K2q share a wrapper)."""
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.router import kernel as rk
     from repro_torch.kernels.spmm import kernel as sk
     from repro_torch.kernels.spmspm import kernel as pk
     from repro_torch.kernels.stencil import kernel as tk
@@ -200,6 +219,8 @@ def _counted():
             "flash_attention": (fk.flash_attention, "launches"),
             "flash_attention_masked": (fk.flash_attention_masked, "launches"),
             "flash_attention_sparse": (fk.flash_attention_sparse, "launches"),
+            "decode_attention": (fk.decode_attention, "launches"),
+            "router_logits": (rk.router_logits, "launches"),
             "spmspm_ell": (pk.spmspm_ell, "launches"),
             "stencil_2d": (tk.stencil_2d, "launches"),
             "stencil_3d": (tk.stencil_3d, "launches"),
@@ -220,6 +241,71 @@ def only(**launches) -> dict:
     """The launch counts of a run that launched these kernels and no
     other."""
     return {name: launches.get(name, 0) for name in _counted()}
+
+
+class no_plain:
+    """While on, the plain decode attention and the plain router raise if
+    they are called on a CUDA tensor: the card's main path must launch the
+    kernels D1 and R1 (their wrappers take the plain versions for CPU
+    tensors only)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref as fref
+        from repro_torch.kernels.router import kernel as rk
+        self.saved = [(fref, "decode_attention_ref"),
+                      (rk, "router_logits_ref")]
+        self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
+        for mod, attr, fn in self.saved:
+            def guarded(x, *a, _fn=fn, _name=attr, **kw):
+                check(x.device.type == "cpu",
+                      f"{_name} ran on the card's main path")
+                return _fn(x, *a, **kw)
+            setattr(mod, attr, guarded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        return False
+
+
+class hook_calls:
+    """While on, every call of D1 (through ``flash_attention.ops``) and of
+    R1 (through ``models.moe``) first goes to ``keep(name, args, kwargs)``,
+    ``name`` "decode_attention" or "router_logits"; the kernels' launch
+    counts are untouched."""
+
+    def __init__(self, keep):
+        self.keep = keep
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.models import moe
+        self.saved = [(fops, "decode_attention", fops.decode_attention),
+                      (moe, "router_logits", moe.router_logits)]
+        for mod, name, fn in self.saved:
+            def hooked(*a, _fn=fn, _name=name, **kw):
+                self.keep(_name, a, kw)
+                return _fn(*a, **kw)
+            setattr(mod, name, hooked)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def decode_counts(cfg, prefills: int, decode_steps: int, **others) -> dict:
+    """The launch counts of a serving run of llama4-scout that made
+    ``prefills`` prefills and ``decode_steps`` decode steps: D1 once an
+    attention layer a decode step, R1 once a MoE layer a pass, and
+    ``others``."""
+    n_attn = sum(k in ("attn", "attn+moe") for k in cfg.block_unit) \
+        * cfg.n_repeats
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    return only(decode_attention=n_attn * decode_steps,
+                router_logits=n_moe * (prefills + decode_steps), **others)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -643,6 +729,152 @@ def phase_attention_vs_plain():
           f"attention fell back to the oracle: {ops.fallback_reasons()}")
 
 
+# D1 vs plain: (Hq, Hkv, D, q dtype, cache dtype, window) -- scout's 40/8 at
+# D 128, the flash phase's 4/2 at D 64 and 16, each dtype pairing, windows
+DECODE_CASES = (
+    (40, 8, 128, "bfloat16", "bfloat16", None),
+    (40, 8, 128, "bfloat16", "bfloat16", 300),
+    (40, 8, 128, "bfloat16", "float32", None),
+    (40, 8, 128, "float32", "float32", 64),
+    (4, 2, 64, "bfloat16", "bfloat16", 7),
+    (4, 2, 64, "float32", "bfloat16", None),
+    (4, 2, 16, "float32", "float32", None),
+    (4, 2, 16, "bfloat16", "bfloat16", 5),
+)
+DECODE_ROWS, DECODE_CAP, DECODE_CAP_BIG = 16, 544, 2064
+BATCH_LAW = (1, 2, 3, 4, 8, 16)
+
+
+def decode_tolerance(big: float, q_dtype, cache_dtype) -> float:
+    """D1 vs plain: one ulp at the largest |value| of the narrowest dtype
+    the function rounds to (q's, or the cache's, to which p is cast: a
+    score summed in another order can round a p to the neighbouring
+    value); f32 throughout: 1e-5 of the largest |value|."""
+    import torch
+    narrow = [t for t in (q_dtype, cache_dtype) if t != torch.float32]
+    return tolerance(big, narrow[0] if narrow else torch.float32)
+
+
+def _rows_alone_equal(fn, rows_fn, sizes=BATCH_LAW) -> bool:
+    """Row i of ``fn(*rows_fn(0, B))`` is ``torch.equal`` to ``fn`` of row
+    i alone, for every B of ``sizes`` and every i < B."""
+    import torch
+    alone = [fn(*rows_fn(i, i + 1)) for i in range(max(sizes))]
+    return all(torch.equal(fn(*rows_fn(0, B))[i:i + 1], alone[i])
+               for B in sizes for i in range(B))
+
+
+def phase_decode_vs_plain():
+    """D1 (``decode_attention``) and R1 (``router_logits``) against their
+    plain versions on the card, and their laws as ``torch.equal``.  D1 on
+    :data:`DECODE_CASES`, 16 rows of a 544-position cache, per-row
+    ``kv_len`` including 1, 2 and 544, and two vacant rows (zero K / V at
+    ``kv_len`` 1, as the scheduler leaves them), within
+    :func:`decode_tolerance`; the laws: row i of B in BATCH_LAW rows ==
+    the row alone, the same rows in a 2064-position cache == in the 544
+    one, a scalar ``kv_len`` == a vector of equal values, and the kernel ==
+    its order emulated in PyTorch (``ref.decode_attention_ordered`` on the
+    card, whose rows the CPU tests hold to the same laws).  R1 on scout's
+    router shape (d 5120, E 16;
+    x bf16 and f32, W f32 and bf16) within 1e-5 of the largest |logit|
+    (the kernel sums in another order than the library); the laws: row i of
+    B rows == alone for B in BATCH_LAW and 1024 (a 4 x 256 prefill: the
+    other expert chunking), and the kernel == its emulated order
+    (``router.ref.router_logits_ordered``).  A CUDA tensor of a dtype or
+    head dim the kernel lacks raises."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.router import kernel as rk
+    from repro_torch.kernels.router import ref as rref
+    rng = np.random.default_rng(11)
+
+    def rand(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+
+    B, S = DECODE_ROWS, DECODE_CAP
+    lens = rng.integers(1, S + 1, B)
+    lens[:5] = (1, S, 2, S - 1, 1)
+    kv = torch.from_numpy(lens).cuda()
+    for Hq, Hkv, D, qn, cn, window in DECODE_CASES:
+        qdt, cdt = getattr(torch, qn), getattr(torch, cn)
+        q = rand((B, Hq, 1, D), qdt)
+        k, v = rand((B, Hkv, S, D), cdt), rand((B, Hkv, S, D), cdt)
+        k[4].zero_()                                 # vacant rows
+        v[4].zero_()
+        kw = dict(kv_len=kv, window=window)
+        got = fk.decode_attention(q, k, v, **kw)
+        want = ref.decode_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        big = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = decode_tolerance(big, qdt, cdt)
+        what = f"D1 {Hq}/{Hkv} D {D} q {qn} cache {cn} window {window}"
+        check(err <= tol, f"{what}: kernel disagrees with plain: {err} > "
+                          f"{tol}")
+        check(torch.equal(fk.decode_attention(q, k, v, **kw), got),
+              f"{what}: two launches differ")
+        check(_rows_alone_equal(
+            lambda *t: fk.decode_attention(*t[:3], kv_len=t[3],
+                                           window=window),
+            lambda a, b: (q[a:b], k[a:b], v[a:b], kv[a:b])),
+            f"{what}: a row depends on its batch")
+        big_k = torch.zeros((B, Hkv, DECODE_CAP_BIG, D), dtype=cdt,
+                            device="cuda")
+        big_v = torch.zeros_like(big_k)
+        big_k[:, :, :S], big_v[:, :, :S] = k, v
+        check(torch.equal(fk.decode_attention(q, big_k, big_v, **kw), got),
+              f"{what}: the result depends on the cache's capacity")
+        n = int(lens[5])
+        check(torch.equal(
+            fk.decode_attention(q, k, v, kv_len=n, window=window),
+            fk.decode_attention(q, k, v, kv_len=torch.full(
+                (B,), n, device="cuda"), window=window)),
+            f"{what}: scalar kv_len != a vector of equal values")
+        check(torch.equal(ref.decode_attention_ordered(q, k, v, **kw), got),
+              f"{what}: kernel != its emulated order")
+        print(f"  {what}: max_abs_err {err:.3g} (tol {tol:.3g}); == its "
+              f"emulated order; rows of B {BATCH_LAW} == alone, cache {S} == "
+              f"{DECODE_CAP_BIG}, scalar == vector kv_len")
+    for bad, why in (((torch.float16, torch.float16, 128), "float16"),
+                     ((torch.bfloat16, torch.bfloat16, 32), "head dim 32"),
+                     ((torch.bfloat16, torch.bfloat16, 256), "head dim 256")):
+        qdt, cdt, D = bad
+        try:
+            fk.decode_attention(rand((2, 4, 1, D), qdt),
+                                rand((2, 2, 8, D), cdt),
+                                rand((2, 2, 8, D), cdt), kv_len=3)
+        except (TypeError, ValueError):
+            continue
+        check(False, f"D1 took {why}")
+    print("  D1 refuses float16 and head dims 32, 256")
+
+    d, E = 5120, 16
+    for xn, wn in (("bfloat16", "float32"), ("float32", "float32"),
+                   ("bfloat16", "bfloat16")):
+        x = rand((1024, d), getattr(torch, xn))
+        w = rand((d, E), getattr(torch, wn)) * d ** -0.5
+        got = rk.router_logits(x, w)
+        want = rref.router_logits_ref(x, w)
+        err = max_err(got, want, f"R1 x {xn} W {wn}")
+        check(torch.equal(got, rref.router_logits_ordered(x, w)),
+              f"R1 x {xn} W {wn}: kernel != its emulated order")
+        check(_rows_alone_equal(rk.router_logits, lambda a, b: (x[a:b], w),
+                                BATCH_LAW + (1024,)),
+              f"R1 x {xn} W {wn}: a row depends on its batch")
+        print(f"  R1 x {xn} W {wn} (1024 x {d} x {E}): max_abs_err "
+              f"{err:.3g}; == its emulated order; rows of B {BATCH_LAW} "
+              "and 1024 == alone")
+    try:
+        rk.router_logits(rand((4, 64), torch.float16), rand((64, 4),
+                                                            torch.float32))
+        check(False, "R1 took float16")
+    except TypeError:
+        print("  R1 refuses float16")
+
+
 def _bcsr_moe():
     """The two-phase MoE stage (route, then execute through K2) as the
     ``moe_fn`` of the model's layered prefill."""
@@ -685,6 +917,8 @@ def phase_small_config_card_vs_cpu():
               f"card and cpu disagree on the smoke config ({label}): {err}")
         check(kernel is None or launches[kernel] == cfg.n_repeats,
               f"{label}: {kernel} ran {launches} times, not once a layer")
+        check(launches["router_logits"] == cfg.n_repeats,
+              f"{label}: R1 ran {launches} times, not once a MoE layer")
 
 
 def _tree_to(tree, device):
@@ -729,10 +963,21 @@ def phase_slice():
         captured.append((a, dense, kw))
         return stream_entry(a, dense, **kw)
 
+    decode_calls = {}
+
+    def keep(name, args, kw):   # R1's first call (prefill), the last ones
+        if name == "decode_attention":
+            decode_calls["d1_decode"] = (args, kw)
+        elif "r1_prefill" not in decode_calls:
+            decode_calls["r1_prefill"] = (args, kw)
+        else:
+            decode_calls["r1_decode"] = (args, kw)
+
     engine.spmm_batched_stream = capture
     reset_launches()
     try:
-        tokens = loop.run(prompts, GEN)       # the main path
+        with hook_calls(keep), no_plain():
+            tokens = loop.run(prompts, GEN)   # the main path
     finally:
         engine.spmm_batched_stream = stream_entry
     counts = read_launches()
@@ -746,8 +991,9 @@ def phase_slice():
           and (tokens < cfg.vocab_size).all(), "bad token ids")
     check(launches == n_moe * GEN == summary["execute"]["calls"],
           f"K2 launches {launches} != {n_moe} layers x {GEN} passes")
-    check(sum(counts.values()) == launches,
-          f"unmasked chunked serving launched a flash kernel: {counts}")
+    want = decode_counts(cfg, 1, GEN - 1, spmm_bcsr=launches)
+    check(counts == want, f"launches {counts} != {want} (a flash kernel in "
+                          "unmasked chunked serving, or D1 / R1 missed)")
     pipelined = phase_pipelined(cfg, params, prompts, loop, tokens, summary)
 
     # the same prompts' prefill logits are finite and pick the first token
@@ -758,13 +1004,15 @@ def phase_slice():
     first = logits[:, -1, :cfg.vocab_size].argmax(-1).cpu().numpy()
     check(np.array_equal(first, tokens[:, 0]), "prefill argmax != token 0")
 
-    before = read_launches()
     gather = ServeLoop(params, cfg, max_seq=max_seq, dispatch="gather")
-    g_tokens = gather.run(prompts, GEN)
-    check(read_launches() == before, "gather launched a kernel")
+    reset_launches()
+    with no_plain():
+        g_tokens = gather.run(prompts, GEN)
+    check(read_launches() == decode_counts(cfg, 1, GEN - 1),
+          f"gather launched {read_launches()}: K2, or not D1 / R1")
     check(np.array_equal(g_tokens, tokens), "bcsr tokens != gather tokens")
-    print("  gather run: tokens equal to bcsr")
-    return cfg, params, summary, launches, captured, pipelined
+    print("  gather run: tokens equal to bcsr; D1 and R1, no K2")
+    return cfg, params, summary, counts, captured, pipelined, decode_calls
 
 
 def phase_pipelined(cfg, params, prompts, loop, tokens, summary):
@@ -791,11 +1039,13 @@ def phase_pipelined(cfg, params, prompts, loop, tokens, summary):
     for depth in (1, 1, 0):
         lp = loop1 if depth else loop
         reset_launches()
-        got = lp.run(prompts, GEN)            # the main path at this depth
+        with no_plain():
+            got = lp.run(prompts, GEN)        # the main path at this depth
         counts = read_launches()
         check(np.array_equal(got, tokens),
               f"depth {depth}: tokens != the first depth-0 run's")
-        check(counts == only(spmm_bcsr=n_moe * GEN),
+        check(counts == decode_counts(cfg, 1, GEN - 1,
+                                      spmm_bcsr=n_moe * GEN),
               f"depth {depth}: launches {counts}")
         runs.append(serve_numbers(depth, lp.summary()))
         print_serve(f"depth {depth}", runs[-1])
@@ -900,18 +1150,20 @@ def phase_scheduler(cfg, params):
     gather at depth 0, and a temperature-0.7 run at each depth.  Checks:
     depth 1 == depth 0, bcsr == gather, and the two temperature runs equal,
     as tokens per request; K2 ``n_moe x (admissions + decode steps)`` in
-    each bcsr run and never in the gather run; no flash launch and no
-    oracle fallback; each decode step's bucket is
-    ``batch_bucket(highest occupied slot + 1)`` and in {1, 2, 4, 8}; the
-    EOS request ends at its EOS, every other greedy request gets exactly
-    its budget; one extra depth-1 scheduler step makes at most
-    ``n_moe + 1`` host syncs.  Information, not checked: each request
-    served alone through ``ServeLoop`` (B = 1, the same ``max_seq``,
-    greedy), how many of the 16 give the scheduler's tokens, and for each
-    that does not, the first step that differs and the alone run's logit
-    gap there between its token and the scheduler's.  The bcsr depth-0
-    run's first dispatch stream (an admission) and its first stream at the
-    largest decode bucket are kept for the K2 row."""
+    each bcsr run and never in the gather run, D1 once an attention layer
+    a decode step and R1 once a MoE layer a pass in every run, their plain
+    versions never; no flash launch and no oracle fallback; each decode
+    step's bucket is ``batch_bucket(highest occupied slot + 1)`` and in {1,
+    2, 4, 8}; the EOS request ends at its EOS, every other greedy request
+    gets exactly its budget; one extra depth-1 scheduler step makes at most
+    ``n_moe + 1`` host syncs; and every request served alone through
+    ``ServeLoop`` (B = 1, the same ``max_seq``, greedy) gives the tokens
+    the bcsr runs gave it at depth 0 and at depth 1 -- where one does not,
+    the first step that differs and the alone run's logit gap there are
+    printed before the check fails.  The bcsr depth-0 run's first dispatch
+    stream (an admission) and its first stream at the largest decode
+    bucket are kept for the K2 row, its first D1 and R1 decode calls at the
+    largest bucket for theirs."""
     import numpy as np
     import torch
     from repro_torch.kernels import engine
@@ -934,14 +1186,29 @@ def phase_scheduler(cfg, params):
             captured.append((a, dense, kw))
         return stream_entry(a, dense, **kw)
 
-    def serve(eos, stream_hook=None, **kw):
+    decode_calls = {}
+
+    def keep(name, args, kw):   # the first D1 / R1 decode call at the top B
+        x = args[0]                 # q (B, Hq, 1, D) or x (B, S, d)
+        if name == "router_logits" and x.shape[1] != 1:
+            return                                  # an admission's prefill
+        key = "d1_bucket" if name == "decode_attention" else "r1_bucket"
+        if key not in decode_calls \
+                or x.shape[0] > decode_calls[key][0][0].shape[0]:
+            decode_calls[key] = (tuple(a.clone() if isinstance(
+                a, torch.Tensor) else a for a in args), {
+                k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()})
+
+    def serve(eos, stream_hook=None, call_hook=None, **kw):
         sched = ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
                                max_slots=SCHED_SLOTS, **kw)
         ops.reset_fallbacks()
         engine.spmm_batched_stream = stream_hook or stream_entry
         reset_launches()
         try:
-            wall = drive_scheduler(sched, trace, eos)    # the main path
+            with hook_calls(call_hook or (lambda *a: None)), no_plain():
+                wall = drive_scheduler(sched, trace, eos)    # the main path
         finally:
             engine.spmm_batched_stream = stream_entry
         counts = read_launches()
@@ -950,8 +1217,8 @@ def phase_scheduler(cfg, params):
               f"{kw}: finished {sorted(tokens)}")
         decode = [st for st in sched.stats if st.phase == "decode"]
         k2 = n_moe * (len(trace) + len(decode)) if sched.two_phase else 0
-        check(counts == only(spmm_bcsr=k2),
-              f"{kw}: launches {counts}, K2 should be {k2}")
+        want = decode_counts(cfg, len(trace), len(decode), spmm_bcsr=k2)
+        check(counts == want, f"{kw}: launches {counts} != {want}")
         check(ops.fallback_count() == 0 and sched.summary()["timing"][
             "attention_ref_fallbacks"] == 0, f"{kw}: oracle fallbacks")
         for st in decode:
@@ -972,7 +1239,8 @@ def phase_scheduler(cfg, params):
                    if g > 5 and probe[i][4] not in probe[i][:4])
     eos = {eos_req: probe[eos_req][4]}
     runs, toks = [], {}
-    for key, kw in (("bcsr0", dict(dispatch="bcsr", stream_hook=capture)),
+    for key, kw in (("bcsr0", dict(dispatch="bcsr", stream_hook=capture,
+                                   call_hook=keep)),
                     ("bcsr1", dict(dispatch="bcsr", pipeline_depth=1)),
                     ("gather0", dict(dispatch="gather")),
                     ("temp0", dict(dispatch="bcsr",
@@ -1023,24 +1291,30 @@ def phase_scheduler(cfg, params):
             return sample(lg)
 
         loop._sample = keep
-        ref = loop.run(prompt[None], budget)[0].tolist()
-        got = toks["bcsr0"][i]
-        diff = next((t for t, (a, b) in enumerate(zip(got, ref)) if a != b),
-                    None)
-        row = {"request": i, "match": diff is None}
-        if diff is not None:
-            lg = logits[diff]
-            row.update(step=diff, alone=ref[diff], scheduler=got[diff],
-                       logit_gap=float(lg[ref[diff]] - lg[got[diff]]))
+        with no_plain():
+            ref = loop.run(prompt[None], budget)[0].tolist()
+        row = {"request": i, "match": True}
+        for key in ("bcsr0", "bcsr1"):
+            got = toks[key][i]
+            diff = next((t for t, (a, b) in enumerate(zip(got, ref))
+                         if a != b), None)
+            if diff is not None and row["match"]:
+                lg = logits[diff]
+                row.update(match=False, run=key, step=diff, alone=ref[diff],
+                           scheduler=got[diff],
+                           logit_gap=float(lg[ref[diff]] - lg[got[diff]]))
         alone.append(row)
         del loop, logits
     n_match = sum(r["match"] for r in alone)
-    print(f"  information: {n_match} of {len(trace)} requests give the "
-          f"tokens of the request served alone through ServeLoop (B = 1)"
-          + "".join(f"; request {r['request']} differs first at step "
-                    f"{r['step']} ({r['alone']} alone, {r['scheduler']} "
-                    f"scheduled, logit gap {r['logit_gap']:.4g})"
+    print(f"  {n_match} of {len(trace)} requests give, at depth 0 and 1, the"
+          f" tokens of the request served alone through ServeLoop (B = 1)"
+          + "".join(f"; request {r['request']} differs first in {r['run']} "
+                    f"at step {r['step']} ({r['alone']} alone, "
+                    f"{r['scheduler']} scheduled, logit gap "
+                    f"{r['logit_gap']:.4g})"
                     for r in alone if not r["match"]))
+    check(n_match == len(trace), f"{len(trace) - n_match} requests decoded "
+          "in a batch bucket part from the same request alone at B = 1")
     return {"requests": len(trace), "slots": SCHED_SLOTS,
             "max_seq": SCHED_MAX_SEQ, "kv_cache_mb": kv_mb,
             "eos_request": eos_req, "runs": runs,
@@ -1048,7 +1322,7 @@ def phase_scheduler(cfg, params):
                              "temperature_pair": True},
             "step_syncs": syncs, "step_event_waits": waits,
             "attn_moe_layers": n_moe, "alone_matches": n_match,
-            "alone": alone}, captured
+            "alone": alone}, captured, decode_calls
 
 
 def _attn_prompts(cfg):
@@ -1081,10 +1355,12 @@ def phase_masked_serving(cfg, params):
     ATTN_PROMPT tokens through ``ServeLoop(attn_mask=...)``, walking the
     mask's stream (K4s) and over the masked full grid (K4m), in the order
     sparse, dense, dense, sparse; one launch per layer's prefill (decode
-    attention is not masked), K2 at every MoE layer of every pass, identical
-    tokens, no oracle fallback.  Each run records its prefill and the host
-    route / execute time inside it.  The first run's first dispatch stream
-    (layer 0's prefill) is captured for the K2 row.  Then one run of a
+    attention is not masked: D1 once an attention layer a decode step), K2
+    and R1 at every MoE layer of every pass, identical tokens, no oracle
+    fallback.  Each run records its prefill and the host route / execute
+    time inside it.  The first run's first dispatch stream (layer 0's
+    prefill) is captured for the K2 row, its last D1 call (a 2,064-position
+    cache) and first R1 call (8,192 tokens) for theirs.  Then one run of a
     ``pipeline_depth=1`` loop through K4s (after a warm-up): the same
     tokens and launches, no fallback, and its prefill's route ms, fetch
     wait and hidden route ms."""
@@ -1125,13 +1401,23 @@ def phase_masked_serving(cfg, params):
             captured.append((a, dense, kw))
         return stream_entry(a, dense, **kw)
 
+    decode_calls = {}
+
+    def keep(name, args, kw):   # R1's first call (prefill), D1's last
+        if name == "decode_attention":
+            decode_calls["d1_long"] = (args, kw)
+        elif "r1_long_prefill" not in decode_calls:
+            decode_calls["r1_long_prefill"] = (args, kw)
+
     for n, impl in enumerate(("sparse", "dense", "dense", "sparse")):
         loop, kernel = loops[impl], kernels[impl]
         ops.reset_fallbacks()
         engine.spmm_batched_stream = capture if n == 0 else stream_entry
         reset_launches()
         try:
-            tokens = loop.run(prompts, GEN)   # the main path
+            with hook_calls(keep if n == 0 else (lambda *a: None)), \
+                    no_plain():
+                tokens = loop.run(prompts, GEN)   # the main path
         finally:
             engine.spmm_batched_stream = stream_entry
         counts = read_launches()
@@ -1144,7 +1430,8 @@ def phase_masked_serving(cfg, params):
               f"execute {prefill['execute']:.1f}), decode "
               f"{summary['decode']['tok_per_s']:.1f} tok/s; tokens "
               f"{tokens[0, :8].tolist()} ...")
-        want = only(spmm_bcsr=n_moe * GEN, **{kernel: cfg.n_repeats})
+        want = decode_counts(cfg, 1, GEN - 1, spmm_bcsr=n_moe * GEN,
+                             **{kernel: cfg.n_repeats})
         check(counts == want, f"{impl}: launches {counts} != {want}")
         check(ops.fallback_count() == 0
               and summary["timing"]["attention_ref_fallbacks"] == 0,
@@ -1170,9 +1457,11 @@ def phase_masked_serving(cfg, params):
     loop1.run(prompts, 2)                     # warm-up
     ops.reset_fallbacks()
     reset_launches()
-    tokens = loop1.run(prompts, GEN)          # the main path at depth 1
+    with no_plain():
+        tokens = loop1.run(prompts, GEN)      # the main path at depth 1
     counts = read_launches()
-    want = only(spmm_bcsr=n_moe * GEN, flash_attention_sparse=cfg.n_repeats)
+    want = decode_counts(cfg, 1, GEN - 1, spmm_bcsr=n_moe * GEN,
+                         flash_attention_sparse=cfg.n_repeats)
     check(counts == want, f"sparse, depth 1: launches {counts} != {want}")
     check(ops.fallback_count() == 0
           and loop1.summary()["timing"]["attention_ref_fallbacks"] == 0,
@@ -1192,12 +1481,15 @@ def phase_masked_serving(cfg, params):
           f"{depth1['prefill_route_wait_ms']:.1f}, hidden "
           f"{depth1['prefill_route_hidden_ms']:.1f}); launches {counts}; "
           f"tokens == depth 0")
-    return mask, runs, mask_ms, captured[0], depth1
+    return mask, runs, mask_ms, captured[0], depth1, decode_calls
 
 
 def phase_kernel_prefill(cfg, params):
     """Kernel prefill at full width: ``prefill_layered(impl="kernel")`` on
     the 2048-token prompts runs K3 once a layer; the logits are finite.
+    The default ``impl="chunked"`` prefill (bf16 operands, f32 products) on
+    the same prompts is timed too (after a warm-up), with R1 and K2 once a
+    MoE layer and no flash kernel.
     Then layer 0's q, k, v (bf16) give K3 == K4s on ``BlockMask.causal``
     exactly, and are returned for the kernel rows.  The first token's
     agreement with ``impl="chunked"`` and with ``impl="ref"`` (the
@@ -1222,21 +1514,42 @@ def phase_kernel_prefill(cfg, params):
     prefill_ms = (time.monotonic() - t0) * 1e3
     counts = read_launches()
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
-    want = only(spmm_bcsr=n_moe, flash_attention=cfg.n_repeats)
+    want = only(spmm_bcsr=n_moe, flash_attention=cfg.n_repeats,
+                router_logits=n_moe)
     check(counts == want, f"kernel prefill: launches {counts} != {want}")
     check(tuple(logits.shape) == (BATCH, 1, cfg.padded_vocab)
           and bool(torch.isfinite(logits).all()),
           "kernel prefill logits not finite")
+    # the default prefill, chunked attention on bf16 operands: warm-up, then
+    # timed as the kernel prefill is
+    M.prefill_layered(params, prompts, cfg, impl="chunked", **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    with no_plain():
+        chunked, _, _ = M.prefill_layered(params, prompts, cfg,
+                                          impl="chunked", **kw)
+    torch.cuda.synchronize()
+    chunked_ms = (time.monotonic() - t0) * 1e3
+    chunked_counts = read_launches()
+    want = only(spmm_bcsr=n_moe, router_logits=n_moe)
+    check(chunked_counts == want,
+          f"chunked prefill: launches {chunked_counts} != {want}")
+    check(bool(torch.isfinite(chunked).all()),
+          "chunked prefill logits not finite")
     first = logits[:, -1, :cfg.vocab_size].argmax(-1)
     against = {}
     for impl in ("chunked", "ref"):
-        other, _, _ = M.prefill_layered(params, prompts, cfg, impl=impl, **kw)
+        other = chunked if impl == "chunked" else M.prefill_layered(
+            params, prompts, cfg, impl=impl, **kw)[0]
         against[impl] = (
             (first == other[:, -1, :cfg.vocab_size].argmax(-1)).float()
             .mean().item(), (logits - other).abs().max().item())
         del other
-    print(f"kernel prefill: launches {counts}; {prefill_ms:.1f} ms; first "
-          "token agrees with " + ", ".join(
+    del chunked
+    print(f"kernel prefill: launches {counts}; {prefill_ms:.1f} ms; chunked "
+          f"prefill (bf16 operands): {chunked_ms:.1f} ms, launches "
+          f"{chunked_counts}; first token agrees with " + ", ".join(
               f"{impl} on {a:.2f} of the rows (logits differ by up to "
               f"{d:.3g})" for impl, (a, d) in against.items())
           + " (information only)")
@@ -1256,6 +1569,7 @@ def phase_kernel_prefill(cfg, params):
     print(f"  layer 0 q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype}: "
           f"K3 == K4s(causal), tiles {bq}x{bk}")
     return {"launches": counts, "prefill_ms": prefill_ms,
+            "chunked_prefill_ms": chunked_ms,
             "first_token_agreement": against["chunked"][0],
             "logits_max_diff": against["chunked"][1],
             "first_token_agreement_ref": against["ref"][0],
@@ -1439,6 +1753,131 @@ def phase_measure(captured, masked_stream, launches, card, sched_streams,
                 f"{r['dispatch']} depth {r['depth']} T {r['temperature']}":
                 r["k2_launches"] for r in sched_runs},
             "card": card}
+
+
+def _decode_times(call, what: str) -> dict:
+    """D1 on one captured call: error against plain (within
+    :func:`decode_tolerance`), times of the kernel (back to back and from
+    a CUDA graph), the plain version and one
+    ``scaled_dot_product_attention`` call (``enable_gqa``, a boolean mask of
+    each row's visible positions), and the bound: the visible K and V, q,
+    the output and the lengths moved once at 3.35 TB/s, or 4 D flops a
+    (query head, visible position) at the f32 peak, whichever is larger."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    (q, k, v), kw = call
+    B, Hq, _, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    window = kw.get("window")
+    lens = kw["kv_len"]
+    lens = (lens.reshape(-1) if isinstance(lens, torch.Tensor)
+            else torch.full((B,), int(lens), device="cuda")).long()
+    hi = lens.clamp(max=S)
+    lo = (lens - window).clamp(min=0) if window is not None \
+        else torch.zeros_like(lens)
+    pos = torch.arange(S, device="cuda")
+    vis = (pos >= lo[:, None]) & (pos < hi[:, None])          # (B, S)
+    visible = int(vis.sum().item())
+    got = fk.decode_attention(q, k, v, **kw)
+    want = ref.decode_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = decode_tolerance(want.float().abs().max().item(), q.dtype, k.dtype)
+    check(err <= tol, f"D1 on the {what} call: {err} > {tol}")
+    mask = vis[:, None, None, :]
+    run = lambda: fk.decode_attention(q, k, v, **kw)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    ms, plain_ms = time_ms(run, 50), time_ms(
+        lambda: ref.decode_attention_ref(q, k, v, **kw), 20)
+    library_ms = time_ms(lib, 50)
+    graph = {"ms": graph_ms(run), "library_ms": graph_ms(lib)}
+    nbytes = (2 * visible * Hkv * D * k.element_size()
+              + 2 * q.numel() * q.element_size() + 8 * B)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * D * (Hq // Hkv) * Hkv * visible / F32_FLOP_PER_S * 1e3
+    print(f"  D1 {what} (B {B}, {Hq}/{Hkv}, cache {S}, {visible // B} "
+          f"visible a row on average, {str(k.dtype)[6:]}): {ms:.4f} ms "
+          f"(graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}, "
+          f"plain {plain_ms:.3f}, sdpa {library_ms:.4f}, graph "
+          f"{graph['library_ms']:.4f}), max_abs_err {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "graph": graph,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S_cap": S, "D": D,
+                      "visible": visible, "window": window,
+                      "q_dtype": str(q.dtype)[6:],
+                      "cache_dtype": str(k.dtype)[6:]}}
+
+
+def _router_times(call, what: str) -> dict:
+    """R1 on one captured call: error against plain (within 1e-5 of the
+    largest |logit|), times of the kernel (back to back and from a CUDA
+    graph), the plain version and one ``torch.matmul`` of x already in f32
+    by W, and the bound: x, W and the logits moved once, or 2 T d E flops
+    at the f32 peak."""
+    import torch
+    from repro_torch.kernels.router import kernel as rk
+    from repro_torch.kernels.router.ref import router_logits_ref
+    (x, w), _ = call
+    got = rk.router_logits(x, w)
+    err = max_err(got, router_logits_ref(x, w), f"R1 on the {what} call")
+    xf = x.float()
+    run = lambda: rk.router_logits(x, w)  # noqa: E731
+    lib = lambda: torch.matmul(xf, w)  # noqa: E731
+    ms = time_ms(run, 50)
+    plain_ms = time_ms(lambda: router_logits_ref(x, w), 50)
+    library_ms = time_ms(lib, 50)
+    graph = {"ms": graph_ms(run), "library_ms": graph_ms(lib)}
+    T, d, E = x.numel() // x.shape[-1], w.shape[0], w.shape[1]
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + got.numel() * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * T * d * E / F32_FLOP_PER_S * 1e3
+    print(f"  R1 {what} ({T} x {d} x {E}, x {str(x.dtype)[6:]}): {ms:.4f} ms"
+          f" (graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}, "
+          f"plain {plain_ms:.4f}, matmul {library_ms:.4f}, graph "
+          f"{graph['library_ms']:.4f}), max_abs_err {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "graph": graph,
+            "shape": {"T": T, "d": d, "E": E, "x_dtype": str(x.dtype)[6:],
+                      "w_dtype": str(w.dtype)[6:]}}
+
+
+def phase_measure_decode(calls, launches, card):
+    """The D1 and R1 rows, measured at the calls the main path made: D1 at
+    the 4 x 256 run's last decode step (with the scheduler's first step at
+    its largest bucket and the 4 x 2048 masked run's last decode step
+    beside it), R1 at the 4 x 256 run's last decode step (with its prefill,
+    the scheduler's largest bucket and the 4 x 2048 prefill beside it);
+    ``launches`` are the 4 x 256 bcsr run's."""
+    d1 = _decode_times(calls["d1_decode"], "4 x 256, last decode step")
+    d1_bucket = _decode_times(calls["d1_bucket"], "scheduler, top bucket")
+    d1_long = _decode_times(calls["d1_long"], "4 x 2048, last decode step")
+    r1 = _router_times(calls["r1_decode"], "4 x 256, last decode step")
+    r1_prefill = _router_times(calls["r1_prefill"], "4 x 256 prefill")
+    r1_bucket = _router_times(calls["r1_bucket"], "scheduler, top bucket")
+    r1_long = _router_times(calls["r1_long_prefill"], "4 x 2048 prefill")
+    return [{"name": "decode_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "decode_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/ops.py:212 "
+                         "(array code, no Pallas kernel)",
+             "launches": launches["decode_attention"], **d1,
+             "scheduler_bucket_call": d1_bucket,
+             "masked_4x2048_decode_call": d1_long, "card": card},
+            {"name": "router_logits", "route": "cuda",
+             "source": "src/repro_torch/kernels/router/csrc/router.cu",
+             "replaces": "src/repro/models/moe.py:232 (array code, no "
+                         "Pallas kernel)",
+             "launches": launches["router_logits"], **r1,
+             "prefill_call": r1_prefill, "scheduler_bucket_call": r1_bucket,
+             "prefill_4x2048_call": r1_long, "card": card}]
 
 
 # ---------------------------------------------------------------------------
@@ -2378,28 +2817,33 @@ def main() -> int:
     print("kernel vs plain on the card:")
     phase_kernel_vs_plain()
     phase_attention_vs_plain()
+    phase_decode_vs_plain()
     phase_library_vs_plain()
     phase_wkv_vs_plain()
     phase_small_config_card_vs_cpu()
     phase_rwkv_smoke_card_vs_cpu()
-    cfg, params, summary, launches, captured, pipelined = phase_slice()
-    scheduler, sched_streams = phase_scheduler(cfg, params)
-    mask, masked, mask_ms, masked_stream, masked1 = phase_masked_serving(
-        cfg, params)
+    cfg, params, summary, launches, captured, pipelined, calls = \
+        phase_slice()
+    scheduler, sched_streams, sched_calls = phase_scheduler(cfg, params)
+    mask, masked, mask_ms, masked_stream, masked1, masked_calls = \
+        phase_masked_serving(cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
-    del params
+    calls.update(sched_calls, **masked_calls)
+    del params, sched_calls, masked_calls
+    gc.collect()            # the loops' reference cycles hold the weights
     print("kernel times at the slice's shapes:")
     clocks = {"before_slice_kernels": smi(CLOCKS)}
     print(f"  sm clock, max: {clocks['before_slice_kernels']}")
-    rows = [phase_measure(captured, masked_stream, launches, card,
-                          sched_streams, scheduler["runs"])]
+    rows = [phase_measure(captured, masked_stream, launches["spmm_bcsr"],
+                          card, sched_streams, scheduler["runs"])]
+    rows += phase_measure_decode(calls, launches, card)
     rows += phase_measure_attention(qkv, mask, {
         "flash_attention": kprefill["launches"]["flash_attention"],
         "flash_attention_masked": masked["dense"][0]["launches"],
         "flash_attention_sparse": masked["sparse"][0]["launches"]}, card)
     clocks["after_slice_kernels"] = smi(CLOCKS)
     print(f"  sm clock, max: {clocks['after_slice_kernels']}")
-    del qkv, captured, masked_stream, sched_streams
+    del qkv, captured, masked_stream, sched_streams, calls
     scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rwkv, wkv_launches, wkv_inputs = phase_rwkv_serving(card)
     rows.append(phase_measure_wkv(wkv_inputs, wkv_launches, card))

@@ -26,9 +26,12 @@ SOURCES: Dict[str, Path] = {
     "spmm_bcsr": _KERNELS / "spmm" / "csrc" / "spmm_bcsr.cu",
     "flash_attention": (_KERNELS / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
+    "decode_attention": (_KERNELS / "flash_attention" / "csrc"
+                         / "decode_attention.cu"),
     "stencil": _KERNELS / "stencil" / "csrc" / "stencil.cu",
     "spmspm_ell": _KERNELS / "spmspm" / "csrc" / "spmspm_ell.cu",
     "wkv": _KERNELS / "wkv" / "csrc" / "wkv.cu",
+    "router": _KERNELS / "router" / "csrc" / "router.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

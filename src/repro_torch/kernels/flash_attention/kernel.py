@@ -2,7 +2,9 @@
 K3 ``flash_attention``, K4m ``flash_attention_masked`` and K4s
 ``flash_attention_sparse``, the ports of the Pallas kernels of the same
 names (repro/kernels/flash_attention/kernel.py), with their signatures minus
-``interpret``.
+``interpret``; and of D1 ``decode_attention`` (``csrc/decode_attention.cu``),
+the reference's one-token decode attention (plain array code there) as a
+kernel whose summation order is a function of the row alone.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel on the current stream or raises -- there is no fallback.  Each
@@ -10,7 +12,8 @@ wrapper counts its launches in ``.launches``.  The kernels take f32 or bf16
 q, k, v of one type, head dims 16, 64 or 128, and tiles of at most 64 x 64
 (``kernels.tuning`` row ``flash``); the source picks the path by type, bf16
 on the tensor cores (p kept at f32 precision as a bf16 hi + lo pair), f32 on
-the CUDA cores.
+the CUDA cores.  D1 takes q f32 or bf16 and a cache f32 or bf16 (each in
+its own dtype), head dims 16, 64 or 128 and GQA groups of at most 8.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ _ARGTYPES = {
 }
 
 
+_DECODE_GROUP_MAX = 8
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
@@ -47,6 +53,17 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention")
+    # q k v out scores kv_len, kv_scalar B Hq Hkv S D window, scale,
+    # q_dtype cache_dtype, stream
+    lib.decode_attention_launch.argtypes = \
+        [_P] * 6 + [_I] * 7 + [_F] + [_I] * 2 + [_P]
+    lib.decode_attention_launch.restype = ctypes.c_int
     return lib
 
 
@@ -195,6 +212,65 @@ def flash_attention_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, kv_len=None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """D1.  q1: (B, Hq, 1, D); k_cache / v_cache: (B, Hkv, S, D), Hq % Hkv
+    == 0; ``kv_len``: None (every row sees the whole cache), an int, or a
+    ``(B,)`` int tensor on q1's device, read by the kernel (no host sync);
+    ``window``: the last ``window`` positions before ``kv_len`` only.
+    Reads only the visible positions.  Every caller passes ``kv_len >= 1``;
+    a row with none visible gives zeros here (the plain version gives the
+    mean of V).  Returns (B, Hq, 1, D) in q1.dtype."""
+    if q1.device.type == "cpu":
+        return ref.decode_attention_ref(q1, k_cache, v_cache, kv_len=kv_len,
+                                        window=window)
+    B, Hq, one, D = q1.shape
+    _, Hkv, S, _ = k_cache.shape
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q1.device or not t.is_contiguous() or t.dim() != 4 \
+                or t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be a contiguous "
+                             f"4-d tensor on {q1.device}, 16-byte aligned")
+    if q1.dtype not in _DTYPE_CODE or k_cache.dtype not in _DTYPE_CODE \
+            or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"decode_attention: q {q1.dtype} and cache "
+                        f"{k_cache.dtype}/{v_cache.dtype} must be float32 or "
+                        "bfloat16, K and V alike")
+    if one != 1 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != B or k_cache.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"decode_attention: q {tuple(q1.shape)} vs cache "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    if D not in _HEAD_DIMS or Hq // Hkv > _DECODE_GROUP_MAX:
+        raise ValueError(f"decode_attention: head dim {D} not in "
+                         f"{_HEAD_DIMS} or GQA group {Hq // Hkv} over "
+                         f"{_DECODE_GROUP_MAX}")
+    if B > 65535 or Hkv > 65535:
+        raise ValueError(f"decode_attention: grid out of range B={B} "
+                         f"Hkv={Hkv}")
+    lens, scalar = None, S
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != B or kv_len.device != q1.device:
+            raise ValueError(f"decode_attention: kv_len {tuple(kv_len.shape)}"
+                             f" on {kv_len.device} for B={B} on {q1.device}")
+        lens = kv_len.reshape(B).to(torch.int64).contiguous()
+    elif kv_len is not None:
+        scalar = int(kv_len)
+    q = q1.contiguous()
+    out = torch.empty_like(q)
+    scores = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    lib = _decode_lib()
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        scores.data_ptr(), None if lens is None else lens.data_ptr(), scalar,
+        B, Hq, Hkv, S, D, -1 if window is None else int(window), D ** -0.5,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], _stream(q))
+    build.check(lib, err, "decode_attention launch")
+    decode_attention.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 flash_attention_masked.launches = 0
 flash_attention_sparse.launches = 0
+decode_attention.launches = 0

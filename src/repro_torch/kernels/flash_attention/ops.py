@@ -14,8 +14,9 @@ KV length, so every shape runs on a kernel.  The O(S^2) oracle runs only
 when asked for (``use_kernel=False``, ``mask_impl="ref"``), every use is
 counted (:func:`fallback_count`), and ``fallback="error"`` refuses it.
 
-``decode_attention`` is plain PyTorch, as in the reference, where it is
-array code and no Pallas kernel.
+``decode_attention`` is the hand-written kernel D1 on the card (the
+reference computes it as array code, no Pallas kernel), its plain version
+on the CPU.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.masks import NEG_INF, BlockMask
+from repro_torch.core.masks import BlockMask
 from repro_torch.kernels import tuning
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -155,33 +156,19 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
 
     Arithmetic is prefix-aligned with ``layers.chunked_attention`` (the
     prefill path): operands stream in the cache dtype with f32 products and
-    sums, and the narrow cast applies to the UNNORMALIZED ``exp(s - m)``;
-    the f32 PV product is divided by the f32 row sum afterwards.  Casting
-    after normalizing would quantize another quantity than prefill does and
-    can flip near-tie MoE router argmaxes between decode and prefill.
+    sums, and the narrow cast applies to the UNNORMALIZED ``exp(s - m)``
+    (against the row's max over all its visible positions); the f32 PV
+    product is divided by the f32 row sum afterwards.  Casting after
+    normalizing would quantize another quantity than prefill does and can
+    flip near-tie MoE router argmaxes between decode and prefill.
     ``kv_len`` masks the cache tail beyond the current length: an int for
     the whole batch, or a ``(B,)`` int tensor of per-row lengths
-    (continuous batching), which moves the window's lower edge per row
-    too."""
-    B, Hq, _, D = q1.shape
-    _, Hkv, S, _ = k_cache.shape
-    g = Hq // Hkv
-    scale = D ** -0.5
-    qg = (q1 * scale).to(k_cache.dtype).reshape(B, Hkv, g, 1, D)
-    s = torch.matmul(qg.float(), k_cache.float()[:, :, None].transpose(-1, -2))
-    pos = torch.arange(S, device=q1.device)
-    if kv_len is not None:
-        if isinstance(kv_len, torch.Tensor):
-            kv_len = kv_len.reshape(-1, 1, 1, 1, 1)
-        keep = pos < kv_len
-        if window is not None:
-            keep = keep & (pos >= kv_len - window)
-        s = s.masked_fill(~keep, NEG_INF)
-    elif window is not None:
-        s = s.masked_fill(pos < S - window, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)                      # unnormalized, like prefill
-    l = p.sum(dim=-1, keepdim=True)           # f32 row sum
-    out = torch.matmul(p.to(v_cache.dtype).float(), v_cache.float()[:, :, None])
-    out = out / torch.where(l == 0, 1.0, l)
-    return out.reshape(B, Hq, 1, D).to(q1.dtype)
+    (continuous batching), which moves the window's lower edge per row too.
+
+    A CPU tensor takes the plain version (``ref.decode_attention_ref``); a
+    CUDA tensor launches the kernel D1 (``kernel.decode_attention``), whose
+    summation order is a function of the row's length, the window and D
+    alone, so a row's output does not depend on the batch it is decoded in;
+    it raises on a dtype or head dim it lacks."""
+    return kernel.decode_attention(q1, k_cache, v_cache, kv_len=kv_len,
+                                   window=window)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the flash-attention kernels (K3, K4m, K4s) and
-the materialized oracle.
+"""Plain PyTorch versions of the flash-attention kernels (K3, K4m, K4s), of
+the one-token decode attention D1, and the materialized oracle.
 
 ``attention_ref`` is the reference's oracle: full f32 scores, softmax, rows
 with no visible key give zero.  The three ``*_ref`` functions compute what
@@ -12,6 +12,11 @@ sparse walk equals the masked grid, and the sparse walk on a plain causal
 or window mask equals K3, as ``torch.equal`` -- on the CPU as on the card.
 The wrappers in ``kernel.py`` take these for CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
+
+``decode_attention_ref`` is the reference's ``decode_attention``
+(repro/kernels/flash_attention/ops.py:212) in PyTorch: batched f32
+products, which on the card may sum in an order that depends on the batch
+count; the kernel D1 fixes one order per row.
 """
 from __future__ import annotations
 
@@ -217,3 +222,117 @@ def flash_attention_sparse_ref(q, k, v, rows, cols, kinds, *, skv: int,
                              k0=c * bk, window=window, skv=skv)
         out[:, :, r * bq:(r + 1) * bq] = _finalize(st, q.dtype)
     return out
+
+
+# ------------------------------------------------------- decode (D1) ----
+
+def decode_attention_ref(q1: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, *, kv_len=None,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode: q1 (B, Hq, 1, D) against a (B, Hkv, S, D) cache.
+    ``kv_len``: None (the whole cache), an int, or a ``(B,)`` int tensor of
+    per-row lengths, which moves the window's lower edge per row too.  The
+    arithmetic of ``ops.decode_attention``: scores and sums in f32, the
+    unnormalized ``exp(s - m)`` cast to the cache dtype for the PV product,
+    then divided by the f32 row sum.  A row with no visible position gives
+    the mean of V (``NEG_INF`` is finite)."""
+    B, Hq, _, D = q1.shape
+    _, Hkv, S, _ = k_cache.shape
+    g = Hq // Hkv
+    scale = D ** -0.5
+    qg = (q1 * scale).to(k_cache.dtype).reshape(B, Hkv, g, 1, D)
+    s = torch.matmul(qg.float(), k_cache.float()[:, :, None].transpose(-1, -2))
+    pos = torch.arange(S, device=q1.device)
+    if kv_len is not None:
+        if isinstance(kv_len, torch.Tensor):
+            kv_len = kv_len.reshape(-1, 1, 1, 1, 1)
+        keep = pos < kv_len
+        if window is not None:
+            keep = keep & (pos >= kv_len - window)
+        s = s.masked_fill(~keep, NEG_INF)
+    elif window is not None:
+        s = s.masked_fill(pos < S - window, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)                      # unnormalized, like prefill
+    l = p.sum(dim=-1, keepdim=True)           # f32 row sum
+    out = torch.matmul(p.to(v_cache.dtype).float(), v_cache.float()[:, :, None])
+    out = out / torch.where(l == 0, 1.0, l)
+    return out.reshape(B, Hq, 1, D).to(q1.dtype)
+
+
+DECODE_WARPS = 8      # the kernel's warps a block, one position each a round
+
+
+def _lane_sum(part: torch.Tensor) -> torch.Tensor:
+    """The kernel's xor-butterfly over the last dim (32 lanes)."""
+    lanes = torch.arange(32, device=part.device)
+    for o in (16, 8, 4, 2, 1):
+        part = part + part[..., lanes ^ o]
+    return part[..., 0]
+
+
+def decode_attention_ordered(q1: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, *, kv_len=None,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """D1's order of operations in PyTorch, one (row, kv head) block at a
+    time, each product and sum rounded to f32 as the kernel rounds it:
+
+    * ``qg = cast_cache(cast_q(q * D^-0.5))``;
+    * a score: lane ``l`` of 32 sums its ``E = D / 32`` dims (one dim on
+      lanes < 16 at D 16) in index order, then the xor-butterfly;
+    * ``m``: the max over the visible positions ``[lo, hi)``;
+    * warp ``w`` of :data:`DECODE_WARPS` takes positions ``lo + w``, ``lo
+      + w + 8``, ... in order and sums ``p = exp(s - m)`` and
+      ``f32(cast_cache(p)) * v`` from zero; the warps' sums are added in
+      warp order; ``out = sum / (l == 0 ? 1 : l)``, cast to q's dtype.
+
+    Nothing here reads another row, or the cache past ``hi``, so a row's
+    bits do not depend on B or on the cache's capacity.  A row with no
+    visible position gives zeros, as the kernel does."""
+    B, Hq, _, D = q1.shape
+    _, Hkv, S, _ = k_cache.shape
+    g = Hq // Hkv
+    cd, W = k_cache.dtype, DECODE_WARPS
+    lanes = 32 if D >= 32 else D
+    E = D // lanes
+    qg = (q1.float() * torch.tensor(D ** -0.5, dtype=torch.float32)
+          ).to(q1.dtype).to(cd).float().reshape(B, Hkv, g, D)
+    out = torch.zeros((B, Hkv, g, D), dtype=torch.float32, device=q1.device)
+    for b in range(B):
+        if isinstance(kv_len, torch.Tensor):
+            n = int(kv_len.reshape(-1)[b])
+        else:
+            n = S if kv_len is None else int(kv_len)
+        hi = min(n, S)
+        lo = max(0, n - window) if window is not None else 0
+        if hi <= lo:
+            continue
+        rounds = -(-(hi - lo) // W)
+        pos = lo + torch.arange(rounds * W, device=q1.device)
+        valid = (pos < hi).reshape(rounds, W)
+        pos = pos.clamp(max=hi - 1)
+        for h in range(Hkv):
+            k = k_cache[b, h, pos].float()                      # (P, D)
+            v = v_cache[b, h, pos].float()
+            prod = qg[b, h][:, None, :] * k[None]               # (g, P, D)
+            prod = prod.reshape(g, -1, lanes, E)
+            part = prod[..., 0]
+            for e in range(1, E):
+                part = part + prod[..., e]
+            part = torch.nn.functional.pad(part, (0, 32 - lanes))
+            s = _lane_sum(part).reshape(g, rounds, W)           # (g, r, w)
+            m = torch.where(valid, s, -torch.inf).amax(dim=(1, 2),
+                                                       keepdim=True)
+            p = torch.where(valid, torch.exp(s - m), 0.0)
+            pn = p.to(cd).float()
+            vr = v.reshape(rounds, W, D)
+            l_w = torch.zeros((g, W), device=q1.device)
+            acc = torch.zeros((g, W, D), device=q1.device)
+            for r in range(rounds):
+                l_w = l_w + p[:, r]
+                acc = acc + pn[:, r, :, None] * vr[r][None]
+            l, o = l_w[:, 0], acc[:, 0]
+            for w in range(1, W):
+                l, o = l + l_w[:, w], o + acc[:, w]
+            out[b, h] = o / torch.where(l == 0, 1.0, l)[:, None]
+    return out.reshape(B, Hq, 1, D).to(q1.dtype)

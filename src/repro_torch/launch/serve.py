@@ -18,12 +18,13 @@ slots (batch rows of one decode cache).  Between decode steps it evicts a
 request at its token budget or its EOS and admits a queued prompt into the
 lowest free slot with a single-request prefill; every decode step advances
 each resident request one token, over the occupied slots rounded up to a
-power-of-two batch bucket, each row at its own position.  On the CPU a
-request's greedy tokens equal the request served alone through
-``ServeLoop`` with the same ``max_seq`` (``tests/test_torch_scheduler.py``).
-On CUDA they need not: ``decode_attention``'s batched f32 products and the
-f32 router product give a row that depends on the batch count at buckets 4
-and 8 (ROADMAP Queue 3).
+power-of-two batch bucket, each row at its own position.  A request's
+greedy tokens equal the request served alone through ``ServeLoop`` with
+the same ``max_seq``, whoever shares its batch: on the CPU
+(``tests/test_torch_scheduler.py``) and on the card, where the two decode
+products whose library kernel depends on the batch count run as kernels
+with one summation order per row (decode attention D1, the router R1;
+``chip_smoke.py`` holds the 16 requests of its trace to this).
 
 ``pipeline_depth`` (default 0), both drivers:
 
@@ -516,14 +517,14 @@ class ServeScheduler(_ServeBase):
     nothing.  Both depths sample on the device and fetch the step's
     (bucket,) token ids once, the one sync the EOS and evict decisions
     need, so a depth-1 decode step syncs at most once per attn+moe layer
-    (the slot fetch) plus once.  On the CPU, greedy, a request's tokens
-    equal the request served alone through :class:`ServeLoop` with the
-    same ``max_seq`` (``tests/test_torch_scheduler.py``); on CUDA
-    ``decode_attention``'s batched f32 products and the f32 router product
-    make a row depend on the batch count at buckets 4 and 8, so a token may
-    part from the alone run at a near-tie (ROADMAP Queue 3).  On the CPU,
-    at any temperature, a rerun of the same requests gives the same tokens
-    per uid, whatever the slot pool or the arrival pattern.
+    (the slot fetch) plus once.  Greedy, a request's tokens equal the
+    request served alone through :class:`ServeLoop` with the same
+    ``max_seq``, on the CPU and on the card: a row's decode arithmetic
+    does not depend on the bucket (decode attention and the router logits
+    run as the kernels D1 and R1, whose order is a function of the row
+    alone).  On the CPU, at any temperature, a rerun of the same requests
+    gives the same tokens per uid, whatever the slot pool or the arrival
+    pattern.
 
     The cache is allocated with every leaf in the dtype a decode step
     writes (``model._decode_dtypes`` once, on the whole cache), so a step

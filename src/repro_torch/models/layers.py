@@ -125,11 +125,24 @@ def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     return q, k, v
 
 
+def _narrow_operands(k: torch.Tensor) -> bool:
+    """Whether :func:`chunked_attention` multiplies ``k``'s dtype as it is:
+    bf16 / f16 on a CUDA device (whose ``torch.bmm`` takes ``out_dtype``)."""
+    return k.device.type == "cuda" and k.dtype in (torch.bfloat16,
+                                                   torch.float16)
+
+
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, chunk: int = 1024):
     """Online softmax over KV chunks.  q: (B, Hq, Sq, hd); k/v: (B, Hkv,
     Skv, hd).  Operands stay in their narrow dtype, products and sums are
-    f32, and the GQA group rides along q's head dim (no K/V repeat)."""
+    f32, and the GQA group rides along q's head dim (no K/V repeat).
+
+    On a CUDA device with bf16 / f16 k and v both products run on the
+    narrow operands with f32 outputs (``torch.bmm(..., out_dtype=float32)``,
+    as the reference's ``preferred_element_type``); f32 operands and CPU
+    tensors (which have no ``bmm.dtype`` kernel) widen to f32 first, which
+    gives the same products since a narrow product is exact in f32."""
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     g = Hq // Hkv
@@ -140,16 +153,26 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         k = F.pad(k, (0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, pad))
     n_chunks = (Skv + pad) // chunk
-    qg = (q * scale).to(k.dtype).reshape(B, Hkv, g, Sq, hd).float()
+    narrow = _narrow_operands(k)
+    qg = (q * scale).to(k.dtype).reshape(B, Hkv, g, Sq, hd)
+    if narrow:
+        qg = qg.reshape(B * Hkv, g * Sq, hd)
+    else:
+        qg = qg.float()
     dev = q.device
     q_pos = torch.arange(Sq, device=dev)[:, None]
     m = torch.full((B, Hkv, g, Sq, 1), NEG_INF, device=dev)
     l = torch.zeros((B, Hkv, g, Sq, 1), device=dev)
     acc = torch.zeros((B, Hkv, g, Sq, hd), device=dev)
     for ci in range(n_chunks):
-        kb = k[:, :, None, ci * chunk:(ci + 1) * chunk].float()
-        vb = v[:, :, None, ci * chunk:(ci + 1) * chunk].float()
-        s = torch.matmul(qg, kb.transpose(-1, -2))   # (B, Hkv, g, Sq, chunk)
+        kb = k[:, :, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, :, ci * chunk:(ci + 1) * chunk]
+        if narrow:
+            s = torch.bmm(qg, kb.reshape(B * Hkv, chunk, hd).transpose(1, 2),
+                          out_dtype=torch.float32
+                          ).view(B, Hkv, g, Sq, chunk)
+        else:
+            s = torch.matmul(qg, kb[:, :, None].float().transpose(-1, -2))
         k_pos = ci * chunk + torch.arange(chunk, device=dev)[None, :]
         mask = k_pos < Skv
         if causal:
@@ -161,7 +184,13 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb)
+        if narrow:
+            pv = torch.bmm(p.to(v.dtype).reshape(B * Hkv, g * Sq, chunk),
+                           vb.reshape(B * Hkv, chunk, hd),
+                           out_dtype=torch.float32).view(B, Hkv, g, Sq, hd)
+        else:
+            pv = torch.matmul(p.to(v.dtype).float(), vb[:, :, None].float())
+        acc = acc * alpha + pv
         m = m_new
     out = acc / torch.where(l == 0, 1.0, l)
     return out.reshape(B, Hq, Sq, hd).to(q.dtype)

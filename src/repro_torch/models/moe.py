@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.formats import BatchedBCSR
 from repro_torch.kernels import engine, tuning
+from repro_torch.kernels.router.kernel import router_logits
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_mlp, init_mlp, normal
 
@@ -118,10 +119,14 @@ def route_tokens(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig, *,
     x[:, 0], an int shared by the batch or a ``(B,)`` int tensor of per-row
     positions (continuous batching), when the keep test runs per row.  Ties
     go to the lowest expert index, as ``jax.lax.top_k`` does (``argmax``
-    returns the first maximum)."""
+    returns the first maximum).  The logits come from
+    ``kernels.router.kernel.router_logits``: on the card the kernel R1,
+    whose f32 sum over d has one order for every token however many are
+    routed together (prefill, decode, any batch bucket); on the CPU the
+    reference's product."""
     B, S, _ = x.shape
     E = cfg.n_experts
-    logits = x.float() @ router.float()                           # (B, S, E)
+    logits = router_logits(x, router)                             # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     expert_id = torch.argmax(probs, dim=-1)
     gate = torch.gather(probs, -1, expert_id[..., None])[..., 0]

@@ -9,10 +9,11 @@ the CPU with ``--device cpu``):
 
 * ops: row 0 of each decode-step product of llama4-scout at full width
   (bf16: the q / k / v / o projections, the shared expert, the expert
-  ``bmm`` at capacity 1, the router and the unembedding) and of
-  ``decode_attention`` over a ``max_seq`` 544 cache, computed with the
-  batch at M rows against M = 1 -- ``torch.equal`` or the largest
-  difference;
+  ``bmm`` at capacity 1 and 2, the unembedding; the router logits through
+  the kernel R1 and through the library's f32 product, its plain version)
+  and of ``decode_attention`` over a ``max_seq`` 544 cache (the kernel D1,
+  and its plain version), computed with the batch at M rows against M = 1
+  -- ``torch.equal`` or the largest difference;
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -51,6 +52,9 @@ def probe_ops(cfg, params, device) -> dict:
     """Row 0 of each product at M rows against at 1 row."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+    from repro_torch.kernels.router.kernel import router_logits
+    from repro_torch.kernels.router.ref import router_logits_ref
     g = torch.Generator(device=device).manual_seed(7)
     d, hd = cfg.d_model, cfg.hd
     layer = {k: v[0] if isinstance(v, torch.Tensor) else v
@@ -66,28 +70,33 @@ def probe_ops(cfg, params, device) -> dict:
                         device=device).to(w.dtype)
         one = (x[:1] @ w)[0]
         out[name] = {m: _diff((x[:m] @ w)[0], one) for m in ROWS[1:]}
-    x = torch.randn((max(ROWS), 1, d), generator=g, device=device)
-    one = (x[:1].float() @ ffn["router"][0].float())[0]
-    out["router (f32)"] = {m: _diff((x[:m].float()
-                                     @ ffn["router"][0].float())[0], one)
-                           for m in ROWS[1:]}
+    x = torch.randn((max(ROWS), 1, d), generator=g, device=device).to(
+        params["embed"].dtype)
+    router = ffn["router"][0]
+    for name, fn in (("router R1", router_logits),
+                     ("router plain (f32 library product)",
+                      router_logits_ref)):
+        one = fn(x[:1], router)[0]
+        out[name] = {m: _diff(fn(x[:m], router)[0], one) for m in ROWS[1:]}
     experts = ffn["experts"]["w_gate"][0]                      # (E, d, ff)
-    xe = torch.randn((experts.shape[0], max(ROWS), d), generator=g,
+    xe = torch.randn((experts.shape[0], 2 * max(ROWS), d), generator=g,
                      device=device).to(experts.dtype)
-    one = torch.bmm(xe[:, :1], experts)[:, 0]
-    out["experts bmm"] = {m: _diff(torch.bmm(xe[:, :m], experts)[:, 0], one)
-                          for m in ROWS[1:]}
+    for cap in (1, 2):               # dispatch rows B * C, C the capacity
+        one = torch.bmm(xe[:, :cap], experts)[:, 0]
+        out[f"experts bmm, capacity {cap}"] = {
+            m: _diff(torch.bmm(xe[:, :m * cap], experts)[:, 0], one)
+            for m in ROWS[1:]}
     q = torch.randn((max(ROWS), cfg.n_heads, 1, hd), generator=g,
                     device=device).to(torch.bfloat16)
     kv = [torch.randn((max(ROWS), cfg.n_kv_heads, MAX_SEQ, hd), generator=g,
                       device=device).to(torch.bfloat16) for _ in range(2)]
     lens = torch.full((max(ROWS),), PROMPT, device=device)
-    one = fops.decode_attention(q[:1], kv[0][:1], kv[1][:1],
-                                kv_len=lens[:1])[0]
-    out["decode_attention"] = {
-        m: _diff(fops.decode_attention(q[:m], kv[0][:m], kv[1][:m],
-                                       kv_len=lens[:m])[0], one)
-        for m in ROWS[1:]}
+    for name, fn in (("decode_attention D1", fops.decode_attention),
+                     ("decode_attention plain", decode_attention_ref)):
+        one = fn(q[:1], kv[0][:1], kv[1][:1], kv_len=lens[:1])[0]
+        out[name] = {m: _diff(fn(q[:m], kv[0][:m], kv[1][:m],
+                                 kv_len=lens[:m])[0], one)
+                     for m in ROWS[1:]}
     return out
 
 
