@@ -27,11 +27,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    causal / window mask == K3 as ``torch.equal``; D1 (one-token decode
    attention; q and cache bf16 or f32, D 16 / 64 / 128, GQA 40/8 and 4/2,
    per-row ``kv_len`` from 1 to the cache's 544, windows, vacant rows) and
-   R1 (the router logits, d 5120 x 16 experts, x and W bf16 or f32)
-   against their plain versions, and as ``torch.equal`` their laws: row i
-   of B in {1, 2, 3, 4, 8, 16} rows (and R1 at 1,024) == the row alone,
-   D1 in a 2,064-position cache == in the 544 one, a scalar ``kv_len`` ==
-   a vector of equal values, each kernel == its order emulated in PyTorch;
+   R1 (the router logits, d 5120 x 16 experts, x and W bf16 or f32, at
+   every tile regime and its edges from 1 to 8,192 tokens, and at d
+   40,960, E 5, d 200, E 128, d 201 and 202 and x and W off a 16-byte
+   start, which the threads stage) against their plain versions, and as
+   ``torch.equal`` their laws: row i of B in {1, 2, 3, 4, 8, 16} rows (R1
+   at each of its token counts) == the row alone, D1 in a 2,064-position
+   cache == in the 544 one, a scalar ``kv_len`` == a vector of equal
+   values, each kernel == its order emulated in PyTorch;
    float16 and other head dims refused; then, as
    ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
    tiles; K6b's march on interiors no multiple of its tile or run, rows
@@ -121,7 +124,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    bound; K2, D1, R1, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; D1 and R1 on
    the calls the serving runs made (decode steps at 4 x 256, the
    scheduler's top bucket, 4 x 2048; R1's prefills), SDPA and
-   ``torch.matmul`` beside them; K2 on each captured
+   ``torch.matmul`` beside them, R1's no-FMA instruction floor at the SM
+   clock read around its timing; K2 on each captured
    stream with its row statistics, == plain; K5 with its bucketing and
    product passes timed apart; K2q with its share of the f32 peak) and
    one with the serving and
@@ -743,6 +747,22 @@ DECODE_CASES = (
 )
 DECODE_ROWS, DECODE_CAP, DECODE_CAP_BIG = 16, 544, 2064
 BATCH_LAW = (1, 2, 3, 4, 8, 16)
+# R1 at d 5120 x E 16: every tile regime of ``tuning.router_tiles`` and its
+# edges (the few-token kernel up to 64 tokens, the many-token one above,
+# one wave of blocks from ~1,000), x and W in each dtype pairing; then
+# (T, d, E, shift): d 40,960 (past the earlier kernel's cap), E 5 (W rows
+# not whole 16-byte pieces: W staged by the threads), d 200 (a ragged lane
+# step and chunk), E 128 (experts split), d 201 and 202 (x rows not whole
+# 16-byte pieces: x staged by the threads) and x and W each `shift`
+# elements past an aligned start (both staged by the threads at d 5120)
+ROUTER_TOKENS = tuple(sorted(set(BATCH_LAW) | {
+    1, 4, 8, 64, 65, 1000, 1024, 8191, 8192}))
+ROUTER_PAIRS = (("bfloat16", "float32"), ("float32", "float32"),
+                ("bfloat16", "bfloat16"), ("float32", "bfloat16"))
+ROUTER_SHAPES = ((4, 40960, 16, 0), (65, 40960, 16, 0), (4, 200, 5, 0),
+                 (1000, 200, 5, 0), (8, 5120, 128, 0), (1024, 5120, 128, 0),
+                 (1000, 202, 16, 0), (1000, 201, 16, 0), (4, 201, 16, 1),
+                 (1000, 201, 16, 1), (1000, 5120, 16, 1))
 
 
 def decode_tolerance(big: float, q_dtype, cache_dtype) -> float:
@@ -764,6 +784,20 @@ def _rows_alone_equal(fn, rows_fn, sizes=BATCH_LAW) -> bool:
                for B in sizes for i in range(B))
 
 
+def _router_case(x, w, what: str):
+    """R1 on (x, w): within 1e-5 of the plain product's largest |logit|
+    (:func:`max_err`) and ``torch.equal`` to its emulated order.  Returns
+    (logits, error)."""
+    import torch
+    from repro_torch.kernels.router import kernel as rk
+    from repro_torch.kernels.router import ref as rref
+    got = rk.router_logits(x, w)
+    err = max_err(got, rref.router_logits_ref(x, w), what)
+    check(torch.equal(got, rref.router_logits_ordered(x, w)),
+          f"{what}: kernel != its emulated order")
+    return got, err
+
+
 def phase_decode_vs_plain():
     """D1 (``decode_attention``) and R1 (``router_logits``) against their
     plain versions on the card, and their laws as ``torch.equal``.  D1 on
@@ -775,19 +809,18 @@ def phase_decode_vs_plain():
     one, a scalar ``kv_len`` == a vector of equal values, and the kernel ==
     its order emulated in PyTorch (``ref.decode_attention_ordered`` on the
     card, whose rows the CPU tests hold to the same laws).  R1 on scout's
-    router shape (d 5120, E 16;
-    x bf16 and f32, W f32 and bf16) within 1e-5 of the largest |logit|
-    (the kernel sums in another order than the library); the laws: row i of
-    B rows == alone for B in BATCH_LAW and 1024 (a 4 x 256 prefill: the
-    other expert chunking), and the kernel == its emulated order
-    (``router.ref.router_logits_ordered``).  A CUDA tensor of a dtype or
-    head dim the kernel lacks raises."""
+    router shape (d 5120, E 16; x and W f32 or bf16, the four pairings) at
+    the :data:`ROUTER_TOKENS` token counts (every tile regime and its
+    edges) and at :data:`ROUTER_SHAPES`, within 1e-5 of the largest
+    |logit| (the kernel sums in another order than the library); the laws:
+    the kernel == its emulated order (``router.ref.router_logits_ordered``)
+    at every count and shape, and row i at every count == token i alone.
+    A CUDA tensor of a dtype or head dim the kernel lacks raises."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.router import kernel as rk
-    from repro_torch.kernels.router import ref as rref
     rng = np.random.default_rng(11)
 
     def rand(shape, dt):
@@ -852,21 +885,30 @@ def phase_decode_vs_plain():
     print("  D1 refuses float16 and head dims 32, 256")
 
     d, E = 5120, 16
-    for xn, wn in (("bfloat16", "float32"), ("float32", "float32"),
-                   ("bfloat16", "bfloat16")):
-        x = rand((1024, d), getattr(torch, xn))
-        w = rand((d, E), getattr(torch, wn)) * d ** -0.5
-        got = rk.router_logits(x, w)
-        want = rref.router_logits_ref(x, w)
-        err = max_err(got, want, f"R1 x {xn} W {wn}")
-        check(torch.equal(got, rref.router_logits_ordered(x, w)),
-              f"R1 x {xn} W {wn}: kernel != its emulated order")
-        check(_rows_alone_equal(rk.router_logits, lambda a, b: (x[a:b], w),
-                                BATCH_LAW + (1024,)),
-              f"R1 x {xn} W {wn}: a row depends on its batch")
-        print(f"  R1 x {xn} W {wn} (1024 x {d} x {E}): max_abs_err "
-              f"{err:.3g}; == its emulated order; rows of B {BATCH_LAW} "
-              "and 1024 == alone")
+    for xn, wn in ROUTER_PAIRS:
+        xdt, wdt = getattr(torch, xn), getattr(torch, wn)
+        x = rand((max(ROUTER_TOKENS), d), xdt)
+        w = rand((d, E), wdt) * d ** -0.5
+        alone = torch.cat([rk.router_logits(x[i:i + 1], w)
+                           for i in range(x.shape[0])])
+        errs = []
+        for T in ROUTER_TOKENS:
+            what = f"R1 x {xn} W {wn} T {T}"
+            got, err = _router_case(x[:T], w, what)
+            check(torch.equal(got, alone[:T]),
+                  f"{what}: a row differs from the row alone")
+            errs.append(err)
+        print(f"  R1 x {xn} W {wn} ({d} x {E}), T {ROUTER_TOKENS}: "
+              f"max_abs_err {max(errs):.3g}; each == its emulated order; "
+              "rows == alone at every T")
+        for T, dd, ee, sh in ROUTER_SHAPES:
+            xs = rand((T * dd + sh,), xdt)[sh:].view(T, dd)
+            ws = (rand((dd * ee + sh,), wdt) * dd ** -0.5)[sh:].view(dd, ee)
+            _, err = _router_case(xs, ws, f"R1 x {xn} W {wn} {T} x {dd} x "
+                                          f"{ee}, shift {sh}")
+            errs.append(err)
+        print(f"  R1 x {xn} W {wn} at (T, d, E, shift) {ROUTER_SHAPES}: "
+              f"max_abs_err {max(errs):.3g}; each == its emulated order")
     try:
         rk.router_logits(rand((4, 64), torch.float16), rand((64, 4),
                                                             torch.float32))
@@ -1818,7 +1860,9 @@ def _router_times(call, what: str) -> dict:
     largest |logit|), times of the kernel (back to back and from a CUDA
     graph), the plain version and one ``torch.matmul`` of x already in f32
     by W, and the bound: x, W and the logits moved once, or 2 T d E flops
-    at the f32 peak."""
+    at the f32 peak.  Beside it the no-FMA floor: the order makes each term
+    a multiply and an add, 2 T d E f32 instructions on 128 lanes an SM at
+    the SM clock read around the timings."""
     import torch
     from repro_torch.kernels.router import kernel as rk
     from repro_torch.kernels.router.ref import router_logits_ref
@@ -1828,23 +1872,30 @@ def _router_times(call, what: str) -> dict:
     xf = x.float()
     run = lambda: rk.router_logits(x, w)  # noqa: E731
     lib = lambda: torch.matmul(xf, w)  # noqa: E731
+    clocks = [smi("clocks.sm")]
     ms = time_ms(run, 50)
     plain_ms = time_ms(lambda: router_logits_ref(x, w), 50)
     library_ms = time_ms(lib, 50)
     graph = {"ms": graph_ms(run), "library_ms": graph_ms(lib)}
+    clocks.append(smi("clocks.sm"))
     T, d, E = x.numel() // x.shape[-1], w.shape[0], w.shape[1]
     nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
               + got.numel() * 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * T * d * E / F32_FLOP_PER_S * 1e3
+    mhz = min(float(c.split()[0]) for c in clocks)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor_ms = 2 * T * d * E / (sms * 128 * mhz * 1e6) * 1e3
     print(f"  R1 {what} ({T} x {d} x {E}, x {str(x.dtype)[6:]}): {ms:.4f} ms"
-          f" (graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}, "
-          f"plain {plain_ms:.4f}, matmul {library_ms:.4f}, graph "
+          f" (graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f} "
+          f"(bytes {bytes_ms:.5f}), no-FMA floor {floor_ms:.5f} at {mhz:.0f}"
+          f" MHz; plain {plain_ms:.4f}, matmul {library_ms:.4f}, graph "
           f"{graph['library_ms']:.4f}), max_abs_err {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "graph": graph,
+            "no_fma_floor_ms": floor_ms, "sm_clocks": clocks,
             "shape": {"T": T, "d": d, "E": E, "x_dtype": str(x.dtype)[6:],
                       "w_dtype": str(w.dtype)[6:]}}
 

@@ -79,13 +79,22 @@ and ``tests/test_torch_spmspm`` hold them equal); the plain versions that run
 on the CPU take no tile.  1-byte dtypes key the ``fp8`` rows, as quantized
 ``spmm`` keys its tile on the narrow block dtype.
 
+* ``router_tiles``: R1's tile (``router/csrc/router.cu``), from the token
+  count T, the experts E and the card's SM count, not a table row: at most
+  :data:`ROUTER_FEW_TOKENS` tokens take the few-token kernel (a warp a
+  token and a few experts, W read straight from memory), more take the
+  many-token kernel (W and x staged in shared memory, several tokens a
+  warp).  No tile changes a bit.
+
 The ``cpu`` flash rows keep the reference's 128 x 128 (its ``flash`` and
 ``flash_sparse`` CPU rows are equal) and its sublane / VMEM clamp, so that
 CPU tiles, and with them every tile-granular mask, equal the reference's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+import math
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -315,3 +324,76 @@ def spmspm_nt(c: int, ct: int, lb: int, dtype=torch.float32,
     while nt > 1 and (nt - 1) * ct >= c_aligned:
         nt //= 2
     return nt
+
+
+# R1 (``router/csrc/router.cu``): the instances its launcher takes.  The
+# many-token kernel: (tokens a warp, experts a block), 8 warps a block; the
+# few-token kernel: experts a block, 1-8 warps (tokens) a block.
+ROUTER_FEW_TOKENS = 64
+ROUTER_MANY_TILES = tuple((tpw, ec) for tpw in (1, 2, 4, 8)
+                          for ec in (4, 8, 16))
+ROUTER_FEW_EXPERTS = (1, 2)
+ROUTER_FEW_WARPS = (8, 4, 2, 1)
+
+
+class RouterTiles(NamedTuple):
+    """One launch of R1.  ``staged`` 1: the many-token kernel (W and x
+    staged in shared memory), blocks of 8 warps of ``tokens`` tokens each,
+    ``experts`` experts a block.  ``staged`` 0: the few-token kernel,
+    blocks of ``tokens`` warps of one token each, every warp taking the
+    block's ``experts`` experts."""
+    staged: int
+    tokens: int
+    experts: int
+
+
+def router_warps(tiles: RouterTiles) -> Tuple[int, int]:
+    """(warps a block, tokens a warp) of a launch at ``tiles``."""
+    return (8, tiles.tokens) if tiles.staged else (tiles.tokens, 1)
+
+
+def router_grid(T: int, E: int, tiles: RouterTiles) -> Tuple[int, int]:
+    """R1's grid at ``tiles``: (blocks over the tokens, blocks over the
+    experts)."""
+    per_block = math.prod(router_warps(tiles))
+    return -(-T // per_block), -(-E // tiles.experts)
+
+
+@functools.lru_cache(maxsize=4096)
+def router_tiles(T: int, E: int, sms: int) -> RouterTiles:
+    """R1's tile for T tokens of E experts on a card of ``sms`` SMs.
+
+    A wave is ``sms - sms // 32`` blocks (at most one SM in 32 idle).  Many
+    tokens (T > :data:`ROUTER_FEW_TOKENS`): of the tiles whose grid still
+    gives a wave, the one with the most sums a lane (tokens a warp x
+    experts a block: each W value read from shared memory feeds a warp's
+    tokens, each x value its experts), then the fewest shared-memory loads
+    a step (tokens a warp + experts a block / 4), then the most tokens a
+    warp; the experts a block at most the least of 4, 8, 16 that covers E.
+    Where no tile gives a wave, the one with the most blocks.  A few
+    tokens: 2 experts a warp where E is even (1 where it is odd, and the
+    launcher takes 1 where W's start is not aligned to a pair), and the
+    most warps (tokens) a block whose grid still gives a wave, else one.
+    (NVIDIA H100, 132 SMs: 4 x 256 tokens take (2, 8) and 4 x 2048 (8,
+    16), 128 blocks each; ``tools/compare_router.py --tiles`` times the
+    others.)"""
+    if T < 1 or not 1 <= E <= 65535 or sms < 1:
+        raise ValueError(f"router_tiles: T {T}, E {E}, sms {sms}")
+    wave = sms - sms // 32
+    if T <= ROUTER_FEW_TOKENS:
+        ef = max(e for e in ROUTER_FEW_EXPERTS if E % e == 0)
+        for warps in ROUTER_FEW_WARPS:
+            tiles = RouterTiles(0, warps, ef)
+            gx, gy = router_grid(T, E, tiles)
+            if gx * gy >= wave:
+                return tiles
+        return RouterTiles(0, 1, ef)
+    widest = min(e for _, e in ROUTER_MANY_TILES if e >= min(E, 16))
+    tiles = [RouterTiles(1, tpw, ec) for tpw, ec in ROUTER_MANY_TILES
+             if ec <= widest]
+    blocks = {t: math.prod(router_grid(T, E, t)) for t in tiles}
+    fit = [t for t in tiles if blocks[t] >= wave]
+    if not fit:
+        return max(tiles, key=lambda t: (blocks[t], -t.experts))
+    return max(fit, key=lambda t: (
+        t.tokens * t.experts, -(t.tokens + t.experts // 4), t.tokens))
