@@ -26,14 +26,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    with the laws K4s == K4m, bucketed == unbucketed and K4s on a plain
    causal / window mask == K3 as ``torch.equal``; D1 (one-token decode
    attention; q and cache bf16 or f32, D 16 / 64 / 128, GQA 40/8 and 4/2,
-   per-row ``kv_len`` from 1 to the cache's 544, windows, vacant rows) and
+   per-row ``kv_len`` from 1 to the cache's 544, 2,064 or 16,400, the
+   last past the CTAs' shared score budget, windows, vacant rows) and
    R1 (the router logits, d 5120 x 16 experts, x and W bf16 or f32, at
    every tile regime and its edges from 1 to 8,192 tokens, and at d
    40,960, E 5, d 200, E 128, d 201 and 202 and x and W off a 16-byte
    start, which the threads stage) against their plain versions, and as
    ``torch.equal`` their laws: row i of B in {1, 2, 3, 4, 8, 16} rows (R1
-   at each of its token counts) == the row alone, D1 in a 2,064-position
-   cache == in the 544 one, a scalar ``kv_len`` == a vector of equal
+   at each of its token counts) == the row alone, D1 in a cache 1,520
+   positions larger == in the case's, a scalar ``kv_len`` == a vector of equal
    values, each kernel == its order emulated in PyTorch;
    float16 and other head dims refused; then, as
    ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
@@ -123,7 +124,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 11. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound; K2, D1, R1, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; D1 and R1 on
    the calls the serving runs made (decode steps at 4 x 256, the
-   scheduler's top bucket, 4 x 2048; R1's prefills), SDPA and
+   scheduler's top bucket, 4 x 2048; R1's prefills; D1's cluster shape and
+   shared memory a CTA), SDPA and
    ``torch.matmul`` beside them, R1's no-FMA instruction floor at the SM
    clock read around its timing; K2 on each captured
    stream with its row statistics, == plain; K5 with its bucketing and
@@ -733,19 +735,27 @@ def phase_attention_vs_plain():
           f"attention fell back to the oracle: {ops.fallback_reasons()}")
 
 
-# D1 vs plain: (Hq, Hkv, D, q dtype, cache dtype, window) -- scout's 40/8 at
-# D 128, the flash phase's 4/2 at D 64 and 16, each dtype pairing, windows
+# D1 vs plain: (Hq, Hkv, D, q dtype, cache dtype, window, cache) -- scout's
+# 40/8 at D 128, the flash phase's 4/2 at D 64 and 16, each dtype pairing,
+# windows, in 544-position caches; then rows up to 2,064 positions (up to
+# 65 chunks of 32, 9 a CTA), a window of 100 (lo off a chunk boundary), a
+# full group of 8, and a 16,400-position cache whose longest rows pass the
+# CTAs' shared score budget (13,056 positions at g 5: pass 2 recomputes)
 DECODE_CASES = (
-    (40, 8, 128, "bfloat16", "bfloat16", None),
-    (40, 8, 128, "bfloat16", "bfloat16", 300),
-    (40, 8, 128, "bfloat16", "float32", None),
-    (40, 8, 128, "float32", "float32", 64),
-    (4, 2, 64, "bfloat16", "bfloat16", 7),
-    (4, 2, 64, "float32", "bfloat16", None),
-    (4, 2, 16, "float32", "float32", None),
-    (4, 2, 16, "bfloat16", "bfloat16", 5),
+    (40, 8, 128, "bfloat16", "bfloat16", None, 544),
+    (40, 8, 128, "bfloat16", "bfloat16", 300, 544),
+    (40, 8, 128, "bfloat16", "float32", None, 544),
+    (40, 8, 128, "float32", "float32", 64, 544),
+    (4, 2, 64, "bfloat16", "bfloat16", 7, 544),
+    (4, 2, 64, "float32", "bfloat16", None, 544),
+    (4, 2, 16, "float32", "float32", None, 544),
+    (4, 2, 16, "bfloat16", "bfloat16", 5, 544),
+    (40, 8, 128, "bfloat16", "bfloat16", None, 2064),
+    (40, 8, 128, "bfloat16", "bfloat16", 100, 2064),
+    (64, 8, 64, "bfloat16", "float32", None, 2064),
+    (40, 8, 128, "bfloat16", "bfloat16", None, 16400),
 )
-DECODE_ROWS, DECODE_CAP, DECODE_CAP_BIG = 16, 544, 2064
+DECODE_ROWS, DECODE_CAP_MORE = 16, 1520    # the larger cache: S + 1,520
 BATCH_LAW = (1, 2, 3, 4, 8, 16)
 # R1 at d 5120 x E 16: every tile regime of ``tuning.router_tiles`` and its
 # edges (the few-token kernel up to 64 tokens, the many-token one above,
@@ -801,17 +811,20 @@ def _router_case(x, w, what: str):
 def phase_decode_vs_plain():
     """D1 (``decode_attention``) and R1 (``router_logits``) against their
     plain versions on the card, and their laws as ``torch.equal``.  D1 on
-    :data:`DECODE_CASES`, 16 rows of a 544-position cache, per-row
-    ``kv_len`` including 1, 2 and 544, and two vacant rows (zero K / V at
-    ``kv_len`` 1, as the scheduler leaves them), within
-    :func:`decode_tolerance`; the laws: row i of B in BATCH_LAW rows ==
-    the row alone, the same rows in a 2064-position cache == in the 544
-    one, a scalar ``kv_len`` == a vector of equal values, and the kernel ==
-    its order emulated in PyTorch (``ref.decode_attention_ordered`` on the
-    card, whose rows the CPU tests hold to the same laws).  R1 on scout's
-    router shape (d 5120, E 16; x and W f32 or bf16, the four pairings) at
-    the :data:`ROUTER_TOKENS` token counts (every tile regime and its
-    edges) and at :data:`ROUTER_SHAPES`, within 1e-5 of the largest
+    :data:`DECODE_CASES`, 16 rows of the case's cache (544, 2,064 or
+    16,400 positions), per-row ``kv_len`` including 1, 2 and the capacity,
+    and two vacant rows (zero K / V at ``kv_len`` 1, as the scheduler
+    leaves them), within :func:`decode_tolerance`; the laws: row i of B in
+    BATCH_LAW rows == the row alone, the same rows in a cache 1,520
+    positions larger (544 -> 2,064) == in the case's, a scalar ``kv_len``
+    == a vector of equal values, and the kernel == its order emulated in
+    PyTorch (``ref.decode_attention_ordered`` on the card, whose rows the
+    CPU tests hold to the same laws).  The cases must reach every part of
+    D1's partition: CTAs with several chunks, ``kv_len`` 1 (one CTA busy),
+    a window's lo off a chunk boundary, scores past the shared budget.  R1
+    on scout's router shape (d 5120, E 16; x and W f32 or bf16, the four
+    pairings) at the :data:`ROUTER_TOKENS` token counts (every tile regime
+    and its edges) and at :data:`ROUTER_SHAPES`, within 1e-5 of the largest
     |logit| (the kernel sums in another order than the library); the laws:
     the kernel == its emulated order (``router.ref.router_logits_ordered``)
     at every count and shape, and row i at every count == token i alone.
@@ -827,11 +840,21 @@ def phase_decode_vs_plain():
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to("cuda", dt)
 
-    B, S = DECODE_ROWS, DECODE_CAP
-    lens = rng.integers(1, S + 1, B)
-    lens[:5] = (1, S, 2, S - 1, 1)
-    kv = torch.from_numpy(lens).cuda()
-    for Hq, Hkv, D, qn, cn, window in DECODE_CASES:
+    B = DECODE_ROWS
+    C, R = ref.DECODE_CHUNK, ref.DECODE_CTAS
+    reached = set()
+    for Hq, Hkv, D, qn, cn, window, S in DECODE_CASES:
+        lens = rng.integers(1, S + 1, B)
+        lens[:5] = (1, S, 2, S - 1, 1)
+        kv = torch.from_numpy(lens).cuda()
+        lo = np.maximum(lens - window, 0) if window else np.zeros_like(lens)
+        most = -(-(np.minimum(lens, S) - lo) // (C * R)) * C   # a CTA's
+        reached |= {"several chunks a CTA"} if (most > C).any() else set()
+        reached |= {"kv_len 1"} if (lens == 1).any() else set()
+        reached |= ({"lo off a chunk"} if ((lo > 0) & (lo % C > 0)).any()
+                    else set())
+        past = int((Hq // Hkv * most * 4 > ref.DECODE_SCORE_BYTES).sum())
+        reached |= {"scores recomputed"} if past else set()
         qdt, cdt = getattr(torch, qn), getattr(torch, cn)
         q = rand((B, Hq, 1, D), qdt)
         k, v = rand((B, Hkv, S, D), cdt), rand((B, Hkv, S, D), cdt)
@@ -844,7 +867,8 @@ def phase_decode_vs_plain():
         big = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         tol = decode_tolerance(big, qdt, cdt)
-        what = f"D1 {Hq}/{Hkv} D {D} q {qn} cache {cn} window {window}"
+        what = (f"D1 {Hq}/{Hkv} D {D} q {qn} cache {cn} window {window} "
+                f"cache {S}")
         check(err <= tol, f"{what}: kernel disagrees with plain: {err} > "
                           f"{tol}")
         check(torch.equal(fk.decode_attention(q, k, v, **kw), got),
@@ -854,12 +878,13 @@ def phase_decode_vs_plain():
                                            window=window),
             lambda a, b: (q[a:b], k[a:b], v[a:b], kv[a:b])),
             f"{what}: a row depends on its batch")
-        big_k = torch.zeros((B, Hkv, DECODE_CAP_BIG, D), dtype=cdt,
+        big_k = torch.zeros((B, Hkv, S + DECODE_CAP_MORE, D), dtype=cdt,
                             device="cuda")
         big_v = torch.zeros_like(big_k)
         big_k[:, :, :S], big_v[:, :, :S] = k, v
         check(torch.equal(fk.decode_attention(q, big_k, big_v, **kw), got),
               f"{what}: the result depends on the cache's capacity")
+        del big_k, big_v
         n = int(lens[5])
         check(torch.equal(
             fk.decode_attention(q, k, v, kv_len=n, window=window),
@@ -870,7 +895,12 @@ def phase_decode_vs_plain():
               f"{what}: kernel != its emulated order")
         print(f"  {what}: max_abs_err {err:.3g} (tol {tol:.3g}); == its "
               f"emulated order; rows of B {BATCH_LAW} == alone, cache {S} == "
-              f"{DECODE_CAP_BIG}, scalar == vector kv_len")
+              f"{S + DECODE_CAP_MORE}, scalar == vector kv_len; {past} of "
+              f"{B} rows recompute their scores")
+        del q, k, v, want, got
+    check(reached == {"several chunks a CTA", "kv_len 1", "lo off a chunk",
+                      "scores recomputed"},
+          f"D1's cases reach only {sorted(reached)} of the partition")
     for bad, why in (((torch.float16, torch.float16, 128), "float16"),
                      ((torch.bfloat16, torch.bfloat16, 32), "head dim 32"),
                      ((torch.bfloat16, torch.bfloat16, 256), "head dim 256")):
@@ -1840,15 +1870,21 @@ def _decode_times(call, what: str) -> dict:
               + 2 * q.numel() * q.element_size() + 8 * B)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * D * (Hq // Hkv) * Hkv * visible / F32_FLOP_PER_S * 1e3
+    launch = fk.decode_info(D, q.dtype, k.dtype)
     print(f"  D1 {what} (B {B}, {Hq}/{Hkv}, cache {S}, {visible // B} "
           f"visible a row on average, {str(k.dtype)[6:]}): {ms:.4f} ms "
           f"(graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}, "
           f"plain {plain_ms:.3f}, sdpa {library_ms:.4f}, graph "
-          f"{graph['library_ms']:.4f}), max_abs_err {err:.3g}")
+          f"{graph['library_ms']:.4f}), max_abs_err {err:.3g}; "
+          f"{B * Hkv} clusters of {launch['cluster']} CTAs x "
+          f"{launch['threads']} threads, chunks of {launch['chunk']}, "
+          f"{launch['dynamic_smem'] + launch['static_smem']} B shared a CTA "
+          f"({launch['dynamic_smem']} dynamic), {launch['registers']} "
+          f"registers, {launch['resident_clusters']} clusters resident")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms, "graph": graph,
+            "library_ms": library_ms, "graph": graph, "launch": launch,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S_cap": S, "D": D,
                       "visible": visible, "window": window,
                       "q_dtype": str(q.dtype)[6:],

@@ -59,12 +59,29 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _decode_lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
-    # q k v out scores kv_len, kv_scalar B Hq Hkv S D window, scale,
-    # q_dtype cache_dtype, stream
+    # q k v out kv_len, kv_scalar B Hq Hkv S D window, scale, q_dtype
+    # cache_dtype, stream
     lib.decode_attention_launch.argtypes = \
-        [_P] * 6 + [_I] * 7 + [_F] + [_I] * 2 + [_P]
+        [_P] * 5 + [_I] * 7 + [_F] + [_I] * 2 + [_P]
     lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_info.argtypes = [_I] * 3 + [_P]
+    lib.decode_attention_info.restype = ctypes.c_int
     return lib
+
+
+def decode_info(D: int, q_dtype: torch.dtype,
+                cache_dtype: torch.dtype) -> dict:
+    """D1's launch shape for one instance, read from the built library:
+    CTAs a cluster, positions a chunk, threads a CTA, dynamic and static
+    shared memory a CTA (bytes), registers a thread and the clusters the
+    card holds at once."""
+    lib = _decode_lib()
+    info = (ctypes.c_int * 7)()
+    build.check(lib, lib.decode_attention_info(
+        D, _DTYPE_CODE[q_dtype], _DTYPE_CODE[cache_dtype], info),
+        "decode_attention info")
+    return dict(zip(("cluster", "chunk", "threads", "dynamic_smem",
+                     "static_smem", "registers", "resident_clusters"), info))
 
 
 def _scale(D: int, scale: Optional[float]) -> float:
@@ -258,11 +275,10 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
         scalar = int(kv_len)
     q = q1.contiguous()
     out = torch.empty_like(q)
-    scores = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = _decode_lib()
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        scores.data_ptr(), None if lens is None else lens.data_ptr(), scalar,
+        None if lens is None else lens.data_ptr(), scalar,
         B, Hq, Hkv, S, D, -1 if window is None else int(window), D ** -0.5,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], _stream(q))
     build.check(lib, err, "decode_attention launch")

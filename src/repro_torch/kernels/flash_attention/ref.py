@@ -260,7 +260,15 @@ def decode_attention_ref(q1: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, Hq, 1, D).to(q1.dtype)
 
 
-DECODE_WARPS = 8      # the kernel's warps a block, one position each a round
+# D1's order constants (``csrc/decode_attention.cu``): chunks of
+# DECODE_CHUNK positions counted from a row's lo, chunk c to CTA c mod
+# DECODE_CTAS of the row's cluster, position i of a chunk to warp i mod
+# DECODE_WARPS; a CTA holds its scores in DECODE_SCORE_BYTES of shared
+# memory, else pass 2 recomputes them.
+DECODE_CHUNK = 32
+DECODE_CTAS = 8
+DECODE_WARPS = 8
+DECODE_SCORE_BYTES = 32768
 
 
 def _lane_sum(part: torch.Tensor) -> torch.Tensor:
@@ -271,33 +279,58 @@ def _lane_sum(part: torch.Tensor) -> torch.Tensor:
     return part[..., 0]
 
 
+def _decode_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """D1's scores of qg (Hkv, g, D) against k (Hkv, *P, D): lane ``l`` of
+    32 sums its ``E = D / 32`` dims (one dim on lanes < 16 at D 16) in
+    index order, then the xor-butterfly.  Returns (Hkv, g, *P)."""
+    Hkv, g, D = qg.shape
+    lanes = 32 if D >= 32 else D
+    E = D // lanes
+    P = k.shape[1:-1]
+    prod = qg.reshape(Hkv, g, *(1,) * len(P), D) * k[:, None]
+    prod = prod.reshape(*prod.shape[:-1], lanes, E)
+    part = prod[..., 0]
+    for e in range(1, E):
+        part = part + prod[..., e]
+    return _lane_sum(torch.nn.functional.pad(part, (0, 32 - lanes)))
+
+
 def decode_attention_ordered(q1: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, *, kv_len=None,
                              window: Optional[int] = None) -> torch.Tensor:
-    """D1's order of operations in PyTorch, one (row, kv head) block at a
-    time, each product and sum rounded to f32 as the kernel rounds it:
+    """D1's order of operations in PyTorch, one batch row at a time (its kv
+    heads together), each product and sum rounded to f32 as the kernel
+    rounds it:
 
-    * ``qg = cast_cache(cast_q(q * D^-0.5))``;
-    * a score: lane ``l`` of 32 sums its ``E = D / 32`` dims (one dim on
-      lanes < 16 at D 16) in index order, then the xor-butterfly;
-    * ``m``: the max over the visible positions ``[lo, hi)``;
-    * warp ``w`` of :data:`DECODE_WARPS` takes positions ``lo + w``, ``lo
-      + w + 8``, ... in order and sums ``p = exp(s - m)`` and
-      ``f32(cast_cache(p)) * v`` from zero; the warps' sums are added in
-      warp order; ``out = sum / (l == 0 ? 1 : l)``, cast to q's dtype.
+    * ``qg = cast_cache(cast_q(q * D^-0.5))``; a score as
+      :func:`_decode_scores`;
+    * the visible positions ``[lo, hi)`` cut into chunks of
+      :data:`DECODE_CHUNK` from ``lo``; chunk ``c`` to CTA ``c mod``
+      :data:`DECODE_CTAS`, which takes its chunks in order; position ``i``
+      of a chunk to warp ``i mod`` :data:`DECODE_WARPS` of that CTA: warp
+      ``(r, w)``'s ``u``-th position of its CTA's ``t``-th chunk is ``lo +
+      (r + 8 t) 32 + w + 8 u``;
+    * ``m``: the max over the visible positions;
+    * each warp sums ``p = exp(s - m)`` and ``f32(cast_cache(p)) * v`` from
+      zero over its positions in (t, u) order; a CTA adds its warps' sums
+      in warp order, the row its CTAs' sums in rank order; ``out = sum /
+      (l == 0 ? 1 : l)``, cast to q's dtype.
 
-    Nothing here reads another row, or the cache past ``hi``, so a row's
-    bits do not depend on B or on the cache's capacity.  A row with no
-    visible position gives zeros, as the kernel does."""
+    Where a CTA's scores exceed :data:`DECODE_SCORE_BYTES` the kernel's
+    pass 2 recomputes them from K by the same tree, so the same bits: one
+    emulation covers both.  Nothing here reads another
+    row, or the cache past ``hi``, so a row's bits do not depend on B or on
+    the cache's capacity.  A row with no visible position gives zeros, as
+    the kernel does."""
     B, Hq, _, D = q1.shape
     _, Hkv, S, _ = k_cache.shape
     g = Hq // Hkv
-    cd, W = k_cache.dtype, DECODE_WARPS
-    lanes = 32 if D >= 32 else D
-    E = D // lanes
+    cd, dev = k_cache.dtype, q1.device
+    C, R, W = DECODE_CHUNK, DECODE_CTAS, DECODE_WARPS
+    U = C // W
     qg = (q1.float() * torch.tensor(D ** -0.5, dtype=torch.float32)
           ).to(q1.dtype).to(cd).float().reshape(B, Hkv, g, D)
-    out = torch.zeros((B, Hkv, g, D), dtype=torch.float32, device=q1.device)
+    out = torch.zeros((B, Hkv, g, D), dtype=torch.float32, device=dev)
     for b in range(B):
         if isinstance(kv_len, torch.Tensor):
             n = int(kv_len.reshape(-1)[b])
@@ -307,32 +340,32 @@ def decode_attention_ordered(q1: torch.Tensor, k_cache: torch.Tensor,
         lo = max(0, n - window) if window is not None else 0
         if hi <= lo:
             continue
-        rounds = -(-(hi - lo) // W)
-        pos = lo + torch.arange(rounds * W, device=q1.device)
-        valid = (pos < hi).reshape(rounds, W)
+        T = -(-(hi - lo) // (C * R))          # chunks of the busiest CTA
+        ar = lambda n, at: torch.arange(n, device=dev).reshape(  # noqa: E731
+            [n if i == at else 1 for i in range(4)])
+        pos = lo + (ar(R, 2) + R * ar(T, 0)) * C + ar(W, 3) + W * ar(U, 1)
+        valid = pos < hi                                    # (T, U, R, W)
         pos = pos.clamp(max=hi - 1)
-        for h in range(Hkv):
-            k = k_cache[b, h, pos].float()                      # (P, D)
-            v = v_cache[b, h, pos].float()
-            prod = qg[b, h][:, None, :] * k[None]               # (g, P, D)
-            prod = prod.reshape(g, -1, lanes, E)
-            part = prod[..., 0]
-            for e in range(1, E):
-                part = part + prod[..., e]
-            part = torch.nn.functional.pad(part, (0, 32 - lanes))
-            s = _lane_sum(part).reshape(g, rounds, W)           # (g, r, w)
-            m = torch.where(valid, s, -torch.inf).amax(dim=(1, 2),
-                                                       keepdim=True)
-            p = torch.where(valid, torch.exp(s - m), 0.0)
-            pn = p.to(cd).float()
-            vr = v.reshape(rounds, W, D)
-            l_w = torch.zeros((g, W), device=q1.device)
-            acc = torch.zeros((g, W, D), device=q1.device)
-            for r in range(rounds):
-                l_w = l_w + p[:, r]
-                acc = acc + pn[:, r, :, None] * vr[r][None]
-            l, o = l_w[:, 0], acc[:, 0]
-            for w in range(1, W):
-                l, o = l + l_w[:, w], o + acc[:, w]
-            out[b, h] = o / torch.where(l == 0, 1.0, l)[:, None]
+        k = k_cache[b][:, pos].float()                      # (Hkv, T, U, R, W, D)
+        v = v_cache[b][:, pos].float()
+        s = _decode_scores(qg[b], k)                        # (Hkv, g, T, U, R, W)
+        m = torch.where(valid, s, -torch.inf).amax(dim=(2, 3, 4, 5),
+                                                   keepdim=True)
+        p = torch.where(valid, torch.exp(s - m), 0.0)
+        pn = p.to(cd).float()
+        l_w = torch.zeros((Hkv, g, R, W), device=dev)
+        acc = torch.zeros((Hkv, g, R, W, D), device=dev)
+        for t in range(T):
+            for u in range(U):
+                l_w = l_w + p[:, :, t, u]
+                acc = acc + torch.where(valid[t, u, :, :, None],
+                                        pn[:, :, t, u, :, :, None]
+                                        * v[:, None, t, u], 0.0)
+        l_c, o_c = l_w[..., 0], acc[..., 0, :]               # warp order
+        for w in range(1, W):
+            l_c, o_c = l_c + l_w[..., w], o_c + acc[..., w, :]
+        l, o = l_c[..., 0], o_c[..., 0, :]                   # rank order
+        for r in range(1, R):
+            l, o = l + l_c[..., r], o + o_c[..., r, :]
+        out[b] = o / torch.where(l == 0, 1.0, l)[..., None]
     return out.reshape(B, Hq, 1, D).to(q1.dtype)

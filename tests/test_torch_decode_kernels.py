@@ -165,14 +165,20 @@ def test_decode_order_rows_do_not_depend_on_the_batch(D, dt):
 
 
 def test_decode_order_has_the_kernels_warp_count():
-    """The emulation walks positions with as many warps as the kernel's
-    source declares (``kWarps``), the number the summation order depends
-    on."""
+    """The emulation walks positions with the order constants the kernel's
+    source declares: positions a chunk (``kChunk``), CTAs a cluster
+    (``kCtas``) and warps a CTA (``kWarps``), the numbers the summation
+    order depends on, and the shared score budget (``kScoreBytes``) past
+    which pass 2 recomputes the scores."""
     src = open(os.path.join(os.path.dirname(fk.__file__), "csrc",
                             "decode_attention.cu")).read()
-    decl = [ln for ln in src.splitlines()
-            if ln.startswith("constexpr int kWarps = ")]
-    assert decl == [f"constexpr int kWarps = {fref.DECODE_WARPS};"]
+    for name, value in (("kChunk", fref.DECODE_CHUNK),
+                        ("kCtas", fref.DECODE_CTAS),
+                        ("kWarps", fref.DECODE_WARPS),
+                        ("kScoreBytes", fref.DECODE_SCORE_BYTES)):
+        decl = [ln.split("//")[0].strip() for ln in src.splitlines()
+                if ln.startswith(f"constexpr int {name} = ")]
+        assert decl == [f"constexpr int {name} = {value};"], name
 
 
 @pytest.mark.parametrize("window", [None, 9])

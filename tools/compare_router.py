@@ -43,8 +43,9 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
+
+import compare_common as common
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS, D, E, SEED = (4, 8, 1024, 8192), 5120, 16, 26
@@ -59,54 +60,20 @@ ABLATE = {
 }
 
 
-def _ablate(names, out_dir):
-    """Copies of the in-tree source, each with one ``ABLATE`` edit."""
-    from repro_torch.kernels import build
-    src = build.SOURCES["router"].read_text()
-    paths = []
-    for name in names:
-        text = src
-        for old, new in ABLATE[name]:
-            if text.count(old) != 1:
-                raise SystemExit(f"--ablate {name}: the text to replace is "
-                                 "not in the source exactly once")
-            text = text.replace(old, new)
-        path = os.path.join(out_dir, f"abl_{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        paths.append(path)
-    return paths
-
-
-def _build_all(srcs, out_dir):
-    """Every source built with the in-tree flags, one ``nvcc`` each, all
-    started together: {src: (library, takes a tile, resource rows)}."""
-    import chip_smoke as cs
-    from repro_torch.kernels import build
+def _bind(lib, text):
+    """A build of ``router.cu`` bound: (library, takes a tile), the earlier
+    launcher bound by hand."""
     from repro_torch.kernels.router import kernel
-    procs = {}
-    for i, src in enumerate(srcs):
-        out = os.path.join(out_dir, f"lib{i}.so")
-        procs[src] = (out, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for src, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"{src}: nvcc exited {proc.returncode}\n{log}")
-        lib = ctypes.CDLL(out)
-        tiled = "int staged" in open(src).read()
-        if tiled:
-            kernel.bind(lib)
-        else:
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.router_launch.argtypes = [P] * 3 + [I] * 5 + [P]
-            lib.router_launch.restype = ctypes.c_int
-            lib.kernel_error_string.argtypes = [I]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-        built[src] = (lib, tiled, cs.kernel_resources(log))
-    return built
+    tiled = "int staged" in text
+    if tiled:
+        kernel.bind(lib)
+    else:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.router_launch.argtypes = [P] * 3 + [I] * 5 + [P]
+        lib.router_launch.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [I]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib, tiled
 
 
 def _untiled(lib, x, w):
@@ -122,18 +89,6 @@ def _untiled(lib, x, w):
                             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "router launch")
     return out
-
-
-def _wrapper(path, lib):
-    """``router_logits`` of another version of ``router/kernel.py`` at
-    ``path``, launching on ``lib``."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("router_other_wrapper",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod._lib = lambda: lib
-    return mod.router_logits
 
 
 def _mhz(clock: str) -> float:
@@ -175,11 +130,11 @@ def main() -> int:
     if log:
         result["resources"]["in-tree"] = cs.kernel_resources(log)
     lib = kernel._lib()
-    ablations = _ablate(args.ablate, out_dir)
+    ablations = common.ablate("router", ABLATE, args.ablate, out_dir)
     others = {}
-    for src, (olib, tiled, res) in _build_all(args.others + ablations,
-                                              out_dir).items():
-        others[src], result["resources"][src] = (olib, tiled), res
+    for src, (bound, res) in common.build_all(args.others + ablations,
+                                              out_dir, _bind).items():
+        others[src], result["resources"][src] = bound, res
     for label, rows in result["resources"].items():
         for kern, used, spills in rows:
             print(f"{label} {kern}: {used}; {spills}")
@@ -187,8 +142,9 @@ def main() -> int:
              for t in args.tiles]
     if args.wrapper and not args.others:
         raise SystemExit("--wrapper needs another source to launch on")
-    other_wrapper = (_wrapper(args.wrapper, others[args.others[0]][0])
-                     if args.wrapper else None)
+    other_wrapper = (common.load_wrapper(
+        args.wrapper, "_lib", others[args.others[0]][0], "router_logits")
+        if args.wrapper else None)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(SEED)
     w = torch.randn((D, E), generator=g, device="cuda") * D ** -0.5

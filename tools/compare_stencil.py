@@ -35,11 +35,11 @@ prints one JSON line; the whole result is the last line and
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
+
+import compare_common as common
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N3, N2, SEED = 512, 16384, 4
@@ -47,15 +47,15 @@ CASES = (("j3d27pt", "float32"), ("j3d7pt", "float32"),
          ("j3d27pt", "bfloat16"), ("j3d7pt", "bfloat16"),
          ("j2d9pt", "float32"))
 HBM_BYTES_PER_S = 3.35e12
-# --ablate: name -> (line of the in-tree source, its replacement)
+# --ablate: name -> ((text of the in-tree source, its replacement), ...)
 ABLATE = {
-    "notaps": ("    taps<ROT>(acc, cf, std::make_integer_sequence<int, "
-               "P::n>{});\n",
-               "    for (int i = 0; i < kRunX; ++i)\n"
-               "      acc[i] = q[(ROT + 1) % 3][1][i + 1];\n"),
-    "nostage": ("    if (p < nz + 2) {\n", "    if (false) {\n"),
-    "nostore": ("    if (row_out && nrun > 0)\n",
-                "    if (row_out && nrun > 0 && acc[0] == 1234.5f)\n"),
+    "notaps": (("    taps<ROT>(acc, cf, std::make_integer_sequence<int, "
+                "P::n>{});\n",
+                "    for (int i = 0; i < kRunX; ++i)\n"
+                "      acc[i] = q[(ROT + 1) % 3][1][i + 1];\n"),),
+    "nostage": (("    if (p < nz + 2) {\n", "    if (false) {\n"),),
+    "nostore": (("    if (row_out && nrun > 0)\n",
+                 "    if (row_out && nrun > 0 && acc[0] == 1234.5f)\n"),),
 }
 
 
@@ -71,44 +71,6 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def _ablate(names, out_dir):
-    """Copies of the in-tree source, each with one ``ABLATE`` edit."""
-    from repro_torch.kernels import build
-    src = build.SOURCES["stencil"].read_text()
-    paths = []
-    for name in names:
-        old, new = ABLATE[name]
-        if src.count(old) != 1:
-            raise SystemExit(f"--ablate {name}: the line to replace is not "
-                             "in the source exactly once")
-        path = os.path.join(out_dir, f"abl_{name}.cu")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
-        paths.append(path)
-    return paths
-
-
-def _build_all(srcs, out_dir):
-    """Every source built with the in-tree flags, one ``nvcc`` each, all
-    started together: {src: (library, resource rows)}."""
-    import chip_smoke as cs
-    from repro_torch.kernels import build
-    from repro_torch.kernels.stencil import kernel
-    procs = {}
-    for i, src in enumerate(srcs):
-        out = os.path.join(out_dir, f"lib{i}.so")
-        procs[src] = (out, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for src, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"{src}: nvcc exited {proc.returncode}\n{log}")
-        built[src] = (kernel.bind(ctypes.CDLL(out)), cs.kernel_resources(log))
-    return built
 
 
 def _conv(spec, grid):
@@ -162,13 +124,15 @@ def main() -> int:
               "resources": {}}
     out_dir = os.path.join(ROOT, "build", "compare_stencil")
     os.makedirs(out_dir, exist_ok=True)
-    ablations = args.ablations + _ablate(args.ablate, out_dir)
+    ablations = args.ablations + common.ablate("stencil", ABLATE,
+                                               args.ablate, out_dir)
     log = build.build_all(["stencil"])["stencil"]["log"]
     if log:
         result["resources"]["in-tree"] = cs.kernel_resources(log)
     others = {}
-    for src, (lib, res) in _build_all(args.others + ablations,
-                                      out_dir).items():
+    for src, (lib, res) in common.build_all(
+            args.others + ablations, out_dir,
+            lambda lib, text: kernel.bind(lib)).items():
         others[src], result["resources"][src] = lib, res
     for label, rows in result["resources"].items():
         for kern, used, spills in rows:
