@@ -64,10 +64,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
    0/1 dispatch streams (the first MoE layer's prefill, the last decode
    step) must give kernel == plain exactly, the prefill stream at two
-   ``bn`` too; the same weights with ``dispatch="gather"`` must give the
-   same tokens; D1 once an attention layer a decode step and R1 once a
-   MoE layer a pass in every run, their plain versions never called on the
-   card; then ``ServeLoop(pipeline_depth=1)`` (route phase 1 with
+   ``bn`` too; the same weights with ``dispatch="gather"`` (fused, the
+   default: ``model.prefill``, then the decode step replayed as one CUDA
+   graph) must give the same tokens; D1 once an attention layer a decode
+   step and R1 once a MoE layer a pass in every run (a replay counts the
+   launches its capture recorded), their plain versions never called on
+   the card; then fused gather, ``two_phase=True`` gather (layered, eager)
+   and fused bcsr (the full-grid stream, K2 once a MoE layer a pass): the
+   same tokens, the first decode step's logits ``torch.equal``, a replay
+   launching D1 and R1 8 times each (and K2 8 on bcsr); fused and layered
+   gather at depth 1 with the same tokens, one fused depth-1 step making
+   no host sync; decode tok/s and the capture ms of each; and one decode
+   step each, layered and replayed, traced by ``torch.profiler`` (kernels
+   a step, busy and wall ms, idle share, the three longest kernels);
+   then ``ServeLoop(pipeline_depth=1)`` (route phase 1 with
    the attention half, executes in flight behind the next host route, no
    per-step sync) serves the same prompts in the order depth 0 (the run
    above), 1, 1, 0 -- the greedy runs of each depth, tokens equal, K2
@@ -109,11 +119,16 @@ Phases, in order; any failure raises and the script exits nonzero:
 9. RWKV-6 serving at full width and depth (rwkv6-7b: d_model 4096, 64
    heads of 64, d_ff 14336, vocab 65536, 32 layers, random bf16 weights
    from a seed, ~15 GB): ``ServeLoop`` serves 4 prompts of 2048 tokens and
-   generates 16 greedy tokens, with K7 launched once a layer in prefill
+   generates 16 greedy tokens through the default, fused loop (the decode
+   step one replayed CUDA graph), with K7 launched once a layer in prefill
    (32) and never in decode, and its plain version never called; the first
    layer's r, k, v, w, u are captured and K7 is held against plain on
    them; prefill ms, decode tok/s and the phase's peak device memory;
-   then one depth-1 run: the same tokens, the same 32 K7 launches;
+   ``two_phase=True`` (layered, eager) gives the same tokens and the first
+   decode step's logits ``torch.equal``; then a depth-1 run of each: the
+   same tokens, the same 32 K7 launches, no host sync in a fused depth-1
+   step; decode tok/s of each and the capture ms; one decode step each,
+   layered and replayed, traced as in phase 5;
 10. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -213,24 +228,10 @@ def max_err(got, want, what: str) -> float:
 
 def _counted():
     """Every kernel of the port, by name: its wrapper and the attribute in
-    which the wrapper counts its launches (K2 and K2q share a wrapper)."""
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.router import kernel as rk
-    from repro_torch.kernels.spmm import kernel as sk
-    from repro_torch.kernels.spmspm import kernel as pk
-    from repro_torch.kernels.stencil import kernel as tk
-    from repro_torch.kernels.wkv import kernel as wk
-    return {"spmm_bcsr": (sk.spmm_bcsr, "launches"),
-            "spmm_bcsr_quant": (sk.spmm_bcsr, "quant_launches"),
-            "flash_attention": (fk.flash_attention, "launches"),
-            "flash_attention_masked": (fk.flash_attention_masked, "launches"),
-            "flash_attention_sparse": (fk.flash_attention_sparse, "launches"),
-            "decode_attention": (fk.decode_attention, "launches"),
-            "router_logits": (rk.router_logits, "launches"),
-            "spmspm_ell": (pk.spmspm_ell, "launches"),
-            "stencil_2d": (tk.stencil_2d, "launches"),
-            "stencil_3d": (tk.stencil_3d, "launches"),
-            "wkv_kernel": (wk.wkv_kernel, "launches")}
+    which the wrapper counts its launches (``kernels.launch_counters``; a
+    replayed decode graph adds the launches its capture recorded)."""
+    from repro_torch import kernels
+    return kernels.launch_counters()
 
 
 def reset_launches() -> None:
@@ -239,8 +240,8 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in
-            _counted().items()}
+    from repro_torch import kernels
+    return kernels.read_launches()
 
 
 def only(**launches) -> dict:
@@ -406,6 +407,118 @@ def print_serve(label: str, row: dict) -> None:
           f" + drain {row['drain_ms']:.1f} ms); route {row['route_ms']:.1f}, "
           f"execute {row['execute_ms']:.1f} ms; timing " + ", ".join(
               f"{k} {v:.4g}" for k, v in tm.items()))
+
+
+def first_step_logits(loop, prompts, gen: int = GEN):
+    """``loop.run(prompts, gen)`` keeping a copy of the logits its first
+    decode step sampled from (its second draw; the first is the prefill's).
+    Returns (tokens, those logits)."""
+    seen = []
+
+    def keep(last_logits, _sample=loop._sample):
+        if len(seen) < 2:
+            seen.append(last_logits.clone())
+        return _sample(last_logits)
+
+    loop._sample = keep
+    try:
+        tokens = loop.run(prompts, gen)
+    finally:
+        del loop._sample
+    return tokens, seen[1]
+
+
+def fused_numbers(label: str, summary: dict, capture: dict,
+                  launches: dict) -> dict:
+    """One fused or layered serving run's numbers: prefill ms, decode tok/s
+    (over decode + drain), the graph capture of the loop's first run (calls
+    and ms, not counted in decode) and the run's launches."""
+    ms = lambda ph: summary.get(ph, {}).get("seconds", 0.0) * 1e3  # noqa: E731
+    return {"label": label, "prefill_ms": ms("prefill"),
+            "decode_tok_per_s": summary["decode"]["tok_per_s"],
+            "decode_ms": ms("decode"), "drain_ms": ms("drain"),
+            "capture": capture,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def print_fused(row: dict) -> None:
+    print(f"  {row['label']}: prefill {row['prefill_ms']:.1f} ms, decode "
+          f"{row['decode_tok_per_s']:.1f} tok/s (decode {row['decode_ms']:.1f}"
+          f" + drain {row['drain_ms']:.1f} ms), capture "
+          f"{row['capture']['ms']:.1f} ms ({row['capture']['calls']} in the "
+          f"first run); launches {row['launches']}")
+
+
+def _busy_us(spans) -> float:
+    """The union of ``(start, end)`` spans, in their unit."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def trace_decode(label: str, loop, prompts) -> dict:
+    """One depth-0 decode step of ``loop`` traced by ``torch.profiler``
+    with CUDA activity, after its prefill, two warm steps and three steps
+    timed on the host clock (synchronised) without the profiler.  Device
+    work: every CUDA event of the trace (kernels, and the copies and fills
+    counted apart), busy = the union of their spans.  Wall: the host clock
+    around the traced step (the profiler's own cost included) and the
+    median untraced step; idle share = 1 - busy / untraced wall.  The
+    three kernels of the most summed time, by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    loop.prefill(prompts)
+    for _ in range(2):
+        loop.decode_step()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.decode_step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.decode_step()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.name.lower().startswith(("memcpy",
+                                                              "memset"))]
+    kernels = [e for e in events if e not in copies]
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in events]) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + (e.time_range.end
+                                       - e.time_range.start) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
+    wall_ms = sorted(walls)[1] * 1e3
+    row = {"label": label, "kernels": len(kernels), "copies": len(copies),
+           "busy_ms": busy_ms, "wall_ms": wall_ms,
+           "traced_wall_ms": traced * 1e3,
+           "idle_share": 1 - busy_ms / wall_ms if events else None,
+           "top": [{"name": n[:80], "calls": c, "ms": t}
+                   for n, (c, t) in top]}
+    print(f"  trace {label}: {row['kernels']} kernels a step (+ "
+          f"{row['copies']} copies / fills), busy {busy_ms:.3f} ms, wall "
+          f"{wall_ms:.3f} ms (traced {row['traced_wall_ms']:.3f}), idle "
+          + (f"share {row['idle_share']:.3f}" if events else
+             "share not measured (the profiler saw no device work)")
+          + "; longest: " + "; ".join(
+              f"{t['name'][:48]} x {t['calls']} {t['ms']:.3f} ms"
+              for t in row["top"]))
+    return row
 
 
 CLOCKS = "clocks.sm,clocks.max.sm"
@@ -1084,7 +1197,97 @@ def phase_slice():
           f"gather launched {read_launches()}: K2, or not D1 / R1")
     check(np.array_equal(g_tokens, tokens), "bcsr tokens != gather tokens")
     print("  gather run: tokens equal to bcsr; D1 and R1, no K2")
+    pipelined["fused"] = phase_fused_moe(cfg, params, prompts, tokens, gather)
     return cfg, params, summary, counts, captured, pipelined, decode_calls
+
+
+def phase_fused_moe(cfg, params, prompts, tokens, gather):
+    """Phase 5's fused mode at 4 x 256 (``ServeLoop``'s default for gather:
+    ``model.prefill``, then the decode step replayed as one CUDA graph).
+    ``gather`` is the fused loop of the run just made (its capture).  Runs,
+    counts set to 0 just before each: fused gather, ``two_phase=True``
+    gather (layered, eager) and fused bcsr (``two_phase=False``: the
+    full-grid stream), each after a warm-up: the bcsr run's tokens, D1 and
+    R1 once a layer a step (replays counted), K2 once a MoE layer a pass on
+    fused bcsr, and the first decode step's logits ``torch.equal`` across
+    the three.  Then depth 1, fused and layered gather: the same tokens,
+    and one extra fused depth-1 step makes no host sync.  Then the trace
+    of one decode step, layered and replayed (:func:`trace_decode`)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeLoop
+    max_seq = PROMPT + GEN
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    n_attn = n_moe + cfg.block_unit.count("attn") * cfg.n_repeats
+    print("fused serving (model.prefill, the decode step one CUDA graph), "
+          "4 x 256:")
+    loops = {"gather fused": gather,
+             "gather layered": ServeLoop(params, cfg, max_seq=max_seq,
+                                         dispatch="gather", two_phase=True),
+             "bcsr fused": ServeLoop(params, cfg, max_seq=max_seq,
+                                     dispatch="bcsr", two_phase=False)}
+    capture = {"gather fused": gather.summary()["capture"]}
+    for label in ("gather layered", "bcsr fused"):
+        loops[label].run(prompts, 2)          # warm-up (and capture)
+        capture[label] = loops[label].summary().get(
+            "capture", {"calls": 0, "ms": 0.0})
+    rows, logits = [], {}
+    for label, loop in loops.items():
+        reset_launches()
+        with no_plain():
+            got, logits[label] = first_step_logits(loop, prompts)
+        counts = read_launches()
+        k2 = {"spmm_bcsr": n_moe * GEN} if label.startswith("bcsr") else {}
+        check(np.array_equal(got, tokens), f"{label}: tokens != bcsr's")
+        check(counts == decode_counts(cfg, 1, GEN - 1, **k2),
+              f"{label}: launches {counts}")
+        if label.endswith("fused"):
+            per = {"decode_attention": n_attn, "router_logits": n_moe,
+                   **({"spmm_bcsr": n_moe} if k2 else {})}
+            got = loop.fused_step.launches
+            check(got == per, f"{label}: a replay launches {got}")
+        rows.append(fused_numbers(label, loop.summary(), capture[label],
+                                  counts))
+        print_fused(rows[-1])
+    for label in ("gather layered", "bcsr fused"):
+        check(torch.equal(logits[label], logits["gather fused"]),
+              f"first decode step logits: {label} != gather fused "
+              f"(max diff {(logits[label] - logits['gather fused']).abs().max().item()})")
+    print("  tokens == bcsr two-phase; first decode step logits torch.equal "
+          "(gather fused, gather layered, bcsr fused); a replay launches "
+          f"{loops['bcsr fused'].fused_step.launches}")
+
+    depth1 = {"fused": ServeLoop(params, cfg, max_seq=max_seq,
+                                 dispatch="gather", pipeline_depth=1),
+              "layered": ServeLoop(params, cfg, max_seq=max_seq,
+                                   dispatch="gather", two_phase=True,
+                                   pipeline_depth=1)}
+    for label, loop in depth1.items():
+        loop.run(prompts, 2)                  # warm-up
+        cap = loop.summary().get("capture", {"calls": 0, "ms": 0.0})
+        reset_launches()
+        with no_plain():
+            got = loop.run(prompts, GEN)
+        counts = read_launches()
+        check(np.array_equal(got, tokens), f"depth 1 {label}: tokens")
+        check(counts == decode_counts(cfg, 1, GEN - 1),
+              f"depth 1 {label}: launches {counts}")
+        rows.append(fused_numbers(f"gather {label}, depth 1", loop.summary(),
+                                  cap, counts))
+        print_fused(rows[-1])
+    _, syncs, waits = count_syncs(depth1["fused"].decode_step)
+    torch.cuda.synchronize()
+    print(f"  host syncs of one fused depth-1 decode step: {syncs} (event "
+          f"waits {waits})")
+    check(syncs == 0 and waits == 0,
+          f"a fused depth-1 decode step synced {syncs} times, waited {waits}")
+    traces = [trace_decode("scout gather, layered eager",
+                           loops["gather layered"], prompts),
+              trace_decode("scout gather, fused replayed",
+                           loops["gather fused"], prompts)]
+    return {"runs": rows, "depth1_step_syncs": syncs,
+            "per_replay": loops["bcsr fused"].fused_step.launches,
+            "first_step_logits_equal": True, "traces": traces}
 
 
 def phase_pipelined(cfg, params, prompts, loop, tokens, summary):
@@ -2756,7 +2959,9 @@ def phase_rwkv_serving(card):
                             generator=g, device="cuda")
     max_seq = RWKV_PROMPT + GEN
     loop = ServeLoop(params, cfg, max_seq=max_seq)
+    check(not loop.two_phase, "rwkv6-7b's default loop is not fused")
     loop.run(prompts, 2)                      # warm-up: allocator, cuBLAS
+    capture0 = loop.summary()["capture"]      # the step's graph, once
 
     captured, seen = [], {}
     entry, plain = wkv_ops.wkv_state, wk.wkv_chunked_plain
@@ -2783,8 +2988,8 @@ def phase_rwkv_serving(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    try:
-        tokens = loop.run(prompts, GEN)       # the main path
+    try:                                      # the main path
+        tokens, fused_logits = first_step_logits(loop, prompts)
     finally:
         wkv_ops.wkv_state, wk.wkv_chunked_plain = entry, plain
         loop.prefill = prefill
@@ -2818,10 +3023,30 @@ def phase_rwkv_serving(card):
     print(f"  prefill {info['prefill_ms']:.1f} ms for {BATCH}x{RWKV_PROMPT},"
           f" decode {info['decode_tok_per_s']:.1f} tok/s over {GEN - 1} "
           f"steps, peak {peak_gb:.1f} GB; prefill argmax == token 0")
-    del loop, logits
+    del logits
+    check(loop.fused_step.launches == {}, f"a replay launches "
+                                     f"{loop.fused_step.launches}")
+    rows = [fused_numbers("fused", summary, capture0, counts)]
+    layered = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True)
+    layered.run(prompts, 2)                   # warm-up
+    reset_launches()
+    got, layered_logits = first_step_logits(layered, prompts)
+    counts_l = read_launches()
+    check(counts_l == only(wkv_kernel=n), f"layered: launches {counts_l}")
+    check(np.array_equal(got, tokens), "layered tokens != fused tokens")
+    check(torch.equal(layered_logits, fused_logits),
+          "first decode step logits: layered != fused (max diff "
+          f"{(layered_logits - fused_logits).abs().max().item()})")
+    rows.append(fused_numbers("layered", layered.summary(),
+                              {"calls": 0, "ms": 0.0}, counts_l))
+    for row in rows:
+        print_fused(row)
+    print("  layered tokens == fused tokens, first decode step logits "
+          "torch.equal; a replay launches no kernel")
 
     loop1 = ServeLoop(params, cfg, max_seq=max_seq, pipeline_depth=1)
     loop1.run(prompts, 2)                     # warm-up
+    capture1 = loop1.summary()["capture"]
     reset_launches()
     got = loop1.run(prompts, GEN)             # the main path at depth 1
     counts1 = read_launches()
@@ -2832,7 +3057,32 @@ def phase_rwkv_serving(card):
           f"{info['depth1']['decode_tok_per_s']:.1f} tok/s (drain "
           f"{info['depth1']['drain_ms']:.1f} ms); {counts1['wkv_kernel']} "
           f"K7 launches; tokens == depth 0")
-    del loop1, params
+    rows.append(fused_numbers("fused, depth 1", loop1.summary(), capture1,
+                              counts1))
+    layered1 = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True,
+                         pipeline_depth=1)
+    layered1.run(prompts, 2)                  # warm-up
+    reset_launches()
+    got = layered1.run(prompts, GEN)
+    counts1 = read_launches()
+    check(counts1 == only(wkv_kernel=n), f"layered depth 1: {counts1}")
+    check(np.array_equal(got, tokens), "layered depth 1: tokens")
+    rows.append(fused_numbers("layered, depth 1", layered1.summary(),
+                              {"calls": 0, "ms": 0.0}, counts1))
+    for row in rows[2:]:
+        print_fused(row)
+    _, syncs, waits = count_syncs(loop1.decode_step)
+    torch.cuda.synchronize()
+    print(f"  host syncs of one fused depth-1 decode step: {syncs} (event "
+          f"waits {waits})")
+    check(syncs == 0 and waits == 0,
+          f"a fused depth-1 decode step synced {syncs} times, waited {waits}")
+    info["fused"] = {
+        "runs": rows, "depth1_step_syncs": syncs,
+        "first_step_logits_equal": True,
+        "traces": [trace_decode("rwkv6-7b, layered eager", layered, prompts),
+                   trace_decode("rwkv6-7b, fused replayed", loop, prompts)]}
+    del loop, loop1, layered, layered1, params
     return info, counts["wkv_kernel"], captured[0]
 
 
@@ -2944,6 +3194,7 @@ def main() -> int:
           f"{clocks['after_library_kernels']} after")
     del lib_data
     rwkv1 = rwkv.pop("depth1")
+    fused = pipelined.pop("fused")
     serve = {
         "serve": {"arch": cfg.name, "depth": cfg.n_repeats, "batch": BATCH,
                   "prompt": PROMPT, "gen": GEN, "dispatch": "bcsr",
@@ -2976,6 +3227,7 @@ def main() -> int:
                                 "masked_sparse": masked1,
                                 "rwkv": rwkv1},
                   "scheduler": scheduler,
+                  "fused": fused,
                   "card": card},
              "rwkv": rwkv, "library": lib_info, "sm_clocks": clocks,
              "wall_s": time.monotonic() - t_start}

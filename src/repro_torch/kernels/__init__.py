@@ -1,0 +1,42 @@
+"""The port's kernels.  Each wrapper counts its launches in an attribute of
+its own function (``spmm_bcsr.launches`` and so on); :func:`launch_counters`
+names them all, so a serving loop that replays a captured CUDA graph, which
+runs no wrapper, can add the launches its capture recorded."""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+
+def launch_counters() -> Dict[str, Tuple[Callable, str]]:
+    """Every kernel of the port, by name: its wrapper and the attribute in
+    which the wrapper counts its launches (K2 and K2q share a wrapper)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.router import kernel as rk
+    from repro_torch.kernels.spmm import kernel as sk
+    from repro_torch.kernels.spmspm import kernel as pk
+    from repro_torch.kernels.stencil import kernel as tk
+    from repro_torch.kernels.wkv import kernel as wk
+    return {"spmm_bcsr": (sk.spmm_bcsr, "launches"),
+            "spmm_bcsr_quant": (sk.spmm_bcsr, "quant_launches"),
+            "flash_attention": (fk.flash_attention, "launches"),
+            "flash_attention_masked": (fk.flash_attention_masked, "launches"),
+            "flash_attention_sparse": (fk.flash_attention_sparse, "launches"),
+            "decode_attention": (fk.decode_attention, "launches"),
+            "router_logits": (rk.router_logits, "launches"),
+            "spmspm_ell": (pk.spmspm_ell, "launches"),
+            "stencil_2d": (tk.stencil_2d, "launches"),
+            "stencil_3d": (tk.stencil_3d, "launches"),
+            "wkv_kernel": (wk.wkv_kernel, "launches")}
+
+
+def read_launches() -> Dict[str, int]:
+    """Every kernel's launch count, by name."""
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in launch_counters().items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by kernel name) to the kernels' launch counts."""
+    for name, (fn, attr) in launch_counters().items():
+        if counts.get(name):
+            setattr(fn, attr, getattr(fn, attr) + counts[name])

@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -73,6 +74,27 @@ constexpr int kStages = 4;                // chunks in the shared ring
 constexpr int kManyWarps = 8;             // the many kernel's warps
 constexpr int kManyThreads = 32 * kManyWarps;
 constexpr int kSmemMax = 232448;          // bytes a block may use
+
+// A kernel's dynamic shared memory allowed past 48 KB, once a device: the
+// attribute belongs to the current device, so a flag kept once a process
+// would skip it on a second card.  Two first calls at once both set it,
+// which is harmless; a device past kDevices sets it every launch.
+constexpr int kDevices = 64;
+template <typename Kernel>
+cudaError_t smem_opt_in(std::atomic<bool> (&done)[kDevices], Kernel kernel,
+                        size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kDevices)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
 // Both kernels' launch bounds name one block an SM as their minimum:
 // without it ptxas held some instances to 64 or 128 registers and spilled.
 
@@ -398,14 +420,10 @@ int launch_many(const Tx* x, const Tw* w, float* out, int T, int d, int E,
                 cudaStream_t s) {
   constexpr size_t smem = many_smem_bytes<Tx, TPW, EC>();
   static_assert(smem <= kSmemMax, "the many kernel's stages overflow");
-  static bool configured = false;            // once per instance
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        router_many_kernel<Tx, Tw, TPW, EC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static std::atomic<bool> configured[kDevices];  // an instance a device
+  const cudaError_t err = smem_opt_in(
+      configured, router_many_kernel<Tx, Tw, TPW, EC>, smem);
+  if (err != cudaSuccess) return err;
   const int xcopy = (d * sizeof(Tx)) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int wcopy = std::is_same<Tw, float>::value && E % 4 == 0 &&

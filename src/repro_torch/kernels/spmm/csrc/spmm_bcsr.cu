@@ -124,6 +124,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kF32 = 0;
@@ -138,6 +140,27 @@ constexpr int kRawBytes = 8192;   // block bytes of one ring stage
 constexpr int kAFloats = 3072;    // f32 values of a chunk's live blocks
 constexpr int kRing = 12;         // dense rows in flight per thread
 constexpr int kMaxThreads = 256;  // threads of a block (bn / VEC)
+
+// A kernel's dynamic shared memory allowed past 48 KB, once a device: the
+// attribute belongs to the current device, so a flag kept once a process
+// would skip it on a second card.  Two first calls at once both set it,
+// which is harmless; a device past kDevices sets it every launch.
+constexpr int kDevices = 64;
+template <typename Kernel>
+cudaError_t smem_opt_in(std::atomic<bool> (&done)[kDevices], Kernel kernel,
+                        size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kDevices)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -518,14 +541,11 @@ cudaError_t launch(const Args& a) {
                       (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
   const int threads = a.bn / VEC;
   auto kernel = spmm_bcsr_kernel<BM, TA, TB, TO>;
-  static bool opted_in = false;  // the ring may take the block past 48 KB
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        ring_bytes(kMaxThreads));
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  // the ring may take the block past 48 KB
+  static std::atomic<bool> opted_in[kDevices];
+  const cudaError_t err = smem_opt_in(opted_in, kernel,
+                                      ring_bytes(kMaxThreads));
+  if (err != cudaSuccess) return err;
   dim3 grid((a.N + a.bn - 1) / a.bn, a.batch, a.gm);
   kernel<<<grid, threads, ring_bytes(threads), a.stream>>>(
       a.indptr, a.block_cols, static_cast<const TA*>(a.blocks),
@@ -879,14 +899,11 @@ cudaError_t launch_quant(const Args& a) {
                       (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
   const bool a_words = (reinterpret_cast<uintptr_t>(a.blocks) & 3) == 0;
   auto kernel = spmm_quant_kernel<BM, TA, TB, KB>;
-  static bool opted_in = false;  // the ring may take the block past 48 KB
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        quant_smem_bytes(kQMaxTileBytes, kMaxBK));
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  // the ring may take the block past 48 KB
+  static std::atomic<bool> opted_in[kDevices];
+  const cudaError_t err = smem_opt_in(
+      opted_in, kernel, quant_smem_bytes(kQMaxTileBytes, kMaxBK));
+  if (err != cudaSuccess) return err;
   dim3 grid((a.N + a.bn - 1) / a.bn, a.batch, (a.gm + group - 1) / group);
   kernel<<<grid, kQThreads, quant_smem_bytes(tile_bytes, a.bk), a.stream>>>(
       a.indptr, a.block_cols, static_cast<const unsigned char*>(a.blocks),

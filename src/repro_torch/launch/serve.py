@@ -3,15 +3,28 @@ continuous-batching ``ServeScheduler``, over one phase machinery
 (``_ServeBase``).
 
 ``ServeLoop``: one prefill over a fixed (B, S) prompt batch, then lockstep
-one-token decode steps, layer by layer (``model.prefill_layered`` /
-``model.decode_step_layered``).  With the ``"bcsr"`` dispatch backend on an
-MoE arch the loop is **two-phase**: at every attn+moe layer it routes on the
-host (``moe.route_moe``: router, slot cumsums, routed-stream compaction to a
-bucketed :class:`BatchedBCSR`) and then executes (``moe.execute_moe``: the
-SpMM kernel's dispatch, expert FFN, combine).  With ``"gather"`` every
-attn+moe layer is one ``moe.apply_moe`` call.  Both give the same tokens.
-A stack without attn+moe layers (rwkv6-7b: ``rwkv`` blocks, whose prefill
-runs the WKV kernel K7) takes the single-phase path whatever the backend.
+one-token decode steps, in one of two modes, picked by ``two_phase`` as
+the reference picks them (default: two-phase exactly when the backend is
+``"bcsr"`` and the stack has attn+moe layers):
+
+* **two-phase** (``two_phase=True``): layer by layer and eagerly
+  (``model.prefill_layered`` / ``model.decode_step_layered``).  With
+  ``"bcsr"`` every attn+moe layer routes on the host (``moe.route_moe``:
+  router, slot cumsums, routed-stream compaction to a bucketed
+  :class:`BatchedBCSR`) and then executes (``moe.execute_moe``: the SpMM
+  kernel's dispatch, expert FFN, combine); with ``"gather"`` it is one
+  ``moe.apply_moe`` call (the reference splits gather into route and
+  execute too; the tokens are the same).
+* **fused** (``two_phase=False``; the default for gather dispatch and for
+  stacks without attn+moe, such as rwkv6-7b): ``model.prefill``, then
+  ``model.decode_step`` on a static cache with position and token buffers
+  on the device (:class:`_FusedDecode`).  On the card the step is one
+  CUDA graph a (batch, ``max_seq``, cache dtype), captured once and
+  replayed every step; on the CPU it runs eagerly.  ``"bcsr"`` runs
+  through the full-grid stream built on the device, as the reference's
+  fused path does.
+
+Both modes, and both backends, give the same tokens.
 
 ``ServeScheduler``: a queue of requests served from a fixed pool of cache
 slots (batch rows of one decode cache).  Between decode steps it evicts a
@@ -43,6 +56,10 @@ with one summation order per row (decode attention D1, the router R1;
   temperature, on both backends; ``summary()["timing"]`` says how much
   route time the overlap hid (``route_hidden_frac``).
 
+``ServeScheduler`` stays layered: two-phase with ``"bcsr"``, one
+``moe.apply_moe`` call a layer with ``"gather"``; it has no fused mode and
+no ``two_phase=`` yet.
+
 ``attn_mask`` (an ``AttnMaskSpec``) sends every prefill attention layer it
 applies to through the masked flash kernels (K4s stream walk or K4m masked
 grid); decode is untouched.  Not ported yet: resilience hooks and quantized
@@ -52,6 +69,8 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --gen 8 \
       --attn-mask local_global --attn-mask-impl sparse --pipeline-depth 1
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --two-phase off
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --continuous \
       --device cpu
@@ -70,7 +89,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import kernels, resolve_device
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.masks import AttnMaskSpec
 from repro_torch.kernels import engine
@@ -83,7 +102,7 @@ from repro_torch.models import moe
 class StepStat:
     """One timed phase of the loop; ``extra`` carries phase-specific detail
     (e.g. the route phase's nnzb stream accounting)."""
-    phase: str          # prefill | route | execute | decode | drain
+    phase: str          # prefill | route | execute | decode | drain | capture
     step: int           # decode step index (-1 for prefill)
     seconds: float
     tokens: int = 0
@@ -136,6 +155,103 @@ def _check_on(tree, device: torch.device, who: str) -> None:
         _check_on(leaf, device, who)
 
 
+def _copy_leaves(dst, src) -> None:
+    """Every leaf of ``src`` into the same leaf of ``dst``, in place; a
+    leaf of another dtype converts as ``.to`` does."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_leaves(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _copy_leaves(d, s)
+    else:
+        dst.copy_(src)
+
+
+class _FusedDecode:
+    """The fused mode's decode step at one (batch, ``max_seq``, cache
+    dtype): a static decode cache (``model.init_cache`` at the dtypes a
+    step writes), a ``(B, 1)`` token buffer and a ``(B,)`` position buffer
+    on the device, and ``model.decode_step`` on them.
+
+    On the card the step is one CUDA graph, captured when this is made and
+    replayed by :meth:`step`.  Before the capture two warm-up steps run on
+    a side stream under ``torch.cuda.set_sync_debug_mode("error")``: a host
+    sync inside the step raises there, before it could break the capture,
+    and each kernel's first-use build and shared-memory attribute are done.
+    The warm-up and the capture write into the static cache, which
+    :meth:`load` overwrites whole.  A replay runs no wrapper, so the
+    launches the capture recorded (``launches``) are added to the kernels'
+    counts at every replay; the warm-up and the capture add none.  A failed
+    capture or replay raises: there is no eager fallback on the card.  On
+    the CPU :meth:`step` runs ``model.decode_step`` eagerly on the same
+    buffers."""
+
+    WARMUP = 2
+
+    def __init__(self, params, cfg, batch: int, max_seq: int, *,
+                 dispatch: str, cache_dtype, device: torch.device):
+        self.params, self.cfg, self.dispatch = params, cfg, dispatch
+        self.cache = M.to_decode_dtypes(cfg, M.init_cache(
+            cfg, batch, max_seq, dtype=cache_dtype, device=device))
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
+                                  device=device)
+        self.pos = torch.zeros((batch,), dtype=torch.int64, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+        if device.type == "cuda":
+            self._capture(device)
+
+    def _decode(self) -> torch.Tensor:
+        logits, _ = M.decode_step(self.params, self.cfg, self.cache,
+                                  self.pos, self.tokens,
+                                  dispatch=self.dispatch)
+        return logits
+
+    def _capture(self, device: torch.device) -> None:
+        counts = kernels.read_launches()
+        try:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.cuda.stream(side):
+                    for _ in range(self.WARMUP):
+                        self._decode()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = kernels.read_launches()
+            with torch.cuda.graph(graph):
+                self.logits = self._decode()
+            after = kernels.read_launches()
+        finally:            # the warm-up and the capture count nothing
+            kernels.add_launches({k: counts[k] - v for k, v in
+                                  kernels.read_launches().items()})
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        self.graph = graph
+
+    def load(self, cache) -> None:
+        """A prefill cache into the static cache, leaf by leaf."""
+        _copy_leaves(self.cache["slots"], cache["slots"])
+
+    def step(self, pos: int, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step at write position ``pos`` for every row from the
+        (B, 1) ``tokens``; returns the (B, 1, V) f32 logits (on the card
+        the graph's output buffer, which the next step overwrites)."""
+        self.pos.fill_(pos)
+        self.tokens.copy_(tokens)
+        if self.graph is None:
+            return self._decode()
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.logits
+
+
 class _ServeBase:
     """Phase machinery shared by :class:`ServeLoop` and
     :class:`ServeScheduler`: the dispatch backend, the two-phase route ->
@@ -144,7 +260,8 @@ class _ServeBase:
 
     def __init__(self, params, cfg, *, dispatch: Optional[str],
                  temperature: float, sample_seed: int, pipeline_depth: int,
-                 attn_mask: Optional[AttnMaskSpec], device):
+                 attn_mask: Optional[AttnMaskSpec], device,
+                 two_phase: Optional[bool] = None):
         self.device = resolve_device(device)
         _check_on(params, self.device, type(self).__name__)
         M._check_kinds(cfg)
@@ -153,7 +270,8 @@ class _ServeBase:
         if self.backend not in ("gather", "bcsr"):
             raise ValueError(f"unknown moe_dispatch backend {self.backend!r}")
         self.two_phase = (self.backend == "bcsr"
-                          and "attn+moe" in cfg.block_unit)
+                          and "attn+moe" in cfg.block_unit
+                          if two_phase is None else bool(two_phase))
         self.temperature = temperature
         self.attn_mask = attn_mask
         self._pipe = engine.StreamPipeline(pipeline_depth)
@@ -173,13 +291,17 @@ class _ServeBase:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _routed(self) -> bool:
+        """Whether attn+moe layers route on the host, then execute."""
+        return self.two_phase and self.backend == "bcsr"
+
     def _moe_fn(self):
-        if self.two_phase:
+        if self._routed():
             return self._moe_two_phase
         return functools.partial(moe.apply_moe, dispatch=self.backend)
 
     def _route_ahead(self) -> bool:
-        return self.two_phase and self.pipeline_depth > 0
+        return self._routed() and self.pipeline_depth > 0
 
     def _moe_two_phase(self, p_ffn, h, cfg, counts=None, pos=None,
                        phase1=None):
@@ -273,7 +395,12 @@ class ServeLoop(_ServeBase):
     params, cfg : the model (every param on ``device``).
     max_seq : decode-cache capacity (prompt + generation).
     dispatch : MoE dispatch backend ("gather" | "bcsr"); default is the
-        config's ``moe_dispatch``.  "bcsr" on an MoE arch runs two-phase.
+        config's ``moe_dispatch``.
+    two_phase : None (default) = the reference's rule, two-phase exactly
+        when ``dispatch`` is "bcsr" and the stack has attn+moe layers;
+        True = the layered path for any stack; False = the fused mode
+        (``model.prefill`` and the captured ``model.decode_step``; "bcsr"
+        through the full-grid stream).
     temperature : 0 = greedy argmax, > 0 = sampling from
         ``softmax(logits / temperature)`` (:func:`sample_tokens`) with a
         ``torch.Generator`` reseeded from ``sample_seed`` at every
@@ -288,35 +415,66 @@ class ServeLoop(_ServeBase):
     """
 
     def __init__(self, params, cfg, *, max_seq: int,
-                 dispatch: Optional[str] = None, temperature: float = 0.0,
+                 dispatch: Optional[str] = None,
+                 two_phase: Optional[bool] = None, temperature: float = 0.0,
                  sample_seed: int = 3, pipeline_depth: int = 0,
                  attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
         super().__init__(params, cfg, dispatch=dispatch,
                          temperature=temperature, sample_seed=sample_seed,
                          pipeline_depth=pipeline_depth, attn_mask=attn_mask,
-                         device=device)
+                         device=device, two_phase=two_phase)
         self.max_seq = max_seq
         self._gen = torch.Generator(device=self.device)
         self.cache = None
         self.pos: Optional[int] = None
         self.generated: List[torch.Tensor] = []
+        # the fused mode's steps, one a batch (max_seq and the bf16 cache
+        # are the loop's); their graphs and memory pools go with the loop
+        self._fused: Dict[int, _FusedDecode] = {}
+        self.fused_step: Optional[_FusedDecode] = None   # the last prefill's
 
     def _step_label(self) -> int:
         return len(self.generated) - 1
 
     # ------------------------------------------------------------- phases --
 
+    def _fused_decode(self, batch: int) -> _FusedDecode:
+        """The fused step of this batch, made (and on the card captured,
+        a "capture" stat) at its first use."""
+        if batch not in self._fused:
+            t0 = time.monotonic()
+            self._fused[batch] = _FusedDecode(
+                self.params, self.cfg, batch, self.max_seq,
+                dispatch=self.backend, cache_dtype=torch.bfloat16,
+                device=self.device)
+            if self._fused[batch].graph is not None:
+                self._sync()
+                self.stats.append(StepStat("capture", -1,
+                                           time.monotonic() - t0))
+        return self._fused[batch]
+
     def prefill(self, prompts) -> torch.Tensor:
         """Run the prompts (B, S) through the model, fill the decode cache,
-        and emit the first generated token (B, 1).  Ends with the device
-        drained at either depth."""
+        and emit the first generated token (B, 1).  Fused, the prefill
+        cache is copied into the step's static cache, after the step of
+        this batch is made (and captured) at its first use.  Ends with the
+        device drained at either depth."""
         prompts = torch.as_tensor(prompts, device=self.device)
         self.generated = []
+        if not self.two_phase:
+            self.fused_step = self._fused_decode(prompts.shape[0])
         t0 = time.monotonic()
-        logits, cache, pos = M.prefill_layered(
-            self.params, prompts, self.cfg, max_seq=self.max_seq,
-            moe_fn=self._moe_fn(), attn_mask=self.attn_mask,
-            route_ahead=self._route_ahead())
+        if self.two_phase:
+            logits, cache, pos = M.prefill_layered(
+                self.params, prompts, self.cfg, max_seq=self.max_seq,
+                moe_fn=self._moe_fn(), attn_mask=self.attn_mask,
+                route_ahead=self._route_ahead())
+        else:
+            logits, cache, pos = M.prefill(
+                self.params, prompts, self.cfg, max_seq=self.max_seq,
+                attn_mask=self.attn_mask, dispatch=self.backend)
+            self.fused_step.load(cache)
+            cache = self.fused_step.cache
         self._sync()
         self._pipe.drain()
         self.stats.append(StepStat("prefill", -1, time.monotonic() - t0,
@@ -333,7 +491,12 @@ class ServeLoop(_ServeBase):
     def decode_step(self) -> torch.Tensor:
         """Generate one token for every sequence in the batch.  At depth 1
         the step is only dispatched (its stat ``dispatch_only``): the
-        sampled token stays on the device and feeds the next step."""
+        sampled token stays on the device and feeds the next step.  Fused,
+        the step fills the position buffer and copies the last token into
+        the token buffer on the device, then replays the graph (on the
+        CPU: runs ``model.decode_step``); sampling stays outside, with the
+        loop's generator.  Raises before any write on a KV-cache
+        overflow."""
         if self.cache is None:
             raise RuntimeError("decode_step before prefill")
         step = self._step_label()
@@ -345,9 +508,12 @@ class ServeLoop(_ServeBase):
                 f"generate fewer tokens.")
         tok = self.generated[-1]
         t0 = time.monotonic()
-        logits, self.cache = M.decode_step_layered(
-            self.params, self.cfg, self.cache, pos, tok,
-            moe_fn=self._moe_fn(), route_ahead=self._route_ahead())
+        if self.two_phase:
+            logits, self.cache = M.decode_step_layered(
+                self.params, self.cfg, self.cache, pos, tok,
+                moe_fn=self._moe_fn(), route_ahead=self._route_ahead())
+        else:
+            logits = self.fused_step.step(pos, tok)
         if self.pipeline_depth > 0:
             nxt = self._sample(logits[:, -1])
             self.stats.append(StepStat("decode", step, time.monotonic() - t0,
@@ -399,7 +565,10 @@ class ServeLoop(_ServeBase):
         layered pass, inclusive of the "route" / "execute" layer calls made
         inside it; at depth 1 the decode steps are dispatch walls and the
         "drain" stat is the device's wait, so ``decode.tok_per_s`` is batch
-        x steps / (decode + drain seconds).  ``stream`` is the routed-stream
+        x steps / (decode + drain seconds).  Fused, ``capture`` holds the
+        run's graph captures (``calls`` and ``ms``; 0 when the run reused
+        its batch's graph, and on the CPU), counted in no other phase.
+        ``stream`` is the routed-stream
         accounting of two-phase mode.  ``timing`` splits the route phase
         into ``host_route_ms`` (route minus its slot-fetch wait) and
         ``route_wait_ms``, gives the attention drains before the routes
@@ -417,6 +586,9 @@ class ServeLoop(_ServeBase):
             if wall > 0:
                 batch = self.generated[0].shape[0]
                 dec["tok_per_s"] = batch * dec["calls"] / wall
+        if not self.two_phase:
+            caps = [s.seconds for s in self.stats if s.phase == "capture"]
+            out["capture"] = {"calls": len(caps), "ms": sum(caps) * 1e3}
         return out
 
 
@@ -527,14 +699,18 @@ class ServeScheduler(_ServeBase):
     pattern.
 
     The cache is allocated with every leaf in the dtype a decode step
-    writes (``model._decode_dtypes`` once, on the whole cache), so a step
+    writes (``model.to_decode_dtypes`` once, on the whole cache), so a step
     writes through views of its rows and nothing is copied back.
 
+    The scheduler stays layered and eager: two-phase with ``"bcsr"``, one
+    ``moe.apply_moe`` call a layer with ``"gather"``.  It has neither the
+    fused mode nor ``two_phase=`` (ROADMAP Queue 1 item 3).
+
     Not ported yet: quantized experts and KV cache (``quantize_experts``,
-    ``kv_quant``; ROADMAP Queue 1 item 5) and resilience (fault plans,
+    ``kv_quant``; ROADMAP Queue 1 item 4) and resilience (fault plans,
     retry, failure thresholds, bounded queues and shedding, deadlines, an
     injected clock, the health bits on the token fetch and
-    ``model.blank_cache_row``; item 6).
+    ``model.blank_cache_row``; item 5).
 
     Parameters
     ----------
@@ -565,7 +741,7 @@ class ServeScheduler(_ServeBase):
         self.cache_dtype = cache_dtype
         self.cache = M.init_cache(cfg, self.n_slots, max_seq,
                                   dtype=cache_dtype, device=self.device)
-        M._decode_dtypes(cfg, self.cache)
+        M.to_decode_dtypes(cfg, self.cache)
         self.slots: List[Optional[Request]] = [None] * self.n_slots
         self.queue: Deque[Request] = collections.deque()
         self.finished: List[Request] = []
@@ -809,6 +985,11 @@ def main(argv=None):
                     choices=["sparse", "dense", "ref"],
                     help="masked-attention implementation (dense/ref are "
                          "the parity baselines)")
+    ap.add_argument("--two-phase", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="route-then-execute layered decode (auto = when "
+                         "moe+bcsr); off = the fused mode, its decode step "
+                         "one CUDA graph on the card")
     ap.add_argument("--pipeline-depth", type=int, choices=[0, 1], default=0,
                     help="0 = serial; 1 = route phase 1 with the attention "
                          "half, executes in flight behind the next host "
@@ -841,8 +1022,9 @@ def main(argv=None):
     g = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=device)
+    two_phase = None if args.two_phase == "auto" else args.two_phase == "on"
     loop = ServeLoop(params, cfg, max_seq=max_seq, dispatch=dispatch,
-                     temperature=args.temperature,
+                     two_phase=two_phase, temperature=args.temperature,
                      pipeline_depth=args.pipeline_depth, attn_mask=attn_mask,
                      device=device)
     gen = loop.run(prompts, args.gen)
@@ -853,7 +1035,8 @@ def main(argv=None):
     dec = s.get("decode", {"seconds": 0.0, "calls": 0})  # --gen 1: no steps
     print(f"decode:  {dec['seconds'] * 1e3:.1f} ms for {dec['calls']} steps "
           f"({dec.get('tok_per_s', 0.0):.1f} tok/s)"
-          + (" [two-phase]" if loop.two_phase else ""))
+          + (" [two-phase]" if loop.two_phase else
+             f" [fused, capture {s['capture']['ms']:.1f} ms]"))
     for phase in ("route", "execute"):
         if phase in s:
             print(f"{phase}:   {s[phase]['seconds'] * 1e3:.1f} ms over "

@@ -1,4 +1,4 @@
-"""Model assembly for serving: params, decode caches, layered prefill/decode.
+"""Model assembly for serving: params, decode caches, prefill and decode.
 
 The port of the serving half of ``repro/models/model.py`` for the block
 kinds ``attn``, ``attn+moe`` and ``rwkv``.  The stack is ``block_unit *
@@ -6,7 +6,13 @@ n_repeats``; per-slot params and caches are stacked along a leading repeat
 dim, as in the reference, so ``params["blocks"][slot][...][i]`` is layer
 ``i`` of that slot (a view: no copy).  The repeat loop runs in Python layer
 by layer, which is what lets the serving loop interleave host routing
-between layers.
+between layers (``prefill_layered`` / ``decode_step_layered``).
+
+The fused entry points :func:`prefill` and :func:`decode_step` run the same
+loops with each attn+moe layer's MoE as one ``moe.apply_moe`` call, the
+bcsr stream the full grid built on the device; :func:`decode_step` at a
+device position tensor reads nothing on the host, so the serving loop can
+capture it as one CUDA graph (``launch.serve``).
 
 Caches are updated **in place**: decode writes each layer's new key/value,
 MoE occupancy, RWKV state and token shifts into the stacked cache tensors
@@ -14,6 +20,7 @@ and returns the same dict.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -246,6 +253,41 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     return logits, {"slots": slots}, tokens.shape[1]
 
 
+def _fused_moe(dispatch: Optional[str]) -> Callable:
+    """The fused path's MoE stage: one ``moe.apply_moe`` call a layer, the
+    bcsr stream the full grid built on the device."""
+    return functools.partial(moe.apply_moe, dispatch=dispatch,
+                             full_grid=True)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            max_seq: int, cache_dtype=torch.bfloat16, impl: str = "chunked",
+            attn_mask: Optional[AttnMaskSpec] = None,
+            dispatch: Optional[str] = None, embeddings=None,
+            kv_quant: Optional[str] = None
+            ) -> Tuple[torch.Tensor, Params, int]:
+    """Serving prefill of the fused mode, the counterpart of the reference's
+    ``model.prefill``: the whole stack with each attn+moe layer's MoE as one
+    ``moe.apply_moe`` call with the ``dispatch`` backend (default: the
+    config's), "bcsr" through the full-grid stream built on the device,
+    never the host compaction.  The layer loop is
+    :func:`prefill_layered`'s.  Returns (last-position logits (B, 1, V)
+    f32, decode cache filled to the prompt length, leaves in the compute
+    dtype become ``cache_dtype``, next position)."""
+    if embeddings is not None:
+        raise NotImplementedError(
+            "model.prefill(embeddings=): frontends are not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    if kv_quant is not None:
+        raise NotImplementedError(
+            f"model.prefill(kv_quant={kv_quant!r}): quantized KV caches are "
+            "not ported yet (ROADMAP Queue 1 item 4)")
+    return prefill_layered(params, tokens, cfg, max_seq=max_seq,
+                           cache_dtype=cache_dtype,
+                           moe_fn=_fused_moe(dispatch), impl=impl,
+                           attn_mask=attn_mask)
+
+
 def _stack(trees):
     """Per-layer cache trees -> one tree of tensors stacked on a leading
     layer dim."""
@@ -265,20 +307,43 @@ def _cache_to_dtype(tree, cd, cache_dtype):
     return tree.to(cache_dtype) if tree.dtype == cd else tree
 
 
-def _decode_dtypes(cfg: ArchConfig, cache) -> None:
+def to_decode_dtypes(cfg: ArchConfig, cache) -> Params:
     """Bring the rwkv leaves to the dtypes a decode step writes (the f32
-    state, the shifts in the compute dtype), once, in place in ``cache``.
-    The reference's decode step returns them so (a prefill cache under the
-    f32 policy holds them in bf16) and reads the narrower values widened,
-    which this widening reproduces exactly."""
+    state, the shifts in the compute dtype), once, in place in ``cache``;
+    returns ``cache``.  The reference's decode step returns them so (a
+    prefill cache under the f32 policy holds them in bf16) and reads the
+    narrower values widened, which this widening reproduces exactly.  A
+    cache for :func:`decode_step` goes through this once, when it is made,
+    since the step writes into its leaves and never reassigns one."""
+    for slot, key, dtype in _decode_leaves(cfg, cache):
+        if slot[key].dtype != dtype:
+            slot[key] = slot[key].to(dtype)
+    return cache
+
+
+def _decode_leaves(cfg: ArchConfig, cache):
+    """(slot dict, key, dtype a decode step writes) of every rwkv leaf."""
     cd = precision_policy(cfg.policy).compute_dtype
     for slot, kind in zip(cache["slots"], cfg.block_unit):
-        if kind != "rwkv":
-            continue
-        for key, dtype in (("wkv", torch.float32), ("shift_t", cd),
-                           ("shift_c", cd)):
-            if slot[key].dtype != dtype:
-                slot[key] = slot[key].to(dtype)
+        if kind == "rwkv":
+            for key, dtype in (("wkv", torch.float32), ("shift_t", cd),
+                               ("shift_c", cd)):
+                yield slot, key, dtype
+
+
+def _decode_layers(params: Params, cfg: ArchConfig, cache, pos,
+                   tokens_1: torch.Tensor, moe_fn: Callable,
+                   route_ahead: bool = False) -> torch.Tensor:
+    """The decode layer loop shared by :func:`decode_step_layered` and
+    :func:`decode_step`: ``pos`` an int or a ``(B,)`` int tensor on the
+    tokens' device; writes ``cache`` in place; returns the logits."""
+    x = _embed(params, tokens_1, cfg)
+    for i in range(cfg.n_repeats):
+        for slot, kind in enumerate(cfg.block_unit):
+            x, _ = _block(kind, _take(params["blocks"][slot], i), x, cfg,
+                          moe_fn=moe_fn, cache=_take(cache["slots"][slot], i),
+                          pos=pos, route_ahead=route_ahead)
+    return final_logits(params, x, cfg, last_only=False)
 
 
 def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos,
@@ -307,12 +372,51 @@ def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos,
         last = int(host.max())
         pos = moe._upload(host.astype(np.int64), tokens_1.device)
     check_cache_fits(cache, last, who="decode_step_layered")
-    _decode_dtypes(cfg, cache)
-    moe_fn = moe_fn or moe.apply_moe
-    x = _embed(params, tokens_1, cfg)
-    for i in range(cfg.n_repeats):
-        for slot, kind in enumerate(cfg.block_unit):
-            x, _ = _block(kind, _take(params["blocks"][slot], i), x, cfg,
-                          moe_fn=moe_fn, cache=_take(cache["slots"][slot], i),
-                          pos=pos, route_ahead=route_ahead)
-    return final_logits(params, x, cfg, last_only=False), cache
+    to_decode_dtypes(cfg, cache)
+    logits = _decode_layers(params, cfg, cache, pos, tokens_1,
+                            moe_fn or moe.apply_moe, route_ahead)
+    return logits, cache
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache, pos,
+                tokens_1: torch.Tensor, *, dispatch: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode of the fused mode, the counterpart of the
+    reference's ``model.decode_step``: each attn+moe layer's MoE one
+    ``moe.apply_moe`` call with ``dispatch`` ("gather", or "bcsr" through
+    the full-grid stream; default: the config's).  ``tokens_1``: (B, 1)
+    int.  ``pos``, the write position:
+
+    * an int or a ``(B,)`` numpy vector: checked against the cache capacity
+      on the host first, as :func:`decode_step_layered` does;
+    * an int tensor on the tokens' device, ``()`` or ``(B,)``: the step
+      reads nothing on the host (no capacity check, as the reference skips
+      it for traced positions; the caller checks), so it can be captured
+      as a CUDA graph.
+
+    Either way every layer takes the per-row path at a ``(B,)`` position
+    vector on the device.  ``cache`` (leaves in the dtypes a step writes:
+    :func:`to_decode_dtypes`, else ``ValueError``) is updated in place;
+    returns (logits (B, 1, V) f32, cache)."""
+    B = tokens_1.shape[0]
+    if isinstance(pos, torch.Tensor):
+        if pos.device != tokens_1.device or pos.is_floating_point() \
+                or pos.numel() not in (1, B) or pos.dim() > 1:
+            raise ValueError(
+                f"decode_step: pos {tuple(pos.shape)} {pos.dtype} on "
+                f"{pos.device}; want an int () or ({B},) tensor on "
+                f"{tokens_1.device}")
+        pos = pos.reshape(-1).expand(B)
+    else:
+        host = np.broadcast_to(np.asarray(pos, np.int64).reshape(-1), (B,))
+        check_cache_fits(cache, int(host.max()), who="decode_step")
+        pos = torch.tensor(host, device=tokens_1.device)
+    for slot, key, dtype in _decode_leaves(cfg, cache):
+        if slot[key].dtype != dtype:
+            raise ValueError(
+                f"decode_step: cache leaf {key} is {slot[key].dtype}, a step "
+                f"writes {dtype}; pass the cache through "
+                "model.to_decode_dtypes once")
+    logits = _decode_layers(params, cfg, cache, pos, tokens_1,
+                            _fused_moe(dispatch))
+    return logits, cache

@@ -23,10 +23,18 @@ host) and compacts the stream to its union nonzero-block pattern (host
 numpy), padded to a power-of-two nnzb bucket; :func:`execute_moe` runs
 dispatch + expert FFN + combine from that plan.  ``launch.serve.ServeLoop``
 drives it at every attn+moe layer.
+
+**Fused serving** (``model.prefill`` / ``model.decode_step``) routes with
+``full_grid=True``: the bcsr stream is every block of the dispatch grid,
+its index stream built once a grid shape on the device and its 0/1 blocks
+from the device-built dispatch matrix (:func:`_full_grid_stream`, the
+reference's traced ``_dispatch_bcsr``), so nothing is read on the host and
+a decode step can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -227,6 +235,41 @@ def _build_routed_stream(flat_slot, S: int, E: int, C: int, bm: int, bk: int,
     return stream, nnzb_routed, nnzb_covered
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_index(gm: int, gn: int, device: torch.device):
+    """``(indptr, block_rows, block_cols)`` of the full ``(gm, gn)`` block
+    grid, (row, col)-sorted, int32 on ``device``: every block row and
+    column, ``indptr`` from their counts (``gn`` a row).  Built on the
+    device once a (grid, device) and kept."""
+    entry = torch.arange(gm * gn, device=device)
+    brows = torch.div(entry, gn, rounding_mode="floor").to(torch.int32)
+    bcols = (entry % gn).to(torch.int32)
+    indptr = torch.arange(gm + 1, dtype=torch.int32, device=device) * gn
+    return indptr, brows, bcols
+
+
+def _full_grid_stream(flat_slot: torch.Tensor, S: int, E: int, C: int,
+                      bm: int, bk: int, dtype: torch.dtype) -> BatchedBCSR:
+    """The full-grid dispatch stream of the fused path, on the device with
+    no host read: the (slot, token) 0/1 dispatch matrix of each batch row,
+    zero-padded to block multiples, tiled into every ``(bm, bk)`` block of
+    the ``(gm, gn)`` grid in (row, col) order; a dropped token writes the
+    sliced-off row ``Mp``, so it is in no block.  Every block row is in the
+    stream, so it is normalized for ``engine.spmm_batched_stream``.  The
+    port of the reference's traced ``_dispatch_bcsr`` with
+    ``_dispatch_matrix_tiles``."""
+    B = flat_slot.shape[0]
+    M, Mp, Sp, gm, gn = _dispatch_grid(S, E, C, bm, bk)
+    rows = torch.where(flat_slot < M, flat_slot, Mp).long()
+    disp = torch.zeros((B, Mp + 1, Sp), dtype=dtype, device=flat_slot.device)
+    disp.scatter_(1, rows[:, None, :], 1)
+    blocks = (disp[:, :Mp].reshape(B, gm, bm, gn, bk).transpose(2, 3)
+              .reshape(B, gm * gn, bm, bk).contiguous())
+    indptr, brows, bcols = _grid_index(gm, gn, flat_slot.device)
+    return BatchedBCSR(indptr=indptr, block_rows=brows, block_cols=bcols,
+                       blocks=blocks, shape=(B, Mp, Sp), block=(bm, bk))
+
+
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device`` without blocking the host: to a CUDA
     device through pinned memory with a ``non_blocking`` copy (the caching
@@ -289,15 +332,19 @@ def _backend(cfg: ArchConfig, dispatch: Optional[str]) -> str:
 
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
               counts: Optional[torch.Tensor] = None, pos=None,
-              dispatch: Optional[str] = None):
+              dispatch: Optional[str] = None, full_grid: bool = False):
     """x: (B, S, d) -> ((B, S, d), new_counts (B, E) int32), the one-call
     layer: :func:`route_moe` then :func:`execute_moe`.  ``counts``/``pos``
     thread the routing state for stepwise decode (``pos`` a Python int, or
     per-row positions, see :func:`route_moe`).
     ``dispatch``: "gather" | "bcsr" (default: the config's
-    ``moe_dispatch``).  The bcsr stream is bucketed; its pad entries are
-    zero blocks, so the result is the unbucketed stream's."""
-    plan, _ = route_moe(p, x, cfg, counts=counts, pos=pos, dispatch=dispatch)
+    ``moe_dispatch``).  The bcsr stream is compacted on the host and
+    bucketed (its pad entries are zero blocks, so the result is the
+    unbucketed stream's); ``full_grid=True`` (the fused path) takes the
+    full-grid stream instead, built on the device (:func:`route_moe`).
+    Both equal gather bit for bit."""
+    plan, _ = route_moe(p, x, cfg, counts=counts, pos=pos, dispatch=dispatch,
+                        full_grid=full_grid)
     return execute_moe(p, x, plan, cfg)
 
 
@@ -343,7 +390,8 @@ class MoEPlan:
 
 def route_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
               counts: Optional[torch.Tensor] = None, pos=None,
-              dispatch: Optional[str] = None) -> Tuple[MoEPlan, dict]:
+              dispatch: Optional[str] = None,
+              full_grid: bool = False) -> Tuple[MoEPlan, dict]:
     """Phase 1: route a concrete ``x`` and, for "bcsr", build the routed
     dispatch stream (union nonzero-block pattern, bucketed).  ``pos`` is
     the absolute position of x[:, 0]: None (0), an int, or a ``(B,)`` int
@@ -351,15 +399,29 @@ def route_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
     then takes the position-independent S bound).  Returns
     ``(plan, info)``; ``info`` holds the stream accounting (``nnzb_routed``,
     ``nnzb_covered``, ``nnzb_stream``, ``grid_nnzb``, ``bucket``) and the
-    host timing split (``wait_s`` fetching the slots, ``host_s`` building)."""
+    host timing split (``wait_s`` fetching the slots, ``host_s`` building).
+    ``full_grid=True`` with "bcsr": the stream is the full grid
+    (:func:`_full_grid_stream`), built on the device; nothing is read on
+    the host, and ``info`` holds only the backend, capacity, tokens and
+    ``nnzb_stream`` / ``grid_nnzb`` (the grid's blocks)."""
     backend = _backend(cfg, dispatch)
     pos0 = 0 if pos is None else pos
     if not isinstance(pos0, torch.Tensor):
         pos0 = int(pos0)
     C = dispatch_capacity(x.shape[1], cfg, pos0=pos0)
-    ph1 = route_phase1(p["router"], x, cfg, counts, pos0, C)
-    return plan_from_phase1(Phase1(*ph1, C), cfg, dispatch=backend,
-                            dtype=x.dtype, device=x.device)
+    ph1 = Phase1(*route_phase1(p["router"], x, cfg, counts, pos0, C), C)
+    if not (full_grid and backend == "bcsr"):
+        return plan_from_phase1(ph1, cfg, dispatch=backend, dtype=x.dtype,
+                                device=x.device)
+    bm, bk = tuning.moe_dispatch_tiles(cfg.d_model, x.dtype,
+                                       x.device)["block"]
+    stream = _full_grid_stream(ph1.flat_slot, x.shape[1], cfg.n_experts, C,
+                               bm, bk, x.dtype)
+    plan = MoEPlan(gate=ph1.gate, keep=ph1.keep, new_counts=ph1.new_counts,
+                   flat_slot=ph1.flat_slot, stream=stream, capacity=C,
+                   backend=backend)
+    return plan, {"backend": backend, "capacity": C, "tokens": x.shape[1],
+                  "nnzb_stream": stream.nnzb, "grid_nnzb": stream.nnzb}
 
 
 def plan_from_phase1(phase1: Phase1, cfg: ArchConfig, *,
