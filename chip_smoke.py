@@ -90,18 +90,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    "bcsr", max_slots=8, max_seq=544)`` serves 16 requests (prompts 64-512
    tokens, budgets 8-32, from numpy seed 24; two submitted at step 0,
    then one every 2 scheduler steps; one carries as its EOS the token its
-   probe run emits 5th) at depth 0, depth 1, with ``dispatch="gather"``,
-   and at temperature 0.7 at each depth: depth 1 == depth 0, bcsr ==
-   gather and the temperature pair equal, as tokens per request; K2
-   ``n_moe x (admissions + decode steps)`` times in each bcsr run and never
-   in the gather run; no flash launch and no oracle fallback; every decode
-   step's bucket ``batch_bucket(highest occupied slot + 1)`` and in {1, 2,
-   4, 8}; the EOS request ends at its EOS and every other request gets its
-   budget; one extra depth-1 scheduler step makes at most ``n_moe + 1``
-   host syncs; D1 and R1 counted as in phase 5; then each request served
-   alone through ``ServeLoop`` (B = 1) must give the tokens the bcsr runs
-   gave it at depth 0 and at depth 1, all 16 (where one parts, the step
-   and the logit gap are printed before the check fails);
+   probe run emits 5th) two-phase at depth 0, depth 1, with
+   ``dispatch="gather", two_phase=True``, and at temperature 0.7 at each
+   depth; then fused (``model.prefill`` admissions, each batch bucket's
+   decode step one CUDA graph over the slot pool's rows): gather at depth
+   0 (the default) and 1, bcsr (``two_phase=False``, the full-grid
+   stream) and gather at temperature 0.7: every greedy run's tokens ==
+   bcsr depth 0's and the temperature runs' equal, per request; K2
+   ``n_moe x (admissions + decode steps)`` times in each bcsr run (replays
+   counted) and never in a gather run; no flash launch and no oracle
+   fallback; every decode step's bucket ``batch_bucket(highest occupied
+   slot + 1)`` and in {1, 2, 4, 8}; fused, one graph for each bucket seen,
+   a replay launching D1 and R1 8 times (and K2 8 on bcsr); the EOS
+   request ends at its EOS and every other request gets its budget; one
+   extra depth-1 two-phase step makes at most ``n_moe + 1`` host syncs,
+   one extra fused step at depth 0 or 1 at most 1; D1 and R1 counted as
+   in phase 5; then each request served alone through ``ServeLoop`` (B =
+   1) must give the tokens every greedy run gave it, all 16 (where one
+   parts, the step and the logit gap are printed before the check fails);
+   and one decode step at bucket 8 traced, two-phase bcsr, layered gather
+   and fused gather (kernels, busy / wall ms, idle share);
 7. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
@@ -128,7 +136,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    decode step's logits ``torch.equal``; then a depth-1 run of each: the
    same tokens, the same 32 K7 launches, no host sync in a fused depth-1
    step; decode tok/s of each and the capture ms; one decode step each,
-   layered and replayed, traced as in phase 5;
+   layered and replayed, traced as in phase 5; then 8 requests of phase
+   6's trace through ``ServeScheduler`` (8 slots), fused (the default)
+   and ``two_phase=True``: equal tokens, K7 32 times an admission and
+   never in decode, one graph a bucket seen; how many requests equal
+   themselves served alone is printed;
 10. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -150,8 +162,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    ms, decode tok/s and ``timing`` split at 4 x 256, the masked depth-1
    run, the RWKV-6 depth-1 run, the host syncs; its ``serve.scheduler``
    object: each scheduler run's decode tok/s, token and first-token
-   latency p50 / p99, steps, wall, buckets and ``timing`` split, the syncs
-   of a depth-1 step and the alone comparison; the chunked 4 x 2048
+   latency p50 / p99, steps, wall, buckets, capture and ``timing`` split,
+   the syncs of an extra step, the alone comparison and the traces; its
+   ``rwkv.scheduler`` object: the RWKV scheduler runs; the chunked 4 x 2048
    prefill ms); the SM clock and its
    limit are printed before and after the kernel timings;
 12. last line: {"ok": true, "device": {...}}.
@@ -463,32 +476,39 @@ def _busy_us(spans) -> float:
 
 
 def trace_decode(label: str, loop, prompts) -> dict:
-    """One depth-0 decode step of ``loop`` traced by ``torch.profiler``
-    with CUDA activity, after its prefill, two warm steps and three steps
-    timed on the host clock (synchronised) without the profiler.  Device
-    work: every CUDA event of the trace (kernels, and the copies and fills
-    counted apart), busy = the union of their spans.  Wall: the host clock
-    around the traced step (the profiler's own cost included) and the
-    median untraced step; idle share = 1 - busy / untraced wall.  The
-    three kernels of the most summed time, by name."""
+    """One depth-0 decode step of ``loop`` after its prefill, traced by
+    :func:`trace_step`."""
+    return trace_step(label, lambda: loop.prefill(prompts),
+                      loop.decode_step)
+
+
+def trace_step(label: str, prepare, step) -> dict:
+    """One ``step()`` traced by ``torch.profiler`` with CUDA activity,
+    after ``prepare()``, two warm steps and three steps timed on the host
+    clock (synchronised) without the profiler.  Device work: every CUDA
+    event of the trace (kernels, and the copies and fills counted apart),
+    busy = the union of their spans.  Wall: the host clock around the
+    traced step (the profiler's own cost included) and the median
+    untraced step; idle share = 1 - busy / untraced wall.  The three
+    kernels of the most summed time, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    loop.prefill(prompts)
+    prepare()
     for _ in range(2):
-        loop.decode_step()
+        step()
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loop.decode_step()
+        step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.decode_step()
+        step()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1389,10 +1409,12 @@ def drive_scheduler(sched, trace, eos: dict) -> float:
     return time.monotonic() - t0
 
 
-def scheduler_numbers(sched, wall_s: float) -> dict:
-    """One scheduler run's numbers from ``ServeScheduler.summary()``."""
+def scheduler_numbers(label: str, sched, wall_s: float) -> dict:
+    """One scheduler run's numbers from ``ServeScheduler.summary()``; fused,
+    its graph captures (calls and ms, in no other phase)."""
     s = sched.summary()
-    return {"depth": sched.pipeline_depth, "dispatch": sched.backend,
+    return {"label": label, "two_phase": sched.two_phase,
+            "depth": sched.pipeline_depth, "dispatch": sched.backend,
             "temperature": sched.temperature, "steps": sched.step_idx,
             "decode_steps": s["decode"]["calls"], "wall_s": wall_s,
             "decode_tokens": s["decode"]["tokens"],
@@ -1401,17 +1423,21 @@ def scheduler_numbers(sched, wall_s: float) -> dict:
             "token_latency_ms": s["token_latency_ms"],
             "first_token_ms": s["first_token_ms"],
             "batch_buckets": s["batch_buckets"],
-            "nnzb_buckets": s.get("nnzb_buckets"), "timing": s["timing"]}
+            "nnzb_buckets": s.get("nnzb_buckets"), "timing": s["timing"],
+            "capture": s.get("capture")}
 
 
-def print_scheduler(label: str, row: dict) -> None:
+def print_scheduler(row: dict) -> None:
     lat, first = row["token_latency_ms"], row["first_token_ms"]
-    print(f"  {label}: {row['steps']} steps, wall {row['wall_s']:.2f} s, "
-          f"decode {row['decode_tok_per_s']:.1f} tok/s over "
-          f"{row['decode_tokens']} tokens; token latency p50 "
+    cap = row["capture"]
+    print(f"  {row['label']}: {row['steps']} steps, wall "
+          f"{row['wall_s']:.2f} s, decode {row['decode_tok_per_s']:.1f} "
+          f"tok/s over {row['decode_tokens']} tokens; token latency p50 "
           f"{lat['p50']:.2f} / p99 {lat['p99']:.2f} ms; first token p50 "
           f"{first['p50']:.1f} / p99 {first['p99']:.1f} ms; buckets "
-          f"{row['batch_buckets']}, nnzb {row['nnzb_buckets']}; timing "
+          f"{row['batch_buckets']}, nnzb {row['nnzb_buckets']}; "
+          + (f"capture {cap['ms']:.1f} ms ({cap['calls']} graphs); "
+             if cap else "two-phase; ") + "timing "
           + ", ".join(f"{k} {v:.4g}" for k, v in row["timing"].items()))
 
 
@@ -1421,21 +1447,28 @@ def phase_scheduler(cfg, params):
     of :func:`scheduler_trace` as :func:`drive_scheduler` submits them.  A
     probe run (bcsr, depth 0, also the warm-up) gives the EOS: the first
     request whose 5th token does not occur among its first four carries
-    that token as its ``eos_id``.  Then bcsr at depth 0, bcsr at depth 1,
-    gather at depth 0, and a temperature-0.7 run at each depth.  Checks:
-    depth 1 == depth 0, bcsr == gather, and the two temperature runs equal,
-    as tokens per request; K2 ``n_moe x (admissions + decode steps)`` in
-    each bcsr run and never in the gather run, D1 once an attention layer
-    a decode step and R1 once a MoE layer a pass in every run, their plain
-    versions never; no flash launch and no oracle fallback; each decode
-    step's bucket is ``batch_bucket(highest occupied slot + 1)`` and in {1,
-    2, 4, 8}; the EOS request ends at its EOS, every other greedy request
-    gets exactly its budget; one extra depth-1 scheduler step makes at most
-    ``n_moe + 1`` host syncs; and every request served alone through
+    that token as its ``eos_id``.  Then, two-phase: bcsr at depth 0, bcsr
+    at depth 1, gather at depth 0 (``two_phase=True``), and a
+    temperature-0.7 bcsr run at each depth; fused (one CUDA graph a batch
+    bucket over the pool's rows): gather at depth 0 (the default) and 1,
+    bcsr at depth 0 (``two_phase=False``, the full-grid stream), and
+    gather at temperature 0.7.  Checks: every greedy run's tokens == bcsr
+    depth 0's, the temperature runs' == each other, per request; K2 ``n_moe
+    x (admissions + decode steps)`` in each bcsr run (replays counted) and
+    never in a gather run, D1 once an attention layer a decode step and R1
+    once a MoE layer a pass in every run, their plain versions never; no
+    flash launch and no oracle fallback; each decode step's bucket is
+    ``batch_bucket(highest occupied slot + 1)`` and in {1, 2, 4, 8}; fused,
+    one graph for each bucket seen, each replay launching D1 and R1 once a
+    layer (K2 once a MoE layer on bcsr); the EOS request ends at its EOS,
+    every other greedy request gets exactly its budget; one extra depth-1
+    two-phase step makes at most ``n_moe + 1`` host syncs, one extra fused
+    step at either depth at most 1; and every request served alone through
     ``ServeLoop`` (B = 1, the same ``max_seq``, greedy) gives the tokens
-    the bcsr runs gave it at depth 0 and at depth 1 -- where one does not,
-    the first step that differs and the alone run's logit gap there are
-    printed before the check fails.  The bcsr depth-0 run's first dispatch
+    each greedy run gave it -- where one does not, the first step that
+    differs and the alone run's logit gap there are printed before the
+    check fails.  Then one decode step at bucket 8 traced, layered and
+    fused (:func:`trace_step`).  The bcsr depth-0 run's first dispatch
     stream (an admission) and its first stream at the largest decode
     bucket are kept for the K2 row, its first D1 and R1 decode calls at the
     largest bucket for theirs."""
@@ -1445,6 +1478,7 @@ def phase_scheduler(cfg, params):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.serve import ServeLoop, ServeScheduler
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    n_attn = n_moe + cfg.block_unit.count("attn") * cfg.n_repeats
     trace = scheduler_trace(cfg.vocab_size)
     print(f"continuous batching: {len(trace)} requests, prompts "
           f"{min(len(p) for p, _ in trace)}-{max(len(p) for p, _ in trace)}"
@@ -1475,7 +1509,7 @@ def phase_scheduler(cfg, params):
                 k: v.clone() if isinstance(v, torch.Tensor) else v
                 for k, v in kw.items()})
 
-    def serve(eos, stream_hook=None, call_hook=None, **kw):
+    def serve(label, eos, stream_hook=None, call_hook=None, **kw):
         sched = ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
                                max_slots=SCHED_SLOTS, **kw)
         ops.reset_fallbacks()
@@ -1489,22 +1523,33 @@ def phase_scheduler(cfg, params):
         counts = read_launches()
         tokens = {r.uid: list(r.tokens) for r in sched.finished}
         check(sorted(tokens) == list(range(len(trace))),
-              f"{kw}: finished {sorted(tokens)}")
+              f"{label}: finished {sorted(tokens)}")
         decode = [st for st in sched.stats if st.phase == "decode"]
-        k2 = n_moe * (len(trace) + len(decode)) if sched.two_phase else 0
+        bcsr = sched.backend == "bcsr"
+        k2 = n_moe * (len(trace) + len(decode)) if bcsr else 0
         want = decode_counts(cfg, len(trace), len(decode), spmm_bcsr=k2)
-        check(counts == want, f"{kw}: launches {counts} != {want}")
+        check(counts == want, f"{label}: launches {counts} != {want}")
         check(ops.fallback_count() == 0 and sched.summary()["timing"][
-            "attention_ref_fallbacks"] == 0, f"{kw}: oracle fallbacks")
+            "attention_ref_fallbacks"] == 0, f"{label}: oracle fallbacks")
         for st in decode:
             b, hi = st.extra["batch_bucket"], st.extra["occupied"]
             check(b == engine.batch_bucket(hi, cap=sched.n_slots)
                   and b in (1, 2, 4, 8) and st.extra["active"] <= hi <= b,
-                  f"{kw}: step {st.step} bucket {b} for {hi} rows")
-        return sched, tokens, {**scheduler_numbers(sched, wall),
+                  f"{label}: step {st.step} bucket {b} for {hi} rows")
+        if not sched.two_phase:
+            per = {"decode_attention": n_attn, "router_logits": n_moe,
+                   **({"spmm_bcsr": n_moe} if bcsr else {})}
+            graphs = {b: f.graph is not None and f.launches == per
+                      for b, f in sched._fused.items()}
+            check(set(graphs) == sched.batch_buckets and all(graphs.values())
+                  and sched.summary()["capture"]["calls"] == len(graphs),
+                  f"{label}: graphs {graphs} for buckets "
+                  f"{sorted(sched.batch_buckets)}, a replay launching "
+                  f"{[f.launches for f in sched._fused.values()]}")
+        return sched, tokens, {**scheduler_numbers(label, sched, wall),
                                "k2_launches": counts["spmm_bcsr"]}
 
-    probe_sched, probe, _ = serve({}, dispatch="bcsr")
+    probe_sched, probe, _ = serve("probe", {}, dispatch="bcsr")
     kv_mb = sum(t.numel() * t.element_size()
                 for c in probe_sched.cache["slots"]
                 for t in c["attn"].values()) / 1e6
@@ -1513,26 +1558,34 @@ def phase_scheduler(cfg, params):
     eos_req = next(i for i, (_, g) in enumerate(trace)
                    if g > 5 and probe[i][4] not in probe[i][:4])
     eos = {eos_req: probe[eos_req][4]}
-    runs, toks = [], {}
+    runs, toks, kept = [], {}, {}
     for key, kw in (("bcsr0", dict(dispatch="bcsr", stream_hook=capture,
                                    call_hook=keep)),
                     ("bcsr1", dict(dispatch="bcsr", pipeline_depth=1)),
-                    ("gather0", dict(dispatch="gather")),
+                    ("gather0", dict(dispatch="gather", two_phase=True)),
                     ("temp0", dict(dispatch="bcsr",
                                    temperature=SCHED_TEMPERATURE)),
                     ("temp1", dict(dispatch="bcsr", pipeline_depth=1,
-                                   temperature=SCHED_TEMPERATURE))):
-        sched, toks[key], row = serve(eos, **kw)
+                                   temperature=SCHED_TEMPERATURE)),
+                    ("fused_gather0", dict(dispatch="gather")),
+                    ("fused_gather1", dict(dispatch="gather",
+                                           pipeline_depth=1)),
+                    ("fused_bcsr0", dict(dispatch="bcsr", two_phase=False)),
+                    ("fused_temp0", dict(dispatch="gather",
+                                         temperature=SCHED_TEMPERATURE))):
+        sched, toks[key], row = serve(key, eos, **kw)
         runs.append(row)
-        print_scheduler(key, row)
-        if key == "bcsr1":
-            depth1 = sched
-        else:
-            del sched
-    check(toks["bcsr1"] == toks["bcsr0"], "depth-1 tokens != depth-0 tokens")
-    check(toks["gather0"] == toks["bcsr0"], "bcsr tokens != gather tokens")
+        print_scheduler(row)
+        if key in ("bcsr1", "fused_gather0", "fused_gather1"):
+            kept[key] = sched
+        del sched
+    greedy = [k for k in toks if not k.startswith(("temp", "fused_temp"))]
+    for key in greedy:
+        check(toks[key] == toks["bcsr0"], f"{key}: tokens != bcsr0's")
     check(toks["temp1"] == toks["temp0"],
           "temperature 0.7: depth-1 tokens != depth-0 tokens")
+    check(toks["fused_temp0"] == toks["temp0"],
+          "temperature 0.7: fused tokens != two-phase tokens")
     for i, (_, budget) in enumerate(trace):
         got = toks["bcsr0"][i]
         if i == eos_req:
@@ -1542,19 +1595,28 @@ def phase_scheduler(cfg, params):
         else:
             check(len(got) == budget,
                   f"request {i}: {len(got)} tokens, budget {budget}")
-    print(f"  tokens: depth 1 == depth 0, bcsr == gather, temperature pair "
-          f"equal; request {eos_req} stopped at its EOS {eos[eos_req]} "
-          f"after {len(toks['bcsr0'][eos_req])} tokens")
+    print(f"  tokens: {', '.join(greedy[1:])} == bcsr0; temperature runs "
+          f"(two-phase depth 0 / 1, fused) equal; request {eos_req} "
+          f"stopped at its EOS {eos[eos_req]} after "
+          f"{len(toks['bcsr0'][eos_req])} tokens")
 
-    depth1.submit(trace[0][0], 3)             # one more resident request
-    depth1.step()
-    _, syncs, waits = count_syncs(depth1.step)
-    torch.cuda.synchronize()
-    print(f"  one depth-1 scheduler step: {syncs} host syncs ({n_moe} "
-          f"attn+moe layers + the token fetch), event waits {waits}")
-    check(syncs <= n_moe + 1, f"a depth-1 scheduler step synced {syncs} "
-          f"times")
-    del depth1
+    syncs = {}
+    for key, sched in kept.items():
+        sched.submit(trace[0][0], 3)          # one more resident request
+        sched.step()                          # admits it (fused: bucket 1)
+        _, n, waits = count_syncs(sched.step)
+        torch.cuda.synchronize()
+        syncs[key] = {"syncs": n, "event_waits": waits}
+    del kept, sched
+    print(f"  one extra scheduler step, host syncs (event waits): "
+          + ", ".join(f"{k} {v['syncs']} ({v['event_waits']})"
+                      for k, v in syncs.items())
+          + f"; {n_moe} attn+moe layers")
+    check(syncs["bcsr1"]["syncs"] <= n_moe + 1,
+          f"a depth-1 scheduler step synced {syncs['bcsr1']} times")
+    for key in ("fused_gather0", "fused_gather1"):
+        check(syncs[key]["syncs"] <= 1 and syncs[key]["event_waits"] == 0,
+              f"a fused scheduler step ({key}) synced {syncs[key]}")
 
     alone = []
     for i, (prompt, budget) in enumerate(trace):
@@ -1569,7 +1631,7 @@ def phase_scheduler(cfg, params):
         with no_plain():
             ref = loop.run(prompt[None], budget)[0].tolist()
         row = {"request": i, "match": True}
-        for key in ("bcsr0", "bcsr1"):
+        for key in greedy:
             got = toks[key][i]
             diff = next((t for t, (a, b) in enumerate(zip(got, ref))
                          if a != b), None)
@@ -1581,8 +1643,9 @@ def phase_scheduler(cfg, params):
         alone.append(row)
         del loop, logits
     n_match = sum(r["match"] for r in alone)
-    print(f"  {n_match} of {len(trace)} requests give, at depth 0 and 1, the"
-          f" tokens of the request served alone through ServeLoop (B = 1)"
+    print(f"  {n_match} of {len(trace)} requests give, in every greedy run "
+          f"(two-phase and fused), the tokens of the request served alone "
+          f"through ServeLoop (B = 1)"
           + "".join(f"; request {r['request']} differs first in {r['run']} "
                     f"at step {r['step']} ({r['alone']} alone, "
                     f"{r['scheduler']} scheduled, logit gap "
@@ -1590,14 +1653,35 @@ def phase_scheduler(cfg, params):
                     for r in alone if not r["match"]))
     check(n_match == len(trace), f"{len(trace) - n_match} requests decoded "
           "in a batch bucket part from the same request alone at B = 1")
+
+    traces = []
+    for label, kw in (("scheduler bcsr, two-phase eager",
+                       dict(dispatch="bcsr")),
+                      ("scheduler gather, layered eager",
+                       dict(dispatch="gather", two_phase=True)),
+                      ("scheduler gather, fused replayed",
+                       dict(dispatch="gather"))):
+        sched = ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
+                               max_slots=SCHED_SLOTS, **kw)
+
+        def fill(sched=sched):                # bucket 8, 32-token budgets
+            for prompt, _ in trace[:SCHED_SLOTS]:
+                sched.submit(prompt, 32)
+            sched.admit()
+
+        traces.append(trace_step(label, fill, sched.decode_step))
+        check(sorted(sched.batch_buckets) == [SCHED_SLOTS],
+              f"{label}: buckets {sorted(sched.batch_buckets)}")
+        del sched, fill
     return {"requests": len(trace), "slots": SCHED_SLOTS,
             "max_seq": SCHED_MAX_SEQ, "kv_cache_mb": kv_mb,
             "eos_request": eos_req, "runs": runs,
-            "tokens_equal": {"depth1_depth0": True, "bcsr_gather": True,
-                             "temperature_pair": True},
-            "step_syncs": syncs, "step_event_waits": waits,
-            "attn_moe_layers": n_moe, "alone_matches": n_match,
-            "alone": alone}, captured, decode_calls
+            "tokens_equal": {"greedy_runs_bcsr0": greedy[1:],
+                             "temperature_runs": ["temp0", "temp1",
+                                                  "fused_temp0"]},
+            "step_syncs": syncs, "attn_moe_layers": n_moe,
+            "alone_matches": n_match, "alone": alone,
+            "traces": traces}, captured, decode_calls
 
 
 def _attn_prompts(cfg):
@@ -2025,8 +2109,7 @@ def phase_measure(captured, masked_stream, launches, card, sched_streams,
             "scheduler_admission_stream": admission,
             "scheduler_decode_stream": bucket,
             "scheduler_launches": {
-                f"{r['dispatch']} depth {r['depth']} T {r['temperature']}":
-                r["k2_launches"] for r in sched_runs},
+                r["label"]: r["k2_launches"] for r in sched_runs},
             "card": card}
 
 
@@ -3082,8 +3165,68 @@ def phase_rwkv_serving(card):
         "first_step_logits_equal": True,
         "traces": [trace_decode("rwkv6-7b, layered eager", layered, prompts),
                    trace_decode("rwkv6-7b, fused replayed", loop, prompts)]}
-    del loop, loop1, layered, layered1, params
+    del loop, loop1, layered, layered1
+    info["scheduler"] = phase_rwkv_scheduler(cfg, params)
+    del params
     return info, counts["wkv_kernel"], captured[0]
+
+
+RWKV_SCHED_REQUESTS = 8
+
+
+def phase_rwkv_scheduler(cfg, params):
+    """Continuous batching of rwkv6-7b on the RWKV phase's weights: the
+    first RWKV_SCHED_REQUESTS requests of :func:`scheduler_trace` (prompts
+    64-512 tokens, budgets 8-32) through ``ServeScheduler`` with
+    SCHED_SLOTS slots, as :func:`drive_scheduler` submits them, fused (the
+    default: one CUDA graph a batch bucket over the pool's rows) and
+    ``two_phase=True`` (layered, eager), counts set to 0 just before each.
+    Checks: the same tokens per request; K7 once a layer an admission and
+    never in a decode step; fused, one graph for each bucket seen.  Then
+    each request served alone through one fused ``ServeLoop`` (B = 1):
+    the number that equal their scheduled tokens is printed, not
+    checked."""
+    from repro_torch.launch.serve import ServeLoop, ServeScheduler
+    trace = scheduler_trace(cfg.vocab_size)[:RWKV_SCHED_REQUESTS]
+    n = cfg.n_repeats
+    print(f"rwkv continuous batching: {len(trace)} requests, prompts "
+          f"{min(len(p) for p, _ in trace)}-{max(len(p) for p, _ in trace)}"
+          f", {SCHED_SLOTS} slots:")
+    runs, toks = [], {}
+    for key, kw in (("fused", {}), ("layered", {"two_phase": True})):
+        sched = ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
+                               max_slots=SCHED_SLOTS, **kw)
+        reset_launches()
+        wall = drive_scheduler(sched, trace, {})       # the main path
+        counts = read_launches()
+        toks[key] = {r.uid: list(r.tokens) for r in sched.finished}
+        check(sorted(toks[key]) == list(range(len(trace))),
+              f"rwkv scheduler {key}: finished {sorted(toks[key])}")
+        check(counts == only(wkv_kernel=n * len(trace)),
+              f"rwkv scheduler {key}: launches {counts}")
+        if key == "fused":
+            graphs = {b: f.graph is not None and f.launches == {}
+                      for b, f in sched._fused.items()}
+            check(set(graphs) == sched.batch_buckets
+                  and all(graphs.values()),
+                  f"rwkv scheduler: graphs {graphs} for buckets "
+                  f"{sorted(sched.batch_buckets)}")
+        runs.append({**scheduler_numbers(f"rwkv {key}", sched, wall),
+                     "k7_launches": counts["wkv_kernel"]})
+        print_scheduler(runs[-1])
+        del sched
+    check(toks["fused"] == toks["layered"],
+          "rwkv scheduler: fused tokens != layered tokens")
+    loop = ServeLoop(params, cfg, max_seq=SCHED_MAX_SEQ)
+    alone = [loop.run(p[None], g)[0].tolist() == toks["fused"][i]
+             for i, (p, g) in enumerate(trace)]
+    del loop
+    print(f"  fused tokens == layered; K7 {n} an admission, none in decode;"
+          f" {sum(alone)} of {len(trace)} requests give the tokens they get "
+          f"alone (B = 1)")
+    return {"requests": len(trace), "slots": SCHED_SLOTS, "runs": runs,
+            "tokens_equal": True, "alone_matches": sum(alone),
+            "alone": alone}
 
 
 def phase_measure_wkv(captured, launches, card):

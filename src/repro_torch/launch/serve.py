@@ -56,9 +56,14 @@ with one summation order per row (decode attention D1, the router R1;
   temperature, on both backends; ``summary()["timing"]`` says how much
   route time the overlap hid (``route_hidden_frac``).
 
-``ServeScheduler`` stays layered: two-phase with ``"bcsr"``, one
-``moe.apply_moe`` call a layer with ``"gather"``; it has no fused mode and
-no ``two_phase=`` yet.
+``ServeScheduler`` takes ``two_phase`` with ``ServeLoop``'s default and
+modes.  Two-phase, its admissions and decode steps are layered and eager.
+Fused, an admission is ``model.prefill`` and a decode step is
+``model.decode_step`` on the slot pool's own rows ``[0, bucket)``: on the
+card one CUDA graph a batch bucket, captured at the bucket's first use (the
+rows' live requests restored after the warm-up) and replayed every step,
+all of them in one memory pool; on the CPU eagerly.  Either way a step
+fetches its sampled ids once.
 
 ``attn_mask`` (an ``AttnMaskSpec``) sends every prefill attention layer it
 applies to through the masked flash kernels (K4s stream walk or K4m masked
@@ -73,7 +78,7 @@ Example:
       --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --two-phase off
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --continuous \
-      --device cpu
+      --two-phase off --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu
 """
@@ -81,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import time
@@ -168,40 +174,77 @@ def _copy_leaves(dst, src) -> None:
         dst.copy_(src)
 
 
+def _clone_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_leaves(v) for v in tree)
+    return tree.clone()
+
+
+@contextlib.contextmanager
+def _rows_kept(cache):
+    """Every leaf of ``cache`` as it was on entry, copied back into the
+    same storage on exit (error or not): the guard around the warm-up
+    steps of a step made over rows that hold live requests."""
+    saved = _clone_leaves(cache)
+    try:
+        yield
+    finally:
+        _copy_leaves(cache, saved)
+
+
 class _FusedDecode:
     """The fused mode's decode step at one (batch, ``max_seq``, cache
-    dtype): a static decode cache (``model.init_cache`` at the dtypes a
-    step writes), a ``(B, 1)`` token buffer and a ``(B,)`` position buffer
-    on the device, and ``model.decode_step`` on them.
+    dtype): a decode cache at the dtypes a step writes, a ``(B, 1)`` token
+    buffer and a ``(B,)`` position buffer on the device, and
+    ``model.decode_step`` on them.  The cache is the step's own static one
+    (``model.init_cache``; :meth:`load` overwrites it whole), or ``cache``
+    when given: rows of a longer-lived cache, such as a scheduler's slot
+    pool, which the step then reads and writes in place.
 
     On the card the step is one CUDA graph, captured when this is made and
-    replayed by :meth:`step`.  Before the capture two warm-up steps run on
-    a side stream under ``torch.cuda.set_sync_debug_mode("error")``: a host
-    sync inside the step raises there, before it could break the capture,
-    and each kernel's first-use build and shared-memory attribute are done.
-    The warm-up and the capture write into the static cache, which
-    :meth:`load` overwrites whole.  A replay runs no wrapper, so the
-    launches the capture recorded (``launches``) are added to the kernels'
-    counts at every replay; the warm-up and the capture add none.  A failed
-    capture or replay raises: there is no eager fallback on the card.  On
-    the CPU :meth:`step` runs ``model.decode_step`` eagerly on the same
-    buffers."""
+    replayed by :meth:`step`, in the memory pool ``pool`` when given (the
+    steps of one scheduler share one; only one replays at a time).  Before
+    the capture two warm-up steps run on a side stream under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside the
+    step raises there, before it could break the capture, and each
+    kernel's first-use build and shared-memory attribute are done.  The
+    warm-up writes into the cache (K/V at the buffers' positions, the MoE
+    occupancy, the RWKV state and shifts): a cache of the step's own is
+    overwritten by :meth:`load`, a given one is restored leaf by leaf
+    after the capture (:func:`_rows_kept`), so its live rows leave the
+    capture as they entered it.  The graph binds the given cache's own
+    storage, never a copy.  A replay runs no wrapper, so the launches the
+    capture recorded (``launches``) are added to the kernels' counts at
+    every replay; the warm-up and the capture add none.  A failed capture
+    or replay raises: there is no eager fallback on the card.  On the CPU
+    :meth:`step` runs ``model.decode_step`` eagerly on the same buffers; a
+    given cache gets the same warm-up steps there, under the same guard."""
 
     WARMUP = 2
 
     def __init__(self, params, cfg, batch: int, max_seq: int, *,
-                 dispatch: str, cache_dtype, device: torch.device):
+                 dispatch: str, cache_dtype, device: torch.device,
+                 cache=None, pool=None):
         self.params, self.cfg, self.dispatch = params, cfg, dispatch
-        self.cache = M.to_decode_dtypes(cfg, M.init_cache(
-            cfg, batch, max_seq, dtype=cache_dtype, device=device))
+        self.cache = cache if cache is not None else M.to_decode_dtypes(
+            cfg, M.init_cache(cfg, batch, max_seq, dtype=cache_dtype,
+                              device=device))
         self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
                                   device=device)
         self.pos = torch.zeros((batch,), dtype=torch.int64, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits: Optional[torch.Tensor] = None
         self.launches: Dict[str, int] = {}
-        if device.type == "cuda":
-            self._capture(device)
+        guard = (_rows_kept(self.cache) if cache is not None
+                 else contextlib.nullcontext())
+        with guard:
+            if device.type == "cuda":
+                self._capture(device, pool)
+            elif cache is not None:
+                for _ in range(self.WARMUP):
+                    self._decode()
 
     def _decode(self) -> torch.Tensor:
         logits, _ = M.decode_step(self.params, self.cfg, self.cache,
@@ -209,7 +252,7 @@ class _FusedDecode:
                                   dispatch=self.dispatch)
         return logits
 
-    def _capture(self, device: torch.device) -> None:
+    def _capture(self, device: torch.device, pool) -> None:
         counts = kernels.read_launches()
         try:
             side = torch.cuda.Stream(device)
@@ -225,7 +268,7 @@ class _FusedDecode:
             torch.cuda.current_stream(device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             before = kernels.read_launches()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=pool):
                 self.logits = self._decode()
             after = kernels.read_launches()
         finally:            # the warm-up and the capture count nothing
@@ -239,11 +282,18 @@ class _FusedDecode:
         """A prefill cache into the static cache, leaf by leaf."""
         _copy_leaves(self.cache["slots"], cache["slots"])
 
-    def step(self, pos: int, tokens: torch.Tensor) -> torch.Tensor:
-        """One decode step at write position ``pos`` for every row from the
-        (B, 1) ``tokens``; returns the (B, 1, V) f32 logits (on the card
-        the graph's output buffer, which the next step overwrites)."""
-        self.pos.fill_(pos)
+    def step(self, pos, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step from the (B, 1) ``tokens`` on the device at
+        write position ``pos``: an int for every row, or a (B,) numpy
+        vector of per-row positions, uploaded without blocking the host
+        (``moe._upload``).  Returns the (B, 1, V) f32 logits (on the card
+        the graph's output buffer, which the next replay of a graph in the
+        same pool overwrites)."""
+        if isinstance(pos, np.ndarray):
+            self.pos.copy_(moe._upload(pos.astype(np.int64),
+                                       self.pos.device))
+        else:
+            self.pos.fill_(pos)
         self.tokens.copy_(tokens)
         if self.graph is None:
             return self._decode()
@@ -290,6 +340,20 @@ class _ServeBase:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _fused_step(self, batch: int, **kw) -> _FusedDecode:
+        """``self._fused[batch]``, made with ``kw`` at its first use (on the
+        card captured: a "capture" stat, counted in no other phase)."""
+        if batch not in self._fused:
+            t0 = time.monotonic()
+            self._fused[batch] = _FusedDecode(
+                self.params, self.cfg, batch, self.max_seq,
+                dispatch=self.backend, device=self.device, **kw)
+            if self._fused[batch].graph is not None:
+                self._sync()
+                self.stats.append(StepStat("capture", self._step_label(),
+                                           time.monotonic() - t0))
+        return self._fused[batch]
 
     def _routed(self) -> bool:
         """Whether attn+moe layers route on the host, then execute."""
@@ -350,8 +414,9 @@ class _ServeBase:
         return out, new_counts
 
     def _phase_summary(self) -> Dict[str, Any]:
-        """Per-phase seconds and calls, the routed-stream accounting and the
-        ``timing`` split (see :meth:`ServeLoop.summary`)."""
+        """Per-phase seconds and calls, the routed-stream accounting, the
+        ``timing`` split and, fused, the graph captures (see
+        :meth:`ServeLoop.summary`)."""
         out: Dict[str, Any] = {}
         for phase in ("prefill", "route", "execute", "decode", "drain"):
             ss = [s for s in self.stats if s.phase == phase]
@@ -384,6 +449,9 @@ class _ServeBase:
             "attention_ref_fallbacks":
                 flash_ops.fallback_count() - self._fallback_base}
         out["pipeline"] = {"depth": self.pipeline_depth}
+        if not self.two_phase:
+            caps = [s.seconds for s in self.stats if s.phase == "capture"]
+            out["capture"] = {"calls": len(caps), "ms": sum(caps) * 1e3}
         return out
 
 
@@ -438,21 +506,6 @@ class ServeLoop(_ServeBase):
 
     # ------------------------------------------------------------- phases --
 
-    def _fused_decode(self, batch: int) -> _FusedDecode:
-        """The fused step of this batch, made (and on the card captured,
-        a "capture" stat) at its first use."""
-        if batch not in self._fused:
-            t0 = time.monotonic()
-            self._fused[batch] = _FusedDecode(
-                self.params, self.cfg, batch, self.max_seq,
-                dispatch=self.backend, cache_dtype=torch.bfloat16,
-                device=self.device)
-            if self._fused[batch].graph is not None:
-                self._sync()
-                self.stats.append(StepStat("capture", -1,
-                                           time.monotonic() - t0))
-        return self._fused[batch]
-
     def prefill(self, prompts) -> torch.Tensor:
         """Run the prompts (B, S) through the model, fill the decode cache,
         and emit the first generated token (B, 1).  Fused, the prefill
@@ -462,7 +515,8 @@ class ServeLoop(_ServeBase):
         prompts = torch.as_tensor(prompts, device=self.device)
         self.generated = []
         if not self.two_phase:
-            self.fused_step = self._fused_decode(prompts.shape[0])
+            self.fused_step = self._fused_step(prompts.shape[0],
+                                               cache_dtype=torch.bfloat16)
         t0 = time.monotonic()
         if self.two_phase:
             logits, cache, pos = M.prefill_layered(
@@ -586,9 +640,6 @@ class ServeLoop(_ServeBase):
             if wall > 0:
                 batch = self.generated[0].shape[0]
                 dec["tok_per_s"] = batch * dec["calls"] / wall
-        if not self.two_phase:
-            caps = [s.seconds for s in self.stats if s.phase == "capture"]
-            out["capture"] = {"calls": len(caps), "ms": sum(caps) * 1e3}
         return out
 
 
@@ -702,9 +753,20 @@ class ServeScheduler(_ServeBase):
     writes (``model.to_decode_dtypes`` once, on the whole cache), so a step
     writes through views of its rows and nothing is copied back.
 
-    The scheduler stays layered and eager: two-phase with ``"bcsr"``, one
-    ``moe.apply_moe`` call a layer with ``"gather"``.  It has neither the
-    fused mode nor ``two_phase=`` (ROADMAP Queue 1 item 3).
+    **Modes.**  ``two_phase`` is :class:`ServeLoop`'s, with its default:
+    two-phase exactly for ``"bcsr"`` on a stack with attn+moe layers, fused
+    otherwise.  Two-phase, admissions and decode steps are layered and
+    eager (``"bcsr"`` routes on the host; ``"gather"`` is one
+    ``moe.apply_moe`` call a layer).  Fused, an admission is
+    ``model.prefill`` and each batch bucket's decode step is a
+    :class:`_FusedDecode` over the pool's rows ``[0, bucket)``: on the card
+    one CUDA graph, captured at the bucket's first use, which reads and
+    writes the pool in place; the warm-up before the capture advances
+    every row of the bucket, so those rows are saved before it and
+    restored after the capture.  The buckets' graphs share one memory
+    pool.  ``"bcsr"`` fused runs through the full-grid stream built on
+    the device.  A fused step makes one host sync, the token fetch, at
+    either depth.
 
     Not ported yet: quantized experts and KV cache (``quantize_experts``,
     ``kv_quant``; ROADMAP Queue 1 item 4) and resilience (fault plans,
@@ -714,8 +776,8 @@ class ServeScheduler(_ServeBase):
 
     Parameters
     ----------
-    params, cfg, dispatch, temperature, sample_seed, pipeline_depth,
-    attn_mask, device : as :class:`ServeLoop`.
+    params, cfg, dispatch, two_phase, temperature, sample_seed,
+    pipeline_depth, attn_mask, device : as :class:`ServeLoop`.
     max_seq : cache capacity of every slot; :meth:`submit` refuses a request
         that needs more.
     max_slots : the slot pool, rounded up to its own batch bucket.
@@ -724,14 +786,15 @@ class ServeScheduler(_ServeBase):
     """
 
     def __init__(self, params, cfg, *, max_seq: int, max_slots: int = 8,
-                 dispatch: Optional[str] = None, temperature: float = 0.0,
+                 dispatch: Optional[str] = None,
+                 two_phase: Optional[bool] = None, temperature: float = 0.0,
                  sample_seed: int = 3, batch_min_bucket: int = 1,
                  cache_dtype=torch.bfloat16, pipeline_depth: int = 0,
                  attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
         super().__init__(params, cfg, dispatch=dispatch,
                          temperature=temperature, sample_seed=sample_seed,
                          pipeline_depth=pipeline_depth, attn_mask=attn_mask,
-                         device=device)
+                         device=device, two_phase=two_phase)
         self.max_seq = max_seq
         self.batch_min_bucket = batch_min_bucket
         # the pool at its own bucket: every clamped step bucket is a power
@@ -749,9 +812,24 @@ class ServeScheduler(_ServeBase):
         self._stat_step = -1
         self._next_uid = 0
         self.batch_buckets: set = set()
+        # the fused mode's steps, one a batch bucket, over the pool's rows;
+        # on the card their graphs share one memory pool
+        self._fused: Dict[int, _FusedDecode] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda"
+                            and not self.two_phase else None)
 
     def _step_label(self) -> int:
         return self._stat_step
+
+    def _fused_decode(self, bucket: int) -> _FusedDecode:
+        """The fused step of this bucket over rows ``[0, bucket)`` of the
+        slot pool, made (and on the card captured, a "capture" stat) at
+        its first use; the rows' live requests leave its warm-up as they
+        entered it."""
+        return self._fused_step(bucket, cache_dtype=self.cache_dtype,
+                                cache=_row_views(self.cache, bucket),
+                                pool=self._graph_pool)
 
     # -------------------------------------------------------------- admit --
 
@@ -808,16 +886,22 @@ class ServeScheduler(_ServeBase):
 
     def _prefill_into(self, req: Request, slot: int) -> None:
         """Single-request prefill, its cache copied into row ``slot`` (one
-        in-place copy per leaf), and the request's first token.  At depth 1
-        the prefill runs its routes ahead and ends with the pipeline
-        drained."""
+        in-place copy per leaf), and the request's first token.  Two-phase
+        the prefill is layered (at depth 1 with its routes ahead, ending
+        with the pipeline drained); fused it is ``model.prefill``."""
         self._stat_step = -1
         prompts = torch.from_numpy(req.prompt[None, :]).to(self.device)
         t0 = time.monotonic()
-        logits, cache1, pos = M.prefill_layered(
-            self.params, prompts, self.cfg, max_seq=self.max_seq,
-            cache_dtype=self.cache_dtype, moe_fn=self._moe_fn(),
-            attn_mask=self.attn_mask, route_ahead=self._route_ahead())
+        if self.two_phase:
+            logits, cache1, pos = M.prefill_layered(
+                self.params, prompts, self.cfg, max_seq=self.max_seq,
+                cache_dtype=self.cache_dtype, moe_fn=self._moe_fn(),
+                attn_mask=self.attn_mask, route_ahead=self._route_ahead())
+        else:
+            logits, cache1, pos = M.prefill(
+                self.params, prompts, self.cfg, max_seq=self.max_seq,
+                cache_dtype=self.cache_dtype, attn_mask=self.attn_mask,
+                dispatch=self.backend)
         self._sync()
         self._pipe.drain()
         dt = time.monotonic() - t0
@@ -854,9 +938,14 @@ class ServeScheduler(_ServeBase):
     def decode_step(self) -> List[Tuple[Request, int]]:
         """One batched decode step over the occupied slot prefix, rounded
         up to its batch bucket; returns the (request, token) pairs emitted.
-        Raises before the cache write when a resident would write past
-        ``max_seq`` (``submit`` makes that unreachable for requests it
-        took)."""
+        Two-phase it is ``model.decode_step_layered`` on the pool's rows;
+        fused it fills the bucket's position and token buffers from the
+        host without blocking it and replays the bucket's graph (on the
+        CPU: runs ``model.decode_step``), made at the bucket's first use.
+        Either way the step's sampled ids are fetched once.  Raises before
+        the cache write when a resident would write past ``max_seq``
+        (``submit`` makes that unreachable for requests it took; the fused
+        step cannot check)."""
         active = self.active
         if not active:
             return []
@@ -877,13 +966,17 @@ class ServeScheduler(_ServeBase):
             if r is not None:
                 pos[i], tok[i, 0] = r.pos, r.tokens[-1]
         self._stat_step = self.step_idx
+        fused = None if self.two_phase else self._fused_decode(bucket)
         t0 = time.monotonic()
-        logits, _ = M.decode_step_layered(
-            self.params, self.cfg, _row_views(self.cache, bucket), pos,
-            moe._upload(tok, self.device), moe_fn=self._moe_fn(),
-            route_ahead=self._route_ahead())
-        if self.pipeline_depth == 0:
-            self._sync()
+        if fused is not None:
+            logits = fused.step(pos, moe._upload(tok, self.device))
+        else:
+            logits, _ = M.decode_step_layered(
+                self.params, self.cfg, _row_views(self.cache, bucket), pos,
+                moe._upload(tok, self.device), moe_fn=self._moe_fn(),
+                route_ahead=self._route_ahead())
+            if self.pipeline_depth == 0:
+                self._sync()
         # the step's one fetch: EOS and eviction need the values
         toks = self._sample_rows(logits[:, -1], rows).cpu().numpy()
         dt = time.monotonic() - t0
@@ -940,7 +1033,10 @@ class ServeScheduler(_ServeBase):
         first-token latency percentiles (``token_latency_ms``,
         ``first_token_ms``), request counts, the decode batch buckets and,
         two-phase, the routed-stream buckets (``nnzb_buckets``), the
-        ``timing`` split and ``pipeline``."""
+        ``timing`` split and ``pipeline``; fused, ``capture`` holds the
+        graph captures of the scheduler's life (``calls``, one a bucket
+        on the card and none on the CPU, and ``ms``), counted in no other
+        phase."""
         out = self._phase_summary()
         dec = out.get("decode")
         if dec and dec["seconds"] > 0:
@@ -989,7 +1085,8 @@ def main(argv=None):
                     default="auto",
                     help="route-then-execute layered decode (auto = when "
                          "moe+bcsr); off = the fused mode, its decode step "
-                         "one CUDA graph on the card")
+                         "one CUDA graph on the card (with --continuous, "
+                         "one a batch bucket)")
     ap.add_argument("--pipeline-depth", type=int, choices=[0, 1], default=0,
                     help="0 = serial; 1 = route phase 1 with the attention "
                          "half, executes in flight behind the next host "
@@ -1016,13 +1113,13 @@ def main(argv=None):
     params = M.init_params(cfg, seed=0, device=device)
     max_seq = args.prompt_len + args.gen
     dispatch = None if args.dispatch == "config" else args.dispatch
+    two_phase = None if args.two_phase == "auto" else args.two_phase == "on"
     if args.continuous:
         return _main_continuous(args, cfg, params, max_seq, dispatch,
-                                attn_mask, device)
+                                two_phase, attn_mask, device)
     g = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=device)
-    two_phase = None if args.two_phase == "auto" else args.two_phase == "on"
     loop = ServeLoop(params, cfg, max_seq=max_seq, dispatch=dispatch,
                      two_phase=two_phase, temperature=args.temperature,
                      pipeline_depth=args.pipeline_depth, attn_mask=attn_mask,
@@ -1059,16 +1156,17 @@ def main(argv=None):
     return gen
 
 
-def _main_continuous(args, cfg, params, max_seq, dispatch, attn_mask,
-                     device) -> Dict[int, np.ndarray]:
+def _main_continuous(args, cfg, params, max_seq, dispatch, two_phase,
+                     attn_mask, device) -> Dict[int, np.ndarray]:
     """``--continuous``: ``--requests`` synthetic requests (prompt lengths
     uniform in [prompt_len / 2, prompt_len], budgets in [gen / 2, gen], from
     numpy seed 0), all queued at once, through a ``ServeScheduler`` of
-    ``--slots`` slots; prints the summary and returns {uid: tokens}."""
+    ``--slots`` slots in the ``--two-phase`` mode; prints the summary and
+    returns {uid: tokens}."""
     rng = np.random.default_rng(0)
     sched = ServeScheduler(params, cfg, max_seq=max_seq,
                            max_slots=args.slots, dispatch=dispatch,
-                           temperature=args.temperature,
+                           two_phase=two_phase, temperature=args.temperature,
                            pipeline_depth=args.pipeline_depth,
                            attn_mask=attn_mask, device=device)
     for _ in range(args.requests):
@@ -1081,7 +1179,8 @@ def _main_continuous(args, cfg, params, max_seq, dispatch, attn_mask,
     dec = s.get("decode", {})
     print(f"served {len(gen)} requests in {sched.step_idx} steps "
           f"({dec.get('tok_per_s', 0.0):.1f} decode tok/s)"
-          + (" [two-phase]" if sched.two_phase else ""))
+          + (" [two-phase]" if sched.two_phase else
+             f" [fused, capture {s['capture']['ms']:.1f} ms]"))
     lat, first = s["token_latency_ms"], s["first_token_ms"]
     print(f"per-token latency: p50 {lat['p50']:.1f} ms, p99 "
           f"{lat['p99']:.1f} ms over {lat['n']} tokens; first token p50 "

@@ -271,17 +271,21 @@ def test_route_phase1_per_row_matches_reference():
 
 
 @pytest.mark.parametrize("depth", [0, 1])
-@pytest.mark.parametrize("dispatch", ["bcsr", "gather"])
+@pytest.mark.parametrize("dispatch", ["bcsr", "gather", "gather-two-phase"])
 def test_scheduler_matches_reference_gather(model, dispatch, depth):
     """Staggered arrivals into 2 slots (join, evict, slot reuse): the
     port's greedy tokens per request == the reference's gather
-    scheduler's, each request exactly its budget."""
+    scheduler's, each request exactly its budget.  Each backend in its
+    default mode (bcsr two-phase, gather fused), and gather layered
+    (``two_phase=True``)."""
     name = "tiny" if model[1].name == "tiny-serve" else "scout-smoke"
     _, cfg, _, params, reqs = model
     want = _reference_tokens(name)
-    sched = _sched(params, cfg, max_slots=2, dispatch=dispatch,
-                   pipeline_depth=depth)
-    assert sched.two_phase == (dispatch == "bcsr")
+    kw = {"two_phase": True} if dispatch == "gather-two-phase" else {}
+    sched = _sched(params, cfg, max_slots=2,
+                   dispatch=dispatch.split("-")[0], pipeline_depth=depth,
+                   **kw)
+    assert sched.two_phase == (dispatch != "gather")
     got = _drive(sched, reqs)
     assert sorted(got) == sorted(want) == list(range(N_REQ))
     for uid in want:

@@ -14,6 +14,10 @@ the CPU with ``--device cpu``):
   and of ``decode_attention`` over a ``max_seq`` 544 cache (the kernel D1,
   and its plain version), computed with the batch at M rows against M = 1
   -- ``torch.equal`` or the largest difference;
+* with ``--arch rwkv6-7b``, row 0 of each decode-step op of rwkv6-7b at
+  full width instead: the bf16 projections of the time and channel mix,
+  the f32 decay LoRA, the one-token WKV contraction (``einsum``) and its
+  bonus sum, the ``ln_x`` rmsnorm and the unembedding;
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -21,7 +25,8 @@ the CPU with ``--device cpu``):
 
 Run from the repository root:
 
-    python3 tools/probe_batch_rows.py [--depth 2] [--device cuda]
+    python3 tools/probe_batch_rows.py [--arch rwkv6-7b] [--depth 2]
+        [--device cuda]
 
 It prints one JSON object as its last line and writes the same to
 ``chiprun_out/batch_rows.json``.
@@ -100,6 +105,46 @@ def probe_ops(cfg, params, device) -> dict:
     return out
 
 
+def probe_rwkv_ops(cfg, params, device) -> dict:
+    """Row 0 of each rwkv6 decode-step op at M rows against at 1 row, on
+    layer 0's weights and random inputs of its decode shapes."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv6
+    g = torch.Generator(device=device).manual_seed(7)
+    d, n = cfg.d_model, max(ROWS)
+    nh, hd = d // rwkv6.HEAD_DIM, rwkv6.HEAD_DIM
+    p = M._take(params["blocks"][0], 0)["mixer"]
+    cd = params["embed"].dtype
+    rand = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device=device)
+    unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    ops = {name: (lambda x, w=p[name]: x @ w.to(cd), rand(n, 1, p[name]
+                                                            .shape[0]).to(cd))
+           for name in ("w_r", "w_k", "w_v", "w_g", "w_o", "w_cr", "w_ck",
+                        "w_cv")}
+    ops["unembed"] = (lambda x: x @ unemb.to(cd), rand(n, 1, d).to(cd))
+    ops["decay lora (f32)"] = (
+        lambda x: torch.tanh(x @ p["decay_lora_a"]) @ p["decay_lora_b"],
+        rand(n, 1, d))
+    ops["ln_x rmsnorm"] = (lambda x: L.rmsnorm(p["ln_x"], x, cfg.norm_eps),
+                           rand(n, 1, d).to(cd))
+    rt, kt = rand(n, nh, hd), rand(n, nh, hd)
+    s0 = rand(n, nh, hd, hd)
+    ops["wkv decode einsum"] = (
+        lambda i: torch.einsum("bht,bhtd->bhd", rt[i], s0[i]),
+        torch.arange(n, device=device))
+    ops["wkv bonus sum"] = (
+        lambda i: (rt[i] * p["bonus_u"] * kt[i]).sum(-1),
+        torch.arange(n, device=device))
+    out = {}
+    for name, (fn, x) in ops.items():
+        one = fn(x[:1])[0]
+        out[name] = {m: _diff(fn(x[:m])[0], one) for m in ROWS[1:]}
+    return out
+
+
 def probe_layers(cfg, params, device) -> dict:
     """One decode step of a request alone and as row 0 of a bucket."""
     import numpy as np
@@ -154,6 +199,8 @@ def probe_layers(cfg, params, device) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama4-scout-17b-a16e",
+                    choices=["llama4-scout-17b-a16e", "rwkv6-7b"])
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -164,13 +211,14 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     device = resolve_device(args.device)
-    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
-                              n_repeats=args.depth)
+    cfg = dataclasses.replace(get_config(args.arch), n_repeats=args.depth)
     params = M.init_params(cfg, seed=0, device=device)
     card = (torch.cuda.get_device_name(0) if device.type == "cuda"
             else "cpu")
+    ops = probe_rwkv_ops if args.arch == "rwkv6-7b" else probe_ops
     result = {"device": card, "torch": torch.__version__,
-              "depth": args.depth, "ops": probe_ops(cfg, params, device),
+              "arch": args.arch, "depth": args.depth,
+              "ops": ops(cfg, params, device),
               "layers": probe_layers(cfg, params, device)}
     for name, row in result["ops"].items():
         print(f"{name}: row 0 at M rows vs 1 row: " + ", ".join(
