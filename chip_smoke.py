@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout
-   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7, and the decode kernels D1 and
-   R1: seven sources), one ``nvcc`` each,
+   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7, and the decode kernels D1, R1
+   and W1: eight sources), one ``nvcc`` each,
    all started together, with build seconds and register counts (the flash
    kernels' by name, with their shared memory), and the count of
    tensor-core instructions in the flash library's SASS;
@@ -54,11 +54,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    on r, k, v, w of three dtype pairings, T 100, 256 and 2048 at the
    kernel's one chunk (128) and decays that do or do not saturate the
    clamp, two launches ``torch.equal``, and on a small case both sides
-   against an f64 sequential scan;
+   against an f64 sequential scan; then W1 (the one-token WKV step, 16
+   rows of 64 heads, two decay ranges) ``torch.equal`` to its order
+   emulated in PyTorch (y and state), its state ``torch.equal`` to the
+   plain step's, y within 1e-5 of the plain step's largest |y|, and row
+   i at B in {1, 2, 3, 4, 8, 16} == the row alone; and R1 at rwkv6-7b's
+   decay-LoRA decode shapes (4096 x 64 with x bf16 and f32, 64 x 4096)
+   == its emulated order, rows == alone;
 4. small f32 configs must give the same logits on the card and on the
    CPU: llama4-scout SMOKE prefill with chunked attention, masked attention
    (K4s) and kernel attention (K3); rwkv6-7b SMOKE prefill (K7 once a
-   layer) and one decode step;
+   layer) and one decode step (W1 once a layer, R1 twice a layer and
+   once a norm);
 5. the serving slice at full llama4-scout width (depth cut to 8 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
@@ -67,12 +74,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``bn`` too; the same weights with ``dispatch="gather"`` (fused, the
    default: ``model.prefill``, then the decode step replayed as one CUDA
    graph) must give the same tokens; D1 once an attention layer a decode
-   step and R1 once a MoE layer a pass in every run (a replay counts the
-   launches its capture recorded), their plain versions never called on
-   the card; then fused gather, ``two_phase=True`` gather (layered, eager)
-   and fused bcsr (the full-grid stream, K2 once a MoE layer a pass): the
+   step, R1 once a MoE layer a pass and once a decode step's rmsnorm (2
+   a layer and the final one: ``layers.rmsnorm(row_order=True)``) in
+   every run (a replay counts the launches its capture recorded), their
+   plain versions never called on the card; then fused gather,
+   ``two_phase=True`` gather (layered, eager) and fused bcsr (the full-grid stream, K2 once a MoE layer a pass): the
    same tokens, the first decode step's logits ``torch.equal``, a replay
-   launching D1 and R1 8 times each (and K2 8 on bcsr); fused and layered
+   launching D1 8 times and R1 25 (and K2 8 on bcsr); fused and layered
    gather at depth 1 with the same tokens, one fused depth-1 step making
    no host sync; decode tok/s and the capture ms of each; and one decode
    step each, layered and replayed, traced by ``torch.profiler`` (kernels
@@ -101,7 +109,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    counted) and never in a gather run; no flash launch and no oracle
    fallback; every decode step's bucket ``batch_bucket(highest occupied
    slot + 1)`` and in {1, 2, 4, 8}; fused, one graph for each bucket seen,
-   a replay launching D1 and R1 8 times (and K2 8 on bcsr); the EOS
+   a replay launching D1 8 times and R1 25 (and K2 8 on bcsr); the EOS
    request ends at its EOS and every other request gets its budget; one
    extra depth-1 two-phase step makes at most ``n_moe + 1`` host syncs,
    one extra fused step at depth 0 or 1 at most 1; D1 and R1 counted as
@@ -110,6 +118,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    parts, the step and the logit gap are printed before the check fails);
    and one decode step at bucket 8 traced, two-phase bcsr, layered gather
    and fused gather (kernels, busy / wall ms, idle share);
+   then quantized experts and KV caches on the same weights
+   (``quantize_experts=`` / ``kv_quant=``): ``model.prefill(kv_quant=
+   "int8")`` logits ``torch.equal`` to wide; 4 x 256, 16 greedy tokens,
+   wide gather fused, then int8 experts + int8 KV through two-phase bcsr
+   and fused gather and fp8 e4m3 KV alone through fused gather (each
+   driver deleted before the next): launches as wide, bcsr == gather
+   tokens (so fused == two-phase), the first decode step within 0.2
+   relative error of wide, at most 1 host sync an extra fused step; then
+   the int8 scheduler (fused gather) on the trace, every request == itself
+   alone through an int8 ``ServeLoop``, 16 of 16; decode tok/s, token
+   latency, peak memory and capture ms beside the wide runs;
 7. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
@@ -129,9 +148,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    from a seed, ~15 GB): ``ServeLoop`` serves 4 prompts of 2048 tokens and
    generates 16 greedy tokens through the default, fused loop (the decode
    step one replayed CUDA graph), with K7 launched once a layer in prefill
-   (32) and never in decode, and its plain version never called; the first
-   layer's r, k, v, w, u are captured and K7 is held against plain on
-   them; prefill ms, decode tok/s and the phase's peak device memory;
+   (32) and never in decode, W1 once a layer a decode step and R1 twice a
+   layer and once a decode step's rmsnorm (32 and 161 a replay), and no
+   plain version called on the card; the
+   first layer's r, k, v, w, u are captured and K7 is held against plain
+   on them; prefill ms, decode tok/s and the phase's peak device memory;
    ``two_phase=True`` (layered, eager) gives the same tokens and the first
    decode step's logits ``torch.equal``; then a depth-1 run of each: the
    same tokens, the same 32 K7 launches, no host sync in a fused depth-1
@@ -139,8 +160,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    layered and replayed, traced as in phase 5; then 8 requests of phase
    6's trace through ``ServeScheduler`` (8 slots), fused (the default)
    and ``two_phase=True``: equal tokens, K7 32 times an admission and
-   never in decode, one graph a bucket seen; how many requests equal
-   themselves served alone is printed;
+   never in decode, W1 32 and R1 161 times a decode step (replays
+   counted), one graph a bucket seen; every request equals itself served
+   alone (8 of 8, checked);
 10. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -149,10 +171,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
 11. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound; K2, D1, R1, K3, K4m, K4s, K7, K6a, K6b, K5, K2q; D1 and R1 on
-   the calls the serving runs made (decode steps at 4 x 256, the
-   scheduler's top bucket, 4 x 2048; R1's prefills; D1's cluster shape and
-   shared memory a CTA), SDPA and
+   bound; K2, D1, R1, K3, K4m, K4s, K7, W1, K6a, K6b, K5, K2q; D1, R1 and
+   W1 on the calls the serving runs made (decode steps at 4 x 256, the
+   scheduler's top bucket, 4 x 2048; R1's prefills; W1 and R1's
+   decay-LoRA products at the RWKV-6 decode's first step, W1 at B 1 and 8
+   beside; D1's cluster shape and shared memory a CTA), SDPA and
    ``torch.matmul`` beside them, R1's no-FMA instruction floor at the SM
    clock read around its timing; K2 on each captured
    stream with its row statistics, == plain; K5 with its bucketing and
@@ -185,6 +208,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -264,16 +288,17 @@ def only(**launches) -> dict:
 
 
 class no_plain:
-    """While on, the plain decode attention and the plain router raise if
-    they are called on a CUDA tensor: the card's main path must launch the
-    kernels D1 and R1 (their wrappers take the plain versions for CPU
-    tensors only)."""
+    """While on, the plain decode attention, the plain router and the plain
+    WKV step raise if they are called on a CUDA tensor: the card's main
+    path must launch the kernels D1, R1 and W1 (their wrappers take the
+    plain versions for CPU tensors only)."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ref as fref
         from repro_torch.kernels.router import kernel as rk
+        from repro_torch.kernels.wkv import kernel as wk
         self.saved = [(fref, "decode_attention_ref"),
-                      (rk, "router_logits_ref")]
+                      (rk, "router_logits_ref"), (wk, "wkv_step_plain")]
         self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
         for mod, attr, fn in self.saved:
             def guarded(x, *a, _fn=fn, _name=attr, **kw):
@@ -316,16 +341,67 @@ class hook_calls:
         return False
 
 
+class keep_row_sum:
+    """While on, the first call of ``router.ops.row_sum`` (the sum of
+    squares of a decode step's first rmsnorm, R1 on the card) keeps a copy
+    of its argument in ``self.x``; every call goes on as before and the
+    launch counts are untouched."""
+
+    def __enter__(self):
+        from repro_torch.kernels.router import ops as rops
+        self.x, self.entry = None, rops.row_sum
+
+        def kept(x):
+            if self.x is None:
+                self.x = x.clone()
+            return self.entry(x)
+
+        rops.row_sum = kept
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.router import ops as rops
+        rops.row_sum = self.entry
+        return False
+
+
+def decode_norms(cfg) -> int:
+    """The rmsnorms of one decode step, each summed by R1 on the card
+    (``layers.rmsnorm(row_order=True)``): ln1 and ln2 an attention layer,
+    ln1, ln_x and ln2 an rwkv layer, and the final norm."""
+    per = {"attn": 2, "attn+moe": 2, "rwkv": 3}
+    return sum(per[k] for k in cfg.block_unit) * cfg.n_repeats + 1
+
+
+def r1_per_step(cfg) -> int:
+    """R1's launches in one decode step: the router once a MoE layer, the
+    decay LoRA twice an rwkv layer, and :func:`decode_norms`."""
+    return (cfg.block_unit.count("attn+moe") + 2 * cfg.block_unit.count(
+        "rwkv")) * cfg.n_repeats + decode_norms(cfg)
+
+
 def decode_counts(cfg, prefills: int, decode_steps: int, **others) -> dict:
     """The launch counts of a serving run of llama4-scout that made
     ``prefills`` prefills and ``decode_steps`` decode steps: D1 once an
-    attention layer a decode step, R1 once a MoE layer a pass, and
-    ``others``."""
+    attention layer a decode step, R1 once a MoE layer a prefill and
+    :func:`r1_per_step` times a decode step, and ``others``."""
     n_attn = sum(k in ("attn", "attn+moe") for k in cfg.block_unit) \
         * cfg.n_repeats
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
     return only(decode_attention=n_attn * decode_steps,
-                router_logits=n_moe * (prefills + decode_steps), **others)
+                router_logits=n_moe * prefills + r1_per_step(cfg)
+                * decode_steps, **others)
+
+
+def rwkv_counts(cfg, prefills: int, decode_steps: int) -> dict:
+    """The launch counts of a serving run of an rwkv stack that made
+    ``prefills`` prefills (each row of a batch prefill together) and
+    ``decode_steps`` decode steps: K7 once a layer a prefill; W1 once a
+    layer a decode step and R1 :func:`r1_per_step` times (the decay LoRA's
+    two products a layer and the step's norms)."""
+    n = cfg.n_repeats * cfg.block_unit.count("rwkv")
+    return only(wkv_kernel=n * prefills, wkv_step=n * decode_steps,
+                router_logits=r1_per_step(cfg) * decode_steps)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1181,10 +1257,13 @@ def phase_slice():
     engine.spmm_batched_stream = capture
     reset_launches()
     try:
-        with hook_calls(keep), no_plain():
+        with hook_calls(keep), no_plain(), keep_row_sum() as norm:
             tokens = loop.run(prompts, GEN)   # the main path
     finally:
         engine.spmm_batched_stream = stream_entry
+    check(norm.x is not None and tuple(norm.x.shape) == (
+        BATCH, 1, cfg.d_model), "the first decode norm was not captured")
+    decode_calls["r1_norm"] = norm.x
     counts = read_launches()
     launches = counts["spmm_bcsr"]
     summary = loop.summary()
@@ -1262,7 +1341,8 @@ def phase_fused_moe(cfg, params, prompts, tokens, gather):
         check(counts == decode_counts(cfg, 1, GEN - 1, **k2),
               f"{label}: launches {counts}")
         if label.endswith("fused"):
-            per = {"decode_attention": n_attn, "router_logits": n_moe,
+            per = {"decode_attention": n_attn,
+                   "router_logits": r1_per_step(cfg),
                    **({"spmm_bcsr": n_moe} if k2 else {})}
             got = loop.fused_step.launches
             check(got == per, f"{label}: a replay launches {got}")
@@ -1456,11 +1536,12 @@ def phase_scheduler(cfg, params):
     depth 0's, the temperature runs' == each other, per request; K2 ``n_moe
     x (admissions + decode steps)`` in each bcsr run (replays counted) and
     never in a gather run, D1 once an attention layer a decode step and R1
-    once a MoE layer a pass in every run, their plain versions never; no
+    as :func:`decode_counts` says in every run, their plain versions never; no
     flash launch and no oracle fallback; each decode step's bucket is
     ``batch_bucket(highest occupied slot + 1)`` and in {1, 2, 4, 8}; fused,
-    one graph for each bucket seen, each replay launching D1 and R1 once a
-    layer (K2 once a MoE layer on bcsr); the EOS request ends at its EOS,
+    one graph for each bucket seen, each replay launching D1 once a layer
+    and R1 :func:`r1_per_step` times (K2 once a MoE layer on bcsr); the EOS
+    request ends at its EOS,
     every other greedy request gets exactly its budget; one extra depth-1
     two-phase step makes at most ``n_moe + 1`` host syncs, one extra fused
     step at either depth at most 1; and every request served alone through
@@ -1537,7 +1618,8 @@ def phase_scheduler(cfg, params):
                   and b in (1, 2, 4, 8) and st.extra["active"] <= hi <= b,
                   f"{label}: step {st.step} bucket {b} for {hi} rows")
         if not sched.two_phase:
-            per = {"decode_attention": n_attn, "router_logits": n_moe,
+            per = {"decode_attention": n_attn,
+                   "router_logits": r1_per_step(cfg),
                    **({"spmm_bcsr": n_moe} if bcsr else {})}
             graphs = {b: f.graph is not None and f.launches == per
                       for b, f in sched._fused.items()}
@@ -1682,6 +1764,158 @@ def phase_scheduler(cfg, params):
             "step_syncs": syncs, "attn_moe_layers": n_moe,
             "alone_matches": n_match, "alone": alone,
             "traces": traces}, captured, decode_calls
+
+
+# the quantized phase: (label, ServeLoop keywords) of its 4 x 256 runs
+QUANT_RUNS = (
+    ("int8 experts + int8 KV, bcsr two-phase",
+     dict(dispatch="bcsr", quantize_experts="int8", kv_quant="int8")),
+    ("int8 experts + int8 KV, gather fused",
+     dict(dispatch="gather", quantize_experts="int8", kv_quant="int8")),
+    ("fp8_e4m3 KV, gather fused", dict(dispatch="gather",
+                                       kv_quant="fp8_e4m3")))
+QUANT_REL_TOL = 0.2     # first decode step vs wide: the reference's bound
+
+
+def phase_quant_serving(cfg, params, wide_sched):
+    """Quantized experts and KV caches on phase 5's weights (Queue 1 item
+    4): ``model.prefill(kv_quant="int8")`` logits ``torch.equal`` to the
+    wide prefill's (quantization touches only the emitted cache); then
+    BATCH x PROMPT prompts and GEN greedy tokens through the wide fused
+    gather ``ServeLoop`` and :data:`QUANT_RUNS` (each made, run and
+    deleted before the next: a quantized driver holds an int8 copy of the
+    experts beside the phase's bf16 params), counts set to 0 just before
+    each run: the launches of :func:`decode_counts` (K2 ``n_moe x GEN`` on
+    bcsr), no plain version on the card; bcsr two-phase tokens == gather
+    fused tokens (int8 experts + int8 KV: backends and modes agree); the
+    first decode step's logits within :data:`QUANT_REL_TOL` relative error
+    (largest |difference| over the largest |logit|) of the wide run's; at
+    most 1 host sync in an extra fused step.  Then the int8 scheduler on
+    phase 6's trace (fused gather), and each request alone through one
+    int8 ``ServeLoop`` (B = 1): 16 of 16 equal.  Decode tok/s, token
+    latency p50 / p99, peak device memory and capture ms are printed
+    beside the wide runs (``wide_sched``: phase 6's fused gather run)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeLoop, ServeScheduler
+    from repro_torch.models import model as M
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=g,
+                            device="cuda")
+    max_seq = PROMPT + GEN
+    print(f"quantized serving: {BATCH} x {PROMPT}, {GEN} tokens, then the "
+          f"scheduler on phase 6's trace:")
+    wide_lg, _, _ = M.prefill(params, prompts, cfg, max_seq=max_seq,
+                              dispatch="gather")
+    kv_lg, kv_cache, _ = M.prefill(params, prompts, cfg, max_seq=max_seq,
+                                   dispatch="gather", kv_quant="int8")
+    leaf = kv_cache["slots"][0]["attn"]
+    check(torch.equal(kv_lg, wide_lg)
+          and leaf["k"].dtype == torch.int8
+          and leaf["k_scale"].dtype == torch.float32,
+          "kv_quant prefill logits != wide prefill logits")
+    del wide_lg, kv_lg, kv_cache, leaf
+    print("  model.prefill(kv_quant='int8') logits == wide logits "
+          "(torch.equal); the cache int8 with f32 scales")
+
+    def serve(label, **kw):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loop = ServeLoop(params, cfg, max_seq=max_seq, **kw)
+        loop.run(prompts, 2)                  # warm-up: capture, allocator
+        capture = loop.summary().get("capture", {"calls": 0, "ms": 0.0})
+        reset_launches()
+        with no_plain():
+            tokens, first = first_step_logits(loop, prompts, GEN)
+        counts = read_launches()
+        summary = loop.summary()
+        bcsr = loop.backend == "bcsr"
+        want = decode_counts(cfg, 1, GEN - 1,
+                             **({"spmm_bcsr": n_moe * GEN} if bcsr else {}))
+        check(counts == want, f"{label}: launches {counts} != {want}")
+        syncs = None
+        if not loop.two_phase:
+            loop.prefill(prompts)
+            _, syncs, waits = count_syncs(loop.decode_step)
+            torch.cuda.synchronize()
+            check(syncs <= 1 and waits == 0,
+                  f"{label}: a fused step synced {syncs} times, waited "
+                  f"{waits}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        row = {**fused_numbers(label, summary, capture, counts),
+               "peak_gb": peak, "step_syncs": syncs,
+               "tokens": tokens[:, :8].tolist()}
+        print_fused(row)
+        print(f"    peak {peak:.1f} GB; host syncs of an extra fused step "
+              f"{syncs}; tokens {tokens[0, :8].tolist()} ...")
+        del loop
+        return tokens, first, row
+
+    wide_tokens, wide_first, wide_row = serve("wide, gather fused",
+                                              dispatch="gather")
+    rows, toks = [wide_row], {}
+    for label, kw in QUANT_RUNS:
+        toks[label], first, row = serve(label, **kw)
+        rel = ((first - wide_first).abs().max()
+               / wide_first.abs().max()).item()
+        check(rel < QUANT_REL_TOL, f"{label}: first decode step {rel:.4g} "
+                                   f"relative error from wide")
+        row["first_step_rel_err"] = rel
+        row["tokens_equal_wide"] = bool(np.array_equal(toks[label],
+                                                       wide_tokens))
+        rows.append(row)
+        print(f"    first decode step relative error {rel:.4g} (bound "
+              f"{QUANT_REL_TOL}); tokens == wide: {row['tokens_equal_wide']}")
+    a, b = (toks[label] for label, _ in QUANT_RUNS[:2])
+    check(np.array_equal(a, b), "int8: bcsr two-phase tokens != gather "
+                                "fused tokens")
+    print("  int8 experts + int8 KV: bcsr two-phase tokens == gather fused "
+          "tokens")
+
+    trace = scheduler_trace(cfg.vocab_size)
+    qkw = dict(quantize_experts="int8", kv_quant="int8")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    sched = ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
+                           max_slots=SCHED_SLOTS, dispatch="gather", **qkw)
+    reset_launches()
+    with no_plain():
+        wall = drive_scheduler(sched, trace, {})       # the main path
+    counts = read_launches()
+    decode = [st for st in sched.stats if st.phase == "decode"]
+    want = decode_counts(cfg, len(trace), len(decode))
+    check(counts == want, f"int8 scheduler: launches {counts} != {want}")
+    stoks = {r.uid: list(r.tokens) for r in sched.finished}
+    check(sorted(stoks) == list(range(len(trace))),
+          f"int8 scheduler: finished {sorted(stoks)}")
+    srow = {**scheduler_numbers("int8 experts + int8 KV, gather fused",
+                                sched, wall),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print_scheduler(srow)
+    lat = wide_sched["token_latency_ms"]
+    print(f"    peak {srow['peak_gb']:.1f} GB; wide (phase 6, "
+          f"{wide_sched['label']}): decode "
+          f"{wide_sched['decode_tok_per_s']:.1f} tok/s, token p50 / p99 "
+          f"{lat['p50']:.2f} / {lat['p99']:.2f} ms, capture "
+          f"{wide_sched['capture']['ms']:.1f} ms")
+    del sched
+    gc.collect()
+    loop = ServeLoop(params, cfg, max_seq=SCHED_MAX_SEQ, dispatch="gather",
+                     **qkw)
+    with no_plain():
+        alone = [loop.run(p[None], b)[0].tolist() == stoks[i]
+                 for i, (p, b) in enumerate(trace)]
+    del loop
+    print(f"  {sum(alone)} of {len(trace)} requests give the tokens they "
+          f"get alone (B = 1, int8 ServeLoop)")
+    check(all(alone), f"int8 scheduler: only {sum(alone)} of {len(trace)} "
+                      "requests equal themselves alone")
+    return {"runs": rows, "bcsr_equals_gather": True,
+            "kv_prefill_logits_equal": True, "rel_tol": QUANT_REL_TOL,
+            "scheduler": srow, "alone_matches": sum(alone),
+            "requests": len(trace)}
 
 
 def _attn_prompts(cfg):
@@ -2222,12 +2456,53 @@ def _router_times(call, what: str) -> dict:
                       "w_dtype": str(w.dtype)[6:]}}
 
 
+def _row_sum_times(x2, what: str) -> dict:
+    """R1 as ``router.ops.row_sum`` on one captured decode norm's squared
+    hidden state ``x2`` (B, 1, d) f32: :func:`_row_sum_case` on its rows
+    and their copies scaled by 2, 4 and 8 (exact, so 4 B distinct rows
+    for BATCH_LAW); the kernel's time back to back and from a CUDA graph
+    at the served B, beside the plain version (``router_logits_ref``, x
+    by the ones column), ``torch.sum`` (``library_ms``) and ``torch.mean``
+    the same two ways; the bound: x, the column and the sums moved once,
+    or 2 B d flops at the f32 peak."""
+    import torch
+    from repro_torch.kernels.router import ops as rops
+    from repro_torch.kernels.router.ref import router_logits_ref
+    B, d = x2.numel() // x2.shape[-1], x2.shape[-1]
+    x2 = x2.reshape(B, d)
+    err = _row_sum_case(torch.cat([x2 * 2.0 ** j for j in range(4)]),
+                        f"R1 row sum on the {what} norm")
+    ones = torch.ones((d, 1), device=x2.device)
+    run = lambda: rops.row_sum(x2)  # noqa: E731
+    lib = lambda: torch.sum(x2, -1, keepdim=True)  # noqa: E731
+    mean = lambda: torch.mean(x2, -1, keepdim=True)  # noqa: E731
+    ms = time_ms(run, 50)
+    plain_ms = time_ms(lambda: router_logits_ref(x2, ones), 50)
+    library_ms, mean_ms = time_ms(lib, 50), time_ms(mean, 50)
+    graph = {"ms": graph_ms(run), "library_ms": graph_ms(lib),
+             "mean_ms": graph_ms(mean)}
+    bytes_ms = (x2.numel() + d + B) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * B * d / F32_FLOP_PER_S * 1e3
+    print(f"  R1 row sum, {what} norm ({B} x {d}, x float32): {ms:.4f} ms "
+          f"(graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}; "
+          f"plain {plain_ms:.4f}, torch.sum {library_ms:.4f}, graph "
+          f"{graph['library_ms']:.4f}, torch.mean {mean_ms:.4f}, graph "
+          f"{graph['mean_ms']:.4f}), max_abs_err {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "mean_ms": mean_ms, "graph": graph,
+            "shape": {"T": B, "d": d, "E": 1, "x_dtype": "float32",
+                      "w_dtype": "float32"}}
+
+
 def phase_measure_decode(calls, launches, card):
     """The D1 and R1 rows, measured at the calls the main path made: D1 at
     the 4 x 256 run's last decode step (with the scheduler's first step at
     its largest bucket and the 4 x 2048 masked run's last decode step
     beside it), R1 at the 4 x 256 run's last decode step (with its prefill,
-    the scheduler's largest bucket and the 4 x 2048 prefill beside it);
+    the scheduler's largest bucket and the 4 x 2048 prefill beside it, and
+    the first decode step's first norm as a row sum, :func:`_row_sum_times`);
     ``launches`` are the 4 x 256 bcsr run's."""
     d1 = _decode_times(calls["d1_decode"], "4 x 256, last decode step")
     d1_bucket = _decode_times(calls["d1_bucket"], "scheduler, top bucket")
@@ -2236,6 +2511,8 @@ def phase_measure_decode(calls, launches, card):
     r1_prefill = _router_times(calls["r1_prefill"], "4 x 256 prefill")
     r1_bucket = _router_times(calls["r1_bucket"], "scheduler, top bucket")
     r1_long = _router_times(calls["r1_long_prefill"], "4 x 2048 prefill")
+    r1_norm = _row_sum_times(calls["r1_norm"], "4 x 256 first decode step, "
+                                               "layer 0 ln1")
     return [{"name": "decode_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "decode_attention.cu",
@@ -2250,7 +2527,8 @@ def phase_measure_decode(calls, launches, card):
                          "Pallas kernel)",
              "launches": launches["router_logits"], **r1,
              "prefill_call": r1_prefill, "scheduler_bucket_call": r1_bucket,
-             "prefill_4x2048_call": r1_long, "card": card}]
+             "prefill_4x2048_call": r1_long, "rmsnorm_calls": [r1_norm],
+             "card": card}]
 
 
 # ---------------------------------------------------------------------------
@@ -2931,6 +3209,79 @@ def _wkv_inputs(g, B, T, nh, wmag, dt, wdt):
     return r, k, v, w, u
 
 
+# W1 at rwkv6-7b's 64 heads; R1 at its decay LoRA's two decode shapes (d,
+# E), x bf16 (the bf16 policy's xw) or f32 (tanh of the first product)
+WKV_STEP_HEADS = 64
+LORA_CASES = ((4096, 64, "bfloat16"), (4096, 64, "float32"),
+              (64, 4096, "float32"))
+# R1 as the decode norms' row sum (``router.ops.row_sum`` of f32 x^2 by a
+# (d, 1) column of ones, E = 1): rwkv6-7b's d and llama4-scout's
+NORM_DIMS = (4096, 5120)
+
+
+def _row_sum_case(x2, what: str) -> float:
+    """R1 as ``router.ops.row_sum`` on squared hidden states ``x2`` (T, d)
+    f32: ``torch.equal`` to its emulated order (``router_logits_ordered``
+    by a column of ones), two launches ``torch.equal``, row i at each B of
+    BATCH_LAW up to T == the row alone, and within :func:`tolerance` (1e-5
+    of the largest sum: the same terms in another order) of the library's
+    ``x2.sum(-1)``.  Returns the error."""
+    import torch
+    from repro_torch.kernels.router import ops as rops
+    from repro_torch.kernels.router import ref as rref
+    got = rops.row_sum(x2)
+    ones = torch.ones((x2.shape[-1], 1), device=x2.device)
+    check(torch.equal(got, rref.router_logits_ordered(x2, ones)),
+          f"{what}: R1 != its emulated order")
+    check(torch.equal(got, rops.row_sum(x2)), f"{what}: two launches differ")
+    check(_rows_alone_equal(rops.row_sum, lambda lo, hi: (x2[lo:hi],),
+                            sizes=tuple(b for b in BATCH_LAW
+                                        if b <= x2.shape[0])),
+          f"{what}: a row depends on its batch")
+    return max_err(got, x2.sum(-1, keepdim=True), what)
+
+
+def _wkv_step_case(a, what: str) -> float:
+    """W1 (``kernel.wkv_step``) on ``a`` = (r, k, v, e, u, s0): y and the
+    state ``torch.equal`` to ``ref.wkv_step_ordered``, the state
+    ``torch.equal`` to the plain step's, y within :func:`tolerance` (1e-5
+    of the largest |y|: the same 64-term f32 sums in another order) of the
+    plain step's, two launches ``torch.equal``, and the step in place
+    (``out=`` s0's own storage, as the model runs it) the same bits.
+    Returns y's error."""
+    import torch
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv import ref
+    y, s = wk.wkv_step(*a)
+    oy, os_ = ref.wkv_step_ordered(*a)
+    py, ps = ref.wkv_step_plain(*a)
+    check(torch.equal(y, oy) and torch.equal(s, os_),
+          f"{what}: W1 != its emulated order")
+    check(torch.equal(s, ps), f"{what}: W1's state != the plain step's")
+    y2, s2 = wk.wkv_step(*a)
+    check(torch.equal(y, y2) and torch.equal(s, s2),
+          f"{what}: two launches differ")
+    st = a[5].clone()
+    y3, s3 = wk.wkv_step(*a[:5], st, out=st)
+    check(s3 is st and torch.equal(y3, y) and torch.equal(st, s),
+          f"{what}: the step in place (out = s0) differs")
+    return max_err(y, py, f"{what}: y")
+
+
+def _wkv_step_rows_alone(a, what: str) -> None:
+    """Row i of W1 (y and state) at each B of BATCH_LAW up to the rows of
+    ``a`` == the row alone."""
+    import torch
+    from repro_torch.kernels.wkv import kernel as wk
+    r, k, v, e, u, s0 = a
+    check(_rows_alone_equal(
+        lambda *t: torch.cat([x.flatten(1) for x in wk.wkv_step(*t)], 1),
+        lambda lo, hi: (r[lo:hi], k[lo:hi], v[lo:hi], e[lo:hi], u,
+                        s0[lo:hi]),
+        sizes=tuple(b for b in BATCH_LAW if b <= r.shape[0])),
+        f"{what}: a row depends on its batch")
+
+
 def phase_wkv_vs_plain():
     """K7 (``ops.wkv_state``, which pads T to whole chunks) against the
     plain chunked version on the same inputs on the card, ``y`` and the
@@ -2940,7 +3291,14 @@ def phase_wkv_vs_plain():
     chunk, the cuda row's 128.  Each case launches twice and the two
     results must be ``torch.equal``.  ``ops.wkv`` is checked too, and on a
     small f32 case of three chunks both sides are printed against an f64
-    sequential scan, so a disagreement shows which side moved."""
+    sequential scan, so a disagreement shows which side moved.
+
+    Then W1 (the one-token step) at 16 rows of 64 heads, decays that do or
+    do not saturate the clamp (:func:`_wkv_step_case`; row i at B in
+    BATCH_LAW == alone), and R1 at the decay LoRA's decode shapes
+    (:data:`LORA_CASES`): each T of BATCH_LAW within 1e-5 of plain and
+    ``torch.equal`` to its emulated order, rows == alone; and R1 as the
+    decode norms' row sum at :data:`NORM_DIMS` (:func:`_row_sum_case`)."""
     import torch
     from repro_torch.kernels import tuning
     from repro_torch.kernels.wkv import ops, ref
@@ -2975,11 +3333,46 @@ def phase_wkv_vs_plain():
               f"state {(s.cpu().double() - exact_s).abs().max().item():.3g}"
               f" (largest |y| {exact_y.abs().max().item():.3g})")
     print(f"  K7 worst max_abs_err {worst:.3g}")
+    from repro_torch.kernels.router import kernel as rk
+    n, H = max(BATCH_LAW), WKV_STEP_HEADS
+    worst = 0.0
+    for wmag in (0.05, 1.0):
+        r, k, v = (torch.randn((n, H, 64), generator=g, device="cuda")
+                   for _ in range(3))
+        e = torch.exp(torch.clamp(-torch.randn(
+            (n, H, 64), generator=g, device="cuda").abs() * wmag, min=-1.0))
+        u = 0.1 * torch.randn((H, 64), generator=g, device="cuda")
+        s0 = torch.randn((n, H, 64, 64), generator=g, device="cuda")
+        what = f"W1 {n} x {H} heads, wmag {wmag}"
+        worst = max(worst, _wkv_step_case((r, k, v, e, u, s0), what))
+        _wkv_step_rows_alone((r, k, v, e, u, s0), what)
+    print(f"  W1 {n} rows x {H} heads, wmag 0.05 and 1.0: == its emulated "
+          f"order (y and state), state == plain, y max_abs_err {worst:.3g}; "
+          f"rows of B {BATCH_LAW} == alone; launches repeat bit for bit")
+    for d, E, xn in LORA_CASES:
+        xdt = getattr(torch, xn)
+        x = torch.randn((n, d), generator=g, device="cuda").to(xdt)
+        w = torch.randn((d, E), generator=g, device="cuda") * d ** -0.5
+        what = f"R1 decay LoRA {d} x {E}, x {xn}"
+        errs = [_router_case(x[:T], w, f"{what} T {T}")[1]
+                for T in BATCH_LAW]
+        check(_rows_alone_equal(lambda xx: rk.router_logits(xx, w),
+                                lambda lo, hi: (x[lo:hi],)),
+              f"{what}: a row depends on its batch")
+        print(f"  {what}, T {BATCH_LAW}: max_abs_err {max(errs):.3g}; each "
+              "== its emulated order; rows == alone")
+    for d in NORM_DIMS:
+        x = torch.randn((n, d), generator=g, device="cuda")
+        what = f"R1 row sum (decode norm) {n} x {d}, x float32"
+        err = _row_sum_case(x * x, what)
+        print(f"  {what}: == its emulated order, rows of B {BATCH_LAW} == "
+              f"alone, max_abs_err {err:.3g} against torch.sum")
 
 
 def phase_rwkv_smoke_card_vs_cpu():
     """rwkv6-7b SMOKE in f32: prefill logits (K7 once a layer on the card)
-    and one decode step's logits agree with the CPU within 1e-4."""
+    and one decode step's logits (:func:`rwkv_counts`) agree with
+    the CPU within 1e-4."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke
@@ -3002,25 +3395,32 @@ def phase_rwkv_smoke_card_vs_cpu():
     want1, _ = M.decode_step_layered(cpu, cfg, c_cpu, pos, tok)
     reset_launches()
     got1, _ = M.decode_step_layered(gpu, cfg, c_gpu, pos, tok.cuda())
-    check(read_launches() == only(), "rwkv decode launched a kernel")
+    launches1 = read_launches()
+    check(launches1 == rwkv_counts(cfg, 0, 1),
+          f"rwkv smoke decode launches {launches1}")
     err1 = (got1.cpu() - want1).abs().max().item()
     check(bool(torch.isfinite(got1).all()) and err1 <= 1e-4,
           f"rwkv smoke decode: card and cpu disagree: {err1}")
     print(f"  rwkv6 smoke f32 card vs cpu: prefill logits max_abs_err "
           f"{err:.3g} (K7 x {launches['wkv_kernel']}), decode step "
-          f"{err1:.3g}")
+          f"{err1:.3g} (W1 x {launches1['wkv_step']}, R1 x "
+          f"{launches1['router_logits']})")
 
 
 def phase_rwkv_serving(card):
     """RWKV-6 serving at full width and depth: ``ServeLoop`` on rwkv6-7b
     (random bf16 weights from a seed) serves BATCH prompts of RWKV_PROMPT
     tokens and generates GEN greedy tokens.  Counts set to 0 just before
-    the run: K7 once a layer in prefill, none in decode, and its plain
-    version never called.  The first layer's r, k, v, w, u are captured
-    for the K7 row.  Then one run of a ``pipeline_depth=1`` loop (after a
-    warm-up): the same tokens, the same K7 launches.  Returns (summary,
-    with the depth-1 numbers under "depth1"; K7 launches; captured
-    inputs)."""
+    the run: K7 once a layer in prefill, W1 once a layer and R1
+    :func:`r1_per_step` times a decode step (:func:`rwkv_counts`; a replay
+    counts the launches its capture recorded), and no plain version
+    called on the card.  The first layer's r, k, v, w, u are captured for the K7 row, and the
+    layered run's first decode step's W1 and LoRA R1 inputs for theirs.
+    Then one run of a ``pipeline_depth=1`` loop (after a warm-up): the
+    same tokens, the same launches.  Returns (summary, with the depth-1
+    numbers under "depth1"; the main run's launches; K7's captured inputs;
+    (W1's captured inputs, the two LoRA R1 calls, the first norm's
+    squared hidden state))."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3028,6 +3428,7 @@ def phase_rwkv_serving(card):
     from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import model as M
+    from repro_torch.models import rwkv6
     cfg = get_config(RWKV_ARCH)
     t0 = time.monotonic()
     params = M.init_params(cfg, seed=0, device="cuda")
@@ -3072,7 +3473,8 @@ def phase_rwkv_serving(card):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     try:                                      # the main path
-        tokens, fused_logits = first_step_logits(loop, prompts)
+        with no_plain():
+            tokens, fused_logits = first_step_logits(loop, prompts)
     finally:
         wkv_ops.wkv_state, wk.wkv_chunked_plain = entry, plain
         loop.prefill = prefill
@@ -3080,11 +3482,12 @@ def phase_rwkv_serving(card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = loop.summary()
     n = cfg.n_repeats
+    want = rwkv_counts(cfg, 1, GEN - 1)
     print(f"  launches: prefill {seen}, whole run {counts}; plain calls "
           f"{len(plain_calls)}; tokens {tokens[0, :8].tolist()} ...")
     check(seen == only(wkv_kernel=n), f"prefill launches {seen} != {n} K7")
-    check(counts == only(wkv_kernel=n),
-          f"decode launched a kernel: {counts}")
+    check(counts == want, f"launches {counts} != {want} (K7 a layer in "
+                          "prefill, W1 and R1 x 2 a layer a decode step)")
     check(not plain_calls, "the plain WKV ran on the card's main path")
     check(captured and captured[0][5] == 128
           and tuple(captured[0][0].shape) == (BATCH, RWKV_PROMPT,
@@ -3107,15 +3510,46 @@ def phase_rwkv_serving(card):
           f" decode {info['decode_tok_per_s']:.1f} tok/s over {GEN - 1} "
           f"steps, peak {peak_gb:.1f} GB; prefill argmax == token 0")
     del logits
-    check(loop.fused_step.launches == {}, f"a replay launches "
-                                     f"{loop.fused_step.launches}")
+    per_step = {"wkv_step": n, "router_logits": r1_per_step(cfg)}
+    check(loop.fused_step.launches == per_step, f"a replay launches "
+          f"{loop.fused_step.launches}, not {per_step}")
     rows = [fused_numbers("fused", summary, capture0, counts)]
     layered = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True)
     layered.run(prompts, 2)                   # warm-up
+    # the first decode step's layer 0 as the main path calls it: W1's
+    # inputs (the state the served prefill left) and the LoRA's two R1
+    # calls, for their rows
+    step_calls, lora_calls = [], []
+    # the mixer's own name for R1 is replaced, not the wrapper, whose
+    # launch count lives on the function itself
+    r1_module = rwkv6.router_kernel
+    step_entry, r1_entry = wkv_ops.wkv_step, r1_module.router_logits
+
+    def keep_step(*a, **kw):
+        if not step_calls:
+            step_calls.append(tuple(x.clone() for x in a))
+        return step_entry(*a, **kw)
+
+    def keep_lora(x, w):
+        if len(lora_calls) < 2:
+            lora_calls.append((x.clone(), w))
+        return r1_entry(x, w)
+
+    wkv_ops.wkv_step = keep_step
+    rwkv6.router_kernel = types.SimpleNamespace(router_logits=keep_lora)
     reset_launches()
-    got, layered_logits = first_step_logits(layered, prompts)
+    try:
+        with no_plain(), keep_row_sum() as norm:
+            got, layered_logits = first_step_logits(layered, prompts)
+    finally:
+        wkv_ops.wkv_step, rwkv6.router_kernel = step_entry, r1_module
     counts_l = read_launches()
-    check(counts_l == only(wkv_kernel=n), f"layered: launches {counts_l}")
+    check(counts_l == want, f"layered: launches {counts_l}")
+    check(step_calls and tuple(step_calls[0][5].shape) == (
+        BATCH, cfg.n_heads, 64, 64) and len(lora_calls) == 2
+        and norm.x is not None and tuple(norm.x.shape) == (
+            BATCH, 1, cfg.d_model),
+        "the first decode step's W1 / R1 inputs were not captured")
     check(np.array_equal(got, tokens), "layered tokens != fused tokens")
     check(torch.equal(layered_logits, fused_logits),
           "first decode step logits: layered != fused (max diff "
@@ -3125,7 +3559,7 @@ def phase_rwkv_serving(card):
     for row in rows:
         print_fused(row)
     print("  layered tokens == fused tokens, first decode step logits "
-          "torch.equal; a replay launches no kernel")
+          f"torch.equal; a replay launches {per_step}")
 
     loop1 = ServeLoop(params, cfg, max_seq=max_seq, pipeline_depth=1)
     loop1.run(prompts, 2)                     # warm-up
@@ -3133,13 +3567,13 @@ def phase_rwkv_serving(card):
     reset_launches()
     got = loop1.run(prompts, GEN)             # the main path at depth 1
     counts1 = read_launches()
-    check(counts1 == only(wkv_kernel=n), f"depth 1: launches {counts1}")
+    check(counts1 == want, f"depth 1: launches {counts1}")
     check(np.array_equal(got, tokens), "depth 1: tokens != depth 0 tokens")
     info["depth1"] = serve_numbers(1, loop1.summary())
     print(f"  depth 1: prefill {info['depth1']['prefill_ms']:.1f} ms, decode "
           f"{info['depth1']['decode_tok_per_s']:.1f} tok/s (drain "
-          f"{info['depth1']['drain_ms']:.1f} ms); {counts1['wkv_kernel']} "
-          f"K7 launches; tokens == depth 0")
+          f"{info['depth1']['drain_ms']:.1f} ms); launches "
+          f"{ {k: v for k, v in counts1.items() if v} }; tokens == depth 0")
     rows.append(fused_numbers("fused, depth 1", loop1.summary(), capture1,
                               counts1))
     layered1 = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True,
@@ -3148,7 +3582,7 @@ def phase_rwkv_serving(card):
     reset_launches()
     got = layered1.run(prompts, GEN)
     counts1 = read_launches()
-    check(counts1 == only(wkv_kernel=n), f"layered depth 1: {counts1}")
+    check(counts1 == want, f"layered depth 1: {counts1}")
     check(np.array_equal(got, tokens), "layered depth 1: tokens")
     rows.append(fused_numbers("layered, depth 1", layered1.summary(),
                               {"calls": 0, "ms": 0.0}, counts1))
@@ -3168,7 +3602,7 @@ def phase_rwkv_serving(card):
     del loop, loop1, layered, layered1
     info["scheduler"] = phase_rwkv_scheduler(cfg, params)
     del params
-    return info, counts["wkv_kernel"], captured[0]
+    return info, counts, captured[0], (step_calls[0], lora_calls, norm.x)
 
 
 RWKV_SCHED_REQUESTS = 8
@@ -3181,11 +3615,13 @@ def phase_rwkv_scheduler(cfg, params):
     SCHED_SLOTS slots, as :func:`drive_scheduler` submits them, fused (the
     default: one CUDA graph a batch bucket over the pool's rows) and
     ``two_phase=True`` (layered, eager), counts set to 0 just before each.
-    Checks: the same tokens per request; K7 once a layer an admission and
-    never in a decode step; fused, one graph for each bucket seen.  Then
-    each request served alone through one fused ``ServeLoop`` (B = 1):
-    the number that equal their scheduled tokens is printed, not
-    checked."""
+    Checks: the same tokens per request; K7 once a layer an admission,
+    W1 once a layer and R1 :func:`r1_per_step` times a decode step
+    (:func:`rwkv_counts`, replays counted), no plain version on the
+    card; fused, one graph for each bucket seen, a replay launching W1 and R1 so.  Then each request
+    served alone through one fused ``ServeLoop`` (B = 1) must give its
+    scheduled tokens, every one of them (W1 and R1 sum in one order a
+    row, so the batch cannot enter)."""
     from repro_torch.launch.serve import ServeLoop, ServeScheduler
     trace = scheduler_trace(cfg.vocab_size)[:RWKV_SCHED_REQUESTS]
     n = cfg.n_repeats
@@ -3197,22 +3633,29 @@ def phase_rwkv_scheduler(cfg, params):
         sched = ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
                                max_slots=SCHED_SLOTS, **kw)
         reset_launches()
-        wall = drive_scheduler(sched, trace, {})       # the main path
+        with no_plain():
+            wall = drive_scheduler(sched, trace, {})   # the main path
         counts = read_launches()
         toks[key] = {r.uid: list(r.tokens) for r in sched.finished}
         check(sorted(toks[key]) == list(range(len(trace))),
               f"rwkv scheduler {key}: finished {sorted(toks[key])}")
-        check(counts == only(wkv_kernel=n * len(trace)),
-              f"rwkv scheduler {key}: launches {counts}")
+        steps = sum(st.phase == "decode" for st in sched.stats)
+        want = rwkv_counts(cfg, len(trace), steps)
+        check(counts == want, f"rwkv scheduler {key}: launches {counts} "
+                              f"!= {want} ({steps} decode steps)")
         if key == "fused":
-            graphs = {b: f.graph is not None and f.launches == {}
+            per_step = {"wkv_step": n, "router_logits": r1_per_step(cfg)}
+            graphs = {b: f.graph is not None and f.launches == per_step
                       for b, f in sched._fused.items()}
             check(set(graphs) == sched.batch_buckets
                   and all(graphs.values()),
                   f"rwkv scheduler: graphs {graphs} for buckets "
                   f"{sorted(sched.batch_buckets)}")
         runs.append({**scheduler_numbers(f"rwkv {key}", sched, wall),
-                     "k7_launches": counts["wkv_kernel"]})
+                     "k7_launches": counts["wkv_kernel"],
+                     "w1_launches": counts["wkv_step"],
+                     "r1_launches": counts["router_logits"],
+                     "decode_steps": steps})
         print_scheduler(runs[-1])
         del sched
     check(toks["fused"] == toks["layered"],
@@ -3221,9 +3664,11 @@ def phase_rwkv_scheduler(cfg, params):
     alone = [loop.run(p[None], g)[0].tolist() == toks["fused"][i]
              for i, (p, g) in enumerate(trace)]
     del loop
-    print(f"  fused tokens == layered; K7 {n} an admission, none in decode;"
-          f" {sum(alone)} of {len(trace)} requests give the tokens they get "
-          f"alone (B = 1)")
+    print(f"  fused tokens == layered; K7 {n} an admission, W1 {n} and R1 "
+          f"{r1_per_step(cfg)} a decode step; {sum(alone)} of {len(trace)} "
+          f"requests give the tokens they get alone (B = 1)")
+    check(all(alone), f"rwkv scheduler: only {sum(alone)} of {len(trace)} "
+                      "requests equal themselves alone")
     return {"requests": len(trace), "slots": SCHED_SLOTS, "runs": runs,
             "tokens_equal": True, "alone_matches": sum(alone),
             "alone": alone}
@@ -3282,6 +3727,75 @@ def phase_measure_wkv(captured, launches, card):
             "card": card}
 
 
+def _wkv_step_times(a, what: str) -> dict:
+    """W1 on ``a`` = (r, k, v, e, u, s0), as the model runs it:
+    :func:`_wkv_step_case`'s checks, the kernel's time in place (on a copy
+    of s0, as the decode step writes its cache) back to back and from a
+    CUDA graph, the plain step's (``torch.einsum`` and the
+    elementwise passes) the same two ways, and the bound: r, k, v, e, u
+    and the state read once, y and the new state written once, at 3.35
+    TB/s (its 3 B nh 64^2 multiply-adds take ~0.1 % of that at the f32
+    peak)."""
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv import ref
+    err = _wkv_step_case(a, f"W1 at {what}")
+    st = a[5].clone()
+    run = lambda: wk.wkv_step(*a[:5], st, out=st)  # noqa: E731
+    plain = lambda: ref.wkv_step_plain(*a)  # noqa: E731
+    ms, plain_ms = time_ms(run, 50), time_ms(plain, 50)
+    graph = {"ms": graph_ms(run), "plain_ms": graph_ms(plain)}
+    r, s0 = a[0], a[5]
+    B, nh, hd = r.shape
+    nbytes = sum(x.numel() * 4 for x in a) + 4 * r.numel() + 4 * s0.numel()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * 3 * B * nh * hd * hd / F32_FLOP_PER_S * 1e3
+    print(f"  W1 {what} (B {B} x {nh} heads): {ms:.4f} ms (graph "
+          f"{graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}; plain "
+          f"{plain_ms:.4f}, graph {graph['plain_ms']:.4f}), y max_abs_err "
+          f"{err:.3g}; == its emulated order, state == plain")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": plain_ms, "graph": graph,
+            "shape": {"B": B, "nh": nh, "hd": hd}}
+
+
+def phase_measure_wkv_step(captured, launches, rows, card):
+    """The W1 row at the calls the main path made: layer 0 of the served
+    4 x 2048 decode's first step (the state its prefill left), with its
+    row 0 alone (B 1) and its rows twice over (the scheduler's bucket 8)
+    beside it; row i of the B 4 call == the row alone.  No single PyTorch
+    call computes the step, so ``library_ms`` is the plain step's (einsum
+    plus elementwise passes), as ``plain_ms``.  The two decay-LoRA R1
+    calls of the same step are timed (:func:`_router_times`, against
+    ``torch.matmul``) and added to the R1 row of ``rows``, and so is its
+    first norm's row sum (:func:`_row_sum_times`)."""
+    import torch
+    (r, k, v, e, u, s0), lora, norm = captured
+    a = (r, k, v, e, u, s0)
+    _wkv_step_rows_alone(a, "W1 at the served decode step")
+    w1 = _wkv_step_times(a, "4 x 2048, first decode step, layer 0")
+    one = _wkv_step_times(tuple(x if x is u else x[:1] for x in a),
+                          "its row 0 alone (B 1)")
+    eight = _wkv_step_times(tuple(x if x is u else torch.cat([x, x])
+                                  for x in a), "its rows twice (bucket 8)")
+    r1 = [_router_times((call, {}), f"rwkv6 decay LoRA {i + 1}, 4 x 2048 "
+                                    "first decode step")
+          for i, call in enumerate(lora)]
+    r1_norm = _row_sum_times(norm, "rwkv6 4 x 2048 first decode step, "
+                                   "layer 0 ln1")
+    for row in rows:
+        if row["name"] == "router_logits":
+            row["rwkv_lora_calls"] = r1
+            row["rmsnorm_calls"].append(r1_norm)
+    return {"name": "wkv_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv/csrc/wkv_step.cu",
+            "replaces": "src/repro/models/rwkv6.py:145 (array code, no "
+                        "Pallas kernel)",
+            "launches": launches["wkv_step"], **w1, "b1_call": one,
+            "bucket8_call": eight, "card": card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3305,6 +3819,8 @@ def main() -> int:
     cfg, params, summary, launches, captured, pipelined, calls = \
         phase_slice()
     scheduler, sched_streams, sched_calls = phase_scheduler(cfg, params)
+    quant = phase_quant_serving(cfg, params, next(
+        r for r in scheduler["runs"] if r["label"] == "fused_gather0"))
     mask, masked, mask_ms, masked_stream, masked1, masked_calls = \
         phase_masked_serving(cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
@@ -3325,9 +3841,12 @@ def main() -> int:
     print(f"  sm clock, max: {clocks['after_slice_kernels']}")
     del qkv, captured, masked_stream, sched_streams, calls
     scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rwkv, wkv_launches, wkv_inputs = phase_rwkv_serving(card)
-    rows.append(phase_measure_wkv(wkv_inputs, wkv_launches, card))
-    del wkv_inputs
+    rwkv, rwkv_launches, wkv_inputs, step_inputs = phase_rwkv_serving(card)
+    rows.append(phase_measure_wkv(wkv_inputs, rwkv_launches["wkv_kernel"],
+                                  card))
+    rows.append(phase_measure_wkv_step(step_inputs, rwkv_launches, rows,
+                                       card))
+    del wkv_inputs, step_inputs
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
     clocks["before_library_kernels"] = smi(CLOCKS)
@@ -3370,6 +3889,7 @@ def main() -> int:
                                 "masked_sparse": masked1,
                                 "rwkv": rwkv1},
                   "scheduler": scheduler,
+                  "quantized": quant,
                   "fused": fused,
                   "card": card},
              "rwkv": rwkv, "library": lib_info, "sm_clocks": clocks,

@@ -231,12 +231,17 @@ def dequantize_blocks(values: torch.Tensor, scales: torch.Tensor
 
 def quantize_rows(vals: torch.Tensor, dtype, *, rounding: str = "nearest",
                   seed: int = 0, saturate: bool = False,
-                  noise: Optional[Noise] = None
+                  noise: Optional[Noise] = None, check: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row quantization over the last axis (ELL row streams, KV time
     slices).  Returns ``(values, scales)`` with ``scales.shape ==
-    vals.shape[:-1]``."""
-    x = _guard_nonfinite(vals.float(), "quantize_rows", saturate)
+    vals.shape[:-1]``.  ``check=False`` skips the non-finite check (and
+    its read back to the host), as the reference's check is skipped under
+    jit: the serving path's KV quantization, which a CUDA graph captures,
+    runs so."""
+    x = vals.float()
+    if check or saturate:
+        x = _guard_nonfinite(x, "quantize_rows", saturate)
     _, _, qmax = _resolve_quant(dtype)
     scales = _amax_scale(x, -1, qmax)
     q = _round_to(x / scales[..., None], dtype, rounding, seed, noise)

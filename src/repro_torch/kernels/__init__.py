@@ -26,7 +26,8 @@ def launch_counters() -> Dict[str, Tuple[Callable, str]]:
             "spmspm_ell": (pk.spmspm_ell, "launches"),
             "stencil_2d": (tk.stencil_2d, "launches"),
             "stencil_3d": (tk.stencil_3d, "launches"),
-            "wkv_kernel": (wk.wkv_kernel, "launches")}
+            "wkv_kernel": (wk.wkv_kernel, "launches"),
+            "wkv_step": (wk.wkv_step, "launches")}
 
 
 def read_launches() -> Dict[str, int]:

@@ -31,6 +31,7 @@ SOURCES: Dict[str, Path] = {
     "stencil": _KERNELS / "stencil" / "csrc" / "stencil.cu",
     "spmspm_ell": _KERNELS / "spmspm" / "csrc" / "spmspm_ell.cu",
     "wkv": _KERNELS / "wkv" / "csrc" / "wkv.cu",
+    "wkv_step": _KERNELS / "wkv" / "csrc" / "wkv_step.cu",
     "router": _KERNELS / "router" / "csrc" / "router.cu",
 }
 

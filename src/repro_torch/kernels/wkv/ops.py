@@ -9,6 +9,9 @@ of the model's prefill (the reference's ``models/rwkv6.py``
 ``wkv_chunked``): the caller's chunk as it is, no clamp, and the final state
 beside y.  Zero padding changes neither: a padded position has r = k = v = 0
 and no decay.  A CPU tensor runs the plain version, a CUDA tensor K7.
+
+``wkv_step`` is the entry of the model's decode step: one token against
+the carried state, through W1 on the card (``kernel.wkv_step``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import as_tensor
 from repro_torch.kernels import tuning
+from repro_torch.kernels.wkv import kernel as _kernel
 from repro_torch.kernels.wkv.kernel import wkv_kernel
 
 
@@ -55,6 +59,17 @@ def wkv_state(r, k, v, w_log, u, *, chunk: int
     """(y (B, T, nh, hd) f32, final state (B, nh, hd, hd) f32) with T padded
     to a multiple of ``chunk``, unclamped (the model's prefill)."""
     return _run(r, k, v, w_log, u, int(chunk), state=True)
+
+
+def wkv_step(r, k, v, e, u, s0, *, out=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, nh, hd) f32, s' (B, nh, hd, hd) f32) of one decode step: r,
+    k, v, the decay ``e = exp(w_log)`` (B, nh, hd), u (nh, hd), the state
+    s0 (B, nh, hd, hd); each made f32 and contiguous first.  s' goes into
+    ``out`` where one is given (an f32 contiguous state, s0's own storage
+    included: the model's cache leaf)."""
+    return _kernel.wkv_step(*(x.float().contiguous()
+                              for x in (r, k, v, e, u, s0)), out=out)
 
 
 def flops(B, T, nh, hd, chunk=128) -> int:

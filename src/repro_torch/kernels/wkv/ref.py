@@ -7,6 +7,11 @@ widened to f32 first, as the Pallas kernel ``wkv_pallas`` does.  It returns
 the final state beside ``y``; the CUDA kernel computes the same and is held
 against it on the card.  ``wkv_scan`` is the sequential oracle
 (``rwkv_scan_ref``).
+
+The one-token decode step (W1, ``csrc/wkv_step.cu``): ``wkv_step_plain``
+is the reference's step (``models/rwkv6.py`` decode branch), the CPU path
+of ``kernel.wkv_step``; ``wkv_step_ordered`` is W1's summation order in
+elementwise PyTorch, which the kernel gives bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -77,3 +82,31 @@ def wkv_scan(r, k, v, w_log, u, s0: Optional[torch.Tensor] = None
                   + (rt * u * kt).sum(-1)[..., None] * vt)
         s = s * torch.exp(wt)[..., None] + kt[..., :, None] * vt[..., None, :]
     return torch.stack(ys, dim=1), s
+
+
+def wkv_step_plain(r, k, v, e, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the recurrence as the reference writes it: r, k,
+    v and the decay ``e = exp(w_log)`` (B, nh, hd) f32, u (nh, hd), s0 (B,
+    nh, hd, hd) f32.  Returns (y (B, nh, hd), s' (B, nh, hd, hd))."""
+    y1 = torch.einsum("bht,bhtd->bhd", r, s0)
+    bonus = (r * u * k).sum(-1)
+    y = y1 + bonus[..., None] * v
+    s = s0 * e[..., None] + k[..., :, None] * v[..., None, :]
+    return y, s
+
+
+def wkv_step_ordered(r, k, v, e, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W1's order in PyTorch: ``y[d] = sum_t r[t] s0[t, d]`` and the bonus
+    ``sum_t (r[t] u[t]) k[t]`` each summed over t = 0, 1, ... in that
+    order from +0, every product and sum rounded to f32, then ``y +
+    bonus v``; s' as :func:`wkv_step_plain`.  Elementwise ops only, so a
+    row's bits do not depend on the other rows."""
+    ru = r * u
+    y = torch.zeros_like(r)
+    bonus = torch.zeros_like(r[..., 0])
+    for t in range(r.shape[-1]):
+        y = y + r[..., t, None] * s0[..., t, :]
+        bonus = bonus + ru[..., t] * k[..., t]
+    y = y + bonus[..., None] * v
+    s = s0 * e[..., None] + k[..., :, None] * v[..., None, :]
+    return y, s

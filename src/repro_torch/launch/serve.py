@@ -67,8 +67,15 @@ fetches its sampled ids once.
 
 ``attn_mask`` (an ``AttnMaskSpec``) sends every prefill attention layer it
 applies to through the masked flash kernels (K4s stream walk or K4m masked
-grid); decode is untouched.  Not ported yet: resilience hooks and quantized
-experts / KV cache.
+grid); decode is untouched.
+
+``quantize_experts`` and ``kv_quant`` (narrow dtype names, both drivers,
+both modes), as in the reference: the expert weights are BlockQuant'ed
+once at construction (``moe.quantize_model_experts``; each matrix
+dequantized at its ``bmm``), and the attention caches are stored as
+narrow values with per-position f32 scales (``model.init_cache`` /
+``prefill(kv_quant=)``; dequantized before decode attention).  Not ported
+yet: resilience hooks.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -79,6 +86,9 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-scout-17b-a16e --smoke --dispatch bcsr --continuous \
       --two-phase off --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-scout-17b-a16e --smoke --quantize-experts int8 \
+      --kv-quant int8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu
 """
@@ -98,6 +108,7 @@ import torch
 from repro_torch import kernels, resolve_device
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.masks import AttnMaskSpec
+from repro_torch.core.precision import QUANT_DTYPES, QuantTensor
 from repro_torch.kernels import engine
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import model as M
@@ -152,6 +163,8 @@ def _check_on(tree, device: torch.device, who: str) -> None:
     """Every tensor of a param tree lies on ``device`` (its type)."""
     if isinstance(tree, dict):
         tree = tree.values()
+    elif isinstance(tree, QuantTensor):
+        tree = (tree.values, tree.scales)
     elif isinstance(tree, torch.Tensor):
         if tree.device.type != device.type:
             raise ValueError(f"{who}: a param on {tree.device}, driver on "
@@ -199,7 +212,8 @@ class _FusedDecode:
     dtype): a decode cache at the dtypes a step writes, a ``(B, 1)`` token
     buffer and a ``(B,)`` position buffer on the device, and
     ``model.decode_step`` on them.  The cache is the step's own static one
-    (``model.init_cache``; :meth:`load` overwrites it whole), or ``cache``
+    (``model.init_cache``, quantized with ``kv_quant``; :meth:`load`
+    overwrites it whole, scale leaves too), or ``cache``
     when given: rows of a longer-lived cache, such as a scheduler's slot
     pool, which the step then reads and writes in place.
 
@@ -226,11 +240,11 @@ class _FusedDecode:
 
     def __init__(self, params, cfg, batch: int, max_seq: int, *,
                  dispatch: str, cache_dtype, device: torch.device,
-                 cache=None, pool=None):
+                 cache=None, pool=None, kv_quant: Optional[str] = None):
         self.params, self.cfg, self.dispatch = params, cfg, dispatch
         self.cache = cache if cache is not None else M.to_decode_dtypes(
             cfg, M.init_cache(cfg, batch, max_seq, dtype=cache_dtype,
-                              device=device))
+                              device=device, kv_quant=kv_quant))
         self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
                                   device=device)
         self.pos = torch.zeros((batch,), dtype=torch.int64, device=device)
@@ -311,10 +325,22 @@ class _ServeBase:
     def __init__(self, params, cfg, *, dispatch: Optional[str],
                  temperature: float, sample_seed: int, pipeline_depth: int,
                  attn_mask: Optional[AttnMaskSpec], device,
-                 two_phase: Optional[bool] = None):
+                 two_phase: Optional[bool] = None,
+                 quantize_experts: Optional[str] = None,
+                 kv_quant: Optional[str] = None):
         self.device = resolve_device(device)
         _check_on(params, self.device, type(self).__name__)
         M._check_kinds(cfg)
+        for name, q in (("quantize_experts", quantize_experts),
+                        ("kv_quant", kv_quant)):
+            if q is not None and q not in QUANT_DTYPES:
+                raise ValueError(f"{name}={q!r}; choose from "
+                                 f"{sorted(QUANT_DTYPES)} or None")
+        self.quantize_experts, self.kv_quant = quantize_experts, kv_quant
+        if quantize_experts:
+            # once, here: the QuantTensor leaves then flow through every
+            # execute path, each matrix dequantized at its bmm
+            params = moe.quantize_model_experts(params, quantize_experts)
         self.params, self.cfg = params, cfg
         self.backend = dispatch or cfg.moe_dispatch
         if self.backend not in ("gather", "bcsr"):
@@ -479,6 +505,13 @@ class ServeLoop(_ServeBase):
         raises ``ValueError``.
     attn_mask : an ``AttnMaskSpec`` for prefill attention (``impl``
         "sparse" | "dense" | "ref"), or None.
+    quantize_experts : a narrow dtype name ("fp8_e4m3" | "fp8_e5m2" |
+        "int8") to BlockQuant the expert FFN weights at construction
+        (``moe.quantize_model_experts``: one f32 scale per expert and
+        output channel), or None (default): the params as they are.
+    kv_quant : a narrow dtype name to store the attention caches as
+        per-position narrow values and f32 scales, or None (default): the
+        wide cache, bit for bit.
     device : where the loop runs; "cuda" (default) raises without a GPU.
     """
 
@@ -486,11 +519,15 @@ class ServeLoop(_ServeBase):
                  dispatch: Optional[str] = None,
                  two_phase: Optional[bool] = None, temperature: float = 0.0,
                  sample_seed: int = 3, pipeline_depth: int = 0,
-                 attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
+                 attn_mask: Optional[AttnMaskSpec] = None,
+                 quantize_experts: Optional[str] = None,
+                 kv_quant: Optional[str] = None, device="cuda"):
         super().__init__(params, cfg, dispatch=dispatch,
                          temperature=temperature, sample_seed=sample_seed,
                          pipeline_depth=pipeline_depth, attn_mask=attn_mask,
-                         device=device, two_phase=two_phase)
+                         device=device, two_phase=two_phase,
+                         quantize_experts=quantize_experts,
+                         kv_quant=kv_quant)
         self.max_seq = max_seq
         self._gen = torch.Generator(device=self.device)
         self.cache = None
@@ -516,17 +553,19 @@ class ServeLoop(_ServeBase):
         self.generated = []
         if not self.two_phase:
             self.fused_step = self._fused_step(prompts.shape[0],
-                                               cache_dtype=torch.bfloat16)
+                                               cache_dtype=torch.bfloat16,
+                                               kv_quant=self.kv_quant)
         t0 = time.monotonic()
         if self.two_phase:
             logits, cache, pos = M.prefill_layered(
                 self.params, prompts, self.cfg, max_seq=self.max_seq,
                 moe_fn=self._moe_fn(), attn_mask=self.attn_mask,
-                route_ahead=self._route_ahead())
+                route_ahead=self._route_ahead(), kv_quant=self.kv_quant)
         else:
             logits, cache, pos = M.prefill(
                 self.params, prompts, self.cfg, max_seq=self.max_seq,
-                attn_mask=self.attn_mask, dispatch=self.backend)
+                attn_mask=self.attn_mask, dispatch=self.backend,
+                kv_quant=self.kv_quant)
             self.fused_step.load(cache)
             cache = self.fused_step.cache
         self._sync()
@@ -768,16 +807,20 @@ class ServeScheduler(_ServeBase):
     the device.  A fused step makes one host sync, the token fetch, at
     either depth.
 
-    Not ported yet: quantized experts and KV cache (``quantize_experts``,
-    ``kv_quant``; ROADMAP Queue 1 item 4) and resilience (fault plans,
-    retry, failure thresholds, bounded queues and shedding, deadlines, an
-    injected clock, the health bits on the token fetch and
-    ``model.blank_cache_row``; item 5).
+    ``quantize_experts`` and ``kv_quant`` are :class:`ServeLoop`'s: the
+    slot pool is made quantized (``model.init_cache(kv_quant=)``) and an
+    admission copies the scale leaves into its row with the values.
+
+    Not ported yet: resilience (fault plans, retry, failure thresholds,
+    bounded queues and shedding, deadlines, an injected clock, the health
+    bits on the token fetch and ``model.blank_cache_row``; ROADMAP Queue 1
+    item 5).
 
     Parameters
     ----------
     params, cfg, dispatch, two_phase, temperature, sample_seed,
-    pipeline_depth, attn_mask, device : as :class:`ServeLoop`.
+    pipeline_depth, attn_mask, quantize_experts, kv_quant, device : as
+        :class:`ServeLoop`.
     max_seq : cache capacity of every slot; :meth:`submit` refuses a request
         that needs more.
     max_slots : the slot pool, rounded up to its own batch bucket.
@@ -790,11 +833,15 @@ class ServeScheduler(_ServeBase):
                  two_phase: Optional[bool] = None, temperature: float = 0.0,
                  sample_seed: int = 3, batch_min_bucket: int = 1,
                  cache_dtype=torch.bfloat16, pipeline_depth: int = 0,
-                 attn_mask: Optional[AttnMaskSpec] = None, device="cuda"):
+                 attn_mask: Optional[AttnMaskSpec] = None,
+                 quantize_experts: Optional[str] = None,
+                 kv_quant: Optional[str] = None, device="cuda"):
         super().__init__(params, cfg, dispatch=dispatch,
                          temperature=temperature, sample_seed=sample_seed,
                          pipeline_depth=pipeline_depth, attn_mask=attn_mask,
-                         device=device, two_phase=two_phase)
+                         device=device, two_phase=two_phase,
+                         quantize_experts=quantize_experts,
+                         kv_quant=kv_quant)
         self.max_seq = max_seq
         self.batch_min_bucket = batch_min_bucket
         # the pool at its own bucket: every clamped step bucket is a power
@@ -803,7 +850,8 @@ class ServeScheduler(_ServeBase):
                                            minimum=batch_min_bucket)
         self.cache_dtype = cache_dtype
         self.cache = M.init_cache(cfg, self.n_slots, max_seq,
-                                  dtype=cache_dtype, device=self.device)
+                                  dtype=cache_dtype, device=self.device,
+                                  kv_quant=kv_quant)
         M.to_decode_dtypes(cfg, self.cache)
         self.slots: List[Optional[Request]] = [None] * self.n_slots
         self.queue: Deque[Request] = collections.deque()
@@ -896,12 +944,13 @@ class ServeScheduler(_ServeBase):
             logits, cache1, pos = M.prefill_layered(
                 self.params, prompts, self.cfg, max_seq=self.max_seq,
                 cache_dtype=self.cache_dtype, moe_fn=self._moe_fn(),
-                attn_mask=self.attn_mask, route_ahead=self._route_ahead())
+                attn_mask=self.attn_mask, route_ahead=self._route_ahead(),
+                kv_quant=self.kv_quant)
         else:
             logits, cache1, pos = M.prefill(
                 self.params, prompts, self.cfg, max_seq=self.max_seq,
                 cache_dtype=self.cache_dtype, attn_mask=self.attn_mask,
-                dispatch=self.backend)
+                dispatch=self.backend, kv_quant=self.kv_quant)
         self._sync()
         self._pipe.drain()
         dt = time.monotonic() - t0
@@ -1099,6 +1148,14 @@ def main(argv=None):
                     help="--continuous: number of synthetic requests")
     ap.add_argument("--slots", type=int, default=4,
                     help="--continuous: resident slot pool size")
+    ap.add_argument("--quantize-experts", default=None,
+                    choices=["fp8_e4m3", "fp8_e5m2", "int8"],
+                    help="BlockQuant the expert FFN weights to this narrow "
+                         "dtype (per-output-channel f32 scales)")
+    ap.add_argument("--kv-quant", default=None,
+                    choices=["fp8_e4m3", "fp8_e5m2", "int8"],
+                    help="store the attention KV caches as narrow values + "
+                         "per-position f32 scales")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -1123,7 +1180,8 @@ def main(argv=None):
     loop = ServeLoop(params, cfg, max_seq=max_seq, dispatch=dispatch,
                      two_phase=two_phase, temperature=args.temperature,
                      pipeline_depth=args.pipeline_depth, attn_mask=attn_mask,
-                     device=device)
+                     quantize_experts=args.quantize_experts,
+                     kv_quant=args.kv_quant, device=device)
     gen = loop.run(prompts, args.gen)
     s = loop.summary()
 
@@ -1168,7 +1226,9 @@ def _main_continuous(args, cfg, params, max_seq, dispatch, two_phase,
                            max_slots=args.slots, dispatch=dispatch,
                            two_phase=two_phase, temperature=args.temperature,
                            pipeline_depth=args.pipeline_depth,
-                           attn_mask=attn_mask, device=device)
+                           attn_mask=attn_mask,
+                           quantize_experts=args.quantize_experts,
+                           kv_quant=args.kv_quant, device=device)
     for _ in range(args.requests):
         plen = int(rng.integers(max(2, args.prompt_len // 2),
                                 args.prompt_len + 1))

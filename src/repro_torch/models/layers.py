@@ -5,9 +5,10 @@ Prefill attention is ``impl="chunked"`` (online softmax over KV chunks, the
 default), ``"kernel"`` (the flash kernel K3) or ``"ref"`` (the materialized
 oracle); an ``attn_mask`` (``AttnMaskSpec``) sends prefill through the masked
 flash kernels (K4s / K4m).  Decode is ``decode_attention`` at a scalar
-cache position or at per-row positions (continuous batching).  Not ported
-yet: ``impl="kernel_sharded"``, ``kv_quant`` and ring-buffer (local-window)
-caches.
+cache position or at per-row positions (continuous batching); a quantized
+cache (``kv_quant``: narrow K/V with per-position f32 scales) is
+dequantized whole before it.  Not ported yet: ``impl="kernel_sharded"`` and
+ring-buffer (local-window) caches.
 
 Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
 bf16 result accumulated in f32 (reduced-precision reductions are off, see
@@ -23,10 +24,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import precision
 from repro_torch.core.masks import NEG_INF, AttnMaskSpec
 from repro_torch.kernels import tuning
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.router import ops as router_ops
 from repro_torch.models.config import ArchConfig
 
 
@@ -76,9 +79,20 @@ def init_mlp(g, cfg: ArchConfig, *, n: int, dtype, device):
 
 # ----------------------------------------------------------------- norms ----
 
-def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *,
+            row_order: bool = False) -> torch.Tensor:
+    """RMS norm over the last axis.  ``row_order`` (the decode step's
+    norms): the sum of squares comes from ``router.ops.row_sum``, one
+    summation order a row on the card (R1), so a row normalizes to the
+    same bits in any batch; the library's mean lays its reduction's threads
+    out by the number of rows, so its bits depend on the batch.  On the CPU
+    the sum over d is the mean's own arithmetic, bit for bit."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    sq = x32 * x32
+    if row_order:
+        var = router_ops.row_sum(sq) / x.shape[-1]
+    else:
+        var = sq.mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
@@ -227,6 +241,7 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: Optional[torch.Tensor] = None,
                     impl: str = "chunked", cache=None,
                     cache_len=None, collect_kv: int = 0,
+                    kv_quant: Optional[str] = None,
                     attn_mask: Optional[AttnMaskSpec] = None):
     """Self-attention (prefill) or one-step decode when ``cache`` is given.
 
@@ -241,6 +256,15 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     tensor of per-row fills (continuous batching: RoPE, the write and the
     attention's length run at each row's own position; at equal positions
     the values are those of the int).
+    ``kv_quant`` (a narrow dtype name; full-context layers only, as in the
+    reference): the collected cache is stored per position as narrow
+    values and f32 scales over head_dim (``k`` / ``k_scale``, ``v`` /
+    ``v_scale``; ``precision.quantize_rows``).  Decode knows a quantized
+    cache by its ``k_scale`` leaf: the new key / value is quantized the
+    same way and written with its scales, then the whole cache is
+    dequantized to q's dtype for ``decode_attention``.  Neither reads
+    anything back to the host (the quantizer's non-finite check is off,
+    as the reference's is under jit), so a decode step can be captured.
     Returns (out, new_cache)."""
     if impl not in ("chunked", "kernel", "ref"):
         raise NotImplementedError(
@@ -268,26 +292,38 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                     "apply_attention: ring-buffer (local-window) caches are "
                     "not ported")
             cap = min(collect_kv, window) if window else collect_kv
-            new_cache = {"k": F.pad(k, (0, 0, 0, cap - S)),
-                         "v": F.pad(v, (0, 0, 0, cap - S))}
+            kc, vc = (F.pad(t, (0, 0, 0, cap - S)) for t in (k, v))
+            if kv_quant is not None and not window:
+                (qk, sk), (qv, sv) = (precision.quantize_rows(
+                    t, kv_quant, check=False) for t in (kc, vc))
+                new_cache = {"k": qk, "k_scale": sk, "v": qv, "v_scale": sv}
+            else:
+                new_cache = {"k": kc, "v": vc}
     else:
         if S != 1:
             raise ValueError(f"apply_attention decode takes one token, got {S}")
+        quant = "k_scale" in cache
         if isinstance(cache_len, torch.Tensor):
             pos = cache_len.reshape(B).long()
             q, k1, v1 = _qkv(p, x, cfg, pos[:, None, None])
             # (row b, every head, position pos[b]) <- (B, Hkv, hd)
-            b_idx = torch.arange(B, device=x.device)
-            cache["k"][b_idx, :, pos] = k1[:, :, 0].to(cache["k"].dtype)
-            cache["v"][b_idx, :, pos] = v1[:, :, 0].to(cache["v"].dtype)
+            at = (torch.arange(B, device=x.device), slice(None), pos)
         else:
             pos = cache_len
             q, k1, v1 = _qkv(p, x, cfg,
                              torch.full((1,), pos, device=x.device))
-            cache["k"][:, :, pos] = k1[:, :, 0].to(cache["k"].dtype)
-            cache["v"][:, :, pos] = v1[:, :, 0].to(cache["v"].dtype)
-        out = fops.decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
-                                    window=window)
+            at = (slice(None), slice(None), pos)
+        for name, new in (("k", k1[:, :, 0]), ("v", v1[:, :, 0])):
+            if quant:
+                qn = precision.quant_name(cache[name].dtype)
+                new, cache[name + "_scale"][at] = precision.quantize_rows(
+                    new, qn, check=False)
+            cache[name][at] = new.to(cache[name].dtype)
+        kc, vc = cache["k"], cache["v"]
+        if quant:
+            kc, vc = (precision.dequantize_rows(cache[n], cache[n + "_scale"],
+                                                q.dtype) for n in ("k", "v"))
+        out = fops.decode_attention(q, kc, vc, kv_len=pos + 1, window=window)
         new_cache = cache
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(out.dtype), new_cache

@@ -27,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import precision
 from repro_torch.core.masks import AttnMaskSpec
+from repro_torch.core.precision import QuantTensor
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models import layers as L
 from repro_torch.models import moe, rwkv6
@@ -85,12 +87,17 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
-               dtype=torch.bfloat16, device="cuda") -> Params:
+               dtype=torch.bfloat16, device="cuda",
+               kv_quant: Optional[str] = None) -> Params:
     """Zeroed stacked decode caches, one entry per slot: attention K/V
     ``(n_repeats, B, Hkv, max_seq, hd)`` and, for attn+moe slots, the
     routing occupancy ``(n_repeats, B, E)`` int32; for rwkv slots the f32
     state ``wkv`` ``(n_repeats, B, nh, 64, 64)`` and the token shifts
-    ``shift_t`` / ``shift_c`` ``(n_repeats, B, 1, d)`` in ``dtype``."""
+    ``shift_t`` / ``shift_c`` ``(n_repeats, B, 1, d)`` in ``dtype``.
+    ``kv_quant`` (a narrow dtype name) makes the (full-context) K/V narrow
+    zeros with per-position f32 scales ``k_scale`` / ``v_scale`` ``(n_repeats,
+    B, Hkv, max_seq)`` of ones, the all-zero convention of
+    ``precision.quantize_rows``, as the reference's ``init_cache`` does."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     shp = (cfg.n_repeats, batch, cfg.n_kv_heads, max_seq, cfg.hd)
@@ -105,8 +112,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                 "shift_t": torch.zeros(shift, dtype=dtype, device=dev),
                 "shift_c": torch.zeros(shift, dtype=dtype, device=dev)})
             continue
-        c = {"attn": {"k": torch.zeros(shp, dtype=dtype, device=dev),
-                      "v": torch.zeros(shp, dtype=dtype, device=dev)}}
+        if kv_quant is not None:
+            qdt = precision.QUANT_DTYPES[kv_quant]
+            c = {"attn": {
+                "k": torch.zeros(shp, dtype=qdt, device=dev),
+                "k_scale": torch.ones(shp[:-1], device=dev),
+                "v": torch.zeros(shp, dtype=qdt, device=dev),
+                "v_scale": torch.ones(shp[:-1], device=dev)}}
+        else:
+            c = {"attn": {"k": torch.zeros(shp, dtype=dtype, device=dev),
+                          "v": torch.zeros(shp, dtype=dtype, device=dev)}}
         if kind == "attn+moe":
             c["moe"] = torch.zeros((cfg.n_repeats, batch, cfg.n_experts),
                                    dtype=torch.int32, device=dev)
@@ -134,9 +149,14 @@ def check_cache_fits(cache, pos: int, *, who: str = "decode_step") -> None:
 # --------------------------------------------------------------- blocks -----
 
 def _take(tree, i: int):
-    """Layer ``i`` of a stacked param/cache tree (views, no copy)."""
+    """Layer ``i`` of a stacked param/cache tree (views, no copy); a
+    :class:`QuantTensor` leaf (quantized experts) keeps its negative axis,
+    its values and scales each sliced."""
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantTensor):
+        return QuantTensor(values=tree.values[i], scales=tree.scales[i],
+                           axis=tree.axis)
     return tree[i]
 
 
@@ -144,23 +164,25 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
            moe_fn: Callable, cache=None, pos=None,
            collect_kv: int = 0, impl: str = "chunked",
            attn_mask: Optional[AttnMaskSpec] = None,
-           route_ahead: bool = False):
-    """One attn / attn+moe / rwkv sub-layer; ``impl`` and ``attn_mask``
-    reach its prefill attention.  ``route_ahead``: an attn+moe block runs
-    MoE route phase 1 (``moe.route_phase1``) right after ``ln2``, with its
-    attention half, and hands ``moe_fn`` the ``moe.Phase1`` as ``phase1``.
+           route_ahead: bool = False, kv_quant: Optional[str] = None):
+    """One attn / attn+moe / rwkv sub-layer; ``impl``, ``attn_mask`` and
+    ``kv_quant`` reach its prefill attention.  ``route_ahead``: an
+    attn+moe block runs MoE route phase 1 (``moe.route_phase1``) right
+    after ``ln2``, with its attention half, and hands ``moe_fn`` the
+    ``moe.Phase1`` as ``phase1``.
     Decode's ``pos`` is an int or a ``(B,)`` int tensor of per-row
     positions on ``x``'s device.  Returns (x, new_cache); decode (``cache``
     given) writes the new cache entries into ``cache`` in place."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache=cache, collect=bool(collect_kv))
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    dec = cache is not None                 # decode: norms in row order
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, row_order=dec)
     a, new_attn = L.apply_attention(
         p["attn"], h, cfg, impl=impl,
         cache=None if cache is None else cache["attn"], cache_len=pos,
-        collect_kv=collect_kv, attn_mask=attn_mask)
+        collect_kv=collect_kv, attn_mask=attn_mask, kv_quant=kv_quant)
     x = x + a
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps, row_order=dec)
     new_cache = {"attn": new_attn}
     if kind == "attn+moe":
         counts = None if cache is None else cache["moe"]
@@ -183,14 +205,16 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
 def _rwkv_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, cache,
                 collect: bool):
-    """Time mix then channel mix, each on its rmsnorm and residual."""
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    """Time mix then channel mix, each on its rmsnorm and residual (in
+    row order when decoding)."""
+    dec = cache is not None
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, row_order=dec)
     t_cache = (None if cache is None else
                {"shift_t": cache["shift_t"], "wkv": cache["wkv"]})
     t, new_t = rwkv6.apply_rwkv_time(p["mixer"], h, cfg, cache=t_cache,
                                      collect=collect)
     x = x + t
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps, row_order=dec)
     c_cache = None if cache is None else {"shift_c": cache["shift_c"]}
     c, new_c = rwkv6.apply_rwkv_channel(p["mixer"], h, cfg, cache=c_cache,
                                         collect=collect)
@@ -198,18 +222,20 @@ def _rwkv_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, cache,
     new = None if new_t is None else {**new_t, **new_c}
     if cache is not None:
         for key, val in new.items():
-            cache[key].copy_(val)
+            if val is not cache[key]:       # the state was stepped in place
+                cache[key].copy_(val)
         new = cache
     return x, new
 
 
 def final_logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                 last_only: bool) -> torch.Tensor:
+                 last_only: bool, row_order: bool = False) -> torch.Tensor:
     """Final rmsnorm + unembedding, f32 logits (``last_only``: the trailing
-    position only, the prefill contract)."""
+    position only, the prefill contract; ``row_order``: the decode step's
+    norm, see ``layers.rmsnorm``)."""
     if last_only:
         x = x[:, -1:]
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, row_order=row_order)
     unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return (x @ unemb.to(x.dtype)).float()
 
@@ -223,7 +249,8 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                     max_seq: int, cache_dtype=torch.bfloat16,
                     moe_fn: Optional[Callable] = None, impl: str = "chunked",
                     attn_mask: Optional[AttnMaskSpec] = None,
-                    route_ahead: bool = False
+                    route_ahead: bool = False,
+                    kv_quant: Optional[str] = None
                     ) -> Tuple[torch.Tensor, Params, int]:
     """Serving prefill, layer by layer.  ``moe_fn`` (signature of
     ``moe.apply_moe``) runs every attn+moe block's FFN with ``counts=None,
@@ -233,9 +260,12 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     layer.  ``route_ahead=True`` (the pipelined serving path) runs MoE
     route phase 1 with each attn+moe block's attention half and passes the
     ``moe.Phase1`` to ``moe_fn`` as ``phase1``, at the prompt's dispatch
-    capacity; the values are those of ``route_ahead=False``.  Returns
-    (last-position logits (B, 1, V) f32, decode cache filled to the prompt
-    length with K/V in ``cache_dtype``, next position)."""
+    capacity; the values are those of ``route_ahead=False``.
+    ``kv_quant`` (a narrow dtype name) stores the collected K/V as narrow
+    values with per-position f32 scales (``k_scale`` / ``v_scale``); the
+    logits do not change.  Returns (last-position logits (B, 1, V) f32,
+    decode cache filled to the prompt length with K/V in ``cache_dtype``
+    or quantized, next position)."""
     _check_kinds(cfg)
     moe_fn = moe_fn or moe.apply_moe
     x = _embed(params, tokens, cfg)
@@ -244,7 +274,8 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
         for slot, kind in enumerate(cfg.block_unit):
             x, c = _block(kind, _take(params["blocks"][slot], i), x, cfg,
                           moe_fn=moe_fn, collect_kv=max_seq, impl=impl,
-                          attn_mask=attn_mask, route_ahead=route_ahead)
+                          attn_mask=attn_mask, route_ahead=route_ahead,
+                          kv_quant=kv_quant)
             per_slot[slot].append(c)
     logits = final_logits(params, x, cfg, last_only=True)
     cd = precision_policy(cfg.policy).compute_dtype
@@ -271,21 +302,17 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     ``moe.apply_moe`` call with the ``dispatch`` backend (default: the
     config's), "bcsr" through the full-grid stream built on the device,
     never the host compaction.  The layer loop is
-    :func:`prefill_layered`'s.  Returns (last-position logits (B, 1, V)
-    f32, decode cache filled to the prompt length, leaves in the compute
-    dtype become ``cache_dtype``, next position)."""
+    :func:`prefill_layered`'s, ``kv_quant`` too.  Returns (last-position
+    logits (B, 1, V) f32, decode cache filled to the prompt length, leaves
+    in the compute dtype become ``cache_dtype``, next position)."""
     if embeddings is not None:
         raise NotImplementedError(
             "model.prefill(embeddings=): frontends are not ported yet "
             "(ROADMAP Queue 1 item 6)")
-    if kv_quant is not None:
-        raise NotImplementedError(
-            f"model.prefill(kv_quant={kv_quant!r}): quantized KV caches are "
-            "not ported yet (ROADMAP Queue 1 item 4)")
     return prefill_layered(params, tokens, cfg, max_seq=max_seq,
                            cache_dtype=cache_dtype,
                            moe_fn=_fused_moe(dispatch), impl=impl,
-                           attn_mask=attn_mask)
+                           attn_mask=attn_mask, kv_quant=kv_quant)
 
 
 def _stack(trees):
@@ -296,13 +323,19 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+_SCALE_LEAVES = ("k_scale", "v_scale")
+
+
 def _cache_to_dtype(tree, cd, cache_dtype):
     """The reference's rule (``model._cache_to_dtype``): every cache leaf
-    in the compute dtype becomes ``cache_dtype``; others (MoE counts, and
-    the f32 RWKV state when the compute dtype is bf16) stay as they are.
-    Under the f32 policy this rounds the RWKV state to a bf16 cache too."""
+    in the compute dtype becomes ``cache_dtype``; others (MoE counts, the
+    f32 RWKV state when the compute dtype is bf16, narrow K/V) stay as they
+    are, and so do the quantized cache's f32 scales (``k_scale`` /
+    ``v_scale``) under any policy.  Under the f32 policy this rounds the
+    RWKV state to a bf16 cache too."""
     if isinstance(tree, dict):
-        return {k: _cache_to_dtype(v, cd, cache_dtype)
+        return {k: v if k in _SCALE_LEAVES else
+                _cache_to_dtype(v, cd, cache_dtype)
                 for k, v in tree.items()}
     return tree.to(cache_dtype) if tree.dtype == cd else tree
 
@@ -343,7 +376,7 @@ def _decode_layers(params: Params, cfg: ArchConfig, cache, pos,
             x, _ = _block(kind, _take(params["blocks"][slot], i), x, cfg,
                           moe_fn=moe_fn, cache=_take(cache["slots"][slot], i),
                           pos=pos, route_ahead=route_ahead)
-    return final_logits(params, x, cfg, last_only=False)
+    return final_logits(params, x, cfg, last_only=False, row_order=True)
 
 
 def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos,

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.formats import BatchedBCSR
+from repro_torch.core.precision import QuantTensor, quantize_tensor
 from repro_torch.kernels import engine, tuning
 from repro_torch.kernels.router.kernel import router_logits
 from repro_torch.models.config import ArchConfig
@@ -69,15 +70,92 @@ def init_moe(g: torch.Generator, cfg: ArchConfig, *, n: int, dtype, device):
     return p
 
 
+def _wcast(w, cd: torch.dtype) -> torch.Tensor:
+    """Weight accessor of the expert products: a BlockQuant weight
+    (:class:`QuantTensor`) dequantized, narrow values times its f32 scales
+    then cast to ``cd`` as ``QuantTensor.dequantize`` does; a wide one cast.
+    The scales multiply the widened values in place, so one f32 matrix is
+    made, not two.  Called at each ``bmm``, so one matrix is dequantized
+    at a time."""
+    if isinstance(w, QuantTensor):
+        s = w.scales.unsqueeze(w.axis).float()
+        return w.values.float().mul_(s).to(cd)
+    return w.to(cd)
+
+
 def _expert_ffn(experts, xe: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    """xe: (E, C, d) -> (E, C, d), batched over the expert dim."""
+    """xe: (E, C, d) -> (E, C, d), batched over the expert dim; each
+    weight through :func:`_wcast`."""
     cd = xe.dtype
     if mlp_type == "swiglu":
-        h = F.silu(torch.bmm(xe, experts["w_gate"].to(cd)))
-        h = h * torch.bmm(xe, experts["w_up"].to(cd))
+        h = F.silu(torch.bmm(xe, _wcast(experts["w_gate"], cd)))
+        h = h * torch.bmm(xe, _wcast(experts["w_up"], cd))
     else:
-        h = torch.square(F.relu(torch.bmm(xe, experts["w_up"].to(cd))))
-    return torch.bmm(h, experts["w_down"].to(cd))
+        h = torch.square(F.relu(torch.bmm(xe, _wcast(experts["w_up"], cd))))
+    return torch.bmm(h, _wcast(experts["w_down"], cd))
+
+
+def quantize_expert_weights(params, dtype):
+    """BlockQuant of one MoE slot's expert weights (the reference's
+    ``quantize_expert_weights`` with its default nearest rounding): each
+    ``experts`` leaf ``(..., E, d_in, d_out)`` becomes a
+    :class:`QuantTensor` with one f32 scale per (expert, output channel),
+    over the contraction axis -2 (negative, so a repeat-stacked leaf sliced
+    by ``model._take`` keeps its axis).  The router and the shared expert
+    stay as they are.  Returns a new params dict (the input unchanged)."""
+    if "experts" not in params:
+        raise ValueError(
+            f"quantize_expert_weights: params has no 'experts' subtree "
+            f"(keys: {sorted(params)})")
+    out = dict(params)
+    out["experts"] = {k: _quantize_matrices(w, dtype)
+                      for k, w in params["experts"].items()}
+    return out
+
+
+def _quantize_matrices(w: torch.Tensor, dtype) -> QuantTensor:
+    """``quantize_tensor(w, dtype, axis=-2)`` one (d_in, d_out) matrix at a
+    time (the scales of one never depend on another, so the bits are the
+    same), so that the f32 temporaries are one matrix's, not the whole
+    stack's (scout's stacked expert leaf is 10.7 GB of bf16)."""
+    mats = w.reshape(-1, *w.shape[-2:])
+    qs = [quantize_tensor(m, dtype, axis=-2) for m in mats]
+    return QuantTensor(
+        values=torch.stack([q.values for q in qs]).reshape(w.shape),
+        scales=torch.stack([q.scales for q in qs]).reshape(
+            *w.shape[:-2], w.shape[-1]),
+        axis=-2)
+
+
+def quantize_model_experts(params, dtype):
+    """:func:`quantize_expert_weights` on every attn+moe slot of a model's
+    params (``blocks``, and ``prologue`` where there is one).  Raises where
+    no slot has experts: a silent no-op would pass for a memory saving."""
+    def q_slot(slot):
+        if isinstance(slot, dict) and isinstance(slot.get("ffn"), dict) \
+                and "experts" in slot["ffn"]:
+            s = dict(slot)
+            s["ffn"] = quantize_expert_weights(slot["ffn"], dtype)
+            return s, True
+        return slot, False
+
+    out = dict(params)
+    hit = False
+    if "blocks" in params:
+        slots = []
+        for slot in params["blocks"]:
+            s, h = q_slot(slot)
+            hit |= h
+            slots.append(s)
+        out["blocks"] = tuple(slots)
+    if "prologue" in params:
+        out["prologue"], h = q_slot(params["prologue"])
+        hit |= h
+    if not hit:
+        raise ValueError(
+            "quantize_model_experts: no attn+moe slot with an 'experts' "
+            "subtree found in params")
+    return out
 
 
 # ----------------------------------------------------------------- routing --

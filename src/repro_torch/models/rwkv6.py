@@ -6,8 +6,13 @@ R^{hd x hd}):
   y_t = r_t S_{t-1} + (r_t . (u (*) k_t)) v_t
 with w_t = exp(-exp(w0 + lora(x~_t))).  Prefill runs the chunked form
 through ``kernels.wkv.ops.wkv_state`` (K7 on the card, its plain version on
-the CPU), which also returns the final state for decode; a decode step is
-the one-step recurrence in plain PyTorch.
+the CPU), which also returns the final state for decode.  A decode step
+runs the one-step recurrence through ``kernels.wkv.ops.wkv_step`` (W1) and
+both f32 decay-LoRA products through ``kernels.router.kernel.router_logits``
+(R1): on the card each sums in one order a row, so a request decodes the
+same bits in any batch; on the CPU both take their plain versions, the
+reference's arithmetic.  Prefill keeps the library's products (an
+admission is a B = 1 prefill alone and in a scheduler alike).
 
 Params are stacked on a leading repeat dim like every slot param of
 ``models.model``.  ``mu``, ``mu_c`` and the ``w_*`` matmul weights are
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.router import kernel as router_kernel
 from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -66,8 +72,9 @@ def _token_shift(x: torch.Tensor, prev=None) -> torch.Tensor:
 def apply_rwkv_time(p, x: torch.Tensor, cfg: ArchConfig, *, cache=None,
                     chunk: int = 128, collect: bool = False):
     """Time-mix half.  ``cache``: dict(shift_t (B, 1, d), wkv (B, nh, hd,
-    hd)).  ``collect`` returns the prefill-final cache.  Returns (out,
-    new_cache)."""
+    hd)); a decode step writes the new state into ``cache["wkv"]`` in place
+    (W1 on the card).  ``collect`` returns the prefill-final cache.
+    Returns (out, new_cache)."""
     B, T, d = x.shape
     nh = d // HEAD_DIM
     prev_t = cache["shift_t"] if cache is not None else None
@@ -81,8 +88,15 @@ def apply_rwkv_time(p, x: torch.Tensor, cfg: ArchConfig, *, cache=None,
     v = (xv @ p["w_v"].to(cd)).reshape(shape).float()
     g = F.silu(xg @ p["w_g"].to(cd))
     # the data-dependent decay, clamped at -1 so a chunk's decay sums stay
-    # within f32 range of the mid-rescaled exponents
-    lora = torch.tanh(xw.float() @ p["decay_lora_a"]) @ p["decay_lora_b"]
+    # within f32 range of the mid-rescaled exponents; decode's products
+    # through R1 (bf16 xw is widened exactly there, as by ``.float()``)
+    if cache is None:
+        lora = (torch.tanh(xw.float() @ p["decay_lora_a"])
+                @ p["decay_lora_b"])
+    else:
+        lora = router_kernel.router_logits(torch.tanh(
+            router_kernel.router_logits(xw, p["decay_lora_a"])),
+            p["decay_lora_b"])
     w_log = torch.clamp(-torch.exp(p["decay_base"] + lora), min=-1.0)
     w_log = w_log.reshape(shape)
     u = p["bonus_u"]
@@ -92,17 +106,15 @@ def apply_rwkv_time(p, x: torch.Tensor, cfg: ArchConfig, *, cache=None,
         new_cache = ({"wkv": s_last, "shift_t": x[:, -1:]} if collect
                      else None)
     else:
-        s0 = cache["wkv"].float()
-        rt, kt, vt = r[:, 0], k[:, 0], v[:, 0]          # (B, nh, hd)
-        y1 = torch.einsum("bht,bhtd->bhd", rt, s0)
-        bonus = (rt * u * kt).sum(-1)
-        y = (y1 + bonus[..., None] * vt)[:, None]
-        s_last = (s0 * torch.exp(w_log[:, 0])[..., None]
-                  + kt[..., :, None] * vt[..., None, :])
+        y, s_last = wkv_ops.wkv_step(r[:, 0], k[:, 0], v[:, 0],
+                                     torch.exp(w_log[:, 0]), u,
+                                     cache["wkv"], out=cache["wkv"])
+        y = y[:, None]
         new_cache = {"wkv": s_last, "shift_t": x[:, -1:]}
 
     y = y.reshape(B, T, d).to(cd)
-    y = L.rmsnorm(p["ln_x"], y, cfg.norm_eps) * g
+    y = L.rmsnorm(p["ln_x"], y, cfg.norm_eps,
+                  row_order=cache is not None) * g
     return y @ p["w_o"].to(cd), new_cache
 
 

@@ -133,13 +133,25 @@ def test_prefill_matches_reference(model):
 
 
 def test_prefill_refuses_what_is_not_ported(model):
+    """Frontend embeddings (Queue 1 item 6) raise; ``kv_quant`` (item 4,
+    ported since) is taken: the logits are the wide prefill's, and only
+    the attention caches change (narrow values with f32 scales; a stack
+    without attention keeps its cache as it is)."""
     _, cfg, _, params, prompts = model
     toks = torch.from_numpy(prompts).long()
     with pytest.raises(NotImplementedError, match="item 6"):
         M.prefill(params, toks, cfg, max_seq=MAX_SEQ,
                   embeddings=torch.zeros((B, 1, cfg.d_model)))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        M.prefill(params, toks, cfg, max_seq=MAX_SEQ, kv_quant="int8")
+    lw, cw, _ = M.prefill(params, toks, cfg, max_seq=MAX_SEQ)
+    lq, cq, _ = M.prefill(params, toks, cfg, max_seq=MAX_SEQ,
+                          kv_quant="int8")
+    assert torch.equal(lq, lw)
+    for wide, quant in zip(cw["slots"], cq["slots"]):
+        if "attn" in wide:
+            assert quant["attn"]["k"].dtype == torch.int8
+            assert quant["attn"]["k_scale"].dtype == torch.float32
+        else:
+            assert _all_equal(quant, wide)
 
 
 def test_decode_steps_match_reference(model):

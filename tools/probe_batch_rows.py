@@ -15,9 +15,13 @@ the CPU with ``--device cpu``):
   and its plain version), computed with the batch at M rows against M = 1
   -- ``torch.equal`` or the largest difference;
 * with ``--arch rwkv6-7b``, row 0 of each decode-step op of rwkv6-7b at
-  full width instead: the bf16 projections of the time and channel mix,
-  the f32 decay LoRA, the one-token WKV contraction (``einsum``) and its
-  bonus sum, the ``ln_x`` rmsnorm and the unembedding;
+  full width instead, as the decode step runs them: the bf16 projections
+  of the time and channel mix, the f32 decay LoRA's two products through
+  R1, the one-token WKV step through W1 (``y`` and the new state), the
+  rmsnorm in row order (its sum of squares through R1) and the
+  unembedding; beside them, off the path, the plain versions those kernels
+  replaced on the card (the library's f32 LoRA products, the ``einsum``
+  contraction and the bonus sum, the library's mean);
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -106,9 +110,13 @@ def probe_ops(cfg, params, device) -> dict:
 
 
 def probe_rwkv_ops(cfg, params, device) -> dict:
-    """Row 0 of each rwkv6 decode-step op at M rows against at 1 row, on
-    layer 0's weights and random inputs of its decode shapes."""
+    """Every row of each rwkv6 decode-step op at M rows against the row
+    alone (the largest difference over the rows), on layer 0's weights and
+    random inputs of its decode shapes; the ops off the card's path (the
+    plain versions of R1's and W1's work) first, the path's after them."""
     import torch
+    from repro_torch.kernels.router.kernel import router_logits
+    from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import rwkv6
@@ -125,23 +133,36 @@ def probe_rwkv_ops(cfg, params, device) -> dict:
            for name in ("w_r", "w_k", "w_v", "w_g", "w_o", "w_cr", "w_ck",
                         "w_cv")}
     ops["unembed"] = (lambda x: x @ unemb.to(cd), rand(n, 1, d).to(cd))
-    ops["decay lora (f32)"] = (
-        lambda x: torch.tanh(x @ p["decay_lora_a"]) @ p["decay_lora_b"],
-        rand(n, 1, d))
-    ops["ln_x rmsnorm"] = (lambda x: L.rmsnorm(p["ln_x"], x, cfg.norm_eps),
-                           rand(n, 1, d).to(cd))
-    rt, kt = rand(n, nh, hd), rand(n, nh, hd)
+    xw = rand(n, 1, d).to(cd)
+    ops["decay lora R1"] = (
+        lambda x: router_logits(torch.tanh(router_logits(
+            x, p["decay_lora_a"])), p["decay_lora_b"]), xw)
+    xn = rand(n, 1, d).to(cd)
+    ops["rmsnorm, row order (R1)"] = (
+        lambda x: L.rmsnorm(p["ln_x"], x, cfg.norm_eps, row_order=True), xn)
+    rt, kt, vt = rand(n, nh, hd), rand(n, nh, hd), rand(n, nh, hd)
+    et = torch.exp(-rand(n, nh, hd).abs())
     s0 = rand(n, nh, hd, hd)
-    ops["wkv decode einsum"] = (
-        lambda i: torch.einsum("bht,bhtd->bhd", rt[i], s0[i]),
-        torch.arange(n, device=device))
-    ops["wkv bonus sum"] = (
-        lambda i: (rt[i] * p["bonus_u"] * kt[i]).sum(-1),
-        torch.arange(n, device=device))
+    rows = torch.arange(n, device=device)
+    step = lambda i: wkv_ops.wkv_step(  # noqa: E731
+        rt[i], kt[i], vt[i], et[i], p["bonus_u"], s0[i])
+    ops["wkv step W1, y"] = (lambda i: step(i)[0], rows)
+    ops["wkv step W1, state"] = (lambda i: step(i)[1], rows)
+    off_path = {
+        "decay lora plain (f32 library products)": (
+            lambda x: torch.tanh(x.float() @ p["decay_lora_a"])
+            @ p["decay_lora_b"], xw),
+        "wkv einsum plain": (
+            lambda i: torch.einsum("bht,bhtd->bhd", rt[i], s0[i]), rows),
+        "wkv bonus sum plain": (
+            lambda i: (rt[i] * p["bonus_u"] * kt[i]).sum(-1), rows),
+        "rmsnorm plain (library mean)": (
+            lambda x: L.rmsnorm(p["ln_x"], x, cfg.norm_eps), xn)}
     out = {}
-    for name, (fn, x) in ops.items():
-        one = fn(x[:1])[0]
-        out[name] = {m: _diff(fn(x[:m])[0], one) for m in ROWS[1:]}
+    for name, (fn, x) in {**off_path, **ops}.items():
+        alone = [fn(x[i:i + 1])[0] for i in range(n)]
+        out[name] = {m: max(_diff(fn(x[:m])[i], alone[i]) for i in range(m))
+                     for m in ROWS[1:]}
     return out
 
 
@@ -220,11 +241,17 @@ def main() -> int:
               "arch": args.arch, "depth": args.depth,
               "ops": ops(cfg, params, device),
               "layers": probe_layers(cfg, params, device)}
+    result["path_ops_equal"] = all(
+        e == 0 for name, row in result["ops"].items()
+        if "plain" not in name for e in row.values())
     for name, row in result["ops"].items():
         print(f"{name}: row 0 at M rows vs 1 row: " + ", ".join(
             f"M={m} {'equal' if e == 0 else f'{e:.3g}'}"
             for m, e in row.items()))
     lay = result["layers"]
+    print("ops on the decode path: row 0 "
+          + ("equal at every M" if result["path_ops_equal"] else
+             "DIFFERS at some M"))
     print(f"decode step, top-2 logit gap alone {lay['top2_gap_alone']:.4g}")
     for rows, r in lay["buckets"].items():
         print(f"  bucket {rows}: first layer differing "
