@@ -128,7 +128,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    relative error of wide, at most 1 host sync an extra fused step; then
    the int8 scheduler (fused gather) on the trace, every request == itself
    alone through an int8 ``ServeLoop``, 16 of 16; decode tok/s, token
-   latency, peak memory and capture ms beside the wide runs;
+   latency, peak memory and capture ms beside the wide runs; then
+   resilience (``phase_resilience``) on the same trace: the fused gather
+   scheduler with a fault plan (a ``sample`` NaN for one uid, a
+   ``prefill`` exception and a ``sample`` exception, both retried: that
+   uid alone fails, every survivor == the fault-free run, the plan's
+   firings as asked, one host sync an extra step with the plan attached),
+   two-phase bcsr at depth 1 (an ``execute`` exception at ``layer=1``,
+   retried from the saved step state: the pool's MoE occupancy after the
+   step ``torch.equal`` to a fault-free run's; an ``execute`` NaN for one
+   uid; the syncs of an extra step as without faults), the ``kv_wide``
+   rung on the int8-KV scheduler (``fail_threshold=1``: the pool f32
+   without scales, every bucket used afterwards captured again, the other
+   15 requests finished, one host sync a fused step), and the decode tok/s
+   of the fused scheduler with and without the retry's save;
 7. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
@@ -162,7 +175,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    and ``two_phase=True``: equal tokens, K7 32 times an admission and
    never in decode, W1 32 and R1 161 times a decode step (replays
    counted), one graph a bucket seen; every request equals itself served
-   alone (8 of 8, checked);
+   alone (8 of 8, checked); the fused run again with a ``sample``
+   exception after a replay, retried: 8 of 8 and every pool leaf (``wkv``,
+   the shifts) ``torch.equal`` to the fault-free run's; decode tok/s with
+   and without the retry's save;
 10. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -189,7 +205,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    the syncs of an extra step, the alone comparison and the traces; its
    ``rwkv.scheduler`` object: the RWKV scheduler runs; the chunked 4 x 2048
    prefill ms); the SM clock and its
-   limit are printed before and after the kernel timings;
+   limit are printed before and after the kernel timings; then one line
+   ``{"resilience": {...}}``: the faulted runs' failed uids, survivors
+   equal, firings and syncs a step, the captures (count and ms) after
+   ``kv_wide``, the save's cost on scout and rwkv6-7b, and the card;
 12. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
@@ -1472,20 +1491,27 @@ def scheduler_trace(vocab: int):
             for _ in range(SCHED_REQUESTS)]
 
 
-def drive_scheduler(sched, trace, eos: dict) -> float:
+def drive_scheduler(sched, trace, eos: dict, after_step=None,
+                    steps=None) -> float:
     """Two requests submitted at step 0, then one more every 2 scheduler
     steps (request i at step 2 (i - 1)), request i with ``eos.get(i)`` as
-    its EOS, until every request has finished; returns the wall seconds
-    (the token fetch of each step waits for the card)."""
+    its EOS, until every request has finished (or, given ``steps``, until
+    that many steps); ``after_step(sched)`` after each step when given.
+    Returns the wall seconds (the token fetch of each step waits for the
+    card)."""
     arrivals = [0, 0] + [2 * (i - 1) for i in range(2, len(trace))]
     t0 = time.monotonic()
     nxt = 0
-    while nxt < len(trace) or sched.has_work():
+    while (nxt < len(trace) or sched.has_work()) and (
+            steps is None or sched.step_idx < steps):
         while nxt < len(trace) and arrivals[nxt] <= sched.step_idx:
             sched.submit(*trace[nxt], eos_id=eos.get(nxt))
             nxt += 1
         sched.step()
-    sched.run()
+        if after_step is not None:
+            after_step(sched)
+    if steps is None:
+        sched.run()
     return time.monotonic() - t0
 
 
@@ -1763,7 +1789,8 @@ def phase_scheduler(cfg, params):
                                                   "fused_temp0"]},
             "step_syncs": syncs, "attn_moe_layers": n_moe,
             "alone_matches": n_match, "alone": alone,
-            "traces": traces}, captured, decode_calls
+            "traces": traces}, captured, decode_calls, {
+                "eos": eos, "tokens": toks["fused_gather0"]}
 
 
 # the quantized phase: (label, ServeLoop keywords) of its 4 x 256 runs
@@ -1916,6 +1943,258 @@ def phase_quant_serving(cfg, params, wide_sched):
             "kv_prefill_logits_equal": True, "rel_tol": QUANT_REL_TOL,
             "scheduler": srow, "alone_matches": sum(alone),
             "requests": len(trace)}
+
+
+# the resilience phase's faults: decode steps and the admission index
+RES_NAN_STEP = 3          # a sample / execute NaN for one resident uid
+RES_EXC_STEP = 6          # a sample exception (fused), retried
+RES_LAYER_STEP = 2        # an execute exception at layer=1 (two-phase)
+RES_PREFILL_CALL = 5      # the 6th admission's prefill hook raises
+RES_WIDE_STEP = 4         # the kv_wide run's poisoned step
+
+
+def _resident_uid(tokens: dict, step: int) -> int:
+    """A request of the scheduler trace submitted at step 0 that is still
+    resident at decode step ``step`` of the fault-free run (its tokens
+    outnumber the step + 1)."""
+    return next(u for u in (0, 1) if len(tokens[u]) >= step + 2)
+
+
+def save_cost(make, trace, eos: dict) -> dict:
+    """Fault-free decode tok/s of ``make(retry)``'s scheduler on ``trace``
+    with the retry's save (``RetryPolicy()``) and without it
+    (``RetryPolicy(max_retries=0)``), in the order without, with, with,
+    without; each run's tok/s and their means; and the save itself at the
+    pool's top bucket, its device ms (CUDA events, back to back) beside
+    its bytes (the step state read and written once) over HBM_BYTES_PER_S."""
+    from repro_torch.launch.serve import _row_views, _step_state
+    from repro_torch.runtime import resilience as R
+    runs = {"without": [], "with": []}
+    for key in ("without", "with", "with", "without"):
+        sched = make(R.RetryPolicy() if key == "with"
+                     else R.RetryPolicy(max_retries=0))
+        with no_plain():
+            drive_scheduler(sched, trace, eos)
+        check(sched.summary()["requests"]["finished"] == len(trace)
+              and (sched._step_saved is None) == (key == "without"),
+              f"save cost run ({key}): finished "
+              f"{sched.summary()['requests']}")
+        runs[key].append(sched.summary()["decode"]["tok_per_s"])
+        if key == "with":
+            top = sched.n_slots
+            nbytes = 2 * sum(
+                t.numel() * t.element_size() for slot in _row_views(
+                    _step_state(sched.cache), top) for t in slot.values())
+            save_ms = time_ms(lambda: sched._keep_step_state(top, False), 20)
+        del sched
+        gc.collect()
+    out = {k: {"tok_per_s": v, "mean": sum(v) / len(v)}
+           for k, v in runs.items()}
+    out["order"] = "without, with, with, without"
+    out["cost_frac"] = 1 - out["with"]["mean"] / out["without"]["mean"]
+    out["save"] = {"bucket": top, "ms": save_ms, "bytes": nbytes,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def phase_resilience(cfg, params, clean: dict, step_syncs: dict,
+                     card: str) -> dict:
+    """Serving resilience on phase 5's weights, against phase 6's
+    fault-free runs (``clean``: the fused gather run's tokens and the EOS
+    it served with; ``step_syncs``: the syncs of an extra step).
+
+    * Fused gather scheduler on phase 6's trace with a plan: a ``sample``
+      NaN for one resident uid at step RES_NAN_STEP, a ``prefill``
+      exception at the RES_PREFILL_CALL-th admission hook (retried) and a
+      ``sample`` exception at step RES_EXC_STEP (retried after the replay
+      stepped the pool).  Checks: the poisoned uid alone fails, every
+      survivor's tokens == the fault-free run's, ``plan.triggered`` is what
+      the plan asked for, two retries, no plain version on the card, and an
+      extra step (plan attached) makes one host sync.
+    * Two-phase bcsr at depth 1: an ``execute`` exception at ``layer=1`` of
+      step RES_LAYER_STEP (the first MoE layer's occupancy already
+      written) and an ``execute`` NaN for one uid at RES_NAN_STEP + 3.
+      Checks: survivors equal, that uid alone fails, the pool's ``moe``
+      leaf after the retried step ``torch.equal`` to a fault-free run's
+      after the same step, and an extra step's syncs == phase 6's depth-1
+      count.
+    * ``kv_wide``: the int8-KV fused gather scheduler (wide experts),
+      ``fail_threshold=1``, one row poisoned at RES_WIDE_STEP.  Checks: the
+      rung applied, the pool f32 without scale leaves, every bucket used
+      afterwards captured again (its "capture" stats counted and timed),
+      the 15 other requests finished (every step's health bits finite),
+      one host sync an extra fused step (no EOS in this run: the int8
+      tokens are not the wide run's).
+    * The save's cost: fault-free fused gather scheduler tok/s with and
+      without the retry's save (:func:`save_cost`).
+    Returns the numbers for the ``resilience`` line."""
+    import torch
+    from repro_torch.launch.serve import ServeScheduler
+    from repro_torch.runtime import resilience as R
+    trace = scheduler_trace(cfg.vocab_size)
+    eos, want = clean["eos"], clean["tokens"]
+    n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
+    print(f"resilience on phase 6's trace ({len(trace)} requests):")
+
+    def make(**kw):
+        return ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
+                              max_slots=SCHED_SLOTS, **kw)
+
+    def extra_step_syncs(sched):
+        sched.submit(trace[0][0], 3)          # one more resident request
+        sched.step()                          # admits it (fused: bucket 1)
+        _, n, waits = count_syncs(sched.step)
+        torch.cuda.synchronize()
+        return {"syncs": n, "event_waits": waits}
+
+    def survivors(sched, label):
+        got = {r.uid: list(r.tokens) for r in sched.finished}
+        failed = sorted(r.uid for r in sched.failed)
+        check(all(got[u] == want[u] for u in got),
+              f"{label}: a survivor's tokens != the fault-free run's")
+        check(sorted(list(got) + failed) == list(range(len(trace)))
+              and not sched.shed, f"{label}: finished {sorted(got)}, "
+                                  f"failed {failed}")
+        return failed
+
+    out = {"card": card, "requests": len(trace)}
+    # -- fused gather: a poisoned row, a retried admission, a retried step
+    bad = _resident_uid(want, RES_NAN_STEP)
+    plan = R.FaultPlan([
+        R.FaultSpec("sample", "nan", uid=bad, step=RES_NAN_STEP),
+        R.FaultSpec("prefill", "exception", layer=RES_PREFILL_CALL),
+        R.FaultSpec("sample", "exception", step=RES_EXC_STEP)])
+    sched = make(dispatch="gather", fault_plan=plan)
+    with no_plain():
+        drive_scheduler(sched, trace, eos)
+    failed = survivors(sched, "fused gather, faulted")
+    fired = sorted((t[0], t[1], str(t[2]), len(t[3]))
+                   for t in plan.triggered)
+    asked = sorted([("sample", "nan", str(RES_NAN_STEP), 1),
+                    ("prefill", "exception", "None", 0),
+                    ("sample", "exception", str(RES_EXC_STEP), 0)])
+    check(failed == [bad] and fired == asked
+          and sched.health.counters["retry"] == 2,
+          f"fused gather, faulted: failed {failed} (want [{bad}]), fired "
+          f"{plan.triggered}, retries {sched.health.counters['retry']}")
+    syncs = extra_step_syncs(sched)
+    check(syncs["syncs"] == 1 and syncs["event_waits"] == 0,
+          f"fused gather, plan attached: an extra step synced {syncs}")
+    out["fused_gather"] = {
+        "failed": failed, "survivors_equal": True,
+        "triggered": [[*t[:3], list(t[3])] for t in plan.triggered],
+        "retries": sched.health.counters["retry"], "step_syncs": syncs}
+    print(f"  fused gather: uid {bad} poisoned at step {RES_NAN_STEP} fails "
+          f"alone, {len(trace) - 1} survivors == the fault-free run; an "
+          f"admission and step {RES_EXC_STEP} retried; fired "
+          f"{plan.triggered}; an extra step (plan attached): {syncs}")
+    del sched
+
+    # -- two-phase bcsr, depth 1: an exception mid-step, a poisoned row
+    def keep_moe(store):
+        def after(sched):
+            if sched.step_idx == RES_LAYER_STEP + 1:
+                store.extend(c["moe"].clone() for c in sched.cache["slots"]
+                             if "moe" in c)
+        return after
+
+    fault_free, faulted = [], []
+    drive_scheduler(make(dispatch="bcsr", pipeline_depth=1), trace, eos,
+                    after_step=keep_moe(fault_free),
+                    steps=RES_LAYER_STEP + 1)
+    bad2 = _resident_uid(want, RES_NAN_STEP + 3)
+    plan = R.FaultPlan([
+        R.FaultSpec("execute", "exception", step=RES_LAYER_STEP, layer=1),
+        R.FaultSpec("execute", "nan", uid=bad2, step=RES_NAN_STEP + 3)])
+    sched = make(dispatch="bcsr", pipeline_depth=1, fault_plan=plan)
+    with no_plain():
+        drive_scheduler(sched, trace, eos, after_step=keep_moe(faulted))
+    failed = survivors(sched, "two-phase bcsr depth 1, faulted")
+    moe_equal = len(faulted) == len(fault_free) > 0 and all(
+        torch.equal(a, b) for a, b in zip(faulted, fault_free))
+    syncs = extra_step_syncs(sched)
+    check(failed == [bad2] and moe_equal
+          and sched.health.counters["retry"] == 1
+          and syncs["syncs"] == step_syncs["bcsr1"]["syncs"],
+          f"two-phase bcsr depth 1, faulted: failed {failed} (want "
+          f"[{bad2}]), moe leaf equal {moe_equal}, retries "
+          f"{sched.health.counters['retry']}, extra step {syncs} (fault-"
+          f"free {step_syncs['bcsr1']})")
+    out["bcsr_depth1"] = {
+        "failed": failed, "survivors_equal": True,
+        "moe_equal_after_retry": True, "n_moe": n_moe,
+        "triggered": [[*t[:3], list(t[3])] for t in plan.triggered],
+        "step_syncs": syncs, "fault_free_step_syncs": step_syncs["bcsr1"]}
+    print(f"  two-phase bcsr depth 1: step {RES_LAYER_STEP} retried after "
+          f"layer 1's execute raised, the pool's moe leaf after it == "
+          f"the fault-free run's; uid {bad2} fails alone, survivors equal; "
+          f"an extra step {syncs} (fault-free {step_syncs['bcsr1']})")
+    del sched, fault_free, faulted
+
+    # -- kv_wide on the int8-KV scheduler, without EOS: request 0 (budget
+    # >= 8) is resident at step RES_WIDE_STEP whatever its int8 tokens
+    bad3 = 0
+    plan = R.FaultPlan.single("sample", "nan", uid=bad3, step=RES_WIDE_STEP)
+    sched = make(dispatch="gather", kv_quant="int8", fault_plan=plan,
+                 fail_threshold=1)
+    mark = []
+    rung = sched._apply_rung
+
+    def noted(name):
+        mark.append(len(sched.stats))
+        rung(name)
+
+    sched._apply_rung = noted
+    with no_plain():
+        drive_scheduler(sched, trace, {})
+    after = sched.stats[mark[0]:] if mark else []
+    caps = [st.seconds * 1e3 for st in after if st.phase == "capture"]
+    used = {st.extra["batch_bucket"] for st in after
+            if st.phase == "decode"}
+    pool = [c["attn"] for c in sched.cache["slots"]]
+    got = {r.uid for r in sched.finished}
+    check(len(mark) == 1 and sched.ladder.state()["applied"] == ["kv_wide"]
+          and sched.kv_quant is None
+          and all(set(a) == {"k", "v"} and a["k"].dtype == torch.float32
+                  for a in pool)
+          and len(caps) == len(used) > 0 and set(sched._fused) == used
+          and all(f.graph is not None for f in sched._fused.values())
+          and [r.uid for r in sched.failed] == [bad3]
+          and got == set(range(len(trace))) - {bad3},
+          f"kv_wide: rung marks {mark}, ladder {sched.ladder.state()}, "
+          f"captures after {caps} for buckets {sorted(used)}, fused "
+          f"{sorted(sched._fused)}, failed "
+          f"{[r.uid for r in sched.failed]}, finished {sorted(got)}")
+    syncs = extra_step_syncs(sched)
+    check(syncs["syncs"] == 1 and syncs["event_waits"] == 0,
+          f"kv_wide: an extra fused step synced {syncs}")
+    out["kv_wide"] = {"failed": [bad3], "finished": len(got),
+                      "buckets_after": sorted(used),
+                      "captures_after": len(caps), "capture_ms": caps,
+                      "step_syncs": syncs}
+    print(f"  kv_wide (int8 KV, fail_threshold 1): uid {bad3} poisoned at "
+          f"step {RES_WIDE_STEP}; the pool now f32 without scales; "
+          f"{len(caps)} buckets {sorted(used)} captured again "
+          f"({', '.join(f'{c:.1f}' for c in caps)} ms); {len(got)} "
+          f"requests finished; an extra step {syncs}")
+    del sched, pool
+    gc.collect()
+
+    # -- the save's cost, fault-free
+    out["save_cost"] = save_cost(
+        lambda retry: make(dispatch="gather", retry=retry), trace, eos)
+    sc = out["save_cost"]
+    print(f"  the retry's save, fused gather scheduler: "
+          f"{sc['with']['mean']:.1f} tok/s with, {sc['without']['mean']:.1f}"
+          f" without ({sc['order']}: "
+          f"{sc['without']['tok_per_s'][0]:.1f}, "
+          f"{sc['with']['tok_per_s'][0]:.1f}, "
+          f"{sc['with']['tok_per_s'][1]:.1f}, "
+          f"{sc['without']['tok_per_s'][1]:.1f}); the save at bucket "
+          f"{sc['save']['bucket']} {sc['save']['ms']:.4f} ms for "
+          f"{sc['save']['bytes']} bytes (bound {sc['save']['bound_ms']:.4f} "
+          f"ms); {card}")
+    return out
 
 
 def _attn_prompts(cfg):
@@ -3621,8 +3900,15 @@ def phase_rwkv_scheduler(cfg, params):
     card; fused, one graph for each bucket seen, a replay launching W1 and R1 so.  Then each request
     served alone through one fused ``ServeLoop`` (B = 1) must give its
     scheduled tokens, every one of them (W1 and R1 sum in one order a
-    row, so the batch cannot enter)."""
+    row, so the batch cannot enter).  Then resilience: the fused run
+    again with a ``sample`` exception at step RES_EXC_STEP, after the
+    replay has stepped every layer's state, retried from the saved state:
+    8 of 8 requests and every pool leaf (``wkv``, the shifts) at the end
+    ``torch.equal`` to the fault-free fused run's; and the save's cost
+    (:func:`save_cost`)."""
+    import torch
     from repro_torch.launch.serve import ServeLoop, ServeScheduler
+    from repro_torch.runtime import resilience as R
     trace = scheduler_trace(cfg.vocab_size)[:RWKV_SCHED_REQUESTS]
     n = cfg.n_repeats
     print(f"rwkv continuous batching: {len(trace)} requests, prompts "
@@ -3651,6 +3937,9 @@ def phase_rwkv_scheduler(cfg, params):
                   and all(graphs.values()),
                   f"rwkv scheduler: graphs {graphs} for buckets "
                   f"{sorted(sched.batch_buckets)}")
+        if key == "fused":
+            clean_pool = [t.clone() for slot in sched.cache["slots"]
+                          for t in slot.values()]
         runs.append({**scheduler_numbers(f"rwkv {key}", sched, wall),
                      "k7_launches": counts["wkv_kernel"],
                      "w1_launches": counts["wkv_step"],
@@ -3669,9 +3958,47 @@ def phase_rwkv_scheduler(cfg, params):
           f"requests give the tokens they get alone (B = 1)")
     check(all(alone), f"rwkv scheduler: only {sum(alone)} of {len(trace)} "
                       "requests equal themselves alone")
+
+    def make(**kw):
+        return ServeScheduler(params, cfg, max_seq=SCHED_MAX_SEQ,
+                              max_slots=SCHED_SLOTS, **kw)
+
+    plan = R.FaultPlan.single("sample", "exception", step=RES_EXC_STEP)
+    sched = make(fault_plan=plan)
+    with no_plain():
+        drive_scheduler(sched, trace, {})
+    got = {r.uid: list(r.tokens) for r in sched.finished}
+    pool = [t for slot in sched.cache["slots"] for t in slot.values()]
+    pool_equal = len(pool) == len(clean_pool) and all(
+        torch.equal(a, b) for a, b in zip(pool, clean_pool))
+    n_equal = sum(got.get(u) == toks["fused"][u] for u in toks["fused"])
+    check(n_equal == len(trace) and pool_equal
+          and plan.triggered == [("sample", "exception", RES_EXC_STEP, ())]
+          and sched.health.counters["retry"] == 1,
+          f"rwkv scheduler, sample exception at step {RES_EXC_STEP}: "
+          f"{n_equal} of {len(trace)} equal, pool equal {pool_equal}, "
+          f"fired {plan.triggered}")
+    del sched, pool, clean_pool
+    gc.collect()
+    cost = save_cost(lambda retry: make(retry=retry), trace, {})
+    print(f"  resilience: a sample exception at step {RES_EXC_STEP} retried "
+          f"after the replay: {n_equal} of {len(trace)} requests and every "
+          f"pool leaf (wkv, shifts) == the fault-free run; the retry's "
+          f"save {cost['with']['mean']:.1f} tok/s with, "
+          f"{cost['without']['mean']:.1f} without ({cost['order']}: "
+          f"{cost['without']['tok_per_s'][0]:.1f}, "
+          f"{cost['with']['tok_per_s'][0]:.1f}, "
+          f"{cost['with']['tok_per_s'][1]:.1f}, "
+          f"{cost['without']['tok_per_s'][1]:.1f}); the save at bucket "
+          f"{cost['save']['bucket']} {cost['save']['ms']:.4f} ms for "
+          f"{cost['save']['bytes']} bytes (bound "
+          f"{cost['save']['bound_ms']:.4f} ms)")
     return {"requests": len(trace), "slots": SCHED_SLOTS, "runs": runs,
             "tokens_equal": True, "alone_matches": sum(alone),
-            "alone": alone}
+            "alone": alone,
+            "resilience": {"retried_step": RES_EXC_STEP,
+                           "requests_equal": n_equal, "pool_equal": True,
+                           "save_cost": cost}}
 
 
 def phase_measure_wkv(captured, launches, card):
@@ -3818,9 +4145,13 @@ def main() -> int:
     phase_rwkv_smoke_card_vs_cpu()
     cfg, params, summary, launches, captured, pipelined, calls = \
         phase_slice()
-    scheduler, sched_streams, sched_calls = phase_scheduler(cfg, params)
+    scheduler, sched_streams, sched_calls, clean = phase_scheduler(cfg,
+                                                                   params)
     quant = phase_quant_serving(cfg, params, next(
         r for r in scheduler["runs"] if r["label"] == "fused_gather0"))
+    resilience = phase_resilience(cfg, params, clean,
+                                  scheduler["step_syncs"], card)
+    del clean
     mask, masked, mask_ms, masked_stream, masked1, masked_calls = \
         phase_masked_serving(cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
@@ -3842,6 +4173,7 @@ def main() -> int:
     del qkv, captured, masked_stream, sched_streams, calls
     scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rwkv, rwkv_launches, wkv_inputs, step_inputs = phase_rwkv_serving(card)
+    resilience["rwkv"] = rwkv["scheduler"].pop("resilience")
     rows.append(phase_measure_wkv(wkv_inputs, rwkv_launches["wkv_kernel"],
                                   card))
     rows.append(phase_measure_wkv_step(step_inputs, rwkv_launches, rows,
@@ -3896,6 +4228,7 @@ def main() -> int:
              "wall_s": time.monotonic() - t_start}
     print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))
+    print(json.dumps({"resilience": resilience}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -74,8 +74,29 @@ both modes), as in the reference: the expert weights are BlockQuant'ed
 once at construction (``moe.quantize_model_experts``; each matrix
 dequantized at its ``bmm``), and the attention caches are stored as
 narrow values with per-position f32 scales (``model.init_cache`` /
-``prefill(kv_quant=)``; dequantized before decode attention).  Not ported
-yet: resilience hooks.
+``prefill(kv_quant=)``; dequantized before decode attention).
+
+**Resilience** (``runtime.resilience``, the reference's contract in
+``tests/README.md`` "Resilience contract"), both drivers, both modes:
+``fault_plan`` fires its hooks at the reference's stages and with its step
+labels -- ``prefill`` on the prefill logits, ``quantize`` on the cache
+(in place: on the card the captured graphs read the same storage) after
+prefill and before each decode step, ``sample`` on each step's logits,
+and, two-phase, ``attention`` / ``route`` before each attn+moe layer's
+MoE and ``execute`` on its output, for both backends.  Each decode step
+computes ``isfinite`` of every row's logits on the device: ``ServeLoop``
+folds it into a mask fetched once a run (``health_rows``);
+``ServeScheduler`` fetches it with the step's token ids in the step's one
+transfer, fails a poisoned row's request alone, blanks its cache row
+(``model.blank_cache_row``) and keeps serving the others.  The
+scheduler retries a failed prefill or decode step under ``retry`` (a
+``RetryPolicy``), sheds requests past their deadlines or beyond a bounded
+queue, and walks the ``DegradationLadder`` as failures reach
+``fail_threshold``.  The port's decode step writes its cache in place, so
+before each decode try the scheduler copies the leaves a step advances
+beyond a row's position (MoE occupancy, RWKV state and shifts) into
+buffers made once, and a retry starts from them: the same pool, hence
+the same tokens, as a step that never failed.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -98,7 +119,6 @@ import argparse
 import collections
 import contextlib
 import dataclasses
-import functools
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
@@ -113,6 +133,7 @@ from repro_torch.kernels import engine
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import model as M
 from repro_torch.models import moe
+from repro_torch.runtime import resilience as R
 
 
 @dataclasses.dataclass
@@ -193,6 +214,17 @@ def _clone_leaves(tree):
     if isinstance(tree, tuple):
         return tuple(_clone_leaves(v) for v in tree)
     return tree.clone()
+
+
+# the leaves a decode step advances beyond a row's position; K / V are
+# written at the position, which a retried step rewrites with the same values
+_STEP_STATE = ("moe", "wkv", "shift_t", "shift_c")
+
+
+def _step_state(cache):
+    """The :data:`_STEP_STATE` leaves of a stacked cache, slot by slot."""
+    return tuple({k: v for k, v in slot.items() if k in _STEP_STATE}
+                 for slot in cache["slots"])
 
 
 @contextlib.contextmanager
@@ -320,14 +352,22 @@ class _ServeBase:
     """Phase machinery shared by :class:`ServeLoop` and
     :class:`ServeScheduler`: the dispatch backend, the two-phase route ->
     execute MoE stage with its per-phase stats, the ``StreamPipeline`` of
-    in-flight executes, and the timing summary."""
+    in-flight executes, the timing summary, and the resilience state: the
+    fault plan's hooks, the retry policy, the health counters and the
+    degradation ladder."""
+
+    # the fused mode's graphs share this memory pool (the scheduler's)
+    _graph_pool = None
 
     def __init__(self, params, cfg, *, dispatch: Optional[str],
                  temperature: float, sample_seed: int, pipeline_depth: int,
                  attn_mask: Optional[AttnMaskSpec], device,
                  two_phase: Optional[bool] = None,
                  quantize_experts: Optional[str] = None,
-                 kv_quant: Optional[str] = None):
+                 kv_quant: Optional[str] = None,
+                 fault_plan: Optional[R.FaultPlan] = None,
+                 retry: Optional[R.RetryPolicy] = None,
+                 fail_threshold: int = 3):
         self.device = resolve_device(device)
         _check_on(params, self.device, type(self).__name__)
         M._check_kinds(cfg)
@@ -356,6 +396,63 @@ class _ServeBase:
         self._fallback_base = flash_ops.fallback_count()
         self._sample_seed = sample_seed
         self.stats: List[StepStat] = []
+        self.cache = None
+        self._fused: Dict[int, _FusedDecode] = {}
+        self.fault_plan = fault_plan
+        self.retry = retry if retry is not None else R.RetryPolicy()
+        self.health = R.HealthTracker()
+        self.ladder = R.DegradationLadder.for_serving(
+            kv_quant=kv_quant, attn_mask=attn_mask,
+            pipeline_depth=pipeline_depth, fail_threshold=fail_threshold)
+        self._row_uids: Optional[List[Optional[int]]] = None
+
+    # ---------------------------------------------------------- resilience --
+
+    def _fault(self, stage: str, x: torch.Tensor, *,
+               step: Optional[int] = None) -> torch.Tensor:
+        """The fault plan's hook for a batched activation; ``x`` itself
+        without a plan."""
+        if self.fault_plan is None:
+            return x
+        return self.fault_plan.apply(stage, x, step=step, uids=self._row_uids)
+
+    def _fault_cache(self, cache, *, step: Optional[int] = None, uids=None,
+                     nrows: int = 0) -> None:
+        """The quantize-stage hook: corrupts the plan's rows of ``cache``
+        in place."""
+        if self.fault_plan is not None:
+            self.fault_plan.apply_cache(cache, step=step, uids=uids,
+                                        nrows=nrows)
+
+    def _note_failure(self) -> None:
+        """Count one failure on the ladder; apply the rung it hands back."""
+        rung = self.ladder.note_failure()
+        if rung is not None:
+            self._apply_rung(rung)
+
+    def _apply_rung(self, rung: str) -> None:
+        """One degradation, recorded as a "degrade" event.  ``kv_wide``:
+        the live cache dequantized to a wide f32 one (a new pool), every
+        later prefill and step with ``kv_quant=None``; fused, every bucket's
+        step and graph dropped (and the scheduler's graph pool), so each is
+        made, and on the card captured, again at its next use over the wide
+        pool.  ``mask_ref``: ``attn_mask`` with ``impl="ref"`` (counted by
+        ``flash_ops.fallback_count()``).  ``pipeline_serial``: depth 0."""
+        self.health.record("degrade", rung=rung)
+        if rung == "kv_wide":
+            self._pipe.abort()
+            if self.cache is not None:
+                self.cache = R.dequantize_cache(self.cache, torch.float32)
+            self.kv_quant = None
+            self._fused = {}
+            if self._graph_pool is not None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+        elif rung == "mask_ref":
+            self.attn_mask = dataclasses.replace(self.attn_mask, impl="ref")
+        elif rung == "pipeline_serial":
+            self._pipe.abort()
+            self.pipeline_depth = 0
+            self._pipe = engine.StreamPipeline(0)
 
     # ------------------------------------------------------------- phases --
 
@@ -386,9 +483,20 @@ class _ServeBase:
         return self.two_phase and self.backend == "bcsr"
 
     def _moe_fn(self):
-        if self._routed():
-            return self._moe_two_phase
-        return functools.partial(moe.apply_moe, dispatch=self.backend)
+        return self._moe_two_phase if self._routed() else self._moe_gather
+
+    def _moe_gather(self, p_ffn, h, cfg, counts=None, pos=None):
+        """Two-phase gather's MoE stage: one ``moe.apply_moe`` call, with
+        the fault hooks of :meth:`_moe_two_phase` around it at the same
+        points (``attention`` and ``route`` on ``h``, ``execute`` on the
+        output), so each call counts once a layer as the reference's
+        route -> execute stage does."""
+        step = self._step_label()
+        h = self._fault("attention", h, step=step)
+        h = self._fault("route", h, step=step)
+        out, counts = moe.apply_moe(p_ffn, h, cfg, counts=counts, pos=pos,
+                                    dispatch=self.backend)
+        return self._fault("execute", out, step=step), counts
 
     def _route_ahead(self) -> bool:
         return self._routed() and self.pipeline_depth > 0
@@ -406,8 +514,13 @@ class _ServeBase:
         (``moe.plan_from_phase1``); the dispatched execute is pushed into
         the pipeline, not waited for.  The route stat's ``hidden_s`` is its
         fetch wait when an execute was still running on the device at route
-        entry, else 0 (always 0 at depth 0)."""
+        entry, else 0 (always 0 at depth 0).
+
+        The fault hooks: ``attention`` and ``route`` on ``h`` before the
+        route, ``execute`` on the execute's output before it is pushed."""
         step = self._step_label()
+        h = self._fault("attention", h, step=step)
+        h = self._fault("route", h, step=step)
         pipelined = self.pipeline_depth > 0
         drain_s = 0.0
         if not pipelined:
@@ -430,6 +543,7 @@ class _ServeBase:
                    "hidden_s": info["wait_s"] if busy else 0.0}))
         t0 = time.monotonic()
         out, new_counts = moe.execute_moe(p_ffn, h, plan, cfg)
+        out = self._fault("execute", out, step=step)
         # depth 0: waits the execute out; depth 1: leaves it in flight
         self._pipe.push(plan, out)
         self.stats.append(StepStat(
@@ -478,6 +592,10 @@ class _ServeBase:
         if not self.two_phase:
             caps = [s.seconds for s in self.stats if s.phase == "capture"]
             out["capture"] = {"calls": len(caps), "ms": sum(caps) * 1e3}
+        out["health"] = {
+            **self.health.snapshot(), "ladder": self.ladder.state(),
+            "faults_triggered": (list(self.fault_plan.triggered)
+                                 if self.fault_plan is not None else [])}
         return out
 
 
@@ -512,6 +630,16 @@ class ServeLoop(_ServeBase):
     kv_quant : a narrow dtype name to store the attention caches as
         per-position narrow values and f32 scales, or None (default): the
         wide cache, bit for bit.
+    fault_plan : a ``resilience.FaultPlan`` whose hooks the loop fires at
+        the ``prefill``, ``quantize``, ``sample`` and (two-phase)
+        ``attention`` / ``route`` / ``execute`` stages, or None (default):
+        no hook does anything.  Every run folds each step's per-row
+        ``isfinite`` of the logits into a mask on the device, fetched
+        with the tokens at the run's end as ``health_rows`` (and
+        ``summary()["health"]["rows_finite"]``).
+    retry, fail_threshold : carried for ``summary()`` as in the
+        reference: the loop never retries and never walks the ladder; an
+        exception mid-run releases the pipeline and propagates.
     device : where the loop runs; "cuda" (default) raises without a GPU.
     """
 
@@ -521,22 +649,28 @@ class ServeLoop(_ServeBase):
                  sample_seed: int = 3, pipeline_depth: int = 0,
                  attn_mask: Optional[AttnMaskSpec] = None,
                  quantize_experts: Optional[str] = None,
-                 kv_quant: Optional[str] = None, device="cuda"):
+                 kv_quant: Optional[str] = None,
+                 fault_plan: Optional[R.FaultPlan] = None,
+                 retry: Optional[R.RetryPolicy] = None,
+                 fail_threshold: int = 3, device="cuda"):
         super().__init__(params, cfg, dispatch=dispatch,
                          temperature=temperature, sample_seed=sample_seed,
                          pipeline_depth=pipeline_depth, attn_mask=attn_mask,
                          device=device, two_phase=two_phase,
                          quantize_experts=quantize_experts,
-                         kv_quant=kv_quant)
+                         kv_quant=kv_quant, fault_plan=fault_plan,
+                         retry=retry, fail_threshold=fail_threshold)
         self.max_seq = max_seq
         self._gen = torch.Generator(device=self.device)
-        self.cache = None
         self.pos: Optional[int] = None
         self.generated: List[torch.Tensor] = []
-        # the fused mode's steps, one a batch (max_seq and the bf16 cache
-        # are the loop's); their graphs and memory pools go with the loop
-        self._fused: Dict[int, _FusedDecode] = {}
+        # the fused mode's steps (``_fused``) are one a batch (max_seq and
+        # the bf16 cache are the loop's); their graphs and memory pools go
+        # with the loop
         self.fused_step: Optional[_FusedDecode] = None   # the last prefill's
+        # the run's per-row health: on the device, fetched once a run
+        self._health_dev: Optional[torch.Tensor] = None
+        self.health_rows: Optional[np.ndarray] = None
 
     def _step_label(self) -> int:
         return len(self.generated) - 1
@@ -570,12 +704,20 @@ class ServeLoop(_ServeBase):
             cache = self.fused_step.cache
         self._sync()
         self._pipe.drain()
+        logits = self._fault("prefill", logits, step=-1)
+        self._fault_cache(cache, step=-1, nrows=prompts.shape[0])
         self.stats.append(StepStat("prefill", -1, time.monotonic() - t0,
                                    tokens=prompts.numel()))
         self.cache, self.pos = cache, pos
+        self._health_dev = self._finite(logits)
         nxt = self._sample(logits[:, -1])
         self.generated = [nxt]
         return nxt
+
+    def _finite(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B,) bool on the device: every logit of the row's last position
+        finite."""
+        return torch.isfinite(logits[:, -1, :self.cfg.vocab_size]).all(-1)
 
     def _sample(self, last_logits: torch.Tensor) -> torch.Tensor:
         return sample_tokens(last_logits, self.cfg.vocab_size,
@@ -600,6 +742,7 @@ class ServeLoop(_ServeBase):
                 f"position {pos} >= max_seq {self.max_seq}. Raise max_seq or "
                 f"generate fewer tokens.")
         tok = self.generated[-1]
+        self._fault_cache(self.cache, step=step, nrows=tok.shape[0])
         t0 = time.monotonic()
         if self.two_phase:
             logits, self.cache = M.decode_step_layered(
@@ -607,6 +750,8 @@ class ServeLoop(_ServeBase):
                 moe_fn=self._moe_fn(), route_ahead=self._route_ahead())
         else:
             logits = self.fused_step.step(pos, tok)
+        logits = self._fault("sample", logits, step=step)
+        self._health_dev = self._health_dev & self._finite(logits)
         if self.pipeline_depth > 0:
             nxt = self._sample(logits[:, -1])
             self.stats.append(StepStat("decode", step, time.monotonic() - t0,
@@ -638,19 +783,29 @@ class ServeLoop(_ServeBase):
     def run(self, prompts, gen: int) -> np.ndarray:
         """prefill + (gen - 1) decode steps; returns (B, gen) token ids.
         Every run starts from a fresh sampling generator, so seeded runs
-        with ``temperature > 0`` are reproducible.  An exception mid-run
-        releases every in-flight execute before it propagates."""
+        with ``temperature > 0`` are reproducible.  The tokens and the
+        run's health mask come back in one fetch (``health_rows``; a
+        "rows_poisoned" health event when a row is not finite).  An
+        exception mid-run releases every in-flight execute before it
+        propagates."""
         self.stats.clear()
         self._fallback_base = flash_ops.fallback_count()
         self._pipe.drain()
         self._gen.manual_seed(self._sample_seed)
+        self._health_dev = self.health_rows = None
         try:
             self.prefill(prompts)
             self.decode(gen - 1)
         except BaseException:
             self._pipe.abort()
             raise
-        return torch.cat(self.generated, dim=1).cpu().numpy()
+        host = torch.cat(self.generated + [
+            self._health_dev[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        self.health_rows = host[:, -1].astype(bool)
+        bad = int((~self.health_rows).sum())
+        if bad:
+            self.health.record("rows_poisoned", rows=bad)
+        return np.ascontiguousarray(host[:, :-1])
 
     def summary(self) -> Dict[str, Any]:
         """Per-phase seconds and calls of the last :meth:`run`.  The phases
@@ -671,7 +826,9 @@ class ServeLoop(_ServeBase):
         execute in flight (``route_hidden_ms``, and its share of the route
         phase ``route_hidden_frac``, 0 at depth 0), and the run's attention
         oracle fallbacks (``attention_ref_fallbacks``, ``attn_mask`` with
-        ``impl="ref"``)."""
+        ``impl="ref"``).  ``health``: the counters and events, the
+        ladder's state, the faults the plan fired and, after a run,
+        ``rows_finite``."""
         out = self._phase_summary()
         dec = out.get("decode")
         if dec:
@@ -679,6 +836,8 @@ class ServeLoop(_ServeBase):
             if wall > 0:
                 batch = self.generated[0].shape[0]
                 dec["tok_per_s"] = batch * dec["calls"] / wall
+        if self.health_rows is not None:
+            out["health"]["rows_finite"] = self.health_rows.tolist()
         return out
 
 
@@ -706,7 +865,12 @@ class Request:
     batch row while resident), ``pos`` (next cache write position), the
     first-token latency from ``submit_time``, and ``generator``, the
     request's own sampling stream (seeded with :func:`request_seed`).
-    ``state`` walks ``queued -> active -> finished``."""
+    ``state`` walks ``queued -> active -> finished``; resilience adds
+    ``failed`` (a poisoned row, exhausted prefill retries or a resident
+    past its deadline; ``fail_reason`` says which) and ``shed`` (refused by
+    a full queue, or past a deadline while queued).  ``retries`` counts
+    the request's prefill retries; ``ttft_deadline_s`` / ``deadline_s``
+    bound the seconds from submission to the first / the last token."""
     prompt: np.ndarray
     max_new_tokens: int
     eos_id: Optional[int] = None
@@ -719,7 +883,11 @@ class Request:
     submit_time: float = 0.0
     first_token_s: Optional[float] = None
     generator: Optional[torch.Generator] = None
-    state: str = "queued"              # queued | active | finished
+    state: str = "queued"      # queued | active | finished | failed | shed
+    fail_reason: Optional[str] = None
+    retries: int = 0
+    ttft_deadline_s: Optional[float] = None
+    deadline_s: Optional[float] = None
 
     @property
     def prompt_len(self) -> int:
@@ -811,21 +979,52 @@ class ServeScheduler(_ServeBase):
     slot pool is made quantized (``model.init_cache(kv_quant=)``) and an
     admission copies the scale leaves into its row with the values.
 
-    Not ported yet: resilience (fault plans, retry, failure thresholds,
-    bounded queues and shedding, deadlines, an injected clock, the health
-    bits on the token fetch and ``model.blank_cache_row``; ROADMAP Queue 1
-    item 5).
+    **Resilience.**  ``fault_plan`` fires the :class:`ServeLoop` stages
+    with the reference's step labels (an admission's ``prefill`` without a
+    step, its MoE stages at -1, a decode step's at ``step_idx``).  A
+    decode step computes each row's ``isfinite`` on the device and fetches
+    it with the sampled ids in the step's one transfer: a row that is not
+    finite fails its request alone (``fail_reason``
+    ``"poisoned:step<N>"``), its cache row blanked in place
+    (``model.blank_cache_row``) and its slot freed; the other rows go on
+    as in a run without the fault.  An admission checks its first token's
+    logits the same way, in the fetch of that token, before its cache
+    reaches the pool; a poisoned or raising admission is retried under
+    ``retry`` (its generator put back) and fails the request once the
+    retries are spent.  A decode step that raises is retried whole, and
+    raises once its retries are spent.  Before each decode try the leaves
+    a step advances beyond a row's position (MoE occupancy, RWKV state and
+    shifts) of rows ``[0, bucket)`` are copied into buffers made once for
+    the pool, and a retry copies them back first: a step, fused or
+    two-phase, can fail after writing them (a layer's occupancy before an
+    exception at a later layer, a replay before a sample-stage fault), and
+    the retry must start from the pool the first try started from.  K / V
+    at the rows' positions are left alone (a retry rewrites them with the
+    same values).  With ``RetryPolicy(max_retries=0)`` nothing is saved.
+    Every failure counts on the ``DegradationLadder``; its rungs apply to
+    the live pool (``kv_wide``: a new wide f32 pool, and fused, every
+    bucket's graph captured again at its next use).
 
     Parameters
     ----------
     params, cfg, dispatch, two_phase, temperature, sample_seed,
-    pipeline_depth, attn_mask, quantize_experts, kv_quant, device : as
-        :class:`ServeLoop`.
+    pipeline_depth, attn_mask, quantize_experts, kv_quant, fault_plan,
+    device : as :class:`ServeLoop`.
     max_seq : cache capacity of every slot; :meth:`submit` refuses a request
         that needs more.
     max_slots : the slot pool, rounded up to its own batch bucket.
     batch_min_bucket : the least decode batch bucket.
     cache_dtype : the K/V cache dtype (default bf16, as prefill's).
+    retry : the ``resilience.RetryPolicy`` of failed admissions and decode
+        steps (default ``RetryPolicy()``: 2 retries, no delay).
+    fail_threshold : failures a rung of the degradation ladder.
+    max_queue, shed_policy : a bound on the queue (None: unbounded) and
+        what :meth:`submit` does at it: ``"reject"`` raises
+        ``resilience.ShedError``, ``"drop_oldest"`` sheds the oldest queued
+        request.
+    clock : the seconds clock of submissions, deadlines and first-token
+        latencies (default ``time.monotonic``); ``_sleep`` is the backoff's
+        sleep.  Both can be replaced, so tests run on a fake clock.
     """
 
     def __init__(self, params, cfg, *, max_seq: int, max_slots: int = 8,
@@ -835,13 +1034,20 @@ class ServeScheduler(_ServeBase):
                  cache_dtype=torch.bfloat16, pipeline_depth: int = 0,
                  attn_mask: Optional[AttnMaskSpec] = None,
                  quantize_experts: Optional[str] = None,
-                 kv_quant: Optional[str] = None, device="cuda"):
+                 kv_quant: Optional[str] = None,
+                 fault_plan: Optional[R.FaultPlan] = None,
+                 retry: Optional[R.RetryPolicy] = None,
+                 fail_threshold: int = 3, max_queue: Optional[int] = None,
+                 shed_policy: str = "reject", clock=None, device="cuda"):
+        if shed_policy not in ("reject", "drop_oldest"):
+            raise ValueError("shed_policy must be 'reject' or 'drop_oldest'")
         super().__init__(params, cfg, dispatch=dispatch,
                          temperature=temperature, sample_seed=sample_seed,
                          pipeline_depth=pipeline_depth, attn_mask=attn_mask,
                          device=device, two_phase=two_phase,
                          quantize_experts=quantize_experts,
-                         kv_quant=kv_quant)
+                         kv_quant=kv_quant, fault_plan=fault_plan,
+                         retry=retry, fail_threshold=fail_threshold)
         self.max_seq = max_seq
         self.batch_min_bucket = batch_min_bucket
         # the pool at its own bucket: every clamped step bucket is a power
@@ -856,16 +1062,23 @@ class ServeScheduler(_ServeBase):
         self.slots: List[Optional[Request]] = [None] * self.n_slots
         self.queue: Deque[Request] = collections.deque()
         self.finished: List[Request] = []
+        self.failed: List[Request] = []
+        self.shed: List[Request] = []
+        self.max_queue, self.shed_policy = max_queue, shed_policy
+        self._clock = clock if clock is not None else time.monotonic
+        self._sleep = time.sleep
         self.step_idx = 0
         self._stat_step = -1
         self._next_uid = 0
         self.batch_buckets: set = set()
-        # the fused mode's steps, one a batch bucket, over the pool's rows;
-        # on the card their graphs share one memory pool
-        self._fused: Dict[int, _FusedDecode] = {}
+        # the fused mode's steps (``_fused``), one a batch bucket over the
+        # pool's rows, share one memory pool on the card
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda"
                             and not self.two_phase else None)
+        # the decode retry's saved step state (:data:`_STEP_STATE`) of
+        # every slot, made at the first decode step that can retry
+        self._step_saved = None
 
     def _step_label(self) -> int:
         return self._stat_step
@@ -879,14 +1092,25 @@ class ServeScheduler(_ServeBase):
                                 cache=_row_views(self.cache, bucket),
                                 pool=self._graph_pool)
 
+    def _slot_uids(self, rows) -> List[Optional[int]]:
+        return [r.uid if r is not None else None for r in rows]
+
     # -------------------------------------------------------------- admit --
 
     def submit(self, prompt, max_new_tokens: int,
-               eos_id: Optional[int] = None) -> Request:
+               eos_id: Optional[int] = None,
+               ttft_deadline_s: Optional[float] = None,
+               deadline_s: Optional[float] = None) -> Request:
         """Queue a request; uids number requests in submission order.  One
         whose prompt and token budget cannot fit the cache is refused here
         (``ValueError``; its last token is sampled but never written, hence
-        the ``- 1``)."""
+        the ``- 1``).  At a full bounded queue (``max_queue``) the
+        ``shed_policy`` applies: ``"reject"`` raises
+        ``resilience.ShedError``, ``"drop_oldest"`` sheds the oldest queued
+        request to make room.  ``ttft_deadline_s`` / ``deadline_s`` bound
+        the seconds from now to the first / the last token: a request past
+        one is shed while queued, and failed while resident past
+        ``deadline_s``, at the next :meth:`step`."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError("submit: max_new_tokens must be >= 1")
@@ -897,13 +1121,23 @@ class ServeScheduler(_ServeBase):
                 f"({prompt.size} prompt + {max_new_tokens} generated - 1) "
                 f"but max_seq is {self.max_seq}; it could never be served "
                 "without a KV-cache overflow.")
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            if self.shed_policy == "reject":
+                self.health.record("shed", reason="queue_full",
+                                   uid=self._next_uid)
+                raise R.ShedError(
+                    f"submit: admission queue full ({len(self.queue)} >= "
+                    f"max_queue {self.max_queue}); request rejected "
+                    f"(shed_policy='reject')")
+            self._shed(self.queue.popleft(), "queue_full_drop_oldest")
         uid = self._next_uid
         self._next_uid += 1
         gen = torch.Generator(device=self.device)
         gen.manual_seed(request_seed(self._sample_seed, uid))
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
-                      eos_id=eos_id, uid=uid, submit_time=time.monotonic(),
-                      generator=gen)
+                      eos_id=eos_id, uid=uid, submit_time=self._clock(),
+                      generator=gen, ttft_deadline_s=ttft_deadline_s,
+                      deadline_s=deadline_s)
         self.queue.append(req)
         return req
 
@@ -923,6 +1157,19 @@ class ServeScheduler(_ServeBase):
                 q[i].exponential_(1, generator=r.generator)
         return torch.argmax(probs / q, dim=-1)
 
+    def _sample_fetch(self, logits: torch.Tensor,
+                      rows: List[Optional[Request]]):
+        """Each row's next token and whether its last-position logits are
+        all finite, computed on the device and fetched as one (2, rows)
+        int64 transfer: the one host sync of a decode step (EOS, eviction
+        and the health check need the values).  Returns (tokens, finite)
+        numpy arrays."""
+        last = logits[:, -1]
+        finite = torch.isfinite(last[:, :self.cfg.vocab_size]).all(-1)
+        toks = self._sample_rows(last, rows)
+        host = torch.stack([toks, finite.to(toks.dtype)]).cpu().numpy()
+        return host[0], host[1].astype(bool)
+
     def _finish_or_keep(self, req: Request, tok: int) -> None:
         if len(req.tokens) >= req.max_new_tokens or (
                 req.eos_id is not None and tok == req.eos_id):
@@ -932,50 +1179,151 @@ class ServeScheduler(_ServeBase):
             req.state = "finished"
             self.finished.append(req)
 
-    def _prefill_into(self, req: Request, slot: int) -> None:
-        """Single-request prefill, its cache copied into row ``slot`` (one
-        in-place copy per leaf), and the request's first token.  Two-phase
-        the prefill is layered (at depth 1 with its routes ahead, ending
-        with the pipeline drained); fused it is ``model.prefill``."""
+    # -------------------------------------------------- failure lifecycle --
+
+    def _fail(self, req: Request, reason: str, *,
+              poisoned: bool = False) -> None:
+        """A request to the terminal ``failed`` state; a poisoned resident's
+        cache row is blanked in place (``model.blank_cache_row``), so no
+        NaN / Inf state reaches the next admission into its slot.  Counts
+        on the ladder."""
+        if req.slot is not None:
+            slot, req.slot = req.slot, None
+            self.slots[slot] = None
+            if poisoned:
+                M.blank_cache_row(self.cache, slot)
+        req.done = True
+        req.state = "failed"
+        req.fail_reason = reason
+        self.failed.append(req)
+        self.health.record("request_failed", uid=req.uid, reason=reason)
+        self._note_failure()
+
+    def _shed(self, req: Request, reason: str) -> None:
+        """A queued (never resident) request to the terminal ``shed``
+        state."""
+        req.done = True
+        req.state = "shed"
+        req.fail_reason = reason
+        self.shed.append(req)
+        self.health.record("shed", reason=reason, uid=req.uid)
+
+    def _shed_expired(self, now: float) -> None:
+        """Deadlines, at the top of each tick: a queued request past its
+        total or first-token deadline is shed, a resident past its total
+        deadline failed (its row is clean: nothing to blank)."""
+        keep: Deque[Request] = collections.deque()
+        for r in self.queue:
+            waited = now - r.submit_time
+            if r.deadline_s is not None and waited > r.deadline_s:
+                self._shed(r, "deadline")
+            elif r.ttft_deadline_s is not None and waited > r.ttft_deadline_s:
+                self._shed(r, "ttft_deadline")
+            else:
+                keep.append(r)
+        self.queue = keep
+        for r in self.active:
+            if r.deadline_s is not None and now - r.submit_time > r.deadline_s:
+                self._fail(r, "deadline")
+
+    def _backoff(self, attempt: int, **event) -> None:
+        """Record retry ``attempt`` (1-based) and sleep its backoff."""
+        self.health.record("retry", attempt=attempt, **event)
+        delay = self.retry.delay(attempt - 1)
+        if delay:
+            self._sleep(delay)
+
+    def _prefill_into(self, req: Request, slot: int) -> bool:
+        """Admit ``req`` into row ``slot`` (:meth:`_prefill_attempt`), with
+        retry and backoff: an attempt that raises, or whose first-token
+        logits are not all finite, leaves the pool and the request's
+        generator as they were, so a retry is the admission that never
+        failed.  Once the retries are spent the request fails and the slot
+        stays free; returns whether it was admitted."""
+        last_reason = "prefill_failed"
+        for attempt in range(self.retry.max_retries + 1):
+            if attempt:
+                req.retries += 1
+                self._backoff(attempt, stage="prefill", uid=req.uid)
+            try:
+                ok = self._prefill_attempt(req, slot)
+            except Exception as e:
+                self._pipe.abort()
+                last_reason = f"prefill_error:{type(e).__name__}"
+                self.health.record("prefill_error", uid=req.uid,
+                                   error=type(e).__name__)
+                self._note_failure()
+                continue
+            if ok:
+                return True
+            last_reason = "prefill_poisoned"
+            self.health.record("prefill_poisoned", uid=req.uid)
+            self._note_failure()
+        self._fail(req, last_reason)
+        return False
+
+    def _prefill_attempt(self, req: Request, slot: int) -> bool:
+        """One single-request prefill try.  Two-phase the prefill is
+        layered (at depth 1 with its routes ahead, ending with the pipeline
+        drained); fused it is ``model.prefill``.  The prefill hook, then
+        the first token and its finite bit in one fetch (the generator's
+        state put back when the bit is False, and False returned); then the
+        prefill cache into row ``slot`` (one in-place copy per leaf) and
+        the quantize hook on the pool."""
         self._stat_step = -1
+        self._row_uids = [req.uid]
         prompts = torch.from_numpy(req.prompt[None, :]).to(self.device)
         t0 = time.monotonic()
-        if self.two_phase:
-            logits, cache1, pos = M.prefill_layered(
-                self.params, prompts, self.cfg, max_seq=self.max_seq,
-                cache_dtype=self.cache_dtype, moe_fn=self._moe_fn(),
-                attn_mask=self.attn_mask, route_ahead=self._route_ahead(),
-                kv_quant=self.kv_quant)
-        else:
-            logits, cache1, pos = M.prefill(
-                self.params, prompts, self.cfg, max_seq=self.max_seq,
-                cache_dtype=self.cache_dtype, attn_mask=self.attn_mask,
-                dispatch=self.backend, kv_quant=self.kv_quant)
-        self._sync()
-        self._pipe.drain()
+        try:
+            if self.two_phase:
+                logits, cache1, pos = M.prefill_layered(
+                    self.params, prompts, self.cfg, max_seq=self.max_seq,
+                    cache_dtype=self.cache_dtype, moe_fn=self._moe_fn(),
+                    attn_mask=self.attn_mask,
+                    route_ahead=self._route_ahead(), kv_quant=self.kv_quant)
+            else:
+                logits, cache1, pos = M.prefill(
+                    self.params, prompts, self.cfg, max_seq=self.max_seq,
+                    cache_dtype=self.cache_dtype, attn_mask=self.attn_mask,
+                    dispatch=self.backend, kv_quant=self.kv_quant)
+            self._sync()
+            self._pipe.drain()
+            logits = self._fault("prefill", logits)
+        finally:
+            self._row_uids = None
         dt = time.monotonic() - t0
         self.stats.append(StepStat("prefill", self.step_idx, dt,
                                    tokens=req.prompt_len,
                                    extra={"uid": req.uid, "slot": slot}))
+        state = req.generator.get_state() if self.temperature > 0 else None
+        toks, finite = self._sample_fetch(logits, [req])
+        if not finite[0]:
+            if state is not None:
+                req.generator.set_state(state)
+            return False
         _copy_row(self.cache["slots"], cache1["slots"], slot)
         req.slot, req.pos = slot, pos
         req.state = "active"
         self.slots[slot] = req
-        tok = int(self._sample_rows(logits[:, -1], [req])[0])
+        self._fault_cache(self.cache, uids=self._slot_uids(self.slots),
+                          nrows=self.n_slots)
+        tok = int(toks[0])
         req.tokens.append(tok)
         req.latencies_s.append(dt)
-        req.first_token_s = time.monotonic() - req.submit_time
+        req.first_token_s = self._clock() - req.submit_time
         self._finish_or_keep(req, tok)
+        return True
 
     def admit(self) -> List[Request]:
         """Prefill queued requests into free slots, the lowest index first
         (it keeps the occupied prefix, and with it the step's batch bucket,
-        small)."""
+        small); a request that fails its admission leaves the slot to the
+        next one."""
         joined = []
         while self.queue and None in self.slots:
             req = self.queue.popleft()
-            self._prefill_into(req, self.slots.index(None))
-            joined.append(req)
+            if self._prefill_into(req, self.slots.index(None)):
+                joined.append(req)
         return joined
 
     # ------------------------------------------------------------- decode --
@@ -991,10 +1339,12 @@ class ServeScheduler(_ServeBase):
         fused it fills the bucket's position and token buffers from the
         host without blocking it and replays the bucket's graph (on the
         CPU: runs ``model.decode_step``), made at the bucket's first use.
-        Either way the step's sampled ids are fetched once.  Raises before
-        the cache write when a resident would write past ``max_seq``
-        (``submit`` makes that unreachable for requests it took; the fused
-        step cannot check)."""
+        Either way the step's sampled ids and health bits are fetched
+        once.  A try that raises is retried from the saved step state
+        (:meth:`_decode_attempt`) under ``retry``; when the retries are
+        spent, ``RuntimeError``.  Raises before the cache write when a
+        resident would write past ``max_seq`` (``submit`` makes that
+        unreachable for requests it took; the fused step cannot check)."""
         active = self.active
         if not active:
             return []
@@ -1004,6 +1354,42 @@ class ServeScheduler(_ServeBase):
                     f"ServeScheduler.decode_step: KV-cache overflow -- "
                     f"request {r.uid} at write position {r.pos} >= max_seq "
                     f"{self.max_seq}.")
+        err: Optional[Exception] = None
+        for attempt in range(self.retry.max_retries + 1):
+            if attempt:
+                self._backoff(attempt, stage="decode", step=self.step_idx)
+            try:
+                return self._decode_attempt(active, retry=attempt > 0)
+            except Exception as e:
+                self._pipe.abort()
+                err = e
+                self.health.record("decode_error", step=self.step_idx,
+                                   error=type(e).__name__)
+                self._note_failure()
+        raise RuntimeError(
+            f"ServeScheduler.decode_step: step {self.step_idx} failed "
+            f"after {self.retry.max_retries} retries") from err
+
+    def _keep_step_state(self, bucket: int, retry: bool) -> None:
+        """The first try of a step copies rows ``[0, bucket)`` of the
+        :data:`_STEP_STATE` leaves into the saved buffers (made once for
+        the whole pool); a retry copies them back into the pool.  Device
+        copies only: no allocation and no host sync a step."""
+        live = _row_views(_step_state(self.cache), bucket)
+        if self._step_saved is None:
+            self._step_saved = _clone_leaves(_step_state(self.cache))
+        saved = _row_views(self._step_saved, bucket)
+        if retry:
+            _copy_leaves(live, saved)
+        else:
+            _copy_leaves(saved, live)
+
+    def _decode_attempt(self, active: List[Request],
+                        retry: bool) -> List[Tuple[Request, int]]:
+        """One decode-step try: the quantize hook on the pool, the step
+        state saved (first try) or restored (a retry), the step, the sample
+        hook (before any generator draws), then the one fetch of tokens
+        and health bits; a row that is not finite fails its request."""
         hi = max(i for i, r in enumerate(self.slots) if r is not None) + 1
         bucket = engine.batch_bucket(hi, minimum=self.batch_min_bucket,
                                      cap=self.n_slots)
@@ -1014,20 +1400,29 @@ class ServeScheduler(_ServeBase):
         for i, r in enumerate(rows):
             if r is not None:
                 pos[i], tok[i, 0] = r.pos, r.tokens[-1]
+        self._fault_cache(self.cache, step=self.step_idx,
+                          uids=self._slot_uids(self.slots),
+                          nrows=self.n_slots)
+        if self.retry.max_retries > 0:
+            self._keep_step_state(bucket, retry)
         self._stat_step = self.step_idx
         fused = None if self.two_phase else self._fused_decode(bucket)
+        self._row_uids = self._slot_uids(rows)
         t0 = time.monotonic()
-        if fused is not None:
-            logits = fused.step(pos, moe._upload(tok, self.device))
-        else:
-            logits, _ = M.decode_step_layered(
-                self.params, self.cfg, _row_views(self.cache, bucket), pos,
-                moe._upload(tok, self.device), moe_fn=self._moe_fn(),
-                route_ahead=self._route_ahead())
-            if self.pipeline_depth == 0:
-                self._sync()
-        # the step's one fetch: EOS and eviction need the values
-        toks = self._sample_rows(logits[:, -1], rows).cpu().numpy()
+        try:
+            if fused is not None:
+                logits = fused.step(pos, moe._upload(tok, self.device))
+            else:
+                logits, _ = M.decode_step_layered(
+                    self.params, self.cfg, _row_views(self.cache, bucket),
+                    pos, moe._upload(tok, self.device),
+                    moe_fn=self._moe_fn(), route_ahead=self._route_ahead())
+                if self.pipeline_depth == 0:
+                    self._sync()
+            logits = self._fault("sample", logits, step=self.step_idx)
+        finally:
+            self._row_uids = None
+        toks, finite = self._sample_fetch(logits, rows)
         dt = time.monotonic() - t0
         self.stats.append(StepStat(
             "decode", self.step_idx, dt, tokens=len(active),
@@ -1038,6 +1433,10 @@ class ServeScheduler(_ServeBase):
         for i, r in enumerate(rows):
             if r is None:
                 continue          # a vacant row: computed, masked here
+            if not finite[i]:
+                self._fail(r, f"poisoned:step{self.step_idx}",
+                           poisoned=True)
+                continue
             r.tokens.append(int(toks[i]))
             r.latencies_s.append(dt)
             r.pos += 1
@@ -1048,10 +1447,12 @@ class ServeScheduler(_ServeBase):
     # -------------------------------------------------------------- drive --
 
     def step(self) -> List[Tuple[Request, int]]:
-        """One scheduler tick: admit into free slots, then decode one token
-        for every resident request.  An exception releases every in-flight
+        """One scheduler tick: deadlines (:meth:`_shed_expired` on the
+        injected clock), admissions into free slots, then one token for
+        every resident request.  An exception releases every in-flight
         execute before it propagates."""
         try:
+            self._shed_expired(self._clock())
             self.admit()
             out = self.decode_step()
         except BaseException:
@@ -1080,12 +1481,15 @@ class ServeScheduler(_ServeBase):
         execute layer calls, as in :meth:`ServeLoop.summary`), decode tok/s
         over the *emitted* tokens (``decode.tokens``), per-token and
         first-token latency percentiles (``token_latency_ms``,
-        ``first_token_ms``), request counts, the decode batch buckets and,
-        two-phase, the routed-stream buckets (``nnzb_buckets``), the
-        ``timing`` split and ``pipeline``; fused, ``capture`` holds the
-        graph captures of the scheduler's life (``calls``, one a bucket
-        on the card and none on the CPU, and ``ms``), counted in no other
-        phase."""
+        ``first_token_ms``), request counts (``requests``: finished,
+        queued, active, failed, shed, and the prefill retries), the decode
+        batch buckets and, two-phase, the routed-stream buckets
+        (``nnzb_buckets``), the ``timing`` split and ``pipeline``; fused,
+        ``capture`` holds the graph captures of the scheduler's life
+        (``calls``, one a bucket on the card -- again after ``kv_wide`` --
+        and none on the CPU, and ``ms``), counted in no other phase;
+        ``health`` as :meth:`ServeLoop.summary`'s, with the failed and the
+        shed requests (uid and reason)."""
         out = self._phase_summary()
         dec = out.get("decode")
         if dec and dec["seconds"] > 0:
@@ -1099,7 +1503,14 @@ class ServeScheduler(_ServeBase):
             [r.first_token_s for r in reqs])
         out["requests"] = {"finished": len(self.finished),
                            "queued": len(self.queue),
-                           "active": len(self.active)}
+                           "active": len(self.active),
+                           "failed": len(self.failed),
+                           "shed": len(self.shed),
+                           "retries": sum(r.retries for r in reqs
+                                          + self.failed)}
+        for key in ("failed", "shed"):
+            out["health"][key] = [{"uid": r.uid, "reason": r.fail_reason}
+                                  for r in getattr(self, key)]
         out["batch_buckets"] = sorted(self.batch_buckets)
         if self.two_phase:
             out["nnzb_buckets"] = sorted(

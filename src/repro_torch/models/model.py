@@ -129,6 +129,30 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     return {"slots": tuple(slots)}
 
 
+def blank_cache_row(cache, row: int):
+    """Batch row ``row`` of a stacked decode cache back to its freshly
+    made state, **in place**: zeros in every leaf of two or more dims,
+    except the quantization scales ``k_scale`` / ``v_scale``, which go back
+    to 1.0 (the all-zero convention of ``precision.quantize_rows``, as
+    :func:`init_cache` makes them).  A scheduler blanks the row of a
+    poisoned request it fails, so no NaN / Inf state reaches the next
+    request admitted into it; every other row is untouched, and a captured
+    decode graph over the cache sees the write.  Returns ``cache``."""
+
+    def blank(node, key=None):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                blank(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                blank(v)
+        elif node.dim() >= 2:
+            node[:, row].fill_(1.0 if key in _SCALE_LEAVES else 0)
+
+    blank(cache)
+    return cache
+
+
 def cache_capacity(cache) -> Optional[int]:
     """Sequence capacity of a decode cache: the shortest attention K/V
     cache, or None for a stack without attention (recurrent state only),

@@ -516,7 +516,8 @@ def test_summary_identities():
     assert s["token_latency_ms"]["n"] == n_tok
     assert s["first_token_ms"]["n"] == N_REQ
     assert s["token_latency_ms"]["p50"] <= s["token_latency_ms"]["p99"]
-    assert s["requests"] == {"finished": N_REQ, "queued": 0, "active": 0}
+    assert s["requests"] == {"finished": N_REQ, "queued": 0, "active": 0,
+                             "failed": 0, "shed": 0, "retries": 0}
     assert s["prefill"]["calls"] == N_REQ
     n_moe = cfg.n_repeats * cfg.block_unit.count("attn+moe")
     assert s["route"]["calls"] == s["execute"]["calls"] \
