@@ -141,7 +141,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    rung on the int8-KV scheduler (``fail_threshold=1``: the pool f32
    without scales, every bucket used afterwards captured again, the other
    15 requests finished, one host sync a fused step), and the decode tok/s
-   of the fused scheduler with and without the retry's save;
+   of the fused scheduler with and without the retry's save; then the
+   port's benchmarks on the same weights: ``bench_serve.run`` on the
+   reference's ``synth_trace`` law at this phase's sizes (16 requests,
+   prompts 64-512, budgets 8-32, a pair every 2 steps, numpy seed 24),
+   fused gather and two-phase bcsr at depths 0 and 1 and each under
+   ``FaultPlan.random(17, uids, 0.3)`` (16 of 16 in every healthy run,
+   serial == pipelined and bcsr == gather tokens, survivors == the healthy
+   run, a fault fired, ``compile_signatures`` within its bound, K2 once an
+   execute call); and ``bench_moe.run`` / ``run_host_dispatch`` at the
+   reference's shapes (its ``torch.equal`` checks, each jit-compiled call
+   of the reference replayed from a CUDA graph, K2 launched); the peak of
+   each quantized run is printed beside its own peak, the peak less the
+   bytes of phase 5's param leaves the quantized driver does not hold;
 7. masked serving on the same weights: 4 prompts of 2048 tokens through
    ``ServeLoop(attn_mask=local_global)`` (a synthetic pattern that
    exercises the masked kernels), 16 greedy tokens, once with the
@@ -209,6 +221,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``{"resilience": {...}}``: the faulted runs' failed uids, survivors
    equal, firings and syncs a step, the captures (count and ms) after
    ``kv_wide``, the save's cost on scout and rwkv6-7b, and the card;
+   then one line ``{"bench": {"serve": ..., "moe": ...}}``: the two
+   benchmarks' payloads (their rows, launches and wall seconds);
 12. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
@@ -291,8 +305,8 @@ def _counted():
 
 
 def reset_launches() -> None:
-    for fn, attr in _counted().values():
-        setattr(fn, attr, 0)
+    from repro_torch import kernels
+    kernels.reset_launches()
 
 
 def read_launches() -> dict:
@@ -1793,6 +1807,31 @@ def phase_scheduler(cfg, params):
                 "eos": eos, "tokens": toks["fused_gather0"]}
 
 
+def _tensors(tree):
+    """Every tensor of a param tree (a ``QuantTensor``'s values and
+    scales)."""
+    from repro_torch.core.precision import QuantTensor
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif isinstance(tree, QuantTensor):
+        tree = (tree.values, tree.scales)
+    elif not isinstance(tree, (tuple, list)):
+        yield tree
+        return
+    for leaf in tree:
+        yield from _tensors(leaf)
+
+
+def unreferenced_bytes(params, held) -> int:
+    """The bytes of the leaves of ``params`` whose storage no tensor of the
+    driver's param tree ``held`` shares (with ``quantize_experts``, the wide
+    expert matrices): resident only because the caller keeps ``params``, so
+    a driver's own peak is the device peak less these."""
+    ptrs = {t.untyped_storage().data_ptr() for t in _tensors(held)}
+    return sum(t.nbytes for t in _tensors(params)
+               if t.untyped_storage().data_ptr() not in ptrs)
+
+
 # the quantized phase: (label, ServeLoop keywords) of its 4 x 256 runs
 QUANT_RUNS = (
     ("int8 experts + int8 KV, bcsr two-phase",
@@ -1871,12 +1910,16 @@ def phase_quant_serving(cfg, params, wide_sched):
                   f"{label}: a fused step synced {syncs} times, waited "
                   f"{waits}")
         peak = torch.cuda.max_memory_allocated() / 1e9
+        idle = unreferenced_bytes(params, loop.params) / 1e9
         row = {**fused_numbers(label, summary, capture, counts),
-               "peak_gb": peak, "step_syncs": syncs,
+               "peak_gb": peak, "own_peak_gb": peak - idle,
+               "unreferenced_gb": idle, "step_syncs": syncs,
                "tokens": tokens[:, :8].tolist()}
         print_fused(row)
-        print(f"    peak {peak:.1f} GB; host syncs of an extra fused step "
-              f"{syncs}; tokens {tokens[0, :8].tolist()} ...")
+        print(f"    peak {peak:.1f} GB (its own {peak - idle:.1f} GB: less "
+              f"{idle:.1f} GB of phase 5's param leaves it does not hold); "
+              f"host syncs of an extra fused step {syncs}; tokens "
+              f"{tokens[0, :8].tolist()} ...")
         del loop
         return tokens, first, row
 
@@ -1917,12 +1960,16 @@ def phase_quant_serving(cfg, params, wide_sched):
     stoks = {r.uid: list(r.tokens) for r in sched.finished}
     check(sorted(stoks) == list(range(len(trace))),
           f"int8 scheduler: finished {sorted(stoks)}")
+    idle = unreferenced_bytes(params, sched.params) / 1e9
     srow = {**scheduler_numbers("int8 experts + int8 KV, gather fused",
                                 sched, wall),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "unreferenced_gb": idle}
+    srow["own_peak_gb"] = srow["peak_gb"] - idle
     print_scheduler(srow)
     lat = wide_sched["token_latency_ms"]
-    print(f"    peak {srow['peak_gb']:.1f} GB; wide (phase 6, "
+    print(f"    peak {srow['peak_gb']:.1f} GB (its own "
+          f"{srow['own_peak_gb']:.1f} GB); wide (phase 6, "
           f"{wide_sched['label']}): decode "
           f"{wide_sched['decode_tok_per_s']:.1f} tok/s, token p50 / p99 "
           f"{lat['p50']:.2f} / {lat['p99']:.2f} ms, capture "
@@ -2195,6 +2242,123 @@ def phase_resilience(cfg, params, clean: dict, step_syncs: dict,
           f"{sc['save']['bytes']} bytes (bound {sc['save']['bound_ms']:.4f} "
           f"ms); {card}")
     return out
+
+
+# the bench phases: bench_serve's trace law (``synth_trace``) at phase 6's
+# sizes and seed, and its healthy-vs-faulty row at this fault rate
+BENCH_TRACE = dict(n_requests=SCHED_REQUESTS, prompt_lo=64, prompt_hi=512,
+                   gen_lo=8, gen_hi=32, arrival_every=2)
+BENCH_FAULT_RATE = 0.3
+
+
+def phase_bench_serve(cfg, params):
+    """``repro_torch.benchmarks.bench_serve`` at full width on phase 5's
+    weights: :data:`BENCH_TRACE` (seed SCHED_SEED, SCHED_SLOTS slots,
+    ``max_seq`` SCHED_MAX_SEQ) through fused gather and two-phase bcsr
+    schedulers at depths 0 and 1, and each at depth 1 under
+    ``FaultPlan.random(17, uids, BENCH_FAULT_RATE)``, the plain decode
+    kernels guarded (:class:`no_plain`).  Checks: every healthy run
+    finishes all its requests; serial == pipelined tokens on each backend
+    and bcsr == gather; the faulted runs' survivors == the healthy run and
+    at least one fault fired; ``compile_signatures`` <= ``signature_bound``;
+    K2 launched once an execute call in each healthy bcsr run and never in
+    a gather run; no attention oracle fallback.  Returns the payload (the
+    tokens dropped) with its wall seconds."""
+    from repro_torch.benchmarks import bench_serve
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    n = BENCH_TRACE["n_requests"]
+    print(f"bench_serve at full width: {n} requests of synth_trace (prompts "
+          f"{BENCH_TRACE['prompt_lo']}-{BENCH_TRACE['prompt_hi']}, budgets "
+          f"{BENCH_TRACE['gen_lo']}-{BENCH_TRACE['gen_hi']}, seed "
+          f"{SCHED_SEED}), {SCHED_SLOTS} slots, fault rate "
+          f"{BENCH_FAULT_RATE}:")
+    fallbacks = flash_ops.fallback_count()
+    t0 = time.monotonic()
+    with no_plain():
+        payload = bench_serve.run(
+            cfg=cfg, params=params, trace_kw=dict(BENCH_TRACE,
+                                                  vocab=cfg.vocab_size),
+            max_seq=SCHED_MAX_SEQ, slots=SCHED_SLOTS, seed=SCHED_SEED,
+            fault_rate=BENCH_FAULT_RATE, device="cuda")
+    wall = time.monotonic() - t0
+    check(flash_ops.fallback_count() == fallbacks,
+          "bench_serve: attention oracle fallbacks")
+    for backend in ("gather", "bcsr"):
+        e = payload[backend]
+        runs = (e, e["pipelined"])
+        check(all(r["requests_finished"] == n for r in runs),
+              f"bench_serve {backend}: finished "
+              f"{[r['requests_finished'] for r in runs]} of {n}")
+        check(e["ab"]["tokens_match"],
+              f"bench_serve {backend}: serial != pipelined tokens")
+        fl = e["fault"]
+        check(fl["survivor_tokens_match"] and fl["faults_triggered"] >= 1,
+              f"bench_serve {backend}: fault row {fl}")
+        for r in runs:
+            k2 = r["launches"].get("spmm_bcsr", 0)
+            if backend == "bcsr":
+                check(r["two_phase"]
+                      and r["compile_signatures"] <= r["signature_bound"]
+                      and k2 == r["execute_calls"] > 0,
+                      f"bench_serve bcsr depth {r['pipeline_depth']}: "
+                      f"signatures {r.get('compile_signatures')} (bound "
+                      f"{r.get('signature_bound')}), K2 {k2} for "
+                      f"{r.get('execute_calls')} executes")
+            else:
+                check(not r["two_phase"] and k2 == 0,
+                      f"bench_serve gather: two-phase {r['two_phase']}, "
+                      f"K2 {k2}")
+    check(payload["bcsr"].pop("tokens") == payload["gather"].pop("tokens"),
+          "bench_serve: bcsr tokens != gather tokens")
+    for line in bench_serve.rows(payload):
+        print(f"  {line}")
+    for backend in ("gather", "bcsr"):
+        e = payload[backend]
+        peaks = [r["peak_gb"] for r in (e, e["pipelined"], e["fault"])]
+        cap = " / ".join(f"{r['capture']['ms']:.1f}" if r["capture"]
+                         else "-" for r in (e, e["pipelined"], e["fault"]))
+        extra = (f"; compile_signatures {e['compile_signatures']} / "
+                 f"{e['pipelined']['compile_signatures']} (bound "
+                 f"{e['signature_bound']}), K2 {e['launches']['spmm_bcsr']}"
+                 f" / {e['pipelined']['launches']['spmm_bcsr']}"
+                 if backend == "bcsr" else "")
+        print(f"  {backend}: peak GB serial / pipelined / faulty "
+              + " / ".join(f"{p:.1f}" for p in peaks)
+              + f"; capture ms {cap}; ladder {e['fault']['ladder']}{extra}")
+    print(f"  bcsr tokens == gather tokens, {n} of {n} finished in each "
+          f"healthy run; bench_serve wall {wall:.1f} s")
+    payload["wall_s"] = wall
+    return payload
+
+
+def phase_bench_moe():
+    """``repro_torch.benchmarks.bench_moe`` at the reference's shapes on the
+    card: ``run`` (its ``torch.equal`` checks: bcsr == gather in the layer,
+    two-phase == gather, pipelined chain == serial chain) and
+    ``run_host_dispatch``, the plain decode kernels guarded; every call the
+    reference jit-compiles replayed from a CUDA graph; K2's launches
+    counted (from 0) and at least one.  Returns the payload, the launches
+    and the wall seconds."""
+    from repro_torch.benchmarks import bench_moe
+    print("bench_moe at the reference's shapes (T 4096, d 256, 16 experts; "
+          "the in-layer A/B at 512 x 128):")
+    bench_json: dict = {}
+    reset_launches()
+    t0 = time.monotonic()
+    with no_plain():
+        rows = bench_moe.run(bench_json, device="cuda")
+        rows += bench_moe.run_host_dispatch(bench_json, device="cuda")
+    wall = time.monotonic() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    modes = [*bench_json["two_phase"]["modes"].values(),
+             *bench_json["host_dispatch"]["modes"].values()]
+    check(launches.get("spmm_bcsr", 0) > 0 and set(modes) == {"graph"},
+          f"bench_moe: launches {launches}, modes {modes}")
+    bench_json["rows"] = rows
+    for line in rows:
+        print(f"  {line}")
+    print(f"  launches {launches}; bench_moe wall {wall:.1f} s")
+    return {**bench_json, "launches": launches, "wall_s": wall}
 
 
 def _attn_prompts(cfg):
@@ -4152,6 +4316,8 @@ def main() -> int:
     resilience = phase_resilience(cfg, params, clean,
                                   scheduler["step_syncs"], card)
     del clean
+    bench = {"serve": phase_bench_serve(cfg, params),
+             "moe": phase_bench_moe()}
     mask, masked, mask_ms, masked_stream, masked1, masked_calls = \
         phase_masked_serving(cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
@@ -4229,6 +4395,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))
     print(json.dumps({"resilience": resilience}))
+    print(json.dumps({"bench": bench}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

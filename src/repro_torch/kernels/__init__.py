@@ -1,10 +1,11 @@
 """The port's kernels.  Each wrapper counts its launches in an attribute of
 its own function (``spmm_bcsr.launches`` and so on); :func:`launch_counters`
-names them all, so a serving loop that replays a captured CUDA graph, which
-runs no wrapper, can add the launches its capture recorded."""
+names them all, so a caller that replays a CUDA graph
+(:func:`capture_graph`), which runs no wrapper, can add the launches its
+capture recorded."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 
 def launch_counters() -> Dict[str, Tuple[Callable, str]]:
@@ -41,3 +42,44 @@ def add_launches(counts: Dict[str, int]) -> None:
     for name, (fn, attr) in launch_counters().items():
         if counts.get(name):
             setattr(fn, attr, getattr(fn, attr) + counts[name])
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def capture_graph(fn: Callable, device, *, pool=None,
+                  warmup: int = 2) -> Tuple[Any, Any, Dict[str, int]]:
+    """``fn()`` as one CUDA graph on ``device``, in the memory pool
+    ``pool`` when given.  ``warmup`` calls run first on a side stream under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside ``fn``
+    raises there, before it could break the capture, and each kernel's
+    first-use build is done.  The warm-up and the capture add nothing to
+    the launch counts.  Returns (graph, the captured call's output, the
+    launches the capture recorded by kernel name): a replay runs no
+    wrapper, so its caller adds those (:func:`add_launches`)."""
+    import torch
+    counts = read_launches()
+    try:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = read_launches()
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+        after = read_launches()
+    finally:
+        add_launches({k: counts[k] - v for k, v in read_launches().items()})
+    return graph, out, {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}

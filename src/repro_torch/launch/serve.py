@@ -299,30 +299,8 @@ class _FusedDecode:
         return logits
 
     def _capture(self, device: torch.device, pool) -> None:
-        counts = kernels.read_launches()
-        try:
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                with torch.cuda.stream(side):
-                    for _ in range(self.WARMUP):
-                        self._decode()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            torch.cuda.current_stream(device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            before = kernels.read_launches()
-            with torch.cuda.graph(graph, pool=pool):
-                self.logits = self._decode()
-            after = kernels.read_launches()
-        finally:            # the warm-up and the capture count nothing
-            kernels.add_launches({k: counts[k] - v for k, v in
-                                  kernels.read_launches().items()})
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
-        self.graph = graph
+        self.graph, self.logits, self.launches = kernels.capture_graph(
+            self._decode, device, pool=pool, warmup=self.WARMUP)
 
     def load(self, cache) -> None:
         """A prefill cache into the static cache, leaf by leaf."""
@@ -398,6 +376,8 @@ class _ServeBase:
         self.stats: List[StepStat] = []
         self.cache = None
         self._fused: Dict[int, _FusedDecode] = {}
+        # two-phase: the distinct execute signatures (:meth:`_note_execute`)
+        self._exec_keys: set = set()
         self.fault_plan = fault_plan
         self.retry = retry if retry is not None else R.RetryPolicy()
         self.health = R.HealthTracker()
@@ -485,17 +465,31 @@ class _ServeBase:
     def _moe_fn(self):
         return self._moe_two_phase if self._routed() else self._moe_gather
 
+    def _note_execute(self, plan: moe.MoEPlan, h: torch.Tensor) -> None:
+        """Record the execute's signature, the reference's phase-2 compile
+        key: (capacity, backend, ``h``'s shape, and for "bcsr" the stream's
+        nnzb and shape).  The port compiles nothing; the count of distinct
+        signatures (``compile_signatures`` in the summary) is the number of
+        execute shapes one captured graph a shape would need."""
+        self._exec_keys.add((plan.capacity, plan.backend, tuple(h.shape),
+                             None if plan.stream is None
+                             else (plan.stream.nnzb,)
+                             + tuple(plan.stream.shape)))
+
     def _moe_gather(self, p_ffn, h, cfg, counts=None, pos=None):
-        """Two-phase gather's MoE stage: one ``moe.apply_moe`` call, with
-        the fault hooks of :meth:`_moe_two_phase` around it at the same
-        points (``attention`` and ``route`` on ``h``, ``execute`` on the
-        output), so each call counts once a layer as the reference's
-        route -> execute stage does."""
+        """Two-phase gather's MoE stage: ``moe.apply_moe``'s two halves
+        back to back (no host read between them), with the fault hooks of
+        :meth:`_moe_two_phase` around them at the same points
+        (``attention`` and ``route`` on ``h``, ``execute`` on the output)
+        and its execute signature, so each call counts once a layer as the
+        reference's route -> execute stage does."""
         step = self._step_label()
         h = self._fault("attention", h, step=step)
         h = self._fault("route", h, step=step)
-        out, counts = moe.apply_moe(p_ffn, h, cfg, counts=counts, pos=pos,
-                                    dispatch=self.backend)
+        plan, _ = moe.route_moe(p_ffn, h, cfg, counts=counts, pos=pos,
+                                dispatch=self.backend)
+        self._note_execute(plan, h)
+        out, counts = moe.execute_moe(p_ffn, h, plan, cfg)
         return self._fault("execute", out, step=step), counts
 
     def _route_ahead(self) -> bool:
@@ -541,6 +535,7 @@ class _ServeBase:
             tokens=h.shape[0] * h.shape[1],
             extra={**info, "drain_s": drain_s, "pipelined": pipelined,
                    "hidden_s": info["wait_s"] if busy else 0.0}))
+        self._note_execute(plan, h)
         t0 = time.monotonic()
         out, new_counts = moe.execute_moe(p_ffn, h, plan, cfg)
         out = self._fault("execute", out, step=step)
@@ -550,13 +545,14 @@ class _ServeBase:
             "execute", step, time.monotonic() - t0,
             tokens=h.shape[0] * h.shape[1],
             extra={"nnzb_stream": info.get("nnzb_stream"),
+                   "compile_signatures": len(self._exec_keys),
                    "dispatch_only": pipelined}))
         return out, new_counts
 
     def _phase_summary(self) -> Dict[str, Any]:
         """Per-phase seconds and calls, the routed-stream accounting, the
-        ``timing`` split and, fused, the graph captures (see
-        :meth:`ServeLoop.summary`)."""
+        ``timing`` split and ``compile_signatures`` (two-phase) or the
+        graph captures (fused; see :meth:`ServeLoop.summary`)."""
         out: Dict[str, Any] = {}
         for phase in ("prefill", "route", "execute", "decode", "drain"):
             ss = [s for s in self.stats if s.phase == phase]
@@ -589,7 +585,9 @@ class _ServeBase:
             "attention_ref_fallbacks":
                 flash_ops.fallback_count() - self._fallback_base}
         out["pipeline"] = {"depth": self.pipeline_depth}
-        if not self.two_phase:
+        if self.two_phase:
+            out["compile_signatures"] = len(self._exec_keys)
+        else:
             caps = [s.seconds for s in self.stats if s.phase == "capture"]
             out["capture"] = {"calls": len(caps), "ms": sum(caps) * 1e3}
         out["health"] = {
@@ -789,6 +787,7 @@ class ServeLoop(_ServeBase):
         exception mid-run releases every in-flight execute before it
         propagates."""
         self.stats.clear()
+        self._exec_keys.clear()
         self._fallback_base = flash_ops.fallback_count()
         self._pipe.drain()
         self._gen.manual_seed(self._sample_seed)
@@ -817,7 +816,10 @@ class ServeLoop(_ServeBase):
         run's graph captures (``calls`` and ``ms``; 0 when the run reused
         its batch's graph, and on the CPU), counted in no other phase.
         ``stream`` is the routed-stream
-        accounting of two-phase mode.  ``timing`` splits the route phase
+        accounting of two-phase mode, and ``compile_signatures`` its count
+        of distinct execute signatures (:meth:`_ServeBase._note_execute`:
+        the execute shapes one graph a shape would need), both backends,
+        cleared at each :meth:`run`.  ``timing`` splits the route phase
         into ``host_route_ms`` (route minus its slot-fetch wait) and
         ``route_wait_ms``, gives the attention drains before the routes
         (``attn_drain_ms``, depth 0), the waited execute walls
@@ -1484,7 +1486,9 @@ class ServeScheduler(_ServeBase):
         ``first_token_ms``), request counts (``requests``: finished,
         queued, active, failed, shed, and the prefill retries), the decode
         batch buckets and, two-phase, the routed-stream buckets
-        (``nnzb_buckets``), the ``timing`` split and ``pipeline``; fused,
+        (``nnzb_buckets``) and ``compile_signatures`` (over the
+        scheduler's life, bounded by the batch-bucket law), the ``timing``
+        split and ``pipeline``; fused,
         ``capture`` holds the graph captures of the scheduler's life
         (``calls``, one a bucket on the card -- again after ``kv_wide`` --
         and none on the CPU, and ``ms``), counted in no other phase;
