@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7, and the decode kernels D1, R1
    and W1: eight sources), one ``nvcc`` each,
    all started together, with build seconds and register counts (the flash
-   kernels' by name, with their shared memory), and the count of
+   kernels' by name, with their shared memory; the bf16 flash instances at
+   D 256 must show no spills), and the count of
    tensor-core instructions in the flash library's SASS;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), (8, 1), (16, 32), empty
@@ -20,14 +21,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    16-byte vector), and a ``bn`` off the column unit refused; K3, K4m and
    K4s on random q, k, v
    (f32 and bf16 -- bf16 runs on the tensor cores, f32 on the CUDA cores --
-   GQA 4/2 at D 64 and 16 and 40/8 at D 128, tiles 32, 16 and 64, the
+   GQA 4/2 at D 64 and 16, 40/8 at D 128 and 16/8 at D 256, tiles 32, 16
+   and 64, the
    reference's mask pattern zoo, bucketed and unbucketed streams, a window,
    a nonzero q_offset, ragged S through ``ops.attention``, causal or not),
    with the laws K4s == K4m, bucketed == unbucketed and K4s on a plain
-   causal / window mask == K3 as ``torch.equal``; D1 (one-token decode
-   attention; q and cache bf16 or f32, D 16 / 64 / 128, GQA 40/8 and 4/2,
-   per-row ``kv_len`` from 1 to the cache's 544, 2,064 or 16,400, the
-   last past the CTAs' shared score budget, windows, vacant rows) and
+   causal / window mask == K3 as ``torch.equal``; gemma3-12b's local
+   attention at D 256 (16/8 heads, a ragged 1,500 tokens, window 1,024)
+   through ``ops.attention`` against the host's plain version, K4s == K4m
+   == K3; D1 (one-token decode
+   attention; q and cache bf16 or f32, D 16 / 64 / 128 / 256, GQA 40/8,
+   4/2 and 16/8, per-row ``kv_len`` from 1 to the cache's 544, 1,024 (a
+   ring), 2,064 or 16,400, the last past the CTAs' shared score budget,
+   windows, vacant rows) and
    R1 (the router logits, d 5120 x 16 experts, x and W bf16 or f32, at
    every tile regime and its edges from 1 to 8,192 tokens, and at d
    40,960, E 5, d 200, E 128, d 201 and 202 and x and W off a 16-byte
@@ -36,7 +42,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    at each of its token counts) == the row alone, D1 in a cache 1,520
    positions larger == in the case's, a scalar ``kv_len`` == a vector of equal
    values, each kernel == its order emulated in PyTorch;
-   float16 and other head dims refused; then, as
+   float16 and other head dims (32, 192) refused; then, as
    ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
    tiles; K6b's march on interiors no multiple of its tile or run, rows
    at every 4-byte offset, tz below its ring, and two 3-D specs of no
@@ -60,7 +66,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain step's, y within 1e-5 of the plain step's largest |y|, and row
    i at B in {1, 2, 3, 4, 8, 16} == the row alone; and R1 at rwkv6-7b's
    decay-LoRA decode shapes (4096 x 64 with x bf16 and f32, 64 x 4096)
-   == its emulated order, rows == alone;
+   == its emulated order, rows == alone; and R1 as the decode norms' row
+   sum at d 4096, 5120, 3840 and 256 on 4, 32, 64 and 128 rows (both
+   sides of the few-token kernel's 64) == its emulated order, rows ==
+   alone, within 1e-5 of ``torch.sum``;
 4. small f32 configs must give the same logits on the card and on the
    CPU: llama4-scout SMOKE prefill with chunked attention, masked attention
    (K4s) and kernel attention (K3); rwkv6-7b SMOKE prefill (K7 once a
@@ -191,15 +200,38 @@ Phases, in order; any failure raises and the script exits nonzero:
    exception after a replay, retried: 8 of 8 and every pool leaf (``wkv``,
    the shifts) ``torch.equal`` to the fault-free run's; decode tok/s with
    and without the retry's save;
-10. the sparse library slice at the paper's workload sizes, data made on
+10. gemma3-12b serving at full width and depth (``CONFIG``: d_model 3840,
+   16/8 heads of 256, d_ff 15360, vocab 262,144, 48 layers, 40 of them
+   local with a window of 1,024 and ring-buffer caches, qk_norm; random
+   bf16 weights from a seed, ~25.6 GB), after the RWKV weights are freed:
+   ``ServeLoop`` serves 4 prompts of 1,536 tokens (past the window, so the
+   prefill's rings have wrapped) and 64 greedy tokens, fused and layered
+   (tokens equal, the first decode step's logits ``torch.equal``; D1 48
+   and R1 193 a decode step -- ln1, ln2, q_norm and k_norm a layer and the
+   final norm in row order -- no plain version on the card; the first
+   decode step's ln1, q_norm and k_norm squares through R1 == its
+   emulated order, rows == alone, near ``torch.sum``); the sliding
+   mask (K4s / K4m on the 40 local layers) and ``local_global`` (all 48),
+   sparse == dense tokens; the kernel prefill (K3 x 48); one decode step
+   each traced; then ``ServeScheduler`` (8 slots, fused) on 8 requests of
+   900-1,100 prompt tokens and 48-144 budgets (rows cross the window at
+   different steps), wide and with ``kv_quant="int8"`` (global layers
+   narrow, rings wide): one graph a bucket, every request == itself alone
+   (8 of 8 each), the norms of bucket 8's first step (q_norm 128 rows: the
+   many-token R1) checked as the loop's; the phase's peak printed; then
+   the D 256 rows of K3 / K4m / K4s (a local layer's captured q, k, v,
+   the global layer's K3 beside) and D1 (the ring and global calls of the
+   first decode step, B 1 and 8 beside);
+11. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
    8192^2 A (5 %) x B (1 %), wide and with fp8 e4m3 ``a_scales``, and
    ``spmm.ops.spmm`` on a banded 8192^2 fp8 e4m3 BCSR (bandwidth 512,
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
-11. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound; K2, D1, R1, K3, K4m, K4s, K7, W1, K6a, K6b, K5, K2q; D1, R1 and
+12. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
+   bound; K2, D1, R1, K3, K4m, K4s, K7, W1, K3 / K4m / K4s / D1 at D 256,
+   K6a, K6b, K5, K2q; D1, R1 and
    W1 on the calls the serving runs made (decode steps at 4 x 256, the
    scheduler's top bucket, 4 x 2048; R1's prefills; W1 and R1's
    decay-LoRA products at the RWKV-6 decode's first step, W1 at B 1 and 8
@@ -223,7 +255,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``kv_wide``, the save's cost on scout and rwkv6-7b, and the card;
    then one line ``{"bench": {"serve": ..., "moe": ...}}``: the two
    benchmarks' payloads (their rows, launches and wall seconds);
-12. last line: {"ok": true, "device": {...}}.
+13. last line: {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a run of the main path and read
 just after it; launches made to compare a kernel with its plain version or
@@ -348,10 +380,11 @@ class no_plain:
 
 
 class hook_calls:
-    """While on, every call of D1 (through ``flash_attention.ops``) and of
-    R1 (through ``models.moe``) first goes to ``keep(name, args, kwargs)``,
-    ``name`` "decode_attention" or "router_logits"; the kernels' launch
-    counts are untouched."""
+    """While on, every call of D1 and of the prefill attention (through
+    ``flash_attention.ops``, as ``models.layers`` calls them) and of R1
+    (through ``models.moe``) first goes to ``keep(name, args, kwargs)``,
+    ``name`` "decode_attention", "attention" or "router_logits"; the
+    kernels' launch counts are untouched."""
 
     def __init__(self, keep):
         self.keep = keep
@@ -360,6 +393,7 @@ class hook_calls:
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.models import moe
         self.saved = [(fops, "decode_attention", fops.decode_attention),
+                      (fops, "attention", fops.attention),
                       (moe, "router_logits", moe.router_logits)]
         for mod, name, fn in self.saved:
             def hooked(*a, _fn=fn, _name=name, **kw):
@@ -377,16 +411,22 @@ class hook_calls:
 class keep_row_sum:
     """While on, the first call of ``router.ops.row_sum`` (the sum of
     squares of a decode step's first rmsnorm, R1 on the card) keeps a copy
-    of its argument in ``self.x``; every call goes on as before and the
-    launch counts are untouched."""
+    of its argument in ``self.x``, and the first call of each shape one in
+    ``self.shapes`` (shape: copy); calls made while a CUDA graph is being
+    captured are not kept.  Every call goes on as before and the launch
+    counts are untouched."""
 
     def __enter__(self):
+        import torch
         from repro_torch.kernels.router import ops as rops
-        self.x, self.entry = None, rops.row_sum
+        self.x, self.shapes, self.entry = None, {}, rops.row_sum
 
         def kept(x):
-            if self.x is None:
-                self.x = x.clone()
+            if not torch.cuda.is_current_stream_capturing() \
+                    and tuple(x.shape) not in self.shapes:
+                self.shapes[tuple(x.shape)] = x.clone()
+                if self.x is None:
+                    self.x = self.shapes[tuple(x.shape)]
             return self.entry(x)
 
         rops.row_sum = kept
@@ -398,11 +438,16 @@ class keep_row_sum:
         return False
 
 
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn+moe")
+
+
 def decode_norms(cfg) -> int:
     """The rmsnorms of one decode step, each summed by R1 on the card
-    (``layers.rmsnorm(row_order=True)``): ln1 and ln2 an attention layer,
-    ln1, ln_x and ln2 an rwkv layer, and the final norm."""
-    per = {"attn": 2, "attn+moe": 2, "rwkv": 3}
+    (``layers.rmsnorm(row_order=True)``): ln1 and ln2 an attention layer
+    (and q_norm and k_norm where the config has ``qk_norm``), ln1, ln_x and
+    ln2 an rwkv layer, and the final norm."""
+    attn = 2 + 2 * cfg.qk_norm
+    per = {**{k: attn for k in ATTN_KINDS}, "rwkv": 3}
     return sum(per[k] for k in cfg.block_unit) * cfg.n_repeats + 1
 
 
@@ -414,12 +459,12 @@ def r1_per_step(cfg) -> int:
 
 
 def decode_counts(cfg, prefills: int, decode_steps: int, **others) -> dict:
-    """The launch counts of a serving run of llama4-scout that made
+    """The launch counts of a serving run of an attention stack that made
     ``prefills`` prefills and ``decode_steps`` decode steps: D1 once an
     attention layer a decode step, R1 once a MoE layer a prefill and
-    :func:`r1_per_step` times a decode step, and ``others``."""
-    n_attn = sum(k in ("attn", "attn+moe") for k in cfg.block_unit) \
-        * cfg.n_repeats
+    :func:`r1_per_step` times a decode step, and ``others`` (a dense stack
+    such as gemma3-12b's: no router, R1 the decode norms alone)."""
+    n_attn = sum(k in ATTN_KINDS for k in cfg.block_unit) * cfg.n_repeats
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
     return only(decode_attention=n_attn * decode_steps,
                 router_logits=n_moe * prefills + r1_per_step(cfg)
@@ -690,17 +735,17 @@ def phase_card():
     return card
 
 
-def _flash_resources(log: str) -> None:
+def _flash_resources(log: str) -> dict:
     """The flash kernels' registers, spills and shared memory (``-Xptxas
     -v``; the dynamic shared memory from ``tuning.flash_smem_bytes`` at 64
-    x 64 tiles), kernel by kernel."""
+    x 64 tiles), kernel by kernel.  Returns {(kernel, D): spill line}."""
     import re
     import torch
     from repro_torch.kernels import tuning
     if "ptxas" not in log:
         print(f"  flash_attention: {log}")
-        return
-    name, spills = None, ""
+        return {}
+    name, spills, seen = None, "", {}
     for line in log.splitlines():
         m = re.search(r"\d((?:tc_)?flash_(?:masked_|sparse_)?kernel)ILi(\d+)E",
                       line)
@@ -715,7 +760,9 @@ def _flash_resources(log: str) -> None:
                   f"{line.split(':', 1)[-1].strip()}; {spills}; "
                   f"{tuning.flash_smem_bytes(64, 64, d, dt)} bytes dynamic "
                   "smem at 64 x 64 tiles")
+            seen[kern, d] = spills
             name = None
+    return seen
 
 
 def kernel_resources(log: str) -> list:
@@ -771,7 +818,19 @@ def phase_build():
     print(f"build: {time.monotonic() - t0:.2f} s for {sorted(res)}")
     for name, r in res.items():
         if name == "flash_attention":
-            _flash_resources(r["log"] or "(built before this run: no report)")
+            spills = _flash_resources(r["log"] or "(no compiler report "
+                                      "beside the library)")
+            # the bf16 instances at D 256 hold a (64, 256) f32 accumulator
+            # (128 registers a thread): the build must show no spills
+            if not spills:
+                print("  flash_attention: the D 256 spill check was NOT run "
+                      "(no compiler report)")
+            for kern in ("tc_flash_kernel", "tc_flash_masked_kernel",
+                         "tc_flash_sparse_kernel"):
+                if spills:
+                    check("0 bytes spill stores, 0 bytes spill loads" in
+                          spills.get((kern, 256), ""),
+                          f"{kern}<256> spills: {spills.get((kern, 256))}")
             continue
         for kern, used, spills in kernel_resources(r["log"]):
             print(f"  {name} {kern}: {used}; {spills}")
@@ -894,7 +953,8 @@ def phase_attention_vs_plain():
     for dt in (torch.float32, torch.bfloat16):
         for B, Hq, Hkv, S, D, t in ((2, 4, 2, 256, 64, 32),
                                     (1, 40, 8, 512, 128, 64),
-                                    (1, 4, 2, 128, 16, 16)):
+                                    (1, 4, 2, 128, 16, 16),
+                                    (1, 16, 8, 512, 256, 64)):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to("cuda", dt) for shape in
                 ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
@@ -973,8 +1033,45 @@ def phase_attention_vs_plain():
                   f"tiles {t}: max_abs_err " + " ".join(
                       f"{n} {e:.3g}" for n, e in errs.items())
                   + "; K4s == K4m, bucketed == unbucketed, K4s(causal) == K3")
+        _gemma_window_case(rng, dt)
     check(ops.fallback_count() == 0,
           f"attention fell back to the oracle: {ops.fallback_reasons()}")
+
+
+GEMMA_WINDOW_S = 1500        # ragged: padded to 24 tiles of 64
+
+
+def _gemma_window_case(rng, dt):
+    """gemma3-12b's local attention at D 256: 16/8 heads, a ragged 1,500
+    tokens, the sliding window of 1,024 through ``ops.attention`` as the
+    model calls it -- K3 causal with the window, K4s and K4m on the
+    serving's sliding-window mask -- each against the host's plain version
+    (its own tiles, within :func:`tolerance`); K4s == K4m and K4s == K3 as
+    ``torch.equal`` (one tile update, the same 64 x 64 tiles)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.masks import BlockMask
+    from repro_torch.kernels.flash_attention import ops
+    S, W = GEMMA_WINDOW_S, 1024
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dt) for shape in
+        ((1, 16, S, 256), (1, 8, S, 256), (1, 8, S, 256)))
+    m = BlockMask.sliding_window(S, S, W, bq=64, bk=64)
+    got, errs = {}, {}
+    for name, kw in (("K3", dict(causal=True, window=W)),
+                     ("K4s", dict(mask=m, mask_impl="sparse")),
+                     ("K4m", dict(mask=m, mask_impl="dense"))):
+        got[name] = ops.attention(q, k, v, **kw)
+        want = ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw).cuda()
+        errs[name] = max_err(got[name], want,
+                             f"{name} D 256 window {W} S={S}")
+    check(torch.equal(got["K4s"], got["K4m"]), "D 256: K4s != K4m")
+    check(torch.equal(got["K4s"], got["K3"]),
+          "D 256: K4s on the sliding mask != K3 with the window")
+    print(f"  flash {str(dt)[6:]} D 256 16/8 S={S} window {W} (tiles 64, "
+          f"{m.nnzb}/{m.n_q_tiles * m.n_kv_tiles} visible): max_abs_err "
+          + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + "; K4s == K4m == K3(window)")
 
 
 # D1 vs plain: (Hq, Hkv, D, q dtype, cache dtype, window, cache) -- scout's
@@ -982,7 +1079,10 @@ def phase_attention_vs_plain():
 # windows, in 544-position caches; then rows up to 2,064 positions (up to
 # 65 chunks of 32, 9 a CTA), a window of 100 (lo off a chunk boundary), a
 # full group of 8, and a 16,400-position cache whose longest rows pass the
-# CTAs' shared score budget (13,056 positions at g 5: pass 2 recomputes)
+# CTAs' shared score budget (13,056 positions at g 5: pass 2 recomputes);
+# then gemma3-12b's 16/8 at D 256: a ring of 1,024 slots (every filled
+# slot visible, no window) and its 2,064-position full cache under the
+# window of 1,024 (per-row kv_len on both sides of the window)
 DECODE_CASES = (
     (40, 8, 128, "bfloat16", "bfloat16", None, 544),
     (40, 8, 128, "bfloat16", "bfloat16", 300, 544),
@@ -996,6 +1096,10 @@ DECODE_CASES = (
     (40, 8, 128, "bfloat16", "bfloat16", 100, 2064),
     (64, 8, 64, "bfloat16", "float32", None, 2064),
     (40, 8, 128, "bfloat16", "bfloat16", None, 16400),
+    (16, 8, 256, "bfloat16", "bfloat16", None, 1024),
+    (16, 8, 256, "float32", "float32", None, 1024),
+    (16, 8, 256, "bfloat16", "bfloat16", 1024, 2064),
+    (16, 8, 256, "bfloat16", "float32", 1024, 2064),
 )
 DECODE_ROWS, DECODE_CAP_MORE = 16, 1520    # the larger cache: S + 1,520
 BATCH_LAW = (1, 2, 3, 4, 8, 16)
@@ -1145,7 +1249,7 @@ def phase_decode_vs_plain():
           f"D1's cases reach only {sorted(reached)} of the partition")
     for bad, why in (((torch.float16, torch.float16, 128), "float16"),
                      ((torch.bfloat16, torch.bfloat16, 32), "head dim 32"),
-                     ((torch.bfloat16, torch.bfloat16, 256), "head dim 256")):
+                     ((torch.bfloat16, torch.bfloat16, 192), "head dim 192")):
         qdt, cdt, D = bad
         try:
             fk.decode_attention(rand((2, 4, 1, D), qdt),
@@ -1154,7 +1258,7 @@ def phase_decode_vs_plain():
         except (TypeError, ValueError):
             continue
         check(False, f"D1 took {why}")
-    print("  D1 refuses float16 and head dims 32, 256")
+    print("  D1 refuses float16 and head dims 32, 192")
 
     d, E = 5120, 16
     for xn, wn in ROUTER_PAIRS:
@@ -1280,6 +1384,8 @@ def phase_slice():
     decode_calls = {}
 
     def keep(name, args, kw):   # R1's first call (prefill), the last ones
+        if name == "attention":
+            return
         if name == "decode_attention":
             decode_calls["d1_decode"] = (args, kw)
         elif "r1_prefill" not in decode_calls:
@@ -1620,7 +1726,8 @@ def phase_scheduler(cfg, params):
 
     def keep(name, args, kw):   # the first D1 / R1 decode call at the top B
         x = args[0]                 # q (B, Hq, 1, D) or x (B, S, d)
-        if name == "router_logits" and x.shape[1] != 1:
+        if name == "attention" or (name == "router_logits"
+                                   and x.shape[1] != 1):
             return                                  # an admission's prefill
         key = "d1_bucket" if name == "decode_attention" else "r1_bucket"
         if key not in decode_calls \
@@ -2442,7 +2549,8 @@ def phase_masked_serving(cfg, params):
     def keep(name, args, kw):   # R1's first call (prefill), D1's last
         if name == "decode_attention":
             decode_calls["d1_long"] = (args, kw)
-        elif "r1_long_prefill" not in decode_calls:
+        elif name == "router_logits" \
+                and "r1_long_prefill" not in decode_calls:
             decode_calls["r1_long_prefill"] = (args, kw)
 
     for n, impl in enumerate(("sparse", "dense", "dense", "sparse")):
@@ -2612,16 +2720,22 @@ def phase_kernel_prefill(cfg, params):
             "logits_max_diff_ref": against["ref"][1]}, (q, k, v)
 
 
-def phase_measure_attention(qkv, mask, launches, card):
+def phase_measure_attention(qkv, mask, launches, card, *,
+                            k3_window=None, suffix="", names=None):
     """The K3, K4m and K4s rows at the slice's attention shape: layer 0's
     q, k, v of the 2048-token prompts (bf16), K3 causal, K4 on the serving
-    mask.  ``ms``: CUDA events over back-to-back launches; ``plain_ms``:
-    the plain tile loop; ``library_ms``: one
-    ``scaled_dot_product_attention`` call (``is_causal`` for K3, the mask's
-    dense boolean for K4; GQA heads expanded beforehand), a yardstick the
-    port never calls.  The bound is the larger of the FLOPs of the visible
-    score entries (4 D each: q k^T and p v) at the bf16 peak and the bytes
-    of q, k, v, the index arrays and the output moved once."""
+    mask (gemma3-12b's: a local layer's q, k, v at D 256, K3 causal under
+    ``k3_window``, K4 on the sliding-window mask, each row's name with
+    ``suffix``; ``names``: these kernels' rows alone).  ``ms``: CUDA events
+    over back-to-back launches (``graph_ms``: replayed from a CUDA graph);
+    ``plain_ms``: the plain tile loop;
+    ``library_ms``: one
+    ``scaled_dot_product_attention`` call (``is_causal`` for K3 without a
+    window, else the mask's dense boolean; GQA heads expanded beforehand),
+    a yardstick the port never calls.  The bound is the larger of the
+    FLOPs of the visible score entries (4 D each: q k^T and p v) at the
+    bf16 peak and the bytes of q, k, v, the index arrays and the output
+    moved once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.masks import BlockMask
@@ -2631,23 +2745,27 @@ def phase_measure_attention(qkv, mask, launches, card):
     B, Hq, S, D = q.shape
     g = Hq // k.shape[1]
     bq, bk = mask.bq, mask.bk
-    causal = BlockMask.causal(S, S, bq=bq, bk=bk)
+    causal = BlockMask.full(S, S, bq=bq, bk=bk, causal=True,
+                            window=k3_window)
     st = mask.lower(bucket=True)
     dev = lambda a: torch.as_tensor(a).to("cuda", torch.int32)  # noqa: E731
     kinds = dev(mask.tile_kinds)
     rows, cols, skinds = dev(st.rows), dev(st.cols), dev(st.kinds)
     k_rep, v_rep = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
     dense = torch.from_numpy(mask.dense_mask()).cuda()
+    k3_sdpa = (dict(is_causal=True) if k3_window is None else
+               dict(attn_mask=torch.from_numpy(causal.dense_mask()).cuda()))
     qkvo_bytes = 2 * q.numel() * q.element_size() \
         + (k.numel() + v.numel()) * k.element_size()
     calls = {
         "flash_attention": (
             ":84", causal, 0,
-            lambda: fk.flash_attention(q, k, v, causal=True, bq=bq, bk=bk),
-            lambda: ref.flash_attention_ref(q, k, v, causal=True, bq=bq,
-                                            bk=bk),
+            lambda: fk.flash_attention(q, k, v, causal=True,
+                                       window=k3_window, bq=bq, bk=bk),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                            window=k3_window, bq=bq, bk=bk),
             lambda: F.scaled_dot_product_attention(q, k_rep, v_rep,
-                                                   is_causal=True)),
+                                                   **k3_sdpa)),
         "flash_attention_masked": (
             ":212", mask, kinds.numel() * 4,
             lambda: fk.flash_attention_masked(q, k, v, kinds, skv=S,
@@ -2669,29 +2787,34 @@ def phase_measure_attention(qkv, mask, launches, card):
     }
     out = []
     for name, (line, m, idx_bytes, kern, plain, lib) in calls.items():
-        err = max_err(kern(), plain(), f"{name} at the slice's shape")
+        if names is not None and name not in names:
+            continue
+        err = max_err(kern(), plain(), f"{name}{suffix} at the slice's "
+                                       "shape")
         ms = time_ms(kern, 10, 2)
+        graph = graph_ms(kern)
         plain_ms = time_ms(plain, 2, 1)
         library_ms = time_ms(lib, 10, 2)
         entries = int(m.dense_mask().sum())
         ops_ms = 4 * B * Hq * D * entries / BF16_FLOP_PER_S * 1e3
         bytes_ms = (qkvo_bytes + idx_bytes) / HBM_BYTES_PER_S * 1e3
         out.append({
-            "name": name, "route": "cuda",
+            "name": name + suffix, "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": FLASH_SRC + line, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
+            "max_abs_err": err, "ms": ms, "graph_ms": graph,
+            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": library_ms,
             "tiles": {"bq": bq, "bk": bk, "visible": m.nnzb,
                       "dense": m.n_q_tiles * m.n_kv_tiles,
                       "visible_entries_per_head": entries},
             "shape": {"B": B, "Hq": Hq, "Hkv": k.shape[1], "S": S, "D": D,
-                      "dtype": str(q.dtype)[6:]},
+                      "dtype": str(q.dtype)[6:], "k3_window": k3_window},
             "card": card})
-        print(f"  {name}: {ms:.3f} ms (bound {max(ops_ms, bytes_ms):.4f}, "
+        print(f"  {name}{suffix}: {ms:.3f} ms (graph {graph:.3f}; bound "
+              f"{max(ops_ms, bytes_ms):.4f}, "
               f"plain {plain_ms:.1f}, sdpa {library_ms:.3f}), max_abs_err "
               f"{err:.3g}, tiles {m.nnzb}/{m.n_q_tiles * m.n_kv_tiles}")
     return out
@@ -3658,17 +3781,23 @@ WKV_STEP_HEADS = 64
 LORA_CASES = ((4096, 64, "bfloat16"), (4096, 64, "float32"),
               (64, 4096, "float32"))
 # R1 as the decode norms' row sum (``router.ops.row_sum`` of f32 x^2 by a
-# (d, 1) column of ones, E = 1): rwkv6-7b's d and llama4-scout's
-NORM_DIMS = (4096, 5120)
+# (d, 1) column of ones, E = 1): rwkv6-7b's d, llama4-scout's, and
+# gemma3-12b's d and head dim (qk_norm); at rows on both sides of
+# ``tuning.ROUTER_FEW_TOKENS`` (64): gemma's ln1 at B 4, k_norm at B 4,
+# q_norm at B 4 and at bucket 8 (8 x 16 heads)
+NORM_DIMS = (4096, 5120, 3840, 256)
+NORM_ROWS = (4, 32, 64, 128)
 
 
 def _row_sum_case(x2, what: str) -> float:
     """R1 as ``router.ops.row_sum`` on squared hidden states ``x2`` (T, d)
     f32: ``torch.equal`` to its emulated order (``router_logits_ordered``
-    by a column of ones), two launches ``torch.equal``, row i at each B of
-    BATCH_LAW up to T == the row alone, and within :func:`tolerance` (1e-5
-    of the largest sum: the same terms in another order) of the library's
-    ``x2.sum(-1)``.  Returns the error."""
+    by a column of ones), two launches ``torch.equal``, row i at T and at
+    each B of BATCH_LAW up to T == the row alone (past
+    ``tuning.ROUTER_FEW_TOKENS`` rows the many-token kernel against the
+    few-token one), and within :func:`tolerance` (1e-5 of the largest sum:
+    the same terms in another order) of the library's ``x2.sum(-1)``.
+    Returns the error."""
     import torch
     from repro_torch.kernels.router import ops as rops
     from repro_torch.kernels.router import ref as rref
@@ -3677,11 +3806,27 @@ def _row_sum_case(x2, what: str) -> float:
     check(torch.equal(got, rref.router_logits_ordered(x2, ones)),
           f"{what}: R1 != its emulated order")
     check(torch.equal(got, rops.row_sum(x2)), f"{what}: two launches differ")
+    T = x2.shape[0]
     check(_rows_alone_equal(rops.row_sum, lambda lo, hi: (x2[lo:hi],),
-                            sizes=tuple(b for b in BATCH_LAW
-                                        if b <= x2.shape[0])),
+                            sizes=tuple(sorted({b for b in BATCH_LAW
+                                                if b <= T} | {T}))),
           f"{what}: a row depends on its batch")
     return max_err(got, x2.sum(-1, keepdim=True), what)
+
+
+def _kept_row_sums(shapes: dict, what: str) -> None:
+    """:func:`_row_sum_case` on each decode norm's x^2 that
+    :class:`keep_row_sum` kept (``shapes``: shape: x^2), its rows the
+    leading axes (B, or B x heads for qk_norm)."""
+    from repro_torch.kernels import tuning
+    for shape, x2 in sorted(shapes.items()):
+        rows = x2.reshape(-1, shape[-1])
+        regime = "few" if rows.shape[0] <= tuning.ROUTER_FEW_TOKENS \
+            else "many"
+        err = _row_sum_case(rows, f"R1 row sum, {what} norm {shape}")
+        print(f"  R1 row sum, {what} decode norm {shape} ({rows.shape[0]} "
+              f"rows, {regime}-token kernel): == its emulated order, rows "
+              f"== alone, max_abs_err {err:.3g} against torch.sum")
 
 
 def _wkv_step_case(a, what: str) -> float:
@@ -3741,7 +3886,8 @@ def phase_wkv_vs_plain():
     BATCH_LAW == alone), and R1 at the decay LoRA's decode shapes
     (:data:`LORA_CASES`): each T of BATCH_LAW within 1e-5 of plain and
     ``torch.equal`` to its emulated order, rows == alone; and R1 as the
-    decode norms' row sum at :data:`NORM_DIMS` (:func:`_row_sum_case`)."""
+    decode norms' row sum at :data:`NORM_DIMS` x :data:`NORM_ROWS`
+    (:func:`_row_sum_case`)."""
     import torch
     from repro_torch.kernels import tuning
     from repro_torch.kernels.wkv import ops, ref
@@ -3805,11 +3951,12 @@ def phase_wkv_vs_plain():
         print(f"  {what}, T {BATCH_LAW}: max_abs_err {max(errs):.3g}; each "
               "== its emulated order; rows == alone")
     for d in NORM_DIMS:
-        x = torch.randn((n, d), generator=g, device="cuda")
-        what = f"R1 row sum (decode norm) {n} x {d}, x float32"
-        err = _row_sum_case(x * x, what)
-        print(f"  {what}: == its emulated order, rows of B {BATCH_LAW} == "
-              f"alone, max_abs_err {err:.3g} against torch.sum")
+        x = torch.randn((max(NORM_ROWS), d), generator=g, device="cuda")
+        what = f"R1 row sum (decode norm) d {d}, x float32"
+        err = max(_row_sum_case(x[:T] * x[:T], f"{what}, {T} rows")
+                  for T in NORM_ROWS)
+        print(f"  {what}, rows {NORM_ROWS}: == its emulated order, rows "
+              f"== alone, max_abs_err {err:.3g} against torch.sum")
 
 
 def phase_rwkv_smoke_card_vs_cpu():
@@ -4287,6 +4434,358 @@ def phase_measure_wkv_step(captured, launches, rows, card):
             "bucket8_call": eight, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# gemma3-12b serving at full width and depth: five local layers (a window of
+# 1,024, ring-buffer decode caches) to one global, qk_norm, head dim 256.
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH, GEMMA_PROMPT, GEMMA_GEN, GEMMA_MASK_GEN = "gemma3-12b", 1536, 64, 8
+# the scheduler's trace: prompts 900-1,100 tokens and budgets 48-144, so
+# that rows cross the window of 1,024 at different steps
+GEMMA_SCHED_REQUESTS, GEMMA_SCHED_SEED, GEMMA_SCHED_MAX_SEQ = 8, 33, 1280
+
+
+def gemma_trace(vocab: int):
+    """The gemma scheduler's requests, from ``default_rng``
+    (GEMMA_SCHED_SEED)."""
+    import numpy as np
+    rng = np.random.default_rng(GEMMA_SCHED_SEED)
+    return [(rng.integers(0, vocab, int(rng.integers(900, 1101))
+                          ).astype(np.int32), int(rng.integers(48, 145)))
+            for _ in range(GEMMA_SCHED_REQUESTS)]
+
+
+def _alone_report(loop, trace, toks, what: str) -> list:
+    """Each request of ``trace`` through ``loop`` alone (B = 1) against its
+    scheduled tokens; where one parts, the step and the tokens are
+    printed.  Returns one bool a request."""
+    alone = []
+    for i, (p, g) in enumerate(trace):
+        mine = loop.run(p[None], g)[0].tolist()
+        alone.append(mine == toks[i])
+        if mine != toks[i]:
+            at = next(j for j, (a, b) in enumerate(zip(mine, toks[i]))
+                      if a != b)
+            print(f"  {what}: request {i} (prompt {len(p)}) parts from "
+                  f"alone at token {at}: {toks[i][at:at + 4]} scheduled, "
+                  f"{mine[at:at + 4]} alone")
+    return alone
+
+
+def phase_gemma_scheduler(cfg, params):
+    """Continuous batching of gemma3-12b at full width and depth:
+    :func:`gemma_trace`'s 8 requests through ``ServeScheduler`` (8 slots,
+    fused: one CUDA graph a batch bucket over the pool's rows; the rings
+    written at each row's own slot), as :func:`drive_scheduler` submits
+    them, wide and with ``kv_quant="int8"`` (global layers narrow, rings
+    wide), counts set to 0 just before each: D1 once a layer and R1 once a
+    decode norm (q_norm and k_norm included) a decode step, replays
+    counted, no plain version on the card, one graph a bucket seen.  Each
+    request served alone through one fused ``ServeLoop`` (B = 1, the same
+    ``kv_quant``) must give its scheduled tokens: 8 of 8 in each run."""
+    from repro_torch.launch.serve import ServeLoop, ServeScheduler
+    trace = gemma_trace(cfg.vocab_size)
+    W = cfg.local_window
+    cross = [W - len(p) for p, g in trace if len(p) < W < len(p) + g]
+    print(f"gemma continuous batching: {len(trace)} requests, prompts "
+          f"{min(len(p) for p, _ in trace)}-{max(len(p) for p, _ in trace)}"
+          f", budgets {min(g for _, g in trace)}-{max(g for _, g in trace)}"
+          f", {SCHED_SLOTS} slots, max_seq {GEMMA_SCHED_MAX_SEQ}; "
+          f"{len(cross)} rows cross the window, at their decode steps "
+          f"{sorted(cross)}; {sum(len(p) >= W for p, _ in trace)} start "
+          "past it")
+    per_step = {"decode_attention": cfg.n_layers,
+                "router_logits": r1_per_step(cfg)}
+    runs = []
+    for key, kw in (("fused", {}), ("fused_int8", {"kv_quant": "int8"})):
+        sched = ServeScheduler(params, cfg, max_seq=GEMMA_SCHED_MAX_SEQ,
+                               max_slots=SCHED_SLOTS, **kw)
+        check(not sched.two_phase, "gemma's default scheduler is not fused")
+        reset_launches()
+        with no_plain(), keep_row_sum() as norm:
+            wall = drive_scheduler(sched, trace, {})   # the main path
+        counts = read_launches()
+        toks = {r.uid: list(r.tokens) for r in sched.finished}
+        check(sorted(toks) == list(range(len(trace))),
+              f"gemma scheduler {key}: finished {sorted(toks)}")
+        steps = sum(st.phase == "decode" for st in sched.stats)
+        want = decode_counts(cfg, len(trace), steps)
+        check(counts == want, f"gemma scheduler {key}: launches {counts} "
+                              f"!= {want} ({steps} decode steps)")
+        graphs = {b: f.graph is not None and f.launches == per_step
+                  for b, f in sched._fused.items()}
+        check(set(graphs) == sched.batch_buckets and all(graphs.values()),
+              f"gemma scheduler {key}: graphs {graphs} for buckets "
+              f"{sorted(sched.batch_buckets)}")
+        runs.append({**scheduler_numbers(f"gemma {key}", sched, wall),
+                     "d1_launches": counts["decode_attention"],
+                     "r1_launches": counts["router_logits"],
+                     "decode_steps": steps})
+        print_scheduler(runs[-1])
+        if key == "fused":
+            # each bucket's first decode step (its warm-up, before the
+            # capture): q_norm at bucket 8 is 128 rows, the many-token R1
+            top = max(sched.batch_buckets)
+            want_shapes = {(top, 1, cfg.d_model),
+                           (top, cfg.n_heads, 1, cfg.hd)}
+            check(top == SCHED_SLOTS and want_shapes <= set(norm.shapes),
+                  f"gemma scheduler: buckets {sorted(sched.batch_buckets)},"
+                  f" the decode norms kept {sorted(norm.shapes)}")
+            _kept_row_sums({k: v for k, v in norm.shapes.items()
+                            if k[0] == top}, f"gemma scheduler, bucket {top},")
+        del sched, norm
+        gc.collect()
+        loop = ServeLoop(params, cfg, max_seq=GEMMA_SCHED_MAX_SEQ, **kw)
+        with no_plain():
+            alone = _alone_report(loop, trace, toks, f"gemma {key}")
+        del loop
+        runs[-1]["alone_matches"] = sum(alone)
+        print(f"  {key}: {sum(alone)} of {len(trace)} requests give the "
+              f"tokens they get alone (B = 1); D1 {cfg.n_layers} and R1 "
+              f"{r1_per_step(cfg)} a decode step")
+        check(all(alone), f"gemma scheduler {key}: only {sum(alone)} of "
+                          f"{len(trace)} requests equal themselves alone")
+    return {"requests": len(trace), "slots": SCHED_SLOTS,
+            "max_seq": GEMMA_SCHED_MAX_SEQ, "window_crossings": sorted(cross),
+            "runs": runs}
+
+
+def phase_gemma_serving(card):
+    """gemma3-12b (``CONFIG``: d_model 3840, 16/8 heads of 256, d_ff 15360,
+    vocab 262,144, 48 layers, window 1,024; random bf16 weights from a
+    seed, ~25.6 GB) served on the card.  ``ServeLoop`` serves BATCH
+    prompts of GEMMA_PROMPT tokens (past the window: the prefill's rings
+    have wrapped) and GEMMA_GEN greedy tokens, fused (the default: the
+    decode step one replayed CUDA graph) and layered (``two_phase=True``):
+    the same tokens and first decode step logits ``torch.equal``; D1 once
+    a layer and R1 once a decode norm a decode step, nothing in the
+    chunked prefill, no plain version on the card.  Then the sliding
+    mask (K4s on the 40 local layers, K4m likewise) and ``local_global``
+    (K4s / K4m on all 48), each sparse == dense tokens; the kernel prefill
+    (K3 on all 48); one fused and one layered decode step traced; the
+    scheduler (:func:`phase_gemma_scheduler`).  Returns (summary, the
+    captured prefill q, k, v of a local and a global layer, the layered
+    run's first decode step's D1 calls on a ring and a global cache, the
+    launches of each kernel's run)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import model as M
+    cfg = get_config(GEMMA_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9
+    print(f"gemma serving: {cfg.name} d={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size} depth={cfg.n_layers} window={cfg.local_window} "
+          f"qk_norm={cfg.qk_norm}; params {gb:.1f} GB, init "
+          f"{time.monotonic() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, GEMMA_PROMPT),
+                            generator=g, device="cuda")
+    max_seq = GEMMA_PROMPT + GEMMA_GEN
+    loop = ServeLoop(params, cfg, max_seq=max_seq)
+    check(not loop.two_phase, "gemma3-12b's default loop is not fused")
+    loop.run(prompts, 2)                      # warm-up: allocator, capture
+    capture0 = loop.summary()["capture"]
+    reset_launches()
+    with no_plain():                          # the main path
+        tokens, fused_logits = first_step_logits(loop, prompts, GEMMA_GEN)
+    counts = read_launches()
+    want = decode_counts(cfg, 1, GEMMA_GEN - 1)
+    check(counts == want, f"gemma fused: launches {counts} != {want} (D1 "
+                          "a layer, R1 a decode norm a decode step)")
+    per_step = {"decode_attention": cfg.n_layers,
+                "router_logits": r1_per_step(cfg)}
+    check(loop.fused_step.launches == per_step, f"a gemma replay launches "
+          f"{loop.fused_step.launches}, not {per_step}")
+    check(tokens.shape == (BATCH, GEMMA_GEN) and (tokens >= 0).all()
+          and (tokens < cfg.vocab_size).all(), "gemma: bad token ids")
+    check(bool(torch.isfinite(fused_logits).all()),
+          "gemma: first decode step logits not finite")
+    summary = loop.summary()
+    rows = [fused_numbers("fused", summary, capture0, counts)]
+    layered = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True)
+    layered.run(prompts, 2)                   # warm-up
+    calls = {}
+
+    def keep(name, a, kw):
+        if name != "decode_attention":
+            return
+        which = "ring" if a[1].shape[2] == cfg.local_window else "global"
+        if which not in calls:
+            calls[which] = (tuple(t.clone() for t in a[:3]), dict(kw))
+
+    reset_launches()
+    with no_plain(), hook_calls(keep), keep_row_sum() as norm:
+        got, layered_logits = first_step_logits(layered, prompts, GEMMA_GEN)
+    counts_l = read_launches()
+    check(counts_l == want, f"gemma layered: launches {counts_l}")
+    check(np.array_equal(got, tokens), "gemma: layered tokens != fused")
+    check(torch.equal(layered_logits, fused_logits),
+          "gemma: first decode step logits, layered != fused (max diff "
+          f"{(layered_logits - fused_logits).abs().max().item()})")
+    check(set(calls) == {"ring", "global"}
+          and calls["ring"][1].get("window") is None
+          and calls["global"][1].get("window") is None,
+          f"gemma: D1 calls captured {sorted(calls)}")
+    rows.append(fused_numbers("layered", layered.summary(),
+                              {"calls": 0, "ms": 0.0}, counts_l))
+    for row in rows:
+        print_fused(row)
+    print(f"  layered tokens == fused tokens, first decode step logits "
+          f"torch.equal; a replay launches {per_step}; tokens "
+          f"{tokens[0, :8].tolist()} ...; first decode step's D1: ring "
+          f"kv_len {calls['ring'][1]['kv_len']}, global "
+          f"{calls['global'][1]['kv_len']}")
+    # the first decode step's norms: ln1 (and ln2, the final norm),
+    # q_norm and k_norm, R1 against its order, alone and torch.sum
+    want_shapes = {(BATCH, 1, cfg.d_model), (BATCH, cfg.n_heads, 1, cfg.hd),
+                   (BATCH, cfg.n_kv_heads, 1, cfg.hd)}
+    check(want_shapes <= set(norm.shapes), f"gemma: the decode norms kept "
+          f"{sorted(norm.shapes)}, not {sorted(want_shapes)}")
+    _kept_row_sums({k: norm.shapes[k] for k in want_shapes},
+                   "gemma layered, first step,")
+    del norm
+    traces = [trace_decode("gemma3-12b, layered eager", layered, prompts),
+              trace_decode("gemma3-12b, fused replayed", loop, prompts)]
+    del layered
+    # masked prefill: the same loop, its mask set between runs (the decode
+    # step, which no mask reaches, keeps its graph)
+    masked, launches = {}, {"decode_attention": counts["decode_attention"]}
+    n_local = cfg.block_unit.count("attn_local") * cfg.n_repeats
+    for pattern in (None, "local_global"):
+        for impl, kern in (("sparse", "flash_attention_sparse"),
+                           ("dense", "flash_attention_masked")):
+            loop.attn_mask = AttnMaskSpec(local=True, pattern=pattern,
+                                          impl=impl)
+            fops.reset_fallbacks()
+            reset_launches()
+            with no_plain():
+                toks = loop.run(prompts, GEMMA_MASK_GEN)
+            c = read_launches()
+            n = n_local if pattern is None else cfg.n_layers
+            want_m = decode_counts(cfg, 1, GEMMA_MASK_GEN - 1, **{kern: n})
+            label = f"{pattern or 'sliding'} {impl}"
+            check(c == want_m, f"gemma {label}: launches {c} != {want_m}")
+            check(fops.fallback_count() == 0, f"gemma {label}: fell back")
+            masked[label] = {
+                "tokens": toks,
+                "prefill_ms": loop.summary()["prefill"]["seconds"] * 1e3,
+                "launches": {k: v for k, v in c.items() if v}}
+            if pattern is None:
+                launches[kern] = c[kern]
+        a, b = (masked[f"{pattern or 'sliding'} {i}"]["tokens"]
+                for i in ("sparse", "dense"))
+        check(np.array_equal(a, b), f"gemma {pattern or 'sliding'}: sparse "
+                                    "tokens != dense tokens")
+    loop.attn_mask = None
+    same = float((masked["sliding sparse"]["tokens"]
+                  == tokens[:, :GEMMA_MASK_GEN]).mean())
+    for label, m in masked.items():
+        print(f"  {label}: prefill {m['prefill_ms']:.1f} ms, launches "
+              f"{m['launches']}")
+    print(f"  sliding sparse == dense tokens, local_global sparse == dense;"
+          f" sliding against unmasked (chunked) tokens: {same:.3f} equal")
+    del loop
+    # the kernel prefill (K3 on every layer); the first local and global
+    # layers' q, k, v kept for the rows
+    qkv = {}
+
+    def keep_qkv(name, a, kw):
+        which = "local" if kw.get("window") is not None else "global"
+        if name == "attention" and which not in qkv \
+                and kw.get("mask") is None:
+            qkv[which] = tuple(t.contiguous().clone() for t in a[:3])
+
+    reset_launches()
+    t0 = time.monotonic()
+    with hook_calls(keep_qkv):
+        logits, _, _ = M.prefill(params, prompts, cfg, max_seq=max_seq,
+                                 impl="kernel")
+        torch.cuda.synchronize()
+    kernel_ms = (time.monotonic() - t0) * 1e3
+    check(set(qkv) == {"local", "global"},
+          f"gemma kernel prefill: attention calls kept {sorted(qkv)}")
+    c = read_launches()
+    check(c == only(flash_attention=cfg.n_layers),
+          f"gemma kernel prefill: launches {c}")
+    check(bool(torch.isfinite(logits).all()), "gemma K3 prefill: logits")
+    launches["flash_attention"] = c["flash_attention"]
+    k3_first = logits[:, -1, :cfg.vocab_size].argmax(-1).cpu().numpy()
+    print(f"  kernel prefill (K3 x {cfg.n_layers}) {kernel_ms:.1f} ms; "
+          f"first tokens {np.mean(k3_first == tokens[:, 0]):.2f} equal to "
+          "the chunked prefill's (information)")
+    del logits
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sched = phase_gemma_scheduler(cfg, params)
+    sched_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = {"arch": cfg.name, "depth": cfg.n_layers, "batch": BATCH,
+            "prompt": GEMMA_PROMPT, "gen": GEMMA_GEN, "params_gb": gb,
+            "runs": rows, "traces": traces,
+            "masked": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                       for k, v in masked.items()},
+            "kernel_prefill_ms": kernel_ms,
+            "sliding_vs_unmasked_tokens_equal": same,
+            "peak_gb": peak_gb, "scheduler": sched,
+            "scheduler_peak_gb": sched_peak_gb, "card": card}
+    print(f"  gemma phase peak {peak_gb:.1f} GB (serving), "
+          f"{sched_peak_gb:.1f} GB (with the scheduler)")
+    return info, (qkv["local"], qkv["global"]), calls, launches
+
+
+def phase_measure_gemma(qkv, calls, launches, card) -> list:
+    """The D 256 rows: K3, K4m and K4s at a local layer's captured q, k, v
+    (4 x 1,536, 16/8 heads), K3 causal under the window of 1,024 and K4 on
+    the sliding-window mask (:func:`phase_measure_attention`), the global
+    layer's K3 (causal) beside; D1 at the first fused-equal decode step's
+    ring call (B 4, 1,024 slots every one visible), with its global call
+    (1,537 of 1,600 positions), row 0 alone (B 1) and the rows twice (B 8)
+    beside (:func:`_decode_times`)."""
+    import torch
+    from repro_torch.core.masks import BlockMask
+    local, glob = qkv
+    S = local[0].shape[2]
+    mask = BlockMask.sliding_window(S, S, 1024, bq=64, bk=64)
+    rows = phase_measure_attention(local, mask, launches, card,
+                                   k3_window=1024, suffix=" D256")
+    k3_global = phase_measure_attention(
+        glob, BlockMask.causal(S, S, bq=64, bk=64), launches, card,
+        suffix=" D256 global", names=("flash_attention",))[0]
+    rows[0]["global_layer_call"] = {
+        k: k3_global[k] for k in ("max_abs_err", "ms", "graph_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "tiles")}
+    (q, k, v), kw = calls["ring"]
+    d1 = _decode_times(calls["ring"], "gemma 4 x 1536, ring, first step")
+    beside = {
+        "global_call": _decode_times(calls["global"],
+                                     "gemma 4 x 1536, global, first step"),
+        "b1_call": _decode_times(((q[:1], k[:1], v[:1]), kw),
+                                 "gemma ring, row 0 alone (B 1)"),
+        "b8_call": _decode_times(((q.repeat(2, 1, 1, 1).contiguous(),
+                                   k.repeat(2, 1, 1, 1).contiguous(),
+                                   v.repeat(2, 1, 1, 1).contiguous()), kw),
+                                 "gemma ring, rows twice (B 8)")}
+    rows.append({"name": "decode_attention D256", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "decode_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/ops.py:212 "
+                             "(array code, no Pallas kernel)",
+                 "launches": launches["decode_attention"], **d1, **beside,
+                 "card": card})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4338,6 +4837,7 @@ def main() -> int:
     print(f"  sm clock, max: {clocks['after_slice_kernels']}")
     del qkv, captured, masked_stream, sched_streams, calls
     scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"llama4-scout phases: peak {scout_peak_gb:.1f} GB")
     rwkv, rwkv_launches, wkv_inputs, step_inputs = phase_rwkv_serving(card)
     resilience["rwkv"] = rwkv["scheduler"].pop("resilience")
     rows.append(phase_measure_wkv(wkv_inputs, rwkv_launches["wkv_kernel"],
@@ -4345,6 +4845,13 @@ def main() -> int:
     rows.append(phase_measure_wkv_step(step_inputs, rwkv_launches, rows,
                                        card))
     del wkv_inputs, step_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma, gemma_qkv, gemma_calls, gemma_launches = phase_gemma_serving(card)
+    print("gemma3-12b kernel times at its served shapes (D 256):")
+    rows += phase_measure_gemma(gemma_qkv, gemma_calls, gemma_launches,
+                                card)
+    del gemma_qkv, gemma_calls
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
     clocks["before_library_kernels"] = smi(CLOCKS)
@@ -4390,7 +4897,8 @@ def main() -> int:
                   "quantized": quant,
                   "fused": fused,
                   "card": card},
-             "rwkv": rwkv, "library": lib_info, "sm_clocks": clocks,
+             "rwkv": rwkv, "gemma": gemma, "library": lib_info,
+             "sm_clocks": clocks,
              "wall_s": time.monotonic() - t_start}
     print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))

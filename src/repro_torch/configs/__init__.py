@@ -7,6 +7,7 @@ from __future__ import annotations
 import importlib
 
 ARCH_NAMES = [
+    "gemma3-12b",
     "llama4-scout-17b-a16e",
     "rwkv6-7b",
 ]

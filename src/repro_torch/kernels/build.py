@@ -70,7 +70,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Build every missing library among ``names`` (default: all sources),
     one ``nvcc`` process each, started together.  Returns, per name, the
     wall seconds of its build (0.0 when it was already built) and the
-    compiler's resource report (``-Xptxas -v``).  Raises on any failure."""
+    compiler's resource report (``-Xptxas -v``, kept beside the library, so
+    that a library built before is reported too: "" only where that file
+    is gone).  Raises on any failure."""
     names = list(SOURCES) if names is None else list(names)
     out: Dict[str, dict] = {}
     procs = {}
@@ -78,7 +80,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for name in names:
         target = library_path(name)
         if target.is_file():
-            out[name] = {"seconds": 0.0, "log": ""}
+            report = target.with_suffix(".log")
+            out[name] = {"seconds": 0.0, "log": report.read_text()
+                         if report.is_file() else ""}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
@@ -91,6 +95,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        tmp.with_suffix(".log").write_text(log)
+        os.replace(tmp.with_suffix(".log"), target.with_suffix(".log"))
         os.replace(tmp, target)   # atomic: concurrent builders never see half
         out[name] = {"seconds": time.monotonic() - t0, "log": log}
     if failed:

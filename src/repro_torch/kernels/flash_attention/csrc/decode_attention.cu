@@ -70,7 +70,11 @@
 //   cluster.sync(): three cluster barriers a launch, no second kernel;
 // - 80 registers a thread and 71 KB of shared memory a CTA (bf16, D 128)
 //   let three CTAs share a SM, so 45 clusters are resident at once: the
-//   32 of the 4 x 2048 step run in one wave.
+//   32 of the 4 x 2048 step run in one wave.  At D 256 (gemma3-12b) a lane
+//   holds 8 dims and the ring doubles (64 KB bf16, 128 KB f32, plus the
+//   32 KB of scores and 8 KB of q): two CTAs share a SM at bf16 (at most
+//   128 registers a thread), one at f32; the order is the same function of
+//   the row, E = 8.
 // What is left is arithmetic and latency: without FMA every product is a
 // multiply and an add, a few hundred instructions a warp a chunk, so the
 // SMs' issue, more than the bytes, paces the longer rows (the score
@@ -292,7 +296,8 @@ __device__ __forceinline__ float own_score(const Tc* tile,
 }
 
 template <typename Tq, typename Tc, int D>
-__global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kThreads, 3)
+__global__ void __cluster_dims__(kCtas, 1, 1)
+    __launch_bounds__(kThreads, D <= 128 ? 3 : 2)
 decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
                         const Tc* __restrict__ v, Tq* __restrict__ out,
                         const long long* __restrict__ kv_len, int kv_scalar,
@@ -575,6 +580,9 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
     case 128:
       return launch_dim<Tq, Tc, 128>(q, k, v, out, kv_len, kv_scalar, B, Hq,
                                      Hkv, S, window, scale, s);
+    case 256:
+      return launch_dim<Tq, Tc, 256>(q, k, v, out, kv_len, kv_scalar, B, Hq,
+                                     Hkv, S, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -611,6 +619,7 @@ int info_typed(int D, int* info) {
     case 16: return info_dim<Tq, Tc, 16>(info);
     case 64: return info_dim<Tq, Tc, 64>(info);
     case 128: return info_dim<Tq, Tc, 128>(info);
+    case 256: return info_dim<Tq, Tc, 256>(info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -628,7 +637,7 @@ extern "C" {
 // (B, Hkv, S, D) of `cache_dtype` (0 = float32, 1 = bfloat16), 16-byte
 // aligned; out: (B, Hq, 1, D) of `q_dtype`; kv_len: (B,) int64 on the
 // device, or null for `kv_scalar` on every row; window < 0 for none.  D must
-// be 16, 64 or 128 and Hq / Hkv at most 8.
+// be 16, 64, 128 or 256 and Hq / Hkv at most 8.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             void* out, const long long* kv_len,
                             int kv_scalar, int B, int Hq, int Hkv, int S,

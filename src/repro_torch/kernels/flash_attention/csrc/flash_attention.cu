@@ -47,11 +47,22 @@
 // rows past bq and K / V rows past bk are loaded as zeros and masked.  113
 // KB of shared memory at D = 128: two blocks per SM.
 //
+// At D = 256 (gemma3-12b) the Q tile and the three-stage ring take 230,400
+// of the 232,448 bytes a block may have, so one block holds an SM, and the
+// (64, 256) f32 accumulator is 128 registers a thread.  P V runs as two
+// m64n128k16 halves (output columns 0-127 and 128-255, each entry summed in
+// the same hi-then-lo order of 16-key steps as at D <= 128), in the same
+// overlapped tile loop.  A thread issues its 16 tile copies 8 at a time
+// (hopper.cuh load_tile), so o, s and two sets of p fragments fit in 253 to
+// 255 registers without spills (ptxas -v); with all 16 copies unrolled the
+// build spilled.
+//
 // f32 q, k, v run on the CUDA cores in f32 (`tile_update` below): 256
 // threads, each owning 4 rows x 4 columns of the 64 x 64 score tile and 4
 // rows x D / 16 columns of the accumulator; the Q, K, V and P tiles sit in
 // shared memory, with the rows of Q, K and P padded by one word so that
-// column reads do not share banks.  q is scaled first, in f32.
+// column reads do not share banks (213,760 bytes at D = 256 and 64 x 64
+// tiles).  q is scaled first, in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -376,14 +387,34 @@ __device__ __forceinline__ void tc_scores(float (&sc)[32], uint32_t q_tile,
 }
 
 // o += hi v + lo v, 16 keys at a time, issued (the caller commits and waits).
+// At D = 256 as two m64n128k16 halves: accumulator registers 0-63 hold
+// output columns 0-127 and 64-127 columns 128-255 (the m64n256 layout), and
+// the second half's V columns start two 64-column blocks into the tile.
 template <int D>
 __device__ __forceinline__ void tc_pv(float (&o)[D / 2], const PFrags& p,
                                       uint32_t v_tile) {
+  if constexpr (D <= 128) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint64_t vd = hopper::mn_major<D>(v_tile, j);
-    hopper::mma_rs(o, p.hi[j], vd);
-    hopper::mma_rs(o, p.lo[j], vd);
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t vd = hopper::mn_major<D>(v_tile, j);
+      hopper::mma_rs(o, p.hi[j], vd);
+      hopper::mma_rs(o, p.lo[j], vd);
+    }
+  } else {
+    static_assert(D == 256, "head dim 256 splits into two n128 halves");
+    constexpr int kHalf = D / 4;  // registers of 128 output columns
+    constexpr uint32_t kSecond = 2 * hopper::Tile<D>::kBlockBytes;
+    float(&o0)[kHalf] = *reinterpret_cast<float(*)[kHalf]>(&o[0]);
+    float(&o1)[kHalf] = *reinterpret_cast<float(*)[kHalf]>(&o[kHalf]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t vd0 = hopper::mn_major<D>(v_tile, j);
+      const uint64_t vd1 = hopper::mn_major<D>(v_tile + kSecond, j);
+      hopper::mma_rs(o0, p.hi[j], vd0);
+      hopper::mma_rs(o0, p.lo[j], vd0);
+      hopper::mma_rs(o1, p.hi[j], vd1);
+      hopper::mma_rs(o1, p.lo[j], vd1);
+    }
   }
 }
 
@@ -628,10 +659,10 @@ __device__ void tc_run(const bf16* __restrict__ q, const bf16* __restrict__ k,
       hopper::fence_operands(st.o);
       hopper::keep(p.hi);
       hopper::keep(p.lo);
+      p = p_next;
 #pragma unroll
       for (int i = 0; i < D / 2; ++i)
         st.o[i] = __fmul_rn(st.o[i], alpha[(i >> 1) & 1]);
-      p = p_next;
       __syncthreads();  // every warp's wgmma has read tile j - 1's stage
       a = b;
       b = c;
@@ -735,7 +766,7 @@ cudaError_t launch(Mode mode, const Args& a) {
 }
 
 // Dynamic shared memory of `kernel`, and the largest carveout, so that two
-// blocks share an SM.
+// blocks share an SM (one at D = 256).
 template <typename Kernel>
 cudaError_t tc_attributes(Kernel kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -787,12 +818,14 @@ cudaError_t by_type(Mode mode, int D, int dtype, const Args& a) {
       case 16: return launch<16, float>(mode, a);
       case 64: return launch<64, float>(mode, a);
       case 128: return launch<128, float>(mode, a);
+      case 256: return launch<256, float>(mode, a);
     }
   } else if (dtype == kBF16) {
     switch (D) {
       case 16: return launch_tc<16>(mode, a);
       case 64: return launch_tc<64>(mode, a);
       case 128: return launch_tc<128>(mode, a);
+      case 256: return launch_tc<256>(mode, a);
     }
   }
   return cudaErrorInvalidValue;
@@ -820,7 +853,7 @@ extern "C" {
 // Each launcher starts its kernel on `stream` and returns cudaGetLastError()
 // after the launch (0 = launched).  q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D),
 // out like q, all contiguous and of one type: 0 = float32, 1 = bfloat16.
-// D in {16, 64, 128}; 1 <= bq, bk <= 64 dividing Sq and Skv; window < 0
+// D in {16, 64, 128, 256}; 1 <= bq, bk <= 64 dividing Sq and Skv; window < 0
 // means none; skv is the true KV length (keys at or past it are masked).
 
 int flash_attention_launch(const void* q, const void* k, const void* v,

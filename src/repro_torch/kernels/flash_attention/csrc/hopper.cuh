@@ -45,15 +45,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // Copy rows [0, valid) of a (64, D) row-major bf16 tile at `src` into the
 // swizzled tile at shared address `dst`; rows from `valid` on are zeroed
 // (no byte past them is read).  All 128 threads take part; the copies are
-// asynchronous (cp.async), in the caller's current group.
+// asynchronous (cp.async), in the caller's current group.  A thread issues
+// its copies 8 at a time (D = 256: two rounds), so that no more than 8
+// addresses are live beside a D = 256 accumulator.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           int valid, int tid) {
   using T = Tile<D>;
   constexpr int kPerThread = kTileRows * T::kChunksPerRow / kThreads;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
+  constexpr int kRound = kPerThread < 8 ? kPerThread : 8;
+  auto copy = [&](int j) {
     const int i = tid + kThreads * j;
     const int row = i / T::kChunksPerRow, chunk = i % T::kChunksPerRow;
     const bool ok = row < valid;
@@ -62,6 +64,15 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                  :: "r"(dst + T::offset(row, chunk)), "l"(from),
                     "r"(ok ? 16 : 0)
                  : "memory");
+  };
+  if constexpr (kPerThread == kRound) {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) copy(j);
+  } else {
+#pragma unroll 1
+    for (int j0 = 0; j0 < kPerThread; j0 += kRound)
+#pragma unroll
+      for (int j = 0; j < kRound; ++j) copy(j0 + j);
   }
 }
 

@@ -217,7 +217,8 @@ def _clone_leaves(tree):
 
 
 # the leaves a decode step advances beyond a row's position; K / V are
-# written at the position, which a retried step rewrites with the same values
+# written at the position (a ring's at its slot, position % window), which a
+# retried step rewrites with the same values
 _STEP_STATE = ("moe", "wkv", "shift_t", "shift_c")
 
 

@@ -7,8 +7,9 @@ oracle); an ``attn_mask`` (``AttnMaskSpec``) sends prefill through the masked
 flash kernels (K4s / K4m).  Decode is ``decode_attention`` at a scalar
 cache position or at per-row positions (continuous batching); a quantized
 cache (``kv_quant``: narrow K/V with per-position f32 scales) is
-dequantized whole before it.  Not ported yet: ``impl="kernel_sharded"`` and
-ring-buffer (local-window) caches.
+dequantized whole before it.  A local layer's cache of exactly ``window``
+slots is a ring buffer (position ``p`` at slot ``p % window``).  Not ported
+yet: ``impl="kernel_sharded"``.
 
 Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
 bf16 result accumulated in f32 (reduced-precision reductions are off, see
@@ -117,7 +118,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ------------------------------------------------------------- attention ----
 
-def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+         row_order: bool = False):
+    """q, k, v (B, H, S, hd) after qk_norm and RoPE; ``row_order`` (decode)
+    sums qk_norm's squares in one order a row (:func:`rmsnorm`)."""
     B, S, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     cd = x.dtype
@@ -132,8 +136,8 @@ def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
     v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps, row_order=row_order)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps, row_order=row_order)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -248,8 +252,15 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     Prefill: ``impl`` is "chunked" | "kernel" | "ref"; ``attn_mask`` (an
     ``AttnMaskSpec``) takes precedence where it applies.  ``collect_kv`` > 0
     also returns a fresh cache of that capacity holding this call's
-    keys/values.  Decode ignores ``impl`` and ``attn_mask``, as in the
-    reference.
+    keys/values; with a ``window`` and ``S >= window`` that cache is the
+    ring of the last ``window`` positions, each at slot ``pos % window``
+    (the reference's ``argsort``).  Decode ignores ``impl`` and
+    ``attn_mask``, as in the reference, and sums qk_norm's squares in row
+    order (:func:`rmsnorm`).  A decode cache of exactly ``window``
+    positions is a ring (the reference's ``_decode_block_attn``): the new
+    key / value goes to slot ``pos % window`` and every filled slot is
+    visible (``kv_len = min(pos + 1, window)``, no window); a longer one
+    is a full cache under the window.
     cache: dict(k=(B, Hkv, L, hd), v=...) -- **updated in place**: decode
     writes the new key/value at ``cache_len`` and returns the same dict.
     ``cache_len`` is a Python int, the fill of every row, or a ``(B,)`` int
@@ -288,11 +299,14 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
         new_cache = None
         if collect_kv:
             if window and S >= window:
-                raise NotImplementedError(
-                    "apply_attention: ring-buffer (local-window) caches are "
-                    "not ported")
-            cap = min(collect_kv, window) if window else collect_kv
-            kc, vc = (F.pad(t, (0, 0, 0, cap - S)) for t in (k, v))
+                # the ring: the last `window` positions at their slots
+                # (pos % window), one permutation built on the device
+                order = torch.argsort(positions[-window:] % window)
+                kc, vc = (t[:, :, -window:].index_select(2, order)
+                          for t in (k, v))
+            else:
+                cap = min(collect_kv, window) if window else collect_kv
+                kc, vc = (F.pad(t, (0, 0, 0, cap - S)) for t in (k, v))
             if kv_quant is not None and not window:
                 (qk, sk), (qv, sv) = (precision.quantize_rows(
                     t, kv_quant, check=False) for t in (kc, vc))
@@ -303,16 +317,23 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
         if S != 1:
             raise ValueError(f"apply_attention decode takes one token, got {S}")
         quant = "k_scale" in cache
+        # a local layer's cache of exactly `window` slots is a ring: the
+        # write at slot pos % window, every filled slot visible
+        ring = bool(window) and cache["k"].shape[2] == window
         if isinstance(cache_len, torch.Tensor):
             pos = cache_len.reshape(B).long()
-            q, k1, v1 = _qkv(p, x, cfg, pos[:, None, None])
-            # (row b, every head, position pos[b]) <- (B, Hkv, hd)
-            at = (torch.arange(B, device=x.device), slice(None), pos)
+            q, k1, v1 = _qkv(p, x, cfg, pos[:, None, None], row_order=True)
+            # (row b, every head, slot of pos[b]) <- (B, Hkv, hd)
+            at = (torch.arange(B, device=x.device), slice(None),
+                  pos % window if ring else pos)
+            kv_len = pos.clamp(max=window - 1) + 1 if ring else pos + 1
         else:
             pos = cache_len
             q, k1, v1 = _qkv(p, x, cfg,
-                             torch.full((1,), pos, device=x.device))
-            at = (slice(None), slice(None), pos)
+                             torch.full((1,), pos, device=x.device),
+                             row_order=True)
+            at = (slice(None), slice(None), pos % window if ring else pos)
+            kv_len = min(pos + 1, window) if ring else pos + 1
         for name, new in (("k", k1[:, :, 0]), ("v", v1[:, :, 0])):
             if quant:
                 qn = precision.quant_name(cache[name].dtype)
@@ -323,7 +344,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
         if quant:
             kc, vc = (precision.dequantize_rows(cache[n], cache[n + "_scale"],
                                                 q.dtype) for n in ("k", "v"))
-        out = fops.decode_attention(q, kc, vc, kv_len=pos + 1, window=window)
+        out = fops.decode_attention(q, kc, vc, kv_len=kv_len,
+                                    window=None if ring else window)
         new_cache = cache
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(out.dtype), new_cache

@@ -1,10 +1,14 @@
 """Model assembly for serving: params, decode caches, prefill and decode.
 
 The port of the serving half of ``repro/models/model.py`` for the block
-kinds ``attn``, ``attn+moe`` and ``rwkv``.  The stack is ``block_unit *
-n_repeats``; per-slot params and caches are stacked along a leading repeat
-dim, as in the reference, so ``params["blocks"][slot][...][i]`` is layer
-``i`` of that slot (a view: no copy).  The repeat loop runs in Python layer
+kinds ``attn``, ``attn_local``, ``attn_global``, ``attn+moe`` and ``rwkv``.
+An ``attn_local`` layer attends over the config's ``local_window``; its
+decode cache is a ring buffer of ``min(max_seq, local_window)`` slots,
+position ``p`` at slot ``p % local_window`` (:func:`init_cache`).  The
+stack is ``block_unit * n_repeats``; per-slot params and caches are stacked
+along a leading repeat dim, as in the reference, so
+``params["blocks"][slot][...][i]`` is layer ``i`` of that slot (a view: no
+copy).  The repeat loop runs in Python layer
 by layer, which is what lets the serving loop interleave host routing
 between layers (``prefill_layered`` / ``decode_step_layered``).
 
@@ -37,7 +41,7 @@ from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 
-KINDS = ("attn", "attn+moe", "rwkv")
+KINDS = ("attn", "attn_local", "attn_global", "attn+moe", "rwkv")
 
 
 def _check_kinds(cfg: ArchConfig) -> None:
@@ -47,6 +51,12 @@ def _check_kinds(cfg: ArchConfig) -> None:
             f"{cfg.name}: only stacks of {KINDS} without prologue, shared "
             f"attention or frontend are ported (got block_unit="
             f"{cfg.block_unit})")
+
+
+def _window_for(kind: str, cfg: ArchConfig) -> Optional[int]:
+    """The attention window of a layer of ``kind``: the config's
+    ``local_window`` for ``attn_local``, else None (full context)."""
+    return cfg.local_window if kind == "attn_local" else None
 
 
 # ---------------------------------------------------------------- init ------
@@ -90,17 +100,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                dtype=torch.bfloat16, device="cuda",
                kv_quant: Optional[str] = None) -> Params:
     """Zeroed stacked decode caches, one entry per slot: attention K/V
-    ``(n_repeats, B, Hkv, max_seq, hd)`` and, for attn+moe slots, the
-    routing occupancy ``(n_repeats, B, E)`` int32; for rwkv slots the f32
+    ``(n_repeats, B, Hkv, L, hd)`` -- ``L`` is ``max_seq``, and for
+    ``attn_local`` slots ``min(max_seq, local_window)``: a ring buffer when
+    it equals the window (:func:`_window_for`) -- and, for attn+moe slots,
+    the routing occupancy ``(n_repeats, B, E)`` int32; for rwkv slots the f32
     state ``wkv`` ``(n_repeats, B, nh, 64, 64)`` and the token shifts
     ``shift_t`` / ``shift_c`` ``(n_repeats, B, 1, d)`` in ``dtype``.
-    ``kv_quant`` (a narrow dtype name) makes the (full-context) K/V narrow
+    ``kv_quant`` (a narrow dtype name) makes the full-context K/V narrow
     zeros with per-position f32 scales ``k_scale`` / ``v_scale`` ``(n_repeats,
     B, Hkv, max_seq)`` of ones, the all-zero convention of
-    ``precision.quantize_rows``, as the reference's ``init_cache`` does."""
+    ``precision.quantize_rows``, as the reference's ``init_cache`` does; the
+    local slots stay wide."""
     _check_kinds(cfg)
     dev = resolve_device(device)
-    shp = (cfg.n_repeats, batch, cfg.n_kv_heads, max_seq, cfg.hd)
     slots = []
     for kind in cfg.block_unit:
         if kind == "rwkv":
@@ -112,7 +124,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                 "shift_t": torch.zeros(shift, dtype=dtype, device=dev),
                 "shift_c": torch.zeros(shift, dtype=dtype, device=dev)})
             continue
-        if kv_quant is not None:
+        window = _window_for(kind, cfg)
+        shp = (cfg.n_repeats, batch, cfg.n_kv_heads,
+               min(max_seq, window) if window else max_seq, cfg.hd)
+        if kv_quant is not None and not window:
             qdt = precision.QUANT_DTYPES[kv_quant]
             c = {"attn": {
                 "k": torch.zeros(shp, dtype=qdt, device=dev),
@@ -153,17 +168,25 @@ def blank_cache_row(cache, row: int):
     return cache
 
 
-def cache_capacity(cache) -> Optional[int]:
+def cache_capacity(cache, cfg: ArchConfig) -> Optional[int]:
     """Sequence capacity of a decode cache: the shortest attention K/V
-    cache, or None for a stack without attention (recurrent state only),
-    which never overflows."""
-    caps = [c["attn"]["k"].shape[3] for c in cache["slots"] if "attn" in c]
+    cache, or None for a stack without one (recurrent state only, or ring
+    buffers only), which never overflows.  A ring buffer (the cache of a
+    layer whose :func:`_window_for` equals its length, the rule decode
+    picks a ring by) wraps and is left out, as the reference's
+    ``cache_capacity`` leaves out leaves of ``cfg.local_window``."""
+    caps = [c["attn"]["k"].shape[3]
+            for c, kind in zip(cache["slots"], cfg.block_unit)
+            if "attn" in c
+            and c["attn"]["k"].shape[3] != _window_for(kind, cfg)]
     return min(caps) if caps else None
 
 
-def check_cache_fits(cache, pos: int, *, who: str = "decode_step") -> None:
-    """Raise when a decode write at ``pos`` would fall past the cache."""
-    cap = cache_capacity(cache)
+def check_cache_fits(cache, pos: int, cfg: ArchConfig, *,
+                     who: str = "decode_step") -> None:
+    """Raise when a decode write at ``pos`` would fall past the cache (its
+    ring buffers left out: :func:`cache_capacity`)."""
+    cap = cache_capacity(cache, cfg)
     if cap is not None and pos >= cap:
         raise ValueError(
             f"{who}: KV-cache overflow -- write position {pos} >= cache "
@@ -189,7 +212,8 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
            collect_kv: int = 0, impl: str = "chunked",
            attn_mask: Optional[AttnMaskSpec] = None,
            route_ahead: bool = False, kv_quant: Optional[str] = None):
-    """One attn / attn+moe / rwkv sub-layer; ``impl``, ``attn_mask`` and
+    """One attn / attn_local / attn_global / attn+moe / rwkv sub-layer, its
+    window from :func:`_window_for`; ``impl``, ``attn_mask`` and
     ``kv_quant`` reach its prefill attention.  ``route_ahead``: an
     attn+moe block runs MoE route phase 1 (``moe.route_phase1``) right
     after ``ln2``, with its attention half, and hands ``moe_fn`` the
@@ -202,7 +226,7 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     dec = cache is not None                 # decode: norms in row order
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, row_order=dec)
     a, new_attn = L.apply_attention(
-        p["attn"], h, cfg, impl=impl,
+        p["attn"], h, cfg, window=_window_for(kind, cfg), impl=impl,
         cache=None if cache is None else cache["attn"], cache_len=pos,
         collect_kv=collect_kv, attn_mask=attn_mask, kv_quant=kv_quant)
     x = x + a
@@ -428,7 +452,7 @@ def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos,
                              f"{host.shape}, the batch is {tokens_1.shape[0]}")
         last = int(host.max())
         pos = moe._upload(host.astype(np.int64), tokens_1.device)
-    check_cache_fits(cache, last, who="decode_step_layered")
+    check_cache_fits(cache, last, cfg, who="decode_step_layered")
     to_decode_dtypes(cfg, cache)
     logits = _decode_layers(params, cfg, cache, pos, tokens_1,
                             moe_fn or moe.apply_moe, route_ahead)
@@ -466,7 +490,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache, pos,
         pos = pos.reshape(-1).expand(B)
     else:
         host = np.broadcast_to(np.asarray(pos, np.int64).reshape(-1), (B,))
-        check_cache_fits(cache, int(host.max()), who="decode_step")
+        check_cache_fits(cache, int(host.max()), cfg, who="decode_step")
         pos = torch.tensor(host, device=tokens_1.device)
     for slot, key, dtype in _decode_leaves(cfg, cache):
         if slot[key].dtype != dtype:

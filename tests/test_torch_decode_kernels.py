@@ -122,7 +122,7 @@ def test_decode_plain_matches_reference(kind, window, qdt, cdt):
 
 # ----------------------------------------------------- D1 order emulated --
 
-@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("D", [16, 64, 256])
 @pytest.mark.parametrize("window", [None, 7])
 @pytest.mark.parametrize("qdt,cdt", [(F32, F32), (BF16, BF16), (BF16, F32),
                                      (F32, BF16)])
@@ -146,7 +146,8 @@ def test_decode_order_matches_reference(D, window, qdt, cdt):
     assert not empty.any()
 
 
-@pytest.mark.parametrize("D,dt", [(16, F32), (64, BF16), (128, BF16)])
+@pytest.mark.parametrize("D,dt", [(16, F32), (64, BF16), (128, BF16),
+                                  (256, BF16), (256, F32)])
 def test_decode_order_rows_do_not_depend_on_the_batch(D, dt):
     """Row i of D1's order at B rows is ``torch.equal`` to row i alone,
     for every B in ROWS, at per-row lengths, with a window."""

@@ -88,13 +88,16 @@ def test_sparse_and_masked_match_reference(name):
         atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("window,q_offset,gqa", [
-    (None, 0, (4, 2)), (24, 0, (4, 2)), (None, 32, (2, 2)), (40, 16, (4, 1))])
-def test_flash_matches_reference_and_sparse_law(window, q_offset, gqa):
-    """K3 (plain) vs the reference K3 in interpret mode; and the sparse
-    walk on ``BlockMask.full(causal[, window])`` equals K3 exactly."""
+@pytest.mark.parametrize("window,q_offset,gqa,D", [
+    (None, 0, (4, 2), 16), (24, 0, (4, 2), 16), (None, 32, (2, 2), 16),
+    (40, 16, (4, 1), 16), (None, 0, (2, 1), 256), (24, 0, (2, 1), 256)])
+def test_flash_matches_reference_and_sparse_law(window, q_offset, gqa, D):
+    """K3 (plain) vs the reference K3 in interpret mode, at head dims 16 and
+    256 (gemma3-12b's); and the sparse walk on ``BlockMask.full(causal[,
+    window])`` equals K3 exactly."""
     bq = bk = 16
-    q, k, v = _qkv(Hq=gqa[0], Hkv=gqa[1], Sq=64, Skv=96)
+    q, k, v = _qkv(B=1 if D == 256 else 2, Hq=gqa[0], Hkv=gqa[1], Sq=64,
+                   Skv=96, D=D)
     want = np.asarray(rk.flash_attention(
         *_j(q, k, v), causal=True, window=window, bq=bq, bk=bk,
         q_offset=q_offset, interpret=True))
@@ -266,6 +269,12 @@ def test_tuning_rows(dtype):
     assert tuning.flash_smem_bytes(64, 64, 128, dtype) == {
         torch.bfloat16: 1024 + 7 * 64 * 128 * 2,
         torch.float32: 4 * (2 * 64 * 129 + 64 * 128 + 64 * 65)}[dtype]
+    # gemma3-12b's head dim 256: one block an SM, still 64 x 64 tiles
+    # (230,400 bytes bf16, 213,760 f32, within the 232,448 a block has)
+    assert tuning.flash_tiles(1536, 1536, 256, dtype, "cuda") == (64, 64)
+    assert tuning.flash_smem_bytes(64, 64, 256, dtype) == {
+        torch.bfloat16: 230400, torch.float32: 213760}[dtype] \
+        <= tuning.SMEM_BUDGET
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):

@@ -170,12 +170,21 @@ def test_apply_attention_ref_matches_reference():
 
 
 def test_apply_attention_refuses_unported_paths():
-    _, cfg, _, p = _attn_params()
-    x = torch.from_numpy(_x((1, 4, 32)))
+    rcfg, cfg, rp, p = _attn_params()
+    x = _x((1, 4, 32))
     with pytest.raises(NotImplementedError):
-        L.apply_attention(p, x, cfg, impl="kernel_sharded")
-    with pytest.raises(NotImplementedError):    # ring-buffer caches
-        L.apply_attention(p, x, cfg, window=2, collect_kv=8)
+        L.apply_attention(p, torch.from_numpy(x), cfg, impl="kernel_sharded")
+    # ring-buffer caches are ported: a collect at S >= window keeps the
+    # last `window` positions at their slots (pos % window), as the
+    # reference's does
+    _, ring = L.apply_attention(p, torch.from_numpy(x), cfg, window=3,
+                                collect_kv=8)
+    _, rring = RL.apply_attention(rp, jnp.asarray(x), rcfg, window=3,
+                                  collect_kv=8)
+    for name in ("k", "v"):
+        assert ring[name].shape[2] == 3
+        np.testing.assert_allclose(ring[name].numpy(), _np(rring[name]),
+                                   **TOL)
 
 
 @pytest.mark.parametrize("mlp_type", ["swiglu", "squared_relu"])

@@ -230,8 +230,8 @@ def test_serve_loop_tokens_match_reference(f32_model):
 def test_cache_without_attention_never_overflows(f32_model):
     _, cfg, _, params, prompts = f32_model
     cache = M.init_cache(cfg, B, MAX_SEQ, device="cpu")
-    assert M.cache_capacity(cache) is None
-    M.check_cache_fits(cache, 10 ** 6)          # no attention slot: no bound
+    assert M.cache_capacity(cache, cfg) is None
+    M.check_cache_fits(cache, 10 ** 6, cfg)     # no attention slot: no bound
     loop = ServeLoop(params, cfg, max_seq=MAX_SEQ, device="cpu")
     loop.run(prompts, 2)
     with pytest.raises(RuntimeError, match="max_seq"):

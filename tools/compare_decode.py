@@ -33,7 +33,13 @@ cache 2,064, ``kv_len`` 2,063), the scheduler's top bucket (B 8, cache 544,
 per-row lengths: the first 8 prompts of ``chip_smoke.scheduler_trace``,
 numpy seed 24, plus one), the 4 x 256 step (B 4, cache 272, 271), B 1 at
 cache 2,064 (the fewest clusters) and B 1 at 16,400 positions (past the
-CTAs' shared score budget: pass 2 recomputes).  The builds run in the
+CTAs' shared score budget: pass 2 recomputes).  ``--head-dim 256`` takes
+gemma3-12b's 16/8 heads of 256 instead: its 4 x 1536 decode step's ring
+(B 4, 1,024 slots, every one visible) and global cache (1,600, ``kv_len``
+1,537), the scheduler's top bucket on rings (B 8, per-row lengths from
+``chip_smoke.gemma_trace``, at most 1,024), a full cache under the window
+of 1,024 (B 4, 2,064 positions, ``kv_len`` 2,063) and B 1 on a ring.  The
+builds run in the
 order others, in-tree, in-tree, others reversed, each timed by CUDA
 events over back-to-back launches and again replayed from a CUDA graph
 (device time without the host's launch); beside them the wrappers (eager
@@ -57,7 +63,9 @@ import sys
 import compare_common as common
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HQ, HKV, D, SEED = 40, 8, 128, 27
+SEED = 27
+# (Hq, Hkv) by head dim: llama4-scout's, gemma3-12b's
+HEADS = {128: (40, 8), 256: (16, 8)}
 HBM_BYTES_PER_S = 3.35e12
 # --ablate: name -> ((text of the in-tree source, its replacement), ...)
 ABLATE = {
@@ -91,9 +99,9 @@ def _bind(lib, text):
     return lib, scratch
 
 
-def _launcher(lib, scratch, q, k, v, kv_len):
-    """A launch of one build on (q, k, v, kv_len) with no window; a build
-    that takes a scratch gets one made here, once."""
+def _launcher(lib, scratch, q, k, v, kv_len, window=None):
+    """A launch of one build on (q, k, v, kv_len) under ``window`` (None:
+    no window); a build that takes a scratch gets one made here, once."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -111,22 +119,31 @@ def _launcher(lib, scratch, q, k, v, kv_len):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in keep),
             None if lens is None else lens.data_ptr(), scalar, B, Hq, Hkv, S,
-            d, -1, d ** -0.5, code[q.dtype], code[k.dtype],
+            d, -1 if window is None else window, d ** -0.5, code[q.dtype],
+            code[k.dtype],
             torch.cuda.current_stream().cuda_stream)
         build.check(lib, err, "decode_attention launch")
         return out
     return run
 
 
-def cases():
-    """(name, B, cache, kv_len: an int or per-row lengths) of the run."""
+def cases(head_dim: int = 128):
+    """(name, B, cache, kv_len: an int or per-row lengths, window) of the
+    run at ``head_dim``."""
     import chip_smoke as cs
+    if head_dim == 256:
+        ring = [min(len(p) + 1, 1024) for p, _ in cs.gemma_trace(1000)]
+        return [("4 x 1536 decode step, ring", 4, 1024, 1024, None),
+                ("4 x 1536 decode step, global", 4, 1600, 1537, None),
+                ("scheduler top bucket, rings", 8, 1024, ring, None),
+                ("full cache under the window", 4, 2064, 2063, 1024),
+                ("B 1, ring", 1, 1024, 1024, None)]
     bucket = [len(p) + 1 for p, _ in cs.scheduler_trace(1000)[:8]]
-    return [("4 x 2048 decode step", 4, 2064, 2063),
-            ("scheduler top bucket", 8, 544, bucket),
-            ("4 x 256 decode step", 4, 272, 271),
-            ("B 1, cache 2,064", 1, 2064, 2063),
-            ("B 1, past the score budget", 1, 16400, 16400)]
+    return [("4 x 2048 decode step", 4, 2064, 2063, None),
+            ("scheduler top bucket", 8, 544, bucket, None),
+            ("4 x 256 decode step", 4, 272, 271, None),
+            ("B 1, cache 2,064", 1, 2064, 2063, None),
+            ("B 1, past the score budget", 1, 16400, 16400, None)]
 
 
 def main() -> int:
@@ -140,7 +157,11 @@ def main() -> int:
                     help="another flash_attention/kernel.py, timed on the "
                     "first other source's build beside the in-tree wrapper")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--head-dim", type=int, default=128,
+                    choices=sorted(HEADS))
     args = ap.parse_args()
+    D = args.head_dim
+    HQ, HKV = HEADS[D]
     import torch
     if not torch.cuda.is_available():
         print("compare_decode: no CUDA device", file=sys.stderr)
@@ -180,30 +201,34 @@ def main() -> int:
         "decode_attention") if args.wrapper else None)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     bf = torch.bfloat16
-    for name, B, S, lens in cases():
+    for name, B, S, lens, window in cases(D):
         q = torch.randn((B, HQ, 1, D), generator=g, device="cuda").to(bf)
         k = torch.randn((B, HKV, S, D), generator=g, device="cuda").to(bf)
         v = torch.randn((B, HKV, S, D), generator=g, device="cuda").to(bf)
         kv = (torch.tensor(lens, device="cuda") if isinstance(lens, list)
               else lens)
-        n = torch.as_tensor(lens).reshape(-1).expand(B).clamp(max=S)
-        vis = (torch.arange(S)[None] < n[:, None]).cuda()     # (B, S)
-        runs = {src: _launcher(olib, scratch, q, k, v, kv)
+        ends = torch.as_tensor(lens).reshape(-1).expand(B)
+        n = ends.clamp(max=S)
+        lo = (ends - window).clamp(min=0) if window else torch.zeros_like(n)
+        pos = torch.arange(S)[None]
+        vis = ((pos < n[:, None]) & (pos >= lo[:, None])).cuda()  # (B, S)
+        runs = {src: _launcher(olib, scratch, q, k, v, kv, window)
                 for src, (olib, scratch) in others.items()}
-        runs["in-tree"] = _launcher(lib, False, q, k, v, kv)
-        wrappers = {"wrapper": lambda: fk.decode_attention(q, k, v,
-                                                           kv_len=kv)}
+        runs["in-tree"] = _launcher(lib, False, q, k, v, kv, window)
+        wrappers = {"wrapper": lambda: fk.decode_attention(
+            q, k, v, kv_len=kv, window=window)}
         if other_wrapper:
-            wrappers[args.wrapper] = lambda: other_wrapper(q, k, v,
-                                                           kv_len=kv)
+            wrappers[args.wrapper] = lambda: other_wrapper(
+                q, k, v, kv_len=kv, window=window)
         mask = vis[:, None, None, :]
         sdpa = {"sdpa": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)}
-        plain = ref.decode_attention_ref(q, k, v, kv_len=kv)
-        ordered = ref.decode_attention_ordered(q, k, v, kv_len=kv)
+        plain = ref.decode_attention_ref(q, k, v, kv_len=kv, window=window)
+        ordered = ref.decode_attention_ordered(q, k, v, kv_len=kv,
+                                               window=window)
         tol = cs.decode_tolerance(plain.float().abs().max().item(), bf, bf)
-        case = {"case": name, "B": B, "S_cap": S,
-                "kv_len": lens, "builds": {}, "tol": tol}
+        case = {"case": name, "B": B, "S_cap": S, "D": D, "heads": [HQ, HKV],
+                "kv_len": lens, "window": window, "builds": {}, "tol": tol}
         for label, run in {**runs, **wrappers}.items():
             got = run()
             torch.cuda.synchronize()
@@ -234,7 +259,7 @@ def main() -> int:
             wr = case["builds"][label]
             wr["eager_minus_graph_ms"] = [
                 a - b for a, b in zip(wr["ms"], wr["graph_ms"])]
-        visible = int(n.sum())
+        visible = int(vis.sum())
         nbytes = (2 * visible * HKV * D * 2 + 2 * q.numel() * 2
                   + (8 * B if isinstance(lens, list) else 0))
         case.update(sm_clocks=clocks, visible=visible,

@@ -14,7 +14,15 @@ flags of ``kernels/build.py``; the in-tree one is the port's own library
 (``flash_attention.kernel._lib``).  On random bf16 q, k, v at the slice's
 attention shape (B 4, 40 / 8 heads, S 2048, D 128), K3 runs causal at the
 ``flash`` tuning row's tiles, K4s and K4m on ``chip_smoke.serving_mask``
-(the local_global pattern of masked serving).  The builds run in the order
+(the local_global pattern of masked serving).  ``--head-dim 256`` takes
+gemma3-12b's local layer instead (B 4, 16 / 8 heads, S 1536, D 256): K3
+causal under the window of 1,024, K4s and K4m on the sliding-window mask
+that masked serving builds for it (64 x 64 tiles).  ``--ablate NAME...``
+makes copies of the in-tree source with one named edit each (see
+``ABLATE``; ``serial256``: at D 256 the tile loop's steps one after
+another, as a first D 256 build had them) and times them as other
+builds.  Every build's registers, spills and shared memory (``-Xptxas
+-v``) are printed and kept in the JSON.  The builds run in the order
 others, in-tree, in-tree, others reversed, each timed by CUDA events; every
 build's output is compared with the in-tree kernel's and with the plain
 version (``ref.py``).  It prints one JSON object as its last line and
@@ -30,8 +38,50 @@ import subprocess
 import sys
 import types
 
+import compare_common as common
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-B, HQ, HKV, S, D = 4, 40, 8, 2048, 128
+# (B, Hq, Hkv, S, K3's window) by head dim: llama4-scout's masked slice,
+# gemma3-12b's local layer
+SHAPES = {128: (4, 40, 8, 2048, None), 256: (4, 16, 8, 1536, 1024)}
+# --ablate: name -> ((text of the in-tree source, its replacement), ...)
+# serial256: at D 256 the tile loop's steps one after another (tile j - 1's
+# P V lands, then tile j's scores, then its softmax: one set of p fragments
+# live, not two), the overlapped loop kept below D 256
+_OVERLAPPED = (
+    "      tc_scores<D>(sc, q_tile, ring + next * kStage);\n"
+    "      hopper::mma_commit();\n"
+    "      tc_pv<D>(st.o, p, ring + stage * kStage + kTile);\n"
+    "      hopper::mma_commit();\n"
+    "      hopper::mma_wait<1>();  // the scores (groups complete in order)\n"
+    "      hopper::fence_operands(sc);\n"
+    "      PFrags p_next;\n"
+    "      tc_softmax<D>(sc, b.kind, q_lo, b.k0, s, st, p_next, alpha);\n"
+    "      hopper::mma_wait<0>();  // tile j - 1's P V\n"
+    "      hopper::fence_operands(st.o);\n"
+    "      hopper::keep(p.hi);\n"
+    "      hopper::keep(p.lo);\n"
+    "      p = p_next;\n")
+_SERIAL = (
+    "      tc_pv<D>(st.o, p, ring + stage * kStage + kTile);\n"
+    "      hopper::mma_commit();\n"
+    "      hopper::mma_wait<0>();\n"
+    "      hopper::fence_operands(st.o);\n"
+    "      hopper::keep(p.hi);\n"
+    "      hopper::keep(p.lo);\n"
+    "#pragma unroll\n"
+    "      for (int e = 0; e < 32; ++e) sc[e] = 0.f;\n"
+    "      hopper::mma_fence();\n"
+    "      tc_scores<D>(sc, q_tile, ring + next * kStage);\n"
+    "      hopper::mma_commit();\n"
+    "      hopper::mma_wait<0>();\n"
+    "      hopper::fence_operands(sc);\n"
+    "      tc_softmax<D>(sc, b.kind, q_lo, b.k0, s, st, p, alpha);\n")
+ABLATE = {
+    "serial256": ((_OVERLAPPED, "      if constexpr (D <= 128) {\n"
+                   + _OVERLAPPED + "      } else {\n" + _SERIAL
+                   + "      }\n"),),
+}
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -48,12 +98,9 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _build(src: str, out: str) -> ctypes.CDLL:
-    from repro_torch.kernels import build
+def _bind(lib, text) -> ctypes.CDLL:
+    """A build of ``flash_attention.cu`` with its three launchers typed."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(out)
     for name, argtypes in fk._ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -61,14 +108,18 @@ def _build(src: str, out: str) -> ctypes.CDLL:
     return lib
 
 
-def _calls(lib, q, k, v, mask, idx):
-    """K3, K4m and K4s of ``lib`` on q, k, v: name -> call -> output."""
+def _calls(lib, q, k, v, mask, idx, k3_window):
+    """K3 (causal, under ``k3_window``), K4m and K4s of ``lib`` on q, k, v:
+    name -> call -> output."""
     import torch
+    B, HQ, S, D = q.shape
+    HKV = k.shape[1]
     bq, bk = mask.bq, mask.bk
     kinds, rows, cols, skinds = idx
     scale = D ** -0.5
     stream = torch.cuda.current_stream().cuda_stream
     window = -1 if mask.window is None else mask.window
+    k3w = -1 if k3_window is None else k3_window
 
     def checked(err):
         if err:
@@ -78,7 +129,7 @@ def _calls(lib, q, k, v, mask, idx):
         out = torch.empty_like(q)
         checked(lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, HQ,
-            HKV, S, S, D, bq, bk, 1, S, -1, 0, scale, 1, stream))
+            HKV, S, S, D, bq, bk, 1, S, k3w, 0, scale, 1, stream))
         return out
 
     def k4m():
@@ -106,13 +157,20 @@ def main() -> int:
     ap.add_argument("others", nargs="*", help="other flash_attention.cu "
                     "sources")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--head-dim", type=int, default=128,
+                    choices=sorted(SHAPES))
+    ap.add_argument("--ablate", nargs="*", default=[], choices=list(ABLATE),
+                    help="copies of the in-tree source, one edit each")
     args = ap.parse_args()
+    D = args.head_dim
+    B, HQ, HKV, S, k3_window = SHAPES[D]
     import torch
     if not torch.cuda.is_available():
         print("compare_flash: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
     import chip_smoke
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref
     card = subprocess.run(
@@ -122,11 +180,30 @@ def main() -> int:
     print(card)
     out_dir = os.path.join(ROOT, "build", "compare_flash")
     os.makedirs(out_dir, exist_ok=True)
-    libs = {src: _build(src, os.path.join(out_dir, f"lib{i}.so"))
-            for i, src in enumerate(args.others)}
+    header = build.SOURCES["flash_attention"].parent / "hopper.cuh"
+    with open(os.path.join(out_dir, header.name), "w") as f:
+        f.write(header.read_text())    # beside the ablated copies
+    others = args.others + common.ablate("flash_attention", ABLATE,
+                                         args.ablate, out_dir)
+    resources = {}
+    log = build.build_all(["flash_attention"])["flash_attention"]["log"]
+    if log:
+        resources["in-tree"] = chip_smoke.kernel_resources(log)
+    libs = {}
+    for src, (lib, res) in common.build_all(others, out_dir,
+                                            _bind).items():
+        libs[src], resources[src] = lib, res
     libs["in-tree"] = fk._lib()
+    for label, rows in resources.items():
+        for kern, used, spills in rows:
+            if f"<{D}>" in kern or f"ILi{D}E" in kern:
+                print(f"{label} {kern}: {used}; {spills}")
 
-    _, mask = chip_smoke.serving_mask(types.SimpleNamespace(hd=D))
+    if k3_window is None:
+        _, mask = chip_smoke.serving_mask(types.SimpleNamespace(hd=D))
+    else:
+        from repro_torch.core.masks import BlockMask
+        mask = BlockMask.sliding_window(S, S, k3_window, bq=64, bk=64)
     g = torch.Generator(device="cuda").manual_seed(8)
     q = torch.randn((B, HQ, S, D), generator=g, device="cuda").bfloat16()
     k, v = (torch.randn((B, HKV, S, D), generator=g, device="cuda")
@@ -134,23 +211,23 @@ def main() -> int:
     st = mask.lower(bucket=True)
     idx = tuple(torch.as_tensor(a).to("cuda", torch.int32) for a in
                 (mask.tile_kinds, st.rows, st.cols, st.kinds))
-    runs = {name: _calls(lib, q, k, v, mask, idx)
+    runs = {name: _calls(lib, q, k, v, mask, idx, k3_window)
             for name, lib in libs.items()}
     plain = {
         "flash_attention": ref.flash_attention_ref(
-            q, k, v, causal=True, bq=mask.bq, bk=mask.bk),
+            q, k, v, causal=True, window=k3_window, bq=mask.bq, bk=mask.bk),
         "flash_attention_masked": ref.flash_attention_masked_ref(
             q, k, v, mask.tile_kinds, skv=S, window=mask.window),
         "flash_attention_sparse": ref.flash_attention_sparse_ref(
             q, k, v, st.rows, st.cols, st.kinds, skv=S, window=mask.window,
             bq=mask.bq, bk=mask.bk)}
     result = {"card": card, "shape": {"B": B, "Hq": HQ, "Hkv": HKV, "S": S,
-                                      "D": D, "dtype": "bfloat16"},
+                                      "D": D, "dtype": "bfloat16",
+                                      "k3_window": k3_window},
               "tiles": [mask.bq, mask.bk], "mask": str(mask),
               "order": "others, in-tree, in-tree, others reversed",
-              "kernels": {}}
-    order = (list(args.others) + ["in-tree", "in-tree"]
-             + list(reversed(args.others)))
+              "resources": resources, "kernels": {}}
+    order = others + ["in-tree", "in-tree"] + list(reversed(others))
     for kname, want in plain.items():
         base = runs["in-tree"][kname]()
         row = {"largest": want.float().abs().max().item(), "builds": {}}

@@ -22,6 +22,14 @@ the CPU with ``--device cpu``):
   unembedding; beside them, off the path, the plain versions those kernels
   replaced on the card (the library's f32 LoRA products, the ``einsum``
   contraction and the bonus sum, the library's mean);
+* with ``--arch gemma3-12b``, every row of each decode-step op of
+  gemma3-12b at full width: the bf16 projections (q, k, v, o, the MLP's
+  three, the unembedding), qk_norm and the block norms in row order (their
+  sums of squares through R1), ``decode_attention`` through D1 on a ring
+  of 1,024 slots and on a global cache (1,280 positions, per-row lengths),
+  and beside them the plain versions (the library's mean, the plain
+  decode attention); the layer probe then runs a 1,100-token prompt, past
+  the window, so the rings have wrapped;
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -29,7 +37,8 @@ the CPU with ``--device cpu``):
 
 Run from the repository root:
 
-    python3 tools/probe_batch_rows.py [--arch rwkv6-7b] [--depth 2]
+    python3 tools/probe_batch_rows.py [--arch rwkv6-7b | gemma3-12b]
+        [--depth 2]
         [--device cuda]
 
 It prints one JSON object as its last line and writes the same to
@@ -45,6 +54,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS = (1, 2, 4, 8)
+# (max_seq, prompt) of the layer probe: gemma3-12b's prompt is past its
+# window of 1,024
+SHAPES = {"gemma3-12b": (1280, 1100)}
 MAX_SEQ, PROMPT = 544, 300
 
 
@@ -166,6 +178,63 @@ def probe_rwkv_ops(cfg, params, device) -> dict:
     return out
 
 
+def probe_gemma_ops(cfg, params, device) -> dict:
+    """Every row of each gemma3-12b decode-step op at M rows against the
+    row alone (the largest difference over the rows), on layer 0's weights
+    and random inputs of its decode shapes; the plain versions off the
+    card's path first, the path's ops after them."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    g = torch.Generator(device=device).manual_seed(7)
+    n, d, hd = max(ROWS), cfg.d_model, cfg.hd
+    blk = M._take(params["blocks"][0], 0)
+    cd = params["embed"].dtype
+    rand = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device=device)
+    unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    mats = {**{k: blk["attn"][k] for k in ("wq", "wk", "wv", "wo")},
+            **{k: blk["ffn"][k] for k in ("w_gate", "w_up", "w_down")},
+            "unembed": unemb}
+    ops = {name: (lambda x, w=w: x @ w.to(cd), rand(n, 1, w.shape[0]).to(cd))
+           for name, w in mats.items()}
+    xq = rand(n, cfg.n_heads, 1, hd).to(cd)
+    xn = rand(n, 1, d).to(cd)
+    ops["qk_norm, row order (R1)"] = (lambda x: L.rmsnorm(
+        blk["attn"]["q_norm"], x, cfg.norm_eps, row_order=True), xq)
+    ops["rmsnorm, row order (R1)"] = (lambda x: L.rmsnorm(
+        blk["ln1"], x, cfg.norm_eps, row_order=True), xn)
+    q = rand(n, cfg.n_heads, 1, hd).to(cd)
+    caches = {"ring": [rand(n, cfg.n_kv_heads, cfg.local_window, hd).to(cd)
+                       for _ in range(2)],
+              "global": [rand(n, cfg.n_kv_heads, 1280, hd).to(cd)
+                         for _ in range(2)]}
+    lens = {"ring": torch.full((n,), cfg.local_window, device=device),
+            "global": torch.randint(1, 1281, (n,), generator=g,
+                                    device=device)}
+    rows = torch.arange(n, device=device)
+    off_path = {
+        "qk_norm plain (library mean)": (lambda x: L.rmsnorm(
+            blk["attn"]["q_norm"], x, cfg.norm_eps), xq),
+        "rmsnorm plain (library mean)": (lambda x: L.rmsnorm(
+            blk["ln1"], x, cfg.norm_eps), xn)}
+    for which, (k, v) in caches.items():
+        for label, fn, table in ((f"decode_attention D1, {which}",
+                                  fops.decode_attention, ops),
+                                 (f"decode_attention plain, {which}",
+                                  decode_attention_ref, off_path)):
+            table[label] = (lambda i, fn=fn, k=k, v=v, ln=lens[which]: fn(
+                q[i], k[i], v[i], kv_len=ln[i]), rows)
+    out = {}
+    for name, (fn, x) in {**off_path, **ops}.items():
+        alone = [fn(x[i:i + 1])[0] for i in range(n)]
+        out[name] = {m: max(_diff(fn(x[:m])[i], alone[i]) for i in range(m))
+                     for m in ROWS[1:]}
+    return out
+
+
 def probe_layers(cfg, params, device) -> dict:
     """One decode step of a request alone and as row 0 of a bucket."""
     import numpy as np
@@ -176,10 +245,11 @@ def probe_layers(cfg, params, device) -> dict:
     moe_fn = lambda p, h, c, counts=None, pos=None: moe.apply_moe(  # noqa
         p, h, c, counts=counts, pos=pos, dispatch="bcsr")
     g = torch.Generator(device=device).manual_seed(8)
-    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=g,
+    max_seq, prompt_len = SHAPES.get(cfg.name, (MAX_SEQ, PROMPT))
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g,
                            device=device)
     logits, cache1, pos = M.prefill_layered(params, prompt, cfg,
-                                            max_seq=MAX_SEQ, moe_fn=moe_fn)
+                                            max_seq=max_seq, moe_fn=moe_fn)
     tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
     block = M._block
     out = {}
@@ -191,7 +261,7 @@ def probe_layers(cfg, params, device) -> dict:
             seen.append(x[0].clone())
             return x, c
 
-        cache = M.init_cache(cfg, rows, MAX_SEQ, device=device)
+        cache = M.init_cache(cfg, rows, max_seq, device=device)
         _copy_row(cache["slots"], cache1["slots"], 0)
         toks = torch.zeros((rows, 1), dtype=torch.long, device=device)
         toks[0] = tok[0]
@@ -221,7 +291,8 @@ def probe_layers(cfg, params, device) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama4-scout-17b-a16e",
-                    choices=["llama4-scout-17b-a16e", "rwkv6-7b"])
+                    choices=["llama4-scout-17b-a16e", "rwkv6-7b",
+                             "gemma3-12b"])
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -236,7 +307,8 @@ def main() -> int:
     params = M.init_params(cfg, seed=0, device=device)
     card = (torch.cuda.get_device_name(0) if device.type == "cuda"
             else "cpu")
-    ops = probe_rwkv_ops if args.arch == "rwkv6-7b" else probe_ops
+    ops = {"rwkv6-7b": probe_rwkv_ops,
+           "gemma3-12b": probe_gemma_ops}.get(args.arch, probe_ops)
     result = {"device": card, "torch": torch.__version__,
               "arch": args.arch, "depth": args.depth,
               "ops": ops(cfg, params, device),
