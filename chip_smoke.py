@@ -13,7 +13,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    and W1: eight sources), one ``nvcc`` each,
    all started together, with build seconds and register counts (the flash
    kernels' by name, with their shared memory; the bf16 flash instances at
-   D 256 must show no spills), and the count of
+   D 192 and 256 and D1's at D 192 must show no spills), and the count of
    tensor-core instructions in the flash library's SASS;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), (8, 1), (16, 32), empty
@@ -21,19 +21,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    16-byte vector), and a ``bn`` off the column unit refused; K3, K4m and
    K4s on random q, k, v
    (f32 and bf16 -- bf16 runs on the tensor cores, f32 on the CUDA cores --
-   GQA 4/2 at D 64 and 16, 40/8 at D 128 and 16/8 at D 256, tiles 32, 16
-   and 64, the
+   GQA 4/2 at D 64 and 16, 40/8 at D 128, 16/8 at D 256 and 12/1 and 96/8
+   at D 192, tiles 32, 16 and 64, the
    reference's mask pattern zoo, bucketed and unbucketed streams, a window,
    a nonzero q_offset, ragged S through ``ops.attention``, causal or not),
    with the laws K4s == K4m, bucketed == unbucketed and K4s on a plain
    causal / window mask == K3 as ``torch.equal``; gemma3-12b's local
    attention at D 256 (16/8 heads, a ragged 1,500 tokens, window 1,024)
    through ``ops.attention`` against the host's plain version, K4s == K4m
-   == K3; D1 (one-token decode
-   attention; q and cache bf16 or f32, D 16 / 64 / 128 / 256, GQA 40/8,
-   4/2 and 16/8, per-row ``kv_len`` from 1 to the cache's 544, 1,024 (a
-   ring), 2,064 or 16,400, the last past the CTAs' shared score budget,
-   windows, vacant rows) and
+   == K3; head dim 96 refused by K3; D1 (one-token decode
+   attention; q and cache bf16 or f32, D 16 / 64 / 128 / 192 / 256, GQA
+   40/8, 4/2, 16/8 and at D 192 groups of 12 (96/8, 24/2: two passes of 8
+   and 4 heads), 6 and 2, per-row ``kv_len`` from 1 to the cache's 544,
+   1,024 (a ring), 1,056, 2,064 or 16,400, the last past the CTAs' shared
+   score budget, windows, vacant rows) and
    R1 (the router logits, d 5120 x 16 experts, x and W bf16 or f32, at
    every tile regime and its edges from 1 to 8,192 tokens, and at d
    40,960, E 5, d 200, E 128, d 201 and 202 and x and W off a 16-byte
@@ -41,8 +42,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``torch.equal`` their laws: row i of B in {1, 2, 3, 4, 8, 16} rows (R1
    at each of its token counts) == the row alone, D1 in a cache 1,520
    positions larger == in the case's, a scalar ``kv_len`` == a vector of equal
-   values, each kernel == its order emulated in PyTorch;
-   float16 and other head dims (32, 192) refused; then, as
+   values, each kernel == its order emulated in PyTorch, and at a group of
+   12 the heads of a kv head == themselves in a pass of their own and
+   alone; float16, other head dims (32, 96) and a group of 17 refused;
+   then, as
    ``torch.equal``, K6a and K6b (five stencils, f32 and bf16, ragged, two
    tiles; K6b's march on interiors no multiple of its tile or run, rows
    at every 4-byte offset, tz below its ring, and two 3-D specs of no
@@ -74,7 +77,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    CPU: llama4-scout SMOKE prefill with chunked attention, masked attention
    (K4s) and kernel attention (K3); rwkv6-7b SMOKE prefill (K7 once a
    layer) and one decode step (W1 once a layer, R1 twice a layer and
-   once a norm);
+   once a norm); qwen3-1.7b, qwen2-1.5b (at head dim 16, biases random)
+   and nemotron-4-340b SMOKE prefill chunked, through K4s and through K3
+   (each once a layer) and one decode step (D1 once a layer, R1 once a
+   decode norm);
 5. the serving slice at full llama4-scout width (depth cut to 8 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
@@ -222,6 +228,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    the D 256 rows of K3 / K4m / K4s (a local layer's captured q, k, v,
    the global layer's K3 beside) and D1 (the ring and global calls of the
    first decode step, B 1 and 8 beside);
+10b. the dense GQA family, one arch at a time, each freeing its weights
+   before the next: qwen3-1.7b (28 layers, 16/8 heads of 128, qk_norm,
+   4.06 GB) and qwen2-1.5b (28 layers, 12/2 heads of 128, qkv bias, random
+   biases, 3.56 GB) at full width and depth on 4 x 2,048 prompts, and
+   nemotron-4-340b at full width (96/8 heads of 192: a GQA group of 12;
+   d_ff 73,728 squared ReLU; vocab 256,000) and depth 4 of 96 (46.5 GB) on
+   4 x 1,024, random bf16 weights from a seed: ``ServeLoop`` chunked
+   prefill and 32 greedy tokens fused and layered (tokens equal, first
+   decode step logits ``torch.equal``, D1 once a layer and R1 once a
+   decode norm a step, no plain version on the card), one decode step
+   each traced; nemotron's masked prefill (local_global) through K4s and
+   K4m, sparse == dense tokens; the K3 prefill timed; the scheduler on 8
+   requests of 256-1,024 prompt tokens and budgets 16-64 (numpy seed 34),
+   8 slots, wide and int8 KV, fused and two-phase: fused == two-phase
+   tokens, one graph a bucket, every request == itself alone (8 of 8
+   each); each arch's K3 (and nemotron's K4m / K4s) and D1 at its served
+   shapes timed into the kernels line; each phase's wall seconds;
 11. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -231,6 +254,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain versions and the oracles;
 12. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound; K2, D1, R1, K3, K4m, K4s, K7, W1, K3 / K4m / K4s / D1 at D 256,
+   K3 / D1 at each dense arch's served shape (K4m / K4s and D1's two
+   passes at nemotron-4-340b's D 192),
    K6a, K6b, K5, K2q; D1, R1 and
    W1 on the calls the serving runs made (decode steps at 4 x 256, the
    scheduler's top bucket, 4 x 2048; R1's prefills; W1 and R1's
@@ -820,20 +845,33 @@ def phase_build():
         if name == "flash_attention":
             spills = _flash_resources(r["log"] or "(no compiler report "
                                       "beside the library)")
-            # the bf16 instances at D 256 hold a (64, 256) f32 accumulator
-            # (128 registers a thread): the build must show no spills
+            # the bf16 instances at D 192 and 256 hold a (64, 192) or (64,
+            # 256) f32 accumulator (96 or 128 registers a thread): the
+            # build must show no spills
             if not spills:
-                print("  flash_attention: the D 256 spill check was NOT run "
-                      "(no compiler report)")
+                print("  flash_attention: the D 192 / 256 spill check was "
+                      "NOT run (no compiler report)")
             for kern in ("tc_flash_kernel", "tc_flash_masked_kernel",
                          "tc_flash_sparse_kernel"):
-                if spills:
-                    check("0 bytes spill stores, 0 bytes spill loads" in
-                          spills.get((kern, 256), ""),
-                          f"{kern}<256> spills: {spills.get((kern, 256))}")
+                for d in (192, 256):
+                    if spills:
+                        check("0 bytes spill stores, 0 bytes spill loads"
+                              in spills.get((kern, d), ""),
+                              f"{kern}<{d}> spills: {spills.get((kern, d))}")
             continue
-        for kern, used, spills in kernel_resources(r["log"]):
+        rows = kernel_resources(r["log"])
+        for kern, used, spills in rows:
             print(f"  {name} {kern}: {used}; {spills}")
+        if name == "decode_attention":
+            # D1's four instances at D 192 (nemotron-4-340b), spill-free
+            d192 = [sp for kern, _, sp in rows
+                    if "192>" in kern or "Li192E" in kern]
+            if not rows:
+                print("  decode_attention: the D 192 spill check was NOT "
+                      "run (no compiler report)")
+            check(not rows or (len(d192) == 4 and all(
+                "0 bytes spill stores, 0 bytes spill loads" in sp
+                for sp in d192)), f"decode_attention<192> spills: {d192}")
     from repro_torch.kernels import tuning
     from repro_torch.kernels.spmspm import kernel as pk
     rt, ct = tuning.spmspm_tiles(SPMSPM_N, SPMSPM_N, 1, 1, device="cuda")
@@ -954,7 +992,9 @@ def phase_attention_vs_plain():
         for B, Hq, Hkv, S, D, t in ((2, 4, 2, 256, 64, 32),
                                     (1, 40, 8, 512, 128, 64),
                                     (1, 4, 2, 128, 16, 16),
-                                    (1, 16, 8, 512, 256, 64)):
+                                    (1, 16, 8, 512, 256, 64),
+                                    (1, 12, 1, 512, 192, 64),
+                                    (1, 96, 8, 256, 192, 64)):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to("cuda", dt) for shape in
                 ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
@@ -1036,6 +1076,12 @@ def phase_attention_vs_plain():
         _gemma_window_case(rng, dt)
     check(ops.fallback_count() == 0,
           f"attention fell back to the oracle: {ops.fallback_reasons()}")
+    x = torch.zeros((1, 2, 64, 96), dtype=torch.bfloat16, device="cuda")
+    try:
+        fk.flash_attention(x, x, x, causal=True, bq=64, bk=64)
+        check(False, "K3 took head dim 96")
+    except ValueError:
+        print("  K3 refuses head dim 96")
 
 
 GEMMA_WINDOW_S = 1500        # ragged: padded to 24 tiles of 64
@@ -1082,7 +1128,12 @@ def _gemma_window_case(rng, dt):
 # CTAs' shared score budget (13,056 positions at g 5: pass 2 recomputes);
 # then gemma3-12b's 16/8 at D 256: a ring of 1,024 slots (every filled
 # slot visible, no window) and its 2,064-position full cache under the
-# window of 1,024 (per-row kv_len on both sides of the window)
+# window of 1,024 (per-row kv_len on both sides of the window); then
+# nemotron-4-340b's head dim 192: its 96/8 heads (a group of 12, taken in
+# passes of 8 and 4) at the served cache of 1,056, bf16 and f32 with a
+# window, groups of 6 and 2 in 2,064-position caches, and a group of 12 in
+# a 16,400-position cache past the score budget (the 8-head pass
+# recomputes where the 4-head one may hold)
 DECODE_CASES = (
     (40, 8, 128, "bfloat16", "bfloat16", None, 544),
     (40, 8, 128, "bfloat16", "bfloat16", 300, 544),
@@ -1100,6 +1151,11 @@ DECODE_CASES = (
     (16, 8, 256, "float32", "float32", None, 1024),
     (16, 8, 256, "bfloat16", "bfloat16", 1024, 2064),
     (16, 8, 256, "bfloat16", "float32", 1024, 2064),
+    (96, 8, 192, "bfloat16", "bfloat16", None, 1056),
+    (96, 8, 192, "float32", "float32", 300, 1056),
+    (12, 2, 192, "bfloat16", "float32", None, 2064),
+    (16, 8, 192, "float32", "bfloat16", 100, 2064),
+    (24, 2, 192, "bfloat16", "bfloat16", None, 16400),
 )
 DECODE_ROWS, DECODE_CAP_MORE = 16, 1520    # the larger cache: S + 1,520
 BATCH_LAW = (1, 2, 3, 4, 8, 16)
@@ -1199,7 +1255,8 @@ def phase_decode_vs_plain():
         reached |= {"kv_len 1"} if (lens == 1).any() else set()
         reached |= ({"lo off a chunk"} if ((lo > 0) & (lo % C > 0)).any()
                     else set())
-        past = int((Hq // Hkv * most * 4 > ref.DECODE_SCORE_BYTES).sum())
+        heads = min(Hq // Hkv, ref.DECODE_PASS_HEADS)    # the first pass
+        past = int((heads * most * 4 > ref.DECODE_SCORE_BYTES).sum())
         reached |= {"scores recomputed"} if past else set()
         qdt, cdt = getattr(torch, qn), getattr(torch, cn)
         q = rand((B, Hq, 1, D), qdt)
@@ -1239,26 +1296,44 @@ def phase_decode_vs_plain():
             f"{what}: scalar kv_len != a vector of equal values")
         check(torch.equal(ref.decode_attention_ordered(q, k, v, **kw), got),
               f"{what}: kernel != its emulated order")
+        g = Hq // Hkv
+        if g > ref.DECODE_PASS_HEADS:
+            # the passes change no bit: kv head 1's heads == the same heads
+            # in a pass of their own and each head alone (a group of 1)
+            k1, v1 = k[:, 1:2].contiguous(), v[:, 1:2].contiguous()
+            P = ref.DECODE_PASS_HEADS
+            for lo_h, hi_h in [(j, min(j + P, g)) for j in range(0, g, P)] \
+                    + [(i, i + 1) for i in range(g)]:
+                hs = slice(g + lo_h, g + hi_h)
+                check(torch.equal(fk.decode_attention(
+                    q[:, hs].contiguous(), k1, v1, **kw), got[:, hs]),
+                    f"{what}: heads {lo_h}-{hi_h - 1} of kv head 1 alone "
+                    "!= in the group")
+            reached.add("a group in passes")
         print(f"  {what}: max_abs_err {err:.3g} (tol {tol:.3g}); == its "
               f"emulated order; rows of B {BATCH_LAW} == alone, cache {S} == "
               f"{S + DECODE_CAP_MORE}, scalar == vector kv_len; {past} of "
               f"{B} rows recompute their scores")
         del q, k, v, want, got
     check(reached == {"several chunks a CTA", "kv_len 1", "lo off a chunk",
-                      "scores recomputed"},
+                      "scores recomputed", "a group in passes"},
           f"D1's cases reach only {sorted(reached)} of the partition")
-    for bad, why in (((torch.float16, torch.float16, 128), "float16"),
-                     ((torch.bfloat16, torch.bfloat16, 32), "head dim 32"),
-                     ((torch.bfloat16, torch.bfloat16, 192), "head dim 192")):
-        qdt, cdt, D = bad
+    for bad, why in (((torch.float16, torch.float16, 128, 4), "float16"),
+                     ((torch.bfloat16, torch.bfloat16, 32, 4),
+                      "head dim 32"),
+                     ((torch.bfloat16, torch.bfloat16, 96, 4),
+                      "head dim 96"),
+                     ((torch.bfloat16, torch.bfloat16, 128, 34),
+                      "a GQA group of 17")):
+        qdt, cdt, D, Hq = bad
         try:
-            fk.decode_attention(rand((2, 4, 1, D), qdt),
+            fk.decode_attention(rand((2, Hq, 1, D), qdt),
                                 rand((2, 2, 8, D), cdt),
                                 rand((2, 2, 8, D), cdt), kv_len=3)
         except (TypeError, ValueError):
             continue
         check(False, f"D1 took {why}")
-    print("  D1 refuses float16 and head dims 32, 192")
+    print("  D1 refuses float16, head dims 32 and 96 and a GQA group of 17")
 
     d, E = 5120, 16
     for xn, wn in ROUTER_PAIRS:
@@ -2475,21 +2550,19 @@ def _attn_prompts(cfg):
                          device="cuda")
 
 
-def serving_mask(cfg):
+def serving_mask(cfg, S: int = ATTN_PROMPT):
     """The masked serving spec (without ``impl``) and its mask at the
-    prompt length: the opt-in long-context pattern, a causal local window of
-    MASK_WINDOW plus the first KV tile, at the tiles of the ``flash`` cuda
-    row.  A synthetic pattern that exercises the masked kernels, not
-    llama4-scout's own chunked attention."""
+    prompt length ``S``: the opt-in long-context pattern, a causal local
+    window of MASK_WINDOW plus the first KV tile, at the tiles of the
+    ``flash`` cuda row.  A synthetic pattern that exercises the masked
+    kernels, not llama4-scout's own chunked attention."""
     import torch
     from repro_torch.core.masks import AttnMaskSpec
     from repro_torch.kernels import tuning
-    bq, bk = tuning.flash_tiles(ATTN_PROMPT, ATTN_PROMPT, cfg.hd,
-                                torch.bfloat16, "cuda")
+    bq, bk = tuning.flash_tiles(S, S, cfg.hd, torch.bfloat16, "cuda")
     spec = dict(local=True, pattern="local_global", window=MASK_WINDOW,
                 n_global=1, bq=bq, bk=bk)
-    mask = AttnMaskSpec(**spec).build(ATTN_PROMPT, ATTN_PROMPT,
-                                      layer_window=None, bq=bq, bk=bk)
+    mask = AttnMaskSpec(**spec).build(S, S, layer_window=None, bq=bq, bk=bk)
     return spec, mask
 
 
@@ -2952,17 +3025,23 @@ def _decode_times(call, what: str) -> dict:
         lambda: ref.decode_attention_ref(q, k, v, **kw), 20)
     library_ms = time_ms(lib, 50)
     graph = {"ms": graph_ms(run), "library_ms": graph_ms(lib)}
-    nbytes = (2 * visible * Hkv * D * k.element_size()
-              + 2 * q.numel() * q.element_size() + 8 * B)
+    kv_bytes = 2 * visible * Hkv * D * k.element_size()
+    nbytes = kv_bytes + 2 * q.numel() * q.element_size() + 8 * B
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * D * (Hq // Hkv) * Hkv * visible / F32_FLOP_PER_S * 1e3
+    # a group past ref.DECODE_PASS_HEADS is taken in passes, each reading
+    # the visible K and V once
+    passes = -(-(Hq // Hkv) // ref.DECODE_PASS_HEADS)
+    passes_ms = (nbytes + (passes - 1) * kv_bytes) / HBM_BYTES_PER_S * 1e3
     launch = fk.decode_info(D, q.dtype, k.dtype)
     print(f"  D1 {what} (B {B}, {Hq}/{Hkv}, cache {S}, {visible // B} "
           f"visible a row on average, {str(k.dtype)[6:]}): {ms:.4f} ms "
-          f"(graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}, "
-          f"plain {plain_ms:.3f}, sdpa {library_ms:.4f}, graph "
+          f"(graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}"
+          + (f", {passes} passes {max(passes_ms, ops_ms):.5f}"
+             if passes > 1 else "")
+          + f", plain {plain_ms:.3f}, sdpa {library_ms:.4f}, graph "
           f"{graph['library_ms']:.4f}), max_abs_err {err:.3g}; "
-          f"{B * Hkv} clusters of {launch['cluster']} CTAs x "
+          f"{B * Hkv * passes} clusters of {launch['cluster']} CTAs x "
           f"{launch['threads']} threads, chunks of {launch['chunk']}, "
           f"{launch['dynamic_smem'] + launch['static_smem']} B shared a CTA "
           f"({launch['dynamic_smem']} dynamic), {launch['registers']} "
@@ -2970,6 +3049,7 @@ def _decode_times(call, what: str) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "passes": passes, "passes_bound_ms": max(passes_ms, ops_ms),
             "library_ms": library_ms, "graph": graph, "launch": launch,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S_cap": S, "D": D,
                       "visible": visible, "window": window,
@@ -3997,6 +4077,88 @@ def phase_rwkv_smoke_card_vs_cpu():
           f"{launches1['router_logits']})")
 
 
+def random_biases(params, seed: int) -> None:
+    """Every ``bq`` / ``bk`` / ``bv`` leaf of ``params`` filled, in place,
+    with N(0, 0.1) values from a ``torch.Generator`` seeded with ``seed``
+    on the leaves' device (``init_params`` gives zeros, as the reference's
+    does, which would leave the bias add unexercised)."""
+    import torch
+    for slot in params["blocks"]:
+        attn = slot.get("attn", {})
+        for name in ("bq", "bk", "bv"):
+            if name in attn:
+                leaf = attn[name]
+                g = torch.Generator(device=leaf.device).manual_seed(seed)
+                leaf.copy_(torch.randn(leaf.shape, generator=g,
+                                       device=leaf.device) * 0.1)
+                seed += 1
+
+
+def phase_dense_smoke_card_vs_cpu():
+    """The dense family's small configs in f32 (qwen3-1.7b and
+    nemotron-4-340b SMOKE, qwen2-1.5b SMOKE at head dim 16 with nonzero
+    biases): prefill logits on the card agree with the CPU within 1e-4,
+    chunked, through K3 (``impl="kernel"``) and through K4s (local_global,
+    tiles and window 8), each kernel once a layer; then one decode step
+    from the chunked prefill's caches (:func:`decode_counts`: D1 once a
+    layer, R1 once a decode norm) within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.models import model as M
+    for arch in DENSE_ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch), policy="f32")
+        if cfg.hd < 16:           # qwen2's 8 is none of the kernels' dims
+            cfg = dataclasses.replace(cfg, head_dim=16)
+        cpu = M.init_params(cfg, seed=0, device="cpu")
+        random_biases(cpu, 3)
+        gpu = _tree_to(cpu, "cuda")
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 24)))
+        mask = AttnMaskSpec(pattern="local_global", window=8, bq=8, bk=8,
+                            impl="sparse")
+        errs = {}
+        for label, kw, kernel in (
+                ("chunked", {}, None),
+                ("attn_mask sparse", {"attn_mask": mask},
+                 "flash_attention_sparse"),
+                ("impl=kernel", {"impl": "kernel"}, "flash_attention")):
+            want, c_cpu, pos = M.prefill_layered(cpu, prompts, cfg,
+                                                 max_seq=32, **kw)
+            reset_launches()
+            got, c_gpu, _ = M.prefill_layered(gpu, prompts.cuda(), cfg,
+                                              max_seq=32, **kw)
+            launches = read_launches()
+            errs[label] = (got.cpu() - want).abs().max().item()
+            check(bool(torch.isfinite(got).all()) and errs[label] <= 1e-4,
+                  f"{arch} smoke prefill ({label}): card and cpu disagree: "
+                  f"{errs[label]}")
+            check(launches == only(**({kernel: cfg.n_layers} if kernel
+                                       else {})),
+                  f"{arch} smoke prefill ({label}): launches {launches}")
+            if kernel is None:
+                caches = (c_cpu, c_gpu, pos, want)
+        c_cpu, c_gpu, pos, want = caches
+        tok = want[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        want1, _ = M.decode_step_layered(cpu, cfg, c_cpu, pos, tok)
+        reset_launches()
+        got1, _ = M.decode_step_layered(gpu, cfg, c_gpu, pos, tok.cuda())
+        launches1 = read_launches()
+        check(launches1 == decode_counts(cfg, 0, 1),
+              f"{arch} smoke decode launches {launches1}")
+        err1 = (got1.cpu() - want1).abs().max().item()
+        check(bool(torch.isfinite(got1).all()) and err1 <= 1e-4,
+              f"{arch} smoke decode: card and cpu disagree: {err1}")
+        print(f"  {cfg.name} f32 (hd {cfg.hd}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}{', biases' if cfg.qkv_bias else ''}) card "
+              f"vs cpu: prefill logits max_abs_err " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; decode step {err1:.3g} (D1 x "
+              f"{launches1['decode_attention']}, R1 x "
+              f"{launches1['router_logits']})")
+
+
 def phase_rwkv_serving(card):
     """RWKV-6 serving at full width and depth: ``ServeLoop`` on rwkv6-7b
     (random bf16 weights from a seed) serves BATCH prompts of RWKV_PROMPT
@@ -4455,6 +4617,32 @@ def gemma_trace(vocab: int):
             for _ in range(GEMMA_SCHED_REQUESTS)]
 
 
+# ---------------------------------------------------------------------------
+# the dense GQA family: qwen3-1.7b and qwen2-1.5b at full depth,
+# nemotron-4-340b at full width and depth 4 of 96 (a layer is 6.91 GB of
+# bf16 and the embedding and unembedding 9.44 GB each, so 4 layers are
+# 46.5 GB and 6 would be 60.3 GB of one card's 80 GB)
+
+DENSE_ARCHS = ("qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
+DENSE_DEPTH = {"nemotron-4-340b": 4}
+DENSE_PROMPT = {"qwen3-1.7b": 2048, "qwen2-1.5b": 2048,
+                "nemotron-4-340b": 1024}
+DENSE_GEN, DENSE_MASK_GEN = 32, 8
+# the scheduler's trace: 8 requests of 256-1,024 prompt tokens and budgets
+# of 16-64 from numpy seed DENSE_SCHED_SEED, 8 slots
+DENSE_SCHED_REQUESTS, DENSE_SCHED_SEED, DENSE_SCHED_MAX_SEQ = 8, 34, 1088
+
+
+def dense_trace(vocab: int):
+    """The dense family's scheduler requests, from ``default_rng``
+    (DENSE_SCHED_SEED)."""
+    import numpy as np
+    rng = np.random.default_rng(DENSE_SCHED_SEED)
+    return [(rng.integers(0, vocab, int(rng.integers(256, 1025))
+                          ).astype(np.int32), int(rng.integers(16, 65)))
+            for _ in range(DENSE_SCHED_REQUESTS)]
+
+
 def _alone_report(loop, trace, toks, what: str) -> list:
     """Each request of ``trace`` through ``loop`` alone (B = 1) against its
     scheduled tokens; where one parts, the step and the tokens are
@@ -4786,6 +4974,292 @@ def phase_measure_gemma(qkv, calls, launches, card) -> list:
     return rows
 
 
+def phase_dense_scheduler(cfg, params):
+    """Continuous batching of a dense arch: :func:`dense_trace`'s 8
+    requests through ``ServeScheduler`` (8 slots, max_seq
+    DENSE_SCHED_MAX_SEQ), as :func:`drive_scheduler` submits them, wide and
+    with ``kv_quant="int8"``, each fused (one CUDA graph a batch bucket
+    over the pool's rows) and two-phase (layered, eager), counts set to 0
+    just before each: D1 once a layer and R1 once a decode norm a decode
+    step, replays counted, no plain version on the card; fused ==
+    two-phase tokens.  Each request served alone through one fused
+    ``ServeLoop`` (B = 1, the same ``kv_quant``) must give its scheduled
+    tokens: 8 of 8, wide and int8."""
+    from repro_torch.launch.serve import ServeLoop, ServeScheduler
+    trace = dense_trace(cfg.vocab_size)
+    print(f"  {cfg.name} continuous batching: {len(trace)} requests, "
+          f"prompts {min(len(p) for p, _ in trace)}-"
+          f"{max(len(p) for p, _ in trace)}, budgets "
+          f"{min(g for _, g in trace)}-{max(g for _, g in trace)}, "
+          f"{SCHED_SLOTS} slots, max_seq {DENSE_SCHED_MAX_SEQ}")
+    per_step = {"decode_attention": cfg.n_layers,
+                "router_logits": r1_per_step(cfg)}
+    runs, alone_matches = [], {}
+    for kv in (None, "int8"):
+        toks_by = {}
+        for two_phase in (False, True):
+            key = ("two_phase" if two_phase else "fused") + (
+                f"_{kv}" if kv else "")
+            sched = ServeScheduler(params, cfg, max_seq=DENSE_SCHED_MAX_SEQ,
+                                   max_slots=SCHED_SLOTS,
+                                   two_phase=two_phase, kv_quant=kv)
+            reset_launches()
+            with no_plain():
+                wall = drive_scheduler(sched, trace, {})   # the main path
+            counts = read_launches()
+            toks = {r.uid: list(r.tokens) for r in sched.finished}
+            check(sorted(toks) == list(range(len(trace))),
+                  f"{cfg.name} scheduler {key}: finished {sorted(toks)}")
+            steps = sum(st.phase == "decode" for st in sched.stats)
+            want = decode_counts(cfg, len(trace), steps)
+            check(counts == want, f"{cfg.name} scheduler {key}: launches "
+                                  f"{counts} != {want} ({steps} steps)")
+            if not two_phase:
+                graphs = {b: f.graph is not None and f.launches == per_step
+                          for b, f in sched._fused.items()}
+                check(set(graphs) == sched.batch_buckets
+                      and all(graphs.values()),
+                      f"{cfg.name} scheduler {key}: graphs {graphs} for "
+                      f"buckets {sorted(sched.batch_buckets)}")
+            runs.append({**scheduler_numbers(f"{cfg.name} {key}", sched,
+                                             wall),
+                         "d1_launches": counts["decode_attention"],
+                         "r1_launches": counts["router_logits"],
+                         "decode_steps": steps})
+            print_scheduler(runs[-1])
+            toks_by[two_phase] = toks
+            del sched
+        check(toks_by[False] == toks_by[True], f"{cfg.name} scheduler "
+              f"kv_quant={kv}: fused tokens != two-phase tokens")
+        loop = ServeLoop(params, cfg, max_seq=DENSE_SCHED_MAX_SEQ,
+                         kv_quant=kv)
+        with no_plain():
+            alone = _alone_report(loop, trace, toks_by[False],
+                                  f"{cfg.name} kv_quant={kv}")
+        del loop
+        gc.collect()
+        alone_matches[kv or "wide"] = sum(alone)
+        print(f"  kv_quant={kv}: fused == two-phase tokens; {sum(alone)} of "
+              f"{len(trace)} requests give the tokens they get alone (B = "
+              f"1); D1 {cfg.n_layers} and R1 {r1_per_step(cfg)} a decode "
+              "step")
+        check(all(alone), f"{cfg.name} scheduler kv_quant={kv}: only "
+                          f"{sum(alone)} of {len(trace)} requests equal "
+                          "themselves alone")
+    return {"requests": len(trace), "slots": SCHED_SLOTS,
+            "max_seq": DENSE_SCHED_MAX_SEQ, "seed": DENSE_SCHED_SEED,
+            "runs": runs, "alone_matches": alone_matches}
+
+
+def phase_dense_serving(arch: str, card):
+    """One arch of the dense GQA family served on the card: its ``CONFIG``
+    at full width (qwen3-1.7b and qwen2-1.5b at full depth, nemotron-4-340b
+    at depth DENSE_DEPTH of 96, the cut printed), random bf16 weights from
+    a seed (qwen2's biases random too).  ``ServeLoop`` serves BATCH prompts
+    of DENSE_PROMPT tokens (chunked prefill) and DENSE_GEN greedy tokens,
+    fused (the default: the decode step one replayed CUDA graph) and
+    layered (``two_phase=True``): the same tokens and first decode step
+    logits ``torch.equal``; D1 once a layer and R1 once a decode norm a
+    decode step, nothing in the chunked prefill, no plain version on the
+    card; one fused and one layered decode step traced.  nemotron-4-340b:
+    the masked prefill (``local_global``) through K4s and K4m, sparse ==
+    dense tokens.  The kernel prefill (K3 once a layer), timed; then the
+    scheduler (:func:`phase_dense_scheduler`).  The weights are freed
+    before it returns.  Returns (summary, layer 0's q, k, v of the kernel
+    prefill, the layered run's first decode step's D1 call, the launches
+    of each kernel's run)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import model as M
+    t_phase = time.monotonic()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_repeats=DENSE_DEPTH.get(
+        arch, full.n_repeats))
+    prompt_len = DENSE_PROMPT[arch]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    random_biases(params, 7)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    gb = sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9
+    print(f"{arch} serving: d={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads} (group {cfg.n_heads // cfg.n_kv_heads}) hd="
+          f"{cfg.hd} d_ff={cfg.d_ff} ({cfg.mlp_type}) vocab={cfg.vocab_size}"
+          f" qk_norm={cfg.qk_norm} qkv_bias={cfg.qkv_bias}; depth "
+          f"{cfg.n_layers} of {full.n_layers}; params {gb:.2f} GB, init "
+          f"{init_s:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len),
+                            generator=g, device="cuda")
+    max_seq = prompt_len + DENSE_GEN
+    loop = ServeLoop(params, cfg, max_seq=max_seq)
+    check(not loop.two_phase, f"{arch}'s default loop is not fused")
+    loop.run(prompts, 2)                      # warm-up: allocator, capture
+    capture0 = loop.summary()["capture"]
+    reset_launches()
+    with no_plain():                          # the main path
+        tokens, fused_logits = first_step_logits(loop, prompts, DENSE_GEN)
+    counts = read_launches()
+    want = decode_counts(cfg, 1, DENSE_GEN - 1)
+    check(counts == want, f"{arch} fused: launches {counts} != {want}")
+    per_step = {"decode_attention": cfg.n_layers,
+                "router_logits": r1_per_step(cfg)}
+    check(loop.fused_step.launches == per_step, f"a {arch} replay launches "
+          f"{loop.fused_step.launches}, not {per_step}")
+    check(tokens.shape == (BATCH, DENSE_GEN) and (tokens >= 0).all()
+          and (tokens < cfg.vocab_size).all(), f"{arch}: bad token ids")
+    check(bool(torch.isfinite(fused_logits).all()),
+          f"{arch}: first decode step logits not finite")
+    rows = [fused_numbers("fused", loop.summary(), capture0, counts)]
+    layered = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True)
+    layered.run(prompts, 2)                   # warm-up
+    calls = {}
+
+    def keep(name, a, kw):
+        if name == "decode_attention" and not calls:
+            calls["first"] = (tuple(t.clone() for t in a[:3]), dict(kw))
+
+    reset_launches()
+    with no_plain(), hook_calls(keep):
+        got, layered_logits = first_step_logits(layered, prompts, DENSE_GEN)
+    counts_l = read_launches()
+    check(counts_l == want, f"{arch} layered: launches {counts_l}")
+    check(np.array_equal(got, tokens), f"{arch}: layered tokens != fused")
+    check(torch.equal(layered_logits, fused_logits),
+          f"{arch}: first decode step logits, layered != fused (max diff "
+          f"{(layered_logits - fused_logits).abs().max().item()})")
+    rows.append(fused_numbers("layered", layered.summary(),
+                              {"calls": 0, "ms": 0.0}, counts_l))
+    for row in rows:
+        print_fused(row)
+    print(f"  layered tokens == fused tokens, first decode step logits "
+          f"torch.equal; a replay launches {per_step}; tokens "
+          f"{tokens[0, :8].tolist()} ...; first decode step's D1 kv_len "
+          f"{calls['first'][1]['kv_len']}")
+    traces = [trace_decode(f"{arch}, layered eager", layered, prompts),
+              trace_decode(f"{arch}, fused replayed", loop, prompts)]
+    del layered
+    launches = {"decode_attention": counts["decode_attention"]}
+    masked = {}
+    if arch == "nemotron-4-340b":
+        spec, mask = serving_mask(cfg, prompt_len)
+        for impl, kern in (("sparse", "flash_attention_sparse"),
+                           ("dense", "flash_attention_masked")):
+            loop.attn_mask = AttnMaskSpec(**spec, impl=impl)
+            fops.reset_fallbacks()
+            reset_launches()
+            with no_plain():
+                toks = loop.run(prompts, DENSE_MASK_GEN)
+            c = read_launches()
+            want_m = decode_counts(cfg, 1, DENSE_MASK_GEN - 1,
+                                   **{kern: cfg.n_layers})
+            check(c == want_m, f"{arch} masked {impl}: launches {c} != "
+                               f"{want_m}")
+            check(fops.fallback_count() == 0, f"{arch} masked {impl}: fell "
+                                              "back")
+            launches[kern] = c[kern]
+            masked[impl] = {
+                "tokens": toks,
+                "prefill_ms": loop.summary()["prefill"]["seconds"] * 1e3}
+        check(np.array_equal(masked["sparse"]["tokens"],
+                             masked["dense"]["tokens"]),
+              f"{arch} local_global: sparse tokens != dense tokens")
+        loop.attn_mask = None
+        print(f"  local_global (window {MASK_WINDOW} + the first tile, "
+              f"{mask.nnzb} of {mask.n_q_tiles * mask.n_kv_tiles} tiles): "
+              f"sparse == dense tokens; prefill "
+              f"{masked['sparse']['prefill_ms']:.1f} ms (K4s), "
+              f"{masked['dense']['prefill_ms']:.1f} ms (K4m)")
+    del loop
+    qkv = {}
+
+    def keep_qkv(name, a, kw):
+        if name == "attention" and not qkv and kw.get("mask") is None:
+            qkv["first"] = tuple(t.contiguous().clone() for t in a[:3])
+
+    reset_launches()
+    t0 = time.monotonic()
+    with hook_calls(keep_qkv):
+        logits, _, _ = M.prefill(params, prompts, cfg, max_seq=max_seq,
+                                 impl="kernel")
+        torch.cuda.synchronize()
+    kernel_ms = (time.monotonic() - t0) * 1e3
+    c = read_launches()
+    check(c == only(flash_attention=cfg.n_layers),
+          f"{arch} kernel prefill: launches {c}")
+    check(bool(torch.isfinite(logits).all()), f"{arch} K3 prefill: logits")
+    launches["flash_attention"] = c["flash_attention"]
+    k3_first = logits[:, -1, :cfg.vocab_size].argmax(-1).cpu().numpy()
+    print(f"  kernel prefill (K3 x {cfg.n_layers}) {kernel_ms:.1f} ms; "
+          f"first tokens {np.mean(k3_first == tokens[:, 0]):.2f} equal to "
+          "the chunked prefill's (information)")
+    del logits
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sched = phase_dense_scheduler(cfg, params)
+    sched_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.monotonic() - t_phase
+    info = {"arch": arch, "depth": cfg.n_layers, "full_depth": full.n_layers,
+            "batch": BATCH, "prompt": prompt_len, "gen": DENSE_GEN,
+            "params_gb": gb, "init_s": init_s, "runs": rows,
+            "traces": traces,
+            "masked": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                       for k, v in masked.items()},
+            "kernel_prefill_ms": kernel_ms, "peak_gb": peak_gb,
+            "scheduler": sched, "scheduler_peak_gb": sched_peak_gb,
+            "wall_s": wall, "card": card}
+    print(f"  {arch} phase: peak {peak_gb:.1f} GB (serving), "
+          f"{sched_peak_gb:.1f} GB (with the scheduler); {wall:.1f} s")
+    return info, qkv["first"], calls["first"], launches
+
+
+def phase_measure_dense(arch, qkv, call, launches, card) -> list:
+    """An arch's rows at its served shapes: K3 at layer 0's q, k, v of the
+    kernel prefill (causal), and nemotron-4-340b's K4m and K4s on its
+    masked prefill's ``local_global`` mask (:func:`phase_measure_attention`,
+    D 192); D1 at the layered run's first decode step call
+    (:func:`_decode_times`: with the bound of the passes at a group past
+    8), row 0 alone (B 1) and the rows twice (B 8) beside."""
+    from repro_torch.core.masks import BlockMask
+    q = qkv[0]
+    S, D = q.shape[2], q.shape[3]
+    tag = f" D{D} {arch}"
+    if arch == "nemotron-4-340b":
+        _, mask = serving_mask(types.SimpleNamespace(hd=D), S)
+        rows = phase_measure_attention(qkv, mask, launches, card,
+                                       suffix=tag)
+    else:
+        rows = phase_measure_attention(
+            qkv, BlockMask.causal(S, S, bq=64, bk=64), launches, card,
+            suffix=tag, names=("flash_attention",))
+    (q1, k1, v1), kw = call
+    what = f"{arch} 4 x {S}, first step"
+    d1 = _decode_times(call, what)
+    beside = {
+        "b1_call": _decode_times(((q1[:1], k1[:1], v1[:1]), kw),
+                                 f"{arch}, row 0 alone (B 1)"),
+        "b8_call": _decode_times(((q1.repeat(2, 1, 1, 1).contiguous(),
+                                   k1.repeat(2, 1, 1, 1).contiguous(),
+                                   v1.repeat(2, 1, 1, 1).contiguous()), kw),
+                                 f"{arch}, rows twice (B 8)")}
+    rows.append({"name": f"decode_attention D{D} {arch}", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "decode_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/ops.py:212 "
+                             "(array code, no Pallas kernel)",
+                 "launches": launches["decode_attention"], **d1, **beside,
+                 "card": card})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4806,6 +5280,7 @@ def main() -> int:
     phase_wkv_vs_plain()
     phase_small_config_card_vs_cpu()
     phase_rwkv_smoke_card_vs_cpu()
+    phase_dense_smoke_card_vs_cpu()
     cfg, params, summary, launches, captured, pipelined, calls = \
         phase_slice()
     scheduler, sched_streams, sched_calls, clean = phase_scheduler(cfg,
@@ -4852,6 +5327,13 @@ def main() -> int:
     rows += phase_measure_gemma(gemma_qkv, gemma_calls, gemma_launches,
                                 card)
     del gemma_qkv, gemma_calls
+    dense = {}
+    for arch in DENSE_ARCHS:
+        dense[arch], d_qkv, d_call, d_launches = phase_dense_serving(arch,
+                                                                     card)
+        print(f"{arch} kernel times at its served shapes:")
+        rows += phase_measure_dense(arch, d_qkv, d_call, d_launches, card)
+        del d_qkv, d_call
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
     clocks["before_library_kernels"] = smi(CLOCKS)
@@ -4897,7 +5379,8 @@ def main() -> int:
                   "quantized": quant,
                   "fused": fused,
                   "card": card},
-             "rwkv": rwkv, "gemma": gemma, "library": lib_info,
+             "rwkv": rwkv, "gemma": gemma, "dense": dense,
+             "library": lib_info,
              "sm_clocks": clocks,
              "wall_s": time.monotonic() - t_start}
     print(json.dumps({"kernels": rows}))

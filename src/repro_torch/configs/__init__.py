@@ -9,6 +9,9 @@ import importlib
 ARCH_NAMES = [
     "gemma3-12b",
     "llama4-scout-17b-a16e",
+    "nemotron-4-340b",
+    "qwen2-1.5b",
+    "qwen3-1.7b",
     "rwkv6-7b",
 ]
 

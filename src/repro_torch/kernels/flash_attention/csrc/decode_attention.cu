@@ -44,9 +44,10 @@
 // (cache 272) the bytes take 0.00135 ms, less than a launch and the few
 // dependent round trips any kernel makes: latency bounds it.  So:
 // - one thread-block cluster of kCtas CTAs per (row, kv head), every CTA
-//   holding the whole GQA group (g <= 8), so each K / V byte is read once
-//   from device memory; the grid is B Hkv kCtas CTAs whatever the card, two
-//   or three resident a SM, and a short row still spreads over kCtas SMs;
+//   holding the whole GQA group (g <= 8; larger groups in passes, below),
+//   so each K / V byte is read once from device memory; the grid is B Hkv
+//   kCtas CTAs whatever the card, two or three resident a SM, and a short
+//   row still spreads over kCtas SMs;
 // - each warp streams its rows of the CTA's chunks (4 of each 32) through
 //   its own ring of kStages stages by 16-byte cp.async: pass 1's K rows,
 //   then pass 2's V rows, so the first V rows are in flight before the
@@ -74,7 +75,16 @@
 //   holds 8 dims and the ring doubles (64 KB bf16, 128 KB f32, plus the
 //   32 KB of scores and 8 KB of q): two CTAs share a SM at bf16 (at most
 //   128 registers a thread), one at f32; the order is the same function of
-//   the row, E = 8.
+//   the row, E = 8.  At D 192 (nemotron-4-340b) a lane holds 6 dims, a
+//   384-byte row is 24 16-byte copies and the bf16 ring (48 KB) is exactly
+//   the warps' partial sums; two CTAs share a SM at bf16, E = 6;
+// - a GQA group of more than kGroupMax heads (nemotron-4-340b's 12) is
+//   taken in passes of at most kGroupMax heads (12 = 8 + 4), each pass a
+//   cluster of its own in the one launch: the grid is (kv head x pass,
+//   row), and pass j of kv head h takes heads h g + 8 j on.  A head's
+//   order is the same function of its row in any pass (its score, max, p
+//   and sums involve no other head), so the passes change no bit; K and V
+//   are read once a pass (twice at g 12).
 // What is left is arithmetic and latency: without FMA every product is a
 // multiply and an add, a few hundred instructions a warp a chunk, so the
 // SMs' issue, more than the bytes, paces the longer rows (the score
@@ -100,7 +110,8 @@ constexpr int kCtas = 8;              // CTAs a cluster (the portable most)
 constexpr int kWarps = 8;             // warps a CTA
 constexpr int kScoreBytes = 32768;    // shared memory for a CTA's scores
 constexpr int kThreads = 32 * kWarps;
-constexpr int kGroupMax = 8;          // query heads per kv head
+constexpr int kGroupMax = 8;          // query heads a pass (a cluster)
+constexpr int kGroupLimit = 16;       // query heads per kv head, in passes
 constexpr int kStages = 4;            // ring stages, one tile each
 constexpr int kPerWarp = kChunk / kWarps;   // a warp's positions a chunk
 static_assert(kChunk % kWarps == 0, "a chunk splits evenly over the warps");
@@ -180,7 +191,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T, int N> struct alignas(sizeof(T) * N) Vec { T v[N]; };
+// N values of T read at once, aligned to the largest power of two that
+// divides their bytes (a lane's E = 6 dims at D 192: 12 or 24 bytes).
+constexpr int vec_align(int bytes) { return bytes & -bytes; }
+template <typename T, int N>
+struct alignas(vec_align(sizeof(T) * N)) Vec { T v[N]; };
 
 // Dynamic shared memory: the ring, then the scores.  After pass 2 the ring
 // holds the warps' partial sums (kWarps x kGroupMax x D f32) and the scores'
@@ -321,8 +336,12 @@ decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int kvh = blockIdx.x / kCtas, b = blockIdx.y;
-  const int g = Hq / Hkv, h0 = kvh * g;
+  // the cluster's (kv head, pass) and the pass's g heads from h0 on
+  const int group = Hq / Hkv, passes = (group + kGroupMax - 1) / kGroupMax;
+  const int kvh = blockIdx.x / kCtas / passes, b = blockIdx.y;
+  const int pass = blockIdx.x / kCtas % passes;
+  const int h0 = kvh * group + pass * kGroupMax;
+  const int g = min(kGroupMax, group - pass * kGroupMax);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool holds = lane < kLanes;
   // q's group read at once, beside the length (the tiles wait on that)
@@ -556,7 +575,8 @@ int launch_dim(const void* q, const void* k, const void* v, void* out,
                int S, int window, float scale, cudaStream_t s) {
   const cudaError_t err = configure<Tq, Tc, D>();
   if (err != cudaSuccess) return err;
-  const dim3 grid(kCtas * Hkv, B);
+  const int passes = (Hq / Hkv + kGroupMax - 1) / kGroupMax;
+  const dim3 grid(kCtas * Hkv * passes, B);
   decode_attention_kernel<Tq, Tc, D><<<grid, kThreads, smem_bytes<Tc, D>(),
                                        s>>>(
       static_cast<const Tq*>(q), static_cast<const Tc*>(k),
@@ -579,6 +599,9 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
                                     Hkv, S, window, scale, s);
     case 128:
       return launch_dim<Tq, Tc, 128>(q, k, v, out, kv_len, kv_scalar, B, Hq,
+                                     Hkv, S, window, scale, s);
+    case 192:
+      return launch_dim<Tq, Tc, 192>(q, k, v, out, kv_len, kv_scalar, B, Hq,
                                      Hkv, S, window, scale, s);
     case 256:
       return launch_dim<Tq, Tc, 256>(q, k, v, out, kv_len, kv_scalar, B, Hq,
@@ -619,6 +642,7 @@ int info_typed(int D, int* info) {
     case 16: return info_dim<Tq, Tc, 16>(info);
     case 64: return info_dim<Tq, Tc, 64>(info);
     case 128: return info_dim<Tq, Tc, 128>(info);
+    case 192: return info_dim<Tq, Tc, 192>(info);
     case 256: return info_dim<Tq, Tc, 256>(info);
     default: return cudaErrorInvalidValue;
   }
@@ -637,14 +661,14 @@ extern "C" {
 // (B, Hkv, S, D) of `cache_dtype` (0 = float32, 1 = bfloat16), 16-byte
 // aligned; out: (B, Hq, 1, D) of `q_dtype`; kv_len: (B,) int64 on the
 // device, or null for `kv_scalar` on every row; window < 0 for none.  D must
-// be 16, 64, 128 or 256 and Hq / Hkv at most 8.
+// be 16, 64, 128, 192 or 256 and Hq / Hkv at most 16 (past 8 in passes).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             void* out, const long long* kv_len,
                             int kv_scalar, int B, int Hq, int Hkv, int S,
                             int D, int window, float scale, int q_dtype,
                             int cache_dtype, void* stream) {
   if (B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || Hq % Hkv ||
-      Hq / Hkv > kGroupMax || S < 1 || !aligned16(k) || !aligned16(v))
+      Hq / Hkv > kGroupLimit || S < 1 || !aligned16(k) || !aligned16(v))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32 && cache_dtype == kF32)

@@ -57,12 +57,20 @@
 // 255 registers without spills (ptxas -v); with all 16 copies unrolled the
 // build spilled.
 //
+// At D = 192 (nemotron-4-340b) the Q tile and the ring take 173,056 bytes,
+// one block an SM again, and the (64, 192) f32 accumulator is 96 registers
+// a thread.  A 384-byte row is three 128-byte swizzle atoms (hopper.cuh
+// Tile), and P V runs as an m64n128k16 over output columns 0-127 and an
+// m64n64k16 over 128-191 (registers 0-63 and 64-95: the m64n192 layout),
+// each entry in the same hi-then-lo order of 16-key steps; a thread issues
+// its 12 tile copies 6 at a time.
+//
 // f32 q, k, v run on the CUDA cores in f32 (`tile_update` below): 256
 // threads, each owning 4 rows x 4 columns of the 64 x 64 score tile and 4
 // rows x D / 16 columns of the accumulator; the Q, K, V and P tiles sit in
 // shared memory, with the rows of Q, K and P padded by one word so that
-// column reads do not share banks (213,760 bytes at D = 256 and 64 x 64
-// tiles).  q is scaled first, in f32.
+// column reads do not share banks (213,760 bytes at D = 256 and 164,608 at
+// D = 192, with 64 x 64 tiles).  q is scaled first, in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -387,9 +395,10 @@ __device__ __forceinline__ void tc_scores(float (&sc)[32], uint32_t q_tile,
 }
 
 // o += hi v + lo v, 16 keys at a time, issued (the caller commits and waits).
-// At D = 256 as two m64n128k16 halves: accumulator registers 0-63 hold
-// output columns 0-127 and 64-127 columns 128-255 (the m64n256 layout), and
-// the second half's V columns start two 64-column blocks into the tile.
+// Past D = 128 as an m64n128k16 over output columns 0-127 (accumulator
+// registers 0-63) and a second product over the rest (registers 64 on:
+// n128 at D = 256, n64 at D = 192; the m64nDk16 layout), whose V columns
+// start two 64-column blocks into the tile.
 template <int D>
 __device__ __forceinline__ void tc_pv(float (&o)[D / 2], const PFrags& p,
                                       uint32_t v_tile) {
@@ -401,11 +410,12 @@ __device__ __forceinline__ void tc_pv(float (&o)[D / 2], const PFrags& p,
       hopper::mma_rs(o, p.lo[j], vd);
     }
   } else {
-    static_assert(D == 256, "head dim 256 splits into two n128 halves");
-    constexpr int kHalf = D / 4;  // registers of 128 output columns
+    static_assert(D == 192 || D == 256, "head dim 192 or 256 past 128");
+    constexpr int kFirst = 64;           // registers of 128 output columns
+    constexpr int kRest = D / 2 - kFirst;
     constexpr uint32_t kSecond = 2 * hopper::Tile<D>::kBlockBytes;
-    float(&o0)[kHalf] = *reinterpret_cast<float(*)[kHalf]>(&o[0]);
-    float(&o1)[kHalf] = *reinterpret_cast<float(*)[kHalf]>(&o[kHalf]);
+    float(&o0)[kFirst] = *reinterpret_cast<float(*)[kFirst]>(&o[0]);
+    float(&o1)[kRest] = *reinterpret_cast<float(*)[kRest]>(&o[kFirst]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint64_t vd0 = hopper::mn_major<D>(v_tile, j);
@@ -766,7 +776,7 @@ cudaError_t launch(Mode mode, const Args& a) {
 }
 
 // Dynamic shared memory of `kernel`, and the largest carveout, so that two
-// blocks share an SM (one at D = 256).
+// blocks share an SM (one at D = 192 and 256).
 template <typename Kernel>
 cudaError_t tc_attributes(Kernel kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -818,6 +828,7 @@ cudaError_t by_type(Mode mode, int D, int dtype, const Args& a) {
       case 16: return launch<16, float>(mode, a);
       case 64: return launch<64, float>(mode, a);
       case 128: return launch<128, float>(mode, a);
+      case 192: return launch<192, float>(mode, a);
       case 256: return launch<256, float>(mode, a);
     }
   } else if (dtype == kBF16) {
@@ -825,6 +836,7 @@ cudaError_t by_type(Mode mode, int D, int dtype, const Args& a) {
       case 16: return launch_tc<16>(mode, a);
       case 64: return launch_tc<64>(mode, a);
       case 128: return launch_tc<128>(mode, a);
+      case 192: return launch_tc<192>(mode, a);
       case 256: return launch_tc<256>(mode, a);
     }
   }
@@ -853,8 +865,9 @@ extern "C" {
 // Each launcher starts its kernel on `stream` and returns cudaGetLastError()
 // after the launch (0 = launched).  q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D),
 // out like q, all contiguous and of one type: 0 = float32, 1 = bfloat16.
-// D in {16, 64, 128, 256}; 1 <= bq, bk <= 64 dividing Sq and Skv; window < 0
-// means none; skv is the true KV length (keys at or past it are masked).
+// D in {16, 64, 128, 192, 256}; 1 <= bq, bk <= 64 dividing Sq and Skv;
+// window < 0 means none; skv is the true KV length (keys at or past it are
+// masked).
 
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Hq, int Hkv, int Sq, int Skv,

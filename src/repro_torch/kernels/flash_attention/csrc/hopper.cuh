@@ -46,15 +46,19 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // swizzled tile at shared address `dst`; rows from `valid` on are zeroed
 // (no byte past them is read).  All 128 threads take part; the copies are
 // asynchronous (cp.async), in the caller's current group.  A thread issues
-// its copies 8 at a time (D = 256: two rounds), so that no more than 8
-// addresses are live beside a D = 256 accumulator.
+// its copies at most 8 at a time (D = 256: two rounds of 8; D = 192: two
+// of 6), so that no more than 8 addresses are live beside a wide
+// accumulator.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           int valid, int tid) {
   using T = Tile<D>;
   constexpr int kPerThread = kTileRows * T::kChunksPerRow / kThreads;
-  constexpr int kRound = kPerThread < 8 ? kPerThread : 8;
+  constexpr int kRound = kPerThread <= 8 ? kPerThread
+                         : kPerThread % 8 == 0 ? 8 : kPerThread / 2;
+  static_assert(kPerThread % kRound == 0 && kRound <= 8,
+                "whole rounds of at most 8 copies");
   auto copy = [&](int j) {
     const int i = tid + kThreads * j;
     const int row = i / T::kChunksPerRow, chunk = i % T::kChunksPerRow;

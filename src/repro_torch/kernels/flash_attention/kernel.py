@@ -9,12 +9,13 @@ kernel whose summation order is a function of the row alone.
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel on the current stream or raises -- there is no fallback.  Each
 wrapper counts its launches in ``.launches``.  The kernels take f32 or bf16
-q, k, v of one type, head dims 16, 64, 128 or 256, and tiles of at most 64
-x 64 (``kernels.tuning`` row ``flash``); the source picks the path by type,
-bf16 on the tensor cores (p kept at f32 precision as a bf16 hi + lo pair),
-f32 on the CUDA cores.  D1 takes q f32 or bf16 and a cache f32 or bf16
-(each in its own dtype), head dims 16, 64, 128 or 256 and GQA groups of at
-most 8.
+q, k, v of one type, head dims 16, 64, 128, 192 or 256, and tiles of at
+most 64 x 64 (``kernels.tuning`` row ``flash``); the source picks the path
+by type, bf16 on the tensor cores (p kept at f32 precision as a bf16 hi +
+lo pair), f32 on the CUDA cores.  D1 takes q f32 or bf16 and a cache f32 or
+bf16 (each in its own dtype), the same head dims and GQA groups of at most
+16, past 8 in passes of at most 8 heads (one launch; a head's order is the
+same in any pass).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.tuning import FLASH_MAX_TILE
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 64, 128, 256)
+_HEAD_DIMS = (16, 64, 128, 192, 256)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SHAPE = [_I] * 8                  # B, Hq, Hkv, Sq, Skv, D, bq, bk
 _TAIL = [_I] * 3 + [_F, _I, _P]    # skv, window, q_offset, scale, dtype,
@@ -44,7 +45,7 @@ _ARGTYPES = {
 }
 
 
-_DECODE_GROUP_MAX = 8
+_DECODE_GROUP_MAX = 16    # heads a kv head (ref.DECODE_PASS_HEADS a pass)
 
 
 @functools.lru_cache(maxsize=None)

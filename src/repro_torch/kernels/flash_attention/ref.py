@@ -269,6 +269,10 @@ DECODE_CHUNK = 32
 DECODE_CTAS = 8
 DECODE_WARPS = 8
 DECODE_SCORE_BYTES = 32768
+# A GQA group of more heads is taken in passes of at most DECODE_PASS_HEADS
+# heads, each a cluster of its own that reads the row's K and V once; a
+# head's order is the same in any pass, so the emulation has no passes.
+DECODE_PASS_HEADS = 8
 
 
 def _lane_sum(part: torch.Tensor) -> torch.Tensor:

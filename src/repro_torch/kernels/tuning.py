@@ -31,10 +31,11 @@ choice for the Hopper kernels, not carried over from the TPU rows:
   64 (``flash_smem_bytes``).  bf16 runs on the tensor cores: one 64-row
   wgmma per q tile, the bf16 Q tile and a three-stage K / V ring in swizzled
   shared memory, 113 KB at D = 128 whatever the tile (a smaller tile is
-  computed 64 wide and masked), so that two blocks share an SM; 230,400
-  bytes at D = 256, one block an SM.  f32 runs on the CUDA cores, with f32
-  Q, K, V and score tiles, 115 KB at D = 128 and 213,760 bytes at D = 256
-  (``_flash_clamp`` would halve ``bk`` past :data:`SMEM_BUDGET`).
+  computed 64 wide and masked), so that two blocks share an SM; 173,056
+  bytes at D = 192 and 230,400 at D = 256, one block an SM.  f32 runs on
+  the CUDA cores, with f32 Q, K, V and score tiles, 115 KB at D = 128,
+  164,608 bytes at D = 192 and 213,760 at D = 256 (``_flash_clamp`` would
+  halve ``bk`` past :data:`SMEM_BUDGET`).
   At S = 2048 a 64-wide tile also resolves a local window finer than a
   128-wide one (275 of 528 causal tiles visible under a local window of
   512 plus one global tile, against 81 of 136).

@@ -210,6 +210,93 @@ def test_decode_order_ignores_the_capacity(window):
         fref.decode_attention_ordered(*args, kv_len=30, window=window))
 
 
+# ------------------------------- D1 at head dim 192, GQA groups past 8 --
+
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("qdt,cdt", [(F32, F32), (BF16, BF16), (BF16, F32),
+                                     (F32, BF16)])
+def test_decode_at_head_dim_192_group_12_matches_reference(window, qdt, cdt):
+    """nemotron-4-340b's decode shape (head dim 192, GQA 12/1 and 24/2):
+    the plain version and D1's order against the reference's
+    ``decode_attention`` at per-row ``kv_len``, within :func:`_ulp_tol`."""
+    for Hq, Hkv in ((12, 1), (24, 2)):
+        q, k, v, lens = _decode_inputs(11, 5, Hq, Hkv, 40, 192)
+        want = _reference(q, k, v, lens, "vector", window, qdt, cdt)
+        args = (_t(q, qdt), _t(k, cdt), _t(v, cdt))
+        kv = torch.from_numpy(lens)
+        for got in (fops.decode_attention(*args, kv_len=kv, window=window),
+                    fref.decode_attention_ordered(*args, kv_len=kv,
+                                                  window=window)):
+            assert got.dtype == qdt
+            assert np.abs(got.float().numpy() - want).max() <= _ulp_tol(
+                want, qdt, cdt), (Hq, Hkv)
+
+
+@pytest.mark.parametrize("D,group,dt", [(192, 12, BF16), (192, 12, F32),
+                                        (192, 6, BF16), (128, 12, BF16),
+                                        (64, 16, F32)])
+def test_decode_order_of_a_head_does_not_depend_on_its_group(D, group, dt):
+    """D1 takes a group past ``ref.DECODE_PASS_HEADS`` heads in passes,
+    each pass a cluster of its own.  A head's order involves no other head,
+    so its bits are the same in any group: the emulation at ``group``
+    heads a kv head, ``torch.equal`` to each pass alone (heads 8 j .. 8 j +
+    7 against the same kv head) and to each head alone (a group of 1)."""
+    Hkv = 2
+    q, k, v, lens = _decode_inputs(12, 3, group * Hkv, Hkv, 48, D)
+    q, k, v = _t(q, dt), _t(k, dt), _t(v, dt)
+    kv = torch.from_numpy(lens)
+    whole = fref.decode_attention_ordered(q, k, v, kv_len=kv, window=30)
+    P = fref.DECODE_PASS_HEADS
+    for h in range(Hkv):
+        for j in range(0, group, P):
+            heads = slice(h * group + j, h * group + min(j + P, group))
+            part = fref.decode_attention_ordered(
+                q[:, heads].contiguous(), k[:, h:h + 1], v[:, h:h + 1],
+                kv_len=kv, window=30)
+            assert torch.equal(part, whole[:, heads]), (h, j)
+        for i in range(group):
+            head = h * group + i
+            one = fref.decode_attention_ordered(
+                q[:, head:head + 1], k[:, h:h + 1], v[:, h:h + 1],
+                kv_len=kv, window=30)
+            assert torch.equal(one, whole[:, head:head + 1]), head
+
+
+@pytest.mark.parametrize("dt", [BF16, F32])
+def test_decode_order_at_head_dim_192_group_12_rows_alone(dt):
+    """Row i of D1's order at nemotron's head dim 192 and group 12 at B
+    rows is ``torch.equal`` to row i alone, for every B in ROWS, at per-row
+    lengths, with and without a window."""
+    q, k, v, lens = _decode_inputs(13, max(ROWS), 12, 1, 36, 192)
+    q, k, v = _t(q, dt), _t(k, dt), _t(v, dt)
+    kv = torch.from_numpy(lens)
+    for window in (None, 20):
+        alone = [fref.decode_attention_ordered(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_len=kv[i:i + 1],
+            window=window) for i in range(max(ROWS))]
+        for B in ROWS:
+            out = fref.decode_attention_ordered(q[:B], k[:B], v[:B],
+                                                kv_len=kv[:B], window=window)
+            for i in range(B):
+                assert torch.equal(out[i:i + 1], alone[i]), (window, B, i)
+
+
+def test_decode_group_passes_match_the_source():
+    """The heads a pass (``kGroupMax``) and the largest group
+    (``kGroupLimit``) the kernel's source declares are the emulation's
+    ``DECODE_PASS_HEADS`` and the wrapper's limit; the wrapper takes head
+    dim 192 and refuses a group past the limit before any launch."""
+    src = open(os.path.join(os.path.dirname(fk.__file__), "csrc",
+                            "decode_attention.cu")).read()
+    for name, value in (("kGroupMax", fref.DECODE_PASS_HEADS),
+                        ("kGroupLimit", fk._DECODE_GROUP_MAX)):
+        decl = [ln.split("//")[0].strip() for ln in src.splitlines()
+                if ln.startswith(f"constexpr int {name} = ")]
+        assert decl == [f"constexpr int {name} = {value};"], name
+    assert 192 in fk._HEAD_DIMS and fk._DECODE_GROUP_MAX == 16
+    assert "case 192:" in src
+
+
 # ----------------------------------------------------- R1 order emulated --
 
 def _router_inputs(seed, T, d, E):
@@ -291,7 +378,7 @@ def test_decode_attention_off_the_cpu_never_takes_the_plain_version(
     for q, c, err in ((_meta(2, 4, 1, 64, dtype=torch.float16),
                        _meta(2, 2, 8, 64, dtype=torch.float16), TypeError),
                       (_meta(2, 4, 1, 32), _meta(2, 2, 8, 32), ValueError),
-                      (_meta(2, 18, 1, 64), cache, ValueError)):
+                      (_meta(2, 34, 1, 64), cache, ValueError)):
         with pytest.raises(err):
             fops.decode_attention(q, c, c, kv_len=3)
     fk._decode_lib.cache_clear()

@@ -113,6 +113,51 @@ def test_flash_matches_reference_and_sparse_law(window, q_offset, gqa, D):
     assert torch.equal(sparse, got)
 
 
+@pytest.mark.parametrize("window,q_offset,gqa", [
+    (None, 0, (12, 1)), (24, 0, (12, 1)), (None, 16, (6, 2))])
+def test_flash_at_head_dim_192_matches_reference(window, q_offset, gqa):
+    """Head dim 192 (nemotron-4-340b's, GQA group 12 as in its CONFIG): K3
+    (plain) vs the reference K3 in interpret mode; the sparse walk on
+    ``BlockMask.full(causal[, window])`` equals K3 exactly."""
+    bq = bk = 16
+    q, k, v = _qkv(B=1, Hq=gqa[0], Hkv=gqa[1], Sq=48, Skv=64, D=192,
+                   seed=5)
+    want = np.asarray(rk.flash_attention(
+        *_j(q, k, v), causal=True, window=window, bq=bq, bk=bk,
+        q_offset=q_offset, interpret=True))
+    got = fk.flash_attention(*_t(q, k, v), causal=True, window=window,
+                             bq=bq, bk=bk, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    m = P.BlockMask.full(48, 64, bq=bq, bk=bk, causal=True, window=window,
+                         q_offset=q_offset)
+    s = m.lower(bucket=True)
+    sparse = fk.flash_attention_sparse(
+        *_t(q, k, v), s.rows, s.cols, s.kinds, skv=64, window=window,
+        bq=bq, bk=bk, q_offset=q_offset)
+    assert torch.equal(sparse, got)
+
+
+@pytest.mark.parametrize("name", ["causal", "strided", "local|global"])
+def test_sparse_and_masked_at_head_dim_192_match_reference(name):
+    """K4s and K4m (plain) at head dim 192, GQA 12/1, a ragged KV tail
+    (skv 88 of 96) vs the reference's K4s in interpret mode; sparse ==
+    masked exactly."""
+    bq = bk = 16
+    q, k, v = _qkv(B=1, Hq=12, Hkv=1, Sq=64, Skv=96, D=192, seed=6)
+    rm, pm = _zoo(R, 64, 96, bq, bk)[name], _zoo(P, 64, 96, bq, bk)[name]
+    rs, ps = rm.lower(bucket=True), pm.lower(bucket=True)
+    want = np.asarray(rk.flash_attention_sparse(
+        *_j(q, k, v), rs.rows, rs.cols, rs.kinds, skv=88, window=rm.window,
+        bq=bq, bk=bk, interpret=True))
+    sparse = fk.flash_attention_sparse(
+        *_t(q, k, v), ps.rows, ps.cols, ps.kinds, skv=88, window=pm.window,
+        bq=bq, bk=bk)
+    masked = fk.flash_attention_masked(*_t(q, k, v), pm.tile_kinds, skv=88,
+                                       window=pm.window)
+    np.testing.assert_allclose(sparse.numpy(), want, **TOL)
+    assert torch.equal(sparse, masked)
+
+
 def test_bucketed_stream_is_noop_and_empty_rows_zero():
     bq = bk = 16
     q, k, v = _t(*_qkv(Sq=64, Skv=64))
@@ -274,6 +319,12 @@ def test_tuning_rows(dtype):
     assert tuning.flash_tiles(1536, 1536, 256, dtype, "cuda") == (64, 64)
     assert tuning.flash_smem_bytes(64, 64, 256, dtype) == {
         torch.bfloat16: 230400, torch.float32: 213760}[dtype] \
+        <= tuning.SMEM_BUDGET
+    # nemotron-4-340b's head dim 192: 64 x 64 tiles, one block an SM
+    # (173,056 bytes bf16, 164,608 f32)
+    assert tuning.flash_tiles(1024, 1024, 192, dtype, "cuda") == (64, 64)
+    assert tuning.flash_smem_bytes(64, 64, 192, dtype) == {
+        torch.bfloat16: 173056, torch.float32: 164608}[dtype] \
         <= tuning.SMEM_BUDGET
 
 

@@ -249,7 +249,7 @@ def test_sampling_overflow_and_device_guards():
         M.decode_step_layered(params, cfg, loop.cache, MAX_SEQ,
                               torch.zeros((B, 1), dtype=torch.long))
     with pytest.raises(KeyError, match="not yet ported"):
-        configs.get_config("nemotron-4-340b")
+        configs.get_config("zamba2-1.2b")
     with pytest.raises(NotImplementedError):
         M.init_params(dataclasses.replace(cfg, block_unit=("mamba",)),
                       device="cpu")

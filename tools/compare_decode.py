@@ -38,14 +38,23 @@ gemma3-12b's 16/8 heads of 256 instead: its 4 x 1536 decode step's ring
 (B 4, 1,024 slots, every one visible) and global cache (1,600, ``kv_len``
 1,537), the scheduler's top bucket on rings (B 8, per-row lengths from
 ``chip_smoke.gemma_trace``, at most 1,024), a full cache under the window
-of 1,024 (B 4, 2,064 positions, ``kv_len`` 2,063) and B 1 on a ring.  The
+of 1,024 (B 4, 2,064 positions, ``kv_len`` 2,063) and B 1 on a ring.
+``--head-dim 192`` takes nemotron-4-340b's 96/8 heads of 192 (a GQA group
+of 12, which D1 takes in two passes of 8 and 4 heads, each reading the
+row's K and V once): its 4 x 1024 decode step (B 4, cache 1,056,
+``kv_len`` 1,025), the scheduler's top bucket (B 8, cache 1,088, per-row
+lengths from ``chip_smoke.dense_trace``), B 1 at 1,056 and B 1 past the
+score budget (16,400).  ``--group G`` sets the query heads to G times the
+kv heads (at most 16).  The
 builds run in the
 order others, in-tree, in-tree, others reversed, each timed by CUDA
 events over back-to-back launches and again replayed from a CUDA graph
 (device time without the host's launch); beside them the wrappers (eager
 minus graph: the host cost), ``scaled_dot_product_attention``
 (``enable_gqa``, a boolean mask of the visible positions) and the bytes
-bound (visible K and V, q, the output and the lengths once at 3.35 TB/s).
+bound (visible K and V, q, the output and the lengths once at 3.35 TB/s;
+beside it, for a group past 8, the bound of the passes, K and V read once
+a pass).
 The in-tree build must be ``torch.equal`` to
 ``ref.decode_attention_ordered`` and every build (ablations aside) within
 ``chip_smoke.decode_tolerance`` of the plain version: exit 1 otherwise.
@@ -64,8 +73,8 @@ import compare_common as common
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 27
-# (Hq, Hkv) by head dim: llama4-scout's, gemma3-12b's
-HEADS = {128: (40, 8), 256: (16, 8)}
+# (Hq, Hkv) by head dim: llama4-scout's, nemotron-4-340b's, gemma3-12b's
+HEADS = {128: (40, 8), 192: (96, 8), 256: (16, 8)}
 HBM_BYTES_PER_S = 3.35e12
 # --ablate: name -> ((text of the in-tree source, its replacement), ...)
 ABLATE = {
@@ -131,6 +140,12 @@ def cases(head_dim: int = 128):
     """(name, B, cache, kv_len: an int or per-row lengths, window) of the
     run at ``head_dim``."""
     import chip_smoke as cs
+    if head_dim == 192:
+        bucket = [len(p) + 1 for p, _ in cs.dense_trace(1000)]
+        return [("4 x 1024 decode step", 4, 1056, 1025, None),
+                ("scheduler top bucket", 8, 1088, bucket, None),
+                ("B 1, cache 1,056", 1, 1056, 1025, None),
+                ("B 1, past the score budget", 1, 16400, 16400, None)]
     if head_dim == 256:
         ring = [min(len(p) + 1, 1024) for p, _ in cs.gemma_trace(1000)]
         return [("4 x 1536 decode step, ring", 4, 1024, 1024, None),
@@ -159,9 +174,14 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--head-dim", type=int, default=128,
                     choices=sorted(HEADS))
+    ap.add_argument("--group", type=int, default=None,
+                    help="query heads a kv head (default: the head dim's "
+                    "arch's)")
     args = ap.parse_args()
     D = args.head_dim
     HQ, HKV = HEADS[D]
+    if args.group is not None:
+        HQ = args.group * HKV
     import torch
     if not torch.cuda.is_available():
         print("compare_decode: no CUDA device", file=sys.stderr)
@@ -228,6 +248,7 @@ def main() -> int:
                                                window=window)
         tol = cs.decode_tolerance(plain.float().abs().max().item(), bf, bf)
         case = {"case": name, "B": B, "S_cap": S, "D": D, "heads": [HQ, HKV],
+                "passes": -(-(HQ // HKV) // ref.DECODE_PASS_HEADS),
                 "kv_len": lens, "window": window, "builds": {}, "tol": tol}
         for label, run in {**runs, **wrappers}.items():
             got = run()
@@ -260,10 +281,14 @@ def main() -> int:
             wr["eager_minus_graph_ms"] = [
                 a - b for a, b in zip(wr["ms"], wr["graph_ms"])]
         visible = int(vis.sum())
-        nbytes = (2 * visible * HKV * D * 2 + 2 * q.numel() * 2
+        kv_bytes = 2 * visible * HKV * D * 2
+        nbytes = (kv_bytes + 2 * q.numel() * 2
                   + (8 * B if isinstance(lens, list) else 0))
         case.update(sm_clocks=clocks, visible=visible,
-                    bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+                    bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    passes_bytes_bound_ms=(nbytes + (case["passes"] - 1)
+                                           * kv_bytes)
+                    / HBM_BYTES_PER_S * 1e3)
         result["cases"].append(case)
         print(json.dumps(case))
         del q, k, v, plain, ordered

@@ -17,7 +17,15 @@ attention shape (B 4, 40 / 8 heads, S 2048, D 128), K3 runs causal at the
 (the local_global pattern of masked serving).  ``--head-dim 256`` takes
 gemma3-12b's local layer instead (B 4, 16 / 8 heads, S 1536, D 256): K3
 causal under the window of 1,024, K4s and K4m on the sliding-window mask
-that masked serving builds for it (64 x 64 tiles).  ``--ablate NAME...``
+that masked serving builds for it (64 x 64 tiles).  ``--head-dim 192``
+takes nemotron-4-340b's served prefill (B 4, 96 / 8 heads: a GQA group of
+12, S 1024, D 192): K3 causal, K4s and K4m on ``chip_smoke.serving_mask``
+at S 1024.  Beside the builds, each kernel's bound (4 D flops a visible
+score entry at the bf16 peak, or the bytes of q, k, v, the indices and
+the output once at 3.35 TB/s, whichever is larger) and one
+``scaled_dot_product_attention`` call on the same inputs (``is_causal``
+for K3 without a window, else the mask's dense boolean; GQA heads
+expanded beforehand), timed in the same call.  ``--ablate NAME...``
 makes copies of the in-tree source with one named edit each (see
 ``ABLATE``; ``serial256``: at D 256 the tile loop's steps one after
 another, as a first D 256 build had them) and times them as other
@@ -42,8 +50,9 @@ import compare_common as common
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (B, Hq, Hkv, S, K3's window) by head dim: llama4-scout's masked slice,
-# gemma3-12b's local layer
-SHAPES = {128: (4, 40, 8, 2048, None), 256: (4, 16, 8, 1536, 1024)}
+# nemotron-4-340b's served prefill, gemma3-12b's local layer
+SHAPES = {128: (4, 40, 8, 2048, None), 192: (4, 96, 8, 1024, None),
+          256: (4, 16, 8, 1536, 1024)}
 # --ablate: name -> ((text of the in-tree source, its replacement), ...)
 # serial256: at D 256 the tile loop's steps one after another (tile j - 1's
 # P V lands, then tile j's scores, then its softmax: one set of p fragments
@@ -200,7 +209,7 @@ def main() -> int:
                 print(f"{label} {kern}: {used}; {spills}")
 
     if k3_window is None:
-        _, mask = chip_smoke.serving_mask(types.SimpleNamespace(hd=D))
+        _, mask = chip_smoke.serving_mask(types.SimpleNamespace(hd=D), S)
     else:
         from repro_torch.core.masks import BlockMask
         mask = BlockMask.sliding_window(S, S, k3_window, bq=64, bk=64)
@@ -228,9 +237,36 @@ def main() -> int:
               "order": "others, in-tree, in-tree, others reversed",
               "resources": resources, "kernels": {}}
     order = others + ["in-tree", "in-tree"] + list(reversed(others))
+    import torch.nn.functional as F
+    from repro_torch.core.masks import BlockMask
+    g_ = HQ // HKV
+    k_rep, v_rep = k.repeat_interleave(g_, 1), v.repeat_interleave(g_, 1)
+    causal = BlockMask.full(S, S, bq=mask.bq, bk=mask.bk, causal=True,
+                            window=k3_window)
+    k3_sdpa = (dict(is_causal=True) if k3_window is None else
+               dict(attn_mask=torch.from_numpy(causal.dense_mask()).cuda()))
+    dense = torch.from_numpy(mask.dense_mask()).cuda()
+    sdpa = {"flash_attention": lambda: F.scaled_dot_product_attention(
+                q, k_rep, v_rep, **k3_sdpa),
+            "flash_attention_masked": lambda: F.scaled_dot_product_attention(
+                q, k_rep, v_rep, attn_mask=dense),
+            "flash_attention_sparse": lambda: F.scaled_dot_product_attention(
+                q, k_rep, v_rep, attn_mask=dense)}
+    idx_bytes = {"flash_attention": 0,
+                 "flash_attention_masked": idx[0].numel() * 4,
+                 "flash_attention_sparse": 3 * idx[1].numel() * 4}
     for kname, want in plain.items():
         base = runs["in-tree"][kname]()
-        row = {"largest": want.float().abs().max().item(), "builds": {}}
+        m = causal if kname == "flash_attention" else mask
+        entries = int(m.dense_mask().sum())
+        ops_ms = 4 * B * HQ * D * entries / chip_smoke.BF16_FLOP_PER_S * 1e3
+        bytes_ms = ((2 * q.numel() + k.numel() + v.numel()) * 2
+                    + idx_bytes[kname]) / chip_smoke.HBM_BYTES_PER_S * 1e3
+        row = {"largest": want.float().abs().max().item(), "builds": {},
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "visible_entries_per_head": entries,
+               "sdpa_ms": _time_ms(sdpa[kname], args.iters)}
         for name in libs:
             got = runs[name][kname]()
             torch.cuda.synchronize()

@@ -30,6 +30,13 @@ the CPU with ``--device cpu``):
   and beside them the plain versions (the library's mean, the plain
   decode attention); the layer probe then runs a 1,100-token prompt, past
   the window, so the rings have wrapped;
+* with ``--arch qwen3-1.7b``, ``qwen2-1.5b`` or ``nemotron-4-340b`` (the
+  dense GQA family), the same ops as gemma3-12b's where the arch has them:
+  the projections (with qwen2's bias add; nemotron's squared-ReLU MLP has
+  no gate), qk_norm (qwen3), the block norm and D1 on a full cache of
+  1,280 positions at per-row lengths (nemotron's head dim 192 and GQA
+  group 12, which D1 takes in two passes), and their plain versions;
+  nemotron's decode products reduce over 18,432 and 73,728;
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -37,8 +44,8 @@ the CPU with ``--device cpu``):
 
 Run from the repository root:
 
-    python3 tools/probe_batch_rows.py [--arch rwkv6-7b | gemma3-12b]
-        [--depth 2]
+    python3 tools/probe_batch_rows.py [--arch rwkv6-7b | gemma3-12b |
+        qwen3-1.7b | qwen2-1.5b | nemotron-4-340b] [--depth 2]
         [--device cuda]
 
 It prints one JSON object as its last line and writes the same to
@@ -57,6 +64,7 @@ ROWS = (1, 2, 4, 8)
 # (max_seq, prompt) of the layer probe: gemma3-12b's prompt is past its
 # window of 1,024
 SHAPES = {"gemma3-12b": (1280, 1100)}
+DENSE = ("gemma3-12b", "qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
 MAX_SEQ, PROMPT = 544, 300
 
 
@@ -178,11 +186,14 @@ def probe_rwkv_ops(cfg, params, device) -> dict:
     return out
 
 
-def probe_gemma_ops(cfg, params, device) -> dict:
-    """Every row of each gemma3-12b decode-step op at M rows against the
-    row alone (the largest difference over the rows), on layer 0's weights
-    and random inputs of its decode shapes; the plain versions off the
-    card's path first, the path's ops after them."""
+def probe_dense_ops(cfg, params, device) -> dict:
+    """Every row of each decode-step op of a dense arch (gemma3-12b, the
+    dense GQA family) at M rows against the row alone (the largest
+    difference over the rows), on layer 0's weights and random inputs of
+    its decode shapes; the plain versions off the card's path first, the
+    path's ops after them.  A ring cache only where the arch has local
+    layers; qk_norm only where it has it; the bias adds where it has
+    them."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import decode_attention_ref
@@ -196,30 +207,37 @@ def probe_gemma_ops(cfg, params, device) -> dict:
         shape, generator=g, device=device)
     unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     mats = {**{k: blk["attn"][k] for k in ("wq", "wk", "wv", "wo")},
-            **{k: blk["ffn"][k] for k in ("w_gate", "w_up", "w_down")},
+            **{k: blk["ffn"][k] for k in ("w_gate", "w_up", "w_down")
+               if k in blk["ffn"]},
             "unembed": unemb}
     ops = {name: (lambda x, w=w: x @ w.to(cd), rand(n, 1, w.shape[0]).to(cd))
            for name, w in mats.items()}
+    if cfg.qkv_bias:
+        for name, b in (("wq + bq", "bq"), ("wk + bk", "bk")):
+            w = blk["attn"]["w" + b[1]]
+            ops[name] = (lambda x, w=w, b=blk["attn"][b]: x @ w.to(cd)
+                         + b.to(cd), rand(n, 1, w.shape[0]).to(cd))
     xq = rand(n, cfg.n_heads, 1, hd).to(cd)
     xn = rand(n, 1, d).to(cd)
-    ops["qk_norm, row order (R1)"] = (lambda x: L.rmsnorm(
-        blk["attn"]["q_norm"], x, cfg.norm_eps, row_order=True), xq)
+    off_path = {"rmsnorm plain (library mean)": (lambda x: L.rmsnorm(
+        blk["ln1"], x, cfg.norm_eps), xn)}
+    if cfg.qk_norm:
+        ops["qk_norm, row order (R1)"] = (lambda x: L.rmsnorm(
+            blk["attn"]["q_norm"], x, cfg.norm_eps, row_order=True), xq)
+        off_path["qk_norm plain (library mean)"] = (lambda x: L.rmsnorm(
+            blk["attn"]["q_norm"], x, cfg.norm_eps), xq)
     ops["rmsnorm, row order (R1)"] = (lambda x: L.rmsnorm(
         blk["ln1"], x, cfg.norm_eps, row_order=True), xn)
     q = rand(n, cfg.n_heads, 1, hd).to(cd)
-    caches = {"ring": [rand(n, cfg.n_kv_heads, cfg.local_window, hd).to(cd)
-                       for _ in range(2)],
-              "global": [rand(n, cfg.n_kv_heads, 1280, hd).to(cd)
+    caches = {"global": [rand(n, cfg.n_kv_heads, 1280, hd).to(cd)
                          for _ in range(2)]}
-    lens = {"ring": torch.full((n,), cfg.local_window, device=device),
-            "global": torch.randint(1, 1281, (n,), generator=g,
+    lens = {"global": torch.randint(1, 1281, (n,), generator=g,
                                     device=device)}
+    if "attn_local" in cfg.block_unit:
+        caches["ring"] = [rand(n, cfg.n_kv_heads, cfg.local_window, hd
+                               ).to(cd) for _ in range(2)]
+        lens["ring"] = torch.full((n,), cfg.local_window, device=device)
     rows = torch.arange(n, device=device)
-    off_path = {
-        "qk_norm plain (library mean)": (lambda x: L.rmsnorm(
-            blk["attn"]["q_norm"], x, cfg.norm_eps), xq),
-        "rmsnorm plain (library mean)": (lambda x: L.rmsnorm(
-            blk["ln1"], x, cfg.norm_eps), xn)}
     for which, (k, v) in caches.items():
         for label, fn, table in ((f"decode_attention D1, {which}",
                                   fops.decode_attention, ops),
@@ -292,7 +310,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama4-scout-17b-a16e",
                     choices=["llama4-scout-17b-a16e", "rwkv6-7b",
-                             "gemma3-12b"])
+                             *DENSE])
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -307,8 +325,8 @@ def main() -> int:
     params = M.init_params(cfg, seed=0, device=device)
     card = (torch.cuda.get_device_name(0) if device.type == "cuda"
             else "cpu")
-    ops = {"rwkv6-7b": probe_rwkv_ops,
-           "gemma3-12b": probe_gemma_ops}.get(args.arch, probe_ops)
+    ops = (probe_dense_ops if args.arch in DENSE else
+           {"rwkv6-7b": probe_rwkv_ops}.get(args.arch, probe_ops))
     result = {"device": card, "torch": torch.__version__,
               "arch": args.arch, "depth": args.depth,
               "ops": ops(cfg, params, device),
