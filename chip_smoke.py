@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout
-   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7, and the decode kernels D1, R1
-   and W1: eight sources), one ``nvcc`` each,
+   (K2/K2q, K3/K4m/K4s, K5, K6a/K6b, K7, and the decode kernels D1, R1,
+   W1 and M1: nine sources), one ``nvcc`` each,
    all started together, with build seconds and register counts (the flash
    kernels' by name, with their shared memory; the bf16 flash instances at
    D 192 and 256 and D1's at D 192 must show no spills), and the count of
@@ -72,7 +72,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    == its emulated order, rows == alone; and R1 as the decode norms' row
    sum at d 4096, 5120, 3840 and 256 on 4, 32, 64 and 128 rows (both
    sides of the few-token kernel's 64) == its emulated order, rows ==
-   alone, within 1e-5 of ``torch.sum``;
+   alone, within 1e-5 of ``torch.sum``; then M1 (the one-token SSD step)
+   at (hd, ns) (64, 64) and (16, 16), 64 heads, B 1 / 4 / 8 / 16:
+   ``torch.equal`` to its emulated order, its state to the plain step's,
+   y within 1e-5, in place == fresh, rows == alone, other shapes and a
+   bf16 state refused; D1's cases include zamba2-1.2b's 32/32 heads of 64
+   (a GQA group of 1) in bf16, f32 and an int8 cache dequantized to bf16;
 4. small f32 configs must give the same logits on the card and on the
    CPU: llama4-scout SMOKE prefill with chunked attention, masked attention
    (K4s) and kernel attention (K3); rwkv6-7b SMOKE prefill (K7 once a
@@ -80,7 +85,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    once a norm); qwen3-1.7b, qwen2-1.5b (at head dim 16, biases random)
    and nemotron-4-340b SMOKE prefill chunked, through K4s and through K3
    (each once a layer) and one decode step (D1 once a layer, R1 once a
-   decode norm);
+   decode norm); zamba2-1.2b SMOKE at ``shared_attn_every`` 1 and 2
+   (f32 caches): prefill chunked, through K4s and through K3 (once a
+   repeat) and one decode step (M1 once a mamba layer, D1 once a firing);
 5. the serving slice at full llama4-scout width (depth cut to 8 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
@@ -245,6 +252,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    tokens, one graph a bucket, every request == itself alone (8 of 8
    each); each arch's K3 (and nemotron's K4m / K4s) and D1 at its served
    shapes timed into the kernels line; each phase's wall seconds;
+10c. zamba2-1.2b at full width and depth (38 Mamba-2 layers, 2 of them
+   the prologue, and one shared 32/32-head attention block after each of
+   the 6 repeats; 2.34 GB of random bf16 weights): ``ServeLoop`` on 4 x
+   2,048 prompts, 32 greedy tokens, fused and layered (tokens equal,
+   first decode step logits ``torch.equal``; M1 38, D1 6 and R1 89 a
+   decode step, no plain version on the card), one step of each traced;
+   local_global on the shared block, sparse == dense; the K3 prefill; one
+   mamba layer's prefill and its chunked SSD timed; the scheduler (the
+   dense family's trace, wide and int8 KV, fused and two-phase, 8 of 8
+   alone each); then K3 / K4m / K4s, D1 (group 1) and M1 at its served
+   shapes (M1 on the served step's own state: == its order, rows ==
+   alone) into the kernels line;
 11. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -255,7 +274,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 12. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound; K2, D1, R1, K3, K4m, K4s, K7, W1, K3 / K4m / K4s / D1 at D 256,
    K3 / D1 at each dense arch's served shape (K4m / K4s and D1's two
-   passes at nemotron-4-340b's D 192),
+   passes at nemotron-4-340b's D 192), K3 / K4m / K4s / D1 / M1 at
+   zamba2-1.2b's,
    K6a, K6b, K5, K2q; D1, R1 and
    W1 on the calls the serving runs made (decode steps at 4 x 256, the
    scheduler's top bucket, 4 x 2048; R1's prefills; W1 and R1's
@@ -378,17 +398,19 @@ def only(**launches) -> dict:
 
 
 class no_plain:
-    """While on, the plain decode attention, the plain router and the plain
-    WKV step raise if they are called on a CUDA tensor: the card's main
-    path must launch the kernels D1, R1 and W1 (their wrappers take the
-    plain versions for CPU tensors only)."""
+    """While on, the plain decode attention, the plain router, the plain
+    WKV step and the plain SSD step raise if they are called on a CUDA
+    tensor: the card's main path must launch the kernels D1, R1, W1 and M1
+    (their wrappers take the plain versions for CPU tensors only)."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ref as fref
         from repro_torch.kernels.router import kernel as rk
+        from repro_torch.kernels.ssd import kernel as mk
         from repro_torch.kernels.wkv import kernel as wk
         self.saved = [(fref, "decode_attention_ref"),
-                      (rk, "router_logits_ref"), (wk, "wkv_step_plain")]
+                      (rk, "router_logits_ref"), (wk, "wkv_step_plain"),
+                      (mk, "ssd_step_plain")]
         self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
         for mod, attr, fn in self.saved:
             def guarded(x, *a, _fn=fn, _name=attr, **kw):
@@ -463,37 +485,57 @@ class keep_row_sum:
         return False
 
 
-ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn+moe")
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn+moe",
+              "shared_attn")
+
+
+def step_layers(cfg) -> tuple:
+    """The kind of every layer one decode step runs: the prologue's, the
+    stack's, and the shared attention block once a repeat it fires on
+    (``model.step_kinds``)."""
+    from repro_torch.models import model as M
+    return M.step_kinds(cfg)
 
 
 def decode_norms(cfg) -> int:
     """The rmsnorms of one decode step, each summed by R1 on the card
     (``layers.rmsnorm(row_order=True)``): ln1 and ln2 an attention layer
-    (and q_norm and k_norm where the config has ``qk_norm``), ln1, ln_x and
-    ln2 an rwkv layer, and the final norm."""
+    or shared-block firing (and q_norm and k_norm where the config has
+    ``qk_norm``), ln1, ln_x and ln2 an rwkv layer, ln and the gated norm a
+    mamba layer, and the final norm."""
     attn = 2 + 2 * cfg.qk_norm
-    per = {**{k: attn for k in ATTN_KINDS}, "rwkv": 3}
-    return sum(per[k] for k in cfg.block_unit) * cfg.n_repeats + 1
+    per = {**{k: attn for k in ATTN_KINDS}, "rwkv": 3, "mamba": 2}
+    return sum(per[k] for k in step_layers(cfg)) + 1
 
 
 def r1_per_step(cfg) -> int:
     """R1's launches in one decode step: the router once a MoE layer, the
     decay LoRA twice an rwkv layer, and :func:`decode_norms`."""
-    return (cfg.block_unit.count("attn+moe") + 2 * cfg.block_unit.count(
-        "rwkv")) * cfg.n_repeats + decode_norms(cfg)
+    kinds = step_layers(cfg)
+    return (kinds.count("attn+moe") + 2 * kinds.count("rwkv")
+            + decode_norms(cfg))
 
 
 def decode_counts(cfg, prefills: int, decode_steps: int, **others) -> dict:
-    """The launch counts of a serving run of an attention stack that made
-    ``prefills`` prefills and ``decode_steps`` decode steps: D1 once an
-    attention layer a decode step, R1 once a MoE layer a prefill and
+    """The launch counts of a serving run of an attention or hybrid stack
+    that made ``prefills`` prefills and ``decode_steps`` decode steps: D1
+    once an attention layer (or shared-block firing) a decode step, M1
+    once a mamba layer a decode step, R1 once a MoE layer a prefill and
     :func:`r1_per_step` times a decode step, and ``others`` (a dense stack
     such as gemma3-12b's: no router, R1 the decode norms alone)."""
-    n_attn = sum(k in ATTN_KINDS for k in cfg.block_unit) * cfg.n_repeats
+    kinds = step_layers(cfg)
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
     return only(decode_attention=n_attn * decode_steps,
+                ssd_step=kinds.count("mamba") * decode_steps,
                 router_logits=n_moe * prefills + r1_per_step(cfg)
                 * decode_steps, **others)
+
+
+def step_counts(cfg) -> dict:
+    """The launches of one decode step (a fused step's replay), by
+    kernel: :func:`decode_counts` of one step without a prefill."""
+    return {k: v for k, v in decode_counts(cfg, 0, 1).items() if v}
 
 
 def rwkv_counts(cfg, prefills: int, decode_steps: int) -> dict:
@@ -1133,7 +1175,11 @@ def _gemma_window_case(rng, dt):
 # passes of 8 and 4) at the served cache of 1,056, bf16 and f32 with a
 # window, groups of 6 and 2 in 2,064-position caches, and a group of 12 in
 # a 16,400-position cache past the score budget (the 8-head pass
-# recomputes where the 4-head one may hold)
+# recomputes where the 4-head one may hold); then zamba2-1.2b's shared
+# block, 32/32 heads of 64 (a GQA group of 1: a cluster a (row, head),
+# seven in eight of a warp's score lanes idle) at its served cache of
+# 2,080 (bf16, f32 with a window) and the scheduler's 1,088 under an f32
+# cache
 DECODE_CASES = (
     (40, 8, 128, "bfloat16", "bfloat16", None, 544),
     (40, 8, 128, "bfloat16", "bfloat16", 300, 544),
@@ -1156,6 +1202,9 @@ DECODE_CASES = (
     (12, 2, 192, "bfloat16", "float32", None, 2064),
     (16, 8, 192, "float32", "bfloat16", 100, 2064),
     (24, 2, 192, "bfloat16", "bfloat16", None, 16400),
+    (32, 32, 64, "bfloat16", "bfloat16", None, 2080),
+    (32, 32, 64, "float32", "float32", 300, 2080),
+    (32, 32, 64, "bfloat16", "float32", None, 1088),
 )
 DECODE_ROWS, DECODE_CAP_MORE = 16, 1520    # the larger cache: S + 1,520
 BATCH_LAW = (1, 2, 3, 4, 8, 16)
@@ -1208,6 +1257,42 @@ def _router_case(x, w, what: str):
     check(torch.equal(got, rref.router_logits_ordered(x, w)),
           f"{what}: kernel != its emulated order")
     return got, err
+
+
+def _decode_group1_int8(rand) -> None:
+    """D1 at zamba2-1.2b's shared block (32/32 heads of 64, a group of 1)
+    on an int8 KV cache as decode feeds it: K / V quantized per position
+    (``precision.quantize_rows``) and dequantized to bf16, per-row lengths;
+    == its emulated order, within :func:`decode_tolerance` of plain, rows
+    == alone."""
+    import numpy as np
+    import torch
+    from repro_torch.core import precision
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    B, H, D, S = DECODE_ROWS, 32, 64, 2080
+    q = rand((B, H, 1, D), torch.bfloat16)
+    k, v = (precision.dequantize_rows(*precision.quantize_rows(
+        rand((B, H, S, D), torch.bfloat16), "int8", check=False),
+        torch.bfloat16) for _ in range(2))
+    lens = np.random.default_rng(35).integers(1, S + 1, B)
+    lens[:2] = (1, S)
+    kv = torch.from_numpy(lens).cuda()
+    got = fk.decode_attention(q, k, v, kv_len=kv)
+    want = ref.decode_attention_ref(q, k, v, kv_len=kv)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = decode_tolerance(want.float().abs().max().item(), q.dtype, k.dtype)
+    what = f"D1 {H}/{H} D {D} int8 cache dequantized to bf16, cache {S}"
+    check(err <= tol, f"{what}: kernel disagrees with plain: {err} > {tol}")
+    check(torch.equal(ref.decode_attention_ordered(q, k, v, kv_len=kv),
+                      got), f"{what}: kernel != its emulated order")
+    check(_rows_alone_equal(
+        lambda *t: fk.decode_attention(*t[:3], kv_len=t[3]),
+        lambda a, b: (q[a:b], k[a:b], v[a:b], kv[a:b])),
+        f"{what}: a row depends on its batch")
+    print(f"  {what}: max_abs_err {err:.3g} (tol {tol:.3g}); == its "
+          f"emulated order; rows of B {BATCH_LAW} == alone")
 
 
 def phase_decode_vs_plain():
@@ -1318,6 +1403,7 @@ def phase_decode_vs_plain():
     check(reached == {"several chunks a CTA", "kv_len 1", "lo off a chunk",
                       "scores recomputed", "a group in passes"},
           f"D1's cases reach only {sorted(reached)} of the partition")
+    _decode_group1_int8(rand)
     for bad, why in (((torch.float16, torch.float16, 128, 4), "float16"),
                      ((torch.bfloat16, torch.bfloat16, 32, 4),
                       "head dim 32"),
@@ -4975,14 +5061,15 @@ def phase_measure_gemma(qkv, calls, launches, card) -> list:
 
 
 def phase_dense_scheduler(cfg, params):
-    """Continuous batching of a dense arch: :func:`dense_trace`'s 8
-    requests through ``ServeScheduler`` (8 slots, max_seq
-    DENSE_SCHED_MAX_SEQ), as :func:`drive_scheduler` submits them, wide and
-    with ``kv_quant="int8"``, each fused (one CUDA graph a batch bucket
-    over the pool's rows) and two-phase (layered, eager), counts set to 0
-    just before each: D1 once a layer and R1 once a decode norm a decode
-    step, replays counted, no plain version on the card; fused ==
-    two-phase tokens.  Each request served alone through one fused
+    """Continuous batching of a dense arch (or zamba2-1.2b):
+    :func:`dense_trace`'s 8 requests through ``ServeScheduler`` (8 slots,
+    max_seq DENSE_SCHED_MAX_SEQ), as :func:`drive_scheduler` submits them,
+    wide and with ``kv_quant="int8"``, each fused (one CUDA graph a batch
+    bucket over the pool's rows) and two-phase (layered, eager), counts
+    set to 0 just before each: a decode step's launches those of
+    :func:`step_counts` (D1 once an attention layer, M1 once a mamba layer,
+    R1 once a decode norm), replays counted, no plain version on the card;
+    fused == two-phase tokens.  Each request served alone through one fused
     ``ServeLoop`` (B = 1, the same ``kv_quant``) must give its scheduled
     tokens: 8 of 8, wide and int8."""
     from repro_torch.launch.serve import ServeLoop, ServeScheduler
@@ -4992,8 +5079,7 @@ def phase_dense_scheduler(cfg, params):
           f"{max(len(p) for p, _ in trace)}, budgets "
           f"{min(g for _, g in trace)}-{max(g for _, g in trace)}, "
           f"{SCHED_SLOTS} slots, max_seq {DENSE_SCHED_MAX_SEQ}")
-    per_step = {"decode_attention": cfg.n_layers,
-                "router_logits": r1_per_step(cfg)}
+    per_step = step_counts(cfg)
     runs, alone_matches = [], {}
     for kv in (None, "int8"):
         toks_by = {}
@@ -5025,6 +5111,7 @@ def phase_dense_scheduler(cfg, params):
                                              wall),
                          "d1_launches": counts["decode_attention"],
                          "r1_launches": counts["router_logits"],
+                         "m1_launches": counts["ssd_step"],
                          "decode_steps": steps})
             print_scheduler(runs[-1])
             toks_by[two_phase] = toks
@@ -5041,8 +5128,7 @@ def phase_dense_scheduler(cfg, params):
         alone_matches[kv or "wide"] = sum(alone)
         print(f"  kv_quant={kv}: fused == two-phase tokens; {sum(alone)} of "
               f"{len(trace)} requests give the tokens they get alone (B = "
-              f"1); D1 {cfg.n_layers} and R1 {r1_per_step(cfg)} a decode "
-              "step")
+              f"1); a decode step launches {per_step}")
         check(all(alone), f"{cfg.name} scheduler kv_quant={kv}: only "
                           f"{sum(alone)} of {len(trace)} requests equal "
                           "themselves alone")
@@ -5260,6 +5346,490 @@ def phase_measure_dense(arch, qkv, call, launches, card) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# zamba2-1.2b serving at full width and depth: 38 Mamba-2 layers (2 prologue,
+# 6 repeats x 6) and one shared attention block (32/32 heads of 64: a GQA
+# group of 1) after every repeat; the one-token SSD step M1.
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH, ZAMBA_PROMPT, ZAMBA_GEN, ZAMBA_MASK_GEN = (
+    "zamba2-1.2b", 2048, 32, 8)
+SSD_SRC = "src/repro/models/mamba2.py:144 (array code, no Pallas kernel)"
+# M1 vs plain: (hd, ns) instances at these batches, zamba2-1.2b's 64 heads
+SSD_BATCHES, SSD_HEADS = (1, 4, 8, 16), 64
+
+
+def _ssd_inputs(g, B, nh, hd, ns):
+    """x, e, b, c, h0 of one step, f32 on the card: e in [0.05, 1), the
+    decays exp(a dt) a step sees."""
+    import torch
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    e = torch.rand((B, nh), generator=g, device="cuda") * 0.95 + 0.05
+    return r(B, nh, hd), e, r(B, ns), r(B, ns), r(B, nh, hd, ns)
+
+
+def _ssd_step_case(a, what: str) -> float:
+    """M1 (``kernel.ssd_step``) on ``a`` = (x, e, b, c, h0): y and the
+    state ``torch.equal`` to ``ref.ssd_step_ordered``, the state
+    ``torch.equal`` to the plain step's, y within :func:`tolerance` (1e-5
+    of the largest |y|: the same ns-term f32 sums in another order) of the
+    plain step's, two launches ``torch.equal``, and the step in place
+    (``out=`` h0's own storage, as the model runs it) the same bits.
+    Returns y's error."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as mk
+    from repro_torch.kernels.ssd import ref
+    y, h = mk.ssd_step(*a)
+    oy, oh = ref.ssd_step_ordered(*a)
+    py, ph = ref.ssd_step_plain(*a)
+    check(torch.equal(y, oy) and torch.equal(h, oh),
+          f"{what}: M1 != its emulated order")
+    check(torch.equal(h, ph), f"{what}: M1's state != the plain step's")
+    y2, h2 = mk.ssd_step(*a)
+    check(torch.equal(y, y2) and torch.equal(h, h2),
+          f"{what}: two launches differ")
+    st = a[4].clone()
+    y3, h3 = mk.ssd_step(*a[:4], st, out=st)
+    check(h3 is st and torch.equal(y3, y) and torch.equal(st, h),
+          f"{what}: the step in place (out = h0) differs")
+    return max_err(y, py, f"{what}: y")
+
+
+def _ssd_rows_alone(a, what: str) -> None:
+    """Row i of M1 (y and state) at each B of BATCH_LAW up to the rows of
+    ``a`` == the row alone."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as mk
+    check(_rows_alone_equal(
+        lambda *t: torch.cat([z.flatten(1) for z in mk.ssd_step(*t)], 1),
+        lambda lo, hi: tuple(z[lo:hi] for z in a),
+        sizes=tuple(b for b in BATCH_LAW if b <= a[0].shape[0])),
+        f"{what}: a row depends on its batch")
+
+
+def phase_ssd_step_vs_plain():
+    """M1 against its plain version on the card at each instance (hd, ns)
+    -- (64, 64), zamba2-1.2b's, and (16, 16), its small config's -- with
+    64 heads at B 1 / 4 / 8 / 16 on random states (:func:`_ssd_step_case`:
+    == its emulated order, the state == plain, y within 1e-5, in place),
+    rows == alone at B 16; a shape without an instance and a bf16 state
+    raise.  The served decode's own states are held the same way in
+    :func:`phase_measure_zamba`."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as mk
+    g = torch.Generator(device="cuda").manual_seed(35)
+    for hd, ns in mk.INSTANCES:
+        errs = []
+        for B in SSD_BATCHES:
+            a = _ssd_inputs(g, B, SSD_HEADS, hd, ns)
+            errs.append(_ssd_step_case(a, f"M1 ({hd}, {ns}) B {B}"))
+        _ssd_rows_alone(a, f"M1 ({hd}, {ns})")
+        print(f"  M1 (hd {hd}, ns {ns}) x {SSD_HEADS} heads, B "
+              f"{SSD_BATCHES}: y max_abs_err {max(errs):.3g}; == its "
+              "emulated order, state == plain, in place == fresh, rows of "
+              f"B {BATCH_LAW} == alone")
+    for bad, why in ((_ssd_inputs(g, 2, 4, 32, 32), "(32, 32)"),
+                     (_ssd_inputs(g, 2, 4, 64, 16), "(64, 16)")):
+        try:
+            mk.ssd_step(*bad)
+        except ValueError:
+            continue
+        check(False, f"M1 took {why}")
+    a = _ssd_inputs(g, 2, 4, 64, 64)
+    try:
+        mk.ssd_step(*a[:4], a[4].bfloat16())
+        check(False, "M1 took a bf16 state")
+    except TypeError:
+        pass
+    print("  M1 refuses (hd, ns) (32, 32) and (64, 16) and a bf16 state")
+
+
+def phase_zamba_smoke_card_vs_cpu():
+    """zamba2-1.2b SMOKE in f32 at ``shared_attn_every`` 1 and 2: prefill
+    logits on the card agree with the CPU within 1e-4, chunked, through K3
+    (``impl="kernel"``) and through K4s (local_global, tiles and window 8)
+    on the shared block, which runs every repeat in prefill (its cache is
+    collected each repeat; the residual takes it on fire steps); then one
+    decode step from the chunked prefill's caches (:func:`decode_counts`:
+    M1 once a mamba layer, D1 once a firing, R1 once a decode norm) within
+    1e-4.  Those caches stay f32 (``cache_dtype``): two prefills that round
+    to bf16 on their own would turn the devices' f32 differences (sums in
+    other orders) into whole bf16 ulps of the SSM state wherever a value
+    sits near a rounding boundary.  So the default bf16 caches are checked
+    from one prefill on the CPU whose cache is copied to the card: both
+    decode one step, within 1e-4, from the same bf16-rounded SSM state and
+    conv carry, which the step widens (``model.to_decode_dtypes``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.models import model as M
+    for every in (1, 2):
+        cfg = dataclasses.replace(get_smoke(ZAMBA_ARCH), policy="f32",
+                                  shared_attn_every=every)
+        cpu = M.init_params(cfg, seed=0, device="cpu")
+        gpu = _tree_to(cpu, "cuda")
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 24)))
+        mask = AttnMaskSpec(pattern="local_global", window=8, bq=8, bk=8,
+                            impl="sparse")
+        errs = {}
+        for label, kw, kernel in (
+                ("chunked", {}, None),
+                ("attn_mask sparse", {"attn_mask": mask},
+                 "flash_attention_sparse"),
+                ("impl=kernel", {"impl": "kernel"}, "flash_attention")):
+            want, c_cpu, pos = M.prefill_layered(
+                cpu, prompts, cfg, max_seq=32, cache_dtype=torch.float32,
+                **kw)
+            reset_launches()
+            got, c_gpu, _ = M.prefill_layered(
+                gpu, prompts.cuda(), cfg, max_seq=32,
+                cache_dtype=torch.float32, **kw)
+            launches = read_launches()
+            errs[label] = (got.cpu() - want).abs().max().item()
+            check(bool(torch.isfinite(got).all()) and errs[label] <= 1e-4,
+                  f"{cfg.name} every {every} prefill ({label}): card and "
+                  f"cpu disagree: {errs[label]}")
+            check(launches == only(**({kernel: cfg.n_repeats} if kernel
+                                       else {})),
+                  f"{cfg.name} every {every} prefill ({label}): launches "
+                  f"{launches}")
+            if kernel is None:
+                caches = (c_cpu, c_gpu, pos, want)
+        c_cpu, c_gpu, pos, want = caches
+        tok = want[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        _, c_bf16, _ = M.prefill_layered(cpu, prompts, cfg, max_seq=32)
+        errs1 = {}
+        for label, c_cpu, c_gpu in (("f32 caches", c_cpu, c_gpu),
+                                    ("bf16 caches", c_bf16,
+                                     _tree_to(c_bf16, "cuda"))):
+            want1, _ = M.decode_step_layered(cpu, cfg, c_cpu, pos, tok)
+            reset_launches()
+            got1, _ = M.decode_step_layered(gpu, cfg, c_gpu, pos,
+                                            tok.cuda())
+            launches1 = read_launches()
+            check(launches1 == decode_counts(cfg, 0, 1),
+                  f"{cfg.name} every {every} decode ({label}) launches "
+                  f"{launches1}")
+            errs1[label] = (got1.cpu() - want1).abs().max().item()
+            check(bool(torch.isfinite(got1).all()) and errs1[label] <= 1e-4,
+                  f"{cfg.name} every {every} decode ({label}): card and cpu "
+                  f"disagree: {errs1[label]}")
+        print(f"  {cfg.name} f32 shared_attn_every {every} card vs cpu: "
+              "prefill logits max_abs_err " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs.items())
+              + "; decode step " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs1.items())
+              + f" (M1 x {launches1['ssd_step']}, "
+              f"D1 x {launches1['decode_attention']}, R1 x "
+              f"{launches1['router_logits']})")
+
+
+class keep_ssd_step:
+    """While on, the first call of ``kernels.ssd.ops.ssd_step`` (the first
+    mamba layer of a decode step, the prologue's) keeps a copy of its
+    inputs in ``self.args``, taken before the step writes its state in
+    place; calls made while a CUDA graph is being captured are not kept.
+    Every call goes on as before and the launch counts are untouched."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.ssd import ops as sops
+        self.args, self.entry = None, sops.ssd_step
+
+        def kept(*a, **kw):
+            if self.args is None and \
+                    not torch.cuda.is_current_stream_capturing():
+                self.args = tuple(t.float().contiguous().clone() for t in a)
+            return self.entry(*a, **kw)
+
+        sops.ssd_step = kept
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ssd import ops as sops
+        sops.ssd_step = self.entry
+        return False
+
+
+def phase_zamba_serving(card):
+    """zamba2-1.2b served on the card at full width and depth (``CONFIG``:
+    38 Mamba-2 layers, the shared block at its 6 sites), random bf16
+    weights from a seed.  ``ServeLoop`` serves BATCH prompts of
+    ZAMBA_PROMPT tokens (chunked prefill, the SSD chunk 256) and ZAMBA_GEN
+    greedy tokens, fused (the default: the decode step one replayed CUDA
+    graph) and layered (``two_phase=True``): the same tokens and first
+    decode step logits ``torch.equal``; M1 once a mamba layer, D1 once a
+    shared-block firing and R1 once a decode norm a decode step (38, 6 and
+    89), nothing in the chunked prefill, no plain version on the card; one
+    fused and one layered decode step traced.  The masked prefill
+    (``local_global``) through K4s and K4m on the shared block, sparse ==
+    dense tokens; the kernel prefill (K3 once a repeat), timed; one mamba
+    layer's chunked prefill timed alone; then the scheduler
+    (:func:`phase_dense_scheduler`: 8 of 8 alone, wide and int8 KV).  The
+    weights are freed before it returns.  Returns (summary, the shared
+    block's first q, k, v of the kernel prefill, the layered run's first
+    D1 call, its first M1 call, the launches of each kernel's run)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import AttnMaskSpec
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2
+    from repro_torch.models import model as M
+    t_phase = time.monotonic()
+    cfg = get_config(ZAMBA_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    gb = sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9
+    d_in = cfg.ssm_expand * cfg.d_model
+    print(f"{ZAMBA_ARCH} serving: d={cfg.d_model} mamba layers "
+          f"{cfg.n_prologue} + {cfg.n_repeats} x {len(cfg.block_unit)} "
+          f"(d_in {d_in}, {d_in // cfg.ssm_head_dim} SSM heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}), shared attention "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd} every "
+          f"{cfg.shared_attn_every} repeat, d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size}; params {gb:.2f} GB, init {init_s:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, ZAMBA_PROMPT),
+                            generator=g, device="cuda")
+    max_seq = ZAMBA_PROMPT + ZAMBA_GEN
+    loop = ServeLoop(params, cfg, max_seq=max_seq)
+    check(not loop.two_phase, f"{ZAMBA_ARCH}'s default loop is not fused")
+    loop.run(prompts, 2)                      # warm-up: allocator, capture
+    capture0 = loop.summary()["capture"]
+    reset_launches()
+    with no_plain():                          # the main path
+        tokens, fused_logits = first_step_logits(loop, prompts, ZAMBA_GEN)
+    counts = read_launches()
+    want = decode_counts(cfg, 1, ZAMBA_GEN - 1)
+    check(counts == want, f"{ZAMBA_ARCH} fused: launches {counts} != "
+                          f"{want}")
+    per_step = step_counts(cfg)
+    check(loop.fused_step.launches == per_step, f"a {ZAMBA_ARCH} replay "
+          f"launches {loop.fused_step.launches}, not {per_step}")
+    check(tokens.shape == (BATCH, ZAMBA_GEN) and (tokens >= 0).all()
+          and (tokens < cfg.vocab_size).all(), f"{ZAMBA_ARCH}: bad tokens")
+    check(bool(torch.isfinite(fused_logits).all()),
+          f"{ZAMBA_ARCH}: first decode step logits not finite")
+    rows = [fused_numbers("fused", loop.summary(), capture0, counts)]
+    layered = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True)
+    layered.run(prompts, 2)                   # warm-up
+    calls = {}
+
+    def keep(name, a, kw):
+        if name == "decode_attention" and not calls:
+            calls["first"] = (tuple(t.clone() for t in a[:3]), dict(kw))
+
+    reset_launches()
+    with no_plain(), hook_calls(keep), keep_ssd_step() as m1_call:
+        got, layered_logits = first_step_logits(layered, prompts,
+                                                 ZAMBA_GEN)
+    counts_l = read_launches()
+    check(counts_l == want, f"{ZAMBA_ARCH} layered: launches {counts_l}")
+    check(np.array_equal(got, tokens),
+          f"{ZAMBA_ARCH}: layered tokens != fused")
+    check(torch.equal(layered_logits, fused_logits),
+          f"{ZAMBA_ARCH}: first decode step logits, layered != fused (max "
+          f"diff {(layered_logits - fused_logits).abs().max().item()})")
+    rows.append(fused_numbers("layered", layered.summary(),
+                              {"calls": 0, "ms": 0.0}, counts_l))
+    for row in rows:
+        print_fused(row)
+    print(f"  layered tokens == fused tokens, first decode step logits "
+          f"torch.equal; a replay launches {per_step}; tokens "
+          f"{tokens[0, :8].tolist()} ...; first decode step's D1 kv_len "
+          f"{calls['first'][1]['kv_len']}")
+    traces = [trace_decode(f"{ZAMBA_ARCH}, layered eager", layered,
+                           prompts),
+              trace_decode(f"{ZAMBA_ARCH}, fused replayed", loop, prompts)]
+    del layered
+    launches = {"decode_attention": counts["decode_attention"],
+                "ssd_step": counts["ssd_step"]}
+    spec, mask = serving_mask(cfg, ZAMBA_PROMPT)
+    masked = {}
+    for impl, kern in (("sparse", "flash_attention_sparse"),
+                       ("dense", "flash_attention_masked")):
+        loop.attn_mask = AttnMaskSpec(**spec, impl=impl)
+        fops.reset_fallbacks()
+        reset_launches()
+        with no_plain():
+            toks = loop.run(prompts, ZAMBA_MASK_GEN)
+        c = read_launches()
+        want_m = decode_counts(cfg, 1, ZAMBA_MASK_GEN - 1,
+                               **{kern: cfg.n_repeats})
+        check(c == want_m, f"{ZAMBA_ARCH} masked {impl}: launches {c} != "
+                           f"{want_m}")
+        check(fops.fallback_count() == 0,
+              f"{ZAMBA_ARCH} masked {impl}: fell back")
+        launches[kern] = c[kern]
+        masked[impl] = {
+            "tokens": toks,
+            "prefill_ms": loop.summary()["prefill"]["seconds"] * 1e3}
+    check(np.array_equal(masked["sparse"]["tokens"],
+                         masked["dense"]["tokens"]),
+          f"{ZAMBA_ARCH} local_global: sparse tokens != dense tokens")
+    loop.attn_mask = None
+    print(f"  local_global on the shared block (window {MASK_WINDOW} + the "
+          f"first tile, {mask.nnzb} of {mask.n_q_tiles * mask.n_kv_tiles} "
+          f"tiles): sparse == dense tokens; prefill "
+          f"{masked['sparse']['prefill_ms']:.1f} ms (K4s), "
+          f"{masked['dense']['prefill_ms']:.1f} ms (K4m)")
+    del loop
+    qkv = {}
+
+    def keep_qkv(name, a, kw):
+        if name == "attention" and not qkv and kw.get("mask") is None:
+            qkv["first"] = tuple(t.contiguous().clone() for t in a[:3])
+
+    reset_launches()
+    t0 = time.monotonic()
+    with hook_calls(keep_qkv):
+        logits, _, _ = M.prefill(params, prompts, cfg, max_seq=max_seq,
+                                 impl="kernel")
+        torch.cuda.synchronize()
+    kernel_ms = (time.monotonic() - t0) * 1e3
+    c = read_launches()
+    check(c == only(flash_attention=cfg.n_repeats),
+          f"{ZAMBA_ARCH} kernel prefill: launches {c}")
+    check(bool(torch.isfinite(logits).all()),
+          f"{ZAMBA_ARCH} K3 prefill: logits")
+    launches["flash_attention"] = c["flash_attention"]
+    k3_first = logits[:, -1, :cfg.vocab_size].argmax(-1).cpu().numpy()
+    print(f"  kernel prefill (K3 x {cfg.n_repeats}) {kernel_ms:.1f} ms; "
+          f"first tokens {np.mean(k3_first == tokens[:, 0]):.2f} equal to "
+          "the chunked prefill's (information)")
+    del logits
+    # one mamba layer's prefill at 4 x ZAMBA_PROMPT alone: the mixer, and
+    # the chunked SSD inside it
+    p0 = M._take(params["prologue"], 0)
+    h = L.rmsnorm(p0["ln"], params["embed"][prompts], cfg.norm_eps)
+    layer_ms = time_ms(lambda: mamba2.apply_mamba(p0["mixer"], h, cfg), 3,
+                       1)
+    nh, hd, ns = d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    xs = torch.randn((BATCH, ZAMBA_PROMPT, nh, hd), generator=g,
+                     device="cuda")
+    a_log = -torch.rand((BATCH, ZAMBA_PROMPT, nh), generator=g,
+                        device="cuda") * 0.1
+    bc = [torch.randn((BATCH, ZAMBA_PROMPT, ns), generator=g, device="cuda")
+          for _ in range(2)]
+    ssd_ms = time_ms(lambda: mamba2.ssd_chunked(xs, a_log, *bc,
+                                                chunk=mamba2.CHUNK), 3, 1)
+    del h, xs, a_log, bc
+    print(f"  one mamba layer's prefill at {BATCH} x {ZAMBA_PROMPT}: "
+          f"{layer_ms:.2f} ms (chunked SSD alone, chunk {mamba2.CHUNK}: "
+          f"{ssd_ms:.2f} ms)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sched = phase_dense_scheduler(cfg, params)
+    sched_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.monotonic() - t_phase
+    info = {"arch": ZAMBA_ARCH, "depth": cfg.n_layers,
+            "shared_sites": step_layers(cfg).count("shared_attn"),
+            "batch": BATCH, "prompt": ZAMBA_PROMPT, "gen": ZAMBA_GEN,
+            "params_gb": gb, "init_s": init_s, "runs": rows,
+            "traces": traces,
+            "masked": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                       for k, v in masked.items()},
+            "kernel_prefill_ms": kernel_ms,
+            "mamba_layer_prefill_ms": layer_ms,
+            "ssd_chunked_prefill_ms": ssd_ms, "peak_gb": peak_gb,
+            "scheduler": sched, "scheduler_peak_gb": sched_peak_gb,
+            "wall_s": wall, "card": card}
+    print(f"  {ZAMBA_ARCH} phase: peak {peak_gb:.1f} GB (serving), "
+          f"{sched_peak_gb:.1f} GB (with the scheduler); {wall:.1f} s")
+    return info, qkv["first"], calls["first"], m1_call.args, launches
+
+
+def _ssd_step_times(a, what: str) -> dict:
+    """M1 on ``a`` = (x, e, b, c, h0), as the model runs it:
+    :func:`_ssd_step_case`'s checks, the kernel's time in place (on a copy
+    of h0, as the decode step writes its cache) back to back and from a
+    CUDA graph, the plain step's (``torch.einsum`` and the elementwise
+    passes) the same two ways, and the bound: x, e, b, c and the state read
+    once, y and the new state written once, at 3.35 TB/s (its 5 B nh hd ns
+    operations take ~1 % of that at the f32 peak).  No single PyTorch call
+    computes the step: ``library_ms`` is None."""
+    from repro_torch.kernels.ssd import kernel as mk
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd import ref
+    err = _ssd_step_case(a, f"M1 at {what}")
+    st = a[4].clone()
+    run = lambda: mk.ssd_step(*a[:4], st, out=st)  # noqa: E731
+    plain = lambda: ref.ssd_step_plain(*a)  # noqa: E731
+    ms, plain_ms = time_ms(run, 50), time_ms(plain, 50)
+    graph = {"ms": graph_ms(run), "plain_ms": graph_ms(plain)}
+    B, nh, hd = a[0].shape
+    ns = a[2].shape[-1]
+    bytes_ms = sops.state_bytes(B, nh, hd, ns) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 5 * B * nh * hd * ns / F32_FLOP_PER_S * 1e3
+    print(f"  M1 {what} (B {B} x {nh} heads, ({hd}, {ns})): {ms:.4f} ms "
+          f"(graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}; "
+          f"plain {plain_ms:.4f}, graph {graph['plain_ms']:.4f}), y "
+          f"max_abs_err {err:.3g}; == its emulated order, state == plain")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "graph": graph,
+            "shape": {"B": B, "nh": nh, "hd": hd, "ns": ns}}
+
+
+def phase_measure_zamba(qkv, d1_call, m1_args, launches, card) -> list:
+    """zamba2-1.2b's rows at its served shapes: K3, K4m and K4s at the
+    shared block's first q, k, v of the kernel prefill (32/32 heads of 64,
+    :func:`phase_measure_attention`: each against its plain version first);
+    D1 at the layered run's first decode step's call (a group of 1), row 0
+    alone (B 1) and the rows twice (B 8) beside; M1 at the same step's
+    first call (the prologue's layer 0 on the state its prefill left: ==
+    its emulated order, the state == plain, rows == alone), B 1 and the
+    rows twice (the scheduler's bucket 8) beside."""
+    import torch
+    q = qkv[0]
+    S, D = q.shape[2], q.shape[3]
+    tag = f" D{D} {ZAMBA_ARCH}"
+    _, mask = serving_mask(types.SimpleNamespace(hd=D), S)
+    rows = phase_measure_attention(qkv, mask, launches, card, suffix=tag)
+    (q1, k1, v1), kw = d1_call
+    d1 = _decode_times(d1_call, f"{ZAMBA_ARCH} 4 x {S}, first step")
+    beside = {
+        "b1_call": _decode_times(((q1[:1], k1[:1], v1[:1]), kw),
+                                 f"{ZAMBA_ARCH}, row 0 alone (B 1)"),
+        "b8_call": _decode_times(((q1.repeat(2, 1, 1, 1).contiguous(),
+                                   k1.repeat(2, 1, 1, 1).contiguous(),
+                                   v1.repeat(2, 1, 1, 1).contiguous()), kw),
+                                 f"{ZAMBA_ARCH}, rows twice (B 8)")}
+    rows.append({"name": f"decode_attention D{D} {ZAMBA_ARCH} group 1",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "decode_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/ops.py:212 "
+                             "(array code, no Pallas kernel)",
+                 "launches": launches["decode_attention"], **d1, **beside,
+                 "card": card})
+    a = m1_args
+    _ssd_rows_alone(a, "M1 at the served decode step")
+    m1 = _ssd_step_times(a, f"{ZAMBA_ARCH} 4 x {S}, first decode step, "
+                            "prologue layer 0")
+    one = _ssd_step_times(tuple(t[:1] for t in a), "its row 0 alone (B 1)")
+    eight = _ssd_step_times(tuple(torch.cat([t, t]) for t in a),
+                            "its rows twice (bucket 8)")
+    rows.append({"name": "ssd_step", "route": "cuda",
+                 "source": "src/repro_torch/kernels/ssd/csrc/ssd_step.cu",
+                 "replaces": SSD_SRC, "launches": launches["ssd_step"],
+                 **m1, "b1_call": one, "bucket8_call": eight,
+                 "card": card})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5278,9 +5848,15 @@ def main() -> int:
     phase_decode_vs_plain()
     phase_library_vs_plain()
     phase_wkv_vs_plain()
+    t0 = time.monotonic()
+    phase_ssd_step_vs_plain()
+    print(f"  M1 vs plain: {time.monotonic() - t0:.1f} s")
     phase_small_config_card_vs_cpu()
     phase_rwkv_smoke_card_vs_cpu()
     phase_dense_smoke_card_vs_cpu()
+    t0 = time.monotonic()
+    phase_zamba_smoke_card_vs_cpu()
+    print(f"  zamba2 smoke card vs cpu: {time.monotonic() - t0:.1f} s")
     cfg, params, summary, launches, captured, pipelined, calls = \
         phase_slice()
     scheduler, sched_streams, sched_calls, clean = phase_scheduler(cfg,
@@ -5334,6 +5910,13 @@ def main() -> int:
         print(f"{arch} kernel times at its served shapes:")
         rows += phase_measure_dense(arch, d_qkv, d_call, d_launches, card)
         del d_qkv, d_call
+    zamba, z_qkv, z_d1, z_m1, z_launches = phase_zamba_serving(card)
+    print(f"{ZAMBA_ARCH} kernel times at its served shapes:")
+    t0 = time.monotonic()
+    rows += phase_measure_zamba(z_qkv, z_d1, z_m1, z_launches, card)
+    zamba["measure_s"] = time.monotonic() - t0
+    print(f"  {ZAMBA_ARCH} kernel times: {zamba['measure_s']:.1f} s")
+    del z_qkv, z_d1, z_m1
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
     clocks["before_library_kernels"] = smi(CLOCKS)
@@ -5379,7 +5962,7 @@ def main() -> int:
                   "quantized": quant,
                   "fused": fused,
                   "card": card},
-             "rwkv": rwkv, "gemma": gemma, "dense": dense,
+             "rwkv": rwkv, "gemma": gemma, "dense": dense, "zamba": zamba,
              "library": lib_info,
              "sm_clocks": clocks,
              "wall_s": time.monotonic() - t_start}

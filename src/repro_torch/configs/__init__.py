@@ -13,6 +13,7 @@ ARCH_NAMES = [
     "qwen2-1.5b",
     "qwen3-1.7b",
     "rwkv6-7b",
+    "zamba2-1.2b",
 ]
 
 _MODULES = {n: "repro_torch.configs." + n.replace("-", "_").replace(".", "_")

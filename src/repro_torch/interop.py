@@ -10,8 +10,9 @@ a ``uint16`` view of its bytes, an fp8 array (``float8_e4m3fn`` /
 policy's compute dtype: the reference casts f32 weights to it at every use,
 which is the same round-to-nearest-even.  Norm scales and routers stay f32:
 routing multiplies in f32.  So do the RWKV decay LoRA, ``decay_base`` and
-``bonus_u``, which the reference uses in f32; the RWKV lerp factors
-``mu`` / ``mu_c`` are cast at use like the weights.
+``bonus_u``, and the Mamba-2 ``a_log``, ``d_skip`` and ``dt_bias``, which
+the reference uses in f32; the RWKV lerp factors ``mu`` / ``mu_c`` and the
+Mamba-2 conv's ``conv_w`` / ``conv_b`` are cast at use like the weights.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models.config import ArchConfig
 
 _F32_LEAVES = ("scale", "router", "decay_base", "decay_lora_a",
-               "decay_lora_b", "bonus_u")
+               "decay_lora_b", "bonus_u", "a_log", "d_skip", "dt_bias")
 
 
 def bcsr_from_jax(a, *, device="cuda") -> Union[BCSR, BatchedBCSR]:

@@ -15,6 +15,7 @@ def launch_counters() -> Dict[str, Tuple[Callable, str]]:
     from repro_torch.kernels.router import kernel as rk
     from repro_torch.kernels.spmm import kernel as sk
     from repro_torch.kernels.spmspm import kernel as pk
+    from repro_torch.kernels.ssd import kernel as mk
     from repro_torch.kernels.stencil import kernel as tk
     from repro_torch.kernels.wkv import kernel as wk
     return {"spmm_bcsr": (sk.spmm_bcsr, "launches"),
@@ -28,7 +29,8 @@ def launch_counters() -> Dict[str, Tuple[Callable, str]]:
             "stencil_2d": (tk.stencil_2d, "launches"),
             "stencil_3d": (tk.stencil_3d, "launches"),
             "wkv_kernel": (wk.wkv_kernel, "launches"),
-            "wkv_step": (wk.wkv_step, "launches")}
+            "wkv_step": (wk.wkv_step, "launches"),
+            "ssd_step": (mk.ssd_step, "launches")}
 
 
 def read_launches() -> Dict[str, int]:

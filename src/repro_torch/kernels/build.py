@@ -33,6 +33,7 @@ SOURCES: Dict[str, Path] = {
     "wkv": _KERNELS / "wkv" / "csrc" / "wkv.cu",
     "wkv_step": _KERNELS / "wkv" / "csrc" / "wkv_step.cu",
     "router": _KERNELS / "router" / "csrc" / "router.cu",
+    "ssd_step": _KERNELS / "ssd" / "csrc" / "ssd_step.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

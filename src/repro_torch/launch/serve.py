@@ -219,13 +219,16 @@ def _clone_leaves(tree):
 # the leaves a decode step advances beyond a row's position; K / V are
 # written at the position (a ring's at its slot, position % window), which a
 # retried step rewrites with the same values
-_STEP_STATE = ("moe", "wkv", "shift_t", "shift_c")
+_STEP_STATE = ("moe", "wkv", "shift_t", "shift_c", "conv", "ssm")
 
 
 def _step_state(cache):
-    """The :data:`_STEP_STATE` leaves of a stacked cache, slot by slot."""
+    """The :data:`_STEP_STATE` leaves of a stacked cache, slot by slot,
+    the prologue's last."""
+    slots = cache["slots"] + ((cache["prologue"],) if "prologue" in cache
+                              else ())
     return tuple({k: v for k, v in slot.items() if k in _STEP_STATE}
-                 for slot in cache["slots"])
+                 for slot in slots)
 
 
 @contextlib.contextmanager
@@ -258,13 +261,13 @@ class _FusedDecode:
     step raises there, before it could break the capture, and each
     kernel's first-use build and shared-memory attribute are done.  The
     warm-up writes into the cache (K/V at the buffers' positions, the MoE
-    occupancy, the RWKV state and shifts): a cache of the step's own is
-    overwritten by :meth:`load`, a given one is restored leaf by leaf
-    after the capture (:func:`_rows_kept`), so its live rows leave the
-    capture as they entered it.  The graph binds the given cache's own
-    storage, never a copy.  A replay runs no wrapper, so the launches the
-    capture recorded (``launches``) are added to the kernels' counts at
-    every replay; the warm-up and the capture add none.  A failed capture
+    occupancy, the RWKV and Mamba states, shifts and conv carries): a
+    cache of the step's own is overwritten by :meth:`load`, a given one is
+    restored leaf by leaf after the capture (:func:`_rows_kept`), so its
+    live rows leave the capture as they entered it.  The graph binds the
+    given cache's own storage, never a copy.  A replay runs no wrapper, so
+    the launches the capture recorded (``launches``) are added to the
+    kernels' counts at every replay; the warm-up and the capture add none.  A failed capture
     or replay raises: there is no eager fallback on the card.  On the CPU
     :meth:`step` runs ``model.decode_step`` eagerly on the same buffers; a
     given cache gets the same warm-up steps there, under the same guard."""
@@ -304,8 +307,9 @@ class _FusedDecode:
             self._decode, device, pool=pool, warmup=self.WARMUP)
 
     def load(self, cache) -> None:
-        """A prefill cache into the static cache, leaf by leaf."""
-        _copy_leaves(self.cache["slots"], cache["slots"])
+        """A prefill cache into the static cache, leaf by leaf (the
+        prologue's too)."""
+        _copy_leaves(self.cache, cache)
 
     def step(self, pos, tokens: torch.Tensor) -> torch.Tensor:
         """One decode step from the (B, 1) ``tokens`` on the device at
@@ -1304,7 +1308,7 @@ class ServeScheduler(_ServeBase):
             if state is not None:
                 req.generator.set_state(state)
             return False
-        _copy_row(self.cache["slots"], cache1["slots"], slot)
+        _copy_row(self.cache, cache1, slot)
         req.slot, req.pos = slot, pos
         req.state = "active"
         self.slots[slot] = req

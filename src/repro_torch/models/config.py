@@ -75,3 +75,31 @@ class ArchConfig:
     @property
     def n_layers(self) -> int:
         return len(self.block_unit) * self.n_repeats + self.n_prologue
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + stacked blocks), the
+        reference's formula."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        hd, Hq, Hkv = self.hd, self.n_heads, self.n_kv_heads
+        n = V * d * (1 if self.tie_embeddings else 2)
+        mlp = (3 if self.mlp_type == "swiglu" else 2) * d * ff
+        attn = d * (Hq * hd) + 2 * d * (Hkv * hd) + (Hq * hd) * d
+        if self.qkv_bias:
+            attn += (Hq + 2 * Hkv) * hd
+        per_kind = {"attn": attn + mlp + 2 * d}
+        per_kind["attn_local"] = per_kind["attn_global"] = per_kind["attn"]
+        moe_ffn = self.n_experts * mlp + d * self.n_experts
+        if self.moe_shared_expert:
+            moe_ffn += mlp
+        per_kind["attn+moe"] = attn + moe_ffn + 2 * d
+        d_in = self.ssm_expand * d
+        nh = d_in // self.ssm_head_dim
+        per_kind["mamba"] = (d * (2 * d_in + 2 * self.ssm_state + nh)
+                             + self.ssm_conv * (d_in + 2 * self.ssm_state)
+                             + d_in * d + 2 * nh + d_in + d)
+        per_kind["rwkv"] = int(d * ff * 2 + d * d * 5 + 2 * d)
+        n += sum(per_kind[k] for k in self.block_unit) * self.n_repeats
+        n += per_kind[self.block_unit[0]] * self.n_prologue
+        if self.shared_attn_every:
+            n += per_kind["attn"]      # one shared block, reused
+        return int(n)

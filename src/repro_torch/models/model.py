@@ -1,7 +1,12 @@
 """Model assembly for serving: params, decode caches, prefill and decode.
 
 The port of the serving half of ``repro/models/model.py`` for the block
-kinds ``attn``, ``attn_local``, ``attn_global``, ``attn+moe`` and ``rwkv``.
+kinds ``attn``, ``attn_local``, ``attn_global``, ``attn+moe``, ``rwkv`` and
+``mamba``, with the zamba-style ``prologue`` (``n_prologue`` layers of the
+first kind before the stack, params and caches stacked over them) and
+``shared_attn`` block (one unstacked attention block run after every
+``shared_attn_every``-th repeat, its decode cache a slot of its own after
+the block unit's, stacked over the repeats).
 An ``attn_local`` layer attends over the config's ``local_window``; its
 decode cache is a ring buffer of ``min(max_seq, local_window)`` slots,
 position ``p`` at slot ``p % local_window`` (:func:`init_cache`).  The
@@ -19,8 +24,8 @@ device position tensor reads nothing on the host, so the serving loop can
 capture it as one CUDA graph (``launch.serve``).
 
 Caches are updated **in place**: decode writes each layer's new key/value,
-MoE occupancy, RWKV state and token shifts into the stacked cache tensors
-and returns the same dict.
+MoE occupancy, RWKV state and token shifts, and Mamba conv carry and SSM
+state into the stacked cache tensors and returns the same dict.
 """
 from __future__ import annotations
 
@@ -36,21 +41,48 @@ from repro_torch.core.masks import AttnMaskSpec
 from repro_torch.core.precision import QuantTensor
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models import layers as L
-from repro_torch.models import moe, rwkv6
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 
-KINDS = ("attn", "attn_local", "attn_global", "attn+moe", "rwkv")
+KINDS = ("attn", "attn_local", "attn_global", "attn+moe", "rwkv", "mamba")
 
 
 def _check_kinds(cfg: ArchConfig) -> None:
     bad = [k for k in cfg.block_unit if k not in KINDS]
-    if bad or cfg.n_prologue or cfg.shared_attn_every or cfg.frontend != "none":
+    if bad or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only stacks of {KINDS} without prologue, shared "
-            f"attention or frontend are ported (got block_unit="
-            f"{cfg.block_unit})")
+            f"{cfg.name}: only stacks of {KINDS} without frontend are "
+            f"ported (got block_unit={cfg.block_unit}, frontend="
+            f"{cfg.frontend!r})")
+
+
+def _fires(cfg: ArchConfig, i: int) -> bool:
+    """Whether the shared attention block advances the residual after
+    repeat ``i`` (the reference's fire test)."""
+    return i % cfg.shared_attn_every == cfg.shared_attn_every - 1
+
+
+def step_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The kind of every layer one decode step runs, in order: the
+    prologue's, then each repeat's block unit followed by the shared
+    attention block where it fires."""
+    kinds = (cfg.block_unit[0],) * cfg.n_prologue
+    for i in range(cfg.n_repeats):
+        kinds += cfg.block_unit
+        if cfg.shared_attn_every and _fires(cfg, i):
+            kinds += ("shared_attn",)
+    return kinds
+
+
+def _cache_slots(cfg: ArchConfig, cache):
+    """(cache slot, kind) of every stacked slot of a decode cache: the
+    block unit's, the shared block's, and the prologue's."""
+    out = list(zip(cache["slots"], _cache_kinds(cfg)))
+    if cfg.n_prologue:
+        out.append((cache["prologue"], cfg.block_unit[0]))
+    return out
 
 
 def _window_for(kind: str, cfg: ArchConfig) -> Optional[int]:
@@ -78,22 +110,35 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = L.normal(g, (d, V), d ** -0.5, n=1, dtype=cd,
                                 device=dev)[0]
-    slots = []
-    for kind in cfg.block_unit:
-        kw = dict(n=n, dtype=cd, device=dev)
-        if kind == "rwkv":
-            slots.append({"ln1": L.init_rmsnorm(d, n=n, device=dev),
-                          "ln2": L.init_rmsnorm(d, n=n, device=dev),
-                          "mixer": rwkv6.init_rwkv(g, cfg, **kw)})
-            continue
-        slot = {"ln1": L.init_rmsnorm(d, n=n, device=dev),
-                "attn": L.init_attention(g, cfg, **kw),
-                "ln2": L.init_rmsnorm(d, n=n, device=dev)}
-        slot["ffn"] = (moe.init_moe(g, cfg, **kw) if kind == "attn+moe"
-                       else L.init_mlp(g, cfg, **kw))
-        slots.append(slot)
-    p["blocks"] = tuple(slots)
+    p["blocks"] = tuple(_init_block(g, kind, cfg, n=n, dtype=cd, device=dev)
+                        for kind in cfg.block_unit)
+    if cfg.shared_attn_every:      # one unstacked weight set
+        p["shared_attn"] = _take(_init_block(g, "shared_attn", cfg, n=1,
+                                             dtype=cd, device=dev), 0)
+    if cfg.n_prologue:
+        p["prologue"] = _init_block(g, cfg.block_unit[0], cfg,
+                                    n=cfg.n_prologue, dtype=cd, device=dev)
     return p
+
+
+def _init_block(g, kind: str, cfg: ArchConfig, *, n: int, dtype, device):
+    """``n`` stacked layers of ``kind``, the reference's tree
+    (``init_block``)."""
+    d = cfg.d_model
+    kw = dict(n=n, dtype=dtype, device=device)
+    if kind == "rwkv":
+        return {"ln1": L.init_rmsnorm(d, n=n, device=device),
+                "ln2": L.init_rmsnorm(d, n=n, device=device),
+                "mixer": rwkv6.init_rwkv(g, cfg, **kw)}
+    if kind == "mamba":
+        return {"ln": L.init_rmsnorm(d, n=n, device=device),
+                "mixer": mamba2.init_mamba(g, cfg, **kw)}
+    slot = {"ln1": L.init_rmsnorm(d, n=n, device=device),
+            "attn": L.init_attention(g, cfg, **kw),
+            "ln2": L.init_rmsnorm(d, n=n, device=device)}
+    slot["ffn"] = (moe.init_moe(g, cfg, **kw) if kind == "attn+moe"
+                   else L.init_mlp(g, cfg, **kw))
+    return slot
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
@@ -105,7 +150,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     it equals the window (:func:`_window_for`) -- and, for attn+moe slots,
     the routing occupancy ``(n_repeats, B, E)`` int32; for rwkv slots the f32
     state ``wkv`` ``(n_repeats, B, nh, 64, 64)`` and the token shifts
-    ``shift_t`` / ``shift_c`` ``(n_repeats, B, 1, d)`` in ``dtype``.
+    ``shift_t`` / ``shift_c`` ``(n_repeats, B, 1, d)`` in ``dtype``; for
+    mamba slots the conv carry ``conv`` ``(n_repeats, B, K-1, d_in + 2 ns)``
+    in ``dtype`` and the f32 state ``ssm`` ``(n_repeats, B, nh, hd, ns)``.
+    A shared attention block's full-context K/V is one more slot after the
+    block unit's, and ``prologue`` the first kind's cache stacked over the
+    ``n_prologue`` layers.
     ``kv_quant`` (a narrow dtype name) makes the full-context K/V narrow
     zeros with per-position f32 scales ``k_scale`` / ``v_scale`` ``(n_repeats,
     B, Hkv, max_seq)`` of ones, the all-zero convention of
@@ -113,35 +163,53 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     local slots stay wide."""
     _check_kinds(cfg)
     dev = resolve_device(device)
-    slots = []
-    for kind in cfg.block_unit:
-        if kind == "rwkv":
-            nh, hd = cfg.d_model // rwkv6.HEAD_DIM, rwkv6.HEAD_DIM
-            shift = (cfg.n_repeats, batch, 1, cfg.d_model)
-            slots.append({
-                "wkv": torch.zeros((cfg.n_repeats, batch, nh, hd, hd),
-                                   dtype=torch.float32, device=dev),
-                "shift_t": torch.zeros(shift, dtype=dtype, device=dev),
-                "shift_c": torch.zeros(shift, dtype=dtype, device=dev)})
-            continue
-        window = _window_for(kind, cfg)
-        shp = (cfg.n_repeats, batch, cfg.n_kv_heads,
-               min(max_seq, window) if window else max_seq, cfg.hd)
-        if kv_quant is not None and not window:
-            qdt = precision.QUANT_DTYPES[kv_quant]
-            c = {"attn": {
-                "k": torch.zeros(shp, dtype=qdt, device=dev),
-                "k_scale": torch.ones(shp[:-1], device=dev),
-                "v": torch.zeros(shp, dtype=qdt, device=dev),
-                "v_scale": torch.ones(shp[:-1], device=dev)}}
-        else:
-            c = {"attn": {"k": torch.zeros(shp, dtype=dtype, device=dev),
-                          "v": torch.zeros(shp, dtype=dtype, device=dev)}}
-        if kind == "attn+moe":
-            c["moe"] = torch.zeros((cfg.n_repeats, batch, cfg.n_experts),
-                                   dtype=torch.int32, device=dev)
-        slots.append(c)
-    return {"slots": tuple(slots)}
+    kw = dict(batch=batch, max_seq=max_seq, dtype=dtype, device=dev,
+              kv_quant=kv_quant)
+    slots = [_slot_cache(cfg, kind, cfg.n_repeats, **kw)
+             for kind in cfg.block_unit]
+    if cfg.shared_attn_every:
+        slots.append(_slot_cache(cfg, "shared_attn", cfg.n_repeats, **kw))
+    out = {"slots": tuple(slots)}
+    if cfg.n_prologue:
+        out["prologue"] = _slot_cache(cfg, cfg.block_unit[0], cfg.n_prologue,
+                                      **kw)
+    return out
+
+
+def _slot_cache(cfg: ArchConfig, kind: str, n: int, *, batch: int,
+                max_seq: int, dtype, device, kv_quant: Optional[str]):
+    """The zeroed decode cache of ``n`` stacked layers of ``kind``."""
+    if kind == "rwkv":
+        nh, hd = cfg.d_model // rwkv6.HEAD_DIM, rwkv6.HEAD_DIM
+        shift = (n, batch, 1, cfg.d_model)
+        return {"wkv": torch.zeros((n, batch, nh, hd, hd),
+                                   dtype=torch.float32, device=device),
+                "shift_t": torch.zeros(shift, dtype=dtype, device=device),
+                "shift_c": torch.zeros(shift, dtype=dtype, device=device)}
+    if kind == "mamba":
+        d_in = cfg.ssm_expand * cfg.d_model
+        ns, hd = cfg.ssm_state, cfg.ssm_head_dim
+        conv = (n, batch, cfg.ssm_conv - 1, d_in + 2 * ns)
+        return {"conv": torch.zeros(conv, dtype=dtype, device=device),
+                "ssm": torch.zeros((n, batch, d_in // hd, hd, ns),
+                                   dtype=torch.float32, device=device)}
+    window = _window_for(kind, cfg)
+    shp = (n, batch, cfg.n_kv_heads,
+           min(max_seq, window) if window else max_seq, cfg.hd)
+    if kv_quant is not None and not window:
+        qdt = precision.QUANT_DTYPES[kv_quant]
+        c = {"attn": {
+            "k": torch.zeros(shp, dtype=qdt, device=device),
+            "k_scale": torch.ones(shp[:-1], device=device),
+            "v": torch.zeros(shp, dtype=qdt, device=device),
+            "v_scale": torch.ones(shp[:-1], device=device)}}
+    else:
+        c = {"attn": {"k": torch.zeros(shp, dtype=dtype, device=device),
+                      "v": torch.zeros(shp, dtype=dtype, device=device)}}
+    if kind == "attn+moe":
+        c["moe"] = torch.zeros((n, batch, cfg.n_experts), dtype=torch.int32,
+                               device=device)
+    return c
 
 
 def blank_cache_row(cache, row: int):
@@ -170,13 +238,13 @@ def blank_cache_row(cache, row: int):
 
 def cache_capacity(cache, cfg: ArchConfig) -> Optional[int]:
     """Sequence capacity of a decode cache: the shortest attention K/V
-    cache, or None for a stack without one (recurrent state only, or ring
-    buffers only), which never overflows.  A ring buffer (the cache of a
-    layer whose :func:`_window_for` equals its length, the rule decode
+    cache (the shared attention block's and the prologue's slots
+    included), or None for a stack without one (recurrent state only, or
+    ring buffers only), which never overflows.  A ring buffer (the cache of
+    a layer whose :func:`_window_for` equals its length, the rule decode
     picks a ring by) wraps and is left out, as the reference's
     ``cache_capacity`` leaves out leaves of ``cfg.local_window``."""
-    caps = [c["attn"]["k"].shape[3]
-            for c, kind in zip(cache["slots"], cfg.block_unit)
+    caps = [c["attn"]["k"].shape[3] for c, kind in _cache_slots(cfg, cache)
             if "attn" in c
             and c["attn"]["k"].shape[3] != _window_for(kind, cfg)]
     return min(caps) if caps else None
@@ -212,7 +280,8 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
            collect_kv: int = 0, impl: str = "chunked",
            attn_mask: Optional[AttnMaskSpec] = None,
            route_ahead: bool = False, kv_quant: Optional[str] = None):
-    """One attn / attn_local / attn_global / attn+moe / rwkv sub-layer, its
+    """One attn / attn_local / attn_global / attn+moe / shared_attn / rwkv /
+    mamba sub-layer, its
     window from :func:`_window_for`; ``impl``, ``attn_mask`` and
     ``kv_quant`` reach its prefill attention.  ``route_ahead``: an
     attn+moe block runs MoE route phase 1 (``moe.route_phase1``) right
@@ -224,6 +293,11 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache=cache, collect=bool(collect_kv))
     dec = cache is not None                 # decode: norms in row order
+    if kind == "mamba":
+        h = L.rmsnorm(p["ln"], x, cfg.norm_eps, row_order=dec)
+        m, new_cache = mamba2.apply_mamba(p["mixer"], h, cfg, cache=cache,
+                                          collect=bool(collect_kv))
+        return x + m, new_cache
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps, row_order=dec)
     a, new_attn = L.apply_attention(
         p["attn"], h, cfg, window=_window_for(kind, cfg), impl=impl,
@@ -316,20 +390,44 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     or quantized, next position)."""
     _check_kinds(cfg)
     moe_fn = moe_fn or moe.apply_moe
+    kw = dict(moe_fn=moe_fn, collect_kv=max_seq, impl=impl,
+              attn_mask=attn_mask, route_ahead=route_ahead,
+              kv_quant=kv_quant)
     x = _embed(params, tokens, cfg)
-    per_slot = [[] for _ in cfg.block_unit]
+    prologue = []
+    for i in range(cfg.n_prologue):
+        x, c = _block(cfg.block_unit[0], _take(params["prologue"], i), x,
+                      cfg, **kw)
+        prologue.append(c)
+    per_slot = [[] for _ in _cache_kinds(cfg)]
     for i in range(cfg.n_repeats):
         for slot, kind in enumerate(cfg.block_unit):
             x, c = _block(kind, _take(params["blocks"][slot], i), x, cfg,
-                          moe_fn=moe_fn, collect_kv=max_seq, impl=impl,
-                          attn_mask=attn_mask, route_ahead=route_ahead,
-                          kv_quant=kv_quant)
+                          **kw)
             per_slot[slot].append(c)
+        if cfg.shared_attn_every:
+            # the cache is collected every repeat, as the reference's; the
+            # residual takes the block's output on fire steps only
+            y2, c = _block("shared_attn", params["shared_attn"], x, cfg,
+                           **kw)
+            if _fires(cfg, i):
+                x = y2
+            per_slot[-1].append(c)
     logits = final_logits(params, x, cfg, last_only=True)
     cd = precision_policy(cfg.policy).compute_dtype
-    slots = tuple(_cache_to_dtype(_stack(caches), cd, cache_dtype)
-                  for caches in per_slot)
-    return logits, {"slots": slots}, tokens.shape[1]
+    cache = {"slots": tuple(_cache_to_dtype(_stack(caches), cd, cache_dtype)
+                            for caches in per_slot)}
+    if prologue:
+        cache["prologue"] = _cache_to_dtype(_stack(prologue), cd,
+                                            cache_dtype)
+    return logits, cache, tokens.shape[1]
+
+
+def _cache_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The kind of each slot of ``cache["slots"]``: the block unit's, then
+    the shared attention block's."""
+    return cfg.block_unit + (("shared_attn",) if cfg.shared_attn_every
+                             else ())
 
 
 def _fused_moe(dispatch: Optional[str]) -> Callable:
@@ -377,10 +475,10 @@ _SCALE_LEAVES = ("k_scale", "v_scale")
 def _cache_to_dtype(tree, cd, cache_dtype):
     """The reference's rule (``model._cache_to_dtype``): every cache leaf
     in the compute dtype becomes ``cache_dtype``; others (MoE counts, the
-    f32 RWKV state when the compute dtype is bf16, narrow K/V) stay as they
-    are, and so do the quantized cache's f32 scales (``k_scale`` /
-    ``v_scale``) under any policy.  Under the f32 policy this rounds the
-    RWKV state to a bf16 cache too."""
+    f32 RWKV and SSM states when the compute dtype is bf16, narrow K/V)
+    stay as they are, and so do the quantized cache's f32 scales
+    (``k_scale`` / ``v_scale``) under any policy.  Under the f32 policy
+    this rounds the RWKV and SSM states to a bf16 cache too."""
     if isinstance(tree, dict):
         return {k: v if k in _SCALE_LEAVES else
                 _cache_to_dtype(v, cd, cache_dtype)
@@ -389,13 +487,14 @@ def _cache_to_dtype(tree, cd, cache_dtype):
 
 
 def to_decode_dtypes(cfg: ArchConfig, cache) -> Params:
-    """Bring the rwkv leaves to the dtypes a decode step writes (the f32
-    state, the shifts in the compute dtype), once, in place in ``cache``;
-    returns ``cache``.  The reference's decode step returns them so (a
-    prefill cache under the f32 policy holds them in bf16) and reads the
-    narrower values widened, which this widening reproduces exactly.  A
-    cache for :func:`decode_step` goes through this once, when it is made,
-    since the step writes into its leaves and never reassigns one."""
+    """Bring the rwkv and mamba leaves to the dtypes a decode step writes
+    (the f32 states, the shifts and conv carries in the compute dtype),
+    the prologue's too, once, in place in ``cache``; returns ``cache``.
+    The reference's decode step returns them so (a prefill cache under the
+    f32 policy holds them in bf16) and reads the narrower values widened,
+    which this widening reproduces exactly.  A cache for
+    :func:`decode_step` goes through this once, when it is made, since the
+    step writes into its leaves and never reassigns one."""
     for slot, key, dtype in _decode_leaves(cfg, cache):
         if slot[key].dtype != dtype:
             slot[key] = slot[key].to(dtype)
@@ -403,13 +502,15 @@ def to_decode_dtypes(cfg: ArchConfig, cache) -> Params:
 
 
 def _decode_leaves(cfg: ArchConfig, cache):
-    """(slot dict, key, dtype a decode step writes) of every rwkv leaf."""
+    """(slot dict, key, dtype a decode step writes) of every rwkv and mamba
+    leaf, the prologue's included."""
     cd = precision_policy(cfg.policy).compute_dtype
-    for slot, kind in zip(cache["slots"], cfg.block_unit):
-        if kind == "rwkv":
-            for key, dtype in (("wkv", torch.float32), ("shift_t", cd),
-                               ("shift_c", cd)):
-                yield slot, key, dtype
+    leaves = {"rwkv": (("wkv", torch.float32), ("shift_t", cd),
+                       ("shift_c", cd)),
+              "mamba": (("ssm", torch.float32), ("conv", cd))}
+    for slot, kind in _cache_slots(cfg, cache):
+        for key, dtype in leaves.get(kind, ()):
+            yield slot, key, dtype
 
 
 def _decode_layers(params: Params, cfg: ArchConfig, cache, pos,
@@ -418,12 +519,19 @@ def _decode_layers(params: Params, cfg: ArchConfig, cache, pos,
     """The decode layer loop shared by :func:`decode_step_layered` and
     :func:`decode_step`: ``pos`` an int or a ``(B,)`` int tensor on the
     tokens' device; writes ``cache`` in place; returns the logits."""
+    kw = dict(moe_fn=moe_fn, pos=pos, route_ahead=route_ahead)
     x = _embed(params, tokens_1, cfg)
+    for i in range(cfg.n_prologue):
+        x, _ = _block(cfg.block_unit[0], _take(params["prologue"], i), x,
+                      cfg, cache=_take(cache["prologue"], i), **kw)
     for i in range(cfg.n_repeats):
         for slot, kind in enumerate(cfg.block_unit):
             x, _ = _block(kind, _take(params["blocks"][slot], i), x, cfg,
-                          moe_fn=moe_fn, cache=_take(cache["slots"][slot], i),
-                          pos=pos, route_ahead=route_ahead)
+                          cache=_take(cache["slots"][slot], i), **kw)
+        if cfg.shared_attn_every and _fires(cfg, i):
+            # off a fire step the shared block's cache row stays as it is
+            x, _ = _block("shared_attn", params["shared_attn"], x, cfg,
+                          cache=_take(cache["slots"][-1], i), **kw)
     return final_logits(params, x, cfg, last_only=False, row_order=True)
 
 

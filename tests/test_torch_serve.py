@@ -249,9 +249,9 @@ def test_sampling_overflow_and_device_guards():
         M.decode_step_layered(params, cfg, loop.cache, MAX_SEQ,
                               torch.zeros((B, 1), dtype=torch.long))
     with pytest.raises(KeyError, match="not yet ported"):
-        configs.get_config("zamba2-1.2b")
+        configs.get_config("musicgen-large")
     with pytest.raises(NotImplementedError):
-        M.init_params(dataclasses.replace(cfg, block_unit=("mamba",)),
+        M.init_params(dataclasses.replace(cfg, frontend="audio"),
                       device="cpu")
     if torch.cuda.is_available():
         assert repro_torch.resolve_device("cuda").type == "cuda"

@@ -44,8 +44,12 @@ of 12, which D1 takes in two passes of 8 and 4 heads, each reading the
 row's K and V once): its 4 x 1024 decode step (B 4, cache 1,056,
 ``kv_len`` 1,025), the scheduler's top bucket (B 8, cache 1,088, per-row
 lengths from ``chip_smoke.dense_trace``), B 1 at 1,056 and B 1 past the
-score budget (16,400).  ``--group G`` sets the query heads to G times the
-kv heads (at most 16).  The
+score budget (16,400).  ``--head-dim 64`` (the default under ``--group
+1``) takes zamba2-1.2b's shared attention block, 32/32 heads of 64 (a GQA
+group of 1): its 4 x 2048 decode step (B 4, cache 2,080, ``kv_len``
+2,049), the scheduler's top bucket (B 8, cache 1,088, per-row lengths from
+``chip_smoke.dense_trace``) and B 1 at 2,080.  ``--group G`` sets the
+query heads to G times the kv heads (at most 16).  The
 builds run in the
 order others, in-tree, in-tree, others reversed, each timed by CUDA
 events over back-to-back launches and again replayed from a CUDA graph
@@ -73,8 +77,9 @@ import compare_common as common
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 27
-# (Hq, Hkv) by head dim: llama4-scout's, nemotron-4-340b's, gemma3-12b's
-HEADS = {128: (40, 8), 192: (96, 8), 256: (16, 8)}
+# (Hq, Hkv) by head dim: zamba2-1.2b's shared block, llama4-scout's,
+# nemotron-4-340b's, gemma3-12b's
+HEADS = {64: (32, 32), 128: (40, 8), 192: (96, 8), 256: (16, 8)}
 HBM_BYTES_PER_S = 3.35e12
 # --ablate: name -> ((text of the in-tree source, its replacement), ...)
 ABLATE = {
@@ -140,6 +145,11 @@ def cases(head_dim: int = 128):
     """(name, B, cache, kv_len: an int or per-row lengths, window) of the
     run at ``head_dim``."""
     import chip_smoke as cs
+    if head_dim == 64:
+        bucket = [len(p) + 1 for p, _ in cs.dense_trace(1000)]
+        return [("4 x 2048 decode step", 4, 2080, 2049, None),
+                ("scheduler top bucket", 8, 1088, bucket, None),
+                ("B 1, cache 2,080", 1, 2080, 2049, None)]
     if head_dim == 192:
         bucket = [len(p) + 1 for p, _ in cs.dense_trace(1000)]
         return [("4 x 1024 decode step", 4, 1056, 1025, None),
@@ -172,13 +182,14 @@ def main() -> int:
                     help="another flash_attention/kernel.py, timed on the "
                     "first other source's build beside the in-tree wrapper")
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--head-dim", type=int, default=128,
-                    choices=sorted(HEADS))
+    ap.add_argument("--head-dim", type=int, default=None,
+                    choices=sorted(HEADS),
+                    help="default: 64 under --group 1, else 128")
     ap.add_argument("--group", type=int, default=None,
                     help="query heads a kv head (default: the head dim's "
                     "arch's)")
     args = ap.parse_args()
-    D = args.head_dim
+    D = args.head_dim or (64 if args.group == 1 else 128)
     HQ, HKV = HEADS[D]
     if args.group is not None:
         HQ = args.group * HKV

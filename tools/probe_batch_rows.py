@@ -37,6 +37,15 @@ the CPU with ``--device cpu``):
   1,280 positions at per-row lengths (nemotron's head dim 192 and GQA
   group 12, which D1 takes in two passes), and their plain versions;
   nemotron's decode products reduce over 18,432 and 73,728;
+* with ``--arch zamba2-1.2b``, every row of each decode-step op of
+  zamba2-1.2b at full width: the shared attention block's ops as for the
+  dense family (its one weight set: the projections, the MLP, the block
+  norm in row order, D1 at a GQA group of 1 on 1,280 positions), and the
+  Mamba-2 mixer's as the step runs them on layer 0's weights: ``w_in``
+  (K 2,048, N 8,384), the causal conv with its carry, softplus / exp of
+  dt (the decay), M1's y and state, the gated norm in row order (its sum
+  of squares through R1) and ``w_out`` (K 4,096); off the path the plain
+  step (``einsum``) and the library's mean;
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -45,8 +54,8 @@ the CPU with ``--device cpu``):
 Run from the repository root:
 
     python3 tools/probe_batch_rows.py [--arch rwkv6-7b | gemma3-12b |
-        qwen3-1.7b | qwen2-1.5b | nemotron-4-340b] [--depth 2]
-        [--device cuda]
+        qwen3-1.7b | qwen2-1.5b | nemotron-4-340b | zamba2-1.2b]
+        [--depth 2] [--device cuda]
 
 It prints one JSON object as its last line and writes the same to
 ``chiprun_out/batch_rows.json``.
@@ -186,14 +195,14 @@ def probe_rwkv_ops(cfg, params, device) -> dict:
     return out
 
 
-def probe_dense_ops(cfg, params, device) -> dict:
+def probe_dense_ops(cfg, params, device, blk=None) -> dict:
     """Every row of each decode-step op of a dense arch (gemma3-12b, the
     dense GQA family) at M rows against the row alone (the largest
-    difference over the rows), on layer 0's weights and random inputs of
-    its decode shapes; the plain versions off the card's path first, the
-    path's ops after them.  A ring cache only where the arch has local
-    layers; qk_norm only where it has it; the bias adds where it has
-    them."""
+    difference over the rows), on layer 0's weights (or the attention
+    block ``blk``) and random inputs of its decode shapes; the plain
+    versions off the card's path first, the path's ops after them.  A ring
+    cache only where the arch has local layers; qk_norm only where it has
+    it; the bias adds where it has them."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import decode_attention_ref
@@ -201,7 +210,7 @@ def probe_dense_ops(cfg, params, device) -> dict:
     from repro_torch.models import model as M
     g = torch.Generator(device=device).manual_seed(7)
     n, d, hd = max(ROWS), cfg.d_model, cfg.hd
-    blk = M._take(params["blocks"][0], 0)
+    blk = M._take(params["blocks"][0], 0) if blk is None else blk
     cd = params["embed"].dtype
     rand = lambda *shape: torch.randn(  # noqa: E731
         shape, generator=g, device=device)
@@ -245,11 +254,71 @@ def probe_dense_ops(cfg, params, device) -> dict:
                                   decode_attention_ref, off_path)):
             table[label] = (lambda i, fn=fn, k=k, v=v, ln=lens[which]: fn(
                 q[i], k[i], v[i], kv_len=ln[i]), rows)
+    return _rows_vs_alone({**off_path, **ops})
+
+
+def _rows_vs_alone(table) -> dict:
+    """{name: {M: the largest difference of a row at M rows from the row
+    alone}} of every (fn, x) of ``table``."""
+    n = max(ROWS)
     out = {}
-    for name, (fn, x) in {**off_path, **ops}.items():
+    for name, (fn, x) in table.items():
         alone = [fn(x[i:i + 1])[0] for i in range(n)]
         out[name] = {m: max(_diff(fn(x[:m])[i], alone[i]) for i in range(m))
                      for m in ROWS[1:]}
+    return out
+
+
+def probe_zamba_ops(cfg, params, device) -> dict:
+    """zamba2-1.2b: the shared attention block's ops
+    (:func:`probe_dense_ops` on its one weight set, D1 at a group of 1),
+    then every row of each Mamba-2 decode op on the first prologue layer's
+    weights, as ``mamba2.apply_mamba`` runs them at T = 1; the plain
+    versions off the card's path first."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_step_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2
+    from repro_torch.models import model as M
+    out = {f"shared block {k}": v for k, v in probe_dense_ops(
+        cfg, params, device, blk=params["shared_attn"]).items()}
+    g = torch.Generator(device=device).manual_seed(9)
+    n, d = max(ROWS), cfg.d_model
+    d_in = cfg.ssm_expand * d
+    ns, hd = cfg.ssm_state, cfg.ssm_head_dim
+    nh, ch = d_in // hd, d_in + 2 * ns
+    p = M._take(params["prologue"]["mixer"], 0)
+    cd = params["embed"].dtype
+    rand = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device=device)
+    rows = torch.arange(n, device=device)
+    xbc, prev = rand(n, 1, ch).to(cd), rand(n, cfg.ssm_conv - 1, ch).to(cd)
+    step = (rand(n, nh, hd), torch.rand((n, nh), generator=g, device=device),
+            rand(n, ns), rand(n, ns), rand(n, nh, hd, ns))
+    flat = lambda ts: torch.cat([t.flatten(1) for t in ts], 1)  # noqa: E731
+    y = rand(n, 1, d_in).to(cd)
+    off_path = {
+        "mamba SSD step plain (einsum)": (lambda i: flat(ssd_step_plain(
+            *(t[i] for t in step))), rows),
+        "mamba gated norm plain (library mean)": (lambda x: L.rmsnorm(
+            p["norm"], x, cfg.norm_eps), y)}
+    ops = {
+        "mamba w_in (K 2048, N 8384)": (lambda x: x @ p["w_in"].to(cd),
+                                        rand(n, 1, d).to(cd)),
+        "mamba causal conv (carry)": (lambda i: mamba2._causal_conv(
+            xbc[i], p["conv_w"].to(cd), p["conv_b"].to(cd), prev[i])[0],
+            rows),
+        "mamba softplus / exp (the decay)": (lambda x: torch.exp(
+            -torch.exp(p["a_log"]) * F.softplus(x.float() + p["dt_bias"])),
+            rand(n, 1, nh).to(cd)),
+        "mamba SSD step M1 (y, state)": (lambda i: flat(ssd_ops.ssd_step(
+            *(t[i] for t in step))), rows),
+        "mamba gated norm, row order (R1)": (lambda x: L.rmsnorm(
+            p["norm"], x, cfg.norm_eps, row_order=True), y),
+        "mamba w_out (K 4096)": (lambda x: x @ p["w_out"].to(cd), y)}
+    out.update(_rows_vs_alone({**off_path, **ops}))
     return out
 
 
@@ -280,7 +349,7 @@ def probe_layers(cfg, params, device) -> dict:
             return x, c
 
         cache = M.init_cache(cfg, rows, max_seq, device=device)
-        _copy_row(cache["slots"], cache1["slots"], 0)
+        _copy_row(cache, cache1, 0)
         toks = torch.zeros((rows, 1), dtype=torch.long, device=device)
         toks[0] = tok[0]
         p = np.zeros(rows, np.int64)
@@ -310,7 +379,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama4-scout-17b-a16e",
                     choices=["llama4-scout-17b-a16e", "rwkv6-7b",
-                             *DENSE])
+                             "zamba2-1.2b", *DENSE])
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -326,7 +395,8 @@ def main() -> int:
     card = (torch.cuda.get_device_name(0) if device.type == "cuda"
             else "cpu")
     ops = (probe_dense_ops if args.arch in DENSE else
-           {"rwkv6-7b": probe_rwkv_ops}.get(args.arch, probe_ops))
+           {"rwkv6-7b": probe_rwkv_ops,
+            "zamba2-1.2b": probe_zamba_ops}.get(args.arch, probe_ops))
     result = {"device": card, "torch": torch.__version__,
               "arch": args.arch, "depth": args.depth,
               "ops": ops(cfg, params, device),
