@@ -72,11 +72,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    == its emulated order, rows == alone; and R1 as the decode norms' row
    sum at d 4096, 5120, 3840 and 256 on 4, 32, 64 and 128 rows (both
    sides of the few-token kernel's 64) == its emulated order, rows ==
-   alone, within 1e-5 of ``torch.sum``; then M1 (the one-token SSD step)
-   at (hd, ns) (64, 64) and (16, 16), 64 heads, B 1 / 4 / 8 / 16:
-   ``torch.equal`` to its emulated order, its state to the plain step's,
-   y within 1e-5, in place == fresh, rows == alone, other shapes and a
-   bf16 state refused; D1's cases include zamba2-1.2b's 32/32 heads of 64
+   alone, within 1e-5 of ``torch.sum``; then M1 (a Mamba-2 layer's whole
+   decode step, the conv's output to the gated norm's input) in bf16 and
+   f32 at (hd, ns) (64, 64) and (16, 16), 64 heads, B 1 / 4 / 8 / 16, on
+   views of a conv output and a projection: its output ``torch.equal`` to
+   its emulated order, its state to the plain step's, the output within
+   one ulp (bf16) or 1e-5 (f32) of plain, in place == fresh, rows ==
+   alone; other shapes, a bf16 state, a misaligned state and a strided
+   row refused; D1's cases include zamba2-1.2b's 32/32 heads of 64
    (a GQA group of 1) in bf16, f32 and an int8 cache dequantized to bf16;
 4. small f32 configs must give the same logits on the card and on the
    CPU: llama4-scout SMOKE prefill with chunked attention, masked attention
@@ -87,7 +90,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    (each once a layer) and one decode step (D1 once a layer, R1 once a
    decode norm); zamba2-1.2b SMOKE at ``shared_attn_every`` 1 and 2
    (f32 caches): prefill chunked, through K4s and through K3 (once a
-   repeat) and one decode step (M1 once a mamba layer, D1 once a firing);
+   repeat) and one decode step (M1 once a mamba layer, D1 once a firing;
+   M1's first call held as in phase 3);
 5. the serving slice at full llama4-scout width (depth cut to 8 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
@@ -257,13 +261,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    the 6 repeats; 2.34 GB of random bf16 weights): ``ServeLoop`` on 4 x
    2,048 prompts, 32 greedy tokens, fused and layered (tokens equal,
    first decode step logits ``torch.equal``; M1 38, D1 6 and R1 89 a
-   decode step, no plain version on the card), one step of each traced;
+   decode step, no plain version on the card), one step of each traced
+   (the fused step's kernel count printed);
    local_global on the shared block, sparse == dense; the K3 prefill; one
    mamba layer's prefill and its chunked SSD timed; the scheduler (the
    dense family's trace, wide and int8 KV, fused and two-phase, 8 of 8
    alone each); then K3 / K4m / K4s, D1 (group 1) and M1 at its served
-   shapes (M1 on the served step's own state: == its order, rows ==
-   alone) into the kernels line;
+   shapes (M1 on the served step's own inputs and state: == its order,
+   rows == alone; the plain segment beside) into the kernels line;
 11. the sparse library slice at the paper's workload sizes, data made on
    the card: ``stencil.ops.apply`` on j3d27pt / j3d7pt (512^3 f32) and
    j2d5pt / j2d9pt / j2d9pt-gol (16384^2 f32), ``spmspm.ops.spmspm`` on
@@ -399,7 +404,7 @@ def only(**launches) -> dict:
 
 class no_plain:
     """While on, the plain decode attention, the plain router, the plain
-    WKV step and the plain SSD step raise if they are called on a CUDA
+    WKV step and the plain Mamba-2 step raise if they are called on a CUDA
     tensor: the card's main path must launch the kernels D1, R1, W1 and M1
     (their wrappers take the plain versions for CPU tensors only)."""
 
@@ -410,7 +415,7 @@ class no_plain:
         from repro_torch.kernels.wkv import kernel as wk
         self.saved = [(fref, "decode_attention_ref"),
                       (rk, "router_logits_ref"), (wk, "wkv_step_plain"),
-                      (mk, "ssd_step_plain")]
+                      (mk, "mamba_step_plain")]
         self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
         for mod, attr, fn in self.saved:
             def guarded(x, *a, _fn=fn, _name=attr, **kw):
@@ -5354,94 +5359,136 @@ def phase_measure_dense(arch, qkv, call, launches, card) -> list:
 
 ZAMBA_ARCH, ZAMBA_PROMPT, ZAMBA_GEN, ZAMBA_MASK_GEN = (
     "zamba2-1.2b", 2048, 32, 8)
-SSD_SRC = "src/repro/models/mamba2.py:144 (array code, no Pallas kernel)"
+SSD_SRC = ("src/repro/models/mamba2.py:132-151 (array code, no Pallas "
+           "kernel)")
 # M1 vs plain: (hd, ns) instances at these batches, zamba2-1.2b's 64 heads
 SSD_BATCHES, SSD_HEADS = (1, 4, 8, 16), 64
+# the batched arguments of a whole step (xs, b, c, z, dt and the state);
+# a_log, dt_bias and d_skip are the layer's
+SSD_ROWS = (0, 1, 2, 3, 4, 8)
 
 
-def _ssd_inputs(g, B, nh, hd, ns):
-    """x, e, b, c, h0 of one step, f32 on the card: e in [0.05, 1), the
-    decays exp(a dt) a step sees."""
+def _ssd_inputs(g, B, nh, hd, ns, dtype):
+    """(xs, b, c, z, dt, a_log, dt_bias, d_skip, h0) of one whole step on
+    the card, as ``apply_mamba`` hands them over: xs, b and c views of one
+    conv output row (B, d_in + 2 ns), z and dt views of one projection row
+    (B, 2 d_in + 2 ns + nh), in ``dtype``; dt + dt_bias past softplus's
+    threshold of 20 at head 0 of every row; the layer's f32 a_log (the
+    init's log 1..16 plus noise), dt_bias and d_skip; an f32 state."""
     import torch
+    d_in = nh * hd
     r = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
-    e = torch.rand((B, nh), generator=g, device="cuda") * 0.95 + 0.05
-    return r(B, nh, hd), e, r(B, ns), r(B, ns), r(B, nh, hd, ns)
+    conv = r(B, d_in + 2 * ns).to(dtype)
+    proj = r(B, 2 * d_in + 2 * ns + nh)
+    proj[:, -nh:] *= 2.0
+    proj[:, -nh] = 24.0 + 4.0 * torch.rand(B, generator=g, device="cuda")
+    proj = proj.to(dtype)
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, device="cuda")) \
+        + 0.1 * r(nh)
+    return (conv[:, :d_in], conv[:, d_in:d_in + ns], conv[:, d_in + ns:],
+            proj[:, d_in + 2 * ns:2 * d_in + 2 * ns], proj[:, -nh:], a_log,
+            0.5 * r(nh), 1.0 + 0.3 * r(nh), r(B, nh, hd, ns))
+
+
+def _ssd_rows(a, lo: int, hi: int) -> tuple:
+    """Rows [lo, hi) of a whole step's arguments ``a``."""
+    return tuple(t[lo:hi] if i in SSD_ROWS else t for i, t in enumerate(a))
+
+
+def _ssd_twice(a) -> tuple:
+    """A whole step's arguments with every row twice (B 4 -> 8)."""
+    import torch
+    return tuple(torch.cat([t, t]) if i in SSD_ROWS else t
+                 for i, t in enumerate(a))
 
 
 def _ssd_step_case(a, what: str) -> float:
-    """M1 (``kernel.ssd_step``) on ``a`` = (x, e, b, c, h0): y and the
-    state ``torch.equal`` to ``ref.ssd_step_ordered``, the state
-    ``torch.equal`` to the plain step's, y within :func:`tolerance` (1e-5
-    of the largest |y|: the same ns-term f32 sums in another order) of the
-    plain step's, two launches ``torch.equal``, and the step in place
-    (``out=`` h0's own storage, as the model runs it) the same bits.
-    Returns y's error."""
+    """M1 (``kernel.ssd_step``) on ``a``, a whole step's arguments: its
+    output ``torch.equal`` to ``ref.mamba_step_ordered``'s, its state to
+    that and to ``ref.mamba_step_plain``'s, the output within
+    :func:`tolerance` of plain's (one ulp of the largest |value| in bf16,
+    1e-5 of it in f32: the same ns-term sums in another order), two
+    launches ``torch.equal``, and the step in place (``out=`` h0's own
+    storage, as the model runs it) the same bits.  Returns the output's
+    error against plain."""
     import torch
     from repro_torch.kernels.ssd import kernel as mk
     from repro_torch.kernels.ssd import ref
     y, h = mk.ssd_step(*a)
-    oy, oh = ref.ssd_step_ordered(*a)
-    py, ph = ref.ssd_step_plain(*a)
-    check(torch.equal(y, oy) and torch.equal(h, oh),
-          f"{what}: M1 != its emulated order")
-    check(torch.equal(h, ph), f"{what}: M1's state != the plain step's")
+    oy, oh = ref.mamba_step_ordered(*a)
+    py, ph = ref.mamba_step_plain(*a)
+    check(y.dtype == a[0].dtype and torch.equal(y, oy),
+          f"{what}: M1's output != its emulated order's")
+    check(torch.equal(h, oh) and torch.equal(h, ph),
+          f"{what}: M1's state != the plain step's")
     y2, h2 = mk.ssd_step(*a)
     check(torch.equal(y, y2) and torch.equal(h, h2),
           f"{what}: two launches differ")
-    st = a[4].clone()
-    y3, h3 = mk.ssd_step(*a[:4], st, out=st)
+    st = a[8].clone()
+    y3, h3 = mk.ssd_step(*a[:8], st, out=st)
     check(h3 is st and torch.equal(y3, y) and torch.equal(st, h),
           f"{what}: the step in place (out = h0) differs")
-    return max_err(y, py, f"{what}: y")
+    return max_err(y, py, f"{what}: output")
 
 
 def _ssd_rows_alone(a, what: str) -> None:
-    """Row i of M1 (y and state) at each B of BATCH_LAW up to the rows of
-    ``a`` == the row alone."""
+    """Row i of M1 (output and state) at each B of BATCH_LAW up to the
+    rows of ``a`` == the row alone."""
     import torch
     from repro_torch.kernels.ssd import kernel as mk
     check(_rows_alone_equal(
-        lambda *t: torch.cat([z.flatten(1) for z in mk.ssd_step(*t)], 1),
-        lambda lo, hi: tuple(z[lo:hi] for z in a),
+        lambda *t: torch.cat([z.float().flatten(1)
+                              for z in mk.ssd_step(*t)], 1),
+        lambda lo, hi: _ssd_rows(a, lo, hi),
         sizes=tuple(b for b in BATCH_LAW if b <= a[0].shape[0])),
         f"{what}: a row depends on its batch")
 
 
 def phase_ssd_step_vs_plain():
-    """M1 against its plain version on the card at each instance (hd, ns)
-    -- (64, 64), zamba2-1.2b's, and (16, 16), its small config's -- with
-    64 heads at B 1 / 4 / 8 / 16 on random states (:func:`_ssd_step_case`:
-    == its emulated order, the state == plain, y within 1e-5, in place),
-    rows == alone at B 16; a shape without an instance and a bf16 state
-    raise.  The served decode's own states are held the same way in
-    :func:`phase_measure_zamba`."""
+    """M1 against its plain versions on the card in bf16 and f32 at each
+    instance (hd, ns) -- (64, 64), zamba2-1.2b's, and (16, 16), its small
+    config's -- with 64 heads at B 1 / 4 / 8 / 16 on random inputs
+    (:func:`_ssd_step_case`: == its emulated order, the state == plain,
+    the output within one ulp / 1e-5, in place), rows == alone at B 16; a
+    shape without an instance, a bf16 state, a misaligned state and a
+    strided row raise.  The served decode's own inputs are held the same
+    way in :func:`phase_zamba_smoke_card_vs_cpu` (f32, (16, 16)) and
+    :func:`phase_measure_zamba` (bf16, (64, 64))."""
     import torch
     from repro_torch.kernels.ssd import kernel as mk
     g = torch.Generator(device="cuda").manual_seed(35)
-    for hd, ns in mk.INSTANCES:
-        errs = []
-        for B in SSD_BATCHES:
-            a = _ssd_inputs(g, B, SSD_HEADS, hd, ns)
-            errs.append(_ssd_step_case(a, f"M1 ({hd}, {ns}) B {B}"))
-        _ssd_rows_alone(a, f"M1 ({hd}, {ns})")
-        print(f"  M1 (hd {hd}, ns {ns}) x {SSD_HEADS} heads, B "
-              f"{SSD_BATCHES}: y max_abs_err {max(errs):.3g}; == its "
-              "emulated order, state == plain, in place == fresh, rows of "
-              f"B {BATCH_LAW} == alone")
-    for bad, why in ((_ssd_inputs(g, 2, 4, 32, 32), "(32, 32)"),
-                     (_ssd_inputs(g, 2, 4, 64, 16), "(64, 16)")):
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd, ns in mk.INSTANCES:
+            errs = []
+            for B in SSD_BATCHES:
+                a = _ssd_inputs(g, B, SSD_HEADS, hd, ns, dtype)
+                errs.append(_ssd_step_case(
+                    a, f"M1 {dtype} ({hd}, {ns}) B {B}"))
+            _ssd_rows_alone(a, f"M1 {dtype} ({hd}, {ns})")
+            print(f"  M1 {dtype} (hd {hd}, ns {ns}) x {SSD_HEADS} heads, B "
+                  f"{SSD_BATCHES}: output max_abs_err {max(errs):.3g}; == "
+                  "its emulated order, state == plain, in place == fresh, "
+                  f"rows of B {BATCH_LAW} == alone")
+    a = _ssd_inputs(g, 2, 4, 64, 64, torch.bfloat16)
+    n = a[8].numel()
+    odd = torch.empty(n + 1, device="cuda")[1:].view(a[8].shape)
+    strided = torch.empty((2, 512), device="cuda",
+                          dtype=torch.bfloat16)[:, ::2]
+    for args, err, why in (
+            (_ssd_inputs(g, 2, 4, 32, 32, torch.bfloat16), ValueError,
+             "(32, 32)"),
+            (_ssd_inputs(g, 2, 4, 64, 16, torch.bfloat16), ValueError,
+             "(64, 16)"),
+            (a[:8] + (a[8].bfloat16(),), TypeError, "a bf16 state"),
+            (a[:8] + (odd.copy_(a[8]),), ValueError, "a misaligned state"),
+            ((strided,) + a[1:], ValueError, "a strided row")):
         try:
-            mk.ssd_step(*bad)
-        except ValueError:
+            mk.ssd_step(*args)
+        except err:
             continue
         check(False, f"M1 took {why}")
-    a = _ssd_inputs(g, 2, 4, 64, 64)
-    try:
-        mk.ssd_step(*a[:4], a[4].bfloat16())
-        check(False, "M1 took a bf16 state")
-    except TypeError:
-        pass
-    print("  M1 refuses (hd, ns) (32, 32) and (64, 16) and a bf16 state")
+    print("  M1 refuses (hd, ns) (32, 32) and (64, 16), a bf16 state, a "
+          "misaligned state and a strided row")
 
 
 def phase_zamba_smoke_card_vs_cpu():
@@ -5452,7 +5499,8 @@ def phase_zamba_smoke_card_vs_cpu():
     collected each repeat; the residual takes it on fire steps); then one
     decode step from the chunked prefill's caches (:func:`decode_counts`:
     M1 once a mamba layer, D1 once a firing, R1 once a decode norm) within
-    1e-4.  Those caches stay f32 (``cache_dtype``): two prefills that round
+    1e-4; M1's first call of that step (the prologue's layer, f32 at (16,
+    16)) held by :func:`_ssd_step_case` and rows == alone.  Those caches stay f32 (``cache_dtype``): two prefills that round
     to bf16 on their own would turn the devices' f32 differences (sums in
     other orders) into whole bf16 ulps of the SSM state wherever a value
     sits near a rounding boundary.  So the default bf16 caches are checked
@@ -5506,9 +5554,13 @@ def phase_zamba_smoke_card_vs_cpu():
                                      _tree_to(c_bf16, "cuda"))):
             want1, _ = M.decode_step_layered(cpu, cfg, c_cpu, pos, tok)
             reset_launches()
-            got1, _ = M.decode_step_layered(gpu, cfg, c_gpu, pos,
-                                            tok.cuda())
+            with keep_ssd_step() as m1_call:
+                got1, _ = M.decode_step_layered(gpu, cfg, c_gpu, pos,
+                                                tok.cuda())
             launches1 = read_launches()
+            what = f"M1 at {cfg.name} every {every} decode ({label})"
+            m1_err = _ssd_step_case(m1_call.args, what)
+            _ssd_rows_alone(m1_call.args, what)
             check(launches1 == decode_counts(cfg, 0, 1),
                   f"{cfg.name} every {every} decode ({label}) launches "
                   f"{launches1}")
@@ -5523,25 +5575,33 @@ def phase_zamba_smoke_card_vs_cpu():
                   f"{k} {v:.3g}" for k, v in errs1.items())
               + f" (M1 x {launches1['ssd_step']}, "
               f"D1 x {launches1['decode_attention']}, R1 x "
-              f"{launches1['router_logits']})")
+              f"{launches1['router_logits']}); M1 on its first call's "
+              f"inputs == its order, rows == alone, output max_abs_err "
+              f"{m1_err:.3g}")
 
 
 class keep_ssd_step:
     """While on, the first call of ``kernels.ssd.ops.ssd_step`` (the first
     mamba layer of a decode step, the prologue's) keeps a copy of its
-    inputs in ``self.args``, taken before the step writes its state in
-    place; calls made while a CUDA graph is being captured are not kept.
-    Every call goes on as before and the launch counts are untouched."""
+    arguments in ``self.args``, each with its own strides (the rows as
+    they lie in the conv output and the projection), the state taken
+    before the step writes it in place; calls made while a CUDA graph is
+    being captured are not kept.  Every call goes on as before and the
+    launch counts are untouched."""
 
     def __enter__(self):
         import torch
         from repro_torch.kernels.ssd import ops as sops
         self.args, self.entry = None, sops.ssd_step
 
+        def copy(t):
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device=t.device).copy_(t)
+
         def kept(*a, **kw):
             if self.args is None and \
                     not torch.cuda.is_current_stream_capturing():
-                self.args = tuple(t.float().contiguous().clone() for t in a)
+                self.args = tuple(copy(t) for t in a)
             return self.entry(*a, **kw)
 
         sops.ssd_step = kept
@@ -5650,6 +5710,9 @@ def phase_zamba_serving(card):
     traces = [trace_decode(f"{ZAMBA_ARCH}, layered eager", layered,
                            prompts),
               trace_decode(f"{ZAMBA_ARCH}, fused replayed", loop, prompts)]
+    print(f"  {ZAMBA_ARCH} fused step: {traces[1]['kernels']} kernels, "
+          f"{per_step['ssd_step']} of them M1 (a mamba layer's step from the "
+          "conv's output to the gated norm's input, one kernel each)")
     del layered
     launches = {"decode_attention": counts["decode_attention"],
                 "ssd_step": counts["ssd_step"]}
@@ -5751,36 +5814,40 @@ def phase_zamba_serving(card):
 
 
 def _ssd_step_times(a, what: str) -> dict:
-    """M1 on ``a`` = (x, e, b, c, h0), as the model runs it:
+    """M1 on ``a``, a whole step's arguments, as the model runs it:
     :func:`_ssd_step_case`'s checks, the kernel's time in place (on a copy
     of h0, as the decode step writes its cache) back to back and from a
-    CUDA graph, the plain step's (``torch.einsum`` and the elementwise
-    passes) the same two ways, and the bound: x, e, b, c and the state read
-    once, y and the new state written once, at 3.35 TB/s (its 5 B nh hd ns
-    operations take ~1 % of that at the f32 peak).  No single PyTorch call
-    computes the step: ``library_ms`` is None."""
+    CUDA graph, the plain segment's (``ref.mamba_step_plain``: the
+    softplus, exp and cast passes, ``torch.einsum``, the skip and the gate)
+    the same two ways, and the bound: the state read and written once, xs,
+    z, B, C, dt and the layer's vectors read once and the output written
+    once, at 3.35 TB/s (its ~5 B nh hd ns operations take ~1 % of that at
+    the f32 peak).  No single PyTorch call computes the step:
+    ``library_ms`` is None."""
     from repro_torch.kernels.ssd import kernel as mk
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.kernels.ssd import ref
     err = _ssd_step_case(a, f"M1 at {what}")
-    st = a[4].clone()
-    run = lambda: mk.ssd_step(*a[:4], st, out=st)  # noqa: E731
-    plain = lambda: ref.ssd_step_plain(*a)  # noqa: E731
+    st = a[8].clone()
+    run = lambda: mk.ssd_step(*a[:8], st, out=st)  # noqa: E731
+    plain = lambda: ref.mamba_step_plain(*a)  # noqa: E731
     ms, plain_ms = time_ms(run, 50), time_ms(plain, 50)
     graph = {"ms": graph_ms(run), "plain_ms": graph_ms(plain)}
-    B, nh, hd = a[0].shape
-    ns = a[2].shape[-1]
-    bytes_ms = sops.state_bytes(B, nh, hd, ns) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 5 * B * nh * hd * ns / F32_FLOP_PER_S * 1e3
-    print(f"  M1 {what} (B {B} x {nh} heads, ({hd}, {ns})): {ms:.4f} ms "
-          f"(graph {graph['ms']:.4f}; bound {max(bytes_ms, ops_ms):.5f}; "
-          f"plain {plain_ms:.4f}, graph {graph['plain_ms']:.4f}), y "
-          f"max_abs_err {err:.3g}; == its emulated order, state == plain")
+    B, nh, hd, ns = a[8].shape
+    bytes_ms = sops.state_bytes(B, nh, hd, ns, a[0].element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = (5 * B * nh * hd * ns + 12 * B * nh * hd) / F32_FLOP_PER_S * 1e3
+    print(f"  M1 {what} (B {B} x {nh} heads, ({hd}, {ns}), "
+          f"{a[0].dtype}): {ms:.4f} ms (graph {graph['ms']:.4f}; bound "
+          f"{max(bytes_ms, ops_ms):.5f}; plain segment {plain_ms:.4f}, graph "
+          f"{graph['plain_ms']:.4f}), output max_abs_err {err:.3g}; == its "
+          "emulated order, state == plain")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "graph": graph,
-            "shape": {"B": B, "nh": nh, "hd": hd, "ns": ns}}
+            "shape": {"B": B, "nh": nh, "hd": hd, "ns": ns,
+                      "dtype": str(a[0].dtype)}}
 
 
 def phase_measure_zamba(qkv, d1_call, m1_args, launches, card) -> list:
@@ -5819,9 +5886,8 @@ def phase_measure_zamba(qkv, d1_call, m1_args, launches, card) -> list:
     _ssd_rows_alone(a, "M1 at the served decode step")
     m1 = _ssd_step_times(a, f"{ZAMBA_ARCH} 4 x {S}, first decode step, "
                             "prologue layer 0")
-    one = _ssd_step_times(tuple(t[:1] for t in a), "its row 0 alone (B 1)")
-    eight = _ssd_step_times(tuple(torch.cat([t, t]) for t in a),
-                            "its rows twice (bucket 8)")
+    one = _ssd_step_times(_ssd_rows(a, 0, 1), "its row 0 alone (B 1)")
+    eight = _ssd_step_times(_ssd_twice(a), "its rows twice (bucket 8)")
     rows.append({"name": "ssd_step", "route": "cuda",
                  "source": "src/repro_torch/kernels/ssd/csrc/ssd_step.cu",
                  "replaces": SSD_SRC, "launches": launches["ssd_step"],

@@ -4,8 +4,10 @@ The port of ``repro/models/mamba2.py``.  The SSD recurrence
 ``h_t = a_t * h_{t-1} + dt_t * x_t B_t^T`` runs chunked in prefill
 (:func:`ssd_chunked`: an intra-chunk quadratic part and an inter-chunk
 state scan, plain PyTorch, as the reference's is array code) and one token
-at a time in decode, through ``kernels.ssd.ops.ssd_step`` (M1 on the card,
-whose sum over the state runs in one order a row, so a request decodes the
+at a time in decode, where ``kernels.ssd.ops.ssd_step`` takes the whole
+step from the conv's output to the gated norm's input (M1 on the card:
+softplus and the decay, the state update, y summed over the state in one
+order a row, the skip and the gate in one kernel, so a request decodes the
 same bits in any batch; the plain step on the CPU).
 
 Shapes: x (B, T, d); d_in = expand * d; nh = d_in / ssm_head_dim heads;
@@ -148,25 +150,23 @@ def apply_mamba(p, x: torch.Tensor, cfg: ArchConfig, *, cache=None,
                                  prev)
     xs, Bv, Cv = torch.split(xBC, [d_in, ns, ns], dim=-1)
 
-    dt = F.softplus(dt.float() + p["dt_bias"])                   # (B, T, nh)
-    a_log = -torch.exp(p["a_log"]) * dt
-    xh = xs.float().reshape(B, T, nh, hd) * dt[..., None]
-
     if cache is None:
+        dt = F.softplus(dt.float() + p["dt_bias"])               # (B, T, nh)
+        a_log = -torch.exp(p["a_log"]) * dt
+        xh = xs.float().reshape(B, T, nh, hd) * dt[..., None]
         y, h_last = ssd_chunked(xh, a_log, Bv.float(), Cv.float(),
                                 chunk=CHUNK)
         new_cache = {"conv": conv_new, "ssm": h_last} if collect else None
+        y = y + p["d_skip"][:, None] * xs.float().reshape(B, T, nh, hd)
+        y = y.reshape(B, T, d_in).to(cd) * F.silu(z)
     else:
-        y, _ = ssd_ops.ssd_step(xh[:, 0], torch.exp(a_log[:, 0]), Bv[:, 0],
-                                Cv[:, 0], cache["ssm"], out=cache["ssm"])
+        y, _ = ssd_ops.ssd_step(xs[:, 0], Bv[:, 0], Cv[:, 0], z[:, 0],
+                                dt[:, 0], p["a_log"], p["dt_bias"],
+                                p["d_skip"], cache["ssm"], out=cache["ssm"])
         y = y[:, None]
         cache["conv"].copy_(conv_new)
         new_cache = cache
-
-    y = y + p["d_skip"][:, None] * xs.float().reshape(B, T, nh, hd)
-    y = y.reshape(B, T, d_in).to(cd)
-    y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps,
-                  row_order=cache is not None)
+    y = L.rmsnorm(p["norm"], y, cfg.norm_eps, row_order=cache is not None)
     return y @ p["w_out"].to(cd), new_cache
 
 

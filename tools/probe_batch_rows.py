@@ -42,10 +42,11 @@ the CPU with ``--device cpu``):
   dense family (its one weight set: the projections, the MLP, the block
   norm in row order, D1 at a GQA group of 1 on 1,280 positions), and the
   Mamba-2 mixer's as the step runs them on layer 0's weights: ``w_in``
-  (K 2,048, N 8,384), the causal conv with its carry, softplus / exp of
-  dt (the decay), M1's y and state, the gated norm in row order (its sum
-  of squares through R1) and ``w_out`` (K 4,096); off the path the plain
-  step (``einsum``) and the library's mean;
+  (K 2,048, N 8,384), the causal conv with its carry, M1 (the whole step
+  from the conv's output to the gated norm's input: its output and
+  state), the gated norm in row order (its sum of squares through R1) and
+  ``w_out`` (K 4,096); off the path the plain step (``einsum``) and the
+  library's mean;
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -276,9 +277,8 @@ def probe_zamba_ops(cfg, params, device) -> dict:
     weights, as ``mamba2.apply_mamba`` runs them at T = 1; the plain
     versions off the card's path first."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.kernels.ssd.ref import ssd_step_plain
+    from repro_torch.kernels.ssd.ref import mamba_step_plain
     from repro_torch.models import layers as L
     from repro_torch.models import mamba2
     from repro_torch.models import model as M
@@ -295,13 +295,21 @@ def probe_zamba_ops(cfg, params, device) -> dict:
         shape, generator=g, device=device)
     rows = torch.arange(n, device=device)
     xbc, prev = rand(n, 1, ch).to(cd), rand(n, cfg.ssm_conv - 1, ch).to(cd)
-    step = (rand(n, nh, hd), torch.rand((n, nh), generator=g, device=device),
-            rand(n, ns), rand(n, ns), rand(n, nh, hd, ns))
-    flat = lambda ts: torch.cat([t.flatten(1) for t in ts], 1)  # noqa: E731
+    # the whole step's rows as they lie: views of a conv output row and of
+    # a projection row
+    conv, proj = rand(n, ch).to(cd), rand(n, p["w_in"].shape[-1]).to(cd)
+    rows_of = (conv[:, :d_in], conv[:, d_in:d_in + ns], conv[:, d_in + ns:],
+               proj[:, d_in + 2 * ns:2 * d_in + 2 * ns], proj[:, -nh:])
+    state = rand(n, nh, hd, ns)
+    step = lambda fn, i: fn(  # noqa: E731
+        *(t[i] for t in rows_of), p["a_log"], p["dt_bias"], p["d_skip"],
+        state[i])
+    flat = lambda ts: torch.cat([t.float().flatten(1) for t in ts],  # noqa
+                                1)
     y = rand(n, 1, d_in).to(cd)
     off_path = {
-        "mamba SSD step plain (einsum)": (lambda i: flat(ssd_step_plain(
-            *(t[i] for t in step))), rows),
+        "mamba step plain (einsum)": (lambda i: flat(step(
+            mamba_step_plain, i)), rows),
         "mamba gated norm plain (library mean)": (lambda x: L.rmsnorm(
             p["norm"], x, cfg.norm_eps), y)}
     ops = {
@@ -310,11 +318,8 @@ def probe_zamba_ops(cfg, params, device) -> dict:
         "mamba causal conv (carry)": (lambda i: mamba2._causal_conv(
             xbc[i], p["conv_w"].to(cd), p["conv_b"].to(cd), prev[i])[0],
             rows),
-        "mamba softplus / exp (the decay)": (lambda x: torch.exp(
-            -torch.exp(p["a_log"]) * F.softplus(x.float() + p["dt_bias"])),
-            rand(n, 1, nh).to(cd)),
-        "mamba SSD step M1 (y, state)": (lambda i: flat(ssd_ops.ssd_step(
-            *(t[i] for t in step))), rows),
+        "mamba step M1 (the gated output, state)": (lambda i: flat(step(
+            ssd_ops.ssd_step, i)), rows),
         "mamba gated norm, row order (R1)": (lambda x: L.rmsnorm(
             p["norm"], x, cfg.norm_eps, row_order=True), y),
         "mamba w_out (K 4096)": (lambda x: x @ p["w_out"].to(cd), y)}
