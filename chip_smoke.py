@@ -86,9 +86,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    (K4s) and kernel attention (K3); rwkv6-7b SMOKE prefill (K7 once a
    layer) and one decode step (W1 once a layer, R1 twice a layer and
    once a norm); qwen3-1.7b, qwen2-1.5b (at head dim 16, biases random)
-   and nemotron-4-340b SMOKE prefill chunked, through K4s and through K3
-   (each once a layer) and one decode step (D1 once a layer, R1 once a
-   decode norm); zamba2-1.2b SMOKE at ``shared_attn_every`` 1 and 2
+   and nemotron-4-340b SMOKE, and musicgen-large and internvl2-26b SMOKE
+   with 4 / 8 frontend embeddings before the prompt (S_total 28 / 32),
+   prefill chunked, through K4s and through K3 (each once a layer) and
+   one decode step (D1 once a layer, R1 once a decode norm); zamba2-1.2b
+   SMOKE at ``shared_attn_every`` 1 and 2
    (f32 caches): prefill chunked, through K4s and through K3 (once a
    repeat) and one decode step (M1 once a mamba layer, D1 once a firing;
    M1's first call held as in phase 3);
@@ -255,7 +257,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    8 slots, wide and int8 KV, fused and two-phase: fused == two-phase
    tokens, one graph a bucket, every request == itself alone (8 of 8
    each); each arch's K3 (and nemotron's K4m / K4s) and D1 at its served
-   shapes timed into the kernels line; each phase's wall seconds;
+   shapes timed into the kernels line; each phase's wall seconds; then
+   the frontend configs the same way at full width and depth:
+   musicgen-large (48 layers, 32/32 heads of 64, vocab 2,048, 6.46 GB)
+   and internvl2-26b (48 layers, 48/8 heads of 128, vocab 92,553, 39.72
+   GB) on 4 x 1,024 prompts after 64 / 256 bf16 embedding positions
+   (S_total 1,088 / 1,280), internvl2's local_global masked prefill
+   through K4s and K4m, the scheduler on the same text-only trace; their
+   summaries on the serving line's ``frontend`` object;
 10c. zamba2-1.2b at full width and depth (38 Mamba-2 layers, 2 of them
    the prologue, and one shared 32/32-head attention block after each of
    the 6 repeats; 2.34 GB of random bf16 weights): ``ServeLoop`` on 4 x
@@ -279,7 +288,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 12. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
    bound; K2, D1, R1, K3, K4m, K4s, K7, W1, K3 / K4m / K4s / D1 at D 256,
    K3 / D1 at each dense arch's served shape (K4m / K4s and D1's two
-   passes at nemotron-4-340b's D 192), K3 / K4m / K4s / D1 / M1 at
+   passes at nemotron-4-340b's D 192), K3 / D1 at musicgen-large's and
+   K3 / K4m / K4s / D1 at internvl2-26b's, K3 / K4m / K4s / D1 / M1 at
    zamba2-1.2b's,
    K6a, K6b, K5, K2q; D1, R1 and
    W1 on the calls the serving runs made (decode steps at 4 x 256, the
@@ -648,10 +658,10 @@ def print_serve(label: str, row: dict) -> None:
               f"{k} {v:.4g}" for k, v in tm.items()))
 
 
-def first_step_logits(loop, prompts, gen: int = GEN):
-    """``loop.run(prompts, gen)`` keeping a copy of the logits its first
-    decode step sampled from (its second draw; the first is the prefill's).
-    Returns (tokens, those logits)."""
+def first_step_logits(loop, prompts, gen: int = GEN, embeddings=None):
+    """``loop.run(prompts, gen, embeddings=)`` keeping a copy of the logits
+    its first decode step sampled from (its second draw; the first is the
+    prefill's).  Returns (tokens, those logits)."""
     seen = []
 
     def keep(last_logits, _sample=loop._sample):
@@ -661,7 +671,7 @@ def first_step_logits(loop, prompts, gen: int = GEN):
 
     loop._sample = keep
     try:
-        tokens = loop.run(prompts, gen)
+        tokens = loop.run(prompts, gen, embeddings=embeddings)
     finally:
         del loop._sample
     return tokens, seen[1]
@@ -701,10 +711,11 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def trace_decode(label: str, loop, prompts) -> dict:
-    """One depth-0 decode step of ``loop`` after its prefill, traced by
-    :func:`trace_step`."""
-    return trace_step(label, lambda: loop.prefill(prompts),
+def trace_decode(label: str, loop, prompts, embeddings=None) -> dict:
+    """One depth-0 decode step of ``loop`` after its prefill (with a
+    frontend's ``embeddings``), traced by :func:`trace_step`."""
+    return trace_step(label,
+                      lambda: loop.prefill(prompts, embeddings=embeddings),
                       loop.decode_step)
 
 
@@ -4188,17 +4199,25 @@ def random_biases(params, seed: int) -> None:
 def phase_dense_smoke_card_vs_cpu():
     """The dense family's small configs in f32 (qwen3-1.7b and
     nemotron-4-340b SMOKE, qwen2-1.5b SMOKE at head dim 16 with nonzero
-    biases): prefill logits on the card agree with the CPU within 1e-4,
-    chunked, through K3 (``impl="kernel"``) and through K4s (local_global,
-    tiles and window 8), each kernel once a layer; then one decode step
-    from the chunked prefill's caches (:func:`decode_counts`: D1 once a
-    layer, R1 once a decode norm) within 1e-4."""
+    biases) and the frontend configs' (musicgen-large and internvl2-26b
+    SMOKE, 4 / 8 frame or patch embeddings of 0.02 * N(0, 1) from numpy
+    seed 2 before the prompt: S_total 28 / 32, ragged for the tiles):
+    prefill logits on the card agree with the CPU within 1e-4, chunked,
+    through K3 (``impl="kernel"``) and through K4s (local_global, tiles
+    and window 8), each kernel once a layer; then one decode step from the
+    chunked prefill's caches at position S_total (:func:`decode_counts`:
+    D1 once a layer, R1 once a decode norm) within 1e-4.  A frontend
+    config's step is held from identical caches: each side's own f32
+    prefill caches, and one CPU prefill's bf16 caches copied to the card;
+    from each side's own bf16 caches only where the two prefills rounded
+    no entry apart (the count is printed: one entry rounded the other way
+    moves the step's logits by more than the kernels' arithmetic does)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke
     from repro_torch.core.masks import AttnMaskSpec
     from repro_torch.models import model as M
-    for arch in DENSE_ARCHS:
+    for arch in DENSE_ARCHS + FRONTEND_ARCHS:
         cfg = dataclasses.replace(get_smoke(arch), policy="f32")
         if cfg.hd < 16:           # qwen2's 8 is none of the kernels' dims
             cfg = dataclasses.replace(cfg, head_dim=16)
@@ -4207,6 +4226,13 @@ def phase_dense_smoke_card_vs_cpu():
         gpu = _tree_to(cpu, "cuda")
         prompts = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, 24)))
+        emb = {"cpu": None, "cuda": None}
+        if cfg.frontend != "none":
+            emb["cpu"] = torch.from_numpy((0.02 * np.random.default_rng(
+                2).standard_normal((2, cfg.frontend_tokens, cfg.d_model))
+            ).astype(np.float32))
+            emb["cuda"] = emb["cpu"].cuda()
+        max_seq = prompts.shape[1] + cfg.frontend_tokens + 8
         mask = AttnMaskSpec(pattern="local_global", window=8, bq=8, bk=8,
                             impl="sparse")
         errs = {}
@@ -4216,11 +4242,16 @@ def phase_dense_smoke_card_vs_cpu():
                  "flash_attention_sparse"),
                 ("impl=kernel", {"impl": "kernel"}, "flash_attention")):
             want, c_cpu, pos = M.prefill_layered(cpu, prompts, cfg,
-                                                 max_seq=32, **kw)
+                                                 max_seq=max_seq,
+                                                 embeddings=emb["cpu"], **kw)
             reset_launches()
-            got, c_gpu, _ = M.prefill_layered(gpu, prompts.cuda(), cfg,
-                                              max_seq=32, **kw)
+            got, c_gpu, pos_gpu = M.prefill_layered(
+                gpu, prompts.cuda(), cfg, max_seq=max_seq,
+                embeddings=emb["cuda"], **kw)
             launches = read_launches()
+            check(pos == pos_gpu == prompts.shape[1] + cfg.frontend_tokens,
+                  f"{arch} smoke prefill ({label}): next position {pos} / "
+                  f"{pos_gpu}")
             errs[label] = (got.cpu() - want).abs().max().item()
             check(bool(torch.isfinite(got).all()) and errs[label] <= 1e-4,
                   f"{arch} smoke prefill ({label}): card and cpu disagree: "
@@ -4232,20 +4263,46 @@ def phase_dense_smoke_card_vs_cpu():
                 caches = (c_cpu, c_gpu, pos, want)
         c_cpu, c_gpu, pos, want = caches
         tok = want[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
-        want1, _ = M.decode_step_layered(cpu, cfg, c_cpu, pos, tok)
-        reset_launches()
-        got1, _ = M.decode_step_layered(gpu, cfg, c_gpu, pos, tok.cuda())
-        launches1 = read_launches()
-        check(launches1 == decode_counts(cfg, 0, 1),
-              f"{arch} smoke decode launches {launches1}")
-        err1 = (got1.cpu() - want1).abs().max().item()
-        check(bool(torch.isfinite(got1).all()) and err1 <= 1e-4,
-              f"{arch} smoke decode: card and cpu disagree: {err1}")
+        # bf16 cache entries the two prefills rounded apart
+        flips = sum(int((a.cpu() != b).sum()) for a, b in
+                    zip(_tensors(c_gpu), _tensors(c_cpu)))
+        cases = [("own caches", c_cpu, c_gpu)]
+        if cfg.frontend != "none":
+            f32 = [M.prefill_layered(
+                params, prompts.to(dev), cfg, max_seq=max_seq,
+                cache_dtype=torch.float32, embeddings=emb[dev])[1]
+                for params, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+            # copies of the cpu's caches, made before a decode writes them
+            same = _tree_to(c_cpu, "cuda")
+            cases += [("f32 caches", *f32),
+                      ("the cpu's caches", _tree_to(same, "cpu"), same)]
+        dec = {}
+        for label, c_cpu1, c_gpu1 in cases:
+            want1, _ = M.decode_step_layered(cpu, cfg, c_cpu1, pos, tok)
+            reset_launches()
+            got1, _ = M.decode_step_layered(gpu, cfg, c_gpu1, pos,
+                                            tok.cuda())
+            launches1 = read_launches()
+            check(launches1 == decode_counts(cfg, 0, 1),
+                  f"{arch} smoke decode ({label}) launches {launches1}")
+            dec[label] = err1 = (got1.cpu() - want1).abs().max().item()
+            # a frontend config's decode is held from identical caches: from
+            # each side's own bf16 caches only where the two prefills
+            # rounded no entry apart
+            if cfg.frontend == "none" or label != "own caches" or not flips:
+                check(bool(torch.isfinite(got1).all()) and err1 <= 1e-4,
+                      f"{arch} smoke decode ({label}): card and cpu "
+                      f"disagree: {err1} ({flips} bf16 cache entries "
+                      "rounded apart by the two prefills)")
         print(f"  {cfg.name} f32 (hd {cfg.hd}, heads {cfg.n_heads}/"
-              f"{cfg.n_kv_heads}{', biases' if cfg.qkv_bias else ''}) card "
-              f"vs cpu: prefill logits max_abs_err " + ", ".join(
+              f"{cfg.n_kv_heads}{', biases' if cfg.qkv_bias else ''}"
+              + (f", {cfg.frontend_tokens} {cfg.frontend} embeddings, "
+                 f"S_total {pos}" if cfg.frontend != "none" else "")
+              + ") card vs cpu: prefill logits max_abs_err " + ", ".join(
                   f"{k} {v:.3g}" for k, v in errs.items())
-              + f"; decode step {err1:.3g} (D1 x "
+              + "; decode step " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in dec.items())
+              + f" ({flips} bf16 cache entries rounded apart; D1 x "
               f"{launches1['decode_attention']}, R1 x "
               f"{launches1['router_logits']})")
 
@@ -4305,8 +4362,8 @@ def phase_rwkv_serving(card):
 
     prefill = loop.prefill
 
-    def counted_prefill(p):
-        out = prefill(p)
+    def counted_prefill(p, **kw):
+        out = prefill(p, **kw)
         seen.update(read_launches())
         return out
 
@@ -4715,9 +4772,17 @@ def gemma_trace(vocab: int):
 # 46.5 GB and 6 would be 60.3 GB of one card's 80 GB)
 
 DENSE_ARCHS = ("qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
+# the frontend configs, served by the dense phases at full width and depth
+# (musicgen-large 6.46 GB, internvl2-26b 39.72 GB of bf16): their prompts
+# come after frontend_tokens (64 / 256) embedding positions, 0.02 * N(0, 1)
+# in bf16 from a seeded generator, as the reference's CLI makes them
+FRONTEND_ARCHS = ("musicgen-large", "internvl2-26b")
 DENSE_DEPTH = {"nemotron-4-340b": 4}
 DENSE_PROMPT = {"qwen3-1.7b": 2048, "qwen2-1.5b": 2048,
-                "nemotron-4-340b": 1024}
+                "nemotron-4-340b": 1024, "musicgen-large": 1024,
+                "internvl2-26b": 1024}
+# the archs whose serving phase also runs the local_global masked prefill
+MASKED_ARCHS = ("nemotron-4-340b", "internvl2-26b")
 DENSE_GEN, DENSE_MASK_GEN = 32, 8
 # the scheduler's trace: 8 requests of 256-1,024 prompt tokens and budgets
 # of 16-64 from numpy seed DENSE_SCHED_SEED, 8 slots
@@ -5143,22 +5208,25 @@ def phase_dense_scheduler(cfg, params):
 
 
 def phase_dense_serving(arch: str, card):
-    """One arch of the dense GQA family served on the card: its ``CONFIG``
-    at full width (qwen3-1.7b and qwen2-1.5b at full depth, nemotron-4-340b
-    at depth DENSE_DEPTH of 96, the cut printed), random bf16 weights from
-    a seed (qwen2's biases random too).  ``ServeLoop`` serves BATCH prompts
-    of DENSE_PROMPT tokens (chunked prefill) and DENSE_GEN greedy tokens,
+    """One arch of the dense GQA family, or a frontend config, served on
+    the card: its ``CONFIG`` at full width (qwen3-1.7b, qwen2-1.5b,
+    musicgen-large and internvl2-26b at full depth, nemotron-4-340b at
+    depth DENSE_DEPTH of 96, the cut printed), random bf16 weights from a
+    seed (qwen2's biases random too).  ``ServeLoop`` serves BATCH prompts
+    of DENSE_PROMPT tokens (chunked prefill; a frontend config's after its
+    ``frontend_tokens`` bf16 embeddings of 0.02 * N(0, 1) from a seeded
+    generator, ``max_seq`` counting them) and DENSE_GEN greedy tokens,
     fused (the default: the decode step one replayed CUDA graph) and
     layered (``two_phase=True``): the same tokens and first decode step
     logits ``torch.equal``; D1 once a layer and R1 once a decode norm a
     decode step, nothing in the chunked prefill, no plain version on the
-    card; one fused and one layered decode step traced.  nemotron-4-340b:
-    the masked prefill (``local_global``) through K4s and K4m, sparse ==
-    dense tokens.  The kernel prefill (K3 once a layer), timed; then the
-    scheduler (:func:`phase_dense_scheduler`).  The weights are freed
-    before it returns.  Returns (summary, layer 0's q, k, v of the kernel
-    prefill, the layered run's first decode step's D1 call, the launches
-    of each kernel's run)."""
+    card; one fused and one layered decode step traced.  MASKED_ARCHS:
+    the masked prefill (``local_global`` over S_total) through K4s and
+    K4m, sparse == dense tokens.  The kernel prefill (K3 once a layer),
+    timed; then the scheduler (:func:`phase_dense_scheduler`, text-only
+    requests).  The weights are freed before it returns.  Returns
+    (summary, layer 0's q, k, v of the kernel prefill, the layered run's
+    first decode step's D1 call, the launches of each kernel's run)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -5188,14 +5256,22 @@ def phase_dense_serving(arch: str, card):
     g = torch.Generator(device="cuda").manual_seed(5)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len),
                             generator=g, device="cuda")
-    max_seq = prompt_len + DENSE_GEN
+    emb, front = None, cfg.frontend_tokens if cfg.frontend != "none" else 0
+    if front:
+        ge = torch.Generator(device="cuda").manual_seed(6)
+        emb = (0.02 * torch.randn((BATCH, front, cfg.d_model), generator=ge,
+                                  device="cuda")).to(torch.bfloat16)
+        print(f"  {front} {cfg.frontend} embedding positions (bf16, 0.02 "
+              f"* N(0, 1)) before each prompt: S_total {front + prompt_len}")
+    max_seq = front + prompt_len + DENSE_GEN
     loop = ServeLoop(params, cfg, max_seq=max_seq)
     check(not loop.two_phase, f"{arch}'s default loop is not fused")
-    loop.run(prompts, 2)                      # warm-up: allocator, capture
+    loop.run(prompts, 2, embeddings=emb)      # warm-up: allocator, capture
     capture0 = loop.summary()["capture"]
     reset_launches()
     with no_plain():                          # the main path
-        tokens, fused_logits = first_step_logits(loop, prompts, DENSE_GEN)
+        tokens, fused_logits = first_step_logits(loop, prompts, DENSE_GEN,
+                                                 emb)
     counts = read_launches()
     want = decode_counts(cfg, 1, DENSE_GEN - 1)
     check(counts == want, f"{arch} fused: launches {counts} != {want}")
@@ -5207,9 +5283,11 @@ def phase_dense_serving(arch: str, card):
           and (tokens < cfg.vocab_size).all(), f"{arch}: bad token ids")
     check(bool(torch.isfinite(fused_logits).all()),
           f"{arch}: first decode step logits not finite")
+    check(loop.pos == front + prompt_len, f"{arch}: decode started at "
+                                          f"{loop.pos}, not S_total")
     rows = [fused_numbers("fused", loop.summary(), capture0, counts)]
     layered = ServeLoop(params, cfg, max_seq=max_seq, two_phase=True)
-    layered.run(prompts, 2)                   # warm-up
+    layered.run(prompts, 2, embeddings=emb)   # warm-up
     calls = {}
 
     def keep(name, a, kw):
@@ -5218,7 +5296,8 @@ def phase_dense_serving(arch: str, card):
 
     reset_launches()
     with no_plain(), hook_calls(keep):
-        got, layered_logits = first_step_logits(layered, prompts, DENSE_GEN)
+        got, layered_logits = first_step_logits(layered, prompts, DENSE_GEN,
+                                                emb)
     counts_l = read_launches()
     check(counts_l == want, f"{arch} layered: launches {counts_l}")
     check(np.array_equal(got, tokens), f"{arch}: layered tokens != fused")
@@ -5233,20 +5312,20 @@ def phase_dense_serving(arch: str, card):
           f"torch.equal; a replay launches {per_step}; tokens "
           f"{tokens[0, :8].tolist()} ...; first decode step's D1 kv_len "
           f"{calls['first'][1]['kv_len']}")
-    traces = [trace_decode(f"{arch}, layered eager", layered, prompts),
-              trace_decode(f"{arch}, fused replayed", loop, prompts)]
+    traces = [trace_decode(f"{arch}, layered eager", layered, prompts, emb),
+              trace_decode(f"{arch}, fused replayed", loop, prompts, emb)]
     del layered
     launches = {"decode_attention": counts["decode_attention"]}
     masked = {}
-    if arch == "nemotron-4-340b":
-        spec, mask = serving_mask(cfg, prompt_len)
+    if arch in MASKED_ARCHS:
+        spec, mask = serving_mask(cfg, front + prompt_len)
         for impl, kern in (("sparse", "flash_attention_sparse"),
                            ("dense", "flash_attention_masked")):
             loop.attn_mask = AttnMaskSpec(**spec, impl=impl)
             fops.reset_fallbacks()
             reset_launches()
             with no_plain():
-                toks = loop.run(prompts, DENSE_MASK_GEN)
+                toks = loop.run(prompts, DENSE_MASK_GEN, embeddings=emb)
             c = read_launches()
             want_m = decode_counts(cfg, 1, DENSE_MASK_GEN - 1,
                                    **{kern: cfg.n_layers})
@@ -5278,7 +5357,7 @@ def phase_dense_serving(arch: str, card):
     t0 = time.monotonic()
     with hook_calls(keep_qkv):
         logits, _, _ = M.prefill(params, prompts, cfg, max_seq=max_seq,
-                                 impl="kernel")
+                                 impl="kernel", embeddings=emb)
         torch.cuda.synchronize()
     kernel_ms = (time.monotonic() - t0) * 1e3
     c = read_launches()
@@ -5300,6 +5379,7 @@ def phase_dense_serving(arch: str, card):
     wall = time.monotonic() - t_phase
     info = {"arch": arch, "depth": cfg.n_layers, "full_depth": full.n_layers,
             "batch": BATCH, "prompt": prompt_len, "gen": DENSE_GEN,
+            "frontend_positions": front,
             "params_gb": gb, "init_s": init_s, "runs": rows,
             "traces": traces,
             "masked": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
@@ -5314,16 +5394,16 @@ def phase_dense_serving(arch: str, card):
 
 def phase_measure_dense(arch, qkv, call, launches, card) -> list:
     """An arch's rows at its served shapes: K3 at layer 0's q, k, v of the
-    kernel prefill (causal), and nemotron-4-340b's K4m and K4s on its
+    kernel prefill (causal), and MASKED_ARCHS' K4m and K4s on their
     masked prefill's ``local_global`` mask (:func:`phase_measure_attention`,
-    D 192); D1 at the layered run's first decode step call
+    D 192 and 128); D1 at the layered run's first decode step call
     (:func:`_decode_times`: with the bound of the passes at a group past
     8), row 0 alone (B 1) and the rows twice (B 8) beside."""
     from repro_torch.core.masks import BlockMask
     q = qkv[0]
     S, D = q.shape[2], q.shape[3]
     tag = f" D{D} {arch}"
-    if arch == "nemotron-4-340b":
+    if arch in MASKED_ARCHS:
         _, mask = serving_mask(types.SimpleNamespace(hd=D), S)
         rows = phase_measure_attention(qkv, mask, launches, card,
                                        suffix=tag)
@@ -5906,8 +5986,13 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the numerics flags)
 
     t_start = time.monotonic()
+    # the seconds from one mark to the next, a phase or a group of phases:
+    # what the whole run's time limit is spent on
+    marks = [("start", t_start)]
+    mark = lambda name: marks.append((name, time.monotonic()))  # noqa: E731
     card = phase_card()
     phase_build()
+    mark("build")
     print("kernel vs plain on the card:")
     phase_kernel_vs_plain()
     phase_attention_vs_plain()
@@ -5917,26 +6002,34 @@ def main() -> int:
     t0 = time.monotonic()
     phase_ssd_step_vs_plain()
     print(f"  M1 vs plain: {time.monotonic() - t0:.1f} s")
+    mark("kernels vs plain")
     phase_small_config_card_vs_cpu()
     phase_rwkv_smoke_card_vs_cpu()
     phase_dense_smoke_card_vs_cpu()
     t0 = time.monotonic()
     phase_zamba_smoke_card_vs_cpu()
     print(f"  zamba2 smoke card vs cpu: {time.monotonic() - t0:.1f} s")
+    mark("smoke configs card vs cpu")
     cfg, params, summary, launches, captured, pipelined, calls = \
         phase_slice()
+    mark("scout slice")
     scheduler, sched_streams, sched_calls, clean = phase_scheduler(cfg,
                                                                    params)
+    mark("scout scheduler")
     quant = phase_quant_serving(cfg, params, next(
         r for r in scheduler["runs"] if r["label"] == "fused_gather0"))
+    mark("scout quantized")
     resilience = phase_resilience(cfg, params, clean,
                                   scheduler["step_syncs"], card)
     del clean
+    mark("scout resilience")
     bench = {"serve": phase_bench_serve(cfg, params),
              "moe": phase_bench_moe()}
+    mark("bench")
     mask, masked, mask_ms, masked_stream, masked1, masked_calls = \
         phase_masked_serving(cfg, params)
     kprefill, qkv = phase_kernel_prefill(cfg, params)
+    mark("scout masked and K3 prefill")
     calls.update(sched_calls, **masked_calls)
     del params, sched_calls, masked_calls
     gc.collect()            # the loops' reference cycles hold the weights
@@ -5955,6 +6048,7 @@ def main() -> int:
     del qkv, captured, masked_stream, sched_streams, calls
     scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"llama4-scout phases: peak {scout_peak_gb:.1f} GB")
+    mark("scout kernel times")
     rwkv, rwkv_launches, wkv_inputs, step_inputs = phase_rwkv_serving(card)
     resilience["rwkv"] = rwkv["scheduler"].pop("resilience")
     rows.append(phase_measure_wkv(wkv_inputs, rwkv_launches["wkv_kernel"],
@@ -5964,18 +6058,22 @@ def main() -> int:
     del wkv_inputs, step_inputs
     gc.collect()
     torch.cuda.empty_cache()
+    mark("rwkv6-7b")
     gemma, gemma_qkv, gemma_calls, gemma_launches = phase_gemma_serving(card)
     print("gemma3-12b kernel times at its served shapes (D 256):")
     rows += phase_measure_gemma(gemma_qkv, gemma_calls, gemma_launches,
                                 card)
     del gemma_qkv, gemma_calls
-    dense = {}
-    for arch in DENSE_ARCHS:
-        dense[arch], d_qkv, d_call, d_launches = phase_dense_serving(arch,
-                                                                     card)
+    mark("gemma3-12b")
+    dense, frontend = {}, {}
+    for arch in DENSE_ARCHS + FRONTEND_ARCHS:
+        into = frontend if arch in FRONTEND_ARCHS else dense
+        into[arch], d_qkv, d_call, d_launches = phase_dense_serving(arch,
+                                                                    card)
         print(f"{arch} kernel times at its served shapes:")
         rows += phase_measure_dense(arch, d_qkv, d_call, d_launches, card)
         del d_qkv, d_call
+        mark(arch)
     zamba, z_qkv, z_d1, z_m1, z_launches = phase_zamba_serving(card)
     print(f"{ZAMBA_ARCH} kernel times at its served shapes:")
     t0 = time.monotonic()
@@ -5983,6 +6081,7 @@ def main() -> int:
     zamba["measure_s"] = time.monotonic() - t0
     print(f"  {ZAMBA_ARCH} kernel times: {zamba['measure_s']:.1f} s")
     del z_qkv, z_d1, z_m1
+    mark(ZAMBA_ARCH)
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
     clocks["before_library_kernels"] = smi(CLOCKS)
@@ -5991,6 +6090,11 @@ def main() -> int:
     print(f"  sm clock, max: {clocks['before_library_kernels']} before, "
           f"{clocks['after_library_kernels']} after")
     del lib_data
+    mark("library")
+    phase_s = {name: t - marks[i][1]
+               for i, (name, t) in enumerate(marks[1:])}
+    print("seconds a phase: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in phase_s.items()))
     rwkv1 = rwkv.pop("depth1")
     fused = pipelined.pop("fused")
     serve = {
@@ -6028,9 +6132,10 @@ def main() -> int:
                   "quantized": quant,
                   "fused": fused,
                   "card": card},
-             "rwkv": rwkv, "gemma": gemma, "dense": dense, "zamba": zamba,
+             "rwkv": rwkv, "gemma": gemma, "dense": dense,
+             "frontend": frontend, "zamba": zamba,
              "library": lib_info,
-             "sm_clocks": clocks,
+             "sm_clocks": clocks, "phase_s": phase_s,
              "wall_s": time.monotonic() - t_start}
     print(json.dumps({"kernels": rows}))
     print(json.dumps(serve))

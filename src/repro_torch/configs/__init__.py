@@ -8,7 +8,9 @@ import importlib
 
 ARCH_NAMES = [
     "gemma3-12b",
+    "internvl2-26b",
     "llama4-scout-17b-a16e",
+    "musicgen-large",
     "nemotron-4-340b",
     "qwen2-1.5b",
     "qwen3-1.7b",

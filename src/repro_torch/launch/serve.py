@@ -608,7 +608,8 @@ class ServeLoop(_ServeBase):
     Parameters
     ----------
     params, cfg : the model (every param on ``device``).
-    max_seq : decode-cache capacity (prompt + generation).
+    max_seq : decode-cache capacity (frontend positions + prompt +
+        generation).
     dispatch : MoE dispatch backend ("gather" | "bcsr"); default is the
         config's ``moe_dispatch``.
     two_phase : None (default) = the reference's rule, two-phase exactly
@@ -680,13 +681,18 @@ class ServeLoop(_ServeBase):
 
     # ------------------------------------------------------------- phases --
 
-    def prefill(self, prompts) -> torch.Tensor:
+    def prefill(self, prompts, embeddings=None) -> torch.Tensor:
         """Run the prompts (B, S) through the model, fill the decode cache,
-        and emit the first generated token (B, 1).  Fused, the prefill
-        cache is copied into the step's static cache, after the step of
-        this batch is made (and captured) at its first use.  Ends with the
-        device drained at either depth."""
+        and emit the first generated token (B, 1).  ``embeddings`` (B, F,
+        d_model), a frontend's precomputed embeddings, are moved to the
+        loop's device and prepended to the prompts' (``model.prefill``);
+        decode then starts at position F + S.  Fused, the prefill cache is
+        copied into the step's static cache, after the step of this batch
+        is made (and captured) at its first use.  Ends with the device
+        drained at either depth."""
         prompts = torch.as_tensor(prompts, device=self.device)
+        if embeddings is not None:
+            embeddings = torch.as_tensor(embeddings, device=self.device)
         self.generated = []
         if not self.two_phase:
             self.fused_step = self._fused_step(prompts.shape[0],
@@ -697,18 +703,21 @@ class ServeLoop(_ServeBase):
             logits, cache, pos = M.prefill_layered(
                 self.params, prompts, self.cfg, max_seq=self.max_seq,
                 moe_fn=self._moe_fn(), attn_mask=self.attn_mask,
-                route_ahead=self._route_ahead(), kv_quant=self.kv_quant)
+                route_ahead=self._route_ahead(), kv_quant=self.kv_quant,
+                embeddings=embeddings)
         else:
             logits, cache, pos = M.prefill(
                 self.params, prompts, self.cfg, max_seq=self.max_seq,
                 attn_mask=self.attn_mask, dispatch=self.backend,
-                kv_quant=self.kv_quant)
+                kv_quant=self.kv_quant, embeddings=embeddings)
             self.fused_step.load(cache)
             cache = self.fused_step.cache
         self._sync()
         self._pipe.drain()
         logits = self._fault("prefill", logits, step=-1)
         self._fault_cache(cache, step=-1, nrows=prompts.shape[0])
+        # the prompts' tokens, as the reference counts them: the frontend
+        # positions are not tokens
         self.stats.append(StepStat("prefill", -1, time.monotonic() - t0,
                                    tokens=prompts.numel()))
         self.cache, self.pos = cache, pos
@@ -783,8 +792,9 @@ class ServeLoop(_ServeBase):
 
     # -------------------------------------------------------------- drive --
 
-    def run(self, prompts, gen: int) -> np.ndarray:
-        """prefill + (gen - 1) decode steps; returns (B, gen) token ids.
+    def run(self, prompts, gen: int, embeddings=None) -> np.ndarray:
+        """prefill (with a frontend's ``embeddings``, see :meth:`prefill`)
+        + (gen - 1) decode steps; returns (B, gen) token ids.
         Every run starts from a fresh sampling generator, so seeded runs
         with ``temperature > 0`` are reproducible.  The tokens and the
         run's health mask come back in one fetch (``health_rows``; a
@@ -798,7 +808,7 @@ class ServeLoop(_ServeBase):
         self._gen.manual_seed(self._sample_seed)
         self._health_dev = self.health_rows = None
         try:
-            self.prefill(prompts)
+            self.prefill(prompts, embeddings=embeddings)
             self.decode(gen - 1)
         except BaseException:
             self._pipe.abort()
@@ -1588,7 +1598,9 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
     params = M.init_params(cfg, seed=0, device=device)
-    max_seq = args.prompt_len + args.gen
+    # the frontend's positions come before the prompt's
+    max_seq = args.prompt_len + args.gen + (
+        cfg.frontend_tokens if cfg.frontend != "none" else 0)
     dispatch = None if args.dispatch == "config" else args.dispatch
     two_phase = None if args.two_phase == "auto" else args.two_phase == "on"
     if args.continuous:
@@ -1597,16 +1609,23 @@ def main(argv=None):
     g = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=device)
+    emb = None
+    if cfg.frontend != "none":      # a frontend stub's embeddings, random
+        ge = torch.Generator(device=device).manual_seed(2)
+        emb = 0.02 * torch.randn((args.batch, cfg.frontend_tokens,
+                                  cfg.d_model), generator=ge, device=device)
     loop = ServeLoop(params, cfg, max_seq=max_seq, dispatch=dispatch,
                      two_phase=two_phase, temperature=args.temperature,
                      pipeline_depth=args.pipeline_depth, attn_mask=attn_mask,
                      quantize_experts=args.quantize_experts,
                      kv_quant=args.kv_quant, device=device)
-    gen = loop.run(prompts, args.gen)
+    gen = loop.run(prompts, args.gen, embeddings=emb)
     s = loop.summary()
 
     print(f"prefill: {s['prefill']['seconds'] * 1e3:.1f} ms for "
-          f"{args.batch}x{args.prompt_len}")
+          f"{args.batch}x{args.prompt_len}"
+          + (f" after {cfg.frontend_tokens} {cfg.frontend} embedding "
+             "positions" if emb is not None else ""))
     dec = s.get("decode", {"seconds": 0.0, "calls": 0})  # --gen 1: no steps
     print(f"decode:  {dec['seconds'] * 1e3:.1f} ms for {dec['calls']} steps "
           f"({dec.get('tok_per_s', 0.0):.1f} tok/s)"

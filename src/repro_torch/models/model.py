@@ -7,6 +7,10 @@ first kind before the stack, params and caches stacked over them) and
 ``shared_attn`` block (one unstacked attention block run after every
 ``shared_attn_every``-th repeat, its decode cache a slot of its own after
 the block unit's, stacked over the repeats).
+A config with a ``frontend`` ("audio" / "vision", the reference's stubs)
+takes precomputed ``(B, frontend_tokens, d_model)`` embeddings at prefill,
+prepended to the token embeddings; decode then runs on from the position
+after them.
 An ``attn_local`` layer attends over the config's ``local_window``; its
 decode cache is a ring buffer of ``min(max_seq, local_window)`` slots,
 position ``p`` at slot ``p % local_window`` (:func:`init_cache`).  The
@@ -47,15 +51,18 @@ from repro_torch.models.config import ArchConfig
 Params = Dict[str, Any]
 
 KINDS = ("attn", "attn_local", "attn_global", "attn+moe", "rwkv", "mamba")
+# the reference's frontend stubs: precomputed (B, frontend_tokens, d_model)
+# embeddings prepended to the token embeddings (``prefill(embeddings=)``)
+FRONTENDS = ("none", "audio", "vision")
 
 
 def _check_kinds(cfg: ArchConfig) -> None:
     bad = [k for k in cfg.block_unit if k not in KINDS]
-    if bad or cfg.frontend != "none":
+    if bad or cfg.frontend not in FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.name}: only stacks of {KINDS} without frontend are "
-            f"ported (got block_unit={cfg.block_unit}, frontend="
-            f"{cfg.frontend!r})")
+            f"{cfg.name}: only stacks of {KINDS} with a frontend of "
+            f"{FRONTENDS} are ported (got block_unit={cfg.block_unit}, "
+            f"frontend={cfg.frontend!r})")
 
 
 def _fires(cfg: ArchConfig, i: int) -> bool:
@@ -362,9 +369,26 @@ def final_logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
     return (x @ unemb.to(x.dtype)).float()
 
 
-def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
+def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+           embeddings: Optional[torch.Tensor] = None):
+    """The token embeddings in the compute dtype, after ``embeddings``
+    (B, F, d_model) when given: cast to the compute dtype first (one
+    round to nearest even), then concatenated, as the reference does."""
     cd = precision_policy(cfg.policy).compute_dtype
-    return params["embed"][tokens].to(cd)
+    x = params["embed"][tokens].to(cd)
+    if embeddings is not None:
+        x = torch.cat([embeddings.to(cd), x], dim=1)
+    return x
+
+
+def _check_prompt_fits(cfg: ArchConfig, S_total: int, max_seq: int) -> None:
+    """Raise when a prefill of ``S_total`` positions (frontend positions
+    and prompt) would not fit an attention cache of ``max_seq``."""
+    if S_total > max_seq and any(k not in ("rwkv", "mamba")
+                                 for k in _cache_kinds(cfg)):
+        raise ValueError(
+            f"prefill: {S_total} positions (frontend + prompt) do not fit "
+            f"max_seq {max_seq}; grow max_seq")
 
 
 def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
@@ -372,7 +396,8 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                     moe_fn: Optional[Callable] = None, impl: str = "chunked",
                     attn_mask: Optional[AttnMaskSpec] = None,
                     route_ahead: bool = False,
-                    kv_quant: Optional[str] = None
+                    kv_quant: Optional[str] = None,
+                    embeddings: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Params, int]:
     """Serving prefill, layer by layer.  ``moe_fn`` (signature of
     ``moe.apply_moe``) runs every attn+moe block's FFN with ``counts=None,
@@ -385,15 +410,21 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     capacity; the values are those of ``route_ahead=False``.
     ``kv_quant`` (a narrow dtype name) stores the collected K/V as narrow
     values with per-position f32 scales (``k_scale`` / ``v_scale``); the
-    logits do not change.  Returns (last-position logits (B, 1, V) f32,
-    decode cache filled to the prompt length with K/V in ``cache_dtype``
-    or quantized, next position)."""
+    logits do not change.  ``embeddings`` (B, F, d_model), a frontend's
+    precomputed patch or frame embeddings on the tokens' device, are cast
+    to the compute dtype and prepended to the token embeddings; every layer
+    (RoPE, masks, the caches) then sees ``S_total = F + S`` positions.
+    Returns (last-position logits (B, 1, V) f32, decode cache filled to
+    S_total with K/V in ``cache_dtype`` or quantized, the next position
+    S_total)."""
     _check_kinds(cfg)
     moe_fn = moe_fn or moe.apply_moe
     kw = dict(moe_fn=moe_fn, collect_kv=max_seq, impl=impl,
               attn_mask=attn_mask, route_ahead=route_ahead,
               kv_quant=kv_quant)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, embeddings)
+    S_total = x.shape[1]
+    _check_prompt_fits(cfg, S_total, max_seq)
     prologue = []
     for i in range(cfg.n_prologue):
         x, c = _block(cfg.block_unit[0], _take(params["prologue"], i), x,
@@ -420,7 +451,7 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     if prologue:
         cache["prologue"] = _cache_to_dtype(_stack(prologue), cd,
                                             cache_dtype)
-    return logits, cache, tokens.shape[1]
+    return logits, cache, S_total
 
 
 def _cache_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -440,7 +471,8 @@ def _fused_moe(dispatch: Optional[str]) -> Callable:
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
             max_seq: int, cache_dtype=torch.bfloat16, impl: str = "chunked",
             attn_mask: Optional[AttnMaskSpec] = None,
-            dispatch: Optional[str] = None, embeddings=None,
+            dispatch: Optional[str] = None,
+            embeddings: Optional[torch.Tensor] = None,
             kv_quant: Optional[str] = None
             ) -> Tuple[torch.Tensor, Params, int]:
     """Serving prefill of the fused mode, the counterpart of the reference's
@@ -448,17 +480,15 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     ``moe.apply_moe`` call with the ``dispatch`` backend (default: the
     config's), "bcsr" through the full-grid stream built on the device,
     never the host compaction.  The layer loop is
-    :func:`prefill_layered`'s, ``kv_quant`` too.  Returns (last-position
-    logits (B, 1, V) f32, decode cache filled to the prompt length, leaves
-    in the compute dtype become ``cache_dtype``, next position)."""
-    if embeddings is not None:
-        raise NotImplementedError(
-            "model.prefill(embeddings=): frontends are not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+    :func:`prefill_layered`'s, ``kv_quant`` and ``embeddings`` too.
+    Returns (last-position logits (B, 1, V) f32, decode cache filled to
+    the frontend positions and the prompt, leaves in the compute dtype
+    become ``cache_dtype``, next position)."""
     return prefill_layered(params, tokens, cfg, max_seq=max_seq,
                            cache_dtype=cache_dtype,
                            moe_fn=_fused_moe(dispatch), impl=impl,
-                           attn_mask=attn_mask, kv_quant=kv_quant)
+                           attn_mask=attn_mask, kv_quant=kv_quant,
+                           embeddings=embeddings)
 
 
 def _stack(trees):

@@ -133,15 +133,25 @@ def test_prefill_matches_reference(model):
 
 
 def test_prefill_refuses_what_is_not_ported(model):
-    """Frontend embeddings (Queue 1 item 6) raise; ``kv_quant`` (item 4,
-    ported since) is taken: the logits are the wide prefill's, and only
-    the attention caches change (narrow values with f32 scales; a stack
-    without attention keeps its cache as it is)."""
+    """A frontend the reference does not have ("video") raises; frontend
+    embeddings (Queue 1 item 1, ported since) are taken: prepended, they
+    move the next position past them, fused == layered; ``kv_quant``
+    (item 4, ported since) is taken: the logits are the wide prefill's,
+    and only the attention caches change (narrow values with f32 scales; a
+    stack without attention keeps its cache as it is)."""
     _, cfg, _, params, prompts = model
     toks = torch.from_numpy(prompts).long()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        M.prefill(params, toks, cfg, max_seq=MAX_SEQ,
-                  embeddings=torch.zeros((B, 1, cfg.d_model)))
+    with pytest.raises(NotImplementedError, match="frontend"):
+        M.prefill(params, toks, dataclasses.replace(cfg, frontend="video"),
+                  max_seq=MAX_SEQ)
+    emb = torch.from_numpy(np.random.default_rng(4).normal(
+        0.0, 0.02, (B, 1, cfg.d_model)).astype(np.float32))
+    le, ce, pe = M.prefill(params, toks, cfg, max_seq=MAX_SEQ,
+                           embeddings=emb)
+    assert pe == PROMPT + 1 and tuple(le.shape) == (B, 1, cfg.padded_vocab)
+    ll, cl, _ = M.prefill_layered(params, toks, cfg, max_seq=MAX_SEQ,
+                                  embeddings=emb)
+    assert torch.equal(le, ll) and _all_equal(ce, cl)
     lw, cw, _ = M.prefill(params, toks, cfg, max_seq=MAX_SEQ)
     lq, cq, _ = M.prefill(params, toks, cfg, max_seq=MAX_SEQ,
                           kv_quant="int8")

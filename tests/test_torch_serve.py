@@ -249,9 +249,9 @@ def test_sampling_overflow_and_device_guards():
         M.decode_step_layered(params, cfg, loop.cache, MAX_SEQ,
                               torch.zeros((B, 1), dtype=torch.long))
     with pytest.raises(KeyError, match="not yet ported"):
-        configs.get_config("musicgen-large")
-    with pytest.raises(NotImplementedError):
-        M.init_params(dataclasses.replace(cfg, frontend="audio"),
+        configs.get_config("llama4-maverick-400b-a17b")
+    with pytest.raises(NotImplementedError, match="frontend"):
+        M.init_params(dataclasses.replace(cfg, frontend="video"),
                       device="cpu")
     if torch.cuda.is_available():
         assert repro_torch.resolve_device("cuda").type == "cuda"

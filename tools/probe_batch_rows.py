@@ -37,6 +37,12 @@ the CPU with ``--device cpu``):
   1,280 positions at per-row lengths (nemotron's head dim 192 and GQA
   group 12, which D1 takes in two passes), and their plain versions;
   nemotron's decode products reduce over 18,432 and 73,728;
+* with ``--arch musicgen-large`` or ``internvl2-26b`` (the frontend
+  configs), the dense family's ops at their widths (the block norms' sums
+  of squares through R1 at d 2,048 and 6,144, D1 at MHA 32/32 of 64 and
+  GQA 48/8 of 128, internvl2's unembedding to 92,672), and the layer probe
+  after the frontend's embedding positions (64 / 256, bf16 0.02 * N(0,
+  1) from a seeded generator) prepended to the prompt;
 * with ``--arch zamba2-1.2b``, every row of each decode-step op of
   zamba2-1.2b at full width: the shared attention block's ops as for the
   dense family (its one weight set: the projections, the MLP, the block
@@ -55,8 +61,8 @@ the CPU with ``--device cpu``):
 Run from the repository root:
 
     python3 tools/probe_batch_rows.py [--arch rwkv6-7b | gemma3-12b |
-        qwen3-1.7b | qwen2-1.5b | nemotron-4-340b | zamba2-1.2b]
-        [--depth 2] [--device cuda]
+        qwen3-1.7b | qwen2-1.5b | nemotron-4-340b | zamba2-1.2b |
+        musicgen-large | internvl2-26b] [--depth 2] [--device cuda]
 
 It prints one JSON object as its last line and writes the same to
 ``chiprun_out/batch_rows.json``.
@@ -74,7 +80,8 @@ ROWS = (1, 2, 4, 8)
 # (max_seq, prompt) of the layer probe: gemma3-12b's prompt is past its
 # window of 1,024
 SHAPES = {"gemma3-12b": (1280, 1100)}
-DENSE = ("gemma3-12b", "qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
+DENSE = ("gemma3-12b", "qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b",
+         "musicgen-large", "internvl2-26b")
 MAX_SEQ, PROMPT = 544, 300
 
 
@@ -328,7 +335,8 @@ def probe_zamba_ops(cfg, params, device) -> dict:
 
 
 def probe_layers(cfg, params, device) -> dict:
-    """One decode step of a request alone and as row 0 of a bucket."""
+    """One decode step of a request alone and as row 0 of a bucket (a
+    frontend config's request prefilled after its embedding positions)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import _copy_row
@@ -340,8 +348,15 @@ def probe_layers(cfg, params, device) -> dict:
     max_seq, prompt_len = SHAPES.get(cfg.name, (MAX_SEQ, PROMPT))
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g,
                            device=device)
+    emb = None
+    if cfg.frontend != "none":
+        max_seq += cfg.frontend_tokens
+        emb = (0.02 * torch.randn((1, cfg.frontend_tokens, cfg.d_model),
+                                  generator=g, device=device)
+               ).to(params["embed"].dtype)
     logits, cache1, pos = M.prefill_layered(params, prompt, cfg,
-                                            max_seq=max_seq, moe_fn=moe_fn)
+                                            max_seq=max_seq, moe_fn=moe_fn,
+                                            embeddings=emb)
     tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
     block = M._block
     out = {}
