@@ -38,9 +38,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    R1 (the router logits, d 5120 x 16 experts, x and W bf16 or f32, at
    every tile regime and its edges from 1 to 8,192 tokens, and at d
    40,960, E 5, d 200, E 128, d 201 and 202 and x and W off a 16-byte
-   start, which the threads stage) against their plain versions, and as
-   ``torch.equal`` their laws: row i of B in {1, 2, 3, 4, 8, 16} rows (R1
-   at each of its token counts) == the row alone, D1 in a cache 1,520
+   start, which the threads stage; and at E 128, llama4-maverick's router,
+   x bf16 and W f32, at every token count) against their plain versions,
+   and as ``torch.equal`` their laws: row i of B in {1, 2, 3, 4, 8, 16}
+   rows (R1 at each of its token counts) == the row alone, D1 in a cache 1,520
    positions larger == in the case's, a scalar ``kv_len`` == a vector of equal
    values, each kernel == its order emulated in PyTorch, and at a group of
    12 the heads of a kv head == themselves in a pass of their own and
@@ -94,7 +95,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    (f32 caches): prefill chunked, through K4s and through K3 (once a
    repeat) and one decode step (M1 once a mamba layer, D1 once a firing;
    M1's first call held as in phase 3);
-5. the serving slice at full llama4-scout width (depth cut to 8 layers,
+5. the serving slice at full llama4-scout width (depth cut to 4 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
    0/1 dispatch streams (the first MoE layer's prefill, the last decode
@@ -108,7 +109,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain versions never called on the card; then fused gather,
    ``two_phase=True`` gather (layered, eager) and fused bcsr (the full-grid stream, K2 once a MoE layer a pass): the
    same tokens, the first decode step's logits ``torch.equal``, a replay
-   launching D1 8 times and R1 25 (and K2 8 on bcsr); fused and layered
+   launching D1 4 times and R1 13 (and K2 4 on bcsr); fused and layered
    gather at depth 1 with the same tokens, one fused depth-1 step making
    no host sync; decode tok/s and the capture ms of each; and one decode
    step each, layered and replayed, traced by ``torch.profiler`` (kernels
@@ -137,7 +138,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    counted) and never in a gather run; no flash launch and no oracle
    fallback; every decode step's bucket ``batch_bucket(highest occupied
    slot + 1)`` and in {1, 2, 4, 8}; fused, one graph for each bucket seen,
-   a replay launching D1 8 times and R1 25 (and K2 8 on bcsr); the EOS
+   a replay launching D1 4 times and R1 13 (and K2 4 on bcsr); the EOS
    request ends at its EOS and every other request gets its budget; one
    extra depth-1 two-phase step makes at most ``n_moe + 1`` host syncs,
    one extra fused step at depth 0 or 1 at most 1; D1 and R1 counted as
@@ -194,8 +195,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    K3) and the default chunked prefill (bf16 operands), each timed, their
    first tokens against each other and against ``impl="ref"``
    (information), and K3 == K4s on ``BlockMask.causal`` on its layer-0 q,
-   k, v;
-   then the llama4 weights are released;
+   k, v; the expert products of a decode step over all the experts
+   (``torch.bmm``) against their bound and against the routed experts'
+   products alone; then the llama4 weights are released and the K2, D1,
+   R1, K3, K4m and K4s rows are measured at the arch's served shapes;
+8b. llama4-maverick-400b-a17b (the one stack that interleaves dense and
+   MoE layers, and the one with 128 experts) at full width and depth 1
+   of 24 units (a dense layer and a MoE layer, 37.1 GB of random bf16
+   weights from a seed; the cut printed), through phases 5-8's own code
+   (``serve_moe``, as scout) without the quantized, resilience and
+   benchmark runs: the scheduler runs two-phase bcsr at depths 0 and 1,
+   fused gather and bcsr, and two-phase bcsr and fused gather with
+   ``kv_quant="int8"`` (every request == itself alone, wide and int8);
+   the kernel rows' names end in " E128 llama4-maverick-400b-a17b";
 9. RWKV-6 serving at full width and depth (rwkv6-7b: d_model 4096, 64
    heads of 64, d_ff 14336, vocab 65536, 32 layers, random bf16 weights
    from a seed, ~15 GB): ``ServeLoop`` serves 4 prompts of 2048 tokens and
@@ -219,19 +231,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    exception after a replay, retried: 8 of 8 and every pool leaf (``wkv``,
    the shifts) ``torch.equal`` to the fault-free run's; decode tok/s with
    and without the retry's save;
-10. gemma3-12b serving at full width and depth (``CONFIG``: d_model 3840,
-   16/8 heads of 256, d_ff 15360, vocab 262,144, 48 layers, 40 of them
-   local with a window of 1,024 and ring-buffer caches, qk_norm; random
-   bf16 weights from a seed, ~25.6 GB), after the RWKV weights are freed:
+10. gemma3-12b serving at full width (``CONFIG``: d_model 3840, 16/8
+   heads of 256, d_ff 15360, vocab 262,144, window 1,024, qk_norm) and
+   depth 2 of its 8 units (12 of 48 layers, 10 of them local with
+   ring-buffer caches; random bf16 weights from a seed, 9.4 GB; the cut
+   printed), after the RWKV weights are freed:
    ``ServeLoop`` serves 4 prompts of 1,536 tokens (past the window, so the
    prefill's rings have wrapped) and 64 greedy tokens, fused and layered
-   (tokens equal, the first decode step's logits ``torch.equal``; D1 48
-   and R1 193 a decode step -- ln1, ln2, q_norm and k_norm a layer and the
+   (tokens equal, the first decode step's logits ``torch.equal``; D1 12
+   and R1 49 a decode step -- ln1, ln2, q_norm and k_norm a layer and the
    final norm in row order -- no plain version on the card; the first
    decode step's ln1, q_norm and k_norm squares through R1 == its
    emulated order, rows == alone, near ``torch.sum``); the sliding
-   mask (K4s / K4m on the 40 local layers) and ``local_global`` (all 48),
-   sparse == dense tokens; the kernel prefill (K3 x 48); one decode step
+   mask (K4s / K4m on the 10 local layers) and ``local_global`` (all 12),
+   sparse == dense tokens; the kernel prefill (K3 x 12); one decode step
    each traced; then ``ServeScheduler`` (8 slots, fused) on 8 requests of
    900-1,100 prompt tokens and 48-144 budgets (rows cross the window at
    different steps), wide and with ``kv_quant="int8"`` (global layers
@@ -286,7 +299,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
 12. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound; K2, D1, R1, K3, K4m, K4s, K7, W1, K3 / K4m / K4s / D1 at D 256,
+   bound; K2, D1, R1, K3, K4m, K4s, the same six at llama4-maverick's
+   shapes (E 128), K7, W1, K3 / K4m / K4s / D1 at D 256,
    K3 / D1 at each dense arch's served shape (K4m / K4s and D1's two
    passes at nemotron-4-340b's D 192), K3 / D1 at musicgen-large's and
    K3 / K4m / K4s / D1 at internvl2-26b's, K3 / K4m / K4s / D1 / M1 at
@@ -343,7 +357,20 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
-BATCH, PROMPT, GEN, DEPTH = 4, 256, 16, 8
+BATCH, PROMPT, GEN = 4, 256, 16
+# the MoE archs of phases 5-8; maverick runs them without the quantized,
+# resilience and benchmark runs, which stay scout's
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+MAVERICK_ARCH = "llama4-maverick-400b-a17b"
+# the depth (block-unit repeats) each serving phase runs an arch at, always
+# at full width, the cut printed (:func:`served_config`); an arch without an
+# entry runs at full depth.  scout 4 of 48 layers (21.8 GB); maverick 1 of
+# 24 units (2 of 48 layers, 37.1 GB); gemma3-12b 2 of 8 units (12 of 48
+# layers); nemotron-4-340b 4 of 96 layers (a layer is 6.91 GB of bf16 and
+# the embedding and unembedding 9.44 GB each: 46.5 GB, 6 layers would be
+# 60.3 GB of one card's 80 GB)
+DEPTH = {SCOUT_ARCH: 4, MAVERICK_ARCH: 1, "gemma3-12b": 2,
+         "nemotron-4-340b": 4}
 # masked and kernel prefill: prompt length and the local window of the
 # opt-in long-context pattern (local_global: window + the first KV tile),
 # a synthetic kernel exercise rather than llama4-scout's own attention
@@ -356,6 +383,17 @@ RWKV_ARCH, RWKV_PROMPT = "rwkv6-7b", 2048
 # (64 at the clamp), where one f32 ulp of the argument is ~4e-6 of the
 # exponential, and the kernel sums its dots in another order than plain.
 WKV_REL_TOL = 2e-5
+
+
+def served_config(arch: str):
+    """``arch``'s config at full width and ``DEPTH``'s depth, its full
+    config, and the cut as the serving phases print it."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_repeats=DEPTH.get(arch,
+                                                        full.n_repeats))
+    return cfg, full, (f"depth {cfg.n_layers} of {full.n_layers} layers "
+                 f"({cfg.n_repeats} of {full.n_repeats} units)")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1462,6 +1500,24 @@ def phase_decode_vs_plain():
             errs.append(err)
         print(f"  R1 x {xn} W {wn} at (T, d, E, shift) {ROUTER_SHAPES}: "
               f"max_abs_err {max(errs):.3g}; each == its emulated order")
+    # llama4-maverick's router as served (x bf16, W f32, 128 experts): the
+    # few-token kernel's 64-block expert grid and the many-token kernel's
+    # 16-expert tile at each token count, rows == alone
+    E = 128
+    x = rand((max(ROUTER_TOKENS), d), torch.bfloat16)
+    w = rand((d, E), torch.float32) * d ** -0.5
+    alone = torch.cat([rk.router_logits(x[i:i + 1], w)
+                       for i in range(x.shape[0])])
+    errs = []
+    for T in ROUTER_TOKENS:
+        what = f"R1 x bfloat16 W float32 E {E} T {T}"
+        got, err = _router_case(x[:T], w, what)
+        check(torch.equal(got, alone[:T]),
+              f"{what}: a row differs from the row alone")
+        errs.append(err)
+    print(f"  R1 x bfloat16 W float32 ({d} x {E}), T {ROUTER_TOKENS}: "
+          f"max_abs_err {max(errs):.3g}; each == its emulated order; rows "
+          "== alone at every T")
     try:
         rk.router_logits(rand((4, 64), torch.float16), rand((64, 4),
                                                             torch.float32))
@@ -1524,25 +1580,27 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_slice():
-    """The serving slice at full llama4-scout width, depth 8."""
+def phase_slice(arch: str = SCOUT_ARCH):
+    """The serving slice of the MoE arch ``arch`` at full width, its depth
+    cut to ``DEPTH[arch]`` block-unit repeats (the cut printed)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import engine
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
-                              n_repeats=DEPTH)
+    cfg, full, cut = served_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    gb = torch.cuda.memory_allocated() / 1e9
+    gb = sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9
     print(f"slice: {cfg.name} d={cfg.d_model} heads={cfg.n_heads}/"
           f"{cfg.n_kv_heads} d_ff={cfg.d_ff} E={cfg.n_experts} "
-          f"vocab={cfg.vocab_size} depth={cfg.n_repeats} policy={cfg.policy};"
-          f" params {gb:.1f} GB, init {time.monotonic() - t0:.1f} s")
+          f"vocab={cfg.vocab_size} block_unit={cfg.block_unit}; {cut} "
+          f"policy={cfg.policy}; params {gb:.1f} "
+          f"GB, init {time.monotonic() - t0:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=g,
                             device="cuda")
@@ -1697,9 +1755,9 @@ def phase_fused_moe(cfg, params, prompts, tokens, gather):
           f"waits {waits})")
     check(syncs == 0 and waits == 0,
           f"a fused depth-1 decode step synced {syncs} times, waited {waits}")
-    traces = [trace_decode("scout gather, layered eager",
+    traces = [trace_decode(f"{cfg.name} gather, layered eager",
                            loops["gather layered"], prompts),
-              trace_decode("scout gather, fused replayed",
+              trace_decode(f"{cfg.name} gather, fused replayed",
                            loops["gather fused"], prompts)]
     return {"runs": rows, "depth1_step_syncs": syncs,
             "per_replay": loops["bcsr fused"].fused_step.launches,
@@ -1776,6 +1834,30 @@ def phase_pipelined(cfg, params, prompts, loop, tokens, summary):
 # from, and the sampling temperature of the temperature pair
 SCHED_SLOTS, SCHED_MAX_SEQ, SCHED_REQUESTS, SCHED_SEED = 8, 544, 16, 24
 SCHED_TEMPERATURE = 0.7
+# the scheduler runs after the probe, by key: two-phase bcsr at depth 0 (its
+# streams and calls kept for the kernel rows) and 1, gather layered, the
+# temperature pair, then fused; "int8" runs keep their KV cache in int8
+SCHED_RUNS = {
+    "bcsr0": dict(dispatch="bcsr"),
+    "bcsr1": dict(dispatch="bcsr", pipeline_depth=1),
+    "gather0": dict(dispatch="gather", two_phase=True),
+    "temp0": dict(dispatch="bcsr", temperature=SCHED_TEMPERATURE),
+    "temp1": dict(dispatch="bcsr", pipeline_depth=1,
+                  temperature=SCHED_TEMPERATURE),
+    "fused_gather0": dict(dispatch="gather"),
+    "fused_gather1": dict(dispatch="gather", pipeline_depth=1),
+    "fused_bcsr0": dict(dispatch="bcsr", two_phase=False),
+    "fused_temp0": dict(dispatch="gather", temperature=SCHED_TEMPERATURE),
+    "int8_bcsr0": dict(dispatch="bcsr", kv_quant="int8"),
+    "int8_fused_gather0": dict(dispatch="gather", kv_quant="int8")}
+# scout runs every wide run (its int8 KV runs are the quantized phase's);
+# maverick two-phase and fused, wide and int8 KV
+SCHED_KEYS = {
+    SCOUT_ARCH: ("bcsr0", "bcsr1", "gather0", "temp0", "temp1",
+                 "fused_gather0", "fused_gather1", "fused_bcsr0",
+                 "fused_temp0"),
+    MAVERICK_ARCH: ("bcsr0", "bcsr1", "fused_gather0", "fused_bcsr0",
+                    "int8_bcsr0", "int8_fused_gather0")}
 
 
 def scheduler_trace(vocab: int):
@@ -1844,19 +1926,23 @@ def print_scheduler(row: dict) -> None:
           + ", ".join(f"{k} {v:.4g}" for k, v in row["timing"].items()))
 
 
-def phase_scheduler(cfg, params):
+def phase_scheduler(cfg, params, keys=SCHED_KEYS[SCOUT_ARCH]):
     """Continuous batching on phase 5's weights: ``ServeScheduler`` with
     SCHED_SLOTS slots and ``max_seq`` SCHED_MAX_SEQ serves the 16 requests
     of :func:`scheduler_trace` as :func:`drive_scheduler` submits them.  A
     probe run (bcsr, depth 0, also the warm-up) gives the EOS: the first
     request whose 5th token does not occur among its first four carries
-    that token as its ``eos_id``.  Then, two-phase: bcsr at depth 0, bcsr
-    at depth 1, gather at depth 0 (``two_phase=True``), and a
-    temperature-0.7 bcsr run at each depth; fused (one CUDA graph a batch
-    bucket over the pool's rows): gather at depth 0 (the default) and 1,
-    bcsr at depth 0 (``two_phase=False``, the full-grid stream), and
-    gather at temperature 0.7.  Checks: every greedy run's tokens == bcsr
-    depth 0's, the temperature runs' == each other, per request; K2 ``n_moe
+    that token as its ``eos_id``.  Then the runs ``keys`` of
+    :data:`SCHED_RUNS` (:data:`SCHED_KEYS`; scout: two-phase bcsr at
+    depth 0, bcsr at depth 1, gather at depth 0 (``two_phase=True``), and
+    a temperature-0.7 bcsr
+    run at each depth; fused (one CUDA graph a batch bucket over the
+    pool's rows): gather at depth 0 (the default) and 1, bcsr at depth 0
+    (``two_phase=False``, the full-grid stream), and gather at temperature
+    0.7; maverick: bcsr at depths 0 and 1, fused gather and bcsr, and bcsr
+    two-phase and fused gather with ``kv_quant="int8"``).  Checks: every
+    wide greedy run's tokens == bcsr depth 0's, the int8 runs' == each
+    other, the temperature runs' == each other, per request; K2 ``n_moe
     x (admissions + decode steps)`` in each bcsr run (replays counted) and
     never in a gather run, D1 once an attention layer a decode step and R1
     as :func:`decode_counts` says in every run, their plain versions never; no
@@ -1867,20 +1953,20 @@ def phase_scheduler(cfg, params):
     request ends at its EOS,
     every other greedy request gets exactly its budget; one extra depth-1
     two-phase step makes at most ``n_moe + 1`` host syncs, one extra fused
-    step at either depth at most 1; and every request served alone through
-    ``ServeLoop`` (B = 1, the same ``max_seq``, greedy) gives the tokens
-    each greedy run gave it -- where one does not, the first step that
-    differs and the alone run's logit gap there are printed before the
-    check fails.  Then one decode step at bucket 8 traced, layered and
+    step at either depth at most 1 (each where the arch runs it); and
+    every request served alone through ``ServeLoop`` (B = 1, the same
+    ``max_seq``, greedy; int8 KV for the int8 runs) gives the tokens each
+    greedy run gave it -- where one does not, the first step that differs
+    and the alone run's logit gap there are printed before the check
+    fails.  Then one decode step at bucket 8 traced, layered and
     fused (:func:`trace_step`).  The bcsr depth-0 run's first dispatch
     stream (an admission) and its first stream at the largest decode
     bucket are kept for the K2 row, its first D1 and R1 decode calls at the
     largest bucket for theirs."""
-    import numpy as np
     import torch
     from repro_torch.kernels import engine
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.launch.serve import ServeLoop, ServeScheduler
+    from repro_torch.launch.serve import ServeScheduler
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
     n_attn = n_moe + cfg.block_unit.count("attn") * cfg.n_repeats
     trace = scheduler_trace(cfg.vocab_size)
@@ -1965,33 +2051,27 @@ def phase_scheduler(cfg, params):
                    if g > 5 and probe[i][4] not in probe[i][:4])
     eos = {eos_req: probe[eos_req][4]}
     runs, toks, kept = [], {}, {}
-    for key, kw in (("bcsr0", dict(dispatch="bcsr", stream_hook=capture,
-                                   call_hook=keep)),
-                    ("bcsr1", dict(dispatch="bcsr", pipeline_depth=1)),
-                    ("gather0", dict(dispatch="gather", two_phase=True)),
-                    ("temp0", dict(dispatch="bcsr",
-                                   temperature=SCHED_TEMPERATURE)),
-                    ("temp1", dict(dispatch="bcsr", pipeline_depth=1,
-                                   temperature=SCHED_TEMPERATURE)),
-                    ("fused_gather0", dict(dispatch="gather")),
-                    ("fused_gather1", dict(dispatch="gather",
-                                           pipeline_depth=1)),
-                    ("fused_bcsr0", dict(dispatch="bcsr", two_phase=False)),
-                    ("fused_temp0", dict(dispatch="gather",
-                                         temperature=SCHED_TEMPERATURE))):
+    for key in keys:
+        kw = dict(SCHED_RUNS[key])
+        if key == "bcsr0":
+            kw.update(stream_hook=capture, call_hook=keep)
         sched, toks[key], row = serve(key, eos, **kw)
-        runs.append(row)
+        runs.append({**row, "kv_quant": sched.kv_quant})
         print_scheduler(row)
         if key in ("bcsr1", "fused_gather0", "fused_gather1"):
             kept[key] = sched
         del sched
-    greedy = [k for k in toks if not k.startswith(("temp", "fused_temp"))]
-    for key in greedy:
-        check(toks[key] == toks["bcsr0"], f"{key}: tokens != bcsr0's")
-    check(toks["temp1"] == toks["temp0"],
-          "temperature 0.7: depth-1 tokens != depth-0 tokens")
-    check(toks["fused_temp0"] == toks["temp0"],
-          "temperature 0.7: fused tokens != two-phase tokens")
+    temps = [k for k in keys if k.startswith(("temp", "fused_temp"))]
+    greedy = {q: [k for k in keys if k not in temps
+                  and k.startswith("int8") == (q == "int8")]
+              for q in (None, "int8")}
+    for group in greedy.values():
+        for key in group[1:]:
+            check(toks[key] == toks[group[0]],
+                  f"{key}: tokens != {group[0]}'s")
+    for key in temps[1:]:
+        check(toks[key] == toks[temps[0]],
+              f"temperature 0.7: {key} tokens != {temps[0]}'s")
     for i, (_, budget) in enumerate(trace):
         got = toks["bcsr0"][i]
         if i == eos_req:
@@ -2001,9 +2081,10 @@ def phase_scheduler(cfg, params):
         else:
             check(len(got) == budget,
                   f"request {i}: {len(got)} tokens, budget {budget}")
-    print(f"  tokens: {', '.join(greedy[1:])} == bcsr0; temperature runs "
-          f"(two-phase depth 0 / 1, fused) equal; request {eos_req} "
-          f"stopped at its EOS {eos[eos_req]} after "
+    print("  tokens: " + "; ".join(
+        f"{', '.join(g[1:])} == {g[0]}" for g in greedy.values() if g)
+          + (f"; temperature runs {', '.join(temps)} equal" if temps else "")
+          + f"; request {eos_req} stopped at its EOS {eos[eos_req]} after "
           f"{len(toks['bcsr0'][eos_req])} tokens")
 
     syncs = {}
@@ -2018,47 +2099,31 @@ def phase_scheduler(cfg, params):
           + ", ".join(f"{k} {v['syncs']} ({v['event_waits']})"
                       for k, v in syncs.items())
           + f"; {n_moe} attn+moe layers")
-    check(syncs["bcsr1"]["syncs"] <= n_moe + 1,
-          f"a depth-1 scheduler step synced {syncs['bcsr1']} times")
+    check("bcsr1" not in syncs or syncs["bcsr1"]["syncs"] <= n_moe + 1,
+          f"a depth-1 scheduler step synced {syncs.get('bcsr1')} times")
     for key in ("fused_gather0", "fused_gather1"):
-        check(syncs[key]["syncs"] <= 1 and syncs[key]["event_waits"] == 0,
-              f"a fused scheduler step ({key}) synced {syncs[key]}")
+        check(key not in syncs or (syncs[key]["syncs"] <= 1
+                                   and syncs[key]["event_waits"] == 0),
+              f"a fused scheduler step ({key}) synced {syncs.get(key)}")
 
-    alone = []
-    for i, (prompt, budget) in enumerate(trace):
-        loop = ServeLoop(params, cfg, max_seq=SCHED_MAX_SEQ, dispatch="bcsr")
-        logits = []
-
-        def keep(lg, sample=loop._sample):    # each token's logits
-            logits.append(lg[0].float())
-            return sample(lg)
-
-        loop._sample = keep
-        with no_plain():
-            ref = loop.run(prompt[None], budget)[0].tolist()
-        row = {"request": i, "match": True}
-        for key in greedy:
-            got = toks[key][i]
-            diff = next((t for t, (a, b) in enumerate(zip(got, ref))
-                         if a != b), None)
-            if diff is not None and row["match"]:
-                lg = logits[diff]
-                row.update(match=False, run=key, step=diff, alone=ref[diff],
-                           scheduler=got[diff],
-                           logit_gap=float(lg[ref[diff]] - lg[got[diff]]))
-        alone.append(row)
-        del loop, logits
-    n_match = sum(r["match"] for r in alone)
-    print(f"  {n_match} of {len(trace)} requests give, in every greedy run "
-          f"(two-phase and fused), the tokens of the request served alone "
-          f"through ServeLoop (B = 1)"
-          + "".join(f"; request {r['request']} differs first in {r['run']} "
-                    f"at step {r['step']} ({r['alone']} alone, "
-                    f"{r['scheduler']} scheduled, logit gap "
-                    f"{r['logit_gap']:.4g})"
-                    for r in alone if not r["match"]))
-    check(n_match == len(trace), f"{len(trace) - n_match} requests decoded "
-          "in a batch bucket part from the same request alone at B = 1")
+    alone = {q: _alone_rows(params, cfg, trace, toks, group, q)
+             for q, group in greedy.items() if group}
+    out_alone = {}
+    for q, rows in alone.items():
+        n_match = sum(r["match"] for r in rows)
+        what = "int8 KV" if q else "wide"
+        print(f"  {what}: {n_match} of {len(trace)} requests give, in every "
+              f"greedy run (two-phase and fused), the tokens of the request "
+              f"served alone through ServeLoop (B = 1)"
+              + "".join(f"; request {r['request']} differs first in "
+                        f"{r['run']} at step {r['step']} ({r['alone']} "
+                        f"alone, {r['scheduler']} scheduled, logit gap "
+                        f"{r['logit_gap']:.4g})"
+                        for r in rows if not r["match"]))
+        check(n_match == len(trace), f"{what}: {len(trace) - n_match} "
+              "requests decoded in a batch bucket part from the same "
+              "request alone at B = 1")
+        out_alone[q] = (n_match, rows)
 
     traces = []
     for label, kw in (("scheduler bcsr, two-phase eager",
@@ -2079,16 +2144,54 @@ def phase_scheduler(cfg, params):
         check(sorted(sched.batch_buckets) == [SCHED_SLOTS],
               f"{label}: buckets {sorted(sched.batch_buckets)}")
         del sched, fill
+    int8 = {f"{key}_int8": v for key, v in (
+        ("alone_matches", out_alone.get("int8", (None,))[0]),
+        ("alone", out_alone.get("int8", (None, None))[1])) if v is not None}
     return {"requests": len(trace), "slots": SCHED_SLOTS,
             "max_seq": SCHED_MAX_SEQ, "kv_cache_mb": kv_mb,
             "eos_request": eos_req, "runs": runs,
-            "tokens_equal": {"greedy_runs_bcsr0": greedy[1:],
-                             "temperature_runs": ["temp0", "temp1",
-                                                  "fused_temp0"]},
+            "tokens_equal": {"greedy_runs_bcsr0": greedy[None][1:],
+                             "greedy_runs_int8": greedy["int8"],
+                             "temperature_runs": temps},
             "step_syncs": syncs, "attn_moe_layers": n_moe,
-            "alone_matches": n_match, "alone": alone,
-            "traces": traces}, captured, decode_calls, {
+            "alone_matches": out_alone[None][0], "alone": out_alone[None][1],
+            **int8, "traces": traces}, captured, decode_calls, {
                 "eos": eos, "tokens": toks["fused_gather0"]}
+
+
+def _alone_rows(params, cfg, trace, toks, keys, kv_quant) -> list:
+    """Each request of ``trace`` served alone through a bcsr ``ServeLoop``
+    (B = 1, greedy, ``max_seq`` SCHED_MAX_SEQ, ``kv_quant``) against the
+    tokens the scheduler runs ``keys`` gave it: one row a request, with
+    the first run, step, tokens and the alone run's logit gap where one
+    parts."""
+    from repro_torch.launch.serve import ServeLoop
+    rows = []
+    for i, (prompt, budget) in enumerate(trace):
+        loop = ServeLoop(params, cfg, max_seq=SCHED_MAX_SEQ, dispatch="bcsr",
+                         kv_quant=kv_quant)
+        logits = []
+
+        def keep(lg, sample=loop._sample):    # each token's logits
+            logits.append(lg[0].float())
+            return sample(lg)
+
+        loop._sample = keep
+        with no_plain():
+            ref = loop.run(prompt[None], budget)[0].tolist()
+        row = {"request": i, "match": True}
+        for key in keys:
+            got = toks[key][i]
+            diff = next((t for t, (a, b) in enumerate(zip(got, ref))
+                         if a != b), None)
+            if diff is not None and row["match"]:
+                lg = logits[diff]
+                row.update(match=False, run=key, step=diff, alone=ref[diff],
+                           scheduler=got[diff],
+                           logit_gap=float(lg[ref[diff]] - lg[got[diff]]))
+        rows.append(row)
+        del loop, logits
+    return rows
 
 
 def _tensors(tree):
@@ -2750,7 +2853,7 @@ def phase_masked_serving(cfg, params):
               f"{summary['decode']['tok_per_s']:.1f} tok/s; tokens "
               f"{tokens[0, :8].tolist()} ...")
         want = decode_counts(cfg, 1, GEN - 1, spmm_bcsr=n_moe * GEN,
-                             **{kernel: cfg.n_repeats})
+                             **{kernel: cfg.n_layers})
         check(counts == want, f"{impl}: launches {counts} != {want}")
         check(ops.fallback_count() == 0
               and summary["timing"]["attention_ref_fallbacks"] == 0,
@@ -2780,7 +2883,7 @@ def phase_masked_serving(cfg, params):
         tokens = loop1.run(prompts, GEN)      # the main path at depth 1
     counts = read_launches()
     want = decode_counts(cfg, 1, GEN - 1, spmm_bcsr=n_moe * GEN,
-                         flash_attention_sparse=cfg.n_repeats)
+                         flash_attention_sparse=cfg.n_layers)
     check(counts == want, f"sparse, depth 1: launches {counts} != {want}")
     check(ops.fallback_count() == 0
           and loop1.summary()["timing"]["attention_ref_fallbacks"] == 0,
@@ -2833,7 +2936,7 @@ def phase_kernel_prefill(cfg, params):
     prefill_ms = (time.monotonic() - t0) * 1e3
     counts = read_launches()
     n_moe = cfg.block_unit.count("attn+moe") * cfg.n_repeats
-    want = only(spmm_bcsr=n_moe, flash_attention=cfg.n_repeats,
+    want = only(spmm_bcsr=n_moe, flash_attention=cfg.n_layers,
                 router_logits=n_moe)
     check(counts == want, f"kernel prefill: launches {counts} != {want}")
     check(tuple(logits.shape) == (BATCH, 1, cfg.padded_vocab)
@@ -3064,19 +3167,19 @@ def _stream_times(captured, what: str, *, second_bn: bool = False,
 
 
 def phase_measure(captured, masked_stream, launches, card, sched_streams,
-                  sched_runs):
-    """The K2 row: measured at the prefill stream (the first dispatch of the
-    main run), with the last decode step's stream, the 4 x 2048 masked
-    prefill's first stream (plain timed once), and the scheduler's first
-    admission stream and first stream at its largest decode bucket beside
-    it; the scheduler runs' K2 launches too."""
+                  sched_runs, *, tag: str = ""):
+    """The K2 row (its name with ``tag``): measured at the prefill stream
+    (the first dispatch of the main run), with the last decode step's
+    stream, the 4 x 2048 masked prefill's first stream (plain timed once),
+    and the scheduler's first admission stream and first stream at its
+    largest decode bucket beside it; the scheduler runs' K2 launches too."""
     prefill = _stream_times(captured[0], "4 x 256 prefill", second_bn=True)
     decode = _stream_times(captured[1], "last decode")
     masked = _stream_times(masked_stream, "4 x 2048 masked prefill",
                            plain_iters=1)
     admission = _stream_times(sched_streams[0], "scheduler admission")
     bucket = _stream_times(sched_streams[1], "scheduler decode, top bucket")
-    return {"name": "spmm_bcsr", "route": "cuda",
+    return {"name": "spmm_bcsr" + tag, "route": "cuda",
             "source": "src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
             "replaces": "src/repro/kernels/spmm/kernel.py:74",
             "launches": launches, **prefill, "decode_stream": decode,
@@ -3244,8 +3347,8 @@ def _row_sum_times(x2, what: str) -> dict:
                       "w_dtype": "float32"}}
 
 
-def phase_measure_decode(calls, launches, card):
-    """The D1 and R1 rows, measured at the calls the main path made: D1 at
+def phase_measure_decode(calls, launches, card, *, tag: str = ""):
+    """The D1 and R1 rows (their names with ``tag``), measured at the calls the main path made: D1 at
     the 4 x 256 run's last decode step (with the scheduler's first step at
     its largest bucket and the 4 x 2048 masked run's last decode step
     beside it), R1 at the 4 x 256 run's last decode step (with its prefill,
@@ -3261,7 +3364,7 @@ def phase_measure_decode(calls, launches, card):
     r1_long = _router_times(calls["r1_long_prefill"], "4 x 2048 prefill")
     r1_norm = _row_sum_times(calls["r1_norm"], "4 x 256 first decode step, "
                                                "layer 0 ln1")
-    return [{"name": "decode_attention", "route": "cuda",
+    return [{"name": "decode_attention" + tag, "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "decode_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/ops.py:212 "
@@ -3269,7 +3372,7 @@ def phase_measure_decode(calls, launches, card):
              "launches": launches["decode_attention"], **d1,
              "scheduler_bucket_call": d1_bucket,
              "masked_4x2048_decode_call": d1_long, "card": card},
-            {"name": "router_logits", "route": "cuda",
+            {"name": "router_logits" + tag, "route": "cuda",
              "source": "src/repro_torch/kernels/router/csrc/router.cu",
              "replaces": "src/repro/models/moe.py:232 (array code, no "
                          "Pallas kernel)",
@@ -3277,6 +3380,167 @@ def phase_measure_decode(calls, launches, card):
              "prefill_call": r1_prefill, "scheduler_bucket_call": r1_bucket,
              "prefill_4x2048_call": r1_long, "rmsnorm_calls": [r1_norm],
              "card": card}]
+
+
+# ---------------------------------------------------------------------------
+# Phases 5-8 on one MoE arch: llama4-scout (MoE in every layer, 16 experts)
+# and llama4-maverick-400b-a17b (the one stack that interleaves dense and MoE
+# layers, and the one with 128 experts) go through the same code.
+# ---------------------------------------------------------------------------
+
+def serve_moe(arch: str, card, mark, *, tag: str = "", between=None):
+    """Phases 5-8 on the MoE arch ``arch`` at full width and ``DEPTH[arch]``
+    (scout 4 of 48 layers; maverick 1 of 24 units, a dense layer and a MoE
+    layer of 128 experts, 37.1 GB): :func:`phase_slice`,
+    :func:`phase_scheduler` (the runs ``SCHED_KEYS[arch]``), then
+    ``between(cfg, params, scheduler, clean)`` where given (scout's
+    quantized, resilience and benchmark phases), :func:`phase_masked_serving`,
+    :func:`phase_kernel_prefill` and :func:`phase_expert_bmm`; ``mark(name)``
+    after each group.  Then, the weights released, the K2, D1, R1, K3, K4m
+    and K4s rows at the arch's served shapes (:func:`phase_measure`,
+    :func:`phase_measure_decode`, :func:`phase_measure_attention`), each
+    row's name with ``tag``.  Returns (summary, kernel rows, what
+    ``between`` returned)."""
+    import torch
+    cfg, params, summary, launches, captured, pipelined, calls = \
+        phase_slice(arch)
+    mark(f"{arch} slice")
+    scheduler, sched_streams, sched_calls, clean = phase_scheduler(
+        cfg, params, SCHED_KEYS[arch])
+    mark(f"{arch} scheduler")
+    extra = between(cfg, params, scheduler, clean) if between else None
+    del clean
+    mask, masked, mask_ms, masked_stream, masked1, masked_calls = \
+        phase_masked_serving(cfg, params)
+    kprefill, qkv = phase_kernel_prefill(cfg, params)
+    experts = phase_expert_bmm(cfg, params)
+    mark(f"{arch} masked and K3 prefill, expert bmm")
+    calls.update(sched_calls, **masked_calls)
+    del params, sched_calls, masked_calls
+    gc.collect()            # the loops' reference cycles hold the weights
+    torch.cuda.empty_cache()
+    print(f"kernel times at {arch}'s served shapes:")
+    clocks = {"before_kernels": smi(CLOCKS)}
+    print(f"  sm clock, max: {clocks['before_kernels']}")
+    rows = [phase_measure(captured, masked_stream, launches["spmm_bcsr"],
+                          card, sched_streams, scheduler["runs"], tag=tag)]
+    rows += phase_measure_decode(calls, launches, card, tag=tag)
+    rows += phase_measure_attention(qkv, mask, {
+        "flash_attention": kprefill["launches"]["flash_attention"],
+        "flash_attention_masked": masked["dense"][0]["launches"],
+        "flash_attention_sparse": masked["sparse"][0]["launches"]}, card,
+        suffix=tag)
+    clocks["after_kernels"] = smi(CLOCKS)
+    print(f"  sm clock, max: {clocks['after_kernels']}")
+    del qkv, captured, masked_stream, sched_streams, calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(f"{arch} kernel times")
+    fused = pipelined.pop("fused")
+    runs = {r["label"]: r for r in fused["runs"]}
+    sched = {r["label"]: r for r in scheduler["runs"]}
+    info = {"arch": cfg.name, "depth": cfg.n_repeats, "layers": cfg.n_layers,
+            "batch": BATCH, "prompt": PROMPT, "gen": GEN, "dispatch": "bcsr",
+            "prefill_ms": summary["prefill"]["seconds"] * 1e3,
+            "decode_tok_per_s": summary["decode"]["tok_per_s"],
+            "decode_ms": summary["decode"]["seconds"] * 1e3,
+            "route_ms": summary["route"]["seconds"] * 1e3,
+            "execute_ms": summary["execute"]["seconds"] * 1e3,
+            "route_calls": summary["route"]["calls"],
+            "nnzb_stream_mean": summary["stream"]["nnzb_stream_mean"],
+            "nnzb_routed_mean": summary["stream"]["nnzb_routed_mean"],
+            "grid_nnzb_last": summary["stream"]["grid_nnzb"],
+            "fused_tok_per_s": runs["gather fused"]["decode_tok_per_s"],
+            "layered_tok_per_s": runs["gather layered"]["decode_tok_per_s"],
+            "scheduler_fused_tok_per_s": sched["fused_gather0"][
+                "decode_tok_per_s"],
+            "alone": [scheduler["alone_matches"],
+                      scheduler.get("alone_matches_int8")],
+            "masked": {
+                "prompt": ATTN_PROMPT, "pattern": "local_global",
+                "window": MASK_WINDOW, "tiles": [mask.bq, mask.bk],
+                "nnzb": mask.nnzb,
+                "dense_tiles": mask.n_q_tiles * mask.n_kv_tiles,
+                "mask_build_lower_upload_ms": mask_ms,
+                **{f"{impl}_{key}": [r[key] for r in rs]
+                   for impl, rs in masked.items()
+                   for key in ("prefill_ms", "prefill_route_ms",
+                               "prefill_execute_ms", "decode_tok_per_s",
+                               "nnzb_stream_mean")},
+                "order": "sparse, dense, dense, sparse",
+                "tokens_equal": True},
+            "kernel_prefill": {"prompt": ATTN_PROMPT, **{
+                k: v for k, v in kprefill.items() if k != "launches"}},
+            "peak_gb": peak_gb,
+            "pipelined": {"4x256": pipelined, "masked_sparse": masked1},
+            "scheduler": scheduler, "fused": fused, "expert_bmm": experts,
+            "sm_clocks": clocks, "card": card}
+    print(f"{arch}: fused {info['fused_tok_per_s']:.1f} tok/s, layered "
+          f"{info['layered_tok_per_s']:.1f}, scheduler fused "
+          f"{info['scheduler_fused_tok_per_s']:.1f}; alone (wide, int8 KV) "
+          f"{info['alone']} of {scheduler['requests']}; peak {peak_gb:.1f} "
+          "GB")
+    return info, rows, extra
+
+
+def phase_expert_bmm(cfg, params) -> list:
+    """The expert products of one decode step of the MoE layer
+    (``moe._expert_ffn``: three ``torch.bmm`` over all ``n_experts``
+    matrices, at capacity 1) on random dispatch rows at 4 rows (the 4 x 256
+    decode) and 8 (the scheduler's top bucket), back to back and from a
+    CUDA graph, against its bound (every expert matrix, the rows and the
+    output moved once at 3.35 TB/s) and, beside it, the same products over
+    as many experts as the step has rows alone (``torch.bmm`` on the
+    routed experts' slices: what a step that reads only the routed
+    experts would move), and whether those products give the all-expert
+    products' rows bit for bit (information, not a check: it says whether
+    a product over the routed experts alone could replace the one over all
+    of them without changing a token)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    slot = cfg.block_unit.index("attn+moe")
+    experts = M._take(params["blocks"][slot]["ffn"], 0)["experts"]
+    E, d, ff = experts["w_up"].shape
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for rows in (BATCH, SCHED_SLOTS):
+        xe = (torch.randn((E, rows, d), generator=g, device="cuda")
+              * 0.1).to(experts["w_up"].dtype)
+        part = {k: w[:rows] for k, w in experts.items()}
+        run = lambda: moe._expert_ffn(experts, xe, cfg.mlp_type)  # noqa
+        routed = lambda: moe._expert_ffn(  # noqa: E731
+            part, xe[:rows], cfg.mlp_type)
+        y = run()
+        check(bool(torch.isfinite(y).all()), "expert bmm: not finite")
+        routed_equal = torch.equal(routed(), y[:rows])
+        w_bytes = sum(w.numel() * w.element_size() for w in experts.values())
+        io = (xe.numel() + y.numel()) * xe.element_size()
+        flops = 2 * E * rows * d * ff * len(experts)
+        bytes_ms = (w_bytes + io) / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOP_PER_S * 1e3
+        row = {"rows": rows, "experts": E, "d": d, "ff": ff,
+               "matrices": len(experts), "weight_gb": w_bytes / 1e9,
+               "ms": time_ms(run, 5, 2), "graph_ms": graph_ms(run, 5, 2),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "routed_only_ms": time_ms(routed, 20),
+               "routed_only_graph_ms": graph_ms(routed),
+               "routed_only_bound_ms": (w_bytes * rows / E + io * rows / E)
+               / HBM_BYTES_PER_S * 1e3, "routed_only_equal": routed_equal}
+        print(f"  expert bmm, a decode step's MoE layer ({E} x ({rows}, "
+              f"{d}) x ({d}, {ff}), {len(experts)} products, "
+              f"{w_bytes / 1e9:.1f} GB of experts): {row['ms']:.3f} ms "
+              f"(graph {row['graph_ms']:.3f}; bound {row['bound_ms']:.3f}, "
+              f"{row['bound_by']}); over {rows} experts alone "
+              f"{row['routed_only_ms']:.4f} (graph "
+              f"{row['routed_only_graph_ms']:.4f}; bound "
+              f"{row['routed_only_bound_ms']:.4f}), its rows == the all-"
+              f"expert product's: {routed_equal}")
+        out.append(row)
+        del xe, y
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4767,9 +5031,7 @@ def gemma_trace(vocab: int):
 
 # ---------------------------------------------------------------------------
 # the dense GQA family: qwen3-1.7b and qwen2-1.5b at full depth,
-# nemotron-4-340b at full width and depth 4 of 96 (a layer is 6.91 GB of
-# bf16 and the embedding and unembedding 9.44 GB each, so 4 layers are
-# 46.5 GB and 6 would be 60.3 GB of one card's 80 GB)
+# nemotron-4-340b at full width and DEPTH's depth
 
 DENSE_ARCHS = ("qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
 # the frontend configs, served by the dense phases at full width and depth
@@ -4777,7 +5039,6 @@ DENSE_ARCHS = ("qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
 # come after frontend_tokens (64 / 256) embedding positions, 0.02 * N(0, 1)
 # in bf16 from a seeded generator, as the reference's CLI makes them
 FRONTEND_ARCHS = ("musicgen-large", "internvl2-26b")
-DENSE_DEPTH = {"nemotron-4-340b": 4}
 DENSE_PROMPT = {"qwen3-1.7b": 2048, "qwen2-1.5b": 2048,
                 "nemotron-4-340b": 1024, "musicgen-large": 1024,
                 "internvl2-26b": 1024}
@@ -4896,29 +5157,29 @@ def phase_gemma_scheduler(cfg, params):
 
 def phase_gemma_serving(card):
     """gemma3-12b (``CONFIG``: d_model 3840, 16/8 heads of 256, d_ff 15360,
-    vocab 262,144, 48 layers, window 1,024; random bf16 weights from a
-    seed, ~25.6 GB) served on the card.  ``ServeLoop`` serves BATCH
+    vocab 262,144, window 1,024) at DEPTH's 2 of its 8 units (12 of 48
+    layers; random bf16 weights from a seed, 9.4 GB) served on the
+    card.  ``ServeLoop`` serves BATCH
     prompts of GEMMA_PROMPT tokens (past the window: the prefill's rings
     have wrapped) and GEMMA_GEN greedy tokens, fused (the default: the
     decode step one replayed CUDA graph) and layered (``two_phase=True``):
     the same tokens and first decode step logits ``torch.equal``; D1 once
     a layer and R1 once a decode norm a decode step, nothing in the
     chunked prefill, no plain version on the card.  Then the sliding
-    mask (K4s on the 40 local layers, K4m likewise) and ``local_global``
-    (K4s / K4m on all 48), each sparse == dense tokens; the kernel prefill
-    (K3 on all 48); one fused and one layered decode step traced; the
+    mask (K4s on the local layers, K4m likewise) and ``local_global``
+    (K4s / K4m on all), each sparse == dense tokens; the kernel prefill
+    (K3 on all); one fused and one layered decode step traced; the
     scheduler (:func:`phase_gemma_scheduler`).  Returns (summary, the
     captured prefill q, k, v of a local and a global layer, the layered
     run's first decode step's D1 calls on a ring and a global cache, the
     launches of each kernel's run)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.masks import AttnMaskSpec
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import model as M
-    cfg = get_config(GEMMA_ARCH)
+    cfg, full, cut = served_config(GEMMA_ARCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -4927,7 +5188,8 @@ def phase_gemma_serving(card):
     gb = sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9
     print(f"gemma serving: {cfg.name} d={cfg.d_model} heads={cfg.n_heads}/"
           f"{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab="
-          f"{cfg.vocab_size} depth={cfg.n_layers} window={cfg.local_window} "
+          f"{cfg.vocab_size} {cut} "
+          f"window={cfg.local_window} "
           f"qk_norm={cfg.qk_norm}; params {gb:.1f} GB, init "
           f"{time.monotonic() - t0:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -5073,7 +5335,8 @@ def phase_gemma_serving(card):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    info = {"arch": cfg.name, "depth": cfg.n_layers, "batch": BATCH,
+    info = {"arch": cfg.name, "depth": cfg.n_layers,
+            "full_depth": full.n_layers, "batch": BATCH,
             "prompt": GEMMA_PROMPT, "gen": GEMMA_GEN, "params_gb": gb,
             "runs": rows, "traces": traces,
             "masked": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
@@ -5211,7 +5474,7 @@ def phase_dense_serving(arch: str, card):
     """One arch of the dense GQA family, or a frontend config, served on
     the card: its ``CONFIG`` at full width (qwen3-1.7b, qwen2-1.5b,
     musicgen-large and internvl2-26b at full depth, nemotron-4-340b at
-    depth DENSE_DEPTH of 96, the cut printed), random bf16 weights from a
+    DEPTH's 4 of 96, the cut printed), random bf16 weights from a
     seed (qwen2's biases random too).  ``ServeLoop`` serves BATCH prompts
     of DENSE_PROMPT tokens (chunked prefill; a frontend config's after its
     ``frontend_tokens`` bf16 embeddings of 0.02 * N(0, 1) from a seeded
@@ -5229,15 +5492,12 @@ def phase_dense_serving(arch: str, card):
     first decode step's D1 call, the launches of each kernel's run)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.masks import AttnMaskSpec
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import model as M
     t_phase = time.monotonic()
-    full = get_config(arch)
-    cfg = dataclasses.replace(full, n_repeats=DENSE_DEPTH.get(
-        arch, full.n_repeats))
+    cfg, full, cut = served_config(arch)
     prompt_len = DENSE_PROMPT[arch]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5250,8 +5510,8 @@ def phase_dense_serving(arch: str, card):
     print(f"{arch} serving: d={cfg.d_model} heads={cfg.n_heads}/"
           f"{cfg.n_kv_heads} (group {cfg.n_heads // cfg.n_kv_heads}) hd="
           f"{cfg.hd} d_ff={cfg.d_ff} ({cfg.mlp_type}) vocab={cfg.vocab_size}"
-          f" qk_norm={cfg.qk_norm} qkv_bias={cfg.qkv_bias}; depth "
-          f"{cfg.n_layers} of {full.n_layers}; params {gb:.2f} GB, init "
+          f" qk_norm={cfg.qk_norm} qkv_bias={cfg.qkv_bias}; {cut}; "
+          f"params {gb:.2f} GB, init "
           f"{init_s:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(5)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len),
@@ -6010,45 +6270,27 @@ def main() -> int:
     phase_zamba_smoke_card_vs_cpu()
     print(f"  zamba2 smoke card vs cpu: {time.monotonic() - t0:.1f} s")
     mark("smoke configs card vs cpu")
-    cfg, params, summary, launches, captured, pipelined, calls = \
-        phase_slice()
-    mark("scout slice")
-    scheduler, sched_streams, sched_calls, clean = phase_scheduler(cfg,
-                                                                   params)
-    mark("scout scheduler")
-    quant = phase_quant_serving(cfg, params, next(
-        r for r in scheduler["runs"] if r["label"] == "fused_gather0"))
-    mark("scout quantized")
-    resilience = phase_resilience(cfg, params, clean,
-                                  scheduler["step_syncs"], card)
-    del clean
-    mark("scout resilience")
-    bench = {"serve": phase_bench_serve(cfg, params),
-             "moe": phase_bench_moe()}
-    mark("bench")
-    mask, masked, mask_ms, masked_stream, masked1, masked_calls = \
-        phase_masked_serving(cfg, params)
-    kprefill, qkv = phase_kernel_prefill(cfg, params)
-    mark("scout masked and K3 prefill")
-    calls.update(sched_calls, **masked_calls)
-    del params, sched_calls, masked_calls
-    gc.collect()            # the loops' reference cycles hold the weights
-    print("kernel times at the slice's shapes:")
-    clocks = {"before_slice_kernels": smi(CLOCKS)}
-    print(f"  sm clock, max: {clocks['before_slice_kernels']}")
-    rows = [phase_measure(captured, masked_stream, launches["spmm_bcsr"],
-                          card, sched_streams, scheduler["runs"])]
-    rows += phase_measure_decode(calls, launches, card)
-    rows += phase_measure_attention(qkv, mask, {
-        "flash_attention": kprefill["launches"]["flash_attention"],
-        "flash_attention_masked": masked["dense"][0]["launches"],
-        "flash_attention_sparse": masked["sparse"][0]["launches"]}, card)
-    clocks["after_slice_kernels"] = smi(CLOCKS)
-    print(f"  sm clock, max: {clocks['after_slice_kernels']}")
-    del qkv, captured, masked_stream, sched_streams, calls
-    scout_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"llama4-scout phases: peak {scout_peak_gb:.1f} GB")
-    mark("scout kernel times")
+
+    def scout_only(cfg, params, scheduler, clean):
+        """Scout's phases that no other MoE arch runs, on its weights."""
+        quant = phase_quant_serving(cfg, params, next(
+            r for r in scheduler["runs"] if r["label"] == "fused_gather0"))
+        mark(f"{SCOUT_ARCH} quantized")
+        resilience = phase_resilience(cfg, params, clean,
+                                      scheduler["step_syncs"], card)
+        mark(f"{SCOUT_ARCH} resilience")
+        bench = {"serve": phase_bench_serve(cfg, params),
+                 "moe": phase_bench_moe()}
+        mark("bench")
+        return quant, resilience, bench
+
+    scout, rows, (quant, resilience, bench) = serve_moe(
+        SCOUT_ARCH, card, mark, between=scout_only)
+    scout["quantized"] = quant
+    maverick, mav_rows, _ = serve_moe(
+        MAVERICK_ARCH, card, mark, tag=f" E128 {MAVERICK_ARCH}")
+    rows += mav_rows
+    del mav_rows
     rwkv, rwkv_launches, wkv_inputs, step_inputs = phase_rwkv_serving(card)
     resilience["rwkv"] = rwkv["scheduler"].pop("resilience")
     rows.append(phase_measure_wkv(wkv_inputs, rwkv_launches["wkv_kernel"],
@@ -6084,7 +6326,7 @@ def main() -> int:
     mark(ZAMBA_ARCH)
     lib_data, lib_counts, lib_info = phase_library()
     print("library kernel times at the slice's sizes:")
-    clocks["before_library_kernels"] = smi(CLOCKS)
+    clocks = {"before_library_kernels": smi(CLOCKS)}
     rows += phase_measure_library(lib_data, lib_counts, lib_info, card)
     clocks["after_library_kernels"] = smi(CLOCKS)
     print(f"  sm clock, max: {clocks['before_library_kernels']} before, "
@@ -6095,43 +6337,9 @@ def main() -> int:
                for i, (name, t) in enumerate(marks[1:])}
     print("seconds a phase: " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in phase_s.items()))
-    rwkv1 = rwkv.pop("depth1")
-    fused = pipelined.pop("fused")
-    serve = {
-        "serve": {"arch": cfg.name, "depth": cfg.n_repeats, "batch": BATCH,
-                  "prompt": PROMPT, "gen": GEN, "dispatch": "bcsr",
-                  "prefill_ms": summary["prefill"]["seconds"] * 1e3,
-                  "decode_tok_per_s": summary["decode"]["tok_per_s"],
-                  "decode_ms": summary["decode"]["seconds"] * 1e3,
-                  "route_ms": summary["route"]["seconds"] * 1e3,
-                  "execute_ms": summary["execute"]["seconds"] * 1e3,
-                  "route_calls": summary["route"]["calls"],
-                  "nnzb_stream_mean": summary["stream"]["nnzb_stream_mean"],
-                  "nnzb_routed_mean": summary["stream"]["nnzb_routed_mean"],
-                  "grid_nnzb_last": summary["stream"]["grid_nnzb"],
-                  "masked": {
-                      "prompt": ATTN_PROMPT, "pattern": "local_global",
-                      "window": MASK_WINDOW, "tiles": [mask.bq, mask.bk],
-                      "nnzb": mask.nnzb,
-                      "dense_tiles": mask.n_q_tiles * mask.n_kv_tiles,
-                      "mask_build_lower_upload_ms": mask_ms,
-                      **{f"{impl}_{key}": [r[key] for r in rs]
-                         for impl, rs in masked.items()
-                         for key in ("prefill_ms", "prefill_route_ms",
-                                     "prefill_execute_ms",
-                                     "decode_tok_per_s", "nnzb_stream_mean")},
-                      "order": "sparse, dense, dense, sparse",
-                      "tokens_equal": True},
-                  "kernel_prefill": {"prompt": ATTN_PROMPT, **{
-                      k: v for k, v in kprefill.items() if k != "launches"}},
-                  "peak_gb": scout_peak_gb,
-                  "pipelined": {"4x256": pipelined,
-                                "masked_sparse": masked1,
-                                "rwkv": rwkv1},
-                  "scheduler": scheduler,
-                  "quantized": quant,
-                  "fused": fused,
-                  "card": card},
+    scout["pipelined"]["rwkv"] = rwkv.pop("depth1")
+    serve = {"serve": scout,
+             "maverick": maverick,
              "rwkv": rwkv, "gemma": gemma, "dense": dense,
              "frontend": frontend, "zamba": zamba,
              "library": lib_info,

@@ -9,6 +9,7 @@ import importlib
 ARCH_NAMES = [
     "gemma3-12b",
     "internvl2-26b",
+    "llama4-maverick-400b-a17b",
     "llama4-scout-17b-a16e",
     "musicgen-large",
     "nemotron-4-340b",

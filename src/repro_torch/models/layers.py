@@ -20,6 +20,7 @@ f32 first: the products are exact and the sum is f32.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -36,13 +37,26 @@ from repro_torch.models.config import ArchConfig
 
 # ------------------------------------------------------------------ init ----
 
+# the largest f32 temporary of one draw of :func:`normal`: a repeat slice
+# past it (llama4-maverick's 128 stacked experts, 21.5 GB in f32) is drawn
+# in pieces along its first dim; every smaller slice is one draw
+DRAW_BYTES = 6 * 2**30
+
+
 def normal(g: torch.Generator, shape, scale: float, *, n: int, dtype,
            device) -> torch.Tensor:
     """(n,) + shape stacked N(0, 1) * scale weights, drawn per repeat slice
-    in f32 then stored in ``dtype`` (no full-stack f32 temporary)."""
+    in f32 then stored in ``dtype`` (no full-stack f32 temporary; a slice
+    of more than :data:`DRAW_BYTES` in f32 drawn in pieces of at most
+    that along its first dim)."""
     out = torch.empty((n,) + tuple(shape), dtype=dtype, device=device)
+    row = 4 * math.prod(shape[1:])
+    step = max(1, DRAW_BYTES // row)
     for i in range(n):
-        out[i] = torch.randn(shape, generator=g, device=device) * scale
+        for j in range(0, shape[0], step):
+            piece = (min(step, shape[0] - j),) + tuple(shape[1:])
+            out[i, j:j + step] = torch.randn(piece, generator=g,
+                                             device=device) * scale
     return out
 
 

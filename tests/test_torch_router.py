@@ -369,6 +369,11 @@ ROUTER_CASES = [
     (37, 300, 16, tuning.RouterTiles(1, 4, 8)),
     (37, 300, 5, tuning.RouterTiles(1, 2, 4)),
     (37, 130, 16, tuning.RouterTiles(1, 1, 16)),
+    # llama4-maverick's 128 experts at the rule's tiles: the few-token
+    # kernel at a decode step's 4 and 8 tokens, the many-token one at the
+    # 4 x 256 and 4 x 2048 prefills (d narrowed: the tile depends on T, E)
+    (4, 64, 128, None), (8, 64, 128, None), (1024, 64, 128, None),
+    (8192, 64, 128, None),
 ]
 
 

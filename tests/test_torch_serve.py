@@ -249,7 +249,7 @@ def test_sampling_overflow_and_device_guards():
         M.decode_step_layered(params, cfg, loop.cache, MAX_SEQ,
                               torch.zeros((B, 1), dtype=torch.long))
     with pytest.raises(KeyError, match="not yet ported"):
-        configs.get_config("llama4-maverick-400b-a17b")
+        configs.get_config("llama4-behemoth")
     with pytest.raises(NotImplementedError, match="frontend"):
         M.init_params(dataclasses.replace(cfg, frontend="video"),
                       device="cpu")

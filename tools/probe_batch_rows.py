@@ -53,6 +53,14 @@ the CPU with ``--device cpu``):
   state), the gated norm in row order (its sum of squares through R1) and
   ``w_out`` (K 4,096); off the path the plain step (``einsum``) and the
   library's mean;
+* with ``--arch llama4-maverick-400b-a17b`` (depth 1 by default: one
+  dense and one MoE layer, 37.1 GB), every row of each decode-step op:
+  the dense layer's as for the dense family (its projections and MLP,
+  the block norm in row order, D1 on 1,280 positions), and the MoE
+  layer's router through R1 (and its plain f32 library product) at 128
+  experts, the expert ``bmm`` over all 128 matrices at capacity 1 and 2
+  (each row's dispatch rows against the row's alone), and the shared
+  expert's three products;
 * layers: one decode step of a request prefilled alone, at B = 1 and as
   row 0 of buckets of 2, 4 and 8 rows (the other rows vacant, as the
   scheduler leaves them), comparing row 0's hidden state after every
@@ -62,7 +70,8 @@ Run from the repository root:
 
     python3 tools/probe_batch_rows.py [--arch rwkv6-7b | gemma3-12b |
         qwen3-1.7b | qwen2-1.5b | nemotron-4-340b | zamba2-1.2b |
-        musicgen-large | internvl2-26b] [--depth 2] [--device cuda]
+        musicgen-large | internvl2-26b | llama4-maverick-400b-a17b]
+        [--depth 2] [--device cuda]
 
 It prints one JSON object as its last line and writes the same to
 ``chiprun_out/batch_rows.json``.
@@ -83,6 +92,9 @@ SHAPES = {"gemma3-12b": (1280, 1100)}
 DENSE = ("gemma3-12b", "qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b",
          "musicgen-large", "internvl2-26b")
 MAX_SEQ, PROMPT = 544, 300
+MAVERICK = "llama4-maverick-400b-a17b"
+# block-unit repeats where the default of 2 does not fit the card
+DEPTH = {MAVERICK: 1}
 
 
 def _diff(got, want) -> float:
@@ -277,6 +289,48 @@ def _rows_vs_alone(table) -> dict:
     return out
 
 
+def probe_maverick_ops(cfg, params, device) -> dict:
+    """llama4-maverick: the dense layer's ops (:func:`probe_dense_ops` on
+    its first layer), then every row of the MoE layer's decode ops on its
+    first layer: the router through R1 and its plain version, the expert
+    ``bmm`` over all the experts at capacity 1 and 2 (row r's ``cap``
+    dispatch rows at M rows against row r alone), the shared expert's
+    products; the plain versions off the card's path first."""
+    import torch
+    from repro_torch.kernels.router.kernel import router_logits
+    from repro_torch.kernels.router.ref import router_logits_ref
+    from repro_torch.models import model as M
+    dense = cfg.block_unit.index("attn")
+    out = {f"dense layer {k}": v for k, v in probe_dense_ops(
+        cfg, params, device,
+        blk=M._take(params["blocks"][dense], 0)).items()}
+    ffn = M._take(params["blocks"][cfg.block_unit.index("attn+moe")], 0)[
+        "ffn"]
+    g = torch.Generator(device=device).manual_seed(10)
+    n, d = max(ROWS), cfg.d_model
+    cd = params["embed"].dtype
+    rand = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device=device)
+    x = rand(n, 1, d).to(cd)
+    table = {"router plain (f32 library product)": (
+        lambda x: router_logits_ref(x, ffn["router"]), x),
+        "router R1": (lambda x: router_logits(x, ffn["router"]), x)}
+    table.update({f"shared.{k}": (lambda x, w=w: x @ w.to(cd),
+                                  rand(n, 1, w.shape[0]).to(cd))
+                  for k, w in ffn["shared"].items()})
+    out.update(_rows_vs_alone(table))
+    experts = ffn["experts"]["w_gate"]                         # (E, d, ff)
+    xe = rand(experts.shape[0], 2 * n, d).to(experts.dtype)
+    for cap in (1, 2):               # dispatch rows B * C, C the capacity
+        alone = [torch.bmm(xe[:, r * cap:(r + 1) * cap], experts)
+                 for r in range(n)]
+        out[f"experts bmm ({experts.shape[0]} matrices), capacity {cap}"] = {
+            m: max(_diff(torch.bmm(xe[:, :m * cap], experts)[
+                :, r * cap:(r + 1) * cap], alone[r]) for r in range(m))
+            for m in ROWS[1:]}
+    return out
+
+
 def probe_zamba_ops(cfg, params, device) -> dict:
     """zamba2-1.2b: the shared attention block's ops
     (:func:`probe_dense_ops` on its one weight set, D1 at a group of 1),
@@ -398,9 +452,10 @@ def probe_layers(cfg, params, device) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama4-scout-17b-a16e",
-                    choices=["llama4-scout-17b-a16e", "rwkv6-7b",
+                    choices=["llama4-scout-17b-a16e", MAVERICK, "rwkv6-7b",
                              "zamba2-1.2b", *DENSE])
-    ap.add_argument("--depth", type=int, default=2)
+    ap.add_argument("--depth", type=int, default=None,
+                    help="block-unit repeats (default 2; maverick 1)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -410,15 +465,16 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     device = resolve_device(args.device)
-    cfg = dataclasses.replace(get_config(args.arch), n_repeats=args.depth)
+    depth = args.depth or DEPTH.get(args.arch, 2)
+    cfg = dataclasses.replace(get_config(args.arch), n_repeats=depth)
     params = M.init_params(cfg, seed=0, device=device)
     card = (torch.cuda.get_device_name(0) if device.type == "cuda"
             else "cpu")
     ops = (probe_dense_ops if args.arch in DENSE else
-           {"rwkv6-7b": probe_rwkv_ops,
-            "zamba2-1.2b": probe_zamba_ops}.get(args.arch, probe_ops))
+           {"rwkv6-7b": probe_rwkv_ops, "zamba2-1.2b": probe_zamba_ops,
+            MAVERICK: probe_maverick_ops}.get(args.arch, probe_ops))
     result = {"device": card, "torch": torch.__version__,
-              "arch": args.arch, "depth": args.depth,
+              "arch": args.arch, "depth": depth,
               "ops": ops(cfg, params, device),
               "layers": probe_layers(cfg, params, device)}
     result["path_ops_equal"] = all(
