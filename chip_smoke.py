@@ -95,6 +95,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    (f32 caches): prefill chunked, through K4s and through K3 (once a
    repeat) and one decode step (M1 once a mamba layer, D1 once a firing;
    M1's first call held as in phase 3);
+4b. training (``phase_train``): qwen3-1.7b, llama4-scout and rwkv6-7b
+   SMOKE in f32, the same params on the card and the CPU: step 1's loss
+   and every gradient leaf (the CPU's within 1e-4 / 1e-3 of a leaf's
+   largest), four ``make_train_step`` steps (losses within 1e-3), R1
+   twice a MoE layer and K7 twice a rwkv layer a step (the forward and
+   the remat recompute), no plain router or WKV step on the card; then
+   qwen3-1.7b at full width and depth (28 layers, 2.03 B params in f32
+   with AdamW's state, ``SyntheticLM(seed=0)`` at 4 x 2,048 through the
+   ``Prefetcher``, ``seq_chunk`` 512): 16 chunked steps (finite; the
+   last 4's mean below step 1's), one more traced (kernels, busy ms, the
+   library's products, idle share, the longest kernels), then 4
+   kernel_sharded steps from the same start (K3 56 times a step, the
+   first loss within 2e-2 of chunked's); each step's loss and ms,
+   tokens/s, the model flops' share of the bf16 peak and the peak memory;
+   then ``run_with_restarts`` on the card at SMOKE with two injected
+   failures: the stitched losses == an uninterrupted run's; then K3's row
+   at the kernel_sharded call, R1's and K7's at the SMOKE calls;
 5. the serving slice at full llama4-scout width (depth cut to 4 layers,
    random bf16 weights from a seed): ``ServeLoop(dispatch="bcsr")`` serves
    4 prompts of 256 tokens and generates 16 tokens greedily; the captured
@@ -299,7 +316,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    8 x 8 blocks) x an (8192, 4096) f32 dense; outputs checked against the
    plain versions and the oracles;
 12. one JSON line per kernel ({"kernels": [...]}: launches, error, times,
-   bound; K2, D1, R1, K3, K4m, K4s, the same six at llama4-maverick's
+   bound; K3, R1 and K7 as the train steps ran them (phase 4b); K2, D1,
+   R1, K3, K4m, K4s, the same six at llama4-maverick's
    shapes (E 128), K7, W1, K3 / K4m / K4s / D1 at D 256,
    K3 / D1 at each dense arch's served shape (K4m / K4s and D1's two
    passes at nemotron-4-340b's D 192), K3 / D1 at musicgen-large's and
@@ -322,7 +340,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    latency p50 / p99, steps, wall, buckets, capture and ``timing`` split,
    the syncs of an extra step, the alone comparison and the traces; its
    ``rwkv.scheduler`` object: the RWKV scheduler runs; the chunked 4 x 2048
-   prefill ms); the SM clock and its
+   prefill ms; its ``train`` object: phase 4b's numbers); the SM clock and its
    limit are printed before and after the kernel timings; then one line
    ``{"resilience": {...}}``: the faulted runs' failed uids, survivors
    equal, firings and syncs a step, the captures (count and ms) after
@@ -489,12 +507,15 @@ class hook_calls:
     def __init__(self, keep):
         self.keep = keep
 
-    def __enter__(self):
+    def targets(self) -> list:
+        """The (module, attribute) of every hooked entry."""
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.models import moe
-        self.saved = [(fops, "decode_attention", fops.decode_attention),
-                      (fops, "attention", fops.attention),
-                      (moe, "router_logits", moe.router_logits)]
+        return [(fops, "decode_attention"), (fops, "attention"),
+                (moe, "router_logits")]
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.targets()]
         for mod, name, fn in self.saved:
             def hooked(*a, _fn=fn, _name=name, **kw):
                 self.keep(_name, a, kw)
@@ -757,15 +778,20 @@ def trace_decode(label: str, loop, prompts, embeddings=None) -> dict:
                       loop.decode_step)
 
 
-def trace_step(label: str, prepare, step) -> dict:
+# kernel-name fragments of the library's (cuBLAS / CUTLASS) matrix products
+GEMM_WORDS = ("gemm", "cutlass", "xmma", "cublas")
+
+
+def trace_step(label: str, prepare, step, top: int = 3) -> dict:
     """One ``step()`` traced by ``torch.profiler`` with CUDA activity,
     after ``prepare()``, two warm steps and three steps timed on the host
     clock (synchronised) without the profiler.  Device work: every CUDA
     event of the trace (kernels, and the copies and fills counted apart),
     busy = the union of their spans.  Wall: the host clock around the
     traced step (the profiler's own cost included) and the median
-    untraced step; idle share = 1 - busy / untraced wall.  The three
-    kernels of the most summed time, by name."""
+    untraced step; idle share = 1 - busy / untraced wall.  The ``top``
+    kernels of the most summed time, by name, and the summed time of the
+    library's matrix products (names with :data:`GEMM_WORDS`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -797,16 +823,19 @@ def trace_step(label: str, prepare, step) -> dict:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + (e.time_range.end
                                        - e.time_range.start) / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
+    longest = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    gemm_ms = sum(t for n, (_, t) in by_name.items()
+                  if any(w in n.lower() for w in GEMM_WORDS))
     wall_ms = sorted(walls)[1] * 1e3
     row = {"label": label, "kernels": len(kernels), "copies": len(copies),
-           "busy_ms": busy_ms, "wall_ms": wall_ms,
+           "busy_ms": busy_ms, "gemm_ms": gemm_ms, "wall_ms": wall_ms,
            "traced_wall_ms": traced * 1e3,
            "idle_share": 1 - busy_ms / wall_ms if events else None,
            "top": [{"name": n[:80], "calls": c, "ms": t}
-                   for n, (c, t) in top]}
+                   for n, (c, t) in longest]}
     print(f"  trace {label}: {row['kernels']} kernels a step (+ "
-          f"{row['copies']} copies / fills), busy {busy_ms:.3f} ms, wall "
+          f"{row['copies']} copies / fills), busy {busy_ms:.3f} ms (library "
+          f"products {gemm_ms:.3f}), wall "
           f"{wall_ms:.3f} ms (traced {row['traced_wall_ms']:.3f}), idle "
           + (f"share {row['idle_share']:.3f}" if events else
              "share not measured (the profiler saw no device work)")
@@ -6236,6 +6265,368 @@ def phase_measure_zamba(qkv, d1_call, m1_args, launches, card) -> list:
     return rows
 
 
+# ------------------------------------------------------------ training --
+
+TRAIN_ARCH = "qwen3-1.7b"
+# card vs CPU at SMOKE (f32): R1's backward (scout's MoE), K7's (RWKV-6)
+TRAIN_SMOKE_ARCHS = (TRAIN_ARCH, SCOUT_ARCH, RWKV_ARCH)
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_CHUNK = 2, 64, 16
+TRAIN_SMOKE_STEPS = 4
+# card vs CPU: step 1's loss within 1e-4 and every gradient leaf within
+# 1e-3 of its largest |grad| (the card sums in other orders, K7 to 2e-5 of
+# its largest value); the later losses within 1e-3 (Adam moves a weight by
+# about lr times the sign of its gradient, so a near-0 gradient element
+# can move on one side and not the other)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_LATER_TOL = 1e-4, 1e-3, 1e-3
+# qwen3-1.7b at full width and depth, f32 params: 4 x 2048 tokens from
+# SyntheticLM(seed=0), the cross-entropy 512 positions at a time
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ_CHUNK = 4, 2048, 512
+TRAIN_STEPS, TRAIN_SHARDED_STEPS, TRAIN_LR = 16, 4, 1e-3
+# kernel_sharded (K3 forward) vs chunked, bf16: first-step losses within
+# this (the two attention forwards round their bf16 outputs differently)
+TRAIN_SHARDED_TOL = 2e-2
+TRAIN_RESTART_STEPS, TRAIN_CRASHES = 12, (5, 9)
+TRAIN_TOP = 8                    # kernels named in the traced step
+
+
+class keep_first_calls(hook_calls):
+    """While on, the first call of R1 from ``models.moe``, of
+    ``wkv.ops.wkv_state`` from ``models.rwkv6`` and of the prefill
+    attention from ``flash_attention.ops`` (K3 under kernel_sharded) keep
+    contiguous detached copies of their tensor arguments in
+    ``self.args[name]``; every call goes on as before and the launch
+    counts are untouched."""
+
+    def __init__(self):
+        super().__init__(self._keep_first)
+        self.args = {}
+
+    def targets(self) -> list:
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.wkv import ops as wops
+        from repro_torch.models import moe
+        return [(moe, "router_logits"), (wops, "wkv_state"),
+                (fops, "attention")]
+
+    def _keep_first(self, name, args, kw):
+        if name not in self.args:
+            self.args[name] = ([x.detach().contiguous().clone()
+                                if hasattr(x, "detach") else x
+                                for x in args], dict(kw))
+
+
+def _grad_err(got, want) -> float:
+    """The largest, over the leaves, of |got - want| over the leaf's
+    largest |want|."""
+    from repro_torch import tree
+    worst = 0.0
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        big = b.float().abs().max().item()
+        diff = (a.float().cpu() - b.float()).abs().max().item()
+        worst = max(worst, diff / big if big else diff)
+    return worst
+
+
+def _train_smoke(arch: str, keep) -> dict:
+    """``arch``'s SMOKE config in f32 trained on the card and on the CPU
+    from the same params (drawn on the CPU, copied to the card): step 1's
+    loss and every gradient leaf, then TRAIN_SMOKE_STEPS steps of
+    ``make_train_step`` on the same ``SyntheticLM`` batches; the kernels a
+    card step launches (R1 and K7 in the forward and again in the remat
+    recompute) counted, no plain router or WKV step on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    cfg = dataclasses.replace(get_smoke(arch), policy="f32")
+    cpu = M.init_params(cfg, seed=0, device="cpu",
+                        param_dtype=torch.float32)
+    gpu = _tree_to(cpu, "cuda")
+    data = SyntheticLM(cfg, batch=TRAIN_SMOKE_BATCH,
+                       seq_len=TRAIN_SMOKE_SEQ, seed=0)
+    tok = torch.from_numpy(data.batch_at(0)["tokens"])
+    loss_of = lambda t: lambda p: M.loss_fn(  # noqa: E731
+        p, t, cfg, seq_chunk=TRAIN_SMOKE_CHUNK)
+    lc, gc_ = steps.value_and_grad(loss_of(tok), cpu)
+    with no_plain(), keep:
+        reset_launches()
+        lg, gg = steps.value_and_grad(loss_of(tok.cuda()), gpu)
+        launches = read_launches()
+    n_moe = cfg.n_repeats * cfg.block_unit.count("attn+moe")
+    n_rwkv = cfg.n_repeats * cfg.block_unit.count("rwkv")
+    want = only(router_logits=2 * n_moe, wkv_kernel=2 * n_rwkv)
+    check(launches == want, f"train {arch} smoke: launches {launches}, "
+                            f"want {want}")
+    loss_err = abs(lg.item() - lc.item())
+    grad_err = _grad_err(gg, gc_)
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
+          f"train {arch} smoke: card vs cpu loss {loss_err}, grads "
+          f"{grad_err}")
+    shape = ShapeSpec("smoke", "train", TRAIN_SMOKE_SEQ, TRAIN_SMOKE_BATCH)
+    runs = {}
+    for side, params in (("cpu", cpu), ("card", gpu)):
+        opt = AdamW(lr=1e-3)
+        step = steps.make_train_step(cfg, shape, opt,
+                                     seq_chunk=TRAIN_SMOKE_CHUNK)
+        state, losses = opt.init(params), []
+        with no_plain():
+            for i in range(TRAIN_SMOKE_STEPS):
+                params, state, m = step(params, state,
+                                        data.batch_at(i)["tokens"])
+                losses.append(float(m["loss"]))
+        runs[side] = losses
+    later = max(abs(a - b) for a, b in zip(runs["card"], runs["cpu"]))
+    check(all(np.isfinite(runs["card"])) and later <= TRAIN_LATER_TOL,
+          f"train {arch} smoke: card losses {runs['card']} vs cpu "
+          f"{runs['cpu']}")
+    print(f"  train {arch} smoke f32 card vs cpu: loss {lg.item():.6f} "
+          f"(err {loss_err:.3g}), grads {grad_err:.3g} of a leaf's largest, "
+          f"{TRAIN_SMOKE_STEPS} steps {[round(x, 5) for x in runs['card']]}"
+          f" (largest err {later:.3g}); R1 x {launches['router_logits']}, "
+          f"K7 x {launches['wkv_kernel']} a step")
+    return {"loss_err": loss_err, "grad_err": grad_err,
+            "losses": runs["card"], "cpu_losses": runs["cpu"],
+            "loss_err_steps": later, "launches": {
+                k: v for k, v in launches.items() if v}}
+
+
+def train_model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """A train step's model flops: 6 x params x tokens (every parameter,
+    the embedding table's too) plus causal attention's score and value
+    products, forward and backward: 6 B H S^2 D a layer."""
+    attn = 6 * batch * cfg.n_heads * seq * seq * cfg.hd * cfg.n_layers
+    return 6 * n_params * batch * seq + attn
+
+
+def _train_full(impl: str, n_steps: int, trace: bool) -> dict:
+    """qwen3-1.7b at full width and depth from ``init_params(seed=0)`` in
+    f32 (the same start for each ``impl``): ``n_steps`` steps of
+    ``make_train_step`` (AdamW at TRAIN_LR, remat a layer, cross-entropy
+    TRAIN_SEQ_CHUNK positions at a time) on ``SyntheticLM(seed=0)``
+    batches put on the card by the ``Prefetcher``; each step's loss, ms
+    (host clock from a synchronize to ``float(loss)``) and launches; with
+    ``trace`` one more step traced (:func:`trace_step`)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config(TRAIN_ARCH)
+    params = M.init_params(cfg, seed=0, device="cuda",
+                           param_dtype=torch.float32)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    step = steps.make_train_step(
+        cfg, ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH), opt,
+        seq_chunk=TRAIN_SEQ_CHUNK, attn_impl=impl)
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+    pf = Prefetcher(data.stream(0), depth=2, device="cuda")
+    out = {"losses": [], "ms": [], "launches": [], "grad_norms": []}
+    try:
+        for _ in range(n_steps):
+            batch = next(pf)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.monotonic()
+            params, state, m = step(params, state, batch["tokens"])
+            out["losses"].append(float(m["loss"]))
+            out["ms"].append((time.monotonic() - t0) * 1e3)
+            out["launches"].append(read_launches())
+            out["grad_norms"].append(float(m["grad_norm"]))
+        if trace:           # the last batch's step again, its result unused
+            out["trace"] = trace_step(
+                f"train {TRAIN_ARCH} {impl} step", lambda: None,
+                lambda: step(params, state, batch["tokens"]), top=TRAIN_TOP)
+    finally:
+        pf.close()
+    del params, state, step
+    out["n_params"] = n_params
+    out["cfg"] = cfg
+    return out
+
+
+def _train_restart() -> dict:
+    """qwen3-1.7b SMOKE (f32) on the card through ``runtime.trainer``:
+    an uninterrupted TRAIN_RESTART_STEPS-step run, then one with failures
+    injected at TRAIN_CRASHES under ``run_with_restarts``, each restart
+    restoring the last checkpoint (every 4 steps, under ``build/``); the
+    stitched loss history must equal the uninterrupted one."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import (SimulatedFailure, Trainer,
+                                             TrainerConfig,
+                                             run_with_restarts)
+    cfg = dataclasses.replace(get_smoke(TRAIN_ARCH), policy="f32")
+    root = os.path.join(ROOT, "build", "chip_train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def make(sub, hook=None):
+        opt = AdamW(lr=1e-3)
+        step = steps.make_train_step(
+            cfg, ShapeSpec("smoke", "train", 16, 2), opt, seq_chunk=8)
+        return Trainer(
+            TrainerConfig(total_steps=TRAIN_RESTART_STEPS, ckpt_every=4,
+                          ckpt_dir=os.path.join(root, sub), log_every=1000),
+            cfg, step, opt, SyntheticLM(cfg, batch=2, seq_len=16, seed=0),
+            init_state=lambda: M.init_params(cfg, seed=0, device="cuda",
+                                             param_dtype=torch.float32),
+            failure_hook=hook)
+
+    clean = dict(make("clean").run()["history"])
+    crashes = set(TRAIN_CRASHES)
+
+    def hook(s):
+        if s in crashes:
+            crashes.discard(s)
+            raise SimulatedFailure(f"injected at step {s}")
+
+    trainers = []
+    out = run_with_restarts(lambda: trainers.append(make("ft", hook))
+                            or trainers[-1])
+    stitched = {}
+    for t in trainers:
+        stitched.update(dict(t.history))
+    same = stitched == clean
+    check(out["restarts"] == len(TRAIN_CRASHES) and same,
+          f"train restart: {out['restarts']} restarts, stitched {stitched} "
+          f"vs {clean}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  train restart on the card: {out['restarts']} failures, "
+          f"resumed at {[t.history[0][0] for t in trainers]}, the stitched "
+          f"{len(stitched)} losses == the uninterrupted run's")
+    return {"restarts": out["restarts"], "identical": same,
+            "resumed_at": [t.history[0][0] for t in trainers]}
+
+
+def phase_train(card):
+    """Training: the SMOKE configs card vs CPU (:func:`_train_smoke`),
+    qwen3-1.7b at full width and depth, chunked for TRAIN_STEPS steps and
+    kernel_sharded for TRAIN_SHARDED_STEPS from the same start
+    (:func:`_train_full`), the restart on the card (:func:`_train_restart`),
+    then the rows of K3, R1 and K7 on the calls the train steps made.
+    Returns (the summary, the rows)."""
+    import numpy as np
+    import torch
+    t_start = time.monotonic()
+    keep = keep_first_calls()
+    smoke = {arch: _train_smoke(arch, keep) for arch in TRAIN_SMOKE_ARCHS}
+    r1_args, wkv_args = keep.args["router_logits"], keep.args["wkv_state"]
+    smoke_s = time.monotonic() - t_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    keep = keep_first_calls()
+    for impl, n in (("chunked", TRAIN_STEPS),
+                    ("kernel_sharded", TRAIN_SHARDED_STEPS)):
+        with keep:
+            runs[impl] = _train_full(impl, n, trace=impl == "chunked")
+        gc.collect()
+        torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ch, ks = runs["chunked"], runs["kernel_sharded"]
+    cfg, n_params = ch["cfg"], ch["n_params"]
+    losses = ch["losses"]
+    check(all(np.isfinite(losses)) and all(np.isfinite(ks["losses"])),
+          f"train {TRAIN_ARCH}: a loss is not finite: {losses} {ks['losses']}")
+    last4 = float(np.mean(losses[-4:]))
+    check(last4 < losses[0], f"train {TRAIN_ARCH}: the last 4 steps' mean "
+                             f"loss {last4} is not below step 1's "
+                             f"{losses[0]}")
+    sharded_err = abs(ks["losses"][0] - losses[0])
+    check(sharded_err <= TRAIN_SHARDED_TOL,
+          f"train {TRAIN_ARCH}: kernel_sharded's first loss "
+          f"{ks['losses'][0]} vs chunked's {losses[0]}")
+    k3 = [x["flash_attention"] for x in ks["launches"]]
+    check(k3 == [2 * cfg.n_layers] * TRAIN_SHARDED_STEPS
+          and all(x == only() for x in ch["launches"])
+          and all(x == only(flash_attention=2 * cfg.n_layers)
+                  for x in ks["launches"]),
+          f"train {TRAIN_ARCH}: launches {ch['launches'][0]} (chunked), "
+          f"{ks['launches'][0]} (kernel_sharded)")
+    steady = float(np.median(ch["ms"][1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    share = flops / (steady * 1e-3) / BF16_FLOP_PER_S
+    for impl, r in runs.items():
+        print(f"  train {TRAIN_ARCH} {impl}: " + ", ".join(
+            f"{loss:.4f} ({ms:.0f} ms)" for loss, ms in zip(r["losses"],
+                                                            r["ms"])))
+    ks_steady = float(np.median(ks["ms"][1:]))
+    print(f"  train {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+          f"layers, {n_params / 1e9:.3f} B params in f32, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}): chunked step {steady:.1f} ms (median of steps "
+          f"2-{TRAIN_STEPS}), {tokens / steady * 1e3:.0f} tokens/s, model "
+          f"flops {flops:.4g} a step, {share:.4f} of the bf16 peak "
+          f"({card}); kernel_sharded {ks_steady:.1f} ms, K3 x {k3[0]} a "
+          f"step; first losses {losses[0]:.5f} / {ks['losses'][0]:.5f}, "
+          f"grad norms {ch['grad_norms'][0]:.5f} / "
+          f"{ks['grad_norms'][0]:.5f}; last 4 mean {last4:.4f}; peak "
+          f"{peak_gb:.2f} GB")
+    full_s = time.monotonic() - t_start - smoke_s
+    restart = _train_restart()
+    rows = []
+    fa = keep.args["attention"][0][:3]
+    from repro_torch.core.masks import BlockMask
+    from repro_torch.kernels import tuning
+    S, D = fa[0].shape[2], fa[0].shape[3]
+    bq, bk = tuning.flash_tiles(S, S, D, fa[0].dtype, fa[0].device)
+    rows += phase_measure_attention(
+        fa, BlockMask.full(S, S, bq=bq, bk=bk, causal=True),
+        {"flash_attention": k3[0] * TRAIN_SHARDED_STEPS}, card,
+        suffix=f" (train {TRAIN_ARCH}, kernel_sharded)",
+        names=("flash_attention",))
+    r1 = _router_times(((r1_args[0][0], r1_args[0][1]), None),
+                       f"train {SCOUT_ARCH} smoke")
+    rows.append({"name": f"router_logits (train {SCOUT_ARCH} smoke)",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/router/csrc/router.cu",
+                 "replaces": "src/repro/models/moe.py:232 (array code, no "
+                             "Pallas kernel)",
+                 "launches": smoke[SCOUT_ARCH]["launches"].get(
+                     "router_logits", 0),
+                 **r1, "card": card})
+    (r, k, v, w, u), kw = wkv_args[0][:5], wkv_args[1]
+    row = phase_measure_wkv(
+        (r, k, v, w, u, kw["chunk"]),
+        smoke[RWKV_ARCH]["launches"].get("wkv_kernel", 0), card)
+    row["name"] = f"wkv_kernel (train {RWKV_ARCH} smoke)"
+    rows.append(row)
+    summary = {
+        "smoke": smoke, "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "seq_chunk": TRAIN_SEQ_CHUNK, "lr": TRAIN_LR,
+        "chunked": {"losses": losses, "ms": ch["ms"],
+                    "grad_norm_1": ch["grad_norms"][0],
+                    "step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
+                    "model_flops": flops, "bf16_peak_share": share,
+                    "last4_mean": last4, "trace": ch.get("trace")},
+        "kernel_sharded": {"losses": ks["losses"], "ms": ks["ms"],
+                           "grad_norm_1": ks["grad_norms"][0],
+                           "step_ms": ks_steady, "k3_per_step": k3[0],
+                           "first_loss_err": sharded_err},
+        "peak_gb": peak_gb, "restart": restart, "card": card,
+        "seconds": {"smoke": smoke_s, "full": full_s,
+                    "total": time.monotonic() - t_start}}
+    print(f"  phase_train: {summary['seconds']['total']:.1f} s (smoke "
+          f"{smoke_s:.1f}, full width {full_s:.1f})")
+    return summary, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6270,6 +6661,11 @@ def main() -> int:
     phase_zamba_smoke_card_vs_cpu()
     print(f"  zamba2 smoke card vs cpu: {time.monotonic() - t0:.1f} s")
     mark("smoke configs card vs cpu")
+    print("training:")
+    train, rows = phase_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train")
 
     def scout_only(cfg, params, scheduler, clean):
         """Scout's phases that no other MoE arch runs, on its weights."""
@@ -6284,8 +6680,10 @@ def main() -> int:
         mark("bench")
         return quant, resilience, bench
 
-    scout, rows, (quant, resilience, bench) = serve_moe(
+    scout, scout_rows, (quant, resilience, bench) = serve_moe(
         SCOUT_ARCH, card, mark, between=scout_only)
+    rows += scout_rows
+    del scout_rows
     scout["quantized"] = quant
     maverick, mav_rows, _ = serve_moe(
         MAVERICK_ARCH, card, mark, tag=f" E128 {MAVERICK_ARCH}")
@@ -6341,7 +6739,7 @@ def main() -> int:
     serve = {"serve": scout,
              "maverick": maverick,
              "rwkv": rwkv, "gemma": gemma, "dense": dense,
-             "frontend": frontend, "zamba": zamba,
+             "frontend": frontend, "zamba": zamba, "train": train,
              "library": lib_info,
              "sm_clocks": clocks, "phase_s": phase_s,
              "wall_s": time.monotonic() - t_start}

@@ -13,6 +13,8 @@ routing multiplies in f32.  So do the RWKV decay LoRA, ``decay_base`` and
 ``bonus_u``, and the Mamba-2 ``a_log``, ``d_skip`` and ``dt_bias``, which
 the reference uses in f32; the RWKV lerp factors ``mu`` / ``mu_c`` and the
 Mamba-2 conv's ``conv_w`` / ``conv_b`` are cast at use like the weights.
+Training keeps every leaf's own dtype (``params_from_jax(train=True)``),
+and an optimizer state crosses as it is (:func:`opt_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core.formats import BCSR, BatchedBCSR
 from repro_torch.core.precision import QuantTensor
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim.adamw import AdamWState
 
 _F32_LEAVES = ("scale", "router", "decay_base", "decay_lora_a",
                "decay_lora_b", "bonus_u", "a_log", "d_skip", "dt_bias")
@@ -49,9 +52,12 @@ def quant_tensor_from_jax(t, *, device="cuda") -> QuantTensor:
                        scales=to_tensor(t.scales).to(dev), axis=t.axis)
 
 
-def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
+def params_from_jax(tree, cfg: ArchConfig, *, device="cuda",
+                    train: bool = False):
     """Convert a reference param tree (leaves numpy or array-like) into the
-    port's params on ``device``."""
+    port's params on ``device``: serving's dtypes (module docstring), or
+    with ``train`` each leaf in its own dtype, as the reference trains on
+    it (f32 from its ``init_params``, bf16 after ``cast_params_bf16``)."""
     dev = resolve_device(device)
     cd = precision_policy(cfg.policy).compute_dtype
 
@@ -61,7 +67,28 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
         if isinstance(node, (tuple, list)):
             return tuple(conv(v, key) for v in node)
         t = to_tensor(node)
+        if train:
+            return t.to(dev)
         dtype = torch.float32 if key in _F32_LEAVES else cd
         return t.to(device=dev, dtype=dtype)
 
     return conv(tree)
+
+
+def opt_state_from_jax(state, *, device="cuda") -> AdamWState:
+    """A reference ``AdamWState`` (leaves numpy or array-like) as the
+    port's on ``device``, each leaf in its own dtype: both packages then
+    step from the same state."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v) for v in node)
+        return to_tensor(node).to(dev)
+
+    return AdamWState(m=conv(state.m), v=conv(state.v),
+                      count=conv(state.count), master=conv(state.master))

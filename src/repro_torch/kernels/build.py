@@ -117,6 +117,23 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where grad mode is on and one of ``tensors`` requires grad: a
+    kernel writes its output through a raw pointer, so that output has no
+    ``grad_fn`` and the gradients behind it would be dropped without a
+    word.  Called by every CUDA wrapper before its launch; a wrapper with a
+    backward (R1, K7, K3 under ``impl="kernel_sharded"``) launches inside
+    an autograd ``Function``'s forward, where grad mode is off."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward here; its inputs "
+            "require grad (run it under torch.no_grad(), or through the "
+            "entry point that carries its gradient)")
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launch function returned a nonzero ``cudaError_t``."""
     if err:

@@ -147,6 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale, bq=bq, bk=bk,
                                        q_offset=_q_offset(q_offset), skv=skv)
+    build.refuse_grad("flash_attention", q, k, v)
     _check("flash_attention", q, k, v, bq, bk)
     B, Hq, _, D = q.shape
     out = torch.empty_like(q)
@@ -175,6 +176,7 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_masked_ref(
             q, k, v, tile_kinds, skv=skv, window=window, scale=scale,
             q_offset=_q_offset(q_offset))
+    build.refuse_grad("flash_attention_masked", q, k, v)
     kinds = _index(tile_kinds, q.device)
     n_q, n_kv = kinds.shape
     B, Hq, Sq, D = q.shape
@@ -210,6 +212,7 @@ def flash_attention_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_sparse_ref(
             q, k, v, rows, cols, kinds, skv=skv, window=window, scale=scale,
             bq=bq, bk=bk, q_offset=_q_offset(q_offset))
+    build.refuse_grad("flash_attention_sparse", q, k, v)
     _check("flash_attention_sparse", q, k, v, bq, bk)
     rows, cols, kinds = (_index(t, q.device) for t in (rows, cols, kinds))
     cap = rows.numel()
@@ -244,6 +247,7 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
     if q1.device.type == "cpu":
         return ref.decode_attention_ref(q1, k_cache, v_cache, kv_len=kv_len,
                                         window=window)
+    build.refuse_grad("decode_attention", q1, k_cache, v_cache)
     B, Hq, one, D = q1.shape
     _, Hkv, S, _ = k_cache.shape
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):

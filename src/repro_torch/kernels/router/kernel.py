@@ -10,7 +10,9 @@ tensor launches the kernel on the current stream or raises.  On the card x
 and W are f32 or bf16, each in its own dtype (x is read as it is, no f32
 copy).  The tile comes from ``tuning.router_tiles`` (T, E and the card's SM
 count); no tile changes a bit.  Launches are counted in
-``router_logits.launches``.
+``router_logits.launches``.  The kernel runs inside an autograd
+``Function`` (:class:`RouterLogits`), whose backward is the plain
+products, so a train step's router weight learns through it.
 """
 from __future__ import annotations
 
@@ -63,9 +65,51 @@ def launch(lib: ctypes.CDLL, xt: torch.Tensor, wc: torch.Tensor,
     return out
 
 
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """R1 on checked CUDA tensors: the (..., E) f32 logits, one launch
+    counted."""
+    d, E = w.shape
+    xt = x.reshape(-1, d).contiguous()
+    T = xt.shape[0]
+    if not T:
+        return torch.empty((*x.shape[:-1], E), dtype=torch.float32,
+                           device=x.device)
+    out = launch(_lib(), xt, w.contiguous(),
+                 tuning.router_tiles(T, E, _sms(x.device.index)))
+    router_logits.launches += 1
+    return out.reshape(*x.shape[:-1], E)
+
+
+class RouterLogits(torch.autograd.Function):
+    """R1 with a backward: the forward is :func:`_forward` (the kernel),
+    the backward the reference's products, which it leaves to the
+    library as it leaves the forward to XLA: ``dx = g @ W^T`` cast to x's
+    dtype and ``dW = x^T @ g``, each with its operands widened to g's
+    dtype (f32) first, through ``torch.matmul``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g2, w.to(g.dtype).T).to(x.dtype).reshape(
+                x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.reshape(-1, w.shape[0]).to(g.dtype).T,
+                              g2).to(w.dtype)
+        return dx, dw
+
+
 def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (..., d) f32 or bf16; w: (d, E) f32 or bf16.  Returns (..., E)
-    f32."""
+    f32.  On the card the gradients reach x and W through
+    :class:`RouterLogits`; on the CPU through the plain product."""
     if x.device.type == "cpu":
         return router_logits_ref(x, w)
     d = x.shape[-1]
@@ -75,18 +119,7 @@ def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
         raise TypeError(f"router_logits: x and W must be float32 or "
                         f"bfloat16, got {x.dtype} / {w.dtype}")
-    E = w.shape[1]
-    xt = x.reshape(-1, d).contiguous()
-    wc = w.contiguous()
-    T = xt.shape[0]
-    if not T:
-        return torch.empty((*x.shape[:-1], E), dtype=torch.float32,
-                           device=x.device)
-    lib = _lib()
-    out = launch(lib, xt, wc,
-                 tuning.router_tiles(T, E, _sms(x.device.index)))
-    router_logits.launches += 1
-    return out.reshape(*x.shape[:-1], E)
+    return RouterLogits.apply(x, w)
 
 
 router_logits.launches = 0

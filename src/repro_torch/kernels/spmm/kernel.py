@@ -62,6 +62,7 @@ def spmm_bcsr(indptr: torch.Tensor, block_cols: torch.Tensor,
     if dense.device.type == "cpu":
         return spmm_bcsr_ref(indptr, block_cols, blocks, dense,
                              out_dtype=out_dtype, scales=scales)
+    build.refuse_grad("spmm_bcsr", blocks, dense, scales)
     B, nnzb, bm, bk = blocks.shape
     gm = indptr.numel() - 1
     quant = scales is not None

@@ -173,6 +173,7 @@ def spmspm_ell(a_keys: torch.Tensor, a_vals: torch.Tensor,
     if a_keys.device.type == "cpu":
         return spmspm_ell_ref(a_keys, a_vals, b_keys, b_vals,
                               a_scales=a_scales)
+    build.refuse_grad("spmspm_ell", a_vals, b_vals, a_scales)
     trt, tct = tuning.spmspm_tiles(R, C, La, Lb, a_vals.dtype, a_keys.device)
     rt, ct = rt or trt, ct or tct
     nt = nt or tuning.spmspm_nt(C, ct, Lb, a_vals.dtype, a_keys.device)

@@ -68,6 +68,8 @@ def ssd_step(xs, b, c, z, dt, a_log, dt_bias, d_skip, h0, *, out=None):
     if xs.device.type == "cpu":
         y, h = mamba_step_plain(xs, b, c, z, dt, a_log, dt_bias, d_skip, h0)
         return y, h if out is None else out.copy_(h)
+    build.refuse_grad("ssd_step", xs, b, c, z, dt, a_log, dt_bias, d_skip,
+                      h0)
     h = torch.empty_like(h0) if out is None else out
     rows, layer = (xs, b, c, z, dt), (a_log, dt_bias, d_skip, h0, h)
     if any(t.device != xs.device for t in rows + layer):

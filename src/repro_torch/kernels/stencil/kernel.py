@@ -168,6 +168,7 @@ def stencil_2d(grid_in: torch.Tensor, spec: StencilSpec, *,
                          f"on {tuple(grid_in.shape)}")
     if grid_in.device.type == "cpu":
         return stencil_ref(grid_in, spec)
+    build.refuse_grad("stencil_2d", grid_in)
     r = spec.radius
     interior = tuple(s - 2 * r for s in grid_in.shape)
     th, tw = tile or tuning.stencil_tile(interior, grid_in.dtype,
@@ -189,6 +190,7 @@ def stencil_3d(grid_in: torch.Tensor, spec: StencilSpec, *,
                          f"on {tuple(grid_in.shape)}")
     if grid_in.device.type == "cpu":
         return stencil_ref(grid_in, spec)
+    build.refuse_grad("stencil_3d", grid_in)
     r = spec.radius
     interior = tuple(s - 2 * r for s in grid_in.shape)
     general = pattern_of(spec) is None

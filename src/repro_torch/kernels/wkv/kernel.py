@@ -80,6 +80,7 @@ def wkv_kernel(r, k, v, w_log, u, *, chunk: int = 128,
     if r.device.type == "cpu":
         y, s = wkv_chunked_plain(r, k, v, w_log, u, chunk)
         return (y, s) if return_state else y
+    build.refuse_grad("wkv_kernel", r, k, v, w_log, u)
     _check_cuda(r, k, v, w_log, u, chunk)
     y = torch.empty((B, T, nh, hd), dtype=torch.float32, device=r.device)
     s = (torch.empty((B, nh, hd, hd), dtype=torch.float32, device=r.device)
@@ -131,6 +132,7 @@ def wkv_step(r, k, v, e, u, s0, *, out=None):
     if r.device.type == "cpu":
         y, s = wkv_step_plain(r, k, v, e, u, s0)
         return y, s if out is None else out.copy_(s)
+    build.refuse_grad("wkv_step", r, k, v, e, u, s0)
     s = torch.empty_like(s0) if out is None else out
     xs = (r, k, v, e, u, s0, s)
     if any(x.device != r.device for x in xs):

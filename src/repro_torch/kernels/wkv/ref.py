@@ -22,7 +22,9 @@ import torch.nn.functional as F
 
 
 def _f32(*xs):
-    return tuple(x.float() for x in xs)
+    """Each input widened to f32 (an f64 input kept, for gradient checks
+    in f64)."""
+    return tuple(x if x.dtype == torch.float64 else x.float() for x in xs)
 
 
 def wkv_chunked_plain(r, k, v, w_log, u, chunk: int

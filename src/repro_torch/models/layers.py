@@ -8,8 +8,11 @@ flash kernels (K4s / K4m).  Decode is ``decode_attention`` at a scalar
 cache position or at per-row positions (continuous batching); a quantized
 cache (``kv_quant``: narrow K/V with per-position f32 scales) is
 dequantized whole before it.  A local layer's cache of exactly ``window``
-slots is a ring buffer (position ``p`` at slot ``p % window``).  Not ported
-yet: ``impl="kernel_sharded"``.
+slots is a ring buffer (position ``p`` at slot ``p % window``).
+``impl="kernel_sharded"`` is the train path's kernel on one device: K3 on
+the forward, the chunked VJP on the backward (:class:`FlashFwdChunkedBwd`);
+on the card the chunked path's narrow products carry their backward in
+:class:`ChunkedAttention`.
 
 Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
 bf16 result accumulated in f32 (reduced-precision reductions are off, see
@@ -164,68 +167,194 @@ def _narrow_operands(k: torch.Tensor) -> bool:
                                                    torch.float16)
 
 
+# the KV chunk of the chunked path (the reference's default)
+CHUNK = 1024
+# prefill attention implementations (``apply_attention(impl=)``)
+IMPLS = ("chunked", "kernel", "kernel_sharded", "ref")
+
+
+def _chunk_mask(ci: int, chunk: int, Sq: int, Skv: int, causal: bool,
+                window: Optional[int], dev) -> torch.Tensor:
+    """(Sq, chunk) bool: the keys of KV chunk ``ci`` that each query
+    sees."""
+    q_pos = torch.arange(Sq, device=dev)[:, None]
+    k_pos = ci * chunk + torch.arange(chunk, device=dev)[None, :]
+    mask = k_pos < Skv
+    if causal:
+        mask = mask & (q_pos >= k_pos)
+    if window is not None:
+        mask = mask & ((q_pos - k_pos) < window)
+    return mask
+
+
+class _Chunks:
+    """The operands of :func:`chunked_attention`'s loop: K and V padded to
+    whole chunks, q scaled and cast to K's dtype with the GQA group on its
+    head dim, and the score product of chunk ``ci`` (:meth:`scores`), on
+    the narrow operands where ``narrow``, else widened to f32."""
+
+    def __init__(self, q, k, v, chunk: int):
+        B, Hq, Sq, hd = q.shape
+        _, Hkv, Skv, _ = k.shape
+        self.B, self.Hq, self.Sq, self.hd = B, Hq, Sq, hd
+        self.Hkv, self.Skv, self.g = Hkv, Skv, Hq // Hkv
+        self.scale = hd ** -0.5
+        self.chunk = chunk = min(chunk, Skv)
+        pad = (-Skv) % chunk
+        if pad:
+            k = F.pad(k, (0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, pad))
+        self.k, self.v = k, v
+        self.n_chunks = (Skv + pad) // chunk
+        self.narrow = _narrow_operands(k)
+        qg = (q * self.scale).to(k.dtype).reshape(B, Hkv, self.g, Sq, hd)
+        self.qg = (qg.reshape(B * Hkv, self.g * Sq, hd) if self.narrow
+                   else qg.float())
+
+    def kv(self, ci: int):
+        sl = slice(ci * self.chunk, (ci + 1) * self.chunk)
+        return self.k[:, :, sl], self.v[:, :, sl]
+
+    def scores(self, kb) -> torch.Tensor:
+        """(B, Hkv, g, Sq, chunk) f32 scores of one KV chunk."""
+        B, Hkv, hd = self.B, self.Hkv, self.hd
+        if self.narrow:
+            return torch.bmm(
+                self.qg, kb.reshape(B * Hkv, self.chunk, hd).transpose(1, 2),
+                out_dtype=torch.float32).view(B, Hkv, self.g, self.Sq,
+                                              self.chunk)
+        return torch.matmul(self.qg, kb[:, :, None].float().transpose(-1, -2))
+
+    def mask(self, ci: int, causal: bool, window: Optional[int]):
+        return _chunk_mask(ci, self.chunk, self.Sq, self.Skv, causal, window,
+                           self.qg.device)
+
+
+def _chunked_loop(q, k, v, causal: bool, window: Optional[int],
+                  chunk: int):
+    """The online softmax over KV chunks: (the f32 output (B, Hkv, g, Sq,
+    hd), the row max m and the row sum l (B, Hkv, g, Sq, 1), f32)."""
+    c = _Chunks(q, k, v, chunk)
+    B, Hkv, g, Sq, hd = c.B, c.Hkv, c.g, c.Sq, c.hd
+    dev = q.device
+    m = torch.full((B, Hkv, g, Sq, 1), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, g, Sq, 1), device=dev)
+    acc = torch.zeros((B, Hkv, g, Sq, hd), device=dev)
+    for ci in range(c.n_chunks):
+        kb, vb = c.kv(ci)
+        s = torch.where(c.mask(ci, causal, window), c.scores(kb), NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if c.narrow:
+            pv = torch.bmm(p.to(v.dtype).reshape(B * Hkv, g * Sq, c.chunk),
+                           vb.reshape(B * Hkv, c.chunk, hd),
+                           out_dtype=torch.float32).view(B, Hkv, g, Sq, hd)
+        else:
+            pv = torch.matmul(p.to(v.dtype).float(), vb[:, :, None].float())
+        acc = acc * alpha + pv
+        m = m_new
+    return acc / torch.where(l == 0, 1.0, l), m, l
+
+
+def _chunked_vjp(q, k, v, g_out, out, m, l, causal: bool,
+                 window: Optional[int], chunk: int):
+    """(dq, dk, dv) of :func:`chunked_attention` at (q, k, v) for the
+    output gradient ``g_out``, given the loop's f32 output, row max and
+    row sum: each KV chunk's scores recomputed (as the forward makes
+    them), the probabilities ``exp(s - m) / l``, and the products of the
+    gradient with the operands widened to f32 (the reference's VJP of its
+    f32-output products); sums in f32, gradients in the inputs' dtypes."""
+    c = _Chunks(q, k, v, chunk)
+    B, Hkv, g, Sq, hd, T = c.B, c.Hkv, c.g, c.Sq, c.hd, c.chunk
+    rows = (B * Hkv, g * Sq)
+    do = g_out.float().reshape(B, Hkv, g, Sq, hd)
+    delta = (do * out).sum(dim=-1, keepdim=True).reshape(*rows, 1)
+    inv_l = torch.where(l == 0, 0.0, 1.0 / torch.where(l == 0, 1.0, l))
+    do = do.reshape(*rows, hd)
+    qg = c.qg.float().reshape(*rows, hd)
+    dqg = torch.zeros((*rows, hd), device=q.device)
+    dk = torch.zeros(c.k.shape, device=q.device)
+    dv = torch.zeros(c.v.shape, device=q.device)
+    for ci in range(c.n_chunks):
+        kb, vb = c.kv(ci)
+        s = torch.where(c.mask(ci, causal, window), c.scores(kb), NEG_INF)
+        p = (torch.exp(s - m) * inv_l).reshape(*rows, T)
+        kb = kb.float().reshape(B * Hkv, T, hd)
+        vb = vb.float().reshape(B * Hkv, T, hd)
+        sl = slice(ci * T, (ci + 1) * T)
+        dv[:, :, sl] = torch.bmm(p.transpose(1, 2), do).view(B, Hkv, T, hd)
+        ds = p * (torch.bmm(do, vb.transpose(1, 2)) - delta)
+        dqg += torch.bmm(ds, kb)
+        dk[:, :, sl] = torch.bmm(ds.transpose(1, 2), qg).view(B, Hkv, T, hd)
+    dq = (dqg * c.scale).reshape(B, c.Hq, Sq, hd).to(q.dtype)
+    return (dq, dk[:, :, :c.Skv].to(k.dtype),
+            dv[:, :, :c.Skv].to(v.dtype))
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """:func:`chunked_attention` on narrow operands with a backward: the
+    forward is the loop (``torch.bmm`` with ``out_dtype``, which has no
+    derivative), the backward :func:`_chunked_vjp`, which recomputes each
+    KV chunk as the reference's per-chunk ``jax.checkpoint(body)`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        out, m, l = _chunked_loop(q, k, v, causal, window, chunk)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (causal, window, chunk)
+        return out.reshape(q.shape).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, out, m, l = ctx.saved_tensors
+        return _chunked_vjp(q, k, v, g_out, out, m, l, *ctx.args) + (
+            None,) * 3
+
+
 def chunked_attention(q, k, v, *, causal: bool = True,
-                      window: Optional[int] = None, chunk: int = 1024):
+                      window: Optional[int] = None, chunk: int = CHUNK):
     """Online softmax over KV chunks.  q: (B, Hq, Sq, hd); k/v: (B, Hkv,
     Skv, hd).  Operands stay in their narrow dtype, products and sums are
     f32, and the GQA group rides along q's head dim (no K/V repeat).
 
     On a CUDA device with bf16 / f16 k and v both products run on the
     narrow operands with f32 outputs (``torch.bmm(..., out_dtype=float32)``,
-    as the reference's ``preferred_element_type``); f32 operands and CPU
-    tensors (which have no ``bmm.dtype`` kernel) widen to f32 first, which
-    gives the same products since a narrow product is exact in f32."""
-    B, Hq, Sq, hd = q.shape
-    _, Hkv, Skv, _ = k.shape
-    g = Hq // Hkv
-    scale = hd ** -0.5
-    chunk = min(chunk, Skv)
-    pad = (-Skv) % chunk
-    if pad:
-        k = F.pad(k, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, pad))
-    n_chunks = (Skv + pad) // chunk
-    narrow = _narrow_operands(k)
-    qg = (q * scale).to(k.dtype).reshape(B, Hkv, g, Sq, hd)
-    if narrow:
-        qg = qg.reshape(B * Hkv, g * Sq, hd)
-    else:
-        qg = qg.float()
-    dev = q.device
-    q_pos = torch.arange(Sq, device=dev)[:, None]
-    m = torch.full((B, Hkv, g, Sq, 1), NEG_INF, device=dev)
-    l = torch.zeros((B, Hkv, g, Sq, 1), device=dev)
-    acc = torch.zeros((B, Hkv, g, Sq, hd), device=dev)
-    for ci in range(n_chunks):
-        kb = k[:, :, ci * chunk:(ci + 1) * chunk]
-        vb = v[:, :, ci * chunk:(ci + 1) * chunk]
-        if narrow:
-            s = torch.bmm(qg, kb.reshape(B * Hkv, chunk, hd).transpose(1, 2),
-                          out_dtype=torch.float32
-                          ).view(B, Hkv, g, Sq, chunk)
-        else:
-            s = torch.matmul(qg, kb[:, :, None].float().transpose(-1, -2))
-        k_pos = ci * chunk + torch.arange(chunk, device=dev)[None, :]
-        mask = k_pos < Skv
-        if causal:
-            mask = mask & (q_pos >= k_pos)
-        if window is not None:
-            mask = mask & ((q_pos - k_pos) < window)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        if narrow:
-            pv = torch.bmm(p.to(v.dtype).reshape(B * Hkv, g * Sq, chunk),
-                           vb.reshape(B * Hkv, chunk, hd),
-                           out_dtype=torch.float32).view(B, Hkv, g, Sq, hd)
-        else:
-            pv = torch.matmul(p.to(v.dtype).float(), vb[:, :, None].float())
-        acc = acc * alpha + pv
-        m = m_new
-    out = acc / torch.where(l == 0, 1.0, l)
-    return out.reshape(B, Hq, Sq, hd).to(q.dtype)
+    as the reference's ``preferred_element_type``), inside
+    :class:`ChunkedAttention`, whose backward recomputes each chunk; f32
+    operands and CPU tensors (which have no ``bmm.dtype`` kernel) widen to
+    f32 first, which gives the same products since a narrow product is
+    exact in f32, and differentiate through plain autograd."""
+    if _narrow_operands(k):
+        return ChunkedAttention.apply(q, k, v, causal, window, chunk)
+    out, _, _ = _chunked_loop(q, k, v, causal, window, chunk)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+class FlashFwdChunkedBwd(torch.autograd.Function):
+    """Attention with the flash kernel K3 on the forward
+    (``flash_attention.ops.attention``, no oracle fallback) and the chunked
+    VJP on the backward (:func:`_chunked_vjp` after the chunked loop's
+    statistics are recomputed), the reference's
+    ``flash_fwd_chunked_bwd`` on one device: what lets a train step run
+    the kernel forward.  Causal, with an optional window."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        return fops.attention(q, k, v, causal=True, window=window,
+                              fallback="error")
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v = ctx.saved_tensors
+        with torch.no_grad():
+            out, m, l = _chunked_loop(q, k, v, True, ctx.window, CHUNK)
+            grads = _chunked_vjp(q, k, v, g_out, out, m, l, True,
+                                 ctx.window, CHUNK)
+        return grads + (None,)
 
 
 @functools.lru_cache(maxsize=16)
@@ -263,7 +392,7 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                     attn_mask: Optional[AttnMaskSpec] = None):
     """Self-attention (prefill) or one-step decode when ``cache`` is given.
 
-    Prefill: ``impl`` is "chunked" | "kernel" | "ref"; ``attn_mask`` (an
+    Prefill: ``impl`` is one of :data:`IMPLS`; ``attn_mask`` (an
     ``AttnMaskSpec``) takes precedence where it applies.  ``collect_kv`` > 0
     also returns a fresh cache of that capacity holding this call's
     keys/values; with a ``window`` and ``S >= window`` that cache is the
@@ -291,10 +420,9 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     anything back to the host (the quantizer's non-finite check is off,
     as the reference's is under jit), so a decode step can be captured.
     Returns (out, new_cache)."""
-    if impl not in ("chunked", "kernel", "ref"):
+    if impl not in IMPLS:
         raise NotImplementedError(
-            f"apply_attention impl={impl!r}: 'chunked', 'kernel' and 'ref' "
-            "are ported")
+            f"apply_attention impl={impl!r}: {IMPLS} are ported")
     B, S, _ = x.shape
     if cache is None:
         if positions is None:
@@ -306,6 +434,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
         if out is None:
             if impl == "kernel":
                 out = fops.attention(q, k, v, causal=True, window=window)
+            elif impl == "kernel_sharded":
+                out = FlashFwdChunkedBwd.apply(q, k, v, window)
             elif impl == "chunked":
                 out = chunked_attention(q, k, v, causal=True, window=window)
             else:

@@ -86,9 +86,11 @@ def ssd_chunked(xh, a_log, Bv, Cv, *, chunk: int = 64, h0=None):
 
     The reference's intra-chunk three-operand einsum becomes the decay
     matrix masked before ``exp`` (the i < j region has positive exponents
-    that overflow), scaled by the scores in place, in (B, nc, nh, Q, Q)
-    (537 MB f32 at 4 x 2048, Q 256), then one batched product over (b, c,
-    h) against x: never a (B, nc, Q, Q, nh, hd) intermediate."""
+    that overflow), then scaled by the scores, in (B, nc, nh, Q, Q) (537 MB
+    f32 at 4 x 2048, Q 256), then one batched product over (b, c, h)
+    against x: never a (B, nc, Q, Q, nh, hd) intermediate.  The scaling is
+    out of place, so the backward of the in-place ``exp_`` reads the decay
+    matrix as it left it."""
     B, T, nh, hd = xh.shape
     ns = Bv.shape[-1]
     pad = (-T) % chunk
@@ -108,7 +110,8 @@ def ssd_chunked(xh, a_log, Bv, Cv, *, chunk: int = 64, h0=None):
                         device=xh.device).tril()
     W.masked_fill_(~causal, float("-inf"))
     W.exp_()
-    W.mul_(torch.einsum("bcis,bcjs->bcij", Cc, Bc)[:, :, None])
+    # out of place: the backward of exp_ reads W as exp_ left it
+    W = W * torch.einsum("bcis,bcjs->bcij", Cc, Bc)[:, :, None]
     y_intra = torch.matmul(W, xc.transpose(2, 3))        # (B, nc, nh, Q, hd)
     del W
 

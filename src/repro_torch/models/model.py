@@ -38,10 +38,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 from repro_torch.core import precision
-from repro_torch.core.masks import AttnMaskSpec
+from repro_torch.core.masks import NEG_INF, AttnMaskSpec
 from repro_torch.core.precision import QuantTensor
 from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models import layers as L
@@ -100,14 +101,18 @@ def _window_for(kind: str, cfg: ArchConfig) -> Optional[int]:
 
 # ---------------------------------------------------------------- init ------
 
-def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
+def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
+                param_dtype: Optional[torch.dtype] = None) -> Params:
     """Random params with the reference's scales (N(0, 1) * d**-0.5, and
     d_ff**-0.5 for the down projections), drawn from a ``torch.Generator``
-    seeded with ``seed`` on ``device``.  Matmul weights are stored in the
-    policy's compute dtype; norm scales and routers stay f32."""
+    seeded with ``seed`` on ``device``.  Matmul weights are stored in
+    ``param_dtype``, by default the policy's compute dtype (serving: every
+    use casts to it anyway); training stores them in f32, the reference's
+    init dtype (``param_dtype=torch.float32``), and every use casts to the
+    compute dtype.  Norm scales and routers stay f32."""
     _check_kinds(cfg)
     dev = resolve_device(device)
-    cd = precision_policy(cfg.policy).compute_dtype
+    cd = param_dtype or precision_policy(cfg.policy).compute_dtype
     g = torch.Generator(device=dev).manual_seed(seed)
     d, V, n = cfg.d_model, cfg.padded_vocab, cfg.n_repeats
     p: Params = {
@@ -117,20 +122,22 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = L.normal(g, (d, V), d ** -0.5, n=1, dtype=cd,
                                 device=dev)[0]
-    p["blocks"] = tuple(_init_block(g, kind, cfg, n=n, dtype=cd, device=dev)
+    p["blocks"] = tuple(init_block(g, kind, cfg, n=n, dtype=cd, device=dev)
                         for kind in cfg.block_unit)
     if cfg.shared_attn_every:      # one unstacked weight set
-        p["shared_attn"] = _take(_init_block(g, "shared_attn", cfg, n=1,
-                                             dtype=cd, device=dev), 0)
+        p["shared_attn"] = _take(init_block(g, "shared_attn", cfg, n=1,
+                                            dtype=cd, device=dev), 0)
     if cfg.n_prologue:
-        p["prologue"] = _init_block(g, cfg.block_unit[0], cfg,
-                                    n=cfg.n_prologue, dtype=cd, device=dev)
+        p["prologue"] = init_block(g, cfg.block_unit[0], cfg,
+                                   n=cfg.n_prologue, dtype=cd, device=dev)
     return p
 
 
-def _init_block(g, kind: str, cfg: ArchConfig, *, n: int, dtype, device):
-    """``n`` stacked layers of ``kind``, the reference's tree
-    (``init_block``)."""
+def init_block(g: torch.Generator, kind: str, cfg: ArchConfig, *, n: int,
+               dtype, device) -> Params:
+    """``n`` stacked layers of ``kind`` drawn from ``g``, matmul weights in
+    ``dtype``: the reference's ``init_block`` tree with a leading layer
+    dim."""
     d = cfg.d_model
     kw = dict(n=n, dtype=dtype, device=device)
     if kind == "rwkv":
@@ -282,15 +289,17 @@ def _take(tree, i: int):
     return tree[i]
 
 
-def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-           moe_fn: Callable, cache=None, pos=None,
-           collect_kv: int = 0, impl: str = "chunked",
-           attn_mask: Optional[AttnMaskSpec] = None,
-           route_ahead: bool = False, kv_quant: Optional[str] = None):
+def apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+                impl: str = "chunked", cache=None, pos=None,
+                collect_kv: int = 0, moe_fn: Optional[Callable] = None,
+                kv_quant: Optional[str] = None,
+                attn_mask: Optional[AttnMaskSpec] = None,
+                route_ahead: bool = False):
     """One attn / attn_local / attn_global / attn+moe / shared_attn / rwkv /
-    mamba sub-layer, its
+    mamba sub-layer (the reference's ``apply_block``, its keywords), its
     window from :func:`_window_for`; ``impl``, ``attn_mask`` and
-    ``kv_quant`` reach its prefill attention.  ``route_ahead``: an
+    ``kv_quant`` reach its prefill attention; ``moe_fn`` (default
+    ``moe.apply_moe``) runs an attn+moe block's FFN.  ``route_ahead``: an
     attn+moe block runs MoE route phase 1 (``moe.route_phase1``) right
     after ``ln2``, with its attention half, and hands ``moe_fn`` the
     ``moe.Phase1`` as ``phase1``.
@@ -321,7 +330,8 @@ def _block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             cap = moe.dispatch_capacity(h.shape[1], cfg, pos0=pos0)
             kw["phase1"] = moe.Phase1(*moe.route_phase1(
                 p["ffn"]["router"], h, cfg, counts, pos0, cap), cap)
-        f, counts = moe_fn(p["ffn"], h, cfg, counts=counts, pos=pos, **kw)
+        f, counts = (moe_fn or moe.apply_moe)(p["ffn"], h, cfg,
+                                              counts=counts, pos=pos, **kw)
         if cache is None:
             new_cache["moe"] = counts
         else:
@@ -381,6 +391,121 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     return x
 
 
+# ----------------------------------------------------------- training ------
+
+def _layers(stacked, n: int) -> list:
+    """The ``n`` layers of a stacked param tree as ``n`` trees of views,
+    through one ``unbind`` a leaf: the backward stacks the layers'
+    gradients into the leaf's once, where a view a layer (``_take``) would
+    write a zero-padded copy of the whole leaf for every layer."""
+    unbound = [t.unbind(0) for t in tree.leaves(stacked)]
+    return [tree.unflatten(stacked, [u[i] for u in unbound])
+            for i in range(n)]
+
+
+def _superblock(p_slots, x: torch.Tensor, cfg: ArchConfig, impl: str,
+                shared_p, fire: bool) -> torch.Tensor:
+    """One repeat of the block unit, then the shared attention block where
+    it fires (the reference's ``_superblock`` without caches)."""
+    for kind, p in zip(cfg.block_unit, p_slots):
+        x, _ = apply_block(kind, p, x, cfg, impl=impl)
+    if fire:
+        x, _ = apply_block("shared_attn", shared_p, x, cfg, impl=impl)
+    return x
+
+
+def hidden_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+                   embeddings: Optional[torch.Tensor] = None,
+                   impl: str = "chunked", remat: bool = True
+                   ) -> torch.Tensor:
+    """Backbone forward of training: the embeddings (after ``embeddings``
+    (B, F, d) where given), the prologue layers, the stacked superblocks,
+    the final norm.  Returns the normed hidden states (B, S_total, d) in
+    the compute dtype.  ``remat``: each prologue layer and each superblock
+    (the shared block's firing included) runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+    scan body in ``jax.checkpoint``: only the residual between superblocks
+    is kept, the rest is recomputed in the backward."""
+    _check_kinds(cfg)
+
+    def run(fn, *args):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        return fn(*args)
+
+    x = _embed(params, tokens, cfg, embeddings)
+    if cfg.n_prologue:
+        kind = cfg.block_unit[0]
+        for p in _layers(params["prologue"], cfg.n_prologue):
+            x = run(lambda p, x: apply_block(kind, p, x, cfg, impl=impl)[0],
+                    p, x)
+    slots = [_layers(s, cfg.n_repeats) for s in params["blocks"]]
+    shared_p = params.get("shared_attn")
+    for i in range(cfg.n_repeats):
+        fire = bool(cfg.shared_attn_every) and _fires(cfg, i)
+        x = run(functools.partial(_superblock, cfg=cfg, impl=impl,
+                                  shared_p=shared_p, fire=fire),
+                tuple(s[i] for s in slots), x)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _unembedding(params: Params, cfg: ArchConfig, dtype) -> torch.Tensor:
+    unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return unemb.to(dtype)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            embeddings: Optional[torch.Tensor] = None, impl: str = "chunked",
+            remat: bool = True) -> torch.Tensor:
+    """Train forward: tokens (B, S_text) int, optional frontend
+    ``embeddings`` (B, S_front, d) prepended.  Returns the logits (B,
+    S_total, V) f32, the padded vocabulary included."""
+    x = hidden_forward(params, tokens, cfg, embeddings=embeddings, impl=impl,
+                       remat=remat)
+    return (x @ _unembedding(params, cfg, x.dtype)).float()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            embeddings: Optional[torch.Tensor] = None, impl: str = "chunked",
+            seq_chunk: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy over the token region (the frontend
+    positions dropped), padded vocabulary ids masked with ``NEG_INF``; a ()
+    f32 tensor.  ``seq_chunk``: the logits and the cross-entropy a chunk of
+    that many positions at a time, each under ``torch.utils.checkpoint``, so
+    the (B, S, V) logits never exist (the tail past the last whole chunk is
+    one more piece)."""
+    h = hidden_forward(params, tokens, cfg, embeddings=embeddings, impl=impl)
+    if embeddings is not None:
+        h = h[:, embeddings.shape[1]:]
+    h = h[:, :-1]
+    tgt = tokens[:, 1:].long()
+    unemb = _unembedding(params, cfg, h.dtype)
+    pad = (torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
+           if cfg.padded_vocab != cfg.vocab_size else None)
+
+    def ce(h_blk, tgt_blk):
+        logits = (h_blk @ unemb).float()
+        if pad is not None:
+            logits = torch.where(pad, NEG_INF, logits)
+        lp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(lp, -1, tgt_blk[..., None])[..., 0]
+
+    B, Sm1 = h.shape[0], h.shape[1]
+    if seq_chunk is None or seq_chunk >= Sm1:
+        return ce(h, tgt).mean()
+    total = torch.zeros((), device=h.device)
+    for lo in range(0, Sm1 - Sm1 % seq_chunk, seq_chunk):
+        sl = slice(lo, lo + seq_chunk)
+        total = total + torch.utils.checkpoint.checkpoint(
+            lambda hb, tb: ce(hb, tb).sum(), h[:, sl], tgt[:, sl],
+            use_reentrant=False)
+    if Sm1 % seq_chunk:
+        tail = slice(Sm1 - Sm1 % seq_chunk, Sm1)
+        total = total + ce(h[:, tail], tgt[:, tail]).sum()
+    return total / (B * Sm1)
+
+
 def _check_prompt_fits(cfg: ArchConfig, S_total: int, max_seq: int) -> None:
     """Raise when a prefill of ``S_total`` positions (frontend positions
     and prompt) would not fit an attention cache of ``max_seq``."""
@@ -427,20 +552,20 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     _check_prompt_fits(cfg, S_total, max_seq)
     prologue = []
     for i in range(cfg.n_prologue):
-        x, c = _block(cfg.block_unit[0], _take(params["prologue"], i), x,
-                      cfg, **kw)
+        x, c = apply_block(cfg.block_unit[0], _take(params["prologue"], i), x,
+                           cfg, **kw)
         prologue.append(c)
     per_slot = [[] for _ in _cache_kinds(cfg)]
     for i in range(cfg.n_repeats):
         for slot, kind in enumerate(cfg.block_unit):
-            x, c = _block(kind, _take(params["blocks"][slot], i), x, cfg,
-                          **kw)
+            x, c = apply_block(kind, _take(params["blocks"][slot], i), x, cfg,
+                               **kw)
             per_slot[slot].append(c)
         if cfg.shared_attn_every:
             # the cache is collected every repeat, as the reference's; the
             # residual takes the block's output on fire steps only
-            y2, c = _block("shared_attn", params["shared_attn"], x, cfg,
-                           **kw)
+            y2, c = apply_block("shared_attn", params["shared_attn"], x, cfg,
+                                **kw)
             if _fires(cfg, i):
                 x = y2
             per_slot[-1].append(c)
@@ -552,16 +677,16 @@ def _decode_layers(params: Params, cfg: ArchConfig, cache, pos,
     kw = dict(moe_fn=moe_fn, pos=pos, route_ahead=route_ahead)
     x = _embed(params, tokens_1, cfg)
     for i in range(cfg.n_prologue):
-        x, _ = _block(cfg.block_unit[0], _take(params["prologue"], i), x,
-                      cfg, cache=_take(cache["prologue"], i), **kw)
+        x, _ = apply_block(cfg.block_unit[0], _take(params["prologue"], i), x,
+                           cfg, cache=_take(cache["prologue"], i), **kw)
     for i in range(cfg.n_repeats):
         for slot, kind in enumerate(cfg.block_unit):
-            x, _ = _block(kind, _take(params["blocks"][slot], i), x, cfg,
-                          cache=_take(cache["slots"][slot], i), **kw)
+            x, _ = apply_block(kind, _take(params["blocks"][slot], i), x, cfg,
+                               cache=_take(cache["slots"][slot], i), **kw)
         if cfg.shared_attn_every and _fires(cfg, i):
             # off a fire step the shared block's cache row stays as it is
-            x, _ = _block("shared_attn", params["shared_attn"], x, cfg,
-                          cache=_take(cache["slots"][-1], i), **kw)
+            x, _ = apply_block("shared_attn", params["shared_attn"], x, cfg,
+                               cache=_take(cache["slots"][-1], i), **kw)
     return final_logits(params, x, cfg, last_only=False, row_order=True)
 
 

@@ -30,6 +30,12 @@ its index stream built once a grid shape on the device and its 0/1 blocks
 from the device-built dispatch matrix (:func:`_full_grid_stream`, the
 reference's traced ``_dispatch_bcsr``), so nothing is read on the host and
 a decode step can be captured as a CUDA graph.
+
+**Training** goes through the gather backend (the configs' default): the
+router logits (R1 on the card, with its backward), the gate and the
+gather dispatch and combine carry gradients, and with ``counts=None`` no
+step writes in place into anything autograd saved.  The bcsr backend's
+kernel K2 has no backward and refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.formats import BatchedBCSR
 from repro_torch.core.precision import QuantTensor, quantize_tensor
-from repro_torch.kernels import engine, tuning
+from repro_torch.kernels import build, engine, tuning
 from repro_torch.kernels.router.kernel import router_logits
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_mlp, init_mlp, normal
@@ -543,8 +549,20 @@ def execute_moe(p, x: torch.Tensor, plan: MoEPlan, cfg: ArchConfig):
     to ``apply_moe(..., dispatch=plan.backend)`` on the same inputs."""
     E, C = cfg.n_experts, plan.capacity
     if plan.backend == "bcsr":
+        build.refuse_grad("moe bcsr dispatch (K2; train with dispatch="
+                          "'gather')", x)
         xe = _dispatch_stream(x, plan.stream, E, C)
     else:
         xe = _dispatch_gather(x, plan.flat_slot, E, C)
     out = _moe_tail(p, x, xe, plan.gate, plan.keep, plan.flat_slot, cfg, E, C)
     return out, plan.new_counts
+
+
+def load_balance_loss(logits: torch.Tensor, expert_id: torch.Tensor,
+                      E: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E x sum over experts of (the fraction
+    of tokens routed there) x (the mean router probability), over the
+    leading dim of ``logits`` (T, E) and ``expert_id`` (T,)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    frac = F.one_hot(expert_id.long(), E).float().mean(dim=0)
+    return E * torch.sum(frac * probs.mean(dim=0))

@@ -1,2 +1,3 @@
-"""Serving runtime of the port: ``resilience`` (fault plans, retry, health
-and the degradation ladder)."""
+"""Runtime of the port: ``resilience`` (serving: fault plans, retry, health
+and the degradation ladder) and ``trainer`` (training: checkpoint and
+restart, failure injection, the straggler watchdog)."""

@@ -173,7 +173,12 @@ def test_apply_attention_refuses_unported_paths():
     rcfg, cfg, rp, p = _attn_params()
     x = _x((1, 4, 32))
     with pytest.raises(NotImplementedError):
-        L.apply_attention(p, torch.from_numpy(x), cfg, impl="kernel_sharded")
+        L.apply_attention(p, torch.from_numpy(x), cfg, impl="shard_map")
+    # the single-device kernel_sharded path is ported: its forward is K3's
+    kern, _ = L.apply_attention(p, torch.from_numpy(x), cfg, impl="kernel")
+    shard, _ = L.apply_attention(p, torch.from_numpy(x), cfg,
+                                 impl="kernel_sharded")
+    assert torch.equal(shard, kern)
     # ring-buffer caches are ported: a collect at S >= window keeps the
     # last `window` positions at their slots (pos % window), as the
     # reference's does

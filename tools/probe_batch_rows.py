@@ -412,7 +412,7 @@ def probe_layers(cfg, params, device) -> dict:
                                             max_seq=max_seq, moe_fn=moe_fn,
                                             embeddings=emb)
     tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
-    block = M._block
+    block = M.apply_block
     out = {}
     for rows in ROWS:
         seen = []
@@ -428,12 +428,12 @@ def probe_layers(cfg, params, device) -> dict:
         toks[0] = tok[0]
         p = np.zeros(rows, np.int64)
         p[0] = pos
-        M._block = record
+        M.apply_block = record
         try:
             lg, _ = M.decode_step_layered(params, cfg, cache, p, toks,
                                           moe_fn=moe_fn)
         finally:
-            M._block = block
+            M.apply_block = block
         out[rows] = (seen, lg[0, -1, :cfg.vocab_size].float())
     one_seen, one_lg = out[1]
     top = one_lg.topk(2).values
