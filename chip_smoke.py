@@ -15,6 +15,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernels' by name, with their shared memory; the bf16 flash instances at
    D 192 and 256 and D1's at D 192 must show no spills), and the count of
    tensor-core instructions in the flash library's SASS;
+2b. the sharded engine (``phase_sharded_engine``) on 4 gloo ranks that
+   share the card, each launching the kernels built in phase 2 (no rank
+   builds): ``shard_spmm_batched_stream`` on llama4-scout's 4 x 2,048
+   prefill dispatch stream (one batch row a rank, K2 wide and K2q int8),
+   ``shard_spmm`` on a banded 8192^2 BCSR by (8192, N) at N 512 and 300
+   (f32 and bf16), ``shard_spmspm`` on the library's SpMSpM (wide and fp8
+   ``a_scales``), ``shard_attention_sparse`` (K4s) at scout's prefill on a
+   causal and a sliding-window mask, 512 query rows a rank, and
+   ``sharded_flash_attention`` (K3) on a (2, 2) ("data", "model") mesh;
+   each rank's launches counted (its kernel once), the sharded result ==
+   the one-device kernel on the whole operand (``torch.equal``), that
+   kernel against its plain version, each rank's kernel time on its part
+   (one rank at a time: no multi-card speedup) beside the one-device
+   time, and the phase's seconds; its rows join the kernels line;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), (8, 1), (16, 32), empty
    block-rows, bucket-pad entries, N not a multiple of the tile or of the
@@ -359,6 +373,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -6627,6 +6642,465 @@ def phase_train(card):
     return summary, rows
 
 
+# ---------------------------------------------------------------------------
+# The sharded engine: SHARDED_RANKS gloo ranks that share the one card.
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT = 60.0      # the group's timeout: seconds a collective
+SHARDED_LIMIT = 150.0       # the parent's wait for every rank
+SHARDED_ITERS = 10
+SHARDED_KERNELS = ("spmm_bcsr", "spmspm_ell", "flash_attention")
+SHARDED_SPMM_N = (512, 300)
+
+
+def _bound(nbytes: float, ops: float, peak: float):
+    """(bound ms, what bounds it): the bytes at the memory rate against the
+    operations at ``peak``."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _sharded_dispatch(quant: bool):
+    """llama4-scout's 4 x 2,048 prefill dispatch stream (E 16, capacity
+    factor 1.25, blocks (8, 8)) as the port's routing makes it from seeded
+    uniform expert choices (``tools/compare_spmm.py``'s stream), against
+    random bf16 tokens of width 5,120: one batch row a rank, wide (K2, bf16
+    out, the serving tile) or BlockQuant int8 (K2q, f32 out)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import engine, tuning
+    from repro_torch.kernels.spmm import ops as so
+    from repro_torch.kernels.spmm.ref import spmm_bcsr_ref
+    from tools.compare_spmm import (dispatch_stream, expert_choice,
+                                    routed_slots)
+    cfg = get_config(SCOUT_ARCH)
+    d, bf16 = cfg.d_model, torch.bfloat16
+    fs = routed_slots(expert_choice(np.random.default_rng(11), BATCH,
+                                    ATTN_PROMPT, cfg.n_experts, False), cfg)
+    a, _ = dispatch_stream(fs, cfg, bf16, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(40)
+    x = torch.randn((BATCH, a.shape[2], d), generator=g,
+                    device="cuda").to(bf16)
+    kw = dict(bn=tuning.moe_dispatch_tiles(d, bf16, "cuda")["bn"],
+              out_dtype=bf16)
+    if quant:
+        a, kw = a.quantize("int8"), dict(out_dtype=torch.float32)
+    a_dense = a.todense().to(bf16)
+    live = (a.blocks.float() != 0).flatten(2).any(-1)      # (B, nnzb)
+
+    def cost(out, mesh):
+        """Bytes and multiply-adds of this rank's call on ``mesh`` (the
+        whole with None; ``out`` its output): its batch rows' blocks and
+        tokens, the stream, the output; the live blocks' products."""
+        n, i = engine.mesh_axis(mesh, "data")
+        w = -(-BATCH // n)
+        rows = slice(i * w, min((i + 1) * w, BATCH))
+        nbytes = (_nbytes(a.blocks[rows], x[rows], out)
+                  + 4 * (a.indptr.numel() + a.nnzb))
+        if quant:
+            nbytes += _nbytes(a.scales[rows])
+        return nbytes, 2 * int(live[rows].sum()) * 64 * d
+
+    return types.SimpleNamespace(
+        kernel="spmm_bcsr_quant" if quant else "spmm_bcsr",
+        source="src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
+        replaces=LIB_SRC + ("spmm/kernel.py:68" if quant
+                            else "spmm/kernel.py:74"),
+        sharded=lambda mesh: engine.shard_spmm_batched_stream(
+            a, x, mesh=mesh, **kw),
+        part=lambda mesh: engine.spmm_batched_part(
+            a, x, *engine.mesh_axis(mesh, "data"), **kw).run,
+        one=lambda: engine.spmm_batched_stream(a, x, **kw),
+        plain=lambda one: (one, spmm_bcsr_ref(
+            a.indptr, a.block_cols, a.blocks, x, scales=a.scales,
+            out_dtype=kw["out_dtype"])),
+        exact=not quant, library=lambda: torch.bmm(a_dense, x), cost=cost,
+        peak=BF16_FLOP_PER_S, mesh="data",
+        shape={"B": BATCH, "M": a.shape[1], "K": a.shape[2], "N": d,
+               "nnzb": a.nnzb, "block": list(a.block),
+               "blocks": str(a.blocks.dtype)[6:],
+               "out": str(kw["out_dtype"])[6:],
+               "stats": so.stream_row_stats(a)})
+
+
+def _sharded_spmm(dtype_name: str, N: int):
+    """K2 on the library's banded 8192^2 BCSR (bandwidth 512, 8 x 8
+    blocks: ``tools/compare_spmm.py``'s K2q matrix, wide) by an (8192, N)
+    dense, f32 or bf16, N split over the ranks; f32 out.  The bound's
+    operations at the peak of the operands' type (bf16: the tensor cores'
+    rate)."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import engine
+    from repro_torch.kernels.spmm import ops as so
+    from repro_torch.kernels.spmm.ref import spmm_bcsr_ref
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    i = torch.arange(SPMM_N, device="cuda")
+    band = (i[:, None] - i[None, :]).abs() <= SPMM_BAND
+    am = torch.randn((SPMM_N, SPMM_N), generator=g, device="cuda") * band
+    a = F.bcsr_from_dense(am.to(dt), SPMM_BLOCK)
+    del am, band
+    x = torch.randn((SPMM_N, N), generator=g, device="cuda").to(dt)
+    a_dense = a.todense()
+
+    def cost(out, mesh):
+        cols = out.shape[1]
+        return (_nbytes(a.blocks, out) + 4 * (a.indptr.numel() + a.nnzb)
+                + SPMM_N * cols * x.element_size(),
+                2 * a.nnzb * 64 * cols)
+
+    return types.SimpleNamespace(
+        kernel="spmm_bcsr",
+        source="src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
+        replaces=LIB_SRC + "spmm/kernel.py:74",
+        sharded=lambda mesh: engine.shard_spmm(a, x, mesh=mesh),
+        part=lambda mesh: engine.spmm_part(
+            a, x, *engine.mesh_axis(mesh, "data")).run,
+        one=lambda: so.spmm(a, x),
+        plain=lambda one: (one, spmm_bcsr_ref(
+            a.indptr, a.block_cols, a.blocks[None], x[None],
+            out_dtype=torch.float32)[0]),
+        exact=False, library=lambda: torch.matmul(a_dense, x), cost=cost,
+        peak=BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_FLOP_PER_S,
+        mesh="data",
+        shape={"M": SPMM_N, "K": SPMM_N, "N": N, "bandwidth": SPMM_BAND,
+               "block": list(SPMM_BLOCK), "nnzb": a.nnzb,
+               "dtype": dtype_name})
+
+
+def _sharded_spmspm(quant: bool):
+    """K5 on the library's SpMSpM (8192^2 A at 5 % by B at 1 %, ELL rows
+    and columns; ``tools/compare_spmspm.py``'s shape), wide or with A's
+    rows in fp8 e4m3 and ``a_scales``: B's columns split over the ranks."""
+    import torch
+    from repro_torch.core import precision as P
+    from repro_torch.core.formats import INVALID_KEY
+    from repro_torch.kernels import engine
+    from repro_torch.kernels.spmspm import ops as po
+    from repro_torch.kernels.spmspm import ref as pr
+    g = torch.Generator(device="cuda").manual_seed(42)
+    a = _sparse(g, (SPMSPM_N, SPMSPM_N), SPMSPM_DA)
+    b = _sparse(g, (SPMSPM_N, SPMSPM_N), SPMSPM_DB)
+    ak, av = po.dense_to_ell_rows(a)
+    bk, bv = po.dense_to_ell_cols(b)
+    kw = {}
+    if quant:
+        av, kw["a_scales"] = P.quantize_rows(av, "fp8_e4m3")
+    a_csr = a.to_sparse_csr()
+    del a, b
+    band = slice(0, SPMSPM_BAND)
+    na = torch.bincount(ak[ak != INVALID_KEY].long(), minlength=SPMSPM_N)
+
+    def cost(out, mesh):
+        """A's streams, this rank's stripe of B's columns on ``mesh`` (as
+        wide as ``out``, pads included) and ``out``; the key matches."""
+        i = engine.mesh_axis(mesh, "data")[1]
+        w = out.shape[1]
+        sub = bk[i * w:(i + 1) * w]
+        nb = torch.bincount(sub[sub != INVALID_KEY].long(),
+                            minlength=SPMSPM_N)
+        return (8 * (ak.numel() + w * bk.shape[1]) + _nbytes(out),
+                2 * int((na * nb).sum()))
+
+    def library():
+        b_csr = pr.ell_to_dense(bk, bv, SPMSPM_N).T.contiguous() \
+            .to_sparse_csr()
+        return torch.sparse.mm(a_csr, b_csr).to_dense()
+
+    return types.SimpleNamespace(
+        kernel="spmspm_ell",
+        source="src/repro_torch/kernels/spmspm/csrc/spmspm_ell.cu",
+        replaces=LIB_SRC + "spmspm/kernel.py:58",
+        sharded=lambda mesh: engine.shard_spmspm(ak, av, bk, bv, mesh=mesh,
+                                                 **kw),
+        part=lambda mesh: engine.spmspm_part(
+            ak, av, bk, bv, *engine.mesh_axis(mesh, "data"), **kw).run,
+        one=lambda: po.spmspm(ak, av, bk, bv, **kw),
+        plain=lambda one: (one[band], pr.spmspm_ell_ref(
+            ak[band], av[band], bk, bv, a_scales=(
+                kw["a_scales"][band] if quant else None))),
+        exact=False, library=library, cost=cost, peak=F32_FLOP_PER_S,
+        mesh="data",
+        shape={"R": SPMSPM_N, "C": SPMSPM_N, "La": ak.shape[1],
+               "Lb": bk.shape[1], "density_a": SPMSPM_DA,
+               "density_b": SPMSPM_DB, "plain_rows": SPMSPM_BAND,
+               "a_vals": str(av.dtype)[6:]})
+
+
+def _scout_qkv(seed: int):
+    """Random bf16 q, k, v at llama4-scout's prefill attention: B 4, 40 /
+    8 heads of 128, S 2,048."""
+    import torch
+    cfg = served_config(SCOUT_ARCH)[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = lambda h: (BATCH, h, ATTN_PROMPT, cfg.hd)  # noqa: E731
+    return tuple(torch.randn(shape(h), generator=g, device="cuda")
+                 .to(torch.bfloat16)
+                 for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+
+
+def _attention_cost(q, k, visible: int, out):
+    """q, k, v and ``out`` moved once; 4 D flops a visible score entry."""
+    return (_nbytes(q, k, k, out), 4 * q.shape[-1] * visible)
+
+
+def _sharded_attention(kind: str):
+    """K4s at llama4-scout's prefill (``_scout_qkv``) on a causal or a
+    sliding-window (MASK_WINDOW) BlockMask at the card's flash tiles: the
+    query axis split, 512 rows a rank."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.masks import BlockMask
+    from repro_torch.kernels import engine, tuning
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    q, k, v = _scout_qkv(43)
+    B, Hq, S, D = q.shape
+    bq, bk = tuning.flash_tiles(S, S, D, q.dtype, "cuda")
+    mask = (BlockMask.causal(S, S, bq=bq, bk=bk) if kind == "causal" else
+            BlockMask.sliding_window(S, S, MASK_WINDOW, bq=bq, bk=bk))
+    vis_rows = mask.dense_mask().sum(1)                  # visible keys a row
+    dense = torch.as_tensor(mask.dense_mask(), device="cuda")
+    st = mask.lower()
+    g = Hq // k.shape[1]
+    ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+
+    def cost(out, mesh):
+        n, i = engine.mesh_axis(mesh, "data")
+        rows = slice(i * (S // n), (i + 1) * (S // n))
+        return _attention_cost(q[:, :, rows], k,
+                               B * Hq * int(vis_rows[rows].sum()), out)
+
+    return types.SimpleNamespace(
+        kernel="flash_attention_sparse",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces=FLASH_SRC + ":297",
+        sharded=lambda mesh: engine.shard_attention_sparse(q, k, v, mask,
+                                                           mesh=mesh),
+        part=lambda mesh: engine.attention_sparse_part(
+            q, k, v, mask, *engine.mesh_axis(mesh, "data")).run,
+        one=lambda: fops.attention(q, k, v, mask=mask, mask_impl="sparse",
+                                   fallback="error"),
+        plain=lambda one: (one, fref.flash_attention_sparse_ref(
+            q, k, v, st.rows, st.cols, st.kinds, skv=S, window=mask.window,
+            bq=bq, bk=bk)),
+        exact=False,
+        library=lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                       attn_mask=dense),
+        cost=cost, peak=BF16_FLOP_PER_S, mesh="data",
+        shape={"B": B, "Hq": Hq, "Hkv": k.shape[1], "S": S, "D": D,
+               "tiles": [bq, bk], "mask": kind, "window": mask.window,
+               "visible_tiles": mask.density()["nnzb"]})
+
+
+def _sharded_flash():
+    """K3 at llama4-scout's prefill (``_scout_qkv``), causal, under a (2,
+    2) ("data", "model") mesh: q by batch over "data" and by sequence over
+    "model" (``layers.sharded_flash_attention``), 1,024 rows a rank."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import engine
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import layers
+    q, k, v = _scout_qkv(44)
+    B, Hq, S, D = q.shape
+    bq, bk = fops.tiles(q, k)
+    g = Hq // k.shape[1]
+    ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+
+    def sharded(mesh):
+        with mesh_context(mesh):
+            return layers.sharded_flash_attention(q, k, v, causal=True)
+
+    def cost(out, mesh):
+        n_dp, _ = engine.mesh_axis(mesh, "data")
+        n_tp, m = engine.mesh_axis(mesh, "model")
+        s_loc, b = S // n_tp, B // n_dp
+        lo = m * s_loc
+        vis = (lo + s_loc) * (lo + s_loc + 1) // 2 - lo * (lo + 1) // 2
+        return _attention_cost(q[:b, :, lo:lo + s_loc], k[:b],
+                               b * Hq * vis, out)
+
+    return types.SimpleNamespace(
+        kernel="flash_attention",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces=FLASH_SRC + ":84", sharded=sharded,
+        part=lambda mesh: layers.flash_part(q, k, v, mesh, causal=True),
+        one=lambda: fops.attention(q, k, v, causal=True, fallback="error"),
+        plain=lambda one: (one, fref.flash_attention_ref(
+            q, k, v, causal=True, bq=bq, bk=bk)),
+        exact=False,
+        library=lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                       is_causal=True),
+        cost=cost, peak=BF16_FLOP_PER_S, mesh="data_model",
+        shape={"B": B, "Hq": Hq, "Hkv": k.shape[1], "S": S, "D": D,
+               "tiles": [bq, bk], "mesh": {"data": 2, "model": 2}})
+
+
+# phase_sharded_engine's ops: name -> the builder of its case
+SHARDED_OPS = {
+    "dispatch": functools.partial(_sharded_dispatch, False),
+    "dispatch_int8": functools.partial(_sharded_dispatch, True),
+    **{f"spmm_{dt}_{n}": functools.partial(_sharded_spmm, dt, n)
+       for dt in ("float32", "bfloat16") for n in SHARDED_SPMM_N},
+    "spmspm": functools.partial(_sharded_spmspm, False),
+    "spmspm_fp8": functools.partial(_sharded_spmspm, True),
+    "attention_causal": functools.partial(_sharded_attention, "causal"),
+    "attention_window": functools.partial(_sharded_attention, "window"),
+    "flash": _sharded_flash,
+}
+
+
+def _sharded_rank(rank: int, world: int, ops) -> list:
+    """One rank of phase_sharded_engine, on the card (``cuda:0``, which all
+    ranks share), for each op: its case built from seeds (the same operands
+    on every rank), the sharded call with the launch counts set to 0 just
+    before and read just after (this rank's kernel once, nothing else);
+    then each rank's own kernel call on its part timed by CUDA events, one
+    rank at a time between barriers.  Rank 0 then holds the sharded result
+    against the one-device kernel on the whole operand (``torch.equal``)
+    and that kernel against its plain version (``max_err``'s tolerance; the
+    dispatch copy exactly), and times the one-device kernel, the plain
+    version and the library call.  The kernels must have been built before
+    the spawn: no rank builds."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    missing = [n for n in SHARDED_KERNELS
+               if not build.library_path(n).is_file()]
+    check(not missing, f"rank {rank}: {missing} not built before the spawn")
+    meshes = {"data": make_host_mesh(data=world, device_type="cuda",
+                                     timeout=SHARDED_TIMEOUT),
+              "data_model": make_host_mesh(data=2, model=world // 2,
+                                           device_type="cuda",
+                                           timeout=SHARDED_TIMEOUT)}
+    rows = []
+    for name in ops:
+        t0 = time.monotonic()
+        case = SHARDED_OPS[name]()
+        mesh = meshes[case.mesh]
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        got = case.sharded(mesh)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches == only(**{case.kernel: 1}),
+              f"rank {rank} {name}: launches {launches}")
+        run = case.part(mesh)
+        part = run()
+        ms = None
+        for r in range(world):
+            dist.barrier()
+            if r == rank:
+                ms = time_ms(run, SHARDED_ITERS, 2)
+        dist.barrier()
+        bound, by = _bound(*case.cost(part, mesh), case.peak)
+        row = {"op": name, "ms": ms, "bound_ms": bound, "bound_by": by,
+               "launches": launches[case.kernel],
+               "part_shape": list(part.shape)}
+        if rank == 0:
+            one = case.one()
+            row["equal"] = bool(torch.equal(got, one))
+            check(row["equal"], f"{name}: sharded != the one-device kernel")
+            sub, want = case.plain(one)
+            if case.exact:
+                check(torch.equal(sub, want), f"{name}: kernel != plain")
+                err = 0.0
+            else:
+                err = max_err(sub, want, name)
+            del sub, want
+            one_bound, one_by = _bound(*case.cost(one, None), case.peak)
+            row.update(
+                kernel=case.kernel, source=case.source,
+                replaces=case.replaces, shape=case.shape,
+                max_abs_err=err, one_ms=time_ms(case.one, SHARDED_ITERS, 2),
+                plain_ms=time_ms(lambda: case.plain(one), 1, 0),
+                library_ms=time_ms(case.library, SHARDED_ITERS, 2),
+                one_bound_ms=one_bound, one_bound_by=one_by,
+                out_shape=list(got.shape), seconds=time.monotonic() - t0)
+            del one
+        rows.append(row)
+        del case, got, part, run
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sharded_engine(card):
+    """The sharded engine (``kernels/engine.py`` ``shard_*``,
+    ``models/layers.sharded_flash_attention``) on SHARDED_RANKS gloo ranks
+    that share the one card (``parallel.ranks.run_ranks``: spawned
+    processes, a ``FileStore`` in a temporary directory, a group timeout
+    of SHARDED_TIMEOUT s; NCCL puts no two ranks on one device), each
+    launching the port's CUDA kernels on ``cuda:0``; the gather is
+    ``torch.distributed.all_gather`` of CUDA tensors over gloo.  Ops
+    (``_sharded_rank``): ``shard_spmm_batched_stream`` on llama4-scout's
+    4 x 2,048 prefill dispatch stream, wide and int8; ``shard_spmm`` on
+    the banded 8192^2 BCSR at N 512 and 300, f32 and bf16;
+    ``shard_spmspm`` on the library's SpMSpM, wide and fp8 ``a_scales``;
+    ``shard_attention_sparse`` at scout's prefill on a causal and a
+    sliding-window mask; ``sharded_flash_attention`` on a (2, 2) mesh.
+    Each checks sharded == one device (``torch.equal``) and the kernel
+    against its plain version, and prints each rank's kernel time on its
+    part beside the one-device kernel's on the whole.  The ranks time one
+    at a time on a card they share: this checks the split and its
+    offsets on the card, it measures no multi-card speedup.  A rank that
+    fails makes the phase raise.  Returns (the kernel rows, a summary)."""
+    from repro_torch.parallel.ranks import run_ranks
+    t0 = time.monotonic()
+    per_rank = run_ranks(_sharded_rank, SHARDED_RANKS, list(SHARDED_OPS),
+                         timeout=SHARDED_TIMEOUT, limit=SHARDED_LIMIT)
+    seconds = time.monotonic() - t0
+    rows = []
+    for j, name in enumerate(SHARDED_OPS):
+        r0, ranks = per_rank[0][j], [pr[j] for pr in per_rank]
+        rank_ms = [r["ms"] for r in ranks]
+        listed = lambda key: ", ".join(  # noqa: E731
+            "%.4f" % r[key] for r in ranks)
+        print(f"  sharded {name} ({r0['kernel']}, parts "
+              f"{r0['part_shape']} of {r0['out_shape']}): == one device; "
+              f"kernel vs plain {r0['max_abs_err']:.3g}; rank ms "
+              f"{listed('ms')} (bounds {listed('bound_ms')}), one device "
+              f"{r0['one_ms']:.4f} (bound {r0['one_bound_ms']:.4f}), plain "
+              f"{r0['plain_ms']:.1f}, library {r0['library_ms']:.4f}; "
+              f"{r0['seconds']:.1f} s")
+        rows.append({
+            "name": f"{r0['kernel']} sharded {name}", "route": "cuda",
+            "source": r0["source"], "replaces": r0["replaces"],
+            "launches": sum(r["launches"] for r in ranks),
+            "max_abs_err": r0["max_abs_err"], "ms": r0["one_ms"],
+            "plain_ms": r0["plain_ms"], "bound_ms": r0["one_bound_ms"],
+            "bound_by": r0["one_bound_by"], "library_ms": r0["library_ms"],
+            "card": card, "sharded_equal": r0["equal"], "ranks": len(ranks),
+            "rank_ms": rank_ms,
+            "rank_bound_ms": [r["bound_ms"] for r in ranks],
+            "rank_bound_by": [r["bound_by"] for r in ranks],
+            "rank_launches": [r["launches"] for r in ranks],
+            "part_shape": r0["part_shape"], "shape": r0["shape"],
+            "note": "ranks share one card and time one at a time: no "
+                    "multi-card speedup; ms, plain_ms, library_ms and "
+                    "bound_ms are the one-device call on the whole operand"})
+    print(f"  sharded engine: {seconds:.1f} s for {len(SHARDED_OPS)} ops on "
+          f"{SHARDED_RANKS} gloo ranks sharing the card (gather: "
+          "all_gather of CUDA tensors over gloo)")
+    return rows, {"seconds": seconds, "ranks": SHARDED_RANKS,
+                  "ops": list(SHARDED_OPS)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6644,6 +7118,9 @@ def main() -> int:
     card = phase_card()
     phase_build()
     mark("build")
+    print("sharded engine, 4 gloo ranks on the one card:")
+    sharded_rows, sharded = phase_sharded_engine(card)
+    mark("sharded engine")
     print("kernel vs plain on the card:")
     phase_kernel_vs_plain()
     phase_attention_vs_plain()
@@ -6663,6 +7140,7 @@ def main() -> int:
     mark("smoke configs card vs cpu")
     print("training:")
     train, rows = phase_train(card)
+    rows = sharded_rows + rows
     gc.collect()
     torch.cuda.empty_cache()
     mark("train")
@@ -6740,6 +7218,7 @@ def main() -> int:
              "maverick": maverick,
              "rwkv": rwkv, "gemma": gemma, "dense": dense,
              "frontend": frontend, "zamba": zamba, "train": train,
+             "sharded_engine": sharded,
              "library": lib_info,
              "sm_clocks": clocks, "phase_s": phase_s,
              "wall_s": time.monotonic() - t_start}

@@ -63,11 +63,24 @@ def _note_fallback(reason: str, fallback: str) -> None:
     _FALLBACKS[reason] += 1
 
 
-def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
+def pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
     """Zero-pad the sequence dim (2) of (B, H, S, D) by ``n`` rows, and lay
     the result out contiguously, as the kernels take it (the model's q, k, v
     are head-transposed views)."""
     return (F.pad(t, (0, 0, 0, n)) if n else t).contiguous()
+
+
+def tiles(q, k, bq: Optional[int] = None,
+          bk: Optional[int] = None) -> tuple:
+    """K3's (bq, bk) for q (B, Hq, Sq, D) and k (B, Hkv, Skv, D): the
+    ``flash`` row of ``kernels.tuning`` where a tile is not given, then the
+    reference's re-clamp, a tile no longer than a sequence it divides."""
+    Sq, Skv, D = q.shape[2], k.shape[2], q.shape[3]
+    if bq is None or bk is None:
+        tbq, tbk = tuning.flash_tiles(Sq, Skv, D, q.dtype, q.device)
+        bq, bk = bq or tbq, bk or tbk
+    return (min(bq, Sq) if Sq % min(bq, Sq) == 0 else bq,
+            min(bk, Skv) if Skv % min(bk, Skv) == 0 else bk)
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -85,19 +98,14 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     if mask is not None:
         return _attention_masked(q, k, v, mask, impl=mask_impl,
                                  fallback=fallback)
-    Sq, Skv, D = q.shape[2], k.shape[2], q.shape[3]
-    if bq is None or bk is None:
-        tbq, tbk = tuning.flash_tiles(Sq, Skv, D, q.dtype, q.device)
-        bq, bk = bq or tbq, bk or tbk
+    Sq, Skv = q.shape[2], k.shape[2]
     if not use_kernel:
         _note_fallback("use_kernel=False", fallback)
         return attention_ref(q, k, v, causal=causal, window=window)
-    # the reference's re-clamp: a tile no longer than a sequence it divides
-    bq_eff = min(bq, Sq) if Sq % min(bq, Sq) == 0 else bq
-    bk_eff = min(bk, Skv) if Skv % min(bk, Skv) == 0 else bk
+    bq_eff, bk_eff = tiles(q, k, bq, bk)
     kp = (-Skv) % bk_eff
     out = kernel.flash_attention(
-        _pad_seq(q, (-Sq) % bq_eff), _pad_seq(k, kp), _pad_seq(v, kp),
+        pad_seq(q, (-Sq) % bq_eff), pad_seq(k, kp), pad_seq(v, kp),
         causal=causal, window=window, bq=bq_eff, bk=bk_eff, skv=Skv)
     return out[:, :, :Sq]
 
@@ -136,7 +144,7 @@ def _attention_masked(q, k, v, mask: BlockMask, *, impl: str,
         raise ValueError(f"mask_impl must be sparse|dense|ref, got {impl!r}")
     qp = mask.n_q_tiles * mask.bq - Sq
     kp = mask.n_kv_tiles * mask.bk - Skv
-    qq, kk, vv = _pad_seq(q, qp), _pad_seq(k, kp), _pad_seq(v, kp)
+    qq, kk, vv = pad_seq(q, qp), pad_seq(k, kp), pad_seq(v, kp)
     indices = _mask_indices(mask, impl, q.device)
     if impl == "dense":
         out = kernel.flash_attention_masked(

@@ -69,9 +69,11 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec,
     backward)."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_train_step(mesh=...): the sharded train step (partition "
-            "specs, shard_map) waits for the multi-card path (ROADMAP Queue "
-            "1 item 4); this step runs on one device")
+            "make_train_step(mesh=...): the mesh, the sharding rules and the "
+            "sharded engine are ported (parallel/, launch/mesh.py); the "
+            "sharded train step still needs the step's partition specs and "
+            "the expert-parallel MoE (ROADMAP Queue 1 item 4b); this step "
+            "runs on one device")
     optimizer = optimizer or default_optimizer()
     k = microbatches or shape.microbatches
     impl = attn_impl or impl

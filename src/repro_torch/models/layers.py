@@ -9,8 +9,10 @@ cache position or at per-row positions (continuous batching); a quantized
 cache (``kv_quant``: narrow K/V with per-position f32 scales) is
 dequantized whole before it.  A local layer's cache of exactly ``window``
 slots is a ring buffer (position ``p`` at slot ``p % window``).
-``impl="kernel_sharded"`` is the train path's kernel on one device: K3 on
-the forward, the chunked VJP on the backward (:class:`FlashFwdChunkedBwd`);
+``impl="kernel_sharded"`` is the train path's kernel: K3 on the forward,
+split over the context's mesh when one is set
+(:func:`sharded_flash_attention`), the chunked VJP on the backward
+(:class:`FlashFwdChunkedBwd`);
 on the card the chunked path's narrow products carry their backward in
 :class:`ChunkedAttention`.
 
@@ -332,20 +334,80 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     return out.reshape(q.shape).to(q.dtype)
 
 
+def flash_part(q, k, v, mesh, *, causal: bool = True,
+               window: Optional[int] = None):
+    """This rank's K3 call in :func:`sharded_flash_attention`, as a
+    zero-argument callable: q's block of the batch over the FSDP axes of
+    ``mesh`` and of the sequence over "model", against its batch rows'
+    whole K and V, at ``q_offset = model index * S_loc`` and the tiles of
+    the one-device call (``flash_attention.ops.tiles`` of the whole
+    sequence).  S_loc must be a multiple of that call's q tile."""
+    from repro_torch.kernels import engine
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.parallel.sharding import FSDP, TP, axis_sizes
+    sizes = axis_sizes(mesh)
+    n_dp, dp_idx = 1, 0
+    for a in FSDP:
+        if a in sizes:
+            n_dp, dp_idx = n_dp * sizes[a], dp_idx * sizes[a] + \
+                mesh.get_local_rank(a)
+    n_tp, tp_idx = engine.mesh_axis(mesh, TP)
+    B, _, S, _ = q.shape
+    Skv = k.shape[2]
+    bq, bk = fops.tiles(q, k)
+    s_loc = S // n_tp
+    if B % n_dp or S % n_tp or s_loc % bq:
+        raise ValueError(
+            f"sharded_flash_attention: B {B} over {n_dp} data ranks and S "
+            f"{S} over {n_tp} model ranks must split evenly, each sequence "
+            f"part a multiple of K3's q tile {bq}")
+    b_loc = B // n_dp
+    kp = (-Skv) % bk
+    kb, vb = (fops.pad_seq(engine.part(t, 0, b_loc, dp_idx), kp)
+              for t in (k, v))
+    qb = engine.part(engine.part(q, 0, b_loc, dp_idx), 2, s_loc, tp_idx)
+    return lambda: fk.flash_attention(
+        qb, kb, vb, causal=causal, window=window, bq=bq, bk=bk,
+        q_offset=tp_idx * s_loc, skv=Skv)
+
+
+def sharded_flash_attention(q, k, v, *, causal: bool = True,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """The flash kernel K3 with q split over ``parallel.context.MESH``:
+    the batch over the FSDP axes the mesh has, the sequence over "model"
+    (:func:`flash_part`), the blocks gathered, so every rank returns what
+    the one-device K3 returns, bit for bit.  With no mesh,
+    ``flash_attention.ops.attention`` (no oracle fallback), as the
+    reference."""
+    from repro_torch.kernels import engine
+    from repro_torch.parallel import context
+    from repro_torch.parallel.sharding import FSDP, TP
+    mesh = context.MESH
+    if mesh is None:
+        return fops.attention(q, k, v, causal=causal, window=window,
+                              fallback="error")
+    out = engine.gather(flash_part(q, k, v, mesh, causal=causal,
+                                   window=window)(), 2, mesh, TP)
+    for a in reversed(FSDP):       # the innermost FSDP axis first
+        if a in mesh.mesh_dim_names:
+            out = engine.gather(out, 0, mesh, a)
+    return out
+
+
 class FlashFwdChunkedBwd(torch.autograd.Function):
     """Attention with the flash kernel K3 on the forward
-    (``flash_attention.ops.attention``, no oracle fallback) and the chunked
-    VJP on the backward (:func:`_chunked_vjp` after the chunked loop's
-    statistics are recomputed), the reference's
-    ``flash_fwd_chunked_bwd`` on one device: what lets a train step run
+    (:func:`sharded_flash_attention`: split over ``parallel.context.MESH``
+    when one is set, else ``flash_attention.ops.attention``, no oracle
+    fallback) and the chunked VJP on the backward (:func:`_chunked_vjp` on
+    the full q, k, v after the chunked loop's statistics are recomputed),
+    the reference's ``flash_fwd_chunked_bwd``: what lets a train step run
     the kernel forward.  Causal, with an optional window."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):
         ctx.save_for_backward(q, k, v)
         ctx.window = window
-        return fops.attention(q, k, v, causal=True, window=window,
-                              fallback="error")
+        return sharded_flash_attention(q, k, v, causal=True, window=window)
 
     @staticmethod
     def backward(ctx, g_out):

@@ -262,7 +262,7 @@ def test_microbatches_match_one_batch(arch):
 
 def test_make_train_step_refuses_a_mesh():
     _, cfg, _, _ = _params("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="partition specs.*item 4b"):
         steps.make_train_step(cfg, SHAPES["train_4k"], mesh=object())
 
 
