@@ -28,7 +28,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    the one-device kernel on the whole operand (``torch.equal``), that
    kernel against its plain version, each rank's kernel time on its part
    (one rank at a time: no multi-card speedup) beside the one-device
-   time, and the phase's seconds; its rows join the kernels line;
+   time, and the phase's seconds; then, in the same spawn, the
+   expert-parallel MoE (``moe.apply_moe`` under the shard_map impl) at
+   llama4-scout's full width on a (2, 2) mesh, x 4 x 2,048: forward and
+   backward, the output and every gradient against the one-device layer
+   on each block (MOE_FWD_TOL / MOE_GRAD_TOL), R1 once a rank, each
+   collective's seconds, each rank's peak memory; and
+   ``sparse_psum_shard_map`` on a 2^24 gradient a rank, top 65,536,
+   == ``sparse_allreduce_tree`` (``torch.equal``); the MoE's R1 row joins
+   the kernels line, the exchange (no kernel of the port) the phase's
+   summary;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), (8, 1), (16, 32), empty
    block-rows, bucket-pad entries, N not a multiple of the tile or of the
@@ -286,9 +295,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    the global layer's K3 beside) and D1 (the ring and global calls of the
    first decode step, B 1 and 8 beside);
 10b. the dense GQA family, one arch at a time, each freeing its weights
-   before the next: qwen3-1.7b (28 layers, 16/8 heads of 128, qk_norm,
-   4.06 GB) and qwen2-1.5b (28 layers, 12/2 heads of 128, qkv bias, random
-   biases, 3.56 GB) at full width and depth on 4 x 2,048 prompts, and
+   before the next: qwen3-1.7b (16/8 heads of 128, qk_norm) and
+   qwen2-1.5b (12/2 heads of 128, qkv bias, random biases) at full width
+   and DEPTH's 14 of 28 layers on 4 x 2,048 prompts, and
    nemotron-4-340b at full width (96/8 heads of 192: a GQA group of 12;
    d_ff 73,728 squared ReLU; vocab 256,000) and depth 4 of 96 (46.5 GB) on
    4 x 1,024, random bf16 weights from a seed: ``ServeLoop`` chunked
@@ -302,10 +311,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    tokens, one graph a bucket, every request == itself alone (8 of 8
    each); each arch's K3 (and nemotron's K4m / K4s) and D1 at its served
    shapes timed into the kernels line; each phase's wall seconds; then
-   the frontend configs the same way at full width and depth:
-   musicgen-large (48 layers, 32/32 heads of 64, vocab 2,048, 6.46 GB)
-   and internvl2-26b (48 layers, 48/8 heads of 128, vocab 92,553, 39.72
-   GB) on 4 x 1,024 prompts after 64 / 256 bf16 embedding positions
+   the frontend configs the same way at full width and DEPTH's 24 of 48
+   layers: musicgen-large (32/32 heads of 64, vocab 2,048) and
+   internvl2-26b (48/8 heads of 128, vocab 92,553) on 4 x 1,024 prompts
+   after 64 / 256 bf16 embedding positions
    (S_total 1,088 / 1,280), internvl2's local_global masked prefill
    through K4s and K4m, the scheduler on the same text-only trace; their
    summaries on the serving line's ``frontend`` object;
@@ -372,6 +381,7 @@ checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -401,9 +411,13 @@ MAVERICK_ARCH = "llama4-maverick-400b-a17b"
 # 24 units (2 of 48 layers, 37.1 GB); gemma3-12b 2 of 8 units (12 of 48
 # layers); nemotron-4-340b 4 of 96 layers (a layer is 6.91 GB of bf16 and
 # the embedding and unembedding 9.44 GB each: 46.5 GB, 6 layers would be
-# 60.3 GB of one card's 80 GB)
+# 60.3 GB of one card's 80 GB); musicgen-large and internvl2-26b 24 of 48
+# layers, qwen3-1.7b and qwen2-1.5b 14 of 28, to keep the script under 700
+# s with the sharded engine's expert-parallel MoE (at full depth the script
+# took 751 and 812 s on an H100 machine with a slower host)
 DEPTH = {SCOUT_ARCH: 4, MAVERICK_ARCH: 1, "gemma3-12b": 2,
-         "nemotron-4-340b": 4}
+         "nemotron-4-340b": 4, "musicgen-large": 24, "internvl2-26b": 24,
+         "qwen3-1.7b": 14, "qwen2-1.5b": 14}
 # masked and kernel prefill: prompt length and the local window of the
 # opt-in long-context pattern (local_global: window + the first KV tile),
 # a synthetic kernel exercise rather than llama4-scout's own attention
@@ -5074,12 +5088,13 @@ def gemma_trace(vocab: int):
 
 
 # ---------------------------------------------------------------------------
-# the dense GQA family: qwen3-1.7b and qwen2-1.5b at full depth,
-# nemotron-4-340b at full width and DEPTH's depth
+# the dense GQA family at full width and DEPTH's depth: qwen3-1.7b and
+# qwen2-1.5b 14 of 28 layers, nemotron-4-340b 4 of 96
 
 DENSE_ARCHS = ("qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
-# the frontend configs, served by the dense phases at full width and depth
-# (musicgen-large 6.46 GB, internvl2-26b 39.72 GB of bf16): their prompts
+# the frontend configs, served by the dense phases at full width and
+# DEPTH's 24 of 48 layers (musicgen-large 3.24 GB, internvl2-26b 21.00 GB of
+# bf16): their prompts
 # come after frontend_tokens (64 / 256) embedding positions, 0.02 * N(0, 1)
 # in bf16 from a seeded generator, as the reference's CLI makes them
 FRONTEND_ARCHS = ("musicgen-large", "internvl2-26b")
@@ -5516,9 +5531,9 @@ def phase_dense_scheduler(cfg, params):
 
 def phase_dense_serving(arch: str, card):
     """One arch of the dense GQA family, or a frontend config, served on
-    the card: its ``CONFIG`` at full width (qwen3-1.7b, qwen2-1.5b,
-    musicgen-large and internvl2-26b at full depth, nemotron-4-340b at
-    DEPTH's 4 of 96, the cut printed), random bf16 weights from a
+    the card: its ``CONFIG`` at full width and DEPTH's depth (qwen3-1.7b
+    and qwen2-1.5b 14 of 28, musicgen-large and internvl2-26b 24 of 48,
+    nemotron-4-340b 4 of 96, the cut printed), random bf16 weights from a
     seed (qwen2's biases random too).  ``ServeLoop`` serves BATCH prompts
     of DENSE_PROMPT tokens (chunked prefill; a frontend config's after its
     ``frontend_tokens`` bf16 embeddings of 0.02 * N(0, 1) from a seeded
@@ -6650,7 +6665,7 @@ SHARDED_RANKS = 4
 SHARDED_TIMEOUT = 60.0      # the group's timeout: seconds a collective
 SHARDED_LIMIT = 150.0       # the parent's wait for every rank
 SHARDED_ITERS = 10
-SHARDED_KERNELS = ("spmm_bcsr", "spmspm_ell", "flash_attention")
+SHARDED_KERNELS = ("spmm_bcsr", "spmspm_ell", "flash_attention", "router")
 SHARDED_SPMM_N = (512, 300)
 
 
@@ -6949,6 +6964,310 @@ def _sharded_flash():
                "tiles": [bq, bk], "mesh": {"data": 2, "model": 2}})
 
 
+# the expert-parallel MoE at llama4-scout's width: x (B, S) global on the
+# (2, 2) mesh, a (2, 1,024) block a rank; its tolerances against the
+# one-device layer on each block, of the largest |value| of the output or of
+# a gradient's part: bf16 products at another row count, bf16 sums of the
+# gradients in other orders
+MOE_X = (4, 2048)
+MOE_SEED = 45
+MOE_FWD_TOL = 2 ** -6
+MOE_GRAD_TOL = 2 ** -5
+# the sparse gradient exchange: a (2^24,) f32 gradient a rank, top 65,536
+PSUM_D, PSUM_K = 2 ** 24, 65536
+PSUM_SEED = 46
+PSUM_ITERS = 3
+COLLECTIVES = ("all_to_all", "all_gather", "reduce_scatter", "all_reduce")
+
+
+@contextlib.contextmanager
+def _timed_collectives(log: list):
+    """``models.moe_shard_map``'s collectives, each synchronised before and
+    after while on and its (name, bytes in, seconds) appended to ``log``;
+    its autograd functions call them by module name, forward and
+    backward."""
+    import torch
+    from repro_torch.models import moe_shard_map as msm
+    saved = {n: getattr(msm, n) for n in COLLECTIVES}
+
+    def timed(name, fn):
+        def call(t, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *args)
+            torch.cuda.synchronize()
+            log.append((name, _nbytes(t), time.perf_counter() - t0))
+            return out
+        return call
+
+    for n in COLLECTIVES:
+        setattr(msm, n, timed(n, saved[n]))
+    try:
+        yield log
+    finally:
+        for n in COLLECTIVES:
+            setattr(msm, n, saved[n])
+
+
+def _moe_leaves(cfg, g) -> dict:
+    """llama4-scout's MoE layer at full width as {name: leaf}: the router
+    f32, the 16 experts and the shared expert bf16, N(0, 1) from ``g``
+    times ``init_moe``'s scales, each requiring grad."""
+    import torch
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def w(shape, scale, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=dtype).mul_(scale).requires_grad_()
+
+    return {"router": w((d, E), d ** -0.5, torch.float32),
+            "experts.w_gate": w((E, d, ff), d ** -0.5),
+            "experts.w_up": w((E, d, ff), d ** -0.5),
+            "experts.w_down": w((E, ff, d), ff ** -0.5),
+            "shared.w_gate": w((d, ff), d ** -0.5),
+            "shared.w_up": w((d, ff), d ** -0.5),
+            "shared.w_down": w((ff, d), ff ** -0.5)}
+
+
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _moe_rank(rank: int, world: int, meshes) -> dict:
+    """One rank of the expert-parallel MoE (``moe.apply_moe`` under
+    ``activation_specs(moe_impl="shard_map", mesh=...)``) on the (2, 2)
+    mesh at llama4-scout's width: the forward, then the backward of
+    ``sum(out.float() ** 2)``, twice (the first with the launch counts set
+    to 0 before and read after: R1 once; each collective timed), the peak
+    memory; then, one rank at a time on the shared card, the one-device
+    ``apply_moe`` on each block and its gradients, against the assembled
+    output and this rank's parts of the gradients.  Rank 0 then times R1
+    at a block and returns the printed line and R1's kernels row."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import engine
+    from repro_torch.models import moe
+    from repro_torch.models.moe_shard_map import local_slices
+    from repro_torch.parallel.context import activation_specs
+    t_start = time.monotonic()
+    mesh = meshes["data_model"]
+    cfg = get_config(SCOUT_ARCH)
+    n_dp, i = engine.mesh_axis(mesh, "data")
+    n_tp, j = engine.mesh_axis(mesh, "model")
+    B, S = MOE_X
+    Bl, Sl = B // n_dp, S // n_tp
+    g = torch.Generator(device="cuda").manual_seed(MOE_SEED)
+    leaves = _moe_leaves(cfg, g)
+    leaves["x"] = torch.randn((B, S, cfg.d_model), generator=g,
+                              device="cuda", dtype=torch.bfloat16
+                              ).requires_grad_()
+    p = {"router": leaves["router"]}
+    for name, t in leaves.items():
+        head, _, tail = name.partition(".")
+        if tail:
+            p.setdefault(head, {})[tail] = t
+    x = leaves["x"]
+
+    def step(log):
+        """(out, forward s, backward s) of the shard_map layer."""
+        for t in leaves.values():
+            t.grad = None
+        torch.cuda.synchronize()
+        dist.barrier()
+        with _timed_collectives(log), \
+                activation_specs(moe_impl="shard_map", mesh=mesh):
+            t0 = time.perf_counter()
+            out, _ = moe.apply_moe(p, x, cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (out.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+        return out.detach(), t1 - t0, time.perf_counter() - t1
+
+    param_bytes = _nbytes(*leaves.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    logs = ([], [])
+    reset_launches()
+    out, fwd_s, bwd_s = step(logs[0])
+    launches = read_launches()
+    check(launches == only(router_logits=1),
+          f"rank {rank} moe_shard_map: launches {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    parts = {n: local_slices(n, t.shape, (n_dp, i), (n_tp, j))
+             for n, t in leaves.items()}
+    mine = {n: t.grad[parts[n]].clone() for n, t in leaves.items()}
+    out2, fwd2_s, bwd2_s = step(logs[1])
+    repeat_equal = bool(torch.equal(out, out2)) and all(
+        torch.equal(t.grad[parts[n]], mine[n]) for n, t in leaves.items())
+    del out2
+    for t in leaves.values():
+        t.grad = None
+    torch.cuda.empty_cache()
+    fwd_err = bitwise = grad_err = None
+    for r in range(world):
+        dist.barrier()
+        if r != rank:
+            continue
+        want = torch.empty_like(out)
+        for bi in range(n_dp):
+            for bj in range(n_tp):
+                blk = (slice(bi * Bl, (bi + 1) * Bl),
+                       slice(bj * Sl, (bj + 1) * Sl))
+                o, _ = moe.apply_moe(p, x[blk], cfg)
+                want[blk] = o.detach()
+                (o.float() ** 2).sum().backward()
+        bitwise = bool(torch.equal(out, want))
+        fwd_err = _rel_err(out, want)
+        grad_err = {n: _rel_err(mine[n], t.grad[parts[n]])
+                    for n, t in leaves.items()}
+        del want, o
+        for t in leaves.values():
+            t.grad = None
+        torch.cuda.empty_cache()
+    dist.barrier()
+    check(fwd_err <= MOE_FWD_TOL, f"rank {rank} moe_shard_map: the output "
+          f"is {fwd_err} of its largest |value| off the one-device layer")
+    for n, err in grad_err.items():
+        check(err <= MOE_GRAD_TOL, f"rank {rank} moe_shard_map: d {n} is "
+              f"{err} of its largest |value| off the one-device layer")
+    # the gathered weights: this rank's E/tp experts and the whole shared
+    gathered = sum(_nbytes(t) // (n_tp if n.startswith("experts.") else 1)
+                   for n, t in leaves.items()
+                   if n.startswith(("experts.", "shared.")))
+
+    def by_op(log):
+        return {op: sum(s for name, _, s in log if name == op)
+                for op in COLLECTIVES}
+
+    info = {"rank": rank, "launches": launches["router_logits"],
+            "forward_ms": [fwd_s * 1e3, fwd2_s * 1e3],
+            "backward_ms": [bwd_s * 1e3, bwd2_s * 1e3],
+            "collective_s": [by_op(lg) for lg in logs],
+            "collective_calls": [[(n, b / 1e6, s) for n, b, s in lg]
+                                 for lg in logs],
+            "peak_gb": peak_gb, "held_gb": held_gb,
+            "reckoned_gb": (2 * param_bytes + gathered) / 1e9,
+            "fwd_err": fwd_err, "bitwise": bitwise, "grad_err": grad_err,
+            "repeat_equal": repeat_equal,
+            "seconds": time.monotonic() - t_start}
+    infos = [None] * world
+    dist.all_gather_object(infos, info)
+    if rank != 0:
+        dist.barrier()
+        return info
+    r1 = _router_times(((x.detach()[:Bl, :Sl].contiguous(),
+                         leaves["router"].detach()), None),
+                       f"moe_shard_map block ({Bl} x {Sl})")
+    dist.barrier()
+    ms = lambda key, k: ", ".join(  # noqa: E731
+        "%.1f" % f[key][k] for f in infos)
+    coll = lambda k: "; ".join(  # noqa: E731
+        "%s %s s" % (op, ", ".join("%.3f" % f["collective_s"][k][op]
+                                   for f in infos)) for op in COLLECTIVES)
+    cap = moe.dispatch_capacity(Sl, cfg)
+    line = (f"  sharded moe_shard_map (llama4-scout MoE at full width, x "
+            f"{list(x.shape)} bf16, blocks ({Bl}, {Sl}), cap {cap}, "
+            f"(2, 2) mesh): output {'==' if all(f['bitwise'] for f in infos) else 'within'} "
+            f"the one-device layer a block (max rel "
+            f"{max(f['fwd_err'] for f in infos):.3g}, tol {MOE_FWD_TOL}); "
+            f"gradients max rel {max(max(f['grad_err'].values()) for f in infos):.3g} "
+            f"(tol {MOE_GRAD_TOL}); R1 x {[f['launches'] for f in infos]} "
+            f"a rank; forward ms {ms('forward_ms', 0)} (again "
+            f"{ms('forward_ms', 1)}), backward ms {ms('backward_ms', 0)} "
+            f"(again {ms('backward_ms', 1)}); collectives, again: "
+            f"{coll(1)}; peak GB {', '.join('%.2f' % f['peak_gb'] for f in infos)} "
+            f"(reckoned {info['reckoned_gb']:.2f}: params, their gradients, "
+            f"the gathered weights); {info['seconds']:.1f} s")
+    row = {"name": "router_logits sharded moe_shard_map", "route": "cuda",
+           "source": "src/repro_torch/kernels/router/csrc/router.cu",
+           "replaces": "src/repro/models/moe.py:232 (array code, no Pallas "
+                       "kernel)",
+           "launches": sum(f["launches"] for f in infos),
+           **{k: r1[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+           "r1": r1, "layer": "models/moe_shard_map.apply_moe_shard_map",
+           "shape": {"x": list(x.shape), "block": [Bl, Sl, cfg.d_model],
+                     "capacity": cap, "experts": cfg.n_experts,
+                     "d_ff": cfg.d_ff, "mesh": {"data": n_dp,
+                                                "model": n_tp}},
+           "ranks": infos, "fwd_tol": MOE_FWD_TOL, "grad_tol": MOE_GRAD_TOL,
+           "note": "ranks share one card over gloo (collectives through "
+                   "host memory and loopback, not NVLink): no multi-card "
+                   "speedup; ms, plain_ms, library_ms and bound_ms are R1 "
+                   "at one block"}
+    return {"line": line, "row": row}
+
+
+def _psum_rank(rank: int, world: int, meshes) -> dict:
+    """One rank of ``grad_comp.sparse_psum_shard_map`` over the 1-D
+    ("data",) mesh (a mesh and a dim name): a (PSUM_D,) f32 gradient a
+    rank (the ranks' rows of one seeded (world, PSUM_D) draw), top
+    PSUM_K; once with the launch counts set to 0 before and read after
+    (no kernel of the port runs in it), == ``sparse_allreduce_tree`` on
+    the stacked gradients (``torch.equal``, every rank), then PSUM_ITERS
+    more times on the host clock, every rank together.  Rank 0 times the
+    tree and returns the printed line and the phase summary's entry: the
+    exchange launches no kernel of the port, so it has no kernels row."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.grad_comp import sparse_allreduce as SA
+    t_start = time.monotonic()
+    g = torch.Generator(device="cuda").manual_seed(PSUM_SEED)
+    grads = torch.randn((world, PSUM_D), generator=g, device="cuda")
+    group = (meshes["data"], "data")
+    run = lambda: SA.sparse_psum_shard_map(grads[rank], PSUM_K,  # noqa: E731
+                                           group)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == only(), f"rank {rank} sparse_psum: launches "
+                              f"{launches}")
+    want, _ = SA.sparse_allreduce_tree(grads, PSUM_K)
+    equal = bool(torch.equal(got, want))
+    check(equal, f"rank {rank} sparse_psum != sparse_allreduce_tree")
+    del want
+    secs = []
+    for _ in range(PSUM_ITERS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    info = {"rank": rank, "equal": equal, "ms": [s * 1e3 for s in secs],
+            "count": int((got != 0).sum())}
+    infos = [None] * world
+    dist.all_gather_object(infos, info)
+    if rank != 0:
+        dist.barrier()
+        return info
+    plain_ms = time_ms(lambda: SA.sparse_allreduce_tree(grads, PSUM_K), 2, 1)
+    dist.barrier()
+    ms = float(np.median([m for f in infos for m in f["ms"]]))
+    line = (f"  sharded sparse_psum ({world} ranks, D {PSUM_D}, k {PSUM_K}):"
+            f" == sparse_allreduce_tree on every rank; {info['count']} "
+            f"entries; ms a call {', '.join('%.1f' % m for f in infos for m in f['ms'])} "
+            f"(host clock, all ranks together, gloo all_gather of "
+            f"{world} x {PSUM_K} keys and values), the tree on one device "
+            f"{plain_ms:.1f}; {time.monotonic() - t_start:.1f} s")
+    summary = {"equal": equal, "ms": ms, "tree_ms": plain_ms, "ranks": infos,
+               "shape": {"D": PSUM_D, "k": PSUM_K, "ranks": world},
+               "note": "no kernel of the port: torch ops and a gloo "
+                       "all_gather; ms is one exchange on the host clock, "
+                       "ranks sharing one card; tree_ms the one-device "
+                       "tree on the stacked gradients"}
+    return {"line": line, "summary": summary}
+
+
 # phase_sharded_engine's ops: name -> the builder of its case
 SHARDED_OPS = {
     "dispatch": functools.partial(_sharded_dispatch, False),
@@ -6961,9 +7280,12 @@ SHARDED_OPS = {
     "attention_window": functools.partial(_sharded_attention, "window"),
     "flash": _sharded_flash,
 }
+# then its layers: name -> one rank's run, its own checks and timings
+# (rank 0 returns {"line", and "row" (a kernels row) or "summary"})
+SHARDED_LAYERS = {"moe_shard_map": _moe_rank, "sparse_psum": _psum_rank}
 
 
-def _sharded_rank(rank: int, world: int, ops) -> list:
+def _sharded_rank(rank: int, world: int, ops, layers) -> list:
     """One rank of phase_sharded_engine, on the card (``cuda:0``, which all
     ranks share), for each op: its case built from seeds (the same operands
     on every rank), the sharded call with the launch counts set to 0 just
@@ -6973,7 +7295,9 @@ def _sharded_rank(rank: int, world: int, ops) -> list:
     against the one-device kernel on the whole operand (``torch.equal``)
     and that kernel against its plain version (``max_err``'s tolerance; the
     dispatch copy exactly), and times the one-device kernel, the plain
-    version and the library call.  The kernels must have been built before
+    version and the library call.  Then each of ``layers`` (SHARDED_LAYERS:
+    the expert-parallel MoE layer, the sparse gradient exchange), with its
+    own run, checks and timings.  The kernels must have been built before
     the spawn: no rank builds."""
     import torch
     import torch.distributed as dist
@@ -7037,6 +7361,9 @@ def _sharded_rank(rank: int, world: int, ops) -> list:
         rows.append(row)
         del case, got, part, run
         torch.cuda.empty_cache()
+    for name in layers:
+        rows.append(SHARDED_LAYERS[name](rank, world, meshes))
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -7056,14 +7383,21 @@ def phase_sharded_engine(card):
     sliding-window mask; ``sharded_flash_attention`` on a (2, 2) mesh.
     Each checks sharded == one device (``torch.equal``) and the kernel
     against its plain version, and prints each rank's kernel time on its
-    part beside the one-device kernel's on the whole.  The ranks time one
+    part beside the one-device kernel's on the whole.  Then two layers:
+    ``moe.apply_moe`` under the shard_map impl on the (2, 2) mesh at
+    llama4-scout's width (``_moe_rank``: forward and backward against the
+    one-device layer on each block within MOE_FWD_TOL / MOE_GRAD_TOL, R1
+    once a rank, each collective's seconds, each rank's peak memory) and
+    ``sparse_psum_shard_map`` on 4 ranks (``_psum_rank``: ==
+    ``sparse_allreduce_tree``).  The ranks time one
     at a time on a card they share: this checks the split and its
     offsets on the card, it measures no multi-card speedup.  A rank that
     fails makes the phase raise.  Returns (the kernel rows, a summary)."""
     from repro_torch.parallel.ranks import run_ranks
     t0 = time.monotonic()
     per_rank = run_ranks(_sharded_rank, SHARDED_RANKS, list(SHARDED_OPS),
-                         timeout=SHARDED_TIMEOUT, limit=SHARDED_LIMIT)
+                         list(SHARDED_LAYERS), timeout=SHARDED_TIMEOUT,
+                         limit=SHARDED_LIMIT)
     seconds = time.monotonic() - t0
     rows = []
     for j, name in enumerate(SHARDED_OPS):
@@ -7094,11 +7428,20 @@ def phase_sharded_engine(card):
             "note": "ranks share one card and time one at a time: no "
                     "multi-card speedup; ms, plain_ms, library_ms and "
                     "bound_ms are the one-device call on the whole operand"})
-    print(f"  sharded engine: {seconds:.1f} s for {len(SHARDED_OPS)} ops on "
-          f"{SHARDED_RANKS} gloo ranks sharing the card (gather: "
-          "all_gather of CUDA tensors over gloo)")
+    layers = {}
+    for j, name in enumerate(SHARDED_LAYERS, len(SHARDED_OPS)):
+        r0 = per_rank[0][j]
+        print(r0["line"])
+        if "row" in r0:
+            rows.append({**r0["row"], "card": card})
+        else:
+            layers[name] = r0["summary"]
+    print(f"  sharded engine: {seconds:.1f} s for {len(SHARDED_OPS)} ops and "
+          f"{len(SHARDED_LAYERS)} layers on {SHARDED_RANKS} gloo ranks "
+          "sharing the card (gather: all_gather of CUDA tensors over gloo)")
     return rows, {"seconds": seconds, "ranks": SHARDED_RANKS,
-                  "ops": list(SHARDED_OPS)}
+                  "ops": list(SHARDED_OPS), "layers": list(SHARDED_LAYERS),
+                  **layers}
 
 
 def main() -> int:

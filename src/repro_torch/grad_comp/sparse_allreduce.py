@@ -9,15 +9,18 @@ rounds that moves O(k log W) elements instead of O(D).  The dropped mass
 stays in a local error-feedback buffer.
 
 ``sparse_allreduce_tree`` is the single-process form over stacked worker
-gradients.  The collective form (the reference's
-``sparse_psum_shard_map``) belongs with the port's multi-card path and is
-not here yet.
+gradients.  ``sparse_psum_shard_map`` is the collective form on a
+``torch.distributed`` group: each rank contributes its compressed stream
+through an all-gather of (keys, values), the only traffic, and takes the
+union locally, in rank order, so every rank gets what
+``sparse_allreduce_tree`` gives on the ranks' stacked gradients.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.formats import INVALID_KEY
@@ -71,6 +74,27 @@ def sparse_allreduce_tree(grads_stack: torch.Tensor, k: int):
     errs = torch.stack([p[2] for p in parts])
     ukeys, uvals, count = union_reduce(keys, vals)
     return stream_densify(ukeys, uvals, count, D) / W, errs
+
+
+def sparse_psum_shard_map(grad_local: torch.Tensor, k: int, group
+                          ) -> torch.Tensor:
+    """The mean of the ranks' gradients through the sparse union, on every
+    rank of ``group`` (a process group, or a ``(mesh, dim name)`` pair):
+    ``grad_local`` (D,) is this rank's gradient.  Compress it, all-gather
+    every rank's (keys, values), union them in rank order, densify, divide
+    by the rank count."""
+    if isinstance(group, tuple):
+        mesh, dim = group
+        group = mesh.get_group(dim)
+    W = dist.get_world_size(group)
+    keys, vals, _ = compress(grad_local, k)
+    all_keys = [torch.empty_like(keys) for _ in range(W)]
+    all_vals = [torch.empty_like(vals) for _ in range(W)]
+    dist.all_gather(all_keys, keys, group=group)    # the only traffic
+    dist.all_gather(all_vals, vals, group=group)
+    ukeys, uvals, count = union_reduce(torch.stack(all_keys),
+                                       torch.stack(all_vals))
+    return stream_densify(ukeys, uvals, count, grad_local.shape[0]) / W
 
 
 def compression_ratio(D: int, k: int, workers: int) -> float:

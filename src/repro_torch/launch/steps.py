@@ -69,11 +69,12 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec,
     backward)."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_train_step(mesh=...): the mesh, the sharding rules and the "
-            "sharded engine are ported (parallel/, launch/mesh.py); the "
+            "make_train_step(mesh=...): the mesh, the sharding rules, the "
+            "sharded engine and the expert-parallel MoE are ported "
+            "(parallel/, launch/mesh.py, models/moe_shard_map.py); the "
             "sharded train step still needs the step's partition specs and "
-            "the expert-parallel MoE (ROADMAP Queue 1 item 4b); this step "
-            "runs on one device")
+            "make_*_step(mesh=) (ROADMAP Queue 1 item 4b.2); this step runs "
+            "on one device")
     optimizer = optimizer or default_optimizer()
     k = microbatches or shape.microbatches
     impl = attn_impl or impl

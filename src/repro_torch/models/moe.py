@@ -36,12 +36,25 @@ router logits (R1 on the card, with its backward), the gate and the
 gather dispatch and combine carry gradients, and with ``counts=None`` no
 step writes in place into anything autograd saved.  The bcsr backend's
 kernel K2 has no backward and refuses inputs that require grad.
+
+**Expert-parallel** (train-only): under ``parallel.context``'s
+``MOE_IMPL == "shard_map"`` with a ``MESH``, :func:`apply_moe` runs
+``models.moe_shard_map.apply_moe_shard_map``: each (batch, sequence) block
+routes locally, the experts split over "model" with an all-to-all of the
+capacity tiles, their weights gathered over the FSDP axes.
+
+The backend is ``dispatch=``, else ``parallel.context.MOE_DISPATCH``, else
+the config's ``moe_dispatch``.  ``groups=`` (else
+``parallel.context.MOE_GROUPS``) declares the dispatch row groups the data
+axes expect; one that does not divide the batch warns (raises under
+``cfg.moe_strict_dispatch``).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -54,6 +67,7 @@ from repro_torch.kernels import build, engine, tuning
 from repro_torch.kernels.router.kernel import router_logits
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_mlp, init_mlp, normal
+from repro_torch.parallel import context
 
 
 def init_moe(g: torch.Generator, cfg: ArchConfig, *, n: int, dtype, device):
@@ -408,27 +422,75 @@ def _moe_tail(p, x, xe, gate, keep, flat_slot, cfg: ArchConfig, E: int,
 
 
 def _backend(cfg: ArchConfig, dispatch: Optional[str]) -> str:
-    backend = dispatch or cfg.moe_dispatch
+    """``dispatch``, else ``context.MOE_DISPATCH``, else the config's."""
+    backend = dispatch or context.MOE_DISPATCH or cfg.moe_dispatch
     if backend not in ("gather", "bcsr"):
         raise ValueError(f"unknown moe_dispatch backend {backend!r}")
     return backend
 
 
+def _check_groups(B: int, cfg: ArchConfig, G: Optional[int], who: str):
+    """Warn (raise under ``cfg.moe_strict_dispatch``) when ``G`` dispatch
+    row groups do not divide the batch."""
+    if G and B % G != 0:
+        msg = (f"{who}: {G} dispatch group(s) requested but the batch "
+               f"dim B={B} is not divisible; routing is per batch row, so "
+               "the layer's result is the same, but the groups cannot "
+               "each hold whole rows of the data shards.")
+        if cfg.moe_strict_dispatch:
+            raise ValueError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def _apply_moe_shard_map(p, x: torch.Tensor, cfg: ArchConfig, counts, pos,
+                         dispatch: Optional[str]):
+    """:func:`apply_moe`'s expert-parallel branch over ``context.MESH``:
+    the FSDP axes present (merged when there are two) and "model".  It
+    threads no routing state and dispatches by gather only, so a caller
+    with ``counts`` / ``pos`` or another backend is warned (refused under
+    ``cfg.moe_strict_dispatch``).  Returns ``(out, counts or zeros (B,
+    E))``."""
+    from repro_torch.models.moe_shard_map import apply_moe_shard_map
+    from repro_torch.parallel.sharding import FSDP, TP
+    if counts is not None or pos is not None or \
+            _backend(cfg, dispatch) != "gather":
+        msg = ("apply_moe: the shard_map impl is train-only -- it does "
+               "not thread routing occupancy (counts/pos) and only "
+               "supports moe_dispatch='gather'; decode and bcsr callers "
+               "must use the pjit impl.")
+        if cfg.moe_strict_dispatch:
+            raise ValueError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+    mesh = context.MESH
+    dp_axes = tuple(a for a in FSDP if a in mesh.mesh_dim_names)
+    dp_axes = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    out = apply_moe_shard_map(p, x, cfg, mesh, dp_axes=dp_axes, tp_axis=TP)
+    if counts is None:
+        counts = torch.zeros((x.shape[0], cfg.n_experts), dtype=torch.int32,
+                             device=x.device)
+    return out, counts
+
+
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
               counts: Optional[torch.Tensor] = None, pos=None,
-              dispatch: Optional[str] = None, full_grid: bool = False):
+              groups: Optional[int] = None, dispatch: Optional[str] = None,
+              full_grid: bool = False):
     """x: (B, S, d) -> ((B, S, d), new_counts (B, E) int32), the one-call
     layer: :func:`route_moe` then :func:`execute_moe`.  ``counts``/``pos``
     thread the routing state for stepwise decode (``pos`` a Python int, or
     per-row positions, see :func:`route_moe`).
-    ``dispatch``: "gather" | "bcsr" (default: the config's
-    ``moe_dispatch``).  The bcsr stream is compacted on the host and
-    bucketed (its pad entries are zero blocks, so the result is the
-    unbucketed stream's); ``full_grid=True`` (the fused path) takes the
-    full-grid stream instead, built on the device (:func:`route_moe`).
-    Both equal gather bit for bit."""
-    plan, _ = route_moe(p, x, cfg, counts=counts, pos=pos, dispatch=dispatch,
-                        full_grid=full_grid)
+    ``dispatch``: "gather" | "bcsr" (default: ``context.MOE_DISPATCH``,
+    then the config's ``moe_dispatch``).  The bcsr stream is compacted on
+    the host and bucketed (its pad entries are zero blocks, so the result
+    is the unbucketed stream's); ``full_grid=True`` (the fused path) takes
+    the full-grid stream instead, built on the device (:func:`route_moe`).
+    Both equal gather bit for bit.  ``groups``: see the module docstring.
+    Under ``context.MOE_IMPL == "shard_map"`` with a ``context.MESH`` the
+    expert-parallel layer runs instead (:func:`_apply_moe_shard_map`)."""
+    if context.MOE_IMPL == "shard_map" and context.MESH is not None:
+        return _apply_moe_shard_map(p, x, cfg, counts, pos, dispatch)
+    _check_groups(x.shape[0], cfg, groups or context.MOE_GROUPS, "apply_moe")
+    plan, _ = _route_moe(p, x, cfg, counts, pos, dispatch, full_grid)
     return execute_moe(p, x, plan, cfg)
 
 
@@ -474,7 +536,7 @@ class MoEPlan:
 
 def route_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
               counts: Optional[torch.Tensor] = None, pos=None,
-              dispatch: Optional[str] = None,
+              groups: Optional[int] = None, dispatch: Optional[str] = None,
               full_grid: bool = False) -> Tuple[MoEPlan, dict]:
     """Phase 1: route a concrete ``x`` and, for "bcsr", build the routed
     dispatch stream (union nonzero-block pattern, bucketed).  ``pos`` is
@@ -487,7 +549,17 @@ def route_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
     ``full_grid=True`` with "bcsr": the stream is the full grid
     (:func:`_full_grid_stream`), built on the device; nothing is read on
     the host, and ``info`` holds only the backend, capacity, tokens and
-    ``nnzb_stream`` / ``grid_nnzb`` (the grid's blocks)."""
+    ``nnzb_stream`` / ``grid_nnzb`` (the grid's blocks).  ``groups``:
+    see the module docstring."""
+    _check_groups(x.shape[0], cfg, groups or context.MOE_GROUPS,
+                  "route_moe")
+    return _route_moe(p, x, cfg, counts, pos, dispatch, full_grid)
+
+
+def _route_moe(p, x: torch.Tensor, cfg: ArchConfig, counts, pos,
+               dispatch: Optional[str], full_grid: bool
+               ) -> Tuple[MoEPlan, dict]:
+    """:func:`route_moe` without the groups check."""
     backend = _backend(cfg, dispatch)
     pos0 = 0 if pos is None else pos
     if not isinstance(pos0, torch.Tensor):
