@@ -38,6 +38,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    == ``sparse_allreduce_tree`` (``torch.equal``); the MoE's R1 row joins
    the kernels line, the exchange (no kernel of the port) the phase's
    summary;
+2c. the multi-rank train step (``phase_train_mesh``,
+   ``launch.steps.make_train_step(mesh=)``) on 4 gloo ranks that share the
+   card: qwen3-1.7b and llama4-scout SMOKE (the shard_map MoE) in f32 on a
+   (2, 2) and a (1, 2, 2) mesh, three steps each, the losses, norms and
+   assembled params / m / v against the card's one-device step within the
+   CPU test's tolerances, R1 twice a MoE layer a rank a step; then
+   qwen3-1.7b at full width and depth (f32 params and AdamW state cut to
+   a rank's shards, bf16 compute) on the (2, 2) mesh, kernel_sharded, 4 x
+   512 tokens of ``SyntheticLM(seed=0)``, two steps: both losses against
+   the one-device step on the same tokens (run first, then freed) within
+   MESH_TRAIN_TOL, K3 twice a layer a rank a step (the forward and the
+   remat recompute), each rank's peak memory, step seconds and (step 2)
+   seconds in each collective; K3's row at a rank's heads and R1's at the
+   SMOKE block join the kernels line;
 3. kernel vs plain version on the card: K2 on random BCSR streams (f32 and
    bf16, blocks (8, 8), (8, 16), (16, 8), (8, 1), (16, 32), empty
    block-rows, bucket-pad entries, N not a multiple of the tile or of the
@@ -297,7 +311,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 10b. the dense GQA family, one arch at a time, each freeing its weights
    before the next: qwen3-1.7b (16/8 heads of 128, qk_norm) and
    qwen2-1.5b (12/2 heads of 128, qkv bias, random biases) at full width
-   and DEPTH's 14 of 28 layers on 4 x 2,048 prompts, and
+   and DEPTH's 7 of 28 layers on 4 x 2,048 prompts, and
    nemotron-4-340b at full width (96/8 heads of 192: a GQA group of 12;
    d_ff 73,728 squared ReLU; vocab 256,000) and depth 4 of 96 (46.5 GB) on
    4 x 1,024, random bf16 weights from a seed: ``ServeLoop`` chunked
@@ -311,7 +325,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    tokens, one graph a bucket, every request == itself alone (8 of 8
    each); each arch's K3 (and nemotron's K4m / K4s) and D1 at its served
    shapes timed into the kernels line; each phase's wall seconds; then
-   the frontend configs the same way at full width and DEPTH's 24 of 48
+   the frontend configs the same way at full width and DEPTH's 12 of 48
    layers: musicgen-large (32/32 heads of 64, vocab 2,048) and
    internvl2-26b (48/8 heads of 128, vocab 92,553) on 4 x 1,024 prompts
    after 64 / 256 bf16 embedding positions
@@ -411,13 +425,15 @@ MAVERICK_ARCH = "llama4-maverick-400b-a17b"
 # 24 units (2 of 48 layers, 37.1 GB); gemma3-12b 2 of 8 units (12 of 48
 # layers); nemotron-4-340b 4 of 96 layers (a layer is 6.91 GB of bf16 and
 # the embedding and unembedding 9.44 GB each: 46.5 GB, 6 layers would be
-# 60.3 GB of one card's 80 GB); musicgen-large and internvl2-26b 24 of 48
-# layers, qwen3-1.7b and qwen2-1.5b 14 of 28, to keep the script under 700
-# s with the sharded engine's expert-parallel MoE (at full depth the script
-# took 751 and 812 s on an H100 machine with a slower host)
+# 60.3 GB of one card's 80 GB); musicgen-large and internvl2-26b 12 of 48
+# layers, qwen3-1.7b and qwen2-1.5b 7 of 28, to keep the script under 750
+# s with the sharded engine's expert-parallel MoE and the multi-rank train
+# step (at 24 of 48 and 14 of 28 the script took 781.5 s on an H100
+# machine with a slower host; at full depth 751 and 812 s before the train
+# step's phase)
 DEPTH = {SCOUT_ARCH: 4, MAVERICK_ARCH: 1, "gemma3-12b": 2,
-         "nemotron-4-340b": 4, "musicgen-large": 24, "internvl2-26b": 24,
-         "qwen3-1.7b": 14, "qwen2-1.5b": 14}
+         "nemotron-4-340b": 4, "musicgen-large": 12, "internvl2-26b": 12,
+         "qwen3-1.7b": 7, "qwen2-1.5b": 7}
 # masked and kernel prefill: prompt length and the local window of the
 # opt-in long-context pattern (local_global: window + the first KV tile),
 # a synthetic kernel exercise rather than llama4-scout's own attention
@@ -1130,6 +1146,39 @@ def _attention_f64(q, k, v, causal: bool):
     return torch.softmax(s, dim=-1) @ v
 
 
+def _ops_plain(q, k, v, **kw):
+    """What ``ops.attention(q, k, v, **kw)`` computes for CPU tensors -- the
+    same padding and tiles, then the kernel's plain version (``ref.py``) --
+    on the tensors' own device.  On the card it holds a kernel reached
+    through ``ops`` against its plain version on the card, as the other
+    kernel-vs-plain checks do, and not against the host CPU's product,
+    which on some hosts drifted 100x further from the f64 oracle."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    Sq, Skv = q.shape[2], k.shape[2]
+    m = kw.get("mask")
+    if m is None:
+        bq, bk = ops.tiles(q, k, kw.get("bq"), kw.get("bk"))
+        kp = (-Skv) % bk
+        out = ref.flash_attention_ref(
+            ops.pad_seq(q, (-Sq) % bq), ops.pad_seq(k, kp),
+            ops.pad_seq(v, kp), causal=kw.get("causal", True),
+            window=kw.get("window"), bq=bq, bk=bk, skv=Skv)
+        return out[:, :, :Sq]
+    kp = m.n_kv_tiles * m.bk - Skv
+    qq, kk, vv = (ops.pad_seq(q, m.n_q_tiles * m.bq - Sq),
+                  ops.pad_seq(k, kp), ops.pad_seq(v, kp))
+    if kw["mask_impl"] == "dense":
+        out = ref.flash_attention_masked_ref(
+            qq, kk, vv, m.tile_kinds, skv=Skv, window=m.window,
+            q_offset=m.q_offset)
+    else:
+        s = m.lower(bucket=True)
+        out = ref.flash_attention_sparse_ref(
+            qq, kk, vv, s.rows, s.cols, s.kinds, skv=Skv, window=m.window,
+            bq=m.bq, bk=m.bk, q_offset=m.q_offset)
+    return out[:, :, :Sq]
+
+
 def phase_attention_vs_plain():
     """K3, K4m and K4s against their plain versions (``ref.py``, the same
     tile loop in PyTorch) on random q, k, v on the card, with the
@@ -1198,28 +1247,32 @@ def phase_attention_vs_plain():
                              ("K3", dict(causal=False, bq=t, bk=t)),
                              ("K4s", dict(mask=m, mask_impl="sparse")),
                              ("K4m", dict(mask=m, mask_impl="dense"))):
-                want = ops.attention(qr.cpu(), kr.cpu(), vr.cpu(), **kw)
+                want = _ops_plain(qr, kr, vr, **kw)
                 got = ops.attention(qr, kr, vr, **kw)
                 if "causal" in kw:
-                    # each side against an f64 oracle, printed before the
-                    # check, so a disagreement shows which side moved; and
-                    # the card's result repeats bit for bit
+                    # the kernel, its plain version on the card and the
+                    # host CPU's plain version each against an f64 oracle,
+                    # printed before the check, so a disagreement shows
+                    # which side moved; and the card's result repeats bit
+                    # for bit
+                    host = ops.attention(qr.cpu(), kr.cpu(), vr.cpu(), **kw)
                     exact = _attention_f64(qr, kr, vr, kw["causal"])
-                    card_err, cpu_err = ((x.cpu().double() - exact).abs()
-                                         .max().item() for x in (got, want))
+                    card_err, plain_err, cpu_err = (
+                        (x.cpu().double() - exact).abs().max().item()
+                        for x in (got, want, host))
                     print(f"    K3 via ops, S={Sr} causal={kw['causal']}: vs "
-                          f"f64, card {card_err:.3g}, host cpu {cpu_err:.3g}")
+                          f"f64, card {card_err:.3g}, plain on the card "
+                          f"{plain_err:.3g}, host cpu {cpu_err:.3g}")
                     check(all(torch.equal(ops.attention(qr, kr, vr, **kw),
                                           got) for _ in range(8)),
                           f"K3 via ops, S={Sr}: the card's result varies")
-                note(name, got, want.cuda(),
+                note(name, got, want,
                      f"{name} via ops, S={Sr} {kw.get('causal', 'mask')}")
             # a ragged non-causal KV against the materialized oracle, which
             # sums in another order (so twice the tolerance): the padded
             # keys stay invisible
             got = ops.attention(qr, kr, vr, causal=False, bq=t, bk=t)
-            want = ref.attention_ref(qr.cpu(), kr.cpu(), vr.cpu(),
-                                     causal=False).cuda()
+            want = ref.attention_ref(qr, kr, vr, causal=False)
             check((got.float() - want.float()).abs().max().item()
                   <= 2 * tolerance(want.float().abs().max().item(), dt),
                   f"K3 non-causal ragged KV (S={Sr}) != the oracle")
@@ -1245,8 +1298,8 @@ def _gemma_window_case(rng, dt):
     """gemma3-12b's local attention at D 256: 16/8 heads, a ragged 1,500
     tokens, the sliding window of 1,024 through ``ops.attention`` as the
     model calls it -- K3 causal with the window, K4s and K4m on the
-    serving's sliding-window mask -- each against the host's plain version
-    (its own tiles, within :func:`tolerance`); K4s == K4m and K4s == K3 as
+    serving's sliding-window mask -- each against its plain version on the
+    card (:func:`_ops_plain`, its own tiles, within :func:`tolerance`); K4s == K4m and K4s == K3 as
     ``torch.equal`` (one tile update, the same 64 x 64 tiles)."""
     import numpy as np
     import torch
@@ -1262,7 +1315,7 @@ def _gemma_window_case(rng, dt):
                      ("K4s", dict(mask=m, mask_impl="sparse")),
                      ("K4m", dict(mask=m, mask_impl="dense"))):
         got[name] = ops.attention(q, k, v, **kw)
-        want = ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw).cuda()
+        want = _ops_plain(q, k, v, **kw)
         errs[name] = max_err(got[name], want,
                              f"{name} D 256 window {W} S={S}")
     check(torch.equal(got["K4s"], got["K4m"]), "D 256: K4s != K4m")
@@ -5089,12 +5142,12 @@ def gemma_trace(vocab: int):
 
 # ---------------------------------------------------------------------------
 # the dense GQA family at full width and DEPTH's depth: qwen3-1.7b and
-# qwen2-1.5b 14 of 28 layers, nemotron-4-340b 4 of 96
+# qwen2-1.5b 7 of 28 layers, nemotron-4-340b 4 of 96
 
 DENSE_ARCHS = ("qwen3-1.7b", "qwen2-1.5b", "nemotron-4-340b")
 # the frontend configs, served by the dense phases at full width and
-# DEPTH's 24 of 48 layers (musicgen-large 3.24 GB, internvl2-26b 21.00 GB of
-# bf16): their prompts
+# DEPTH's 12 of 48 layers (each arch's bf16 params printed): their
+# prompts
 # come after frontend_tokens (64 / 256) embedding positions, 0.02 * N(0, 1)
 # in bf16 from a seeded generator, as the reference's CLI makes them
 FRONTEND_ARCHS = ("musicgen-large", "internvl2-26b")
@@ -5532,7 +5585,7 @@ def phase_dense_scheduler(cfg, params):
 def phase_dense_serving(arch: str, card):
     """One arch of the dense GQA family, or a frontend config, served on
     the card: its ``CONFIG`` at full width and DEPTH's depth (qwen3-1.7b
-    and qwen2-1.5b 14 of 28, musicgen-large and internvl2-26b 24 of 48,
+    and qwen2-1.5b 7 of 28, musicgen-large and internvl2-26b 12 of 48,
     nemotron-4-340b 4 of 96, the cut printed), random bf16 weights from a
     seed (qwen2's biases random too).  ``ServeLoop`` serves BATCH prompts
     of DENSE_PROMPT tokens (chunked prefill; a frontend config's after its
@@ -6977,18 +7030,19 @@ MOE_GRAD_TOL = 2 ** -5
 PSUM_D, PSUM_K = 2 ** 24, 65536
 PSUM_SEED = 46
 PSUM_ITERS = 3
-COLLECTIVES = ("all_to_all", "all_gather", "reduce_scatter", "all_reduce")
+COLLECTIVES = ("all_to_all", "all_gather", "reduce_scatter", "all_reduce",
+               "all_reduce_max")
 
 
 @contextlib.contextmanager
 def _timed_collectives(log: list):
-    """``models.moe_shard_map``'s collectives, each synchronised before and
-    after while on and its (name, bytes in, seconds) appended to ``log``;
-    its autograd functions call them by module name, forward and
-    backward."""
+    """``parallel.collectives``' plain collectives, each synchronised
+    before and after while on and its (name, bytes in, seconds) appended
+    to ``log``; its autograd functions call them by module name, forward
+    and backward."""
     import torch
-    from repro_torch.models import moe_shard_map as msm
-    saved = {n: getattr(msm, n) for n in COLLECTIVES}
+    from repro_torch.parallel import collectives as coll
+    saved = {n: getattr(coll, n) for n in COLLECTIVES}
 
     def timed(name, fn):
         def call(t, *args):
@@ -7001,12 +7055,12 @@ def _timed_collectives(log: list):
         return call
 
     for n in COLLECTIVES:
-        setattr(msm, n, timed(n, saved[n]))
+        setattr(coll, n, timed(n, saved[n]))
     try:
         yield log
     finally:
         for n in COLLECTIVES:
-            setattr(msm, n, saved[n])
+            setattr(coll, n, saved[n])
 
 
 def _moe_leaves(cfg, g) -> dict:
@@ -7444,6 +7498,431 @@ def phase_sharded_engine(card):
                   **layers}
 
 
+# ---------------------------------------------------------------------------
+# The multi-rank train step: SHARDED_RANKS gloo ranks that share the card.
+# ---------------------------------------------------------------------------
+
+# (a) tests/test_torch_train_mesh.py's SMOKE cases on the card, f32, three
+# steps each, against the card's one-device step within the CPU test's
+# tolerances (1e-5 on the loss and norm and, in units of a leaf's largest,
+# on m and v; the params the same plus 2 x lr: AdamW's normalised step can
+# flip sign on a near-zero gradient whose sum order changed)
+MESH_SMOKE = {"qwen3": (TRAIN_ARCH, "data_model", {}),
+              "qwen3_pod": (TRAIN_ARCH, "pod_data_model", {}),
+              "scout": (SCOUT_ARCH, "data_model", {"moe_impl": "shard_map"}),
+              "scout_pod": (SCOUT_ARCH, "pod_data_model",
+                            {"moe_impl": "shard_map"})}
+MESH_SMOKE_SHAPE = (4, 32)            # (global batch, sequence)
+MESH_SMOKE_CHUNK, MESH_SMOKE_STEPS, MESH_SMOKE_LR = 16, 3, 1e-3
+MESH_SMOKE_TOL = 1e-5
+# (b) qwen3-1.7b at full width and depth on the (2, 2) mesh: f32 params,
+# bf16 compute, SyntheticLM(seed=0) 4 x 512 tokens, kernel_sharded, two
+# steps against the one-device step on the same tokens; the losses within
+# these (bf16: the row-parallel products' partial sums are added in bf16
+# across the ranks, and step 2 follows AdamW's sign-like first step); the
+# default seq_chunk, which at 512 tokens takes the loss's unchunked branch
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_CHUNK = 4, 512, 512
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_TOL = (2e-2, 5e-2)
+MESH_TRAIN_LIMIT = 600.0              # the parent's wait for every rank
+MESHES = {"data_model": ((2, 2), ("data", "model")),
+          "pod_data_model": ((1, 2, 2), ("pod", "data", "model"))}
+
+
+def _mesh_smoke_run(name, params, tokens, mesh) -> dict:
+    """One SMOKE case on this rank: the step over ``mesh`` from the
+    global ``params`` (CPU) for MESH_SMOKE_STEPS steps; the launches of
+    step 1 (set to 0 just before, read just after), each step's loss and
+    norm, the final local params and state on the CPU."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import sharding as S
+    arch, _, kw = MESH_SMOKE[name]
+    cfg = dataclasses.replace(get_smoke(arch), policy="f32")
+    opt = AdamW(lr=MESH_SMOKE_LR)
+    step, (p_specs, o_specs, _, _), _ = steps.make_train_step(
+        cfg, ShapeSpec("smoke", "train", MESH_SMOKE_SHAPE[1],
+                       MESH_SMOKE_SHAPE[0]), opt,
+        seq_chunk=MESH_SMOKE_CHUNK, mesh=mesh, **kw)
+    local = _tree_to(S.local_tree(params, p_specs, mesh), "cuda")
+    state = opt.init(local)
+    metrics, launches = [], None
+    with no_plain():
+        for i, tok in enumerate(tokens):
+            torch.cuda.synchronize()
+            if i == 0:
+                reset_launches()
+            local, state, m = step(local, state, tok.cuda())
+            torch.cuda.synchronize()
+            if i == 0:
+                launches = read_launches()
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    n_moe = cfg.n_repeats * cfg.block_unit.count("attn+moe")
+    check(launches == only(router_logits=2 * n_moe),
+          f"train mesh {name}: launches {launches}")
+    cpu = lambda t: t.cpu()  # noqa: E731
+    return {"metrics": metrics, "launches": launches["router_logits"],
+            "params": S.map_specs(lambda _, s, t: cpu(t), p_specs, local),
+            "m": S.map_specs(lambda _, s, t: cpu(t), p_specs, state.m),
+            "v": S.map_specs(lambda _, s, t: cpu(t), p_specs, state.v)}
+
+
+def _mesh_full_params(rank: int, world: int, cfg, p_specs, mesh):
+    """This rank's part of ``init_params(cfg, seed=0)`` in f32 on the
+    card: the ranks draw the whole tree one at a time (the same draws as
+    the parent's one-device step), cut their part and free the rest."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as S
+    local = None
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            full = M.init_params(cfg, seed=0, device="cuda",
+                                 param_dtype=torch.float32)
+            local = S.local_tree(full, p_specs, mesh)
+            del full
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return local
+
+
+def _train_mesh_rank(rank: int, world: int, smoke, tokens) -> dict:
+    """One rank of phase_train_mesh, on ``cuda:0`` (which all ranks
+    share): (a) the SMOKE cases (:func:`_mesh_smoke_run`); (b) qwen3-1.7b
+    at full width and depth on the (2, 2) mesh, kernel_sharded: this
+    rank's part of the params drawn on the card, MESH_TRAIN_STEPS steps on
+    the global ``tokens``; step 1 with the launch counts set to 0 just
+    before and read just after (K3 twice a layer: the forward and the
+    remat recompute), step 2 with every collective synchronised and timed;
+    each step's seconds (host clock, from a barrier), the peak memory and
+    the peak as step 1's update starts (through the backward).
+    Rank 0 then times K3 at the first call the step made and R1 at the
+    scout SMOKE case's first router call, and returns the kernels rows."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.optim.adamw import AdamW
+    torch.cuda.set_device(0)
+    missing = [n for n in ("flash_attention", "router")
+               if not build.library_path(n).is_file()]
+    check(not missing, f"rank {rank}: {missing} not built before the spawn")
+    t_start = time.monotonic()
+    meshes = {name: make_mesh(shape, names, "cuda", timeout=SHARDED_TIMEOUT)
+              for name, (shape, names) in MESHES.items()}
+    keep = keep_first_calls()
+    out = {"rank": rank, "smoke": {}}
+    with keep:
+        for name, (params, toks) in smoke.items():
+            out["smoke"][name] = _mesh_smoke_run(
+                name, params, toks, meshes[MESH_SMOKE[name][1]])
+    r1_args = keep.args["router_logits"]
+    smoke_s = time.monotonic() - t_start
+    cfg = get_config(TRAIN_ARCH)
+    mesh = meshes["data_model"]
+    update_peaks = []
+
+    class PeakAtUpdate(AdamW):
+        """AdamW noting the peak memory as its update starts: the peak of
+        the step's forward and backward."""
+
+        def update(self, *args, **kw):
+            update_peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            return super().update(*args, **kw)
+
+    opt = PeakAtUpdate(lr=TRAIN_LR)
+    step, (p_specs, _, _, _), _ = steps.make_train_step(
+        cfg, ShapeSpec("mesh", "train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH),
+        opt, seq_chunk=MESH_TRAIN_CHUNK, attn_impl="kernel_sharded",
+        mesh=mesh)
+    local = _mesh_full_params(rank, world, cfg, p_specs, mesh)
+    state = opt.init(local)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    keep = keep_first_calls()
+    full = {"losses": [], "grad_norms": [], "seconds": [], "launches": None,
+            "collectives": []}
+    for i, tok in enumerate(tokens):
+        tok = torch.from_numpy(tok).cuda()
+        torch.cuda.synchronize()
+        dist.barrier()
+        log = []
+        with no_plain(), keep, _timed_collectives(log) if i else \
+                contextlib.nullcontext():
+            if i == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            local, state, m = step(local, state, tok)
+            loss = float(m["loss"])
+            secs = time.perf_counter() - t0
+            if i == 0:
+                full["launches"] = read_launches()
+        full["losses"].append(loss)
+        full["grad_norms"].append(float(m["grad_norm"]))
+        full["seconds"].append(secs)
+        if log:
+            full["collectives"] = {
+                op: [sum(1 for n, _, _ in log if n == op),
+                     sum(b for n, b, _ in log if n == op) / 1e9,
+                     sum(s for n, _, s in log if n == op)]
+                for op in COLLECTIVES}
+    k3 = full["launches"]["flash_attention"]
+    check(full["launches"] == only(flash_attention=2 * cfg.n_layers),
+          f"rank {rank} train mesh: launches {full['launches']}, want K3 "
+          f"{2 * cfg.n_layers}")
+    full.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                backward_peak_gb=update_peaks[0], held_gb=held_gb, k3=k3)
+    fa = keep.args["attention"][0][:3]
+    del local, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(full=full, seconds={"smoke": smoke_s,
+                                   "total": time.monotonic() - t_start})
+    infos = [None] * world
+    dist.all_gather_object(infos, {"k3": k3})
+    if rank != 0:
+        dist.barrier()
+        return out
+    from repro_torch.core.masks import BlockMask
+    from repro_torch.kernels import tuning
+    S_len, D = fa[0].shape[2], fa[0].shape[3]
+    bq, bk = tuning.flash_tiles(S_len, S_len, D, fa[0].dtype, fa[0].device)
+    rows = phase_measure_attention(
+        fa, BlockMask.full(S_len, S_len, bq=bq, bk=bk, causal=True),
+        {"flash_attention": sum(f["k3"] for f in infos)}, None,
+        suffix=f" (train mesh {TRAIN_ARCH}, a rank's heads)",
+        names=("flash_attention",))
+    r1 = _router_times(((r1_args[0][0], r1_args[0][1]), None),
+                       f"train mesh {SCOUT_ARCH} smoke block")
+    rows.append({"name": f"router_logits (train mesh {SCOUT_ARCH} smoke)",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/router/csrc/router.cu",
+                 "replaces": "src/repro/models/moe.py:232 (array code, no "
+                             "Pallas kernel)",
+                 "launches": None, **r1})
+    dist.barrier()
+    out["rows"] = rows
+    return out
+
+
+def _mesh_close(p_specs, got, want, what: str, params: bool) -> list:
+    """Every leaf of the tree ``got`` within MESH_SMOKE_TOL of the tree
+    ``want`` (both laid out as ``p_specs``) in units of the leaf's largest
+    |want| (plus 2 x lr for ``params``); the leaves that needed the 2 x lr
+    term, each with its number of such elements."""
+    from repro_torch.parallel import sharding as S
+    second = []
+
+    def leaf(path, _, a, b):
+        name = "/".join(path)
+        b = b.float().cpu()
+        err = (a.float() - b).abs() - MESH_SMOKE_TOL * b.abs()
+        atol = MESH_SMOKE_TOL * b.abs().max().item()
+        if params and (err > atol).any():
+            second.append((name, int((err > atol).sum())))
+            atol += 2 * MESH_SMOKE_LR
+        check(bool((err <= atol).all()), f"train mesh {what}: {name} off "
+                                         f"by {err.max().item()} > {atol}")
+
+    S.map_specs(leaf, p_specs, got, want)
+    return second
+
+
+def _mesh_smoke_inputs() -> tuple:
+    """Each SMOKE case's global params (CPU, seed 0) and tokens (numpy
+    seed 0), and the card's one-device step on them: per case the
+    metrics and the final params, m and v."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    inputs, want = {}, {}
+    for name, (arch, _, _) in MESH_SMOKE.items():
+        cfg = dataclasses.replace(get_smoke(arch), policy="f32")
+        params = M.init_params(cfg, seed=0, device="cpu",
+                               param_dtype=torch.float32)
+        rng = np.random.default_rng(0)
+        toks = [torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, MESH_SMOKE_SHAPE).astype(np.int32))
+            for _ in range(MESH_SMOKE_STEPS)]
+        inputs[name] = (params, toks)
+        opt = AdamW(lr=MESH_SMOKE_LR)
+        step = steps.make_train_step(
+            cfg, ShapeSpec("smoke", "train", MESH_SMOKE_SHAPE[1],
+                           MESH_SMOKE_SHAPE[0]), opt,
+            seq_chunk=MESH_SMOKE_CHUNK)
+        p = _tree_to(params, "cuda")
+        state, metrics = opt.init(p), []
+        with no_plain():
+            for tok in toks:
+                p, state, m = step(p, state, tok.cuda())
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        want[name] = {"metrics": metrics, "params": _tree_to(p, "cpu"),
+                      "m": _tree_to(state.m, "cpu"),
+                      "v": _tree_to(state.v, "cpu")}
+    return inputs, want
+
+
+def _mesh_full_one_device(tokens) -> dict:
+    """qwen3-1.7b at full width and depth on one device from
+    ``init_params(seed=0)`` (f32 params): MESH_TRAIN_STEPS kernel_sharded
+    steps on ``tokens``, each step's loss, norm and seconds; the params
+    freed after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config(TRAIN_ARCH)
+    params = M.init_params(cfg, seed=0, device="cuda",
+                           param_dtype=torch.float32)
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    step = steps.make_train_step(
+        cfg, ShapeSpec("mesh", "train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH),
+        opt, seq_chunk=MESH_TRAIN_CHUNK, attn_impl="kernel_sharded")
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "grad_norms": [], "seconds": []}
+    with no_plain():
+        for tok in tokens:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, torch.from_numpy(tok)
+                                    .cuda())
+            out["losses"].append(float(m["loss"]))
+            out["seconds"].append(time.perf_counter() - t0)
+            out["grad_norms"].append(float(m["grad_norm"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mesh(card):
+    """The multi-rank train step (``launch.steps.make_train_step(mesh=)``)
+    on SHARDED_RANKS gloo ranks that share the card: the one-device steps
+    run here first (the SMOKE cases, then qwen3-1.7b at full width and
+    depth, freed after), then the ranks (:func:`_train_mesh_rank`).  (a)
+    qwen3-1.7b and llama4-scout SMOKE (scout under the shard_map MoE) in
+    f32 on a (2, 2) and a (1, 2, 2) mesh, three steps: the losses, norms
+    and the assembled params, m and v against the one-device step within
+    the CPU test's tolerances, R1 twice a MoE layer a step on each rank;
+    (b) qwen3-1.7b at full width and depth on the (2, 2) mesh,
+    kernel_sharded, 4 x 512 tokens of ``SyntheticLM(seed=0)``, two steps:
+    both losses against the one-device step within MESH_TRAIN_TOL, K3
+    twice a layer a rank a step, the peak GB, the step seconds and the
+    seconds in collectives a rank (gloo through host memory and loopback,
+    not NVLink: no multi-card speedup is measured).  Returns (the K3 and
+    R1 rows, a summary)."""
+    import numpy as np
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.ranks import run_ranks
+    t0 = time.monotonic()
+    smoke, want = _mesh_smoke_inputs()
+    cfg = get_config(TRAIN_ARCH)
+    data = SyntheticLM(cfg, batch=MESH_TRAIN_BATCH, seq_len=MESH_TRAIN_SEQ,
+                       seed=0)
+    tokens = [data.batch_at(i)["tokens"] for i in range(MESH_TRAIN_STEPS)]
+    one = _mesh_full_one_device(tokens)
+    one_s = time.monotonic() - t0
+    per_rank = run_ranks(_train_mesh_rank, SHARDED_RANKS, smoke, tokens,
+                         timeout=SHARDED_TIMEOUT, limit=MESH_TRAIN_LIMIT)
+    summary = {"smoke": {}, "card": card}
+    for name, (arch, mesh_name, kw) in MESH_SMOKE.items():
+        scfg = dataclasses.replace(get_smoke(arch), policy="f32")
+        shape, names = MESHES[mesh_name]
+        mesh = S.MeshShape(names, shape)
+        p_specs = S.param_specs(steps.abstract_params(scfg), mesh)
+        runs = [pr["smoke"][name] for pr in per_rank]
+        got, w = runs[0]["metrics"], want[name]["metrics"]
+        check(all(r["metrics"] == got for r in runs),
+              f"train mesh {name}: the ranks' losses differ")
+        err = max(max(abs(a - b) / (1 + abs(b)), abs(c - d) / (1 + abs(d)))
+                  for (a, c), (b, d) in zip(got, w))
+        check(err <= MESH_SMOKE_TOL, f"train mesh {name}: {got} vs one "
+                                     f"device {w}")
+        second = {}
+        for key in ("params", "m", "v"):
+            whole = S.assemble([r[key] for r in runs], p_specs, mesh)
+            second[key] = _mesh_close(p_specs, whole, want[name][key],
+                                      f"{name} {key}", key == "params")
+        summary["smoke"][name] = {
+            "losses": [m[0] for m in got], "one_device": [m[0] for m in w],
+            "metric_err": err, "r1_launches": [r["launches"] for r in runs],
+            "lr_term_leaves": second["params"]}
+        print(f"  train mesh {name} ({arch} smoke f32, {shape} mesh, "
+              f"{MESH_SMOKE_STEPS} steps): losses "
+              f"{[round(m[0], 6) for m in got]} vs one device (largest "
+              f"err {err:.3g}); params / m / v assembled within "
+              f"{MESH_SMOKE_TOL} of the one-device step's (params leaves "
+              f"needing 2 x lr: {second['params']}); R1 x "
+              f"{[r['launches'] for r in runs]} a rank in step 1")
+    fulls = [pr["full"] for pr in per_rank]
+    losses = fulls[0]["losses"]
+    check(all(f["losses"] == losses for f in fulls)
+          and all(np.isfinite(losses)),
+          f"train mesh {TRAIN_ARCH}: the ranks' losses {fulls}")
+    errs = [abs(a - b) for a, b in zip(losses, one["losses"])]
+    check(all(e <= t for e, t in zip(errs, MESH_TRAIN_TOL)),
+          f"train mesh {TRAIN_ARCH}: losses {losses} vs one device "
+          f"{one['losses']} (tolerances {MESH_TRAIN_TOL})")
+    ks = [f["k3"] for f in fulls]
+    coll = {op: [f["collectives"][op] for f in fulls] for op in COLLECTIVES}
+    coll_s = [sum(f["collectives"][op][2] for op in COLLECTIVES)
+              for f in fulls]
+    rows = [{**r, "card": card} for r in per_rank[0]["rows"]]
+    rows[-1]["launches"] = sum(sum(pr["smoke"][n]["launches"]
+                                   for n in MESH_SMOKE) for pr in per_rank)
+    seconds = time.monotonic() - t0
+    print(f"  train mesh {TRAIN_ARCH} at full width and depth "
+          f"({cfg.n_layers} layers, (2, 2) mesh, kernel_sharded, "
+          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}): losses {losses} vs one "
+          f"device {one['losses']} (errs {[f'{e:.3g}' for e in errs]}, tol "
+          f"{MESH_TRAIN_TOL}); grad norms {fulls[0]['grad_norms']} vs "
+          f"{one['grad_norms']}; K3 x {ks} a rank a step; peak GB a rank "
+          f"{', '.join('%.2f' % f['peak_gb'] for f in fulls)} (through "
+          f"the backward "
+          f"{', '.join('%.2f' % f['backward_peak_gb'] for f in fulls)}; "
+          f"held {fulls[0]['held_gb']:.2f}; one device "
+          f"{one['peak_gb']:.2f}); "
+          f"step s a rank {[[round(x, 2) for x in f['seconds']] for f in fulls]}"
+          f" (one device {[round(x, 2) for x in one['seconds']]}); step 2's "
+          f"collectives s a rank {[round(x, 2) for x in coll_s]} (gloo "
+          f"over loopback, each synchronised); phase {seconds:.1f} s (the "
+          f"one-device steps {one_s:.1f})")
+    summary.update(
+        arch=TRAIN_ARCH, layers=cfg.n_layers, batch=MESH_TRAIN_BATCH,
+        seq=MESH_TRAIN_SEQ, seq_chunk=MESH_TRAIN_CHUNK, lr=TRAIN_LR,
+        losses=losses, one_device=one, loss_errs=errs, tol=MESH_TRAIN_TOL,
+        grad_norms=fulls[0]["grad_norms"], k3_per_rank_step=ks,
+        peak_gb=[f["peak_gb"] for f in fulls],
+        backward_peak_gb=[f["backward_peak_gb"] for f in fulls],
+        held_gb=[f["held_gb"] for f in fulls],
+        step_s=[f["seconds"] for f in fulls], collective_s=coll_s,
+        collectives=coll, rank_seconds=[pr["seconds"] for pr in per_rank],
+        seconds=seconds, one_device_s=one_s,
+        note="4 gloo ranks share one card (collectives through host "
+             "memory and loopback, not NVLink): no multi-card speedup; "
+             "step 2 runs with every collective synchronised and timed")
+    return rows, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7464,6 +7943,12 @@ def main() -> int:
     print("sharded engine, 4 gloo ranks on the one card:")
     sharded_rows, sharded = phase_sharded_engine(card)
     mark("sharded engine")
+    print("the multi-rank train step, 4 gloo ranks on the one card:")
+    mesh_rows, train_mesh = phase_train_mesh(card)
+    sharded_rows += mesh_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train mesh")
     print("kernel vs plain on the card:")
     phase_kernel_vs_plain()
     phase_attention_vs_plain()
@@ -7561,7 +8046,7 @@ def main() -> int:
              "maverick": maverick,
              "rwkv": rwkv, "gemma": gemma, "dense": dense,
              "frontend": frontend, "zamba": zamba, "train": train,
-             "sharded_engine": sharded,
+             "sharded_engine": sharded, "train_mesh": train_mesh,
              "library": lib_info,
              "sm_clocks": clocks, "phase_s": phase_s,
              "wall_s": time.monotonic() - t_start}

@@ -36,13 +36,14 @@ set_numerics()
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  Entry points default to
     ``"cuda"``; without a GPU that raises, so a CPU run must be asked for
-    with ``device="cpu"`` (as the tests do) and never happens by itself."""
+    with ``device="cpu"`` (as the tests do) and never happens by itself.
+    ``"meta"`` (shapes and dtypes only) is taken as it is."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: CUDA device requested but torch.cuda.is_available()"
             " is False; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev
 

@@ -29,7 +29,7 @@ from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.adamw import AdamWState
 
-_F32_LEAVES = ("scale", "router", "decay_base", "decay_lora_a",
+F32_LEAVES = ("scale", "router", "decay_base", "decay_lora_a",
                "decay_lora_b", "bonus_u", "a_log", "d_skip", "dt_bias")
 
 
@@ -69,7 +69,7 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda",
         t = to_tensor(node)
         if train:
             return t.to(dev)
-        dtype = torch.float32 if key in _F32_LEAVES else cd
+        dtype = torch.float32 if key in F32_LEAVES else cd
         return t.to(device=dev, dtype=dtype)
 
     return conv(tree)

@@ -16,6 +16,14 @@ split over the context's mesh when one is set
 on the card the chunked path's narrow products carry their backward in
 :class:`ChunkedAttention`.
 
+Under ``parallel.context.ACT_SPEC`` (the sharded train step) the weights
+are this rank's "model" share: attention takes its head counts from
+``wq`` / ``wk`` and runs on the rank's heads, the MLP on its ``d_ff``
+slice; the normed stream goes through ``parallel.collectives.enter``
+before the column-parallel products and ``leave`` after the row-parallel
+``wo`` / ``w_down`` (sequence parallel: all-gather / reduce-scatter over
+"model"; without: identity / all-reduce).  Unset, nothing of it runs.
+
 Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
 bf16 result accumulated in f32 (reduced-precision reductions are off, see
 ``repro_torch.set_numerics``).  Where the reference asks for an f32 result
@@ -38,6 +46,7 @@ from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.router import ops as router_ops
 from repro_torch.models.config import ArchConfig
+from repro_torch.parallel import collectives as tp
 
 
 # ------------------------------------------------------------------ init ----
@@ -142,7 +151,10 @@ def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     """q, k, v (B, H, S, hd) after qk_norm and RoPE; ``row_order`` (decode)
     sums qk_norm's squares in one order a row (:func:`rmsnorm`)."""
     B, S, _ = x.shape
-    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    # the head counts of the weights given: the config's, or this rank's
+    # share of them under tensor parallelism
+    hd = cfg.hd
+    Hq, Hkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     cd = x.dtype
     q = x @ p["wq"].to(cd)
     k = x @ p["wk"].to(cd)
@@ -376,14 +388,16 @@ def sharded_flash_attention(q, k, v, *, causal: bool = True,
     """The flash kernel K3 with q split over ``parallel.context.MESH``:
     the batch over the FSDP axes the mesh has, the sequence over "model"
     (:func:`flash_part`), the blocks gathered, so every rank returns what
-    the one-device K3 returns, bit for bit.  With no mesh,
-    ``flash_attention.ops.attention`` (no oracle fallback), as the
-    reference."""
+    the one-device K3 returns, bit for bit.  With no mesh, or under
+    ``context.ACT_SPEC`` (the sharded train step, whose q, k and v are
+    this rank's heads already), ``flash_attention.ops.attention`` (no
+    oracle fallback), as the reference."""
     from repro_torch.kernels import engine
     from repro_torch.parallel import context
     from repro_torch.parallel.sharding import FSDP, TP
     mesh = context.MESH
-    if mesh is None:
+    if mesh is None or context.ACT_SPEC is not None:
+        # (under ACT_SPEC q, k and v are already this rank's heads)
         return fops.attention(q, k, v, causal=causal, window=window,
                               fallback="error")
     out = engine.gather(flash_part(q, k, v, mesh, causal=causal,
@@ -485,6 +499,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     if impl not in IMPLS:
         raise NotImplementedError(
             f"apply_attention impl={impl!r}: {IMPLS} are ported")
+    if cache is None and tp.active():
+        x = tp.enter(x)             # column-parallel products
     B, S, _ = x.shape
     if cache is None:
         if positions is None:
@@ -553,16 +569,26 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
         out = fops.decode_attention(q, kc, vc, kv_len=kv_len,
                                     window=None if ring else window)
         new_cache = cache
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(out.dtype), new_cache
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    out = out @ p["wo"].to(out.dtype)
+    if cache is None and tp.active():
+        out = tp.leave(out)         # the row-parallel product's partial sums
+    return out, new_cache
 
 
 # ------------------------------------------------------------------- mlp ----
 
 def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The MLP on x (..., d).  Under ``context.ACT_SPEC`` x is the residual
+    stream's (B_loc, S_loc, d) and the weights this rank's "model" share:
+    column-parallel ``w_gate`` / ``w_up``, row-parallel ``w_down``, with
+    ``parallel.collectives.enter`` / ``leave`` around them."""
     cd = x.dtype
+    if tp.active():
+        x = tp.enter(x)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
     else:  # squared_relu (Nemotron-4)
         h = torch.square(F.relu(x @ p["w_up"].to(cd)))
-    return h @ p["w_down"].to(cd)
+    out = h @ p["w_down"].to(cd)
+    return tp.leave(out) if tp.active() else out

@@ -48,6 +48,9 @@ from repro_torch.core.precision import policy as precision_policy
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.config import ArchConfig
+from repro_torch.parallel import collectives as tp
+from repro_torch.parallel import context
+from repro_torch.parallel.sharding import data_axis_size
 
 Params = Dict[str, Any]
 
@@ -113,7 +116,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     _check_kinds(cfg)
     dev = resolve_device(device)
     cd = param_dtype or precision_policy(cfg.policy).compute_dtype
-    g = torch.Generator(device=dev).manual_seed(seed)
+    # on "meta" (shapes and dtypes only) there is nothing to draw
+    g = (None if dev.type == "meta" else
+         torch.Generator(device=dev).manual_seed(seed))
     d, V, n = cfg.d_model, cfg.padded_vocab, cfg.n_repeats
     p: Params = {
         "embed": L.normal(g, (V, d), d ** -0.5, n=1, dtype=cd, device=dev)[0],
@@ -385,6 +390,11 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     (B, F, d_model) when given: cast to the compute dtype first (one
     round to nearest even), then concatenated, as the reference does."""
     cd = precision_policy(cfg.policy).compute_dtype
+    if tp.active():     # this rank's vocabulary rows, summed over "model"
+        if embeddings is not None:
+            raise ValueError("frontend embeddings under a mesh are not "
+                             "ported (ROADMAP Queue 1 item 4b.5)")
+        return tp.vocab_embed(params["embed"], tokens).to(cd)
     x = params["embed"][tokens].to(cd)
     if embeddings is not None:
         x = torch.cat([embeddings.to(cd), x], dim=1)
@@ -404,10 +414,14 @@ def _layers(stacked, n: int) -> list:
 
 
 def _superblock(p_slots, x: torch.Tensor, cfg: ArchConfig, impl: str,
-                shared_p, fire: bool) -> torch.Tensor:
+                shared_p, fire: bool,
+                layer_params: Optional[Callable] = None) -> torch.Tensor:
     """One repeat of the block unit, then the shared attention block where
-    it fires (the reference's ``_superblock`` without caches)."""
-    for kind, p in zip(cfg.block_unit, p_slots):
+    it fires (the reference's ``_superblock`` without caches);
+    ``layer_params`` as in :func:`hidden_forward`."""
+    for j, (kind, p) in enumerate(zip(cfg.block_unit, p_slots)):
+        if layer_params is not None:
+            p = layer_params(j, p)
         x, _ = apply_block(kind, p, x, cfg, impl=impl)
     if fire:
         x, _ = apply_block("shared_attn", shared_p, x, cfg, impl=impl)
@@ -416,7 +430,8 @@ def _superblock(p_slots, x: torch.Tensor, cfg: ArchConfig, impl: str,
 
 def hidden_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                    embeddings: Optional[torch.Tensor] = None,
-                   impl: str = "chunked", remat: bool = True
+                   impl: str = "chunked", remat: bool = True,
+                   layer_params: Optional[Callable] = None
                    ) -> torch.Tensor:
     """Backbone forward of training: the embeddings (after ``embeddings``
     (B, F, d) where given), the prologue layers, the stacked superblocks,
@@ -425,7 +440,12 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     (the shared block's firing included) runs under
     ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
     scan body in ``jax.checkpoint``: only the residual between superblocks
-    is kept, the rest is recomputed in the backward."""
+    is kept, the rest is recomputed in the backward.  ``layer_params(slot,
+    p)``, where given, makes the tree a superblock's layer runs on from its
+    slice ``p`` of ``params["blocks"][slot]``, inside the superblock's
+    remat, so the backward reruns it too: the sharded train step gathers a
+    layer's FSDP shards there, and only one superblock's gathered weights
+    are live at a time."""
     _check_kinds(cfg)
 
     def run(fn, *args):
@@ -445,7 +465,8 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     for i in range(cfg.n_repeats):
         fire = bool(cfg.shared_attn_every) and _fires(cfg, i)
         x = run(functools.partial(_superblock, cfg=cfg, impl=impl,
-                                  shared_p=shared_p, fire=fire),
+                                  shared_p=shared_p, fire=fire,
+                                  layer_params=layer_params),
                 tuple(s[i] for s in slots), x)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
@@ -468,14 +489,26 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
             embeddings: Optional[torch.Tensor] = None, impl: str = "chunked",
-            seq_chunk: Optional[int] = None) -> torch.Tensor:
+            seq_chunk: Optional[int] = None,
+            layer_params: Optional[Callable] = None) -> torch.Tensor:
     """Next-token cross-entropy over the token region (the frontend
     positions dropped), padded vocabulary ids masked with ``NEG_INF``; a ()
     f32 tensor.  ``seq_chunk``: the logits and the cross-entropy a chunk of
     that many positions at a time, each under ``torch.utils.checkpoint``, so
     the (B, S, V) logits never exist (the tail past the last whole chunk is
-    one more piece)."""
-    h = hidden_forward(params, tokens, cfg, embeddings=embeddings, impl=impl)
+    one more piece).  Under ``parallel.context.LOGIT_SPEC`` (the sharded
+    train step) ``tokens`` are this rank's rows and ``params`` its "model"
+    share: the hidden states of every position (gathered over "model"
+    under sequence parallelism) against this rank's vocabulary columns,
+    the vocab-parallel cross-entropy
+    (``parallel.collectives.vocab_cross_entropy``), and this rank's part
+    of the global batch's loss: its rows' sum over ``B * (S - 1)``, chunked
+    or not.  ``layer_params``: :func:`hidden_forward`'s."""
+    h = hidden_forward(params, tokens, cfg, embeddings=embeddings, impl=impl,
+                       layer_params=layer_params)
+    vocab_parallel = context.LOGIT_SPEC is not None
+    if vocab_parallel:      # every position's hidden state, once a rank
+        h = tp.enter(h)
     if embeddings is not None:
         h = h[:, embeddings.shape[1]:]
     h = h[:, :-1]
@@ -486,14 +519,20 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
 
     def ce(h_blk, tgt_blk):
         logits = (h_blk @ unemb).float()
+        if vocab_parallel:
+            return tp.vocab_cross_entropy(logits, tgt_blk, cfg.vocab_size,
+                                          NEG_INF)
         if pad is not None:
             logits = torch.where(pad, NEG_INF, logits)
         lp = torch.log_softmax(logits, dim=-1)
         return -torch.gather(lp, -1, tgt_blk[..., None])[..., 0]
 
     B, Sm1 = h.shape[0], h.shape[1]
+    if vocab_parallel:      # this rank's rows of the global batch
+        B *= data_axis_size(context.MESH)
     if seq_chunk is None or seq_chunk >= Sm1:
-        return ce(h, tgt).mean()
+        loss = ce(h, tgt)
+        return loss.sum() / (B * Sm1) if vocab_parallel else loss.mean()
     total = torch.zeros((), device=h.device)
     for lo in range(0, Sm1 - Sm1 % seq_chunk, seq_chunk):
         sl = slice(lo, lo + seq_chunk)

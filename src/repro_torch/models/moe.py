@@ -41,7 +41,11 @@ kernel K2 has no backward and refuses inputs that require grad.
 ``MOE_IMPL == "shard_map"`` with a ``MESH``, :func:`apply_moe` runs
 ``models.moe_shard_map.apply_moe_shard_map``: each (batch, sequence) block
 routes locally, the experts split over "model" with an all-to-all of the
-capacity tiles, their weights gathered over the FSDP axes.
+capacity tiles, their weights gathered over the FSDP axes.  In the sharded
+train step (``context.ACT_SPEC`` set) the params and x are already this
+rank's, so ``moe_shard_map.moe_block`` runs on them directly
+(:func:`_moe_local`), the shared expert beside it as the tensor-parallel
+MLP.
 
 The backend is ``dispatch=``, else ``parallel.context.MOE_DISPATCH``, else
 the config's ``moe_dispatch``.  ``groups=`` (else
@@ -464,11 +468,41 @@ def _apply_moe_shard_map(p, x: torch.Tensor, cfg: ArchConfig, counts, pos,
     mesh = context.MESH
     dp_axes = tuple(a for a in FSDP if a in mesh.mesh_dim_names)
     dp_axes = dp_axes if len(dp_axes) > 1 else dp_axes[0]
-    out = apply_moe_shard_map(p, x, cfg, mesh, dp_axes=dp_axes, tp_axis=TP)
+    if context.ACT_SPEC is not None:
+        out = _moe_local(p, x, cfg, mesh, dp_axes)
+    else:
+        out = apply_moe_shard_map(p, x, cfg, mesh, dp_axes=dp_axes,
+                                  tp_axis=TP)
     if counts is None:
         counts = torch.zeros((x.shape[0], cfg.n_experts), dtype=torch.int32,
                              device=x.device)
     return out, counts
+
+
+def _moe_local(p, x: torch.Tensor, cfg: ArchConfig, mesh, dp_axes):
+    """The expert-parallel layer in the sharded train step
+    (``context.ACT_SPEC``): ``p`` is this rank's, the router whole, the
+    experts in ``moe_block``'s layout (their ``param_specs``), the shared
+    expert's "model" share; x the residual stream's layout.  Under
+    sequence parallelism x is already ``moe_block``'s (B_loc, S/tp, d)
+    block; without, x (B_loc, S, d) is replicated over "model", so the
+    rank's sequence block is cut out (its gradient gathered back) and the
+    blocks assembled after.  The shared expert runs beside as the
+    tensor-parallel MLP on x."""
+    from repro_torch.models.moe_shard_map import moe_block
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import TP
+    routed = {"router": p["router"], "experts": p["experts"]}
+    if C.seq_parallel():
+        out = moe_block(routed, x, cfg, mesh, dp_axes=dp_axes, tp_axis=TP)
+    else:
+        tp = C.axis(TP)
+        blk = C.Split.apply(x, 1, tp.group, tp.n, tp.index)
+        out = moe_block(routed, blk, cfg, mesh, dp_axes=dp_axes, tp_axis=TP)
+        out = C.Assemble.apply(out, 1, tp.group, tp.n, tp.index)
+    if cfg.moe_shared_expert:
+        out = out + apply_mlp(p["shared"], x, cfg)
+    return out
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,

@@ -45,21 +45,23 @@ So with the same global loss on every rank, each rank's gradient of a
 global input is complete on the part of it the rank holds (the router's
 everywhere) and zero elsewhere.
 
-The collectives take the group's tensors as they are: gloo takes CPU
-tensors and, on the card, CUDA tensors.
+The collectives and their functions are ``parallel.collectives``'; they
+take the group's tensors as they are: gloo takes CPU tensors and, on the
+card, CUDA tensors.
 """
 from __future__ import annotations
 
 from typing import Tuple, Union
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_mlp
 from repro_torch.models.moe import (_combine_gather, _dispatch_gather,
                                     _expert_ffn, dispatch_capacity,
                                     route_tokens)
+from repro_torch.parallel.collectives import (AllToAll, Assemble, Gather,
+                                              Replicated)
 
 Axes = Union[str, Tuple[str, ...]]
 
@@ -97,106 +99,21 @@ def local_slices(name: str, shape, dp: Tuple[int, int],
     return tuple(index)
 
 
-def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
-    """``all_to_all_single`` over ``group``: dim 0 in equal parts, part k
-    to rank k, the parts received concatenated on dim 0 in rank order."""
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t.contiguous(), group=group)
-    return out
-
-
-def all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """The ``n`` ranks' ``t`` concatenated on ``dim`` in rank order."""
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim)
-
-
-def reduce_scatter(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """Part ``rank`` of ``t`` along ``dim``, summed over the ``n`` ranks."""
-    parts = [c.contiguous() for c in t.chunk(n, dim)]
-    out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=group)
-    return out
-
-
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """``t`` summed over ``group``'s ranks."""
-    out = t.contiguous().clone()
-    dist.all_reduce(out, group=group)
-    return out
-
-
-class _AllToAll(torch.autograd.Function):
-    """:func:`all_to_all`; its transpose is itself."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return all_to_all(t, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_to_all(g, ctx.group), None
-
-
-class _GatherFSDP(torch.autograd.Function):
-    """:func:`all_gather` of a weight's shards; backward: the gradient
-    reduce-scattered (summed) back to the shards."""
-
-    @staticmethod
-    def forward(ctx, t, dim, group, n):
-        ctx.args = (dim, group, n)
-        return all_gather(t, dim, group, n)
-
-    @staticmethod
-    def backward(ctx, g):
-        return reduce_scatter(g, *ctx.args), None, None, None
-
-
-class _Replicated(torch.autograd.Function):
-    """Identity on a tensor replicated over ``groups``; backward: its
-    gradient summed over each group in turn."""
-
-    @staticmethod
-    def forward(ctx, t, groups):
-        ctx.groups = groups
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        for group in ctx.groups:
-            g = all_reduce(g, group)
-        return g, None
-
-
-class _Assemble(torch.autograd.Function):
-    """:func:`all_gather` of the ranks' output blocks; backward: this
-    rank's own block of the cotangent (coordinate ``i``)."""
-
-    @staticmethod
-    def forward(ctx, t, dim, group, n, i):
-        ctx.part = (dim, i, t.shape[dim])
-        return all_gather(t, dim, group, n)
-
-    @staticmethod
-    def backward(ctx, g):
-        dim, i, w = ctx.part
-        return g.narrow(dim, i * w, w), None, None, None, None
-
-
 def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, *, dp_axes: Axes,
               tp_axis: str) -> torch.Tensor:
     """One rank's expert-parallel MoE on its block: x (B_loc, S_loc, d) and
     ``p``'s local shards (the layout in the module docstring: ``router``
     whole, ``experts`` (E/tp, d/dp, ff) / (E/tp, ff, d/dp), ``shared``
-    (d/dp, ff) / (ff/dp, d)) -> the block's output (B_loc, S_loc, d)."""
+    (d/dp, ff) / (ff/dp, d)) -> the block's output (B_loc, S_loc, d).
+    The shared expert runs where ``p`` holds one (the sharded train step
+    passes the routed experts only and runs the shared expert beside, as
+    a tensor-parallel MLP)."""
     from repro_torch.launch.mesh import axes_group
     E = cfg.n_experts
     dp_group, n_dp, _ = axes_group(mesh, dp_axes)
     tp_group, n_tp, _ = axes_group(mesh, tp_axis)
     Bl, Sl, d = x.shape
-    router = _Replicated.apply(p["router"], (tp_group, dp_group))
+    router = Replicated.apply(p["router"], (tp_group, dp_group))
     r = route_tokens(router, x, cfg)
     cap = dispatch_capacity(Sl, cfg)
     flat = torch.where(r.keep, r.expert_id * cap + r.within, E * cap)
@@ -204,21 +121,21 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, *, dp_axes: Axes,
     # EP all-to-all: each tp peer gets its E/tp experts' tiles, so this rank
     # holds its experts' tokens from every sequence peer, in peer order:
     # (tp, E/tp, Bl*cap, d) received -> (E/tp, tp*Bl*cap, d)
-    xe = _AllToAll.apply(xe, tp_group)
+    xe = AllToAll.apply(xe, tp_group)
     xe = xe.reshape(n_tp, E // n_tp, Bl * cap, d).transpose(0, 1) \
         .reshape(E // n_tp, n_tp * Bl * cap, d)
     cd = x.dtype
-    w = {k: _GatherFSDP.apply(v.to(cd), _EXPERT_DP_DIM[k], dp_group, n_dp)
+    w = {k: Gather.apply(v.to(cd), _EXPERT_DP_DIM[k], dp_group, n_dp)
          for k, v in p["experts"].items()}
     ye = _expert_ffn(w, xe, cfg.mlp_type)
     # the inverse all-to-all: each peer's tokens back to it, expert-major
     ye = ye.reshape(E // n_tp, n_tp, Bl * cap, d).transpose(0, 1) \
         .reshape(E, Bl * cap, d)
-    ye = _AllToAll.apply(ye, tp_group)
+    ye = AllToAll.apply(ye, tp_group)
     yt = ye.reshape(E, Bl, cap, d).transpose(0, 1).reshape(Bl, E * cap, d)
     out = _combine_gather(yt, flat, r.gate, r.keep, E, cap)
-    if cfg.moe_shared_expert:
-        sh = {k: _GatherFSDP.apply(_Replicated.apply(v, (tp_group,)).to(cd),
+    if "shared" in p:
+        sh = {k: Gather.apply(Replicated.apply(v, (tp_group,)).to(cd),
                                    0, dp_group, n_dp)
               for k, v in p["shared"].items()}
         out = out + apply_mlp(sh, x.reshape(Bl * Sl, d), cfg) \
@@ -258,5 +175,5 @@ def apply_moe_shard_map(p, x: torch.Tensor, cfg: ArchConfig, mesh, *,
                            for k, v in p["shared"].items()}
     out = moe_block(local, part("x", x), cfg, mesh, dp_axes=dp_axes,
                     tp_axis=tp_axis)
-    out = _Assemble.apply(out, 1, tp_group, n_tp, j)
-    return _Assemble.apply(out, 0, dp_group, n_dp, i)
+    out = Assemble.apply(out, 1, tp_group, n_tp, j)
+    return Assemble.apply(out, 0, dp_group, n_dp, i)

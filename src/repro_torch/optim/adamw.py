@@ -88,11 +88,14 @@ class AdamW:
                           master=master)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
-        """(new params in their own dtypes, new state)."""
+    def update(self, grads, state: AdamWState, params, *, norm=None):
+        """(new params in their own dtypes, new state).  ``norm``: the
+        gradients' global norm when the caller has it (a sharded step, whose
+        ``grads`` are this rank's shards: the norm over every rank's);
+        default :func:`global_norm` of ``grads``."""
         count = state.count + 1
         if self.clip_norm is not None:
-            gn = global_norm(grads)
+            gn = global_norm(grads) if norm is None else norm
             scale = torch.clamp(self.clip_norm / (gn + 1e-9), max=1.0)
             # an f32 array times a bf16 one is f32 in JAX
             grads = tree.map(lambda g: g.float() * scale, grads)

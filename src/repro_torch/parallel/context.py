@@ -1,8 +1,24 @@
-"""Hints that sharded code reads when its caller passes none.
+"""Hints that sharded code reads when its caller passes none: the
+reference's eight, set together by :func:`activation_specs`.
 
+* ``ACT_SPEC``: the residual stream's (B, S, d) spec.  Set (by
+  ``launch.steps.make_train_step(mesh=)``), the model runs on this rank's
+  local tensors: heads, ``d_ff`` and the vocabulary split over "model"
+  (``parallel.collectives``' tensor-parallel helpers, read by
+  ``models.layers``, ``models.model`` and ``models.moe``).  With its
+  sequence entry on "model" (``P(dp, "model", None)``) the stream between
+  blocks is the rank's (B_loc, S/tp, d) block; with ``P(dp, None, None)``
+  it is (B_loc, S, d).  Unset, everything runs on whole tensors.
+* ``LOGIT_SPEC``: the logits' spec; set (``P(dp, None, "model")``),
+  ``model.loss_fn`` takes the vocab-parallel cross-entropy.
+* ``MOE_SPEC`` / ``MOE_COMBINE_SPEC``: the dispatched expert tiles' and
+  the combined tiles' specs, set as the reference sets them.  The
+  reference reads them in its pjit MoE, which the port refuses under a
+  mesh, so nothing in the port reads them.
 * ``MESH``: a ``torch.distributed.device_mesh.DeviceMesh`` (or ``None``);
   ``kernels.engine.auto_mesh``, ``models.layers.sharded_flash_attention``
-  and ``models.moe.apply_moe``'s shard_map branch read it.
+  (without ``ACT_SPEC``), ``models.moe.apply_moe``'s shard_map branch and
+  the tensor-parallel helpers read it.
 * ``MOE_IMPL``: ``"pjit"`` (the one-device layer, the default) or
   ``"shard_map"`` (with a ``MESH``: ``models.moe_shard_map``, the
   train-only expert-parallel layer).
@@ -12,33 +28,41 @@
 * ``MOE_GROUPS``: the dispatch row groups the data axes expect; routing is
   per batch row, so ``models.moe`` only checks that it divides the batch.
 
-:func:`activation_specs` sets all four for a scope and restores the
-previous values after, as the reference's does.  The reference's GSPMD
-constraints (``ACT_SPEC``, ``MOE_SPEC``, ``LOGIT_SPEC``,
-``MOE_COMBINE_SPEC``) have no reader in the port yet.
+:func:`activation_specs` sets all eight for a scope and restores the
+previous values after, also when the block raises, as the reference's
+does.  The specs are ``parallel.sharding.PartitionSpec``s.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Optional
 
+ACT_SPEC = None                       # residual stream (B, S, d)
+MOE_SPEC = None                       # dispatched expert tiles (E, B, C, d)
+LOGIT_SPEC = None                     # logits (B, S, V)
 MOE_GROUPS: Optional[int] = None
+MOE_COMBINE_SPEC = None               # post-expert tiles (B, E*C, d)
 MOE_IMPL: str = "pjit"                # "pjit" | "shard_map"
 MOE_DISPATCH: Optional[str] = None    # "gather" | "bcsr" | None (= cfg field)
 MESH = None
 
 
 @contextlib.contextmanager
-def activation_specs(*, moe_groups: Optional[int] = None,
+def activation_specs(act=None, moe=None, logit=None,
+                     moe_groups: Optional[int] = None, moe_combine=None,
                      moe_impl: str = "pjit",
                      moe_dispatch: Optional[str] = None, mesh=None):
-    """The four hints set inside the ``with`` block, the previous values
+    """The eight hints set inside the ``with`` block, the previous values
     after (also when the block raises)."""
-    global MOE_GROUPS, MOE_IMPL, MOE_DISPATCH, MESH
-    prev = (MOE_GROUPS, MOE_IMPL, MOE_DISPATCH, MESH)
-    MOE_GROUPS, MOE_IMPL, MOE_DISPATCH, MESH = (moe_groups, moe_impl,
-                                                moe_dispatch, mesh)
+    global ACT_SPEC, MOE_SPEC, LOGIT_SPEC, MOE_GROUPS, MOE_COMBINE_SPEC, \
+        MOE_IMPL, MOE_DISPATCH, MESH
+    prev = (ACT_SPEC, MOE_SPEC, LOGIT_SPEC, MOE_GROUPS, MOE_COMBINE_SPEC,
+            MOE_IMPL, MOE_DISPATCH, MESH)
+    (ACT_SPEC, MOE_SPEC, LOGIT_SPEC, MOE_GROUPS, MOE_COMBINE_SPEC, MOE_IMPL,
+     MOE_DISPATCH, MESH) = (act, moe, logit, moe_groups, moe_combine,
+                            moe_impl, moe_dispatch, mesh)
     try:
         yield
     finally:
-        MOE_GROUPS, MOE_IMPL, MOE_DISPATCH, MESH = prev
+        (ACT_SPEC, MOE_SPEC, LOGIT_SPEC, MOE_GROUPS, MOE_COMBINE_SPEC,
+         MOE_IMPL, MOE_DISPATCH, MESH) = prev

@@ -16,10 +16,21 @@ mirrors the params (gradients, AdamW's m and v) takes the same rules.  The
 rules read only a mesh's axis names and sizes (``mesh_dim_names`` and
 ``shape``, as a ``DeviceMesh`` has them), so :class:`MeshShape` stands in
 for a mesh where no process group exists.
+
+:func:`shardings` turns a spec tree into placements, one a mesh dim
+(``torch.distributed.tensor``'s ``Shard(dim)`` or ``Replicate()``; a
+tuple entry such as ``("pod", "data")`` is ``Shard`` on every one of its
+mesh dims, split in mesh order, row-major, as JAX merges them).
+:func:`local_tree` cuts a global tree to one rank's parts and
+:func:`assemble` puts the ranks' parts back together; both raise, naming
+the leaf and the sizes, where a dim does not divide (no padding).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
 
 FSDP: Tuple[str, ...] = ("pod", "data")   # present axes are filtered per mesh
 TP = "model"
@@ -178,3 +189,126 @@ def cache_specs(cache, cfg, mesh, *, batch: int) -> Any:
         return P(*([None] * x.dim()))
 
     return _walk(cache, (), lambda path, x: _filter(leaf_spec(path, x), mesh))
+
+
+# ------------------------------------------------------------ placements ---
+
+def map_specs(fn, spec_tree, *trees, path=()):
+    """``fn(path, spec, *leaves)`` at every spec of ``spec_tree`` (a
+    :class:`PartitionSpec` is a leaf there, not a tuple), with the matching
+    leaves of ``trees``; ``None`` stays ``None``."""
+    if spec_tree is None:
+        return None
+    if isinstance(spec_tree, PartitionSpec):
+        return fn(path, spec_tree, *trees)
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(fn, v, *(t[k] for t in trees), path=path + (k,))
+                for k, v in spec_tree.items()}
+    out = [map_specs(fn, v, *(t[i] for t in trees), path=path + (str(i),))
+           for i, v in enumerate(spec_tree)]
+    if hasattr(spec_tree, "_fields"):                 # a NamedTuple
+        return type(spec_tree)(*out)
+    return type(spec_tree)(out)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes a spec entry names (none for ``None``)."""
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def placements(spec: P, mesh) -> tuple:
+    """One placement a mesh dim: ``Shard(d)`` where tensor dim ``d``'s
+    entry names that mesh axis, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.mesh_dim_names)
+    for d, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            out[mesh.mesh_dim_names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def shardings(spec_tree, mesh):
+    """The placement tree mirroring ``spec_tree`` (:func:`placements`)."""
+    return map_specs(lambda _, s: placements(s, mesh), spec_tree)
+
+
+def rank_coords(mesh, rank: int) -> Dict[str, int]:
+    """{axis: coordinate} of ``rank`` on a row-major mesh (the ranks of
+    ``launch.mesh.make_mesh``)."""
+    out = {}
+    for name, n in reversed(tuple(zip(mesh.mesh_dim_names,
+                                      tuple(mesh.shape)))):
+        rank, out[name] = divmod(rank, n)
+    return {a: out[a] for a in mesh.mesh_dim_names}
+
+
+def local_index(spec: P, shape, mesh, coords: Dict[str, int],
+                name: str = "a leaf") -> tuple:
+    """The slices of a global tensor of ``shape`` that the rank at
+    ``coords`` holds under ``spec``; raises, naming ``name`` and the sizes,
+    where a dim does not divide over its axes."""
+    sizes = axis_sizes(mesh)
+    index = [slice(None)] * len(shape)
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        n = math.prod(sizes[a] for a in axes)
+        if shape[d] % n:
+            raise ValueError(f"{name}: dim {d} of {tuple(shape)} does not "
+                             f"divide over the {n} ranks of {entry!r}")
+        k = 0
+        for a in axes:                      # merged row-major
+            k = k * sizes[a] + coords[a]
+        w = shape[d] // n
+        index[d] = slice(k * w, (k + 1) * w)
+    return tuple(index)
+
+
+def _leaf_name(path) -> str:
+    return "/".join(path) or "a leaf"
+
+
+def my_coords(mesh) -> Dict[str, int]:
+    """This rank's {axis: coordinate} on a ``DeviceMesh``."""
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def local_tree(tree, spec_tree, mesh, coords: Optional[Dict[str, int]] = None):
+    """The part of every leaf of the global ``tree`` that the rank at
+    ``coords`` (default: this rank of the ``DeviceMesh``) holds under
+    ``spec_tree``, each a contiguous copy."""
+    coords = my_coords(mesh) if coords is None else coords
+    return map_specs(lambda path, s, t: t[local_index(
+        s, t.shape, mesh, coords, _leaf_name(path))].contiguous(),
+        spec_tree, tree)
+
+
+def assemble(trees: List[Any], spec_tree, mesh):
+    """The global tree from every rank's local tree (``trees[r]`` rank r's,
+    row-major ranks): each part written to its place.  Raises where two
+    ranks' copies of a replicated part differ."""
+    n = len(trees)
+
+    def leaf(path, spec, *parts):
+        sizes = axis_sizes(mesh)
+        shape = list(parts[0].shape)
+        for d, entry in enumerate(spec):
+            shape[d] *= math.prod(sizes[a] for a in entry_axes(entry))
+        out = parts[0].new_empty(shape)
+        seen = {}
+        for r in range(n):
+            idx = local_index(spec, shape, mesh, rank_coords(mesh, r),
+                              _leaf_name(path))
+            key = tuple((s.start, s.stop) for s in idx)
+            if key in seen:
+                if not torch.equal(parts[r], parts[seen[key]]):
+                    raise ValueError(f"{_leaf_name(path)}: ranks {seen[key]} "
+                                     f"and {r} hold different copies")
+                continue
+            seen[key] = r
+            out[idx] = parts[r]
+        return out
+
+    return map_specs(leaf, spec_tree, *trees)

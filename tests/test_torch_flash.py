@@ -13,6 +13,8 @@ precision as a bf16 hi + lo pair; ``test_bf16_split_*`` emulates its
 arithmetic here and holds it against the plain versions' f32 p.
 """
 import collections
+import importlib.util
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -215,6 +217,36 @@ def test_flash_via_ops_matches_reference(S, Skv, bq, bk, window, causal):
                         bk=bk, fallback="error")
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert ops.fallback_count() == 0
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["causal", "full", "window", "sparse",
+                                  "dense"])
+def test_chip_smokes_plain_side_is_ops_plain_path(case, dt):
+    """``chip_smoke._ops_plain`` runs ``ops.attention``'s plain path on the
+    tensors' own device, so that the card's kernel is held against its plain
+    version on the card: on CPU tensors it equals ``ops.attention`` as
+    ``torch.equal``, ragged S (padding, the KV tail) and default tiles
+    included."""
+    q, k, v = (t.to(dt) for t in _t(*_qkv(B=2, Hq=4, Hkv=2, Sq=52,
+                                          Skv=52)))
+    m = (P.BlockMask.sliding_window(52, 52, 32, bq=16, bk=16)
+         | P.BlockMask.global_cols(52, 52, 1, bq=16, bk=16))
+    kw = {"causal": dict(causal=True, bq=16, bk=16),
+          "full": dict(causal=False, bq=16, bk=16),
+          "window": dict(causal=True, window=20),
+          "sparse": dict(mask=m, mask_impl="sparse"),
+          "dense": dict(mask=m, mask_impl="dense")}[case]
+    got = _chip_smoke()._ops_plain(q, k, v, **kw)
+    assert torch.equal(got, ops.attention(q, k, v, **kw))
 
 
 def test_fallback_counter_and_error_knob():

@@ -56,6 +56,7 @@ from repro_torch.launch.train import make_step
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.optim.adamw import AdamW, cosine_schedule, global_norm
+from repro_torch.parallel.sharding import MeshShape
 
 torch.set_num_threads(2)
 ARCHS = configs.ARCH_NAMES
@@ -261,9 +262,13 @@ def test_microbatches_match_one_batch(arch):
 
 
 def test_make_train_step_refuses_a_mesh():
-    _, cfg, _, _ = _params("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="partition specs.*item 4b"):
-        steps.make_train_step(cfg, SHAPES["train_4k"], mesh=object())
+    """A mesh takes the attention kinds only: RWKV-6 under one is refused,
+    naming the ROADMAP item (the multi-rank step's own cases are in
+    ``test_torch_train_mesh.py``)."""
+    cfg = configs.get_smoke("rwkv6-7b")
+    mesh = MeshShape(("data", "model"), (2, 2))
+    with pytest.raises(ValueError, match=r"\['rwkv'\] layers.*item 4b\.4"):
+        steps.make_train_step(cfg, SHAPES["train_4k"], mesh=mesh)
 
 
 def test_grad_compress_step_matches_reference():

@@ -1,11 +1,13 @@
 """Which side moves in chip_smoke's ragged f32 K3 check?
 
-``chip_smoke.py`` holds K3 through ``ops.attention`` on the card against the
-plain version of ``ops.attention`` on the host CPU (S = 200 of a 256-row
-draw, causal and not, 32 x 32 tiles, f32, within 1e-5 of the largest
-value).  This script repeats that check on the same seeded inputs and
-reports, for each side, how many distinct results it gives and how far each
-is from the f64 oracle of ``chip_smoke._attention_f64``:
+``chip_smoke.py`` holds K3 through ``ops.attention`` on the card (S = 200 of
+a 256-row draw, causal and not, 32 x 32 tiles, f32, within 1e-5 of the
+largest value) against its plain version on the card, and prints how far
+the host CPU's plain version lies from an f64 oracle: on some hosts that
+product drifted 100x further than the kernel.  This script repeats the
+host's and the card's side on the same seeded inputs and reports, for each
+side, how many distinct results it gives and how far each is from the f64
+oracle of ``chip_smoke._attention_f64``:
 
 * the card: ``--card-reps`` calls, with the caching allocator's addresses
   shuffled between calls;
