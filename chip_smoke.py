@@ -525,6 +525,8 @@ class no_plain:
         from repro_torch.kernels.ssd import kernel as mk
         from repro_torch.kernels.wkv import kernel as wk
         self.saved = [(fref, "decode_attention_ref"),
+                      (fref, "decode_split_max_ref"),
+                      (fref, "decode_split_partial_ref"),
                       (rk, "router_logits_ref"), (wk, "wkv_step_plain"),
                       (mk, "mamba_step_plain")]
         self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
@@ -1033,13 +1035,15 @@ def phase_build():
         for kern, used, spills in rows:
             print(f"  {name} {kern}: {used}; {spills}")
         if name == "decode_attention":
-            # D1's four instances at D 192 (nemotron-4-340b), spill-free
+            # D1's twelve instances at D 192 (nemotron-4-340b): four dtype
+            # pairings x the one-launch mode and the split mode's two,
+            # spill-free
             d192 = [sp for kern, _, sp in rows
                     if "192>" in kern or "Li192E" in kern]
             if not rows:
                 print("  decode_attention: the D 192 spill check was NOT "
                       "run (no compiler report)")
-            check(not rows or (len(d192) == 4 and all(
+            check(not rows or (len(d192) == 12 and all(
                 "0 bytes spill stores, 0 bytes spill loads" in sp
                 for sp in d192)), f"decode_attention<192> spills: {d192}")
     from repro_torch.kernels import tuning
@@ -7570,10 +7574,12 @@ def _mesh_smoke_run(name, params, tokens, mesh) -> dict:
             "v": S.map_specs(lambda _, s, t: cpu(t), p_specs, state.v)}
 
 
-def _mesh_full_params(rank: int, world: int, cfg, p_specs, mesh):
-    """This rank's part of ``init_params(cfg, seed=0)`` in f32 on the
-    card: the ranks draw the whole tree one at a time (the same draws as
-    the parent's one-device step), cut their part and free the rest."""
+def _mesh_full_params(rank: int, world: int, cfg, p_specs, mesh,
+                      param_dtype=None):
+    """This rank's part of ``init_params(cfg, seed=0)`` in
+    ``param_dtype`` (default f32) on the card: the ranks draw the whole
+    tree one at a time (the same draws as the parent's one-device run),
+    cut their part and free the rest."""
     import torch
     import torch.distributed as dist
     from repro_torch.models import model as M
@@ -7583,7 +7589,7 @@ def _mesh_full_params(rank: int, world: int, cfg, p_specs, mesh):
         dist.barrier()
         if r == rank:
             full = M.init_params(cfg, seed=0, device="cuda",
-                                 param_dtype=torch.float32)
+                                 param_dtype=param_dtype or torch.float32)
             local = S.local_tree(full, p_specs, mesh)
             del full
             torch.cuda.empty_cache()
@@ -7923,6 +7929,594 @@ def phase_train_mesh(card):
     return rows, summary
 
 
+# ---------------------------------------------------------------------------
+# The serving steps on a mesh: SHARDED_RANKS gloo ranks that share the card.
+# ---------------------------------------------------------------------------
+
+# (a) D1's split mode at random inputs: B 4, 16/8 heads of 128, a shard of
+# 288 of 576 positions at offset 288, rows that see none of it, part of it
+# and all of it, with and without a window; the merge of both shards held
+# against one-device D1 within decode_tolerance
+SPLIT_CASES = (("bfloat16", None, (100, 400, 576, 300)),
+               ("bfloat16", 300, (100, 400, 576, 300)),
+               ("float32", None, (288, 289, 576, 450)),
+               ("float32", 300, (100, 587, 576, 301)))
+SPLIT_SHAPE = (16, 8, 128, 576)              # Hq, Hkv, D, the whole cache
+# (b) SMOKE cases in f32 (name: arch, mesh, global batch), a 48-token prompt
+# at max_seq 64 and three decode steps from the one-device prefill's bf16
+# cache, against the one-device steps on the card: prefill logits within
+# 1e-4 (the CPU test's), decode logits within MESH_SERVE_BF16_TOL (a new
+# K / V rounded to the neighbouring bf16 value moves them by up to 4e-4 on
+# the CPU)
+MESH_SERVE_SMOKE = {"qwen3": (TRAIN_ARCH, "data_model", 4),
+                    "gemma3": ("gemma3-12b", "data_model", 4),
+                    "qwen3_pod": (TRAIN_ARCH, "pod_data_model", 4),
+                    "qwen3_b1": (TRAIN_ARCH, "data_model", 1)}
+MESH_SERVE_PROMPT, MESH_SERVE_MAX, MESH_SERVE_STEPS = 48, 64, 3
+MESH_SERVE_LOGIT_TOL = 1e-4
+MESH_SERVE_BF16_TOL = 2e-3
+# (c) qwen3-1.7b at full width and depth, bf16 weights (seed 0) on the
+# (2, 2) mesh, impl="kernel": a 4 x 512 prompt (numpy seed 47) at max_seq
+# 576, four greedy decode steps teacher-forced from the one-device run's
+# tokens; the last-position logits within MESH_SERVE_FULL_TOL of one
+# device's at every step (bf16: the row-parallel products' partial sums
+# are added in bf16 across the ranks), the tokens equal wherever one
+# device's top-2 margin exceeds it
+MESH_SERVE_BATCH, MESH_SERVE_SEQ, MESH_SERVE_CAP = 4, 512, 576
+MESH_SERVE_GEN = 4
+MESH_SERVE_FULL_TOL = 0.5
+MESH_SERVE_LIMIT = 600.0              # the parent's wait for every rank
+# the split mode's times: the full-width run's first decode step (kv_len
+# 513) on the "model" rank that holds positions 288-575
+SPLIT_TIME_LEN = 513
+D1_SPLIT_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "decode_attention.cu")
+
+
+def _split_run(q, k, v, kv, window, n):
+    """D1's split mode over ``n`` equal shards of the whole cache (k, v),
+    as the ranks run it: each shard's max (the kernel), their largest,
+    each shard's partials against it (the kernel), merged in rank order.
+    Returns (out, the shards' maxima, their (acc, l))."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    w = k.shape[2] // n
+    shards = [(k[:, :, i * w:(i + 1) * w].contiguous(),
+               v[:, :, i * w:(i + 1) * w].contiguous(), i * w)
+              for i in range(n)]
+    ms = [fops.decode_attention_max(q, ks, kv_len=kv, window=window,
+                                    offset=o) for ks, _, o in shards]
+    m = torch.stack(ms).amax(0)
+    parts = [fops.decode_attention_partial(q, ks, vs, m, kv_len=kv,
+                                           window=window, offset=o)
+             for ks, vs, o in shards]
+    out = fops.decode_merge(torch.stack([a for a, _ in parts]),
+                            torch.stack([l for _, l in parts]), q.dtype)
+    return out, ms, parts
+
+
+def phase_split_decode_vs_plain() -> float:
+    """D1's split mode (``decode_attention_max`` / ``_partial``) on the
+    card at :data:`SPLIT_CASES`: the shard at offset 288 against its plain
+    versions (the max within 1e-5 of the largest |score|, the partials
+    within :func:`decode_tolerance`) and ``torch.equal`` to its emulated
+    order; a row that sees none of the shard gives -inf, 0 and 0; both
+    shards merged against one-device D1 on the whole cache within
+    :func:`decode_tolerance`; each row's max and partials at B 1
+    ``torch.equal`` to the same row at B 4.  Returns the largest error
+    against plain (the partials')."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    rng = np.random.default_rng(46)
+    Hq, Hkv, D, S = SPLIT_SHAPE
+    worst = 0.0
+    for dn, window, lens in SPLIT_CASES:
+        dt = getattr(torch, dn)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to("cuda", dt)
+            for s in ((4, Hq, 1, D), (4, Hkv, S, D), (4, Hkv, S, D)))
+        kv = torch.tensor(lens, device="cuda")
+        what = f"D1 split {dn} window {window} rows {lens}"
+        ks, vs = k[:, :, S // 2:].contiguous(), v[:, :, S // 2:].contiguous()
+        kw = dict(kv_len=kv, window=window, offset=S // 2)
+        m = fk.decode_attention_max(q, ks, **kw)
+        acc, l = fk.decode_attention_partial(q, ks, vs, m, **kw)
+        m_plain = ref.decode_split_max_ref(q, ks, **kw)
+        acc_p, l_p = ref.decode_split_partial_ref(q, ks, vs, m, **kw)
+        torch.cuda.synchronize()
+        seen = torch.isfinite(m_plain)
+        check(torch.equal(torch.isfinite(m), seen),
+              f"{what}: the rows that see the shard differ from plain")
+        check(not seen[0].any() and seen[1:].all(),
+              f"{what}: row 0 should see none of the shard, the rest some")
+        big = m_plain[seen].abs().max().item()
+        m_err = (m[seen] - m_plain[seen]).abs().max().item()
+        check(m_err <= 1e-5 * big, f"{what}: max {m_err} > {1e-5 * big}")
+        check(not acc[0].any() and not l[0].any(),
+              f"{what}: a row that sees none of the shard has partials")
+        for got, want in ((acc, acc_p), (l, l_p)):
+            err = (got - want).abs().max().item()
+            tol = decode_tolerance(want.abs().max().item(), dt, dt)
+            check(err <= tol, f"{what}: partials {err} > {tol}")
+            worst = max(worst, err)
+        check(torch.equal(ref.decode_split_max_ordered(q, ks, **kw), m),
+              f"{what}: the max != its emulated order")
+        oa, ol = ref.decode_split_partial_ordered(q, ks, vs, m, **kw)
+        check(torch.equal(oa, acc) and torch.equal(ol, l),
+              f"{what}: the partials != their emulated order")
+        for i in range(4):
+            r = slice(i, i + 1)
+            kr = dict(kw, kv_len=kv[r])
+            ai, li = fk.decode_attention_partial(q[r], ks[r], vs[r], m[r],
+                                                 **kr)
+            check(torch.equal(fk.decode_attention_max(q[r], ks[r], **kr),
+                              m[r]) and torch.equal(ai, acc[r])
+                  and torch.equal(li, l[r]),
+                  f"{what}: row {i} at B 1 != at B 4")
+        out, _, _ = _split_run(q, k, v, kv, window, 2)
+        one = fk.decode_attention(q, k, v, kv_len=kv, window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - one.float()).abs().max().item()
+        tol = decode_tolerance(one.float().abs().max().item(), dt, dt)
+        check(not out.isnan().any() and err <= tol,
+              f"{what}: merged vs one-device D1 {err} > {tol}")
+        print(f"  {what}: shard at offset {S // 2} of {S}: max within "
+              f"{m_err:.3g} of plain, == its order; partials within "
+              f"{worst:.3g}, == their order; rows at B 1 == at B 4; both "
+              f"shards merged vs one-device D1 {err:.3g} (tol {tol:.3g})")
+    return worst
+
+
+def _split_times(err: float, launches: int, card) -> dict:
+    """The split mode's row of the kernels line at the full-width decode
+    step's shape on a "model" rank: B 2 rows, 16/8 heads of 128, bf16, the
+    shard of 288 of 576 positions at offset 288, kv_len 513 (225 visible
+    a row): max + partial back to back and from a graph, their plain
+    versions, one-device D1 on the whole cache beside; the bound: the
+    shard's visible K and V, q, m and the partials moved once at 3.35
+    TB/s."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    rng = np.random.default_rng(47)
+    Hq, Hkv, D, S = SPLIT_SHAPE
+    B, off, n = 2, S // 2, SPLIT_TIME_LEN
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+        for s in ((B, Hq, 1, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    ks, vs = k[:, :, off:].contiguous(), v[:, :, off:].contiguous()
+    kv = torch.full((B,), n, device="cuda")
+    kw = dict(kv_len=kv, window=None, offset=off)
+    m = fk.decode_attention_max(q, ks, **kw)
+
+    def run():
+        fk.decode_attention_partial(q, ks, vs,
+                                    fk.decode_attention_max(q, ks, **kw),
+                                    **kw)
+
+    def plain():
+        ref.decode_split_partial_ref(q, ks, vs, ref.decode_split_max_ref(
+            q, ks, **kw), **kw)
+
+    ms, plain_ms, g_ms = time_ms(run, 50), time_ms(plain, 20), graph_ms(run)
+    one_ms = time_ms(lambda: fk.decode_attention(q, k, v, kv_len=kv), 50)
+    visible = B * (n - off)
+    nbytes = (2 * visible * Hkv * D * 2 + q.numel() * 2 + m.numel() * 4 * 2
+              + B * Hq * (D + 1) * 4 + 8 * B)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  D1 split (max + partial) at the full-width step's shard (B "
+          f"{B}, {Hq}/{Hkv}, D {D}, 288 of {S} at offset {off}, "
+          f"{n - off} visible a row, bf16): {ms:.4f} ms (graph "
+          f"{g_ms:.4f}; bound {bound_ms:.5f}, plain {plain_ms:.3f}; "
+          f"one-device D1 on the whole cache {one_ms:.4f})")
+    return {"name": "decode_attention split (max + partial, a rank's "
+                    "shard of the decode cache)",
+            "route": "cuda", "source": D1_SPLIT_SRC,
+            "replaces": "src/repro/kernels/flash_attention/ops.py:212 "
+                        "(array code, no Pallas kernel; GSPMD splits it "
+                        "over the cache's sequence)",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "graph_ms": g_ms, "one_device_d1_ms": one_ms,
+            "card": card,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "shard": S - off,
+                      "offset": off, "kv_len": n, "dtype": "bfloat16"}}
+
+
+def _serve_smoke_inputs() -> tuple:
+    """Each SMOKE case's global params (CPU, seed 0, f32), prompt and
+    decode tokens (numpy seed 0), and the card's one-device run: prefill
+    logits and bf16 cache (CPU), the decode steps' logits from that
+    cache."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+    inputs, want = {}, {}
+    for name, (arch, _, B) in MESH_SERVE_SMOKE.items():
+        cfg = dataclasses.replace(get_smoke(arch), policy="f32")
+        params = M.init_params(cfg, seed=0, device="cpu",
+                               param_dtype=torch.float32)
+        rng = np.random.default_rng(0)
+        prompt = rng.integers(0, cfg.vocab_size, (B, MESH_SERVE_PROMPT))
+        toks = [rng.integers(0, cfg.vocab_size, (B, 1))
+                for _ in range(MESH_SERVE_STEPS)]
+        prompt, toks = prompt.astype(np.int32), [t.astype(np.int32)
+                                                 for t in toks]
+        p = _tree_to(params, "cuda")
+        with no_plain():
+            logits, cache, pos = M.prefill(p, torch.from_numpy(prompt).cuda(),
+                                           cfg, max_seq=MESH_SERVE_MAX)
+            start = tree.map(lambda t: t.to("cpu", copy=True), cache)
+            steps_ = []
+            for t in toks:
+                lg, cache = M.decode_step(p, cfg, cache, pos,
+                                          torch.from_numpy(t).cuda())
+                steps_.append(lg.cpu())
+                pos += 1
+        inputs[name] = {"params": params, "prompt": prompt, "decode": toks,
+                        "cache": start, "pos": MESH_SERVE_PROMPT}
+        want[name] = {"prefill": (logits.cpu(), start), "decode": steps_,
+                      "cache": tree.map(lambda t: t.cpu(), cache)}
+    return inputs, want
+
+
+def _serve_smoke_run(name, inp, mesh) -> dict:
+    """One SMOKE case on this rank: the prefill (B > 1) and the decode
+    steps from the one-device cache's part; launches of each (set to 0
+    just before, read just after); the parts on the CPU."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.parallel import sharding as S
+    arch, _, B = MESH_SERVE_SMOKE[name]
+    cfg = dataclasses.replace(get_smoke(arch), policy="f32")
+    shape = ShapeSpec("smoke", "decode", MESH_SERVE_MAX, B)
+    serve, (p_specs, c_specs, _, _), _ = steps.make_serve_step(cfg, shape,
+                                                               mesh)
+    local = _tree_to(S.local_tree(inp["params"], p_specs, mesh), "cuda")
+    out = {"launches": {}}
+    with no_plain():
+        if B > 1:
+            prefill, _, _ = steps.make_prefill_step(cfg, shape, mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            logits, cache, st = prefill(local, torch.from_numpy(
+                inp["prompt"]).cuda())
+            torch.cuda.synchronize()
+            out["launches"]["prefill"] = read_launches()
+            out["prefill"] = (logits.cpu(), _tree_to(cache, "cpu"), int(st))
+        cache = _tree_to(S.local_tree(inp["cache"], c_specs, mesh), "cuda")
+        pos, out["decode"] = inp["pos"], []
+        for i, tok in enumerate(inp["decode"]):
+            torch.cuda.synchronize()
+            reset_launches()
+            nxt, logits, cache = serve(local, cache, pos,
+                                       torch.from_numpy(tok).cuda())
+            torch.cuda.synchronize()
+            out["launches"].setdefault("step", read_launches())
+            out["decode"].append((nxt.cpu(), logits.cpu()))
+            pos += 1
+        out["cache"] = _tree_to(cache, "cpu")
+    n = cfg.n_layers
+    check(out["launches"]["step"] == only(
+        decode_attention_max=n, decode_attention_partial=n,
+        router_logits=decode_norms(cfg)),
+        f"serve mesh {name}: a step's launches {out['launches']['step']}")
+    if B > 1:
+        check(out["launches"]["prefill"] == only(),
+              f"serve mesh {name}: prefill launches "
+              f"{out['launches']['prefill']}")
+    return out
+
+
+def _serve_mesh_rank(rank: int, world: int, smoke, full) -> dict:
+    """One rank of phase_serve_mesh on ``cuda:0`` (which all ranks share):
+    (b) the SMOKE cases (:func:`_serve_smoke_run`); (c) qwen3-1.7b at full
+    width and depth on the (2, 2) mesh: this rank's part of the bf16
+    params drawn on the card, the prefill (impl "kernel") of the global
+    4 x 512 prompt, then MESH_SERVE_GEN decode steps on ``full``'s
+    teacher-forced tokens; the launches of the prefill and of step 1 (each
+    set to 0 just before and read just after), seconds of each (host
+    clock from a barrier, synchronised), the held and peak GB, and the
+    last step run again with every collective synchronised and timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    torch.cuda.set_device(0)
+    missing = [n for n in ("flash_attention", "decode_attention", "router")
+               if not build.library_path(n).is_file()]
+    check(not missing, f"rank {rank}: {missing} not built before the spawn")
+    t_start = time.monotonic()
+    meshes = {name: make_mesh(shape, names, "cuda", timeout=SHARDED_TIMEOUT)
+              for name, (shape, names) in MESHES.items()}
+    out = {"rank": rank, "smoke": {}}
+    for name, inp in smoke.items():
+        out["smoke"][name] = _serve_smoke_run(
+            name, inp, meshes[MESH_SERVE_SMOKE[name][1]])
+    smoke_s = time.monotonic() - t_start
+    cfg = get_config(TRAIN_ARCH)
+    mesh = meshes["data_model"]
+    shape = ShapeSpec("mesh", "decode", MESH_SERVE_CAP, MESH_SERVE_BATCH)
+    prefill, (p_specs, _, _), _ = steps.make_prefill_step(
+        cfg, shape, mesh, impl="kernel")
+    serve, _, _ = steps.make_serve_step(cfg, shape, mesh)
+    local = _mesh_full_params(rank, world, cfg, p_specs, mesh,
+                              torch.bfloat16)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    res = {"seconds": [], "logits": [], "tokens": []}
+    prompt = torch.from_numpy(full["prompt"]).cuda()
+    with no_plain():
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, st = prefill(local, prompt)
+        torch.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        res["prefill_launches"] = read_launches()
+        res["prefill_logits"] = logits.cpu()
+        pos = int(st)
+        for i, tok in enumerate(full["tokens"]):
+            tok = torch.from_numpy(tok).cuda()
+            torch.cuda.synchronize()
+            dist.barrier()
+            if i == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            nxt, logits, cache = serve(local, cache, pos, tok)
+            torch.cuda.synchronize()
+            res["seconds"].append(time.perf_counter() - t0)
+            if i == 0:
+                res["step_launches"] = read_launches()
+            res["logits"].append(logits.cpu())
+            res["tokens"].append(nxt.cpu())
+            pos += 1
+        log = []
+        # the last step again, its collectives synchronised and timed (the
+        # cache's write at that slot is the same write)
+        dist.barrier()
+        with _timed_collectives(log):
+            serve(local, cache, pos - 1, tok)
+    res["collectives"] = {
+        op: [sum(1 for n_, _, _ in log if n_ == op),
+             sum(b for n_, b, _ in log if n_ == op) / 1e9,
+             sum(s for n_, _, s in log if n_ == op)] for op in COLLECTIVES}
+    res.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               held_gb=held_gb,
+               cache_gb=sum(t.numel() * t.element_size()
+                            for t in tree.leaves(cache)) / 1e9)
+    n = cfg.n_layers
+    check(res["prefill_launches"] == only(flash_attention=n),
+          f"rank {rank} serve mesh prefill: launches "
+          f"{res['prefill_launches']}, want K3 {n}")
+    check(res["step_launches"] == only(
+        decode_attention_max=n, decode_attention_partial=n,
+        router_logits=decode_norms(cfg)),
+        f"rank {rank} serve mesh step: launches {res['step_launches']}")
+    del local, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(full=res, seconds={"smoke": smoke_s,
+                                  "total": time.monotonic() - t_start})
+    return out
+
+
+def _serve_full_one_device() -> dict:
+    """qwen3-1.7b at full width and depth on one device, bf16 weights
+    from ``init_params(seed=0)``: the prefill (impl "kernel") of a 4 x 512
+    prompt (numpy seed 47) at max_seq 576, then MESH_SERVE_GEN greedy
+    decode steps; the prompt, the tokens each step was fed, each step's
+    last-position logits (CPU), the seconds, the peak GB; the params freed
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(TRAIN_ARCH)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    prompt = np.random.default_rng(47).integers(
+        0, cfg.vocab_size, (MESH_SERVE_BATCH, MESH_SERVE_SEQ)).astype(
+        np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"prompt": prompt, "tokens": [], "logits": [], "seconds": []}
+    with no_plain():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, pos = M.prefill(params, torch.from_numpy(prompt)
+                                       .cuda(), cfg, max_seq=MESH_SERVE_CAP,
+                                       impl="kernel")
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_logits"] = logits.cpu()
+        for _ in range(MESH_SERVE_GEN):
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+            out["tokens"].append(tok.to(torch.int32).cpu().numpy())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = M.decode_step(params, cfg, cache, pos, tok)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["logits"].append(logits.cpu())
+            pos += 1
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _margin_check(got, want, vocab: int, tol: float, what: str):
+    """(the largest |got - want| of (B, 1, V) logits, the rows whose
+    one-device top-2 margin exceeds ``tol``, the tokens that differ among
+    them and elsewhere): the error within ``tol``, and the greedy tokens
+    equal wherever the margin exceeds it (a mismatch elsewhere is counted
+    and printed)."""
+    import torch
+    err = (got - want).abs().max().item()
+    check(err <= tol, f"{what}: logits off by {err} > {tol}")
+    top2 = want[:, -1, :vocab].topk(2).values
+    clear = top2[:, 0] - top2[:, 1] > tol
+    a = got[:, -1, :vocab].argmax(-1)
+    b = want[:, -1, :vocab].argmax(-1)
+    check(torch.equal(a[clear], b[clear]),
+          f"{what}: a greedy token differs where the margin exceeds {tol}")
+    return err, int(clear.sum()), int((a != b).sum())
+
+
+def phase_serve_mesh(card):
+    """The serving steps on a mesh (``launch.steps.make_prefill_step`` /
+    ``make_serve_step``) on SHARDED_RANKS gloo ranks that share the card:
+    (a) D1's split mode against its plain version, its order and
+    one-device D1 (:func:`phase_split_decode_vs_plain`); the one-device
+    runs here, then the ranks (:func:`_serve_mesh_rank`): (b) qwen3-1.7b
+    and gemma3-12b SMOKE in f32 on (2, 2), qwen3 on (1, 2, 2), a prefill
+    and three decode steps, and qwen3 serving at B 1 (the cache's
+    sequence over "data") from a one-device prefill cut by
+    ``sharding.local_tree``, against the one-device steps; (c)
+    qwen3-1.7b at full width and depth, bf16, (2, 2), impl "kernel": the
+    logits against one device's within MESH_SERVE_FULL_TOL at every step,
+    the greedy tokens equal where one device's top-2 margin exceeds it,
+    K3 once a layer a rank in prefill and the split D1 twice a layer a
+    rank a step, peak / held GB, prefill and step seconds and the
+    seconds in collectives a rank (gloo through host memory and loopback,
+    not NVLink: no multi-card speedup is measured).  Returns (the split
+    D1's row, a summary)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.ranks import run_ranks
+    t0 = time.monotonic()
+    err_plain = phase_split_decode_vs_plain()
+    smoke, want = _serve_smoke_inputs()
+    one = _serve_full_one_device()
+    one_s = time.monotonic() - t0
+    per_rank = run_ranks(_serve_mesh_rank, SHARDED_RANKS, smoke,
+                         {"prompt": one["prompt"], "tokens": one["tokens"]},
+                         timeout=SHARDED_TIMEOUT, limit=MESH_SERVE_LIMIT)
+    summary = {"smoke": {}, "card": card}
+    for name, (arch, mesh_name, B) in MESH_SERVE_SMOKE.items():
+        cfg = dataclasses.replace(get_smoke(arch), policy="f32")
+        shape, names = MESHES[mesh_name]
+        mesh = S.MeshShape(names, shape)
+        sshape = ShapeSpec("smoke", "decode", MESH_SERVE_MAX, B)
+        _, (_, c_specs, _, tok_spec), _ = steps.make_serve_step(cfg, sshape,
+                                                                mesh)
+        l_spec = S.P(tok_spec[0], None, "model")
+        runs = [pr["smoke"][name] for pr in per_rank]
+        row = {"decode_errs": [], "tokens_differ": 0}
+        if B > 1:
+            lg = S.assemble([r["prefill"][0] for r in runs], l_spec, mesh)
+            err = (lg - want[name]["prefill"][0]).abs().max().item()
+            check(err <= MESH_SERVE_LOGIT_TOL,
+                  f"serve mesh {name}: prefill logits {err}")
+            check({r["prefill"][2] for r in runs} == {MESH_SERVE_PROMPT},
+                  f"serve mesh {name}: the next position")
+            whole = S.assemble([r["prefill"][1] for r in runs], c_specs,
+                               mesh)
+            for a, b in zip(tree.leaves(whole),
+                            tree.leaves(want[name]["prefill"][1])):
+                a, b = a.float(), b.float()
+                check(bool(((a - b).abs() <= 2.0 ** -7 * b.abs() + 1e-6
+                            * b.abs().max()).all()),
+                      f"serve mesh {name}: the prefill cache")
+            row["prefill_err"] = err
+        for i in range(MESH_SERVE_STEPS):
+            lg = S.assemble([r["decode"][i][1] for r in runs], l_spec, mesh)
+            S.assemble([r["decode"][i][0] for r in runs], tok_spec, mesh)
+            err, _, differ = _margin_check(
+                lg, want[name]["decode"][i], cfg.vocab_size,
+                MESH_SERVE_BF16_TOL, f"serve mesh {name} step {i}")
+            row["decode_errs"].append(err)
+            row["tokens_differ"] += differ
+        S.assemble([r["cache"] for r in runs], c_specs, mesh)
+        summary["smoke"][name] = row
+        step = runs[0]["launches"]["step"]
+        print(f"  serve mesh {name} ({arch} smoke f32, {shape} mesh, B {B}"
+              "): " + (f"prefill logits within {row['prefill_err']:.3g} of "
+                       "one device, cache within one bf16 ulp; "
+                       if B > 1 else "from the one-device prefill's cache, ")
+              + f"{MESH_SERVE_STEPS} decode steps within "
+              f"{max(row['decode_errs']):.3g} (tol {MESH_SERVE_BF16_TOL}); "
+              f"split D1 x {step['decode_attention_max']} + "
+              f"{step['decode_attention_partial']} a rank a step")
+    cfg = get_config(TRAIN_ARCH)
+    shape, names = MESHES["data_model"]
+    mesh = S.MeshShape(names, shape)
+    l_spec = S.P("data", None, "model")
+    fulls = [pr["full"] for pr in per_rank]
+    pairs = [("prefill", [f["prefill_logits"] for f in fulls],
+              one["prefill_logits"])] + [
+        (f"step {i}", [f["logits"][i] for f in fulls], one["logits"][i])
+        for i in range(MESH_SERVE_GEN)]
+    errs, clear, differ = zip(*(_margin_check(
+        S.assemble(parts, l_spec, mesh), w, cfg.vocab_size,
+        MESH_SERVE_FULL_TOL, f"serve mesh full {what}")
+        for what, parts, w in pairs))
+    split_launches = [f["step_launches"]["decode_attention_max"]
+                      + f["step_launches"]["decode_attention_partial"]
+                      for f in fulls]
+    k3 = [f["prefill_launches"]["flash_attention"] for f in fulls]
+    coll_s = [sum(f["collectives"][op][2] for op in COLLECTIVES)
+              for f in fulls]
+    row = _split_times(err_plain, sum(split_launches), card)
+    seconds = time.monotonic() - t0
+    print(f"  serve mesh {TRAIN_ARCH} at full width and depth "
+          f"({cfg.n_layers} layers, (2, 2) mesh, bf16, impl kernel, "
+          f"{MESH_SERVE_BATCH} x {MESH_SERVE_SEQ}, max_seq {MESH_SERVE_CAP}"
+          f", {MESH_SERVE_GEN} steps teacher-forced): last-position logits "
+          f"vs one device, prefill then each step: "
+          f"{[round(x, 4) for x in errs]} (tol {MESH_SERVE_FULL_TOL}); rows"
+          f" past the margin {list(clear)} of {MESH_SERVE_BATCH}, tokens "
+          f"that differ {list(differ)}; K3 x {k3} a rank in prefill, split "
+          f"D1 x {split_launches} a rank a step; peak GB a rank "
+          f"{', '.join('%.2f' % f['peak_gb'] for f in fulls)} (held "
+          f"{fulls[0]['held_gb']:.2f}, cache part "
+          f"{fulls[0]['cache_gb']:.3f}; one device {one['peak_gb']:.2f});"
+          f" prefill s a rank {[round(f['prefill_s'], 3) for f in fulls]} "
+          f"(one device {one['prefill_s']:.3f}); step s a rank "
+          f"{[[round(x, 3) for x in f['seconds']] for f in fulls]} (one "
+          f"device {[round(x, 4) for x in one['seconds']]}); a step's "
+          f"collectives s a rank {[round(x, 3) for x in coll_s]} (gloo over"
+          f" loopback, each synchronised); phase {seconds:.1f} s (the "
+          f"one-device runs and (a) {one_s:.1f})")
+    summary.update(
+        arch=TRAIN_ARCH, layers=cfg.n_layers, batch=MESH_SERVE_BATCH,
+        prompt=MESH_SERVE_SEQ, max_seq=MESH_SERVE_CAP, steps=MESH_SERVE_GEN,
+        logit_errs=list(errs), tol=MESH_SERVE_FULL_TOL,
+        rows_past_margin=list(clear), tokens_differ=list(differ),
+        k3_per_rank_prefill=k3,
+        split_d1_per_rank_step=split_launches,
+        peak_gb=[f["peak_gb"] for f in fulls],
+        held_gb=[f["held_gb"] for f in fulls],
+        cache_part_gb=[f["cache_gb"] for f in fulls],
+        one_device={k: one[k] for k in ("prefill_s", "seconds",
+                                        "peak_gb")},
+        prefill_s=[f["prefill_s"] for f in fulls],
+        step_s=[f["seconds"] for f in fulls], collective_s=coll_s,
+        collectives=[f["collectives"] for f in fulls],
+        rank_seconds=[pr["seconds"] for pr in per_rank],
+        split_vs_plain_err=err_plain, seconds=seconds, one_device_s=one_s,
+        note="4 gloo ranks share one card (collectives through host "
+             "memory and loopback, not NVLink): no multi-card speedup; the "
+             "last step is run again with every collective synchronised "
+             "and timed")
+    return [row], summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7949,6 +8543,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("train mesh")
+    print("the serving steps on a mesh, 4 gloo ranks on the one card:")
+    serve_rows, serve_mesh = phase_serve_mesh(card)
+    sharded_rows += serve_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("serve mesh")
     print("kernel vs plain on the card:")
     phase_kernel_vs_plain()
     phase_attention_vs_plain()
@@ -8047,6 +8647,7 @@ def main() -> int:
              "rwkv": rwkv, "gemma": gemma, "dense": dense,
              "frontend": frontend, "zamba": zamba, "train": train,
              "sharded_engine": sharded, "train_mesh": train_mesh,
+             "serve_mesh": serve_mesh,
              "library": lib_info,
              "sm_clocks": clocks, "phase_s": phase_s,
              "wall_s": time.monotonic() - t_start}

@@ -24,6 +24,9 @@ def launch_counters() -> Dict[str, Tuple[Callable, str]]:
             "flash_attention_masked": (fk.flash_attention_masked, "launches"),
             "flash_attention_sparse": (fk.flash_attention_sparse, "launches"),
             "decode_attention": (fk.decode_attention, "launches"),
+            "decode_attention_max": (fk.decode_attention_max, "launches"),
+            "decode_attention_partial": (fk.decode_attention_partial,
+                                         "launches"),
             "router_logits": (rk.router_logits, "launches"),
             "spmspm_ell": (pk.spmspm_ell, "launches"),
             "stencil_2d": (tk.stencil_2d, "launches"),

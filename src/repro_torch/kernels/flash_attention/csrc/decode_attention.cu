@@ -91,6 +91,26 @@
 // products are the largest part), and a launch that finds almost nothing
 // to do still waits on three cluster barriers (tools/compare_decode.py
 // --ablate times each part).
+//
+// The split mode, for a decode cache whose sequence is split over ranks
+// (the serving steps on a mesh): a rank holds positions [offset, offset +
+// S) of every row, and the row's visible range [max(0, kv_len - window),
+// kv_len) is the whole row's, so the shard's part of it is [lo, hi) =
+// that range less the offset, clamped to [0, S).  Two launches give one
+// device's arithmetic:
+// - kMax: pass 1 only (K read once), and the cluster's max of each
+//   (row, head) written as f32, -inf where the shard holds no visible
+//   position;
+// - kPartial: given m, the max merged over the ranks, pass 2 only (each K
+//   tile read again before its V tile, the scores recomputed, as past the
+//   score budget), and the unnormalized f32 sums acc = sum cast(p) v and
+//   l = sum p written, zeros where the shard holds none.
+// The order is D1's with lo and hi the shard's: chunks counted from the
+// shard's lo, so a row's partials are a function of its length, the
+// window, the offset, S and D, never of B.  The caller sums the ranks'
+// partials in rank order and divides (ref.decode_merge): p is rounded as
+// on one device, only the sums over shards are taken in another order.
+// Bound: kMax reads the shard's visible K, kPartial its visible K and V.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,6 +125,9 @@ namespace {
 
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kFull = 0;              // one launch: out = sum p v / l
+constexpr int kMax = 1;               // split (a): the shard's max
+constexpr int kPartial = 2;           // split (b): the shard's sums
 constexpr int kChunk = 32;            // positions a chunk, counted from lo
 constexpr int kCtas = 8;              // CTAs a cluster (the portable most)
 constexpr int kWarps = 8;             // warps a CTA
@@ -310,13 +333,19 @@ __device__ __forceinline__ float own_score(const Tc* tile,
   return s;
 }
 
-template <typename Tq, typename Tc, int D>
+// Mode kFull writes out; kMax writes the max to f_out (B, Hq); kPartial
+// reads the merged max from m_in (B, Hq) and writes acc to f_out (B, Hq,
+// D) and l to l_out (B, Hq).
+template <int Mode, typename Tq, typename Tc, int D>
 __global__ void __cluster_dims__(kCtas, 1, 1)
     __launch_bounds__(kThreads, D <= 128 ? 3 : 2)
 decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
                         const Tc* __restrict__ v, Tq* __restrict__ out,
                         const long long* __restrict__ kv_len, int kv_scalar,
-                        int Hq, int Hkv, int S, int window, float scale) {
+                        int Hq, int Hkv, int S, int window, int offset,
+                        float scale, const float* __restrict__ m_in,
+                        float* __restrict__ f_out,
+                        float* __restrict__ l_out) {
   constexpr int E = D >= 32 ? D / 32 : 1;     // dims a lane
   constexpr int kLanes = D >= 32 ? 32 : D;    // lanes holding dims
   constexpr int kTile = kPerWarp * D;         // elements of a warp's tile
@@ -353,14 +382,22 @@ decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
     qv[j] = i < g * D ? to_f(q[((long long)b * Hq + h0) * D + i]) : 0.f;
   }
   const long long len = kv_len ? kv_len[b] : (long long)kv_scalar;
-  const int hi = (int)(len < S ? len : (long long)S);
-  const int lo = window >= 0 && len - window > 0 ? (int)(len - window) : 0;
+  // the row's visible positions as this cache's slots [lo, hi): less the
+  // offset, clamped to [0, S) (offset 0: hi = min(len, S))
+  const long long top = len - offset;
+  const long long bot =
+      (window >= 0 && len - window > 0 ? len - window : 0) - offset;
+  const int hi = (int)(top < 0 ? 0 : top < S ? top : (long long)S);
+  const int lo = (int)(bot < 0 ? 0 : bot < S ? bot : (long long)S);
   const int chunks = hi > lo ? (hi - lo + kChunk - 1) / kChunk : 0;
   const int mine = chunks > rank ? (chunks - 1 - rank) / kCtas + 1 : 0;
   const int cap = kScoreBytes / (4 * g);      // scores held a head
-  // Rank 0 has the most chunks; the row's CTAs all hold or all recompute.
-  const bool held = (chunks + kCtas - 1) / kCtas * kChunk <= cap;
-  const int tiles = mine * (held ? 2 : 3);
+  // Rank 0 has the most chunks; the row's CTAs all hold or all recompute
+  // (the split mode's kPartial always recomputes: kMax holds none).
+  const bool held =
+      Mode == kFull && (chunks + kCtas - 1) / kCtas * kChunk <= cap;
+  const int k1 = Mode == kPartial ? 0 : mine;   // pass 1's K tiles
+  const int tiles = Mode == kMax ? mine : k1 + mine * (held ? 1 : 2);
 
   // Tile x of this CTA's stream: pass 1's K chunks, then pass 2's V chunks
   // (each after its K chunk again where the scores are not held).  A warp
@@ -380,9 +417,9 @@ decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
     if (x < tiles) {
       int t = x;
       bool vt = false;
-      if (x >= mine) {
-        t = held ? x - mine : (x - mine) >> 1;
-        vt = held || ((x - mine) & 1);
+      if (x >= k1) {
+        t = held ? x - k1 : (x - k1) >> 1;
+        vt = held || ((x - k1) & 1);
       }
       const Tc* src = (vt ? v : k) + base + (long long)kStride * t * D;
       const int room = hi - first - kStride * t;  // rows u with 8 u < room
@@ -418,34 +455,49 @@ decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
   __syncthreads();
 
   // pass 1: the scores of this CTA's chunks, and each lane's max of its
-  // head's (lane_h)
+  // head's (lane_h); kPartial takes the merged max instead
   float m_lane = -INFINITY;
-  for (int t = 0; t < mine; ++t) {
-    const Tc* tile = acquire(t);
-    m_lane = fmaxf(m_lane, tile_scores<Tc, D>(
-        tile, qg, lo + (rank + kCtas * t) * kChunk, hi, g, warp, lane,
-        scores, cap, t * kChunk, held));
-  }
-  m_lane = fmaxf(m_lane, __shfl_xor_sync(0xffffffffu, m_lane, 1));
-  m_lane = fmaxf(m_lane, __shfl_xor_sync(0xffffffffu, m_lane, 16));
-  if ((lane & 17) == 0) part_m[warp][lane_h(lane)] = m_lane;
-  __syncthreads();
-  if (threadIdx.x < kGroupMax) {
-    float mm = part_m[0][threadIdx.x];
+  if constexpr (Mode == kPartial) {
+    if (lane_h(lane) < g) m_lane = m_in[(long long)b * Hq + h0 + lane_h(lane)];
+  } else {
+    for (int t = 0; t < mine; ++t) {
+      const Tc* tile = acquire(t);
+      m_lane = fmaxf(m_lane, tile_scores<Tc, D>(
+          tile, qg, lo + (rank + kCtas * t) * kChunk, hi, g, warp, lane,
+          scores, cap, t * kChunk, held));
+    }
+    m_lane = fmaxf(m_lane, __shfl_xor_sync(0xffffffffu, m_lane, 1));
+    m_lane = fmaxf(m_lane, __shfl_xor_sync(0xffffffffu, m_lane, 16));
+    if ((lane & 17) == 0) part_m[warp][lane_h(lane)] = m_lane;
+    __syncthreads();
+    if (threadIdx.x < kGroupMax) {
+      float mm = part_m[0][threadIdx.x];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, part_m[w][threadIdx.x]);
-    cta_m[threadIdx.x] = mm;
-  }
-  cluster.sync();                      // every CTA's max is visible
-  if (threadIdx.x < kCtas * kGroupMax) {
-    const int r = threadIdx.x / kGroupMax, h = threadIdx.x % kGroupMax;
-    maxima[r][h] = cluster.map_shared_rank(cta_m, r)[h];
-  }
-  __syncthreads();
-  m_lane = maxima[0][lane_h(lane)];              // the row's max, lane's head
+      for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, part_m[w][threadIdx.x]);
+      cta_m[threadIdx.x] = mm;
+    }
+    cluster.sync();                    // every CTA's max is visible
+    if (threadIdx.x < kCtas * kGroupMax) {
+      const int r = threadIdx.x / kGroupMax, h = threadIdx.x % kGroupMax;
+      maxima[r][h] = cluster.map_shared_rank(cta_m, r)[h];
+    }
+    __syncthreads();
+    m_lane = maxima[0][lane_h(lane)];            // the row's max, lane's head
 #pragma unroll
-  for (int r = 1; r < kCtas; ++r)
-    m_lane = fmaxf(m_lane, maxima[r][lane_h(lane)]);
+    for (int r = 1; r < kCtas; ++r)
+      m_lane = fmaxf(m_lane, maxima[r][lane_h(lane)]);
+  }
+  if constexpr (Mode == kMax) {
+    if (rank == 0 && threadIdx.x < g) {
+      float mm = maxima[0][threadIdx.x];
+#pragma unroll
+      for (int r = 1; r < kCtas; ++r) mm = fmaxf(mm, maxima[r][threadIdx.x]);
+      f_out[(long long)b * Hq + h0 + threadIdx.x] = mm;
+    }
+    cp_async_wait<0>();
+    cluster.sync();                    // no CTA leaves while its max is read
+    return;
+  }
 
   // pass 2: a lane takes p = exp(s - m) of its (lane_u, lane_h), and the
   // warp reads them back to sum the PV product (p cast to the cache type;
@@ -466,11 +518,10 @@ decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
     const bool valid = lane_h(lane) < g && p0 + own < hi;
     float s = 0.f;
     if (!held)                         // this chunk's scores again
-      s = own_score<Tc, D>(acquire(mine + 2 * t), qg, p0, hi, g, warp,
-                           lane);
+      s = own_score<Tc, D>(acquire(k1 + 2 * t), qg, p0, hi, g, warp, lane);
     else if (valid)
       s = scores[lane_h(lane) * cap + t * kChunk + own];
-    const Tc* vt = acquire(held ? mine + t : mine + 2 * t + 1);
+    const Tc* vt = acquire(held ? k1 + t : k1 + 2 * t + 1);
     // (acquire's __syncwarp: every lane has read the last chunk's p_buf)
     const float p = valid ? expf(__fsub_rn(s, m_lane)) : 0.f;
     pw[lane_u(lane) * kGroupMax + lane_h(lane)] = p;
@@ -543,8 +594,13 @@ decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
       o = __fadd_rn(o, cluster.map_shared_rank(cta_o, r)[h * D + d]);
       l = __fadd_rn(l, cluster.map_shared_rank(cta_l, r)[h]);
     }
-    out[((long long)b * Hq + h0 + h) * D + d] =
-        from_f<Tq>(__fdiv_rn(o, l == 0.f ? 1.f : l));
+    if constexpr (Mode == kPartial) {
+      f_out[((long long)b * Hq + h0 + h) * D + d] = o;
+      if (d == 0) l_out[(long long)b * Hq + h0 + h] = l;
+    } else {
+      out[((long long)b * Hq + h0 + h) * D + d] =
+          from_f<Tq>(__fdiv_rn(o, l == 0.f ? 1.f : l));
+    }
   }
   cluster.sync();                      // no CTA leaves while read
 }
@@ -552,7 +608,7 @@ decode_attention_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k,
 // The instance's dynamic shared memory allowed past 48 KB, once a device
 // (the attribute is the current device's; two first calls at once both set
 // it, which is harmless; a device past kDevices sets it every launch).
-template <typename Tq, typename Tc, int D>
+template <int Mode, typename Tq, typename Tc, int D>
 cudaError_t configure() {
   constexpr int kDevices = 64;
   static std::atomic<bool> configured[kDevices];
@@ -561,7 +617,7 @@ cudaError_t configure() {
   if (err != cudaSuccess) return err;
   if (dev < kDevices && configured[dev].load(std::memory_order_acquire))
     return cudaSuccess;
-  err = cudaFuncSetAttribute(decode_attention_kernel<Tq, Tc, D>,
+  err = cudaFuncSetAttribute(decode_attention_kernel<Mode, Tq, Tc, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes<Tc, D>());
   if (err == cudaSuccess && dev < kDevices)
@@ -569,54 +625,68 @@ cudaError_t configure() {
   return err;
 }
 
-template <typename Tq, typename Tc, int D>
-int launch_dim(const void* q, const void* k, const void* v, void* out,
-               const long long* kv_len, int kv_scalar, int B, int Hq, int Hkv,
-               int S, int window, float scale, cudaStream_t s) {
-  const cudaError_t err = configure<Tq, Tc, D>();
+// A launch's arguments (the pointers a mode does not use are null).
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  const long long* kv_len;
+  int kv_scalar, B, Hq, Hkv, S, window, offset;
+  float scale;
+  const float* m_in;
+  float* f_out;
+  float* l_out;
+  cudaStream_t s;
+};
+
+template <int Mode, typename Tq, typename Tc, int D>
+int launch_dim(const Args& a) {
+  const cudaError_t err = configure<Mode, Tq, Tc, D>();
   if (err != cudaSuccess) return err;
-  const int passes = (Hq / Hkv + kGroupMax - 1) / kGroupMax;
-  const dim3 grid(kCtas * Hkv * passes, B);
-  decode_attention_kernel<Tq, Tc, D><<<grid, kThreads, smem_bytes<Tc, D>(),
-                                       s>>>(
-      static_cast<const Tq*>(q), static_cast<const Tc*>(k),
-      static_cast<const Tc*>(v), static_cast<Tq*>(out), kv_len, kv_scalar,
-      Hq, Hkv, S, window, scale);
+  const int passes = (a.Hq / a.Hkv + kGroupMax - 1) / kGroupMax;
+  const dim3 grid(kCtas * a.Hkv * passes, a.B);
+  decode_attention_kernel<Mode, Tq, Tc, D>
+      <<<grid, kThreads, smem_bytes<Tc, D>(), a.s>>>(
+          static_cast<const Tq*>(a.q), static_cast<const Tc*>(a.k),
+          static_cast<const Tc*>(a.v), static_cast<Tq*>(a.out), a.kv_len,
+          a.kv_scalar, a.Hq, a.Hkv, a.S, a.window, a.offset, a.scale, a.m_in,
+          a.f_out, a.l_out);
   return cudaGetLastError();
 }
 
-template <typename Tq, typename Tc>
-int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 const long long* kv_len, int kv_scalar, int B, int Hq,
-                 int Hkv, int S, int D, int window, float scale,
-                 cudaStream_t s) {
+template <int Mode, typename Tq, typename Tc>
+int launch_typed(int D, const Args& a) {
   switch (D) {
-    case 16:
-      return launch_dim<Tq, Tc, 16>(q, k, v, out, kv_len, kv_scalar, B, Hq,
-                                    Hkv, S, window, scale, s);
-    case 64:
-      return launch_dim<Tq, Tc, 64>(q, k, v, out, kv_len, kv_scalar, B, Hq,
-                                    Hkv, S, window, scale, s);
-    case 128:
-      return launch_dim<Tq, Tc, 128>(q, k, v, out, kv_len, kv_scalar, B, Hq,
-                                     Hkv, S, window, scale, s);
-    case 192:
-      return launch_dim<Tq, Tc, 192>(q, k, v, out, kv_len, kv_scalar, B, Hq,
-                                     Hkv, S, window, scale, s);
-    case 256:
-      return launch_dim<Tq, Tc, 256>(q, k, v, out, kv_len, kv_scalar, B, Hq,
-                                     Hkv, S, window, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch_dim<Mode, Tq, Tc, 16>(a);
+    case 64: return launch_dim<Mode, Tq, Tc, 64>(a);
+    case 128: return launch_dim<Mode, Tq, Tc, 128>(a);
+    case 192: return launch_dim<Mode, Tq, Tc, 192>(a);
+    case 256: return launch_dim<Mode, Tq, Tc, 256>(a);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+template <int Mode>
+int launch_mode(int D, int q_dtype, int cache_dtype, const Args& a) {
+  if (q_dtype == kF32 && cache_dtype == kF32)
+    return launch_typed<Mode, float, float>(D, a);
+  if (q_dtype == kBF16 && cache_dtype == kBF16)
+    return launch_typed<Mode, __nv_bfloat16, __nv_bfloat16>(D, a);
+  if (q_dtype == kBF16 && cache_dtype == kF32)
+    return launch_typed<Mode, __nv_bfloat16, float>(D, a);
+  if (q_dtype == kF32 && cache_dtype == kBF16)
+    return launch_typed<Mode, float, __nv_bfloat16>(D, a);
+  return cudaErrorInvalidValue;
 }
 
 template <typename Tq, typename Tc, int D>
 int info_dim(int* info) {
   cudaFuncAttributes attr;
-  cudaError_t err = configure<Tq, Tc, D>();
+  cudaError_t err = configure<kFull, Tq, Tc, D>();
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, decode_attention_kernel<Tq, Tc, D>);
+    err = cudaFuncGetAttributes(&attr,
+                                decode_attention_kernel<kFull, Tq, Tc, D>);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kCtas);
   config.blockDim = dim3(kThreads);
@@ -624,7 +694,7 @@ int info_dim(int* info) {
   int clusters = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(
-        &clusters, decode_attention_kernel<Tq, Tc, D>, &config);
+        &clusters, decode_attention_kernel<kFull, Tq, Tc, D>, &config);
   if (err != cudaSuccess) return err;
   info[0] = kCtas;
   info[1] = kChunk;
@@ -652,6 +722,12 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+bool valid(const Args& a) {
+  return a.B >= 1 && a.B <= 65535 && a.Hkv >= 1 && a.Hkv <= 65535 &&
+         a.Hq % a.Hkv == 0 && a.Hq / a.Hkv <= kGroupLimit && a.S >= 1 &&
+         aligned16(a.k) && aligned16(a.v);
+}
+
 }  // namespace
 
 extern "C" {
@@ -667,25 +743,46 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             int kv_scalar, int B, int Hq, int Hkv, int S,
                             int D, int window, float scale, int q_dtype,
                             int cache_dtype, void* stream) {
-  if (B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || Hq % Hkv ||
-      Hq / Hkv > kGroupLimit || S < 1 || !aligned16(k) || !aligned16(v))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32 && cache_dtype == kF32)
-    return launch_typed<float, float>(q, k, v, out, kv_len, kv_scalar, B, Hq,
-                                      Hkv, S, D, window, scale, s);
-  if (q_dtype == kBF16 && cache_dtype == kBF16)
-    return launch_typed<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, out, kv_len, kv_scalar, B, Hq, Hkv, S, D, window, scale, s);
-  if (q_dtype == kBF16 && cache_dtype == kF32)
-    return launch_typed<__nv_bfloat16, float>(q, k, v, out, kv_len,
-                                              kv_scalar, B, Hq, Hkv, S, D,
-                                              window, scale, s);
-  if (q_dtype == kF32 && cache_dtype == kBF16)
-    return launch_typed<float, __nv_bfloat16>(q, k, v, out, kv_len,
-                                              kv_scalar, B, Hq, Hkv, S, D,
-                                              window, scale, s);
-  return cudaErrorInvalidValue;
+  const Args a{q, k, v, out, kv_len, kv_scalar, B, Hq, Hkv, S, window, 0,
+               scale, nullptr, nullptr, nullptr,
+               static_cast<cudaStream_t>(stream)};
+  if (!valid(a)) return cudaErrorInvalidValue;
+  return launch_mode<kFull>(D, q_dtype, cache_dtype, a);
+}
+
+// The split mode's (a): k a shard (B, Hkv, S, D) holding positions
+// [offset, offset + S) of every row, kv_len and window the whole row's;
+// writes m_out (B, Hq) f32, each (row, head)'s max over the shard's
+// visible positions (-inf where none).  Other arguments as above.
+int decode_attention_max_launch(const void* q, const void* k, float* m_out,
+                                const long long* kv_len, int kv_scalar,
+                                int B, int Hq, int Hkv, int S, int D,
+                                int window, int offset, float scale,
+                                int q_dtype, int cache_dtype, void* stream) {
+  const Args a{q, k, k, nullptr, kv_len, kv_scalar, B, Hq, Hkv, S, window,
+               offset, scale, nullptr, m_out, nullptr,
+               static_cast<cudaStream_t>(stream)};
+  if (!valid(a) || offset < 0) return cudaErrorInvalidValue;
+  return launch_mode<kMax>(D, q_dtype, cache_dtype, a);
+}
+
+// The split mode's (b): given m (B, Hq) f32, the max merged over the
+// shards, writes acc_out (B, Hq, D) = sum cast(p) v and l_out (B, Hq) =
+// sum p, f32, p = exp(s - m) over the shard's visible positions (zeros
+// where none).  Other arguments as decode_attention_max_launch.
+int decode_attention_partial_launch(const void* q, const void* k,
+                                    const void* v, const float* m,
+                                    float* acc_out, float* l_out,
+                                    const long long* kv_len, int kv_scalar,
+                                    int B, int Hq, int Hkv, int S, int D,
+                                    int window, int offset, float scale,
+                                    int q_dtype, int cache_dtype,
+                                    void* stream) {
+  const Args a{q, k, v, nullptr, kv_len, kv_scalar, B, Hq, Hkv, S, window,
+               offset, scale, m, acc_out, l_out,
+               static_cast<cudaStream_t>(stream)};
+  if (!valid(a) || offset < 0) return cudaErrorInvalidValue;
+  return launch_mode<kPartial>(D, q_dtype, cache_dtype, a);
 }
 
 // The launch shape of one instance: info[0..6] = CTAs a cluster, positions

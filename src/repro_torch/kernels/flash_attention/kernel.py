@@ -15,7 +15,11 @@ by type, bf16 on the tensor cores (p kept at f32 precision as a bf16 hi +
 lo pair), f32 on the CUDA cores.  D1 takes q f32 or bf16 and a cache f32 or
 bf16 (each in its own dtype), the same head dims and GQA groups of at most
 16, past 8 in passes of at most 8 heads (one launch; a head's order is the
-same in any pass).
+same in any pass).  D1's split mode, for a cache whose sequence is split
+over ranks, is two more entry points of the same kernel:
+``decode_attention_max`` (a shard's max a (row, head)) and
+``decode_attention_partial`` (its unnormalized sums against the merged
+max), each counting its launches.
 """
 from __future__ import annotations
 
@@ -46,6 +50,17 @@ _ARGTYPES = {
 
 
 _DECODE_GROUP_MAX = 16    # heads a kv head (ref.DECODE_PASS_HEADS a pass)
+# D1's C entry points: the pointers, then the ints (kv_scalar, B, Hq, Hkv,
+# S, D, window[, offset]), scale, q_dtype, cache_dtype, stream
+_DECODE_TAIL = [_F] + [_I] * 2 + [_P]
+_DECODE_ARGTYPES = {
+    # q k v out kv_len
+    "decode_attention_launch": [_P] * 5 + [_I] * 7 + _DECODE_TAIL,
+    # q k m_out kv_len
+    "decode_attention_max_launch": [_P] * 4 + [_I] * 8 + _DECODE_TAIL,
+    # q k v m acc_out l_out kv_len
+    "decode_attention_partial_launch": [_P] * 7 + [_I] * 8 + _DECODE_TAIL,
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,11 +76,10 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _decode_lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
-    # q k v out kv_len, kv_scalar B Hq Hkv S D window, scale, q_dtype
-    # cache_dtype, stream
-    lib.decode_attention_launch.argtypes = \
-        [_P] * 5 + [_I] * 7 + [_F] + [_I] * 2 + [_P]
-    lib.decode_attention_launch.restype = ctypes.c_int
+    for name, argtypes in _DECODE_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.decode_attention_info.argtypes = [_I] * 3 + [_P]
     lib.decode_attention_info.restype = ctypes.c_int
     return lib
@@ -234,6 +248,43 @@ def flash_attention_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _decode_checks(what: str, q1, k_cache, v_cache, kv_len):
+    """D1's device, type, shape and alignment checks; returns (the (B,)
+    int64 lengths on the device or None, the scalar length)."""
+    B, Hq, one, D = q1.shape
+    _, Hkv, S, _ = k_cache.shape
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q1.device or not t.is_contiguous() or t.dim() != 4 \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"4-d tensor on {q1.device}, 16-byte aligned")
+    if q1.dtype not in _DTYPE_CODE or k_cache.dtype not in _DTYPE_CODE \
+            or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{what}: q {q1.dtype} and cache "
+                        f"{k_cache.dtype}/{v_cache.dtype} must be float32 or "
+                        "bfloat16, K and V alike")
+    if one != 1 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != B or k_cache.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"{what}: q {tuple(q1.shape)} vs cache "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    if D not in _HEAD_DIMS or Hq // Hkv > _DECODE_GROUP_MAX:
+        raise ValueError(f"{what}: head dim {D} not in "
+                         f"{_HEAD_DIMS} or GQA group {Hq // Hkv} over "
+                         f"{_DECODE_GROUP_MAX}")
+    if B > 65535 or Hkv > 65535:
+        raise ValueError(f"{what}: grid out of range B={B} "
+                         f"Hkv={Hkv}")
+    lens, scalar = None, S
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != B or kv_len.device != q1.device:
+            raise ValueError(f"{what}: kv_len {tuple(kv_len.shape)}"
+                             f" on {kv_len.device} for B={B} on {q1.device}")
+        lens = kv_len.reshape(B).to(torch.int64).contiguous()
+    elif kv_len is not None:
+        scalar = int(kv_len)
+    return lens, scalar
+
+
 def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, kv_len=None,
                      window: Optional[int] = None) -> torch.Tensor:
@@ -248,37 +299,10 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
         return ref.decode_attention_ref(q1, k_cache, v_cache, kv_len=kv_len,
                                         window=window)
     build.refuse_grad("decode_attention", q1, k_cache, v_cache)
-    B, Hq, one, D = q1.shape
+    lens, scalar = _decode_checks("decode_attention", q1, k_cache, v_cache,
+                                  kv_len)
+    B, Hq, _, D = q1.shape
     _, Hkv, S, _ = k_cache.shape
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q1.device or not t.is_contiguous() or t.dim() != 4 \
-                or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention: {name} must be a contiguous "
-                             f"4-d tensor on {q1.device}, 16-byte aligned")
-    if q1.dtype not in _DTYPE_CODE or k_cache.dtype not in _DTYPE_CODE \
-            or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"decode_attention: q {q1.dtype} and cache "
-                        f"{k_cache.dtype}/{v_cache.dtype} must be float32 or "
-                        "bfloat16, K and V alike")
-    if one != 1 or k_cache.shape != v_cache.shape \
-            or k_cache.shape[0] != B or k_cache.shape[3] != D or Hq % Hkv:
-        raise ValueError(f"decode_attention: q {tuple(q1.shape)} vs cache "
-                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
-    if D not in _HEAD_DIMS or Hq // Hkv > _DECODE_GROUP_MAX:
-        raise ValueError(f"decode_attention: head dim {D} not in "
-                         f"{_HEAD_DIMS} or GQA group {Hq // Hkv} over "
-                         f"{_DECODE_GROUP_MAX}")
-    if B > 65535 or Hkv > 65535:
-        raise ValueError(f"decode_attention: grid out of range B={B} "
-                         f"Hkv={Hkv}")
-    lens, scalar = None, S
-    if isinstance(kv_len, torch.Tensor):
-        if kv_len.numel() != B or kv_len.device != q1.device:
-            raise ValueError(f"decode_attention: kv_len {tuple(kv_len.shape)}"
-                             f" on {kv_len.device} for B={B} on {q1.device}")
-        lens = kv_len.reshape(B).to(torch.int64).contiguous()
-    elif kv_len is not None:
-        scalar = int(kv_len)
     q = q1.contiguous()
     out = torch.empty_like(q)
     lib = _decode_lib()
@@ -292,7 +316,83 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
+def _split_args(what: str, q1, k_cache, v_cache, kv_len, window, offset):
+    """The checks and the shared tail of a split-mode launch: (q, the
+    lengths' pointer, kv_scalar, B, Hq, Hkv, S, D, window, offset, scale,
+    q_dtype, cache_dtype, stream)."""
+    build.refuse_grad(what, q1, k_cache, v_cache)
+    if kv_len is None or int(offset) < 0:
+        raise ValueError(f"{what}: the split mode takes the rows' kv_len "
+                         f"and an offset >= 0, got {kv_len!r}, {offset}")
+    lens, scalar = _decode_checks(what, q1, k_cache, v_cache, kv_len)
+    B, Hq, _, D = q1.shape
+    _, Hkv, S, _ = k_cache.shape
+    q = q1.contiguous()
+    return q, (None if lens is None else lens.data_ptr(), scalar, B, Hq,
+               Hkv, S, D, -1 if window is None else int(window), int(offset),
+               D ** -0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+               _stream(q)), lens
+
+
+def decode_attention_max(q1: torch.Tensor, k_cache: torch.Tensor, *,
+                         kv_len, window: Optional[int] = None,
+                         offset: int = 0) -> torch.Tensor:
+    """D1's split mode (a).  ``k_cache`` (B, Hkv, S, D) is a shard holding
+    positions ``offset .. offset + S - 1`` of every row; ``kv_len`` (an int
+    or a ``(B,)`` int tensor on q1's device) and ``window`` are the whole
+    row's.  Returns (B, Hq) f32: each (row, head)'s max score over the
+    shard's visible positions, -inf where it holds none
+    (``ref.decode_split_max_ref`` on the CPU)."""
+    if q1.device.type == "cpu":
+        return ref.decode_split_max_ref(q1, k_cache, kv_len=kv_len,
+                                        window=window, offset=offset)
+    q, tail, _lens = _split_args("decode_attention_max", q1, k_cache,
+                                 k_cache, kv_len, window, offset)
+    m = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    lib = _decode_lib()
+    err = lib.decode_attention_max_launch(q.data_ptr(), k_cache.data_ptr(),
+                                          m.data_ptr(), *tail)
+    build.check(lib, err, "decode_attention_max launch")
+    decode_attention_max.launches += 1
+    return m
+
+
+def decode_attention_partial(q1: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, m: torch.Tensor, *,
+                             kv_len, window: Optional[int] = None,
+                             offset: int = 0):
+    """D1's split mode (b): given ``m`` (B, Hq) f32, the max merged over
+    every shard of the row, the shard's unnormalized ``acc = sum
+    f32(cast_cache(p)) v`` (B, Hq, D) and ``l = sum p`` (B, Hq), f32,
+    zeros where it holds no visible position; arguments as
+    :func:`decode_attention_max` (``ref.decode_split_partial_ref`` on the
+    CPU)."""
+    if q1.device.type == "cpu":
+        return ref.decode_split_partial_ref(q1, k_cache, v_cache, m,
+                                            kv_len=kv_len, window=window,
+                                            offset=offset)
+    q, tail, _lens = _split_args("decode_attention_partial", q1, k_cache,
+                                 v_cache, kv_len, window, offset)
+    B, Hq, _, D = q.shape
+    if m.shape != (B, Hq) or m.dtype != torch.float32 \
+            or m.device != q.device:
+        raise ValueError(f"decode_attention_partial: m {tuple(m.shape)} "
+                         f"{m.dtype} on {m.device}; want ({B}, {Hq}) f32")
+    m = m.contiguous()
+    acc = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    lib = _decode_lib()
+    err = lib.decode_attention_partial_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), m.data_ptr(),
+        acc.data_ptr(), l.data_ptr(), *tail)
+    build.check(lib, err, "decode_attention_partial launch")
+    decode_attention_partial.launches += 1
+    return acc, l
+
+
 flash_attention.launches = 0
 flash_attention_masked.launches = 0
 flash_attention_sparse.launches = 0
 decode_attention.launches = 0
+decode_attention_max.launches = 0
+decode_attention_partial.launches = 0

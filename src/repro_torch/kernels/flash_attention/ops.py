@@ -16,7 +16,9 @@ counted (:func:`fallback_count`), and ``fallback="error"`` refuses it.
 
 ``decode_attention`` is the hand-written kernel D1 on the card (the
 reference computes it as array code, no Pallas kernel), its plain version
-on the CPU.
+on the CPU; ``decode_attention_max`` / ``decode_attention_partial`` are
+D1's split mode over a shard of a cache whose sequence is split over
+ranks, and ``decode_merge`` finishes it from the ranks' partials.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.masks import BlockMask
 from repro_torch.kernels import tuning
-from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention import kernel, ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # Oracle fallbacks by reason: no O(S^2) path runs uncounted.
@@ -180,3 +182,36 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
     it raises on a dtype or head dim it lacks."""
     return kernel.decode_attention(q1, k_cache, v_cache, kv_len=kv_len,
                                    window=window)
+
+
+def decode_attention_max(q1: torch.Tensor, k_shard: torch.Tensor, *,
+                         kv_len, window: Optional[int] = None,
+                         offset: int = 0) -> torch.Tensor:
+    """D1's split mode (a): (B, Hq) f32, each (row, head)'s max score over
+    the visible positions of ``k_shard`` (B, Hkv, S, D), which holds
+    positions ``offset .. offset + S - 1`` of every row; ``kv_len`` and
+    ``window`` are the whole row's; -inf where the shard holds none.  The
+    kernel on a CUDA tensor, the plain version on the CPU."""
+    return kernel.decode_attention_max(q1, k_shard, kv_len=kv_len,
+                                       window=window, offset=offset)
+
+
+def decode_attention_partial(q1: torch.Tensor, k_shard: torch.Tensor,
+                             v_shard: torch.Tensor, m: torch.Tensor, *,
+                             kv_len, window: Optional[int] = None,
+                             offset: int = 0):
+    """D1's split mode (b): against ``m`` (B, Hq), the max merged over the
+    row's shards, this shard's ``acc = sum f32(cast_cache(p)) v`` (B, Hq,
+    D) and ``l = sum p`` (B, Hq), f32, ``p = exp(s - m)`` unnormalized and
+    rounded to the cache dtype as :func:`decode_attention` rounds it."""
+    return kernel.decode_attention_partial(q1, k_shard, v_shard, m,
+                                           kv_len=kv_len, window=window,
+                                           offset=offset)
+
+
+def decode_merge(acc: torch.Tensor, l: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The ranks' split-mode partials, ``acc`` (n, B, Hq, D) and ``l`` (n,
+    B, Hq) in rank order, summed in that order and divided (f32, IEEE):
+    (B, Hq, 1, D) in ``dtype``."""
+    return ref.decode_merge(acc, l, dtype)

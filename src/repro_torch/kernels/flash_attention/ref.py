@@ -17,6 +17,16 @@ The wrappers in ``kernel.py`` take these for CPU tensors, and
 (repro/kernels/flash_attention/ops.py:212) in PyTorch: batched f32
 products, which on the card may sum in an order that depends on the batch
 count; the kernel D1 fixes one order per row.
+
+D1's split mode, for a decode cache whose sequence is split over ranks (a
+rank holds positions ``[offset, offset + S)`` of every row):
+:func:`decode_split_max_ref` is each (row, head)'s max over the visible
+positions of the shard (-inf where it holds none),
+:func:`decode_split_partial_ref` the unnormalized ``acc = sum p v`` and
+``l = sum p`` against the merged max ``m``, with ``p`` cast to the cache
+dtype as one-device decode casts it, and :func:`decode_merge` the ranks'
+partials summed in rank order and divided: one device's arithmetic, the
+sums over shards in another order.
 """
 from __future__ import annotations
 
@@ -299,6 +309,78 @@ def _decode_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return _lane_sum(torch.nn.functional.pad(part, (0, 32 - lanes)))
 
 
+def _visible(kv_len, b: int, S: int, window: Optional[int],
+             offset: int) -> Tuple[int, int]:
+    """Row ``b``'s visible positions ``[max(0, n - window), n)`` (``n`` its
+    length; the whole cache for ``kv_len`` None) as slots ``[lo, hi)`` of a
+    shard holding positions ``offset .. offset + S - 1``."""
+    if isinstance(kv_len, torch.Tensor):
+        n = int(kv_len.reshape(-1)[b])
+    else:
+        n = S + offset if kv_len is None else int(kv_len)
+    lo = max(0, n - window) if window is not None else 0
+    return (min(max(lo - offset, 0), S), min(max(n - offset, 0), S))
+
+
+def _ordered(q1, k_cache, v_cache, kv_len, window, offset: int = 0,
+             m_in: Optional[torch.Tensor] = None):
+    """D1's order (:func:`decode_attention_ordered`) over a shard of the
+    cache: per row and head the max ``m`` of the visible scores (or
+    ``m_in`` (B, Hq) where given), and the sums ``o = sum
+    f32(cast_cache(p)) v`` and ``l = sum p``, each -inf / zeros where the
+    shard holds no visible position.  Returns m (B, Hkv, g), o (B, Hkv, g,
+    D) and l (B, Hkv, g), f32."""
+    B, Hq, _, D = q1.shape
+    _, Hkv, S, _ = k_cache.shape
+    g = Hq // Hkv
+    cd, dev = k_cache.dtype, q1.device
+    C, R, W = DECODE_CHUNK, DECODE_CTAS, DECODE_WARPS
+    U = C // W
+    qg = (q1.float() * torch.tensor(D ** -0.5, dtype=torch.float32)
+          ).to(q1.dtype).to(cd).float().reshape(B, Hkv, g, D)
+    ms = torch.full((B, Hkv, g), -torch.inf, device=dev)
+    os_ = torch.zeros((B, Hkv, g, D), dtype=torch.float32, device=dev)
+    ls = torch.zeros((B, Hkv, g), dtype=torch.float32, device=dev)
+    for b in range(B):
+        lo, hi = _visible(kv_len, b, S, window, offset)
+        if hi <= lo:
+            if m_in is not None:
+                ms[b] = m_in[b].reshape(Hkv, g)
+            continue
+        T = -(-(hi - lo) // (C * R))          # chunks of the busiest CTA
+        ar = lambda n, at: torch.arange(n, device=dev).reshape(  # noqa: E731
+            [n if i == at else 1 for i in range(4)])
+        pos = lo + (ar(R, 2) + R * ar(T, 0)) * C + ar(W, 3) + W * ar(U, 1)
+        valid = pos < hi                                    # (T, U, R, W)
+        pos = pos.clamp(max=hi - 1)
+        k = k_cache[b][:, pos].float()                      # (Hkv, T, U, R, W, D)
+        v = v_cache[b][:, pos].float()
+        s = _decode_scores(qg[b], k)                        # (Hkv, g, T, U, R, W)
+        if m_in is None:
+            m = torch.where(valid, s, -torch.inf).amax(dim=(2, 3, 4, 5),
+                                                       keepdim=True)
+        else:
+            m = m_in[b].reshape(Hkv, g, 1, 1, 1, 1)
+        p = torch.where(valid, torch.exp(s - m), 0.0)
+        pn = p.to(cd).float()
+        l_w = torch.zeros((Hkv, g, R, W), device=dev)
+        acc = torch.zeros((Hkv, g, R, W, D), device=dev)
+        for t in range(T):
+            for u in range(U):
+                l_w = l_w + p[:, :, t, u]
+                acc = acc + torch.where(valid[t, u, :, :, None],
+                                        pn[:, :, t, u, :, :, None]
+                                        * v[:, None, t, u], 0.0)
+        l_c, o_c = l_w[..., 0], acc[..., 0, :]               # warp order
+        for w in range(1, W):
+            l_c, o_c = l_c + l_w[..., w], o_c + acc[..., w, :]
+        l, o = l_c[..., 0], o_c[..., 0, :]                   # rank order
+        for r in range(1, R):
+            l, o = l + l_c[..., r], o + o_c[..., r, :]
+        ms[b], os_[b], ls[b] = m.reshape(Hkv, g), o, l
+    return ms, os_, ls
+
+
 def decode_attention_ordered(q1: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, *, kv_len=None,
                              window: Optional[int] = None) -> torch.Tensor:
@@ -327,49 +409,89 @@ def decode_attention_ordered(q1: torch.Tensor, k_cache: torch.Tensor,
     the cache's capacity.  A row with no visible position gives zeros, as
     the kernel does."""
     B, Hq, _, D = q1.shape
-    _, Hkv, S, _ = k_cache.shape
-    g = Hq // Hkv
-    cd, dev = k_cache.dtype, q1.device
-    C, R, W = DECODE_CHUNK, DECODE_CTAS, DECODE_WARPS
-    U = C // W
-    qg = (q1.float() * torch.tensor(D ** -0.5, dtype=torch.float32)
-          ).to(q1.dtype).to(cd).float().reshape(B, Hkv, g, D)
-    out = torch.zeros((B, Hkv, g, D), dtype=torch.float32, device=dev)
-    for b in range(B):
-        if isinstance(kv_len, torch.Tensor):
-            n = int(kv_len.reshape(-1)[b])
-        else:
-            n = S if kv_len is None else int(kv_len)
-        hi = min(n, S)
-        lo = max(0, n - window) if window is not None else 0
-        if hi <= lo:
-            continue
-        T = -(-(hi - lo) // (C * R))          # chunks of the busiest CTA
-        ar = lambda n, at: torch.arange(n, device=dev).reshape(  # noqa: E731
-            [n if i == at else 1 for i in range(4)])
-        pos = lo + (ar(R, 2) + R * ar(T, 0)) * C + ar(W, 3) + W * ar(U, 1)
-        valid = pos < hi                                    # (T, U, R, W)
-        pos = pos.clamp(max=hi - 1)
-        k = k_cache[b][:, pos].float()                      # (Hkv, T, U, R, W, D)
-        v = v_cache[b][:, pos].float()
-        s = _decode_scores(qg[b], k)                        # (Hkv, g, T, U, R, W)
-        m = torch.where(valid, s, -torch.inf).amax(dim=(2, 3, 4, 5),
-                                                   keepdim=True)
-        p = torch.where(valid, torch.exp(s - m), 0.0)
-        pn = p.to(cd).float()
-        l_w = torch.zeros((Hkv, g, R, W), device=dev)
-        acc = torch.zeros((Hkv, g, R, W, D), device=dev)
-        for t in range(T):
-            for u in range(U):
-                l_w = l_w + p[:, :, t, u]
-                acc = acc + torch.where(valid[t, u, :, :, None],
-                                        pn[:, :, t, u, :, :, None]
-                                        * v[:, None, t, u], 0.0)
-        l_c, o_c = l_w[..., 0], acc[..., 0, :]               # warp order
-        for w in range(1, W):
-            l_c, o_c = l_c + l_w[..., w], o_c + acc[..., w, :]
-        l, o = l_c[..., 0], o_c[..., 0, :]                   # rank order
-        for r in range(1, R):
-            l, o = l + l_c[..., r], o + o_c[..., r, :]
-        out[b] = o / torch.where(l == 0, 1.0, l)[..., None]
+    _, o, l = _ordered(q1, k_cache, v_cache, kv_len, window)
+    out = o / torch.where(l == 0, 1.0, l)[..., None]
     return out.reshape(B, Hq, 1, D).to(q1.dtype)
+
+
+# ------------------------------------------------- D1's split mode ----
+
+def _split_scores(q1, k_cache, kv_len, window: Optional[int], offset: int):
+    """(s (B, Hkv, g, 1, S) f32 scores of :func:`decode_attention_ref`,
+    keep (.., S) bool: the shard's positions ``offset + j`` in each row's
+    visible range)."""
+    B, Hq, _, D = q1.shape
+    _, Hkv, S, _ = k_cache.shape
+    qg = (q1 * D ** -0.5).to(k_cache.dtype).reshape(B, Hkv, Hq // Hkv, 1, D)
+    s = torch.matmul(qg.float(), k_cache.float()[:, :, None].transpose(-1, -2))
+    pos = offset + torch.arange(S, device=q1.device)
+    n = (kv_len.reshape(-1, 1, 1, 1, 1) if isinstance(kv_len, torch.Tensor)
+         else kv_len)
+    keep = pos < n
+    if window is not None:
+        keep = keep & (pos >= n - window)
+    return s, keep
+
+
+def decode_split_max_ref(q1: torch.Tensor, k_cache: torch.Tensor, *,
+                         kv_len, window: Optional[int] = None,
+                         offset: int = 0) -> torch.Tensor:
+    """D1's split mode (a): q1 (B, Hq, 1, D) against a shard (B, Hkv, S,
+    D) of a cache that holds positions ``offset .. offset + S - 1`` of
+    every row; ``kv_len`` (an int or a (B,) tensor) and ``window`` are the
+    whole row's, as one-device decode takes them.  Returns (B, Hq) f32:
+    each (row, head)'s largest score over the visible positions of the
+    shard, -inf where it holds none."""
+    B, Hq = q1.shape[:2]
+    s, keep = _split_scores(q1, k_cache, kv_len, window, offset)
+    return torch.where(keep, s, -torch.inf).amax(dim=-1).reshape(B, Hq)
+
+
+def decode_split_partial_ref(q1: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, m: torch.Tensor, *,
+                             kv_len, window: Optional[int] = None,
+                             offset: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """D1's split mode (b): given ``m`` (B, Hq) f32, the max over every
+    shard of the row, the shard's unnormalized ``acc = sum
+    f32(cast_cache(p)) v`` (B, Hq, D) and ``l = sum p`` (B, Hq), f32, ``p
+    = exp(s - m)`` over its visible positions (zeros where it holds
+    none); shapes and arguments as :func:`decode_split_max_ref`."""
+    B, Hq, _, D = q1.shape
+    Hkv = k_cache.shape[1]
+    s, keep = _split_scores(q1, k_cache, kv_len, window, offset)
+    p = torch.where(keep, torch.exp(s - m.reshape(B, Hkv, -1, 1, 1)), 0.0)
+    acc = torch.matmul(p.to(v_cache.dtype).float(),
+                       v_cache.float()[:, :, None])
+    return acc.reshape(B, Hq, D), p.sum(dim=-1).reshape(B, Hq)
+
+
+def decode_split_max_ordered(q1, k_cache, *, kv_len,
+                             window: Optional[int] = None,
+                             offset: int = 0) -> torch.Tensor:
+    """The kernel's split mode (a) in its order (:func:`_ordered` over the
+    shard): (B, Hq) f32, the bits the kernel gives."""
+    m, _, _ = _ordered(q1, k_cache, k_cache, kv_len, window, offset)
+    return m.reshape(q1.shape[0], q1.shape[1])
+
+
+def decode_split_partial_ordered(q1, k_cache, v_cache, m, *, kv_len,
+                                 window: Optional[int] = None,
+                                 offset: int = 0):
+    """The kernel's split mode (b) in its order: (acc (B, Hq, D), l (B,
+    Hq)), f32, the bits the kernel gives."""
+    B, Hq, _, D = q1.shape
+    _, o, l = _ordered(q1, k_cache, v_cache, kv_len, window, offset, m)
+    return o.reshape(B, Hq, D), l.reshape(B, Hq)
+
+
+def decode_merge(acc: torch.Tensor, l: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The ranks' partials of the split mode, ``acc`` (n, B, Hq, D) and
+    ``l`` (n, B, Hq) in rank order, summed in that order and divided, as
+    D1 finishes a row: ``out = acc / (l == 0 ? 1 : l)`` in f32, cast to
+    ``dtype``.  Returns (B, Hq, 1, D)."""
+    a, s = acc[0], l[0]
+    for r in range(1, acc.shape[0]):
+        a, s = a + acc[r], s + l[r]
+    return (a / torch.where(s == 0, 1.0, s)[..., None]).unsqueeze(2).to(dtype)

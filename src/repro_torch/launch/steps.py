@@ -1,5 +1,5 @@
-"""Step factories of training (``repro/launch/steps.py``): on one device,
-and over the ranks of a mesh.
+"""Step factories (``repro/launch/steps.py``): training on one device and
+over the ranks of a mesh, and the serving steps over the ranks of a mesh.
 
 :func:`make_train_step` returns ``train_step(params, opt_state, tokens,
 embeddings=None) -> (params, opt_state, {"loss", "grad_norm"})``: the
@@ -34,16 +34,34 @@ step sets them:
 It returns the new local shards, and a ``loss`` and ``grad_norm`` that are
 equal on every rank.  An attn+moe layer runs the expert-parallel
 ``models.moe_shard_map.moe_block`` on the rank's block
-(``moe_impl="shard_map"``).  A mesh refuses, naming the ROADMAP item that
-will lift the refusal: rwkv and mamba layers (Queue 1 item 4b.4),
-frontend embeddings (4b.5), the shared attention block (4b.6), tied
-embeddings (4b.7) and the pjit MoE (4b.8).  ``make_prefill_step``,
-``make_serve_step`` and ``abstract_cache`` are item 4b.2b.
+(``moe_impl="shard_map"``).
+
+The serving steps, :func:`make_prefill_step` and :func:`make_serve_step`,
+return the reference's triples too; their steps take this rank's part of
+the params (``param_specs``), the global tokens (each cuts its rows by
+the tokens' spec) and, to decode, this rank's part of the decode cache
+(``parallel.sharding.cache_specs`` of :func:`abstract_cache`).  They run
+under ``torch.no_grad()`` and the hints the reference sets, gather a
+layer's FSDP shards at the layer (:func:`layer_gather`), and never hold
+the whole params or the whole cache.  The cache's sequence is split over
+"model" when the batch fills the data axes, else over "data" (long
+context, B = 1): prefill hands each layer's heads over to the sequence
+parts by an all-to-all, and decode runs D1's split mode on its part and
+merges over that axis (``models.layers.split_decode_attention``); the
+logits are the rank's rows and vocabulary slice, the greedy token a
+vocab-parallel argmax (``collectives.vocab_argmax``).
+
+A mesh refuses, naming the factory and the ROADMAP item that will lift
+the refusal: rwkv and mamba layers (Queue 1 item 4b.4), frontend
+embeddings (4b.5), the shared attention block (4b.6), tied embeddings
+(4b.7) and the pjit MoE (4b.8: training takes the shard_map MoE, serving
+no MoE).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -93,6 +111,14 @@ def abstract_params(cfg: ArchConfig):
 def abstract_opt_state(cfg: ArchConfig, optimizer: AdamW) -> AdamWState:
     """``optimizer.init`` of :func:`abstract_params`, on ``meta``."""
     return optimizer.init(abstract_params(cfg))
+
+
+def abstract_cache(cfg: ArchConfig, shape: ShapeSpec):
+    """The decode cache of ``shape``'s global batch and sequence on the
+    ``meta`` device: every leaf's shape and dtype as the reference's
+    ``jax.eval_shape`` of ``init_cache``, no memory."""
+    return M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                        device="meta")
 
 
 def value_and_grad(loss_of: Callable, params) -> Tuple[torch.Tensor, object]:
@@ -177,27 +203,32 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec,
 
 # ------------------------------------------------------------ on a mesh ---
 
-def _refuse(cfg: ArchConfig, moe_impl: str) -> None:
-    """Raise, naming the ROADMAP item, for what a mesh does not take."""
+def _refuse(cfg: ArchConfig, who: str, moe_impl: Optional[str]) -> None:
+    """Raise, naming the factory ``who`` and the ROADMAP item, for what a
+    mesh does not take; ``moe_impl`` None: no MoE (the serving steps)."""
     bad = sorted(set(cfg.block_unit) - set(MESH_KINDS))
+    moe = ("the MoE (the serving steps run the pjit MoE)"
+           if moe_impl is None else f"moe_impl={moe_impl!r} (the pjit MoE)")
+    takes = ("attn+moe under moe_impl='shard_map'" if moe_impl is not None
+             else "no attn+moe")
     for hit, why, item in (
             (bad, f"{bad} layers", "4b.4"),
             (cfg.frontend != "none", f"frontend {cfg.frontend!r} embeddings",
              "4b.5"),
             (cfg.shared_attn_every, "the shared attention block", "4b.6"),
             (cfg.tie_embeddings, "tied embeddings", "4b.7"),
-            (cfg.n_experts and moe_impl != "shard_map",
-             f"moe_impl={moe_impl!r} (the pjit MoE)", "4b.8")):
+            (cfg.n_experts and moe_impl != "shard_map", moe, "4b.8")):
         if hit:
             raise ValueError(
-                f"make_train_step(mesh=): {cfg.name}'s {why} under a mesh "
-                f"are not ported (ROADMAP Queue 1 item {item}); a mesh takes "
-                "attn, attn_local / attn_global and attn+moe under "
-                "moe_impl='shard_map'")
+                f"{who}: {cfg.name}'s {why} under a mesh are not ported "
+                f"(ROADMAP Queue 1 item {item}); a mesh takes attn, "
+                f"attn_local / attn_global and {takes}")
 
 
-def _check_widths(cfg: ArchConfig, n_dp: int, n_tp: int) -> None:
-    """Raise, naming the sizes, where a width does not split."""
+def _check_widths(cfg: ArchConfig, n_dp: int, n_tp: int,
+                  who: str = "make_train_step(mesh=)") -> None:
+    """Raise, naming the factory ``who`` and the sizes, where a width does
+    not split."""
     splits = [("n_heads", cfg.n_heads, n_tp, TP),
               ("n_kv_heads", cfg.n_kv_heads, n_tp, TP),
               ("d_ff", cfg.d_ff, n_tp, TP),
@@ -207,9 +238,8 @@ def _check_widths(cfg: ArchConfig, n_dp: int, n_tp: int) -> None:
         splits.append(("n_experts", cfg.n_experts, n_tp, TP))
     for what, size, n, axes in splits:
         if size % n:
-            raise ValueError(f"make_train_step(mesh=): {cfg.name}'s {what} "
-                             f"{size} does not divide over the {n} ranks of "
-                             f"{axes!r}")
+            raise ValueError(f"{who}: {cfg.name}'s {what} {size} does not "
+                             f"divide over the {n} ranks of {axes!r}")
 
 
 def gather_params(local, specs, mesh, compute_dtype):
@@ -291,7 +321,7 @@ def _mesh_train_step(cfg: ArchConfig, optimizer: AdamW, mesh, *, k: int,
                      impl: str, seq_chunk: int, seq_parallel: bool,
                      moe_impl: str, moe_dispatch: Optional[str]):
     """:func:`make_train_step` with a mesh (module docstring)."""
-    _refuse(cfg, moe_impl)
+    _refuse(cfg, "make_train_step(mesh=)", moe_impl)
     n_dp = S.data_axis_size(mesh)
     n_tp = S.axis_sizes(mesh).get(TP, 1)
     _check_widths(cfg, n_dp, n_tp)
@@ -351,3 +381,190 @@ def _mesh_train_step(cfg: ArchConfig, optimizer: AdamW, mesh, *, k: int,
 
     return train_step, (p_specs, o_specs, tok_spec, emb_spec), \
         (p_specs, o_specs, {"loss": P(), "grad_norm": P()})
+
+
+# ------------------------------------------------------------- serving ---
+
+def _serving_mesh(cfg: ArchConfig, mesh, who: str):
+    """The checks the serving factories share; returns (the params'
+    specs, the dp entry, its ranks, the "model" ranks, ``model_params``:
+    a rank's params -> the tree the model runs on, the unstacked leaves
+    gathered (:func:`gather_params`) and each stacked layer's at the layer
+    (:func:`layer_gather`, passed as ``layer_params``))."""
+    _refuse(cfg, who, None)
+    n_dp = S.data_axis_size(mesh)
+    n_tp = S.axis_sizes(mesh).get(TP, 1)
+    _check_widths(cfg, n_dp, n_tp, who)
+    p_specs = S.param_specs(abstract_params(cfg), mesh)
+    cd = precision_policy(cfg.policy).compute_dtype
+    top = {name: s for name, s in p_specs.items() if name != "blocks"}
+
+    def model_params(local):
+        whole = gather_params({k: local[k] for k in top}, top, mesh, cd)
+        return {**whole, "blocks": local["blocks"]}
+
+    return p_specs, _dp_axis(mesh), n_dp, n_tp, model_params, \
+        layer_gather(p_specs, mesh, cd)
+
+
+def _cache_layout(cfg: ArchConfig, shape: ShapeSpec, mesh, who: str):
+    """(the abstract cache, its ``cache_specs``, the mesh axis its K / V
+    sequence is split over, read from the specs: "model", "data" or None).
+    Raises, naming ``who`` and the sizes, where a K / V leaf's sequence
+    (``max_seq``, or a ring's window) does not divide over that axis."""
+    cache = abstract_cache(cfg, shape)
+    c_specs = S.cache_specs(cache, cfg, mesh, batch=shape.global_batch)
+    axes = set()
+    zero = {a: 0 for a in mesh.mesh_dim_names}
+
+    def leaf(path, spec, t):
+        if path[-1] in ("k", "v"):
+            axes.add(spec[3])
+            try:
+                S.local_index(spec, t.shape, mesh, zero, "/".join(path))
+            except ValueError as e:
+                raise ValueError(f"{who}: the decode cache's {e}") from None
+
+    S.map_specs(leaf, c_specs, cache)
+    (axis,) = axes
+    return cache, c_specs, axis
+
+
+def _check_parts(parts, whole, specs, mesh) -> None:
+    """Raise, naming the leaf, where this rank's ``parts`` are not the
+    shapes of its parts of the global tree ``whole`` under ``specs``."""
+    coords = S.my_coords(mesh)
+
+    def leaf(path, spec, t, part):
+        name = "/".join(path)
+        idx = S.local_index(spec, t.shape, mesh, coords, name)
+        want = tuple(len(range(*i.indices(n))) for i, n in zip(idx, t.shape))
+        if tuple(part.shape) != want:
+            raise ValueError(f"serve_step: cache leaf {name} is "
+                             f"{tuple(part.shape)} on this rank; its part "
+                             f"of {tuple(t.shape)} is {want}")
+
+    S.map_specs(leaf, specs, whole, parts)
+
+
+def _local_rows(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's rows of a global (B, ...) tensor under ``spec``'s batch
+    entry."""
+    idx = S.local_index(P(spec[0]), t.shape[:1], mesh, S.my_coords(mesh),
+                        "the batch")
+    return t[idx]
+
+
+def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
+                      impl: str = "chunked", seq_parallel: bool = True,
+                      moe_impl: str = "pjit",
+                      moe_dispatch: Optional[str] = None):
+    """The reference's triple ``(prefill_step, (p_specs, P(dp, None), P(dp,
+    None, None)), (P(dp, None, "model"), c_specs, P()))``.
+    ``prefill_step(params, tokens, embeddings=None)`` takes this rank's
+    part of the params and the global (B, S) tokens, cuts its rows, and
+    runs ``model.prefill`` at ``max_seq = shape.seq_len`` inside the
+    reference's hints (the stream's sequence over "model" with
+    ``seq_parallel``), each layer's FSDP shards gathered at the layer;
+    ``impl`` "chunked", "kernel" or "kernel_sharded" (K3 on the rank's
+    heads over the whole sequence).  Returns (its logits part (B_loc, 1,
+    V/tp): its rows and vocabulary slice, its cache part under
+    ``c_specs``: every head over its block of the sequence, ``S_total`` a
+    () int32 tensor).  A batch that does not divide over the data axes, a
+    sequence that does not divide over "model" under ``seq_parallel`` and
+    embeddings raise, naming the sizes or the ROADMAP item;
+    ``moe_impl`` / ``moe_dispatch`` are the reference's keywords (no MoE
+    config is taken, 4b.8)."""
+    who = "make_prefill_step"
+    p_specs, dp, n_dp, n_tp, model_params, per_layer = _serving_mesh(
+        cfg, mesh, who)
+    if impl not in ("chunked", "kernel", "kernel_sharded"):
+        raise ValueError(f"{who}: impl {impl!r}; the mesh takes 'chunked', "
+                         "'kernel' and 'kernel_sharded'")
+    _, c_specs, axis = _cache_layout(cfg, shape, mesh, who)
+    hints = dict(act=P(dp, TP, None) if seq_parallel else P(dp, None, None),
+                 moe_impl=moe_impl, moe_dispatch=moe_dispatch, mesh=mesh)
+
+    def prefill_step(params, tokens, embeddings=None):
+        if embeddings is not None:
+            raise ValueError(f"{who}: frontend embeddings under a mesh are "
+                             "not ported (ROADMAP Queue 1 item 4b.5)")
+        tokens, _ = inputs_on(params, tokens)
+        B, S_len = tokens.shape
+        if B % n_dp:
+            raise ValueError(f"prefill_step: the batch {B} does not divide "
+                             f"over the {n_dp} ranks of {dp!r}")
+        if seq_parallel and S_len % n_tp:
+            raise ValueError(f"prefill_step: the sequence {S_len} does not "
+                             f"divide over the {n_tp} ranks of {TP!r}")
+        tokens = _local_rows(tokens, P(dp, None), mesh)
+        with torch.no_grad(), context.activation_specs(**hints):
+            logits, cache, S_total = M.prefill(
+                model_params(params), tokens, cfg, max_seq=shape.seq_len,
+                impl=impl, layer_params=per_layer, cache_axis=axis)
+        return logits, cache, torch.tensor(S_total, dtype=torch.int32,
+                                           device=tokens.device)
+
+    return prefill_step, (p_specs, P(dp, None), P(dp, None, None)), \
+        (P(dp, None, TP), c_specs, P())
+
+
+def make_serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
+                    greedy: bool = True,
+                    moe_dispatch: Optional[str] = None):
+    """One-token decode and greedy sampling over the mesh's ranks: the
+    reference's triple ``(serve_step, (p_specs, c_specs, P(), tok_spec),
+    (tok_spec, None, c_specs))``, ``tok_spec`` ``P(dp, None)`` when
+    ``shape.global_batch`` fills the data axes, else ``P(None, None)``
+    (the reference's ``batch_ok``; the cache's sequence is then split
+    over "data" instead of "model").
+    ``serve_step(params, cache, pos, tokens_1)`` takes this rank's part
+    of the params and of the cache (``c_specs``), the global (B, 1) tokens
+    and the write position: the reference's () int (an int or a ()
+    tensor) or a (B,) vector (numpy or a tensor, the global rows), an int
+    or numpy position checked against the cache's capacity first.  It
+    decodes on the rank's rows (all of them under ``P(None, None)``),
+    updates the cache part in place and returns (the greedy token (B_loc,
+    1) int32, the same on every rank of "model": the vocab-parallel argmax
+    over the ids below ``cfg.vocab_size``, ties to the lowest id; the
+    logits (B_loc, 1, V/tp) f32, the rank's rows and vocabulary slice,
+    where the reference's triple has ``None``; the cache part).
+    ``greedy`` and ``moe_dispatch`` are the reference's keywords."""
+    who = "make_serve_step"
+    p_specs, dp, n_dp, _, model_params, per_layer = _serving_mesh(
+        cfg, mesh, who)
+    whole_cache, c_specs, axis = _cache_layout(cfg, shape, mesh, who)
+    batch_ok = shape.global_batch % n_dp == 0 and \
+        shape.global_batch >= n_dp
+    tok_spec = P(dp, None) if batch_ok else P(None, None)
+    hints = dict(act=P(tok_spec[0], None, None), moe_dispatch=moe_dispatch,
+                 mesh=mesh)
+    cap = M.cache_capacity(whole_cache, cfg)
+
+    def serve_step(params, cache, pos, tokens_1):
+        _check_parts(cache, whole_cache, c_specs, mesh)
+        tokens_1, _ = inputs_on(params, tokens_1)
+        B = tokens_1.shape[0]
+        if B != shape.global_batch:
+            raise ValueError(f"serve_step: {B} rows of tokens; the cache "
+                             f"holds {shape.global_batch}")
+        if isinstance(pos, torch.Tensor):
+            pos = pos.to(tokens_1.device).reshape(-1).long().expand(B)
+        else:
+            host = np.broadcast_to(np.asarray(pos, np.int64).reshape(-1),
+                                   (B,))
+            if cap is not None and int(host.max()) >= cap:
+                raise ValueError(
+                    f"serve_step: KV-cache overflow -- write position "
+                    f"{int(host.max())} >= cache capacity {cap} (max_seq)")
+            pos = torch.tensor(host, device=tokens_1.device)
+        rows = lambda t: _local_rows(t, tok_spec, mesh)  # noqa: E731
+        with torch.no_grad(), context.activation_specs(**hints):
+            logits, cache = M.decode_step(
+                model_params(params), cfg, cache, rows(pos).contiguous(),
+                rows(tokens_1), layer_params=per_layer, cache_axis=axis)
+            nxt = C.vocab_argmax(logits[:, -1], cfg.vocab_size)
+        return nxt.to(torch.int32)[:, None], logits, cache
+
+    return serve_step, (p_specs, c_specs, P(), tok_spec), \
+        (tok_spec, None, c_specs)

@@ -16,13 +16,18 @@ split over the context's mesh when one is set
 on the card the chunked path's narrow products carry their backward in
 :class:`ChunkedAttention`.
 
-Under ``parallel.context.ACT_SPEC`` (the sharded train step) the weights
-are this rank's "model" share: attention takes its head counts from
-``wq`` / ``wk`` and runs on the rank's heads, the MLP on its ``d_ff``
-slice; the normed stream goes through ``parallel.collectives.enter``
-before the column-parallel products and ``leave`` after the row-parallel
-``wo`` / ``w_down`` (sequence parallel: all-gather / reduce-scatter over
-"model"; without: identity / all-reduce).  Unset, nothing of it runs.
+Under ``parallel.context.ACT_SPEC`` (the sharded train step and the
+serving steps on a mesh) the weights are this rank's "model" share:
+attention takes its head counts from ``wq`` / ``wk`` and runs on the
+rank's heads, the MLP on its ``d_ff`` slice; the normed stream goes
+through ``parallel.collectives.enter`` before the column-parallel
+products and ``leave`` after the row-parallel ``wo`` / ``w_down``
+(sequence parallel: all-gather / reduce-scatter over "model"; without:
+identity / all-reduce).  The decode cache there holds every head over the
+rank's part of the sequence (``cache_axis``: the mesh axis that splits
+it): prefill hands its heads' K / V over by one all-to-all, and decode
+gathers q, k and v over "model" and runs D1's split mode on its part
+(:func:`split_decode_attention`).  Unset, nothing of it runs.
 
 Matmuls take operands in the compute dtype: a bf16 x bf16 product gives a
 bf16 result accumulated in f32 (reduced-precision reductions are off, see
@@ -47,6 +52,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.router import ops as router_ops
 from repro_torch.models.config import ArchConfig
 from repro_torch.parallel import collectives as tp
+from repro_torch.parallel.sharding import TP
 
 
 # ------------------------------------------------------------------ init ----
@@ -459,13 +465,135 @@ def _masked_prefill_attention(q, k, v, spec: AttnMaskSpec,
     return fops.attention(q, k, v, mask=mask, mask_impl=spec.impl)
 
 
+def _heads_to_sequence(t: torch.Tensor, cache_axis) -> torch.Tensor:
+    """A collected cache (B, H_loc, L, hd) of this rank's heads over the
+    whole sequence -> (B, H, L / n, hd), every head over this rank's part
+    of it: one all-to-all over "model" (part j of the sequence to rank j,
+    the heads received in rank order).  The cache's sequence must be split
+    over "model" (``cache_axis``), whose ranks hold the heads."""
+    if cache_axis != TP:
+        raise ValueError(f"prefill under a mesh collects a cache split over "
+                         f"{TP!r}, not {cache_axis!r}")
+    ax = tp.axis(TP)
+    B, h, L, hd = t.shape
+    parts = t.reshape(B, h, ax.n, L // ax.n, hd).permute(2, 0, 1, 3, 4)
+    got = tp.all_to_all(parts.contiguous(), ax.group)
+    return got.permute(1, 0, 2, 3, 4).reshape(B, ax.n * h, L // ax.n, hd)
+
+
+def split_decode_attention(q, k, v, *, kv_len, window: Optional[int],
+                           cache_axis) -> torch.Tensor:
+    """``decode_attention`` of q (B, Hq, 1, D) over a cache whose sequence
+    is split over the mesh axis ``cache_axis``: ``k`` / ``v`` (B, Hkv,
+    S_loc, D) are this rank's part, positions ``i S_loc ..`` (``i`` its
+    index on the axis); ``kv_len`` and ``window`` the whole row's.  D1's
+    split mode: the part's max, all-reduced (max) over the axis, then its
+    partial sums against it, all-gathered and merged in rank order
+    (``flash_attention.ops.decode_merge``), so every rank returns the same
+    bits.  ``cache_axis`` None: the whole cache, one-device D1."""
+    if cache_axis is None:
+        return fops.decode_attention(q, k, v, kv_len=kv_len, window=window)
+    seq = tp.axis(cache_axis)
+    off = seq.index * k.shape[2]
+    m = tp.all_reduce_max(fops.decode_attention_max(
+        q, k, kv_len=kv_len, window=window, offset=off), seq.group)
+    acc, l = fops.decode_attention_partial(q, k, v, m, kv_len=kv_len,
+                                           window=window, offset=off)
+    parts = tp.all_gather(torch.cat([acc, l[..., None]], dim=-1)[None], 0,
+                          seq.group, seq.n)
+    return fops.decode_merge(parts[..., :-1], parts[..., -1], q.dtype)
+
+
+def _decode_on_mesh(p, x: torch.Tensor, cfg: ArchConfig,
+                    window: Optional[int], cache, cache_len, cache_axis):
+    """One-token decode under ``context.ACT_SPEC``: ``x`` (B, 1, d) the
+    same on every rank of "model", the weights this rank's heads, ``cache``
+    this rank's part (B, Hkv, S_loc, hd).  q, k and v of the rank's heads
+    are gathered over "model" in one call, so every rank has every head;
+    the new key / value is written, per row, only on the rank whose part
+    holds the row's slot (``pos``, or ``pos % window`` in a ring: a local
+    layer's cache of ``window`` slots in all); D1's split mode runs over
+    the part (:func:`split_decode_attention`).  Returns this rank's heads
+    of the output (B, Hq_loc, 1, hd)."""
+    if "k_scale" in cache:
+        raise ValueError("a quantized decode cache under a mesh is not "
+                         "ported")
+    B, hd = x.shape[0], cfg.hd
+    h_q, h_kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    model = tp.axis(TP)
+    n_seq, i_seq = ((1, 0) if cache_axis is None else
+                    tp.axis(cache_axis)[1:])
+    s_loc = cache["k"].shape[2]
+    ring = bool(window) and s_loc * n_seq == window
+    if isinstance(cache_len, torch.Tensor):
+        pos = cache_len.reshape(-1).long().expand(B)
+    else:
+        pos = torch.full((B,), int(cache_len), device=x.device)
+    q, k1, v1 = _qkv(p, x, cfg, pos[:, None, None], row_order=True)
+    every = tp.all_gather(torch.cat([q, k1, v1], dim=1)[:, None], 1,
+                          model.group, model.n)   # (B, n, h_q + 2 h_kv, ..)
+    q, k1, v1 = (t.reshape(B, -1, 1, hd)
+                 for t in every.split([h_q, h_kv, h_kv], dim=2))
+    local = (pos % window if ring else pos) - i_seq * s_loc
+    held = ((local >= 0) & (local < s_loc))[:, None, None]
+    at = (torch.arange(B, device=x.device), slice(None),
+          local.clamp(0, s_loc - 1))
+    for name, new in (("k", k1[:, :, 0]), ("v", v1[:, :, 0])):
+        c = cache[name]
+        c[at] = torch.where(held, new.to(c.dtype), c[at])
+    kv_len = pos.clamp(max=window - 1) + 1 if ring else pos + 1
+    out = split_decode_attention(q, cache["k"], cache["v"], kv_len=kv_len,
+                                 window=None if ring else window,
+                                 cache_axis=cache_axis)
+    return out[:, model.index * h_q:(model.index + 1) * h_q]
+
+
+def _decode_one_device(p, x: torch.Tensor, cfg: ArchConfig,
+                       window: Optional[int], cache, cache_len):
+    """One-token decode on whole tensors (:func:`apply_attention`'s
+    decode): writes the new key / value into ``cache``, returns the
+    attention output (B, Hq, 1, hd)."""
+    B = x.shape[0]
+    quant = "k_scale" in cache
+    # a local layer's cache of exactly `window` slots is a ring: the
+    # write at slot pos % window, every filled slot visible
+    ring = bool(window) and cache["k"].shape[2] == window
+    if isinstance(cache_len, torch.Tensor):
+        pos = cache_len.reshape(B).long()
+        q, k1, v1 = _qkv(p, x, cfg, pos[:, None, None], row_order=True)
+        # (row b, every head, slot of pos[b]) <- (B, Hkv, hd)
+        at = (torch.arange(B, device=x.device), slice(None),
+              pos % window if ring else pos)
+        kv_len = pos.clamp(max=window - 1) + 1 if ring else pos + 1
+    else:
+        pos = cache_len
+        q, k1, v1 = _qkv(p, x, cfg,
+                         torch.full((1,), pos, device=x.device),
+                         row_order=True)
+        at = (slice(None), slice(None), pos % window if ring else pos)
+        kv_len = min(pos + 1, window) if ring else pos + 1
+    for name, new in (("k", k1[:, :, 0]), ("v", v1[:, :, 0])):
+        if quant:
+            qn = precision.quant_name(cache[name].dtype)
+            new, cache[name + "_scale"][at] = precision.quantize_rows(
+                new, qn, check=False)
+        cache[name][at] = new.to(cache[name].dtype)
+    kc, vc = cache["k"], cache["v"]
+    if quant:
+        kc, vc = (precision.dequantize_rows(cache[n], cache[n + "_scale"],
+                                            q.dtype) for n in ("k", "v"))
+    return fops.decode_attention(q, kc, vc, kv_len=kv_len,
+                                 window=None if ring else window)
+
+
 def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                     window: Optional[int] = None,
                     positions: Optional[torch.Tensor] = None,
                     impl: str = "chunked", cache=None,
                     cache_len=None, collect_kv: int = 0,
                     kv_quant: Optional[str] = None,
-                    attn_mask: Optional[AttnMaskSpec] = None):
+                    attn_mask: Optional[AttnMaskSpec] = None,
+                    cache_axis=None):
     """Self-attention (prefill) or one-step decode when ``cache`` is given.
 
     Prefill: ``impl`` is one of :data:`IMPLS`; ``attn_mask`` (an
@@ -495,11 +623,16 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     dequantized to q's dtype for ``decode_attention``.  Neither reads
     anything back to the host (the quantizer's non-finite check is off,
     as the reference's is under jit), so a decode step can be captured.
+    Under ``context.ACT_SPEC`` the decode cache is this rank's part, every
+    head over the slots of its index on the mesh axis ``cache_axis`` (None:
+    the whole sequence): prefill collects it by :func:`_heads_to_sequence`
+    (``kv_quant`` refused), decode runs :func:`_decode_on_mesh`.
     Returns (out, new_cache)."""
     if impl not in IMPLS:
         raise NotImplementedError(
             f"apply_attention impl={impl!r}: {IMPLS} are ported")
-    if cache is None and tp.active():
+    on_mesh = tp.active()
+    if on_mesh:
         x = tp.enter(x)             # column-parallel products
     B, S, _ = x.shape
     if cache is None:
@@ -529,6 +662,11 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
             else:
                 cap = min(collect_kv, window) if window else collect_kv
                 kc, vc = (F.pad(t, (0, 0, 0, cap - S)) for t in (k, v))
+            if on_mesh:
+                if kv_quant is not None:
+                    raise ValueError("kv_quant under a mesh is not ported")
+                kc, vc = (_heads_to_sequence(t, cache_axis)
+                          for t in (kc, vc))
             if kv_quant is not None and not window:
                 (qk, sk), (qv, sv) = (precision.quantize_rows(
                     t, kv_quant, check=False) for t in (kc, vc))
@@ -538,40 +676,15 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         if S != 1:
             raise ValueError(f"apply_attention decode takes one token, got {S}")
-        quant = "k_scale" in cache
-        # a local layer's cache of exactly `window` slots is a ring: the
-        # write at slot pos % window, every filled slot visible
-        ring = bool(window) and cache["k"].shape[2] == window
-        if isinstance(cache_len, torch.Tensor):
-            pos = cache_len.reshape(B).long()
-            q, k1, v1 = _qkv(p, x, cfg, pos[:, None, None], row_order=True)
-            # (row b, every head, slot of pos[b]) <- (B, Hkv, hd)
-            at = (torch.arange(B, device=x.device), slice(None),
-                  pos % window if ring else pos)
-            kv_len = pos.clamp(max=window - 1) + 1 if ring else pos + 1
+        if on_mesh:
+            out = _decode_on_mesh(p, x, cfg, window, cache, cache_len,
+                                  cache_axis)
         else:
-            pos = cache_len
-            q, k1, v1 = _qkv(p, x, cfg,
-                             torch.full((1,), pos, device=x.device),
-                             row_order=True)
-            at = (slice(None), slice(None), pos % window if ring else pos)
-            kv_len = min(pos + 1, window) if ring else pos + 1
-        for name, new in (("k", k1[:, :, 0]), ("v", v1[:, :, 0])):
-            if quant:
-                qn = precision.quant_name(cache[name].dtype)
-                new, cache[name + "_scale"][at] = precision.quantize_rows(
-                    new, qn, check=False)
-            cache[name][at] = new.to(cache[name].dtype)
-        kc, vc = cache["k"], cache["v"]
-        if quant:
-            kc, vc = (precision.dequantize_rows(cache[n], cache[n + "_scale"],
-                                                q.dtype) for n in ("k", "v"))
-        out = fops.decode_attention(q, kc, vc, kv_len=kv_len,
-                                    window=None if ring else window)
+            out = _decode_one_device(p, x, cfg, window, cache, cache_len)
         new_cache = cache
     out = out.transpose(1, 2).reshape(B, S, -1)
     out = out @ p["wo"].to(out.dtype)
-    if cache is None and tp.active():
+    if on_mesh:
         out = tp.leave(out)         # the row-parallel product's partial sums
     return out, new_cache
 

@@ -299,7 +299,7 @@ def apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                 collect_kv: int = 0, moe_fn: Optional[Callable] = None,
                 kv_quant: Optional[str] = None,
                 attn_mask: Optional[AttnMaskSpec] = None,
-                route_ahead: bool = False):
+                route_ahead: bool = False, cache_axis=None):
     """One attn / attn_local / attn_global / attn+moe / shared_attn / rwkv /
     mamba sub-layer (the reference's ``apply_block``, its keywords), its
     window from :func:`_window_for`; ``impl``, ``attn_mask`` and
@@ -309,8 +309,10 @@ def apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     after ``ln2``, with its attention half, and hands ``moe_fn`` the
     ``moe.Phase1`` as ``phase1``.
     Decode's ``pos`` is an int or a ``(B,)`` int tensor of per-row
-    positions on ``x``'s device.  Returns (x, new_cache); decode (``cache``
-    given) writes the new cache entries into ``cache`` in place."""
+    positions on ``x``'s device.  ``cache_axis``: the attention's (the mesh
+    axis that splits the decode cache's sequence under a mesh).  Returns
+    (x, new_cache); decode (``cache`` given) writes the new cache entries
+    into ``cache`` in place."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache=cache, collect=bool(collect_kv))
     dec = cache is not None                 # decode: norms in row order
@@ -323,7 +325,8 @@ def apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     a, new_attn = L.apply_attention(
         p["attn"], h, cfg, window=_window_for(kind, cfg), impl=impl,
         cache=None if cache is None else cache["attn"], cache_len=pos,
-        collect_kv=collect_kv, attn_mask=attn_mask, kv_quant=kv_quant)
+        collect_kv=collect_kv, attn_mask=attn_mask, kv_quant=kv_quant,
+        cache_axis=cache_axis)
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps, row_order=dec)
     new_cache = {"attn": new_attn}
@@ -376,9 +379,12 @@ def final_logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
                  last_only: bool, row_order: bool = False) -> torch.Tensor:
     """Final rmsnorm + unembedding, f32 logits (``last_only``: the trailing
     position only, the prefill contract; ``row_order``: the decode step's
-    norm, see ``layers.rmsnorm``)."""
+    norm, see ``layers.rmsnorm``).  Under ``context.ACT_SPEC`` the logits
+    are this rank's vocabulary slice, and under sequence parallelism the
+    trailing position is the last "model" rank's
+    (``collectives.last_position``)."""
     if last_only:
-        x = x[:, -1:]
+        x = tp.last_position(x)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, row_order=row_order)
     unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return (x @ unemb.to(x.dtype)).float()
@@ -561,8 +567,9 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                     attn_mask: Optional[AttnMaskSpec] = None,
                     route_ahead: bool = False,
                     kv_quant: Optional[str] = None,
-                    embeddings: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, Params, int]:
+                    embeddings: Optional[torch.Tensor] = None,
+                    layer_params: Optional[Callable] = None,
+                    cache_axis=None) -> Tuple[torch.Tensor, Params, int]:
     """Serving prefill, layer by layer.  ``moe_fn`` (signature of
     ``moe.apply_moe``) runs every attn+moe block's FFN with ``counts=None,
     pos=None`` -- a fresh sequence at position 0; the serving loop injects
@@ -578,6 +585,9 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     precomputed patch or frame embeddings on the tokens' device, are cast
     to the compute dtype and prepended to the token embeddings; every layer
     (RoPE, masks, the caches) then sees ``S_total = F + S`` positions.
+    ``layer_params(slot, p)``, where given, makes the tree a stacked layer
+    runs on from its slice ``p`` (the serving step on a mesh gathers the
+    layer's FSDP shards there); ``cache_axis`` as ``apply_block``'s.
     Returns (last-position logits (B, 1, V) f32, decode cache filled to
     S_total with K/V in ``cache_dtype`` or quantized, the next position
     S_total)."""
@@ -585,9 +595,11 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     moe_fn = moe_fn or moe.apply_moe
     kw = dict(moe_fn=moe_fn, collect_kv=max_seq, impl=impl,
               attn_mask=attn_mask, route_ahead=route_ahead,
-              kv_quant=kv_quant)
+              kv_quant=kv_quant, cache_axis=cache_axis)
     x = _embed(params, tokens, cfg, embeddings)
-    S_total = x.shape[1]
+    # (under sequence parallelism x is this rank's block of the positions)
+    S_total = tokens.shape[1] + (0 if embeddings is None
+                                 else embeddings.shape[1])
     _check_prompt_fits(cfg, S_total, max_seq)
     prologue = []
     for i in range(cfg.n_prologue):
@@ -597,8 +609,10 @@ def prefill_layered(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     per_slot = [[] for _ in _cache_kinds(cfg)]
     for i in range(cfg.n_repeats):
         for slot, kind in enumerate(cfg.block_unit):
-            x, c = apply_block(kind, _take(params["blocks"][slot], i), x, cfg,
-                               **kw)
+            p = _take(params["blocks"][slot], i)
+            if layer_params is not None:
+                p = layer_params(slot, p)
+            x, c = apply_block(kind, p, x, cfg, **kw)
             per_slot[slot].append(c)
         if cfg.shared_attn_every:
             # the cache is collected every repeat, as the reference's; the
@@ -637,14 +651,16 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
             attn_mask: Optional[AttnMaskSpec] = None,
             dispatch: Optional[str] = None,
             embeddings: Optional[torch.Tensor] = None,
-            kv_quant: Optional[str] = None
+            kv_quant: Optional[str] = None,
+            layer_params: Optional[Callable] = None, cache_axis=None
             ) -> Tuple[torch.Tensor, Params, int]:
     """Serving prefill of the fused mode, the counterpart of the reference's
     ``model.prefill``: the whole stack with each attn+moe layer's MoE as one
     ``moe.apply_moe`` call with the ``dispatch`` backend (default: the
     config's), "bcsr" through the full-grid stream built on the device,
     never the host compaction.  The layer loop is
-    :func:`prefill_layered`'s, ``kv_quant`` and ``embeddings`` too.
+    :func:`prefill_layered`'s, ``kv_quant``, ``embeddings``,
+    ``layer_params`` and ``cache_axis`` too.
     Returns (last-position logits (B, 1, V) f32, decode cache filled to
     the frontend positions and the prompt, leaves in the compute dtype
     become ``cache_dtype``, next position)."""
@@ -652,7 +668,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                            cache_dtype=cache_dtype,
                            moe_fn=_fused_moe(dispatch), impl=impl,
                            attn_mask=attn_mask, kv_quant=kv_quant,
-                           embeddings=embeddings)
+                           embeddings=embeddings, layer_params=layer_params,
+                           cache_axis=cache_axis)
 
 
 def _stack(trees):
@@ -709,18 +726,25 @@ def _decode_leaves(cfg: ArchConfig, cache):
 
 def _decode_layers(params: Params, cfg: ArchConfig, cache, pos,
                    tokens_1: torch.Tensor, moe_fn: Callable,
-                   route_ahead: bool = False) -> torch.Tensor:
+                   route_ahead: bool = False,
+                   layer_params: Optional[Callable] = None,
+                   cache_axis=None) -> torch.Tensor:
     """The decode layer loop shared by :func:`decode_step_layered` and
     :func:`decode_step`: ``pos`` an int or a ``(B,)`` int tensor on the
-    tokens' device; writes ``cache`` in place; returns the logits."""
-    kw = dict(moe_fn=moe_fn, pos=pos, route_ahead=route_ahead)
+    tokens' device; writes ``cache`` in place; returns the logits.
+    ``layer_params`` and ``cache_axis`` as :func:`prefill_layered`'s."""
+    kw = dict(moe_fn=moe_fn, pos=pos, route_ahead=route_ahead,
+              cache_axis=cache_axis)
     x = _embed(params, tokens_1, cfg)
     for i in range(cfg.n_prologue):
         x, _ = apply_block(cfg.block_unit[0], _take(params["prologue"], i), x,
                            cfg, cache=_take(cache["prologue"], i), **kw)
     for i in range(cfg.n_repeats):
         for slot, kind in enumerate(cfg.block_unit):
-            x, _ = apply_block(kind, _take(params["blocks"][slot], i), x, cfg,
+            p = _take(params["blocks"][slot], i)
+            if layer_params is not None:
+                p = layer_params(slot, p)
+            x, _ = apply_block(kind, p, x, cfg,
                                cache=_take(cache["slots"][slot], i), **kw)
         if cfg.shared_attn_every and _fires(cfg, i):
             # off a fire step the shared block's cache row stays as it is
@@ -762,7 +786,8 @@ def decode_step_layered(params: Params, cfg: ArchConfig, cache, pos,
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache, pos,
-                tokens_1: torch.Tensor, *, dispatch: Optional[str] = None
+                tokens_1: torch.Tensor, *, dispatch: Optional[str] = None,
+                layer_params: Optional[Callable] = None, cache_axis=None
                 ) -> Tuple[torch.Tensor, Params]:
     """One-token decode of the fused mode, the counterpart of the
     reference's ``model.decode_step``: each attn+moe layer's MoE one
@@ -780,7 +805,10 @@ def decode_step(params: Params, cfg: ArchConfig, cache, pos,
     Either way every layer takes the per-row path at a ``(B,)`` position
     vector on the device.  ``cache`` (leaves in the dtypes a step writes:
     :func:`to_decode_dtypes`, else ``ValueError``) is updated in place;
-    returns (logits (B, 1, V) f32, cache)."""
+    ``layer_params`` and ``cache_axis`` as :func:`prefill_layered`'s (the
+    serving step on a mesh passes a device position: the host check would
+    read the local cache's capacity).  Returns (logits (B, 1, V) f32,
+    cache)."""
     B = tokens_1.shape[0]
     if isinstance(pos, torch.Tensor):
         if pos.device != tokens_1.device or pos.is_floating_point() \
@@ -801,5 +829,6 @@ def decode_step(params: Params, cfg: ArchConfig, cache, pos,
                 f"writes {dtype}; pass the cache through "
                 "model.to_decode_dtypes once")
     logits = _decode_layers(params, cfg, cache, pos, tokens_1,
-                            _fused_moe(dispatch))
+                            _fused_moe(dispatch), layer_params=layer_params,
+                            cache_axis=cache_axis)
     return logits, cache

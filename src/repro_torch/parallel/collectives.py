@@ -34,10 +34,14 @@ With these, each rank runs the backward of its own part of the loss, and
 every rank ends with the whole gradient of the parts it holds.
 
 The tensor-parallel helpers at the end read ``parallel.context``: under
-``ACT_SPEC`` (set by ``launch.steps.make_train_step(mesh=)``) the model
-runs on the rank's local tensors, "model" splitting heads, ``d_ff`` and
-the vocabulary, and, when ``ACT_SPEC``'s sequence entry is "model", the
-residual stream's sequence between blocks.
+``ACT_SPEC`` (set by ``launch.steps.make_train_step(mesh=)`` and the
+serving steps ``make_prefill_step`` / ``make_serve_step``) the model runs
+on the rank's local tensors, "model" splitting heads, ``d_ff`` and the
+vocabulary, and, when ``ACT_SPEC``'s sequence entry is "model", the
+residual stream's sequence between blocks.  The serving steps also take
+the prompt's last position from the rank that holds it
+(:func:`last_position`) and the greedy token from the vocabulary's slices
+(:func:`vocab_argmax`).
 """
 from __future__ import annotations
 
@@ -283,3 +287,34 @@ def vocab_cross_entropy(logits: torch.Tensor, tgt: torch.Tensor,
     picked = AllReduce.apply(torch.where(mine, picked,
                                          torch.zeros_like(picked)), tp.group)
     return lse - picked
+
+
+def last_position(x: torch.Tensor) -> torch.Tensor:
+    """The stream's last position (B_loc, 1, d) on every rank: under
+    sequence parallelism the last "model" rank's, gathered (the ranks
+    hold consecutive blocks of the sequence), else ``x[:, -1:]``."""
+    if not seq_parallel():
+        return x[:, -1:]
+    tp = axis(TP)
+    return all_gather(x[:, -1:], 1, tp.group, tp.n)[:, -1:]
+
+
+def vocab_argmax(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The greedy token from this rank's (..., V/tp) slice of the logits:
+    each rank takes the largest value of its slice and its first index,
+    ids at or past ``vocab_size`` (global, this rank's offset tp index x
+    V/tp) excluded; the candidates are all-gathered over "model" (one f32
+    tensor: the ids are exact below 2**24) and the largest value wins, a
+    tie going to the lowest global id, as ``jnp.argmax`` breaks it.
+    Returns (...,) int64, the same on every rank of "model"."""
+    tp = axis(TP)
+    width = logits.shape[-1]
+    lo = tp.index * width
+    ids = lo + torch.arange(width, device=logits.device)
+    x = torch.where(ids >= vocab_size, -torch.inf, logits.float())
+    idx = x.argmax(dim=-1, keepdim=True)
+    cand = torch.cat([x.gather(-1, idx), (lo + idx).float()], dim=-1)
+    every = all_gather(cand[None], 0, tp.group, tp.n)     # (n, ..., 2)
+    vals, gids = every[..., 0], every[..., 1]
+    best = vals.amax(dim=0)
+    return torch.where(vals == best, gids, torch.inf).amin(dim=0).long()

@@ -2,9 +2,10 @@
 reference's eight, set together by :func:`activation_specs`.
 
 * ``ACT_SPEC``: the residual stream's (B, S, d) spec.  Set (by
-  ``launch.steps.make_train_step(mesh=)``), the model runs on this rank's
-  local tensors: heads, ``d_ff`` and the vocabulary split over "model"
-  (``parallel.collectives``' tensor-parallel helpers, read by
+  ``launch.steps.make_train_step(mesh=)`` and the serving steps
+  ``make_prefill_step`` / ``make_serve_step``), the model runs on this
+  rank's local tensors: heads, ``d_ff`` and the vocabulary split over
+  "model" (``parallel.collectives``' tensor-parallel helpers, read by
   ``models.layers``, ``models.model`` and ``models.moe``).  With its
   sequence entry on "model" (``P(dp, "model", None)``) the stream between
   blocks is the rank's (B_loc, S/tp, d) block; with ``P(dp, None, None)``

@@ -21,10 +21,18 @@ to the emulation.  Held here:
   the same rows in caches of 600 and 1,100 positions; ``kv_len`` 0 gives
   zeros and 1 gives V's first row;
 * the wrapper off the CPU (a fake library on ``meta`` tensors): it passes
-  no scratch and allocates only its output.
+  no scratch and allocates only its output;
+* the split mode (a cache whose sequence is split over ranks): its plain
+  versions (``ref.decode_split_max_ref`` / ``decode_split_partial_ref``)
+  and its emulated order (``decode_split_*_ordered``), merged over 2 and
+  4 shards by ``ref.decode_merge``, against the one-shot plain version; a
+  shard with nothing visible (-inf, zeros, no NaN after the merge); the
+  order's rows at B 1 ``torch.equal`` to the same rows at B 4; the
+  wrappers' bindings against the source's C entry points.
 
 Inputs come from numpy seeds; each tolerance is stated where it is used.
 """
+import os
 import types
 
 import jax.numpy as jnp
@@ -303,3 +311,144 @@ def test_wrapper_passes_no_scratch(monkeypatch, kv_len):
     assert call[5:12] == (scalar, 3, 40, 8, 544, 128, 300)
     assert call[12] == pytest.approx(128 ** -0.5)
     assert call[13:] == (1, 1, 7)
+
+
+# -------------------------------------------------------- the split mode --
+
+def _split(q, k, v, kv, window, n, ordered=False):
+    """D1's split mode over ``n`` equal shards of the cache: each shard's
+    max, their largest, each shard's partials against it, merged in rank
+    order.  Returns (out, [max a shard], [(acc, l) a shard])."""
+    mx, part = ((fref.decode_split_max_ordered,
+                 fref.decode_split_partial_ordered) if ordered else
+                (fref.decode_split_max_ref, fref.decode_split_partial_ref))
+    w = k.shape[2] // n
+    shards = [(k[:, :, i * w:(i + 1) * w], v[:, :, i * w:(i + 1) * w], i * w)
+              for i in range(n)]
+    ms = [mx(q, ks, kv_len=kv, window=window, offset=o)
+          for ks, _, o in shards]
+    m = torch.stack(ms).amax(0)
+    parts = [part(q, ks, vs, m, kv_len=kv, window=window, offset=o)
+             for ks, vs, o in shards]
+    out = fref.decode_merge(torch.stack([a for a, _ in parts]),
+                            torch.stack([l for _, l in parts]), q.dtype)
+    return out, ms, parts
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("qdt,cdt", PAIRS)
+def test_split_merged_matches_one_shot(qdt, cdt, window, n, ordered):
+    """GQA 10/2, D 64, 8 rows of a 600-position cache at :data:`LENS`
+    (rows whose visible positions lie in one shard, several, or all),
+    split into ``n`` shards: the plain split mode (and its emulated
+    order) merged in rank order within :func:`_ulp_tol` of the one-shot
+    plain version (the same p, rounded alike; only the sums over shards
+    in another order)."""
+    q, k, v = _inputs(8, len(LENS), 10, 2, S, 64)
+    kv = torch.tensor(LENS)
+    args = (_t(q, qdt), _t(k, cdt), _t(v, cdt))
+    want = fref.decode_attention_ref(*args, kv_len=kv, window=window)
+    got, _, _ = _split(*args, kv, window, n, ordered)
+    assert got.dtype == qdt and not got.isnan().any()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _ulp_tol(want.float().numpy(), qdt, cdt), err
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("kv_len,window", [(10, None), (600, 7), (1, 300)])
+def test_split_shard_with_nothing_visible(kv_len, window, ordered):
+    """A shard that holds none of a row's visible positions (past its
+    length, or before its window) gives m = -inf, l = 0 and acc = 0, and
+    the merge has no NaN and equals the one-shot plain version within
+    :func:`_ulp_tol`."""
+    q, k, v = (_t(a, BF16) for a in _inputs(9, 2, 4, 2, S, 16))
+    kv = torch.full((2,), kv_len)
+    got, ms, parts = _split(q, k, v, kv, window, 2, ordered)
+    empty = 1 if kv_len <= S // 2 else 0
+    assert torch.equal(ms[empty], torch.full((2, 4), -torch.inf))
+    acc, l = parts[empty]
+    assert not acc.any() and not l.any()
+    want = fref.decode_attention_ref(q, k, v, kv_len=kv, window=window)
+    assert not got.isnan().any()
+    assert (got.float() - want.float()).abs().max().item() <= _ulp_tol(
+        want.float().numpy(), BF16)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_split_order_rows_do_not_depend_on_the_batch(window):
+    """The emulated split order of rows 0-3 of B 4 (one of 2 shards at
+    offset 300) ``torch.equal`` to each row alone at B 1: the max and the
+    partials."""
+    q, k, v = (_t(a, BF16) for a in _inputs(10, 4, 8, 2, S, 64))
+    kv = torch.tensor((600, 301, 299, 450))
+    ks, vs = k[:, :, 300:], v[:, :, 300:]
+    kw = dict(window=window, offset=300)
+    m = fref.decode_split_max_ordered(q, ks, kv_len=kv, **kw)
+    acc, l = fref.decode_split_partial_ordered(q, ks, vs, m, kv_len=kv,
+                                               **kw)
+    for i in range(4):
+        r = slice(i, i + 1)
+        mi = fref.decode_split_max_ordered(q[r], ks[r], kv_len=kv[r], **kw)
+        ai, li = fref.decode_split_partial_ordered(q[r], ks[r], vs[r], m[r],
+                                                   kv_len=kv[r], **kw)
+        assert torch.equal(mi, m[r]) and torch.equal(ai, acc[r]) \
+            and torch.equal(li, l[r]), i
+
+
+def _c_params(name: str) -> list:
+    """The ctypes kinds of a C entry point's parameters in the source."""
+    import re
+    src = open(os.path.join(os.path.dirname(fk.__file__), "csrc",
+                            "decode_attention.cu")).read()
+    sig = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+    kinds = []
+    for p in (p.strip() for p in sig.split(",")):
+        kinds.append(fk._P if "*" in p else fk._F if p.startswith("float")
+                     else fk._I)
+    return kinds
+
+
+def test_split_bindings_match_the_source():
+    """Each of D1's three C entry points takes the argument kinds the
+    wrapper binds (pointers, ints, the float scale), in order."""
+    for name, argtypes in fk._DECODE_ARGTYPES.items():
+        assert _c_params(name) == argtypes, name
+
+
+@pytest.mark.parametrize("which", ["max", "partial"])
+def test_split_wrappers_launch_once(monkeypatch, which):
+    """Off the CPU (``meta`` tensors, a fake library) each split wrapper
+    makes one launch with as many arguments as its binding, the offset
+    after the window, and counts it; it refuses no ``kv_len`` and a
+    negative offset before any launch."""
+    lib = _FakeLib()
+    calls = []
+    setattr(lib, f"decode_attention_{which}_launch",
+            lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(fk, "_decode_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=7))
+    q = torch.empty((3, 40, 1, 128), dtype=BF16, device="meta")
+    cache = torch.empty((3, 8, 272, 128), dtype=BF16, device="meta")
+    m = torch.empty((3, 40), dtype=F32, device="meta")
+    fn = getattr(fk, f"decode_attention_{which}")
+    args = (q, cache) if which == "max" else (q, cache, cache, m)
+    before = fn.launches
+    out = fn(*args, kv_len=500, window=300, offset=272)
+    assert fn.launches == before + 1
+    (call,) = calls
+    assert len(call) == len(fk._DECODE_ARGTYPES[
+        f"decode_attention_{which}_launch"])
+    tail = call[-12:]
+    assert tail[:8] == (500, 3, 40, 8, 272, 128, 300, 272)
+    shapes = ([tuple(out.shape)] if which == "max"
+              else [tuple(t.shape) for t in out])
+    assert shapes == ([(3, 40)] if which == "max"
+                      else [(3, 40, 128), (3, 40)])
+    for bad in (dict(kv_len=None, offset=0), dict(kv_len=5, offset=-1)):
+        with pytest.raises(ValueError, match="split mode"):
+            fn(*args, window=None, **bad)
+    assert len(calls) == 1
