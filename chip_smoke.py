@@ -7942,30 +7942,56 @@ SPLIT_CASES = (("bfloat16", None, (100, 400, 576, 300)),
                ("float32", None, (288, 289, 576, 450)),
                ("float32", 300, (100, 587, 576, 301)))
 SPLIT_SHAPE = (16, 8, 128, 576)              # Hq, Hkv, D, the whole cache
-# (b) SMOKE cases in f32 (name: arch, mesh, global batch), a 48-token prompt
-# at max_seq 64 and three decode steps from the one-device prefill's bf16
-# cache, against the one-device steps on the card: prefill logits within
-# 1e-4 (the CPU test's), decode logits within MESH_SERVE_BF16_TOL (a new
-# K / V rounded to the neighbouring bf16 value moves them by up to 4e-4 on
-# the CPU)
-MESH_SERVE_SMOKE = {"qwen3": (TRAIN_ARCH, "data_model", 4),
-                    "gemma3": ("gemma3-12b", "data_model", 4),
-                    "qwen3_pod": (TRAIN_ARCH, "pod_data_model", 4),
-                    "qwen3_b1": (TRAIN_ARCH, "data_model", 1)}
+# (b) SMOKE cases in f32 (name: arch, mesh, global batch, the MoE's
+# dispatch), a 48-token prompt at max_seq 64 and three decode steps from
+# the one-device prefill's bf16 cache, against the one-device steps on the
+# card: prefill logits within 1e-4 (the CPU test's), decode logits within
+# MESH_SERVE_BF16_TOL (a new K / V rounded to the neighbouring bf16 value
+# moves them by up to 4e-4 on the CPU), the MoE counts equal after the
+# prefill and after every step; each bcsr case's parts torch.equal to its
+# gather case's (MESH_SERVE_BCSR), rank by rank
+MESH_SERVE_SMOKE = {"qwen3": (TRAIN_ARCH, "data_model", 4, None),
+                    "gemma3": ("gemma3-12b", "data_model", 4, None),
+                    "qwen3_pod": (TRAIN_ARCH, "pod_data_model", 4, None),
+                    "qwen3_b1": (TRAIN_ARCH, "data_model", 1, None),
+                    "scout": (SCOUT_ARCH, "data_model", 4, "gather"),
+                    "scout_bcsr": (SCOUT_ARCH, "data_model", 4, "bcsr"),
+                    "maverick": (MAVERICK_ARCH, "data_model", 4, "gather"),
+                    "maverick_bcsr": (MAVERICK_ARCH, "data_model", 4,
+                                      "bcsr")}
+MESH_SERVE_BCSR = {"scout_bcsr": "scout", "maverick_bcsr": "maverick"}
 MESH_SERVE_PROMPT, MESH_SERVE_MAX, MESH_SERVE_STEPS = 48, 64, 3
 MESH_SERVE_LOGIT_TOL = 1e-4
 MESH_SERVE_BF16_TOL = 2e-3
-# (c) qwen3-1.7b at full width and depth, bf16 weights (seed 0) on the
-# (2, 2) mesh, impl="kernel": a 4 x 512 prompt (numpy seed 47) at max_seq
+# (c) qwen3-1.7b at full width, MESH_SERVE_DEPTH of its 28 layers, bf16
+# weights (seed 0) on the (2, 2) mesh, impl="kernel": a 4 x 512 prompt (numpy seed 47) at max_seq
 # 576, four greedy decode steps teacher-forced from the one-device run's
 # tokens; the last-position logits within MESH_SERVE_FULL_TOL of one
 # device's at every step (bf16: the row-parallel products' partial sums
 # are added in bf16 across the ranks), the tokens equal wherever one
 # device's top-2 margin exceeds it
 MESH_SERVE_BATCH, MESH_SERVE_SEQ, MESH_SERVE_CAP = 4, 512, 576
+MESH_SERVE_DEPTH = 28
 MESH_SERVE_GEN = 4
 MESH_SERVE_FULL_TOL = 0.5
 MESH_SERVE_LIMIT = 600.0              # the parent's wait for every rank
+# (d) llama4-scout at full width (d_model 5120, 16 experts, vocab 202,048)
+# at depth 2 of 48, bf16 weights (seed 0) on the (2, 2) mesh, impl
+# "kernel", bcsr dispatch: a 4 x 256 prompt (numpy seed 48) at max_seq
+# 320, two greedy decode steps teacher-forced from the one-device run's
+# tokens.  A token whose router input moved by the ranks' summation order
+# may take another expert than on one device (a flip): the flips are
+# counted a pass and layer and printed; a token that flips where it had
+# not flipped at an earlier layer of the pass must be a near-tie on one
+# device, its top-2 router logits within MESH_MOE_GAP; the counts differ
+# by no more than the flips so far.  The last-position logits of every
+# row whose last position took one device's experts in every layer of the
+# pass are held within MESH_MOE_TOL of one device's, the tokens equal
+# where one device's top-2 margin exceeds it; at least one row is compared
+MESH_MOE_DEPTH = 2
+MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_CAP, MESH_MOE_GEN = 4, 256, 320, 2
+MESH_MOE_TOL = 0.25
+MESH_MOE_GAP = 0.125
 # the split mode's times: the full-width run's first decode step (kv_len
 # 513) on the "model" rank that holds positions 288-575
 SPLIT_TIME_LEN = 513
@@ -8137,7 +8163,7 @@ def _serve_smoke_inputs() -> tuple:
     from repro_torch.configs import get_smoke
     from repro_torch.models import model as M
     inputs, want = {}, {}
-    for name, (arch, _, B) in MESH_SERVE_SMOKE.items():
+    for name, (arch, _, B, dispatch) in MESH_SERVE_SMOKE.items():
         cfg = dataclasses.replace(get_smoke(arch), policy="f32")
         params = M.init_params(cfg, seed=0, device="cpu",
                                param_dtype=torch.float32)
@@ -8150,40 +8176,53 @@ def _serve_smoke_inputs() -> tuple:
         p = _tree_to(params, "cuda")
         with no_plain():
             logits, cache, pos = M.prefill(p, torch.from_numpy(prompt).cuda(),
-                                           cfg, max_seq=MESH_SERVE_MAX)
+                                           cfg, max_seq=MESH_SERVE_MAX,
+                                           dispatch=dispatch)
             start = tree.map(lambda t: t.to("cpu", copy=True), cache)
-            steps_ = []
+            steps_, counts = [], [_moe_counts(start)]
             for t in toks:
                 lg, cache = M.decode_step(p, cfg, cache, pos,
-                                          torch.from_numpy(t).cuda())
+                                          torch.from_numpy(t).cuda(),
+                                          dispatch=dispatch)
                 steps_.append(lg.cpu())
+                counts.append(_moe_counts(cache))
                 pos += 1
         inputs[name] = {"params": params, "prompt": prompt, "decode": toks,
                         "cache": start, "pos": MESH_SERVE_PROMPT}
         want[name] = {"prefill": (logits.cpu(), start), "decode": steps_,
-                      "cache": tree.map(lambda t: t.cpu(), cache)}
+                      "cache": tree.map(lambda t: t.cpu(), cache),
+                      "counts": counts}
     return inputs, want
+
+
+def _moe_counts(cache) -> list:
+    """The ``moe`` counts of every attn+moe slot of a decode cache, on the
+    CPU, copies (none for a dense config)."""
+    return [slot["moe"].to("cpu", copy=True) for slot in cache["slots"]
+            if "moe" in slot]
 
 
 def _serve_smoke_run(name, inp, mesh) -> dict:
     """One SMOKE case on this rank: the prefill (B > 1) and the decode
     steps from the one-device cache's part; launches of each (set to 0
-    just before, read just after); the parts on the CPU."""
+    just before, read just after); the parts and the MoE counts after
+    each step on the CPU."""
     import torch
     from repro_torch.configs import get_smoke
     from repro_torch.launch import steps
     from repro_torch.launch.shapes import ShapeSpec
     from repro_torch.parallel import sharding as S
-    arch, _, B = MESH_SERVE_SMOKE[name]
+    arch, _, B, dispatch = MESH_SERVE_SMOKE[name]
     cfg = dataclasses.replace(get_smoke(arch), policy="f32")
     shape = ShapeSpec("smoke", "decode", MESH_SERVE_MAX, B)
-    serve, (p_specs, c_specs, _, _), _ = steps.make_serve_step(cfg, shape,
-                                                               mesh)
+    serve, (p_specs, c_specs, _, _), _ = steps.make_serve_step(
+        cfg, shape, mesh, moe_dispatch=dispatch)
     local = _tree_to(S.local_tree(inp["params"], p_specs, mesh), "cuda")
-    out = {"launches": {}}
+    out = {"launches": {}, "counts": []}
     with no_plain():
         if B > 1:
-            prefill, _, _ = steps.make_prefill_step(cfg, shape, mesh)
+            prefill, _, _ = steps.make_prefill_step(cfg, shape, mesh,
+                                                    moe_dispatch=dispatch)
             torch.cuda.synchronize()
             reset_launches()
             logits, cache, st = prefill(local, torch.from_numpy(
@@ -8201,40 +8240,46 @@ def _serve_smoke_run(name, inp, mesh) -> dict:
             torch.cuda.synchronize()
             out["launches"].setdefault("step", read_launches())
             out["decode"].append((nxt.cpu(), logits.cpu()))
+            out["counts"].append(_moe_counts(cache))
             pos += 1
         out["cache"] = _tree_to(cache, "cpu")
     n = cfg.n_layers
+    n_moe = cfg.n_repeats * cfg.block_unit.count("attn+moe")
+    k2 = n_moe if dispatch == "bcsr" else 0
     check(out["launches"]["step"] == only(
         decode_attention_max=n, decode_attention_partial=n,
-        router_logits=decode_norms(cfg)),
+        router_logits=decode_norms(cfg) + n_moe, spmm_bcsr=k2),
         f"serve mesh {name}: a step's launches {out['launches']['step']}")
     if B > 1:
-        check(out["launches"]["prefill"] == only(),
+        check(out["launches"]["prefill"] == only(router_logits=n_moe,
+                                                 spmm_bcsr=k2),
               f"serve mesh {name}: prefill launches "
               f"{out['launches']['prefill']}")
     return out
 
 
-def _serve_mesh_rank(rank: int, world: int, smoke, full) -> dict:
+def _serve_mesh_rank(rank: int, world: int, smoke, full, moe_full) -> dict:
     """One rank of phase_serve_mesh on ``cuda:0`` (which all ranks share):
     (b) the SMOKE cases (:func:`_serve_smoke_run`); (c) qwen3-1.7b at full
-    width and depth on the (2, 2) mesh: this rank's part of the bf16
+    width and MESH_SERVE_DEPTH layers on the (2, 2) mesh: this rank's part
+    of the bf16
     params drawn on the card, the prefill (impl "kernel") of the global
     4 x 512 prompt, then MESH_SERVE_GEN decode steps on ``full``'s
     teacher-forced tokens; the launches of the prefill and of step 1 (each
     set to 0 just before and read just after), seconds of each (host
     clock from a barrier, synchronised), the held and peak GB, and the
-    last step run again with every collective synchronised and timed."""
+    last step run again with every collective synchronised and timed;
+    (d) llama4-scout at full width (:func:`_serve_moe_full_rank`)."""
     import torch
     import torch.distributed as dist
     from repro_torch import tree
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.shapes import ShapeSpec
     torch.cuda.set_device(0)
-    missing = [n for n in ("flash_attention", "decode_attention", "router")
+    missing = [n for n in ("flash_attention", "decode_attention", "router",
+                           "spmm_bcsr")
                if not build.library_path(n).is_file()]
     check(not missing, f"rank {rank}: {missing} not built before the spawn")
     t_start = time.monotonic()
@@ -8245,7 +8290,7 @@ def _serve_mesh_rank(rank: int, world: int, smoke, full) -> dict:
         out["smoke"][name] = _serve_smoke_run(
             name, inp, meshes[MESH_SERVE_SMOKE[name][1]])
     smoke_s = time.monotonic() - t_start
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _mesh_qwen_cfg()
     mesh = meshes["data_model"]
     shape = ShapeSpec("mesh", "decode", MESH_SERVE_CAP, MESH_SERVE_BATCH)
     prefill, (p_specs, _, _), _ = steps.make_prefill_step(
@@ -8308,13 +8353,16 @@ def _serve_mesh_rank(rank: int, world: int, smoke, full) -> dict:
     del local, cache
     gc.collect()
     torch.cuda.empty_cache()
-    out.update(full=res, seconds={"smoke": smoke_s,
+    full_s = time.monotonic() - t_start - smoke_s
+    out["moe_full"] = _serve_moe_full_rank(rank, world, mesh, moe_full)
+    out.update(full=res, seconds={"smoke": smoke_s, "full": full_s,
                                   "total": time.monotonic() - t_start})
     return out
 
 
 def _serve_full_one_device() -> dict:
-    """qwen3-1.7b at full width and depth on one device, bf16 weights
+    """qwen3-1.7b at full width and MESH_SERVE_DEPTH layers on one
+    device, bf16 weights
     from ``init_params(seed=0)``: the prefill (impl "kernel") of a 4 x 512
     prompt (numpy seed 47) at max_seq 576, then MESH_SERVE_GEN greedy
     decode steps; the prompt, the tokens each step was fed, each step's
@@ -8322,9 +8370,8 @@ def _serve_full_one_device() -> dict:
     after."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _mesh_qwen_cfg()
     params = M.init_params(cfg, seed=0, device="cuda")
     prompt = np.random.default_rng(47).integers(
         0, cfg.vocab_size, (MESH_SERVE_BATCH, MESH_SERVE_SEQ)).astype(
@@ -8375,6 +8422,330 @@ def _margin_check(got, want, vocab: int, tol: float, what: str):
     return err, int(clear.sum()), int((a != b).sum())
 
 
+def _mesh_qwen_cfg():
+    """qwen3-1.7b at full width, cut to MESH_SERVE_DEPTH layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_repeats=MESH_SERVE_DEPTH)
+
+
+def _mesh_moe_cfg():
+    """llama4-scout at full width, cut to MESH_MOE_DEPTH layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SCOUT_ARCH),
+                               n_repeats=MESH_MOE_DEPTH)
+
+
+@contextlib.contextmanager
+def _moe_spies(routes: list, calls: dict):
+    """While on: the expert ids and router logits of each
+    ``models.moe.route_tokens`` call appended to ``routes`` (on the device,
+    one ((B, S), (B, S, E)) pair an attn+moe layer; :func:`_routes_cpu`
+    copies them after the timed pass), and the first K2 stream call
+    (``engine.spmm_batched_stream``) and the first router call
+    (``moe.router_logits``) kept in ``calls`` as "k2" and "r1"."""
+    from repro_torch.kernels import engine
+    from repro_torch.models import moe
+    route, stream, router = (moe.route_tokens, engine.spmm_batched_stream,
+                             moe.router_logits)
+
+    def route_spy(*args, **kw):
+        r = route(*args, **kw)
+        routes.append((r.expert_id, r.logits))
+        return r
+
+    def stream_spy(a, dense, **kw):
+        calls.setdefault("k2", (a, dense, kw))
+        return stream(a, dense, **kw)
+
+    def router_spy(x, w):
+        calls.setdefault("r1", ((x, w), {}))
+        return router(x, w)
+
+    moe.route_tokens, engine.spmm_batched_stream, moe.router_logits = (
+        route_spy, stream_spy, router_spy)
+    try:
+        yield
+    finally:
+        moe.route_tokens, engine.spmm_batched_stream, moe.router_logits = (
+            route, stream, router)
+
+
+def _routes_cpu(routes: list) -> list:
+    """:func:`_moe_spies`' routes on the CPU: (expert ids, one device's
+    top-2 router gap) a layer."""
+    out = []
+    for ids, logits in routes:
+        top2 = logits.float().topk(2, dim=-1).values
+        out.append((ids.cpu(), (top2[..., 0] - top2[..., 1]).cpu()))
+    return out
+
+
+def _stream_to(a, device):
+    """A BatchedBCSR stream's tensors on ``device``."""
+    return dataclasses.replace(a, **{f: getattr(a, f).to(device) for f in (
+        "indptr", "block_rows", "block_cols", "blocks")})
+
+
+def _serve_moe_full_rank(rank: int, world: int, mesh, full) -> dict:
+    """(d) on this rank: llama4-scout at full width and MESH_MOE_DEPTH
+    layers on the (2, 2) mesh, bf16, impl "kernel", bcsr dispatch: its
+    part of the params drawn on the card, the prefill of the global 4 x
+    256 prompt, then MESH_MOE_GEN decode steps on ``full``'s tokens; a
+    pass's launches (set to 0 just before, read just after), seconds (host
+    clock from a barrier, synchronised), last-position logits, expert ids
+    a layer and MoE counts after it; the last step run again with every
+    collective synchronised and timed; held and peak GB; rank 0 also
+    returns its first K2 stream call and first router call (CPU) for the
+    kernels line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    cfg = _mesh_moe_cfg()
+    shape = ShapeSpec("mesh", "decode", MESH_MOE_CAP, MESH_MOE_BATCH)
+    prefill, (p_specs, _, _), _ = steps.make_prefill_step(
+        cfg, shape, mesh, impl="kernel", moe_dispatch="bcsr")
+    serve, _, _ = steps.make_serve_step(cfg, shape, mesh,
+                                        moe_dispatch="bcsr")
+    local = _mesh_full_params(rank, world, cfg, p_specs, mesh,
+                              torch.bfloat16)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    res = {"seconds": [], "logits": [], "launches": [], "routes": [],
+           "counts": []}
+    calls, log = {}, []
+    inputs = [torch.from_numpy(full["prompt"]).cuda()] + [
+        torch.from_numpy(t).cuda() for t in full["tokens"]]
+    cache, pos = None, None
+    with no_plain():
+        for i, tok in enumerate(inputs):
+            routes = []
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_launches()
+            t0 = time.perf_counter()
+            with _moe_spies(routes, calls):
+                if i == 0:
+                    logits, cache, st = prefill(local, tok)
+                    pos = int(st)
+                else:
+                    _, logits, cache = serve(local, cache, pos, tok)
+                    pos += 1
+                torch.cuda.synchronize()
+            res["seconds"].append(time.perf_counter() - t0)
+            res["launches"].append(read_launches())
+            res["logits"].append(logits[:, -1:].cpu())
+            res["routes"].append(_routes_cpu(routes))
+            res["counts"].append(_moe_counts(cache))
+        # the last step again, its collectives synchronised and timed (its
+        # logits and counts are read above; the counts it adds again are
+        # not read)
+        dist.barrier()
+        with _timed_collectives(log):
+            serve(local, cache, pos - 1, tok)
+    res["collectives"] = {
+        op: [sum(1 for n_, _, _ in log if n_ == op),
+             sum(b for n_, b, _ in log if n_ == op) / 1e9,
+             sum(s for n_, _, s in log if n_ == op)] for op in COLLECTIVES}
+    res.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               held_gb=held_gb)
+    n = cfg.n_layers
+    n_moe = cfg.n_repeats * cfg.block_unit.count("attn+moe")
+    check(res["launches"][0] == only(flash_attention=n, router_logits=n_moe,
+                                     spmm_bcsr=n_moe),
+          f"rank {rank} serve mesh {SCOUT_ARCH} prefill: launches "
+          f"{res['launches'][0]}")
+    for i, got in enumerate(res["launches"][1:]):
+        check(got == only(decode_attention_max=n, decode_attention_partial=n,
+                          router_logits=decode_norms(cfg) + n_moe,
+                          spmm_bcsr=n_moe),
+              f"rank {rank} serve mesh {SCOUT_ARCH} step {i}: launches "
+              f"{got}")
+    if rank == 0:
+        a, dense, kw = calls["k2"]
+        (x, w), _ = calls["r1"]
+        res["calls"] = {"k2": (_stream_to(a, "cpu"), dense.cpu(), kw),
+                        "r1": ((x.cpu(), w.cpu()), {})}
+    del local, cache, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serve_moe_full_one_device() -> dict:
+    """(d) on one device: llama4-scout at full width and MESH_MOE_DEPTH
+    layers, bf16 weights from ``init_params(seed=0)``, the prefill (impl
+    "kernel", bcsr) of a 4 x 256 prompt (numpy seed 48) at max_seq 320,
+    then MESH_MOE_GEN greedy decode steps; the prompt, the tokens fed,
+    each pass's last-position logits, expert ids a layer and MoE counts
+    (CPU), its seconds, the peak GB; the params freed after."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    cfg = _mesh_moe_cfg()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    prompt = np.random.default_rng(48).integers(
+        0, cfg.vocab_size, (MESH_MOE_BATCH, MESH_MOE_SEQ)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"prompt": prompt, "tokens": [], "logits": [], "seconds": [],
+           "routes": [], "counts": []}
+    with no_plain():
+        for i in range(MESH_MOE_GEN + 1):
+            routes = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _moe_spies(routes, {}):
+                if i == 0:
+                    logits, cache, pos = M.prefill(
+                        params, torch.from_numpy(prompt).cuda(), cfg,
+                        max_seq=MESH_MOE_CAP, impl="kernel",
+                        dispatch="bcsr")
+                else:
+                    logits, cache = M.decode_step(params, cfg, cache, pos,
+                                                  tok, dispatch="bcsr")
+                    pos += 1
+                torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["logits"].append(logits[:, -1:].cpu())
+            out["routes"].append(_routes_cpu(routes))
+            out["counts"].append(_moe_counts(cache))
+            if i < MESH_MOE_GEN:
+                tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+                out["tokens"].append(tok.to(torch.int32).cpu().numpy())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_moe_full_compare(per_rank, one, card) -> tuple:
+    """(d)'s checks and numbers from the ranks' runs and one device's:
+    expert flips a pass and layer (a token routed to another expert than
+    on one device; the ranks of one data row route the same whole rows),
+    each new flip a near-tie on one device (top-2 router gap within
+    MESH_MOE_GAP), the counts' largest difference within the flips so
+    far; the last-position logits within MESH_MOE_TOL and the tokens past
+    the margin in every row whose last position did not flip (at least
+    one); then K2 and R1 at rank 0's first prefill calls (the kernels
+    line's mesh rows).  Returns (the rows, the summary)."""
+    import torch
+    from repro_torch.parallel import sharding as S
+    cfg = _mesh_moe_cfg()
+    mesh = S.MeshShape(("data", "model"), (2, 2))
+    coords = [S.rank_coords(mesh, r) for r in range(len(per_rank))]
+    runs = [pr["moe_full"] for pr in per_rank]
+    flips, flip_gaps, count_diff, errs, clear, differ, excluded = (
+        [], [], [], [], [], [], [])
+    n_flips = 0
+    for i in range(MESH_MOE_GEN + 1):
+        per_layer, moved_before = [], None
+        for j, (want, gap) in enumerate(one["routes"][i]):
+            got = torch.cat([r["routes"][i][j][0] for r, c in zip(runs, coords)
+                             if c["model"] == 0])
+            for r, c in zip(runs, coords):
+                check(torch.equal(r["routes"][i][j][0], got[
+                    2 * c["data"]:2 * c["data"] + 2]),
+                      f"serve mesh {SCOUT_ARCH}: the ranks of a data row "
+                      f"routed pass {i} layer {j} differently")
+            moved = got != want
+            fresh = moved if moved_before is None else moved & ~moved_before
+            if fresh.any():
+                worst = gap[fresh].max().item()
+                flip_gaps.append(worst)
+                check(worst <= MESH_MOE_GAP,
+                      f"serve mesh {SCOUT_ARCH} pass {i} layer {j}: a token "
+                      f"took another expert with a one-device top-2 router "
+                      f"gap of {worst} > {MESH_MOE_GAP}")
+            moved_before = moved if moved_before is None else \
+                moved_before | moved
+            per_layer.append(int(moved.sum()))
+        flips.append(per_layer)
+        n_flips += sum(per_layer)
+        for r in runs[1:]:
+            check(all(torch.equal(a, b) for a, b in zip(
+                r["counts"][i], runs[0]["counts"][i])),
+                  f"serve mesh {SCOUT_ARCH}: the replicated counts differ")
+        count_diff.append(max(int((a - b).abs().max()) for a, b in zip(
+            runs[0]["counts"][i], one["counts"][i])))
+        check(count_diff[-1] <= n_flips,
+              f"serve mesh {SCOUT_ARCH} pass {i}: the counts differ by "
+              f"{count_diff[-1]}, more than the {n_flips} flips so far")
+        lg = S.assemble([r["logits"][i] for r in runs],
+                        S.P("data", None, "model"), mesh)
+        keep = ~moved_before[:, -1]
+        excluded.append(int((~keep).sum()))
+        check(bool(keep.any()), f"serve mesh {SCOUT_ARCH} pass {i}: every "
+              "row's last position took another expert; no row compared")
+        err_all = (lg - one["logits"][i]).abs().max().item()
+        err, n_clear, n_diff = _margin_check(
+            lg[keep], one["logits"][i][keep], cfg.vocab_size,
+            MESH_MOE_TOL, f"serve mesh {SCOUT_ARCH} pass {i}")
+        errs.append([err, err_all])
+        clear.append(n_clear)
+        differ.append(n_diff)
+    k2_launches = sum(r["launches"][p]["spmm_bcsr"] for r in runs
+                      for p in range(MESH_MOE_GEN + 1))
+    r1_launches = sum(r["launches"][p]["router_logits"] for r in runs
+                      for p in range(MESH_MOE_GEN + 1))
+    a, dense, kw = runs[0]["calls"]["k2"]
+    k2 = _stream_times((_stream_to(a, "cuda"), dense.cuda(), kw),
+                       f"mesh {SCOUT_ARCH} rank 0 prefill")
+    (x, w), _ = runs[0]["calls"]["r1"]
+    r1 = _router_times(((x.cuda(), w.cuda()), {}),
+                       f"mesh {SCOUT_ARCH} rank 0 prefill")
+    note = ("4 gloo ranks share one card: no multi-card speedup; the call "
+            "is rank 0's first of its prefill, on its 2 rows and ")
+    rows = [{"name": f"spmm_bcsr mesh {SCOUT_ARCH} (a rank's dispatch "
+                     "stream)", "route": "cuda",
+             "source": "src/repro_torch/kernels/spmm/csrc/spmm_bcsr.cu",
+             "replaces": "src/repro/kernels/spmm/kernel.py:74",
+             "launches": k2_launches, **k2, "card": card,
+             "note": note + "8 of 16 experts"},
+            {"name": f"router_logits mesh {SCOUT_ARCH} (a rank's whole "
+                     "rows)", "route": "cuda",
+             "source": "src/repro_torch/kernels/router/csrc/router.cu",
+             "replaces": "src/repro/models/moe.py:232 (array code, no "
+                         "Pallas kernel)",
+             "launches": r1_launches, **r1, "card": card,
+             "note": note + "all 16 experts"}]
+    coll_s = [sum(r["collectives"][op][2] for op in COLLECTIVES)
+              for r in runs]
+    summary = dict(
+        arch=SCOUT_ARCH, layers=cfg.n_layers, batch=MESH_MOE_BATCH,
+        prompt=MESH_MOE_SEQ, max_seq=MESH_MOE_CAP, steps=MESH_MOE_GEN,
+        tol=MESH_MOE_TOL, logit_errs=errs, rows_excluded=excluded,
+        rows_past_margin=clear, tokens_differ=differ,
+        expert_flips=flips, flip_gaps=flip_gaps, gap_bound=MESH_MOE_GAP,
+        count_max_diff=count_diff,
+        launches=[r["launches"] for r in runs],
+        peak_gb=[r["peak_gb"] for r in runs],
+        held_gb=[r["held_gb"] for r in runs],
+        seconds=[r["seconds"] for r in runs], collective_s=coll_s,
+        collectives=[r["collectives"] for r in runs],
+        one_device={k: one[k] for k in ("seconds", "peak_gb")})
+    print(f"  serve mesh {SCOUT_ARCH} at full width ({cfg.n_layers} of 48 "
+          f"layers, (2, 2) mesh, bf16, impl kernel, bcsr, "
+          f"{MESH_MOE_BATCH} x {MESH_MOE_SEQ}, max_seq {MESH_MOE_CAP}, "
+          f"{MESH_MOE_GEN} steps teacher-forced): expert flips a pass and "
+          f"layer {flips}, the largest one-device top-2 router gap of a "
+          f"new flip {[round(g, 5) for g in flip_gaps]} (bound "
+          f"{MESH_MOE_GAP}), counts' largest difference {count_diff}; "
+          f"last-position logits vs one device, compared rows / all rows: "
+          f"{[[round(e, 4) for e in p] for p in errs]} (tol {MESH_MOE_TOL};"
+          f" rows whose last position flipped {excluded}); rows past the "
+          f"margin {clear}, tokens that differ {differ}; K2 / R1 {k2_launches}"
+          f" / {r1_launches} launches over the ranks; peak GB a rank "
+          f"{', '.join('%.2f' % r['peak_gb'] for r in runs)} (held "
+          f"{runs[0]['held_gb']:.2f}; one device {one['peak_gb']:.2f}); "
+          f"s a pass a rank {[[round(x, 3) for x in r['seconds']] for r in runs]}"
+          f" (one device {[round(x, 4) for x in one['seconds']]}); the "
+          f"last step's collectives s a rank {[round(x, 3) for x in coll_s]}"
+          f" (gloo over loopback, each synchronised)")
+    return rows, summary
+
+
 def phase_serve_mesh(card):
     """The serving steps on a mesh (``launch.steps.make_prefill_step`` /
     ``make_serve_step``) on SHARDED_RANKS gloo ranks that share the card:
@@ -8385,30 +8756,39 @@ def phase_serve_mesh(card):
     and three decode steps, and qwen3 serving at B 1 (the cache's
     sequence over "data") from a one-device prefill cut by
     ``sharding.local_tree``, against the one-device steps; (c)
-    qwen3-1.7b at full width and depth, bf16, (2, 2), impl "kernel": the
+    qwen3-1.7b at full width, MESH_SERVE_DEPTH layers, bf16, (2, 2), impl
+    "kernel": the
     logits against one device's within MESH_SERVE_FULL_TOL at every step,
     the greedy tokens equal where one device's top-2 margin exceeds it,
     K3 once a layer a rank in prefill and the split D1 twice a layer a
     rank a step, peak / held GB, prefill and step seconds and the
     seconds in collectives a rank (gloo through host memory and loopback,
-    not NVLink: no multi-card speedup is measured).  Returns (the split
-    D1's row, a summary)."""
+    not NVLink: no multi-card speedup is measured).  (b) also runs
+    llama4-scout and llama4-maverick SMOKE with the pjit MoE on (2, 2),
+    gather and bcsr (counts equal one device's, bcsr parts torch.equal to
+    gather's); (d) llama4-scout at full width and depth 2 with bcsr
+    (:func:`_serve_moe_full_compare`).  Returns (the split D1's row and
+    the mesh K2 and R1 rows, a summary)."""
     from repro_torch import tree
-    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs import get_smoke
     from repro_torch.launch import steps
     from repro_torch.launch.shapes import ShapeSpec
     from repro_torch.parallel import sharding as S
     from repro_torch.parallel.ranks import run_ranks
+    import torch
     t0 = time.monotonic()
     err_plain = phase_split_decode_vs_plain()
     smoke, want = _serve_smoke_inputs()
     one = _serve_full_one_device()
+    moe_one = _serve_moe_full_one_device()
     one_s = time.monotonic() - t0
     per_rank = run_ranks(_serve_mesh_rank, SHARDED_RANKS, smoke,
                          {"prompt": one["prompt"], "tokens": one["tokens"]},
+                         {"prompt": moe_one["prompt"],
+                          "tokens": moe_one["tokens"]},
                          timeout=SHARDED_TIMEOUT, limit=MESH_SERVE_LIMIT)
     summary = {"smoke": {}, "card": card}
-    for name, (arch, mesh_name, B) in MESH_SERVE_SMOKE.items():
+    for name, (arch, mesh_name, B, _) in MESH_SERVE_SMOKE.items():
         cfg = dataclasses.replace(get_smoke(arch), policy="f32")
         shape, names = MESHES[mesh_name]
         mesh = S.MeshShape(names, shape)
@@ -8418,6 +8798,24 @@ def phase_serve_mesh(card):
         l_spec = S.P(tok_spec[0], None, "model")
         runs = [pr["smoke"][name] for pr in per_rank]
         row = {"decode_errs": [], "tokens_differ": 0}
+        counts = [_moe_counts(r["prefill"][1]) if B > 1 else None
+                  for r in runs]
+        for i, got in enumerate([counts] + [[r["counts"][j] for r in runs]
+                                            for j in range(MESH_SERVE_STEPS)]):
+            if got[0] is not None:
+                check(all(torch.equal(a, b) for g in got for a, b in zip(
+                    g, want[name]["counts"][i])),
+                      f"serve mesh {name}: the MoE counts after pass {i}")
+        if name in MESH_SERVE_BCSR:
+            for r, g in zip(runs, per_rank):
+                gather = g["smoke"][MESH_SERVE_BCSR[name]]
+                check(all(torch.equal(a, b) for a, b in zip(
+                    tree.leaves((r["prefill"][:2], r["decode"], r["counts"],
+                                 r["cache"])),
+                    tree.leaves((gather["prefill"][:2], gather["decode"],
+                                 gather["counts"], gather["cache"])))),
+                      f"serve mesh {name}: a rank's parts != gather's")
+            row["equal_to_gather"] = True
         if B > 1:
             lg = S.assemble([r["prefill"][0] for r in runs], l_spec, mesh)
             err = (lg - want[name]["prefill"][0]).abs().max().item()
@@ -8452,8 +8850,13 @@ def phase_serve_mesh(card):
               + f"{MESH_SERVE_STEPS} decode steps within "
               f"{max(row['decode_errs']):.3g} (tol {MESH_SERVE_BF16_TOL}); "
               f"split D1 x {step['decode_attention_max']} + "
-              f"{step['decode_attention_partial']} a rank a step")
-    cfg = get_config(TRAIN_ARCH)
+              f"{step['decode_attention_partial']} a rank a step"
+              + ("; MoE counts == one device's after every pass, R1 x "
+                 f"{step['router_logits']}, K2 x {step['spmm_bcsr']} a rank "
+                 "a step" if cfg.n_experts else "")
+              + ("; every rank's parts == gather's"
+                 if name in MESH_SERVE_BCSR else ""))
+    cfg = _mesh_qwen_cfg()
     shape, names = MESHES["data_model"]
     mesh = S.MeshShape(names, shape)
     l_spec = S.P("data", None, "model")
@@ -8473,9 +8876,11 @@ def phase_serve_mesh(card):
     coll_s = [sum(f["collectives"][op][2] for op in COLLECTIVES)
               for f in fulls]
     row = _split_times(err_plain, sum(split_launches), card)
+    moe_rows, summary["moe_full"] = _serve_moe_full_compare(per_rank,
+                                                            moe_one, card)
     seconds = time.monotonic() - t0
-    print(f"  serve mesh {TRAIN_ARCH} at full width and depth "
-          f"({cfg.n_layers} layers, (2, 2) mesh, bf16, impl kernel, "
+    print(f"  serve mesh {TRAIN_ARCH} at full width "
+          f"({cfg.n_layers} of 28 layers, (2, 2) mesh, bf16, impl kernel, "
           f"{MESH_SERVE_BATCH} x {MESH_SERVE_SEQ}, max_seq {MESH_SERVE_CAP}"
           f", {MESH_SERVE_GEN} steps teacher-forced): last-position logits "
           f"vs one device, prefill then each step: "
@@ -8514,7 +8919,7 @@ def phase_serve_mesh(card):
              "memory and loopback, not NVLink): no multi-card speedup; the "
              "last step is run again with every collective synchronised "
              "and timed")
-    return [row], summary
+    return [row] + moe_rows, summary
 
 
 def main() -> int:

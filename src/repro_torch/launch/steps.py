@@ -51,14 +51,23 @@ merges over that axis (``models.layers.split_decode_attention``); the
 logits are the rank's rows and vocabulary slice, the greedy token a
 vocab-parallel argmax (``collectives.vocab_argmax``).
 
+An attn+moe layer of the serving steps runs the reference's pjit MoE
+under its hints (``MOE_SPEC``, ``MOE_COMBINE_SPEC``, ``MOE_GROUPS``):
+``models.moe.apply_moe`` on the rank's E / tp experts, their FSDP
+shards gathered at the layer, and its rows; the decode cache's ``moe``
+occupancy is replicated, each rank routing its rows of it and
+all-gathering their new counts (``model.apply_block``, by the rows'
+entry of the ``act`` hint).
+
 A mesh refuses, naming the factory and the ROADMAP item that will lift
 the refusal: rwkv and mamba layers (Queue 1 item 4b.4), frontend
 embeddings (4b.5), the shared attention block (4b.6), tied embeddings
-(4b.7) and the pjit MoE (4b.8: training takes the shard_map MoE, serving
-no MoE).
+(4b.7) and, in training, the pjit MoE (4b.8b: the train step takes the
+shard_map MoE).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -205,19 +214,20 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec,
 
 def _refuse(cfg: ArchConfig, who: str, moe_impl: Optional[str]) -> None:
     """Raise, naming the factory ``who`` and the ROADMAP item, for what a
-    mesh does not take; ``moe_impl`` None: no MoE (the serving steps)."""
+    mesh does not take; ``moe_impl`` the train step's (None: the serving
+    steps, which take either MoE impl)."""
     bad = sorted(set(cfg.block_unit) - set(MESH_KINDS))
-    moe = ("the MoE (the serving steps run the pjit MoE)"
-           if moe_impl is None else f"moe_impl={moe_impl!r} (the pjit MoE)")
     takes = ("attn+moe under moe_impl='shard_map'" if moe_impl is not None
-             else "no attn+moe")
+             else "attn+moe")
+    train_pjit = moe_impl is not None and moe_impl != "shard_map"
     for hit, why, item in (
             (bad, f"{bad} layers", "4b.4"),
             (cfg.frontend != "none", f"frontend {cfg.frontend!r} embeddings",
              "4b.5"),
             (cfg.shared_attn_every, "the shared attention block", "4b.6"),
             (cfg.tie_embeddings, "tied embeddings", "4b.7"),
-            (cfg.n_experts and moe_impl != "shard_map", moe, "4b.8")):
+            (cfg.n_experts and train_pjit,
+             f"moe_impl={moe_impl!r} (the pjit MoE) in training", "4b.8b")):
         if hit:
             raise ValueError(
                 f"{who}: {cfg.name}'s {why} under a mesh are not ported "
@@ -242,7 +252,7 @@ def _check_widths(cfg: ArchConfig, n_dp: int, n_tp: int,
                              f"divide over the {n} ranks of {axes!r}")
 
 
-def gather_params(local, specs, mesh, compute_dtype):
+def gather_params(local, specs, mesh, compute_dtype, experts: bool = False):
     """The tree the model runs on under a mesh, from this rank's ``local``
     params (``specs``: their ``param_specs``), inside the step's hints:
     each leaf gathered over its FSDP axes (``collectives.Gather``:
@@ -257,13 +267,15 @@ def gather_params(local, specs, mesh, compute_dtype):
     each rank's gradient is already whole.  The MoE layer's own leaves go
     to ``moe_block`` as it takes them, which reduces their gradients over
     both axes: the experts as they are, the router gathered whole
-    (backward: this rank's own part)."""
+    (backward: this rank's own part).  With ``experts`` (the pjit MoE of
+    the serving steps) the experts too are gathered over their FSDP axes,
+    each rank's E / tp of them, cast to ``compute_dtype``."""
     dp = C.Axis(*axes_group(mesh, _dp_axis(mesh)))
     tp = C.Axis(*axes_group(mesh, TP))
     seq_parallel = C.seq_parallel()
 
     def leaf(path, spec, t):
-        if "experts" in path:
+        if "experts" in path and not experts:
             return t
         split = [d for d, e in enumerate(spec) if e is not None and e != TP]
         if path[-1] == "router":
@@ -284,7 +296,8 @@ def gather_params(local, specs, mesh, compute_dtype):
     return S.map_specs(leaf, specs, local)
 
 
-def layer_gather(specs, mesh, compute_dtype) -> Callable:
+def layer_gather(specs, mesh, compute_dtype,
+                 experts: bool = False) -> Callable:
     """``model.hidden_forward``'s ``layer_params`` under a mesh:
     :func:`gather_params` of one layer's slice of ``params["blocks"]``
     (``specs``: the whole tree's ``param_specs``, whose stacked leaves
@@ -292,10 +305,12 @@ def layer_gather(specs, mesh, compute_dtype) -> Callable:
     superblock's remat, so a layer's weights are gathered in its forward
     and again in its recompute, and its gradients reduce-scattered in its
     backward: one superblock's gathered weights and full-size gradients
-    are live at a time, not the model's."""
+    are live at a time, not the model's.  ``experts`` as
+    :func:`gather_params`'s."""
     slots = [S.map_specs(lambda _, s: P(*s[1:]), slot)
              for slot in specs["blocks"]]
-    return lambda j, p: gather_params(p, slots[j], mesh, compute_dtype)
+    return lambda j, p: gather_params(p, slots[j], mesh, compute_dtype,
+                                      experts)
 
 
 def sharded_norm(grads, specs, mesh) -> torch.Tensor:
@@ -385,12 +400,14 @@ def _mesh_train_step(cfg: ArchConfig, optimizer: AdamW, mesh, *, k: int,
 
 # ------------------------------------------------------------- serving ---
 
-def _serving_mesh(cfg: ArchConfig, mesh, who: str):
+def _serving_mesh(cfg: ArchConfig, mesh, who: str, moe_impl: str = "pjit"):
     """The checks the serving factories share; returns (the params'
     specs, the dp entry, its ranks, the "model" ranks, ``model_params``:
     a rank's params -> the tree the model runs on, the unstacked leaves
     gathered (:func:`gather_params`) and each stacked layer's at the layer
-    (:func:`layer_gather`, passed as ``layer_params``))."""
+    (:func:`layer_gather`, passed as ``layer_params``; the experts
+    gathered over their FSDP axes for the pjit MoE, kept as the shards
+    ``moe_block`` takes for ``moe_impl="shard_map"``), the MoE hints)."""
     _refuse(cfg, who, None)
     n_dp = S.data_axis_size(mesh)
     n_tp = S.axis_sizes(mesh).get(TP, 1)
@@ -403,8 +420,12 @@ def _serving_mesh(cfg: ArchConfig, mesh, who: str):
         whole = gather_params({k: local[k] for k in top}, top, mesh, cd)
         return {**whole, "blocks": local["blocks"]}
 
-    return p_specs, _dp_axis(mesh), n_dp, n_tp, model_params, \
-        layer_gather(p_specs, mesh, cd)
+    dp = _dp_axis(mesh)
+    moe_hints = dict(moe=P(TP, dp, None, None), moe_combine=P(dp, None, None),
+                     moe_groups=n_dp) if cfg.n_experts else {}
+    return p_specs, dp, n_dp, n_tp, model_params, \
+        layer_gather(p_specs, mesh, cd, experts=moe_impl != "shard_map"), \
+        moe_hints
 
 
 def _cache_layout(cfg: ArchConfig, shape: ShapeSpec, mesh, who: str):
@@ -472,18 +493,31 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
     ``c_specs``: every head over its block of the sequence, ``S_total`` a
     () int32 tensor).  A batch that does not divide over the data axes, a
     sequence that does not divide over "model" under ``seq_parallel`` and
-    embeddings raise, naming the sizes or the ROADMAP item;
-    ``moe_impl`` / ``moe_dispatch`` are the reference's keywords (no MoE
-    config is taken, 4b.8)."""
+    embeddings raise, naming the sizes or the ROADMAP item.
+    ``moe_impl`` / ``moe_dispatch`` are the reference's keywords: an
+    attn+moe layer runs the pjit MoE on the rank's experts and rows
+    (``models.moe.apply_moe`` under the MoE hints), the routing occupancy
+    gathered whole on every rank; ``moe_impl="shard_map"`` warns as the
+    reference does and runs the expert-parallel layer, whose counts are
+    zeros."""
     who = "make_prefill_step"
-    p_specs, dp, n_dp, n_tp, model_params, per_layer = _serving_mesh(
-        cfg, mesh, who)
+    if cfg.n_experts and moe_impl == "shard_map":
+        warnings.warn(
+            "make_prefill_step(moe_impl='shard_map'): the shard_map MoE impl "
+            "is train-only and cannot fill the decode cache's routing "
+            "occupancy, so a subsequent decode would see a different MoE "
+            "drop set than this prefill. Serve with the pjit impl.",
+            RuntimeWarning, stacklevel=2)
+    p_specs, dp, n_dp, n_tp, model_params, per_layer, moe_hints = \
+        _serving_mesh(cfg, mesh, who, moe_impl)
     if impl not in ("chunked", "kernel", "kernel_sharded"):
         raise ValueError(f"{who}: impl {impl!r}; the mesh takes 'chunked', "
                          "'kernel' and 'kernel_sharded'")
     _, c_specs, axis = _cache_layout(cfg, shape, mesh, who)
     hints = dict(act=P(dp, TP, None) if seq_parallel else P(dp, None, None),
-                 moe_impl=moe_impl, moe_dispatch=moe_dispatch, mesh=mesh)
+                 moe_impl=moe_impl, moe_dispatch=moe_dispatch, mesh=mesh,
+                 **moe_hints)
+    tok_spec = P(dp, None)
 
     def prefill_step(params, tokens, embeddings=None):
         if embeddings is not None:
@@ -497,7 +531,7 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
         if seq_parallel and S_len % n_tp:
             raise ValueError(f"prefill_step: the sequence {S_len} does not "
                              f"divide over the {n_tp} ranks of {TP!r}")
-        tokens = _local_rows(tokens, P(dp, None), mesh)
+        tokens = _local_rows(tokens, tok_spec, mesh)
         with torch.no_grad(), context.activation_specs(**hints):
             logits, cache, S_total = M.prefill(
                 model_params(params), tokens, cfg, max_seq=shape.seq_len,
@@ -505,7 +539,7 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
         return logits, cache, torch.tensor(S_total, dtype=torch.int32,
                                            device=tokens.device)
 
-    return prefill_step, (p_specs, P(dp, None), P(dp, None, None)), \
+    return prefill_step, (p_specs, tok_spec, P(dp, None, None)), \
         (P(dp, None, TP), c_specs, P())
 
 
@@ -529,16 +563,20 @@ def make_serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
     over the ids below ``cfg.vocab_size``, ties to the lowest id; the
     logits (B_loc, 1, V/tp) f32, the rank's rows and vocabulary slice,
     where the reference's triple has ``None``; the cache part).
-    ``greedy`` and ``moe_dispatch`` are the reference's keywords."""
+    ``greedy`` and ``moe_dispatch`` are the reference's keywords.  An
+    attn+moe layer runs the pjit MoE on the rank's experts and rows, each
+    row routed from its own counts; the ``moe`` leaf is replicated
+    (``c_specs``), its rows' new counts all-gathered into every rank's
+    copy."""
     who = "make_serve_step"
-    p_specs, dp, n_dp, _, model_params, per_layer = _serving_mesh(
-        cfg, mesh, who)
+    p_specs, dp, n_dp, _, model_params, per_layer, moe_hints = \
+        _serving_mesh(cfg, mesh, who)
     whole_cache, c_specs, axis = _cache_layout(cfg, shape, mesh, who)
     batch_ok = shape.global_batch % n_dp == 0 and \
         shape.global_batch >= n_dp
     tok_spec = P(dp, None) if batch_ok else P(None, None)
     hints = dict(act=P(tok_spec[0], None, None), moe_dispatch=moe_dispatch,
-                 mesh=mesh)
+                 mesh=mesh, **moe_hints)
     cap = M.cache_capacity(whole_cache, cfg)
 
     def serve_step(params, cache, pos, tokens_1):
@@ -558,11 +596,11 @@ def make_serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
                     f"serve_step: KV-cache overflow -- write position "
                     f"{int(host.max())} >= cache capacity {cap} (max_seq)")
             pos = torch.tensor(host, device=tokens_1.device)
-        rows = lambda t: _local_rows(t, tok_spec, mesh)  # noqa: E731
+        mine = lambda t: _local_rows(t, tok_spec, mesh)  # noqa: E731
         with torch.no_grad(), context.activation_specs(**hints):
             logits, cache = M.decode_step(
-                model_params(params), cfg, cache, rows(pos).contiguous(),
-                rows(tokens_1), layer_params=per_layer, cache_axis=axis)
+                model_params(params), cfg, cache, mine(pos).contiguous(),
+                mine(tokens_1), layer_params=per_layer, cache_axis=axis)
             nxt = C.vocab_argmax(logits[:, -1], cfg.vocab_size)
         return nxt.to(torch.int32)[:, None], logits, cache
 

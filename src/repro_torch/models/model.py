@@ -310,7 +310,13 @@ def apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     ``moe.Phase1`` as ``phase1``.
     Decode's ``pos`` is an int or a ``(B,)`` int tensor of per-row
     positions on ``x``'s device.  ``cache_axis``: the attention's (the mesh
-    axis that splits the decode cache's sequence under a mesh).  Returns
+    axis that splits the decode cache's sequence under a mesh).  Under the
+    serving steps' MoE hints (``context.MOE_SPEC`` with a ``MESH``; a
+    cache, or the KV collected) an attn+moe block routes this rank's rows
+    of the replicated ``moe`` counts (B, E), those that
+    ``context.ACT_SPEC``'s batch entry gives it, and all-gathers the rows'
+    new counts over that entry, so every rank holds the whole leaf
+    (``parallel.collectives.own_rows`` / ``all_rows``).  Returns
     (x, new_cache); decode (``cache`` given) writes the new cache entries
     into ``cache`` in place."""
     if kind == "rwkv":
@@ -333,6 +339,11 @@ def apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     if kind == "attn+moe":
         counts = None if cache is None else cache["moe"]
         kw = {}
+        mesh_rows = (context.MOE_SPEC is not None and context.MESH is not None
+                     and (cache is not None or bool(collect_kv)))
+        entry = context.ACT_SPEC[0] if mesh_rows else None
+        if mesh_rows and counts is not None:
+            counts = tp.own_rows(counts, entry)
         if route_ahead:
             pos0 = 0 if pos is None else pos
             cap = moe.dispatch_capacity(h.shape[1], cfg, pos0=pos0)
@@ -340,6 +351,8 @@ def apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                 p["ffn"]["router"], h, cfg, counts, pos0, cap), cap)
         f, counts = (moe_fn or moe.apply_moe)(p["ffn"], h, cfg,
                                               counts=counts, pos=pos, **kw)
+        if mesh_rows:
+            counts = tp.all_rows(counts, entry)
         if cache is None:
             new_cache["moe"] = counts
         else:

@@ -47,6 +47,15 @@ rank's, so ``moe_shard_map.moe_block`` runs on them directly
 (:func:`_moe_local`), the shared expert beside it as the tensor-parallel
 MLP.
 
+**Under a mesh** (the serving steps; ``context.MOE_SPEC`` and ``MESH``
+set, ``MOE_IMPL`` not "shard_map"), :func:`apply_moe` is the reference's
+pjit layer on this rank's part of its ``MOE_SPEC`` layout: whole rows
+routed (the stream gathered over "model" under sequence parallelism),
+the dispatch buffer of the rank's E / tp experts and rows by either
+backend, the expert products on them, their outputs all-gathered over
+"model" and combined in the ``MOE_COMBINE_SPEC`` layout
+(:func:`_apply_moe_mesh`).
+
 The backend is ``dispatch=``, else ``parallel.context.MOE_DISPATCH``, else
 the config's ``moe_dispatch``.  ``groups=`` (else
 ``parallel.context.MOE_GROUPS``) declares the dispatch row groups the data
@@ -505,6 +514,87 @@ def _moe_local(p, x: torch.Tensor, cfg: ArchConfig, mesh, dp_axes):
     return out
 
 
+def _dispatch_rows(x: torch.Tensor, local_slot: torch.Tensor, n: int,
+                   C: int, backend: str) -> torch.Tensor:
+    """The (n, B, C, d) dispatch buffer of ``n`` experts from slots
+    ``local_slot`` (B, S) in [0, n * C] (n * C: not these experts'), by
+    ``backend``: the gather, or K2 on the full-grid stream built on the
+    device (no host read, as the fused path's).  Each is a copy, equal
+    bit for bit."""
+    if backend == "gather":
+        return _dispatch_gather(x, local_slot, n, C)
+    build.refuse_grad("moe bcsr dispatch (K2; train with dispatch="
+                      "'gather')", x)
+    bm, bk = tuning.moe_dispatch_tiles(x.shape[-1], x.dtype,
+                                       x.device)["block"]
+    stream = _full_grid_stream(local_slot, x.shape[1], n, C, bm, bk,
+                               x.dtype)
+    return _dispatch_stream(x, stream, n, C)
+
+
+def _apply_moe_mesh(p, x: torch.Tensor, cfg: ArchConfig, counts, pos,
+                    dispatch: Optional[str], groups: Optional[int]):
+    """:func:`apply_moe` under ``context.MOE_SPEC`` with a
+    ``context.MESH`` (the serving steps on a mesh): the reference's pjit
+    layer on this rank's part of its (E, B, C, d) layout, its E / tp
+    experts (``MOE_SPEC``'s first axis) for its rows.
+
+    ``x`` is the residual stream's layout: the rank's rows, under sequence
+    parallelism its block of the positions, gathered over "model" first
+    so that every row routes whole (a token's expert, slot, keep and gate
+    are one device's).  ``p`` is the layer's params as
+    ``launch.steps.layer_gather`` gives them: the router whole, the rank's
+    experts with their FSDP shards gathered, the shared expert's "model"
+    share.  ``counts`` (B_loc, E) and ``pos`` are the rank's rows';
+    ``context.ACT_SPEC``'s batch entry splits the rows, so ``groups`` is
+    checked against the global batch, as the reference's layer checks
+    it.
+
+    The dispatch buffer is the rank's slice of one device's
+    (:func:`_dispatch_rows`, a copy).  The experts' outputs are
+    all-gathered over their axis and combined in the row-sharded layout
+    (``MOE_COMBINE_SPEC``, which must leave the slots and d whole: no
+    all-reduce of partial combines); the rank's sequence block is cut back
+    out and the shared expert added as the tensor-parallel MLP on the
+    stream.  Returns (out in ``x``'s layout, the rows' new counts (B_loc,
+    E))."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import TP
+    combine = context.MOE_COMBINE_SPEC
+    if combine is not None and tuple(combine[1:]) != (None, None):
+        raise ValueError(f"apply_moe: MOE_COMBINE_SPEC {combine!r} splits "
+                         "the slots or d; the layer combines whole rows of "
+                         "(B, E*C, d)")
+    tp, ep = C.axis(TP), C.axis(context.MOE_SPEC[0])   # sequence, experts
+    B_loc, S_loc, d = x.shape
+    rows = context.ACT_SPEC[0] if context.ACT_SPEC is not None else None
+    n_rows = 1 if rows is None else C.axis(rows).n
+    _check_groups(B_loc * n_rows, cfg, groups, "apply_moe")
+    xw = C.all_gather(x, 1, tp.group, tp.n) if C.seq_parallel() else x
+    E, S = cfg.n_experts, xw.shape[1]
+    n = E // ep.n
+    pos0 = 0 if pos is None else pos
+    if not isinstance(pos0, torch.Tensor):
+        pos0 = int(pos0)
+    cap = dispatch_capacity(S, cfg, pos0=pos0)
+    gate, keep, new_counts, flat_slot = route_phase1(p["router"], xw, cfg,
+                                                     counts, pos0, cap)
+    lo = ep.index * n * cap
+    mine = (flat_slot >= lo) & (flat_slot < lo + n * cap)
+    local_slot = torch.where(mine, flat_slot - lo, n * cap)
+    xe = _dispatch_rows(xw, local_slot, n, cap, _backend(cfg, dispatch))
+    ye = _expert_ffn(p["experts"], xe.reshape(n, B_loc * cap, d),
+                     cfg.mlp_type).reshape(n, B_loc, cap, d)
+    ye = C.all_gather(ye, 0, ep.group, ep.n)          # (E, B_loc, C, d)
+    yt = ye.transpose(0, 1).reshape(B_loc, E * cap, d)
+    out = _combine_gather(yt, flat_slot, gate, keep, E, cap)
+    if C.seq_parallel():
+        out = out[:, tp.index * S_loc:(tp.index + 1) * S_loc]
+    if cfg.moe_shared_expert:
+        out = out + apply_mlp(p["shared"], x, cfg)
+    return out, new_counts
+
+
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
               counts: Optional[torch.Tensor] = None, pos=None,
               groups: Optional[int] = None, dispatch: Optional[str] = None,
@@ -520,10 +610,16 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
     the full-grid stream instead, built on the device (:func:`route_moe`).
     Both equal gather bit for bit.  ``groups``: see the module docstring.
     Under ``context.MOE_IMPL == "shard_map"`` with a ``context.MESH`` the
-    expert-parallel layer runs instead (:func:`_apply_moe_shard_map`)."""
+    expert-parallel layer runs instead (:func:`_apply_moe_shard_map`);
+    else under ``context.MOE_SPEC`` with a ``context.MESH`` the layer on
+    this rank's experts and rows (:func:`_apply_moe_mesh`; bcsr there
+    always on the full grid)."""
     if context.MOE_IMPL == "shard_map" and context.MESH is not None:
         return _apply_moe_shard_map(p, x, cfg, counts, pos, dispatch)
-    _check_groups(x.shape[0], cfg, groups or context.MOE_GROUPS, "apply_moe")
+    groups = groups or context.MOE_GROUPS
+    if context.MOE_SPEC is not None and context.MESH is not None:
+        return _apply_moe_mesh(p, x, cfg, counts, pos, dispatch, groups)
+    _check_groups(x.shape[0], cfg, groups, "apply_moe")
     plan, _ = _route_moe(p, x, cfg, counts, pos, dispatch, full_grid)
     return execute_moe(p, x, plan, cfg)
 

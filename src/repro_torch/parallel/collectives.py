@@ -41,7 +41,8 @@ vocabulary, and, when ``ACT_SPEC``'s sequence entry is "model", the
 residual stream's sequence between blocks.  The serving steps also take
 the prompt's last position from the rank that holds it
 (:func:`last_position`) and the greedy token from the vocabulary's slices
-(:func:`vocab_argmax`).
+(:func:`vocab_argmax`), and the MoE layer its rows of the routing
+occupancy (:func:`own_rows`, :func:`all_rows`).
 """
 from __future__ import annotations
 
@@ -297,6 +298,26 @@ def last_position(x: torch.Tensor) -> torch.Tensor:
         return x[:, -1:]
     tp = axis(TP)
     return all_gather(x[:, -1:], 1, tp.group, tp.n)[:, -1:]
+
+
+def own_rows(t: torch.Tensor, entry) -> torch.Tensor:
+    """This rank's rows of a global (B, ...) tensor whose batch the spec
+    entry ``entry`` splits (a view; ``None``: every row)."""
+    if entry is None:
+        return t
+    ax = axis(entry)
+    w = t.shape[0] // ax.n
+    return t[ax.index * w:(ax.index + 1) * w]
+
+
+def all_rows(t: torch.Tensor, entry) -> torch.Tensor:
+    """The global (B, ...) tensor from every rank's rows under ``entry``
+    (gathered in rank order; ``None``: ``t`` itself, every rank holds
+    every row)."""
+    if entry is None:
+        return t
+    ax = axis(entry)
+    return all_gather(t, 0, ax.group, ax.n)
 
 
 def vocab_argmax(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:

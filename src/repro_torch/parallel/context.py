@@ -13,12 +13,14 @@ reference's eight, set together by :func:`activation_specs`.
 * ``LOGIT_SPEC``: the logits' spec; set (``P(dp, None, "model")``),
   ``model.loss_fn`` takes the vocab-parallel cross-entropy.
 * ``MOE_SPEC`` / ``MOE_COMBINE_SPEC``: the dispatched expert tiles' and
-  the combined tiles' specs, set as the reference sets them.  The
-  reference reads them in its pjit MoE, which the port refuses under a
-  mesh, so nothing in the port reads them.
+  the combined tiles' specs, set as the reference sets them.  Under a
+  ``MESH`` ``MOE_SPEC`` selects ``models.moe.apply_moe``'s pjit layer on
+  this rank's experts and rows (the serving steps), its first entry the
+  experts' axis; that layer combines in ``MOE_COMBINE_SPEC``'s
+  row-sharded layout and refuses one that splits the slots or d.
 * ``MESH``: a ``torch.distributed.device_mesh.DeviceMesh`` (or ``None``);
   ``kernels.engine.auto_mesh``, ``models.layers.sharded_flash_attention``
-  (without ``ACT_SPEC``), ``models.moe.apply_moe``'s shard_map branch and
+  (without ``ACT_SPEC``), ``models.moe.apply_moe``'s mesh branches and
   the tensor-parallel helpers read it.
 * ``MOE_IMPL``: ``"pjit"`` (the one-device layer, the default) or
   ``"shard_map"`` (with a ``MESH``: ``models.moe_shard_map``, the
@@ -27,7 +29,8 @@ reference's eight, set together by :func:`activation_specs`.
   ``moe_dispatch``), read by ``models.moe`` where no ``dispatch=`` is
   given.
 * ``MOE_GROUPS``: the dispatch row groups the data axes expect; routing is
-  per batch row, so ``models.moe`` only checks that it divides the batch.
+  per batch row, so ``models.moe`` only checks that it divides the batch
+  (the global batch under a mesh).
 
 :func:`activation_specs` sets all eight for a scope and restores the
 previous values after, also when the block raises, as the reference's

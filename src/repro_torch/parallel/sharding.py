@@ -278,11 +278,12 @@ def my_coords(mesh) -> Dict[str, int]:
 def local_tree(tree, spec_tree, mesh, coords: Optional[Dict[str, int]] = None):
     """The part of every leaf of the global ``tree`` that the rank at
     ``coords`` (default: this rank of the ``DeviceMesh``) holds under
-    ``spec_tree``, each a contiguous copy."""
+    ``spec_tree``, each a contiguous copy (a replicated leaf too: a step
+    that writes its part in place never writes the global tree)."""
     coords = my_coords(mesh) if coords is None else coords
     return map_specs(lambda path, s, t: t[local_index(
-        s, t.shape, mesh, coords, _leaf_name(path))].contiguous(),
-        spec_tree, tree)
+        s, t.shape, mesh, coords, _leaf_name(path))].clone(
+            memory_format=torch.contiguous_format), spec_tree, tree)
 
 
 def assemble(trees: List[Any], spec_tree, mesh):

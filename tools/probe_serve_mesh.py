@@ -1,12 +1,12 @@
 """chip_smoke's serving-mesh phase alone, after D1's own checks.
 
-Builds D1, K3 and R1 (``decode_attention.cu``, ``flash_attention.cu``,
-``router.cu``) and prints every D1 instance's registers and spills (the
+Builds D1, K3, R1 and K2 (``decode_attention.cu``, ``flash_attention.cu``,
+``router.cu``, ``spmm_bcsr.cu``) and prints every D1 instance's registers and spills (the
 one-launch mode and the split mode's two), runs ``chip_smoke.py``'s
 ``phase_decode_vs_plain`` (one-launch D1 against its plain version and its
 emulated order) and then ``phase_serve_mesh`` (D1's split mode against its
-plain version, its order and one-device D1; the SMOKE cases and qwen3-1.7b
-at full width and depth on 4 gloo ranks sharing the card).  The quickest
+plain version, its order and one-device D1; the SMOKE cases, qwen3-1.7b
+and llama4-scout at full width on 4 gloo ranks sharing the card).  The quickest
 way to check a change to the split mode or to the serving steps on a mesh
 without the whole script.
 
@@ -14,7 +14,7 @@ Run from the repository root on a machine with one GPU:
 
     python3 tools/probe_serve_mesh.py
 
-It prints the phase's kernels row as a JSON line and writes the phase's
+It prints the phase's kernels rows as a JSON line and writes the phase's
 summary to ``chiprun_out/serve_mesh_probe.json``.
 """
 import json
@@ -34,7 +34,8 @@ def main() -> int:
     from repro_torch.kernels import build
     card = cs.phase_card()
     t0 = time.monotonic()
-    info = build.build_all(["decode_attention", "flash_attention", "router"])
+    info = build.build_all(["decode_attention", "flash_attention", "router",
+                            "spmm_bcsr"])
     print(f"build {time.monotonic() - t0:.2f} s",
           {k: round(v["seconds"], 2) for k, v in info.items()})
     for kern, used, spills in cs.kernel_resources(
